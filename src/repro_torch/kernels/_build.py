@@ -1,0 +1,131 @@
+"""Build and load the CUDA kernels, and count their launches.
+
+Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into a shared
+library with a plain C interface, at first use (never at import, so the
+package imports on a machine without `nvcc`), into `build/repro_torch/`
+at the root of the checkout. The library's file name carries a hash of
+its source, so an edited kernel is rebuilt and a stale one never loads.
+The wrappers load it with `ctypes` and launch on PyTorch's current
+stream; every C entry point returns `cudaGetLastError()` after its
+launch, which `check` turns into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+#: C signatures of every entry point, per source file
+_SIGNATURES = {
+    "similarity": {
+        # q, db, out, Q, N, D, stream
+        "similarity_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                             + [ctypes.c_void_p],
+    },
+    "elo_scan": {
+        # ratings, a, b, s, v, g, costs, budgets, out, choices,
+        # Q, T, M, k, p, 1 - p, select, stream
+        "elo_scan_launch": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+                           + [ctypes.c_float] * 3 + [ctypes.c_int]
+                           + [ctypes.c_void_p],
+    },
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+#: kernel launches per wrapper since the last reset_launches()
+_LAUNCHES: Dict[str, int] = {"similarity": 0, "elo_scan": 0,
+                             "elo_scan_select": 0}
+
+
+def count_launch(name: str) -> None:
+    _LAUNCHES[name] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_LAUNCHES)
+
+
+def reset_launches() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "source and need the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build(names: Iterable[str] = tuple(_SIGNATURES)) -> List[Path]:
+    """Compile the named sources that are not built yet, one `nvcc` each,
+    all started together. Returns the library paths."""
+    names = list(names)
+    jobs = []
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")   # then an atomic rename
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs.append((name, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, tmp, out, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        else:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed to build {name}.cu:\n{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [_lib_path(n) for n in names]
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        (path,) = build([name])
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def stream_handle(device) -> int:
+    """PyTorch's current stream on `device`, as the handle the C entry
+    points take."""
+    return torch.cuda.current_stream(device).cuda_stream

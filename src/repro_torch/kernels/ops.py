@@ -1,0 +1,67 @@
+"""Dispatch over the CUDA kernels and their plain PyTorch versions.
+
+backend:
+  "cuda"       the hand-written kernel on CUDA tensors (default). Each
+               wrapper takes its plain version for CPU tensors, which is
+               how the port runs on the CPU.
+  "reference"  the plain version on any device: only so that a check on
+               the card can hold a kernel against it. Nothing on the
+               routing path passes it.
+
+There is no fallback: a kernel that fails on a CUDA tensor raises.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.elo_scan import elo_scan_cuda
+from repro_torch.kernels.retrieve_replay import (retrieve_replay_cuda,
+                                                 retrieve_replay_select_cuda)
+from repro_torch.kernels.similarity_topk import similarity_cuda
+
+BACKENDS = ("cuda", "reference")
+
+
+def _pick(backend: str, ref_fn, kernel_fn):
+    if backend == "cuda":
+        return kernel_fn
+    if backend == "reference":
+        return ref_fn
+    raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+
+
+def similarity(q, db, *, backend: str = "cuda"):
+    """(Q,D) x (N,D) -> (Q,N) cosine scores."""
+    return _pick(backend, ref.similarity_ref, similarity_cuda)(q, db)
+
+
+def similarity_topk(q, db, n: int, *, backend: str = "cuda"):
+    """Score panel + stable top-n. Returns (top_scores, top_idx)."""
+    return ref.stable_topk(similarity(q, db, backend=backend), n)
+
+
+def elo_scan(ratings, a_idx, b_idx, outcome, valid, *, k: float = 32.0,
+             backend: str = "cuda"):
+    """Batched ELO replay: (Q,M) ratings x (Q,T) records -> (Q,M)."""
+    fn = _pick(backend, ref.elo_scan_ref, elo_scan_cuda)
+    return fn(ratings, a_idx, b_idx, outcome, valid, k=k)
+
+
+def retrieve_replay(q, emb, model_a, model_b, outcome, valid, size,
+                    init_ratings, *, n: int, k: float = 32.0,
+                    backend: str = "cuda"):
+    """Returns (local_ratings (Q,M), topk_idx (Q,n), topk_scores (Q,n))."""
+    fn = _pick(backend, ref.retrieve_replay_ref, retrieve_replay_cuda)
+    return fn(q, emb, model_a, model_b, outcome, valid, size, init_ratings,
+              n=n, k=k)
+
+
+def retrieve_replay_select(q, emb, model_a, model_b, outcome, valid, size,
+                           init_ratings, global_ratings, costs, budgets, *,
+                           n: int, k: float = 32.0, p: float = 0.5,
+                           backend: str = "cuda"):
+    """retrieve_replay with the budget-selection epilogue. Returns
+    (local (Q,M), topk_idx (Q,n), topk_scores (Q,n), choices (Q,))."""
+    fn = _pick(backend, ref.retrieve_replay_select_ref,
+               retrieve_replay_select_cuda)
+    return fn(q, emb, model_a, model_b, outcome, valid, size, init_ratings,
+              global_ratings, costs, budgets, n=n, k=k, p=p)

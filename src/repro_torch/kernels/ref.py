@@ -1,0 +1,141 @@
+"""Plain PyTorch versions of every kernel of the routing path.
+
+Ports of the jnp oracles in the JAX package's `kernels/ref.py`, formula
+for formula (`norm + 1e-9`, `10 ** (d / 400)`): the CPU tests hold these
+against the JAX oracle, and `chip_smoke.py` holds the CUDA kernels
+against these on the card. They run on whatever device their inputs lie
+on.
+"""
+from __future__ import annotations
+
+from functools import partial
+
+import torch
+
+
+def stable_topk(scores: torch.Tensor, n: int):
+    """Top-n along the last axis, ties broken toward the LOWEST index —
+    the `jax.lax.top_k` contract that replay order and `topk_idx` rely
+    on. `torch.topk` does not keep it (an all -inf panel comes back in
+    scrambled order), a stable descending sort does."""
+    s, i = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return s[..., :n], i[..., :n]
+
+
+def similarity_ref(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """Cosine-similarity score panel. q: (Q,D), db: (N,D) -> (Q,N) fp32."""
+    if q.is_cuda:
+        # full fp32 product: a top-k over near-tied scores must agree
+        # with the CPU oracle, which TF32's 10-bit mantissa does not
+        torch.backends.cuda.matmul.allow_tf32 = False
+    q = q.float()
+    db = db.float()
+    qn = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + 1e-9)
+    dn = db / (torch.linalg.norm(db, dim=-1, keepdim=True) + 1e-9)
+    return qn @ dn.T
+
+
+def elo_scan_ref(ratings, a_idx, b_idx, outcome, valid, k: float = 32.0):
+    """Batched ELO replay, one step per record column.
+    ratings: (Q,M); records: (Q,T). Returns (Q,M) fp32."""
+    r = ratings.float()
+    m = r.shape[-1]
+    a_all, b_all = a_idx.long(), b_idx.long()
+    s_all, v_all = outcome.float(), valid.float()
+    for i in range(a_all.shape[1]):
+        a, b = a_all[:, i:i + 1], b_all[:, i:i + 1]
+        r_a = torch.gather(r, 1, a)[:, 0]
+        r_b = torch.gather(r, 1, b)[:, 0]
+        e_a = 1.0 / (1.0 + torch.pow(10.0, (r_b - r_a) / 400.0))
+        delta = k * (s_all[:, i] - e_a) * v_all[:, i]
+        one_a = torch.nn.functional.one_hot(a[:, 0], m).float()
+        one_b = torch.nn.functional.one_hot(b[:, 0], m).float()
+        r = r + delta[:, None] * (one_a - one_b)
+    return r
+
+
+#: the JAX package keeps a `lax.scan` twin of elo_scan_ref for trace
+#: size; eager PyTorch has no trace, so both names are the same loop
+elo_replay_ref = elo_scan_ref
+
+
+def gather_records(model_a, model_b, outcome, valid, idx, hit):
+    """Neighbour-record gather: (Q,N) prompt rows -> flattened (Q, N*R)
+    records, on the device of the panels.
+
+    Replay order is FARTHEST neighbour first: ELO is recency-weighted,
+    so the most similar prompts are replayed last to carry the most
+    influence."""
+    idx = torch.flip(idx, dims=[1]).long()
+    hit = torch.flip(hit, dims=[1])
+    nq = idx.shape[0]
+    a = model_a[idx].reshape(nq, -1)
+    b = model_b[idx].reshape(nq, -1)
+    s = outcome[idx].reshape(nq, -1)
+    v = (valid[idx] & hit[..., None]).reshape(nq, -1)
+    return a, b, s, v
+
+
+def budget_select_ref(scores, costs, budgets):
+    """Highest-scoring model with cost <= budget, first index on ties;
+    the first cheapest model when nothing fits.
+    scores: (Q,M); costs: (M,); budgets: (Q,). Returns (Q,) int32."""
+    feasible = costs[None, :] <= budgets[:, None]
+    masked = torch.where(feasible, scores,
+                         torch.full_like(scores, float("-inf")))
+    choice = torch.argmax(masked, dim=-1)
+    fallback = torch.argmin(costs)
+    return torch.where(feasible.any(dim=-1), choice, fallback).int()
+
+
+def retrieve_replay_pipeline(similarity_fn, replay_fn, q, emb, model_a,
+                             model_b, outcome, valid, size, init_ratings,
+                             *, n):
+    """The retrieval chain — similarity panel -> live-row masked stable
+    top-n -> farthest-first record gather -> replay from the broadcast
+    prior — with the two stages injected, so the plain and the kernel
+    routes share ONE copy of the glue.
+
+    replay_fn returns `local` or a `(local, *extras)` tuple; extras are
+    appended to the returned tuple (local, topk_idx, topk_scores)."""
+    scores = similarity_fn(q, emb)
+    live = torch.arange(emb.shape[0], device=emb.device) < size
+    scores = torch.where(live[None, :], scores,
+                         torch.full_like(scores, float("-inf")))
+    top_s, top_i = stable_topk(scores, n)
+    hit = torch.isfinite(top_s)
+    a, b, s, v = gather_records(model_a, model_b, outcome, valid, top_i, hit)
+    init = init_ratings.float().expand(q.shape[0], init_ratings.shape[-1])
+    out = replay_fn(init, a, b, s, v)
+    local, extras = (out[0], tuple(out[1:])) if isinstance(out, tuple) \
+        else (out, ())
+    return (local, top_i, top_s) + extras
+
+
+def retrieve_replay_ref(q, emb, model_a, model_b, outcome, valid, size,
+                        init_ratings, *, n, k=32.0):
+    """Returns (local (Q,M), topk_idx (Q,n), topk_scores (Q,n))."""
+    return retrieve_replay_pipeline(
+        similarity_ref, partial(elo_replay_ref, k=k), q, emb, model_a,
+        model_b, outcome, valid, size, init_ratings, n=n)
+
+
+def elo_scan_select_ref(ratings, a_idx, b_idx, outcome, valid,
+                        global_ratings, costs, budgets, *, p=0.5, k=32.0):
+    """Replay + budget-selection epilogue: Score = p*Global + (1-p)*Local,
+    then budget_select_ref. Returns (local (Q,M), choices (Q,) int32)."""
+    local = elo_replay_ref(ratings, a_idx, b_idx, outcome, valid, k=k)
+    combined = p * global_ratings[None, :].float() + (1.0 - p) * local
+    return local, budget_select_ref(combined, costs.float(), budgets.float())
+
+
+def retrieve_replay_select_ref(q, emb, model_a, model_b, outcome, valid,
+                               size, init_ratings, global_ratings, costs,
+                               budgets, *, n, k=32.0, p=0.5):
+    """retrieve_replay with the budget-selection epilogue. Returns
+    (local (Q,M), topk_idx (Q,n), topk_scores (Q,n), choices (Q,))."""
+    replay = partial(elo_scan_select_ref, global_ratings=global_ratings,
+                     costs=costs, budgets=budgets, p=p, k=k)
+    return retrieve_replay_pipeline(
+        similarity_ref, replay, q, emb, model_a, model_b, outcome, valid,
+        size, init_ratings, n=n)

@@ -1,0 +1,46 @@
+"""The routing retrieval chain on the card: similarity kernel -> live-row
+mask -> stable top-n -> farthest-first record gather -> replay kernel.
+
+Composes `similarity_cuda` and the replay kernels through the glue the
+plain version uses too (`ref.retrieve_replay_pipeline`), so the two
+routes cannot drift. Everything between the query embeddings and the
+choices stays on the device.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.elo_scan import elo_scan_cuda, elo_scan_select_cuda
+from repro_torch.kernels.ref import retrieve_replay_pipeline
+from repro_torch.kernels.similarity_topk import similarity_cuda
+
+
+def retrieve_replay_cuda(q, emb, model_a, model_b, outcome, valid, size,
+                         init_ratings, *, n, k: float = 32.0):
+    """q: (Q,D); emb: (C,D); records: (C,R); size: live-row count;
+    init_ratings: (M,) replay starting point.
+
+    Returns (local_ratings (Q,M), topk_idx (Q,n), topk_scores (Q,n));
+    rows past `size` score -inf and their records are masked out."""
+
+    def replay(init, a, b, s, v):
+        return elo_scan_cuda(init, a, b, s, v, k=k)
+
+    return retrieve_replay_pipeline(similarity_cuda, replay, q, emb,
+                                    model_a, model_b, outcome, valid, size,
+                                    init_ratings, n=n)
+
+
+def retrieve_replay_select_cuda(q, emb, model_a, model_b, outcome, valid,
+                                size, init_ratings, global_ratings, costs,
+                                budgets, *, n, k: float = 32.0,
+                                p: float = 0.5):
+    """retrieve_replay_cuda with the budget-selection epilogue fused into
+    the replay kernel. Returns (local_ratings (Q,M), topk_idx (Q,n),
+    topk_scores (Q,n), choices (Q,) int32)."""
+
+    def replay_select(init, a, b, s, v):
+        return elo_scan_select_cuda(init, a, b, s, v, global_ratings, costs,
+                                    budgets, p=p, k=k)
+
+    return retrieve_replay_pipeline(similarity_cuda, replay_select, q, emb,
+                                    model_a, model_b, outcome, valid, size,
+                                    init_ratings, n=n)

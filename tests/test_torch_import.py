@@ -1,0 +1,67 @@
+"""Import boundary of the PyTorch port: every `repro_torch` module imports
+with JAX blocked and loads nothing of the JAX package, and the entry
+points default to the card instead of running on the CPU."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+
+_PROBE = r"""
+import pkgutil, sys
+sys.modules["jax"] = None
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    __import__(name)
+leaked = sorted(m for m, v in sys.modules.items() if v is not None and
+                (m in ("repro", "jax") or m.startswith(("repro.", "jax."))))
+print(len(names), leaked)
+"""
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=SRC,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    assert out.returncode == 0, out.stderr
+    n, leaked = out.stdout.split(" ", 1)
+    assert int(n) >= 15
+    assert leaked.strip() == "[]"
+
+
+def _default_device_entry_points():
+    from repro_torch import resolve_device
+    from repro_torch.core import elo
+    from repro_torch.core.router import EagleRouter
+    from repro_torch.core.state import DoubleBuffer, init_state
+    from repro_torch.core.vectordb import VectorDB
+    from repro_torch.convert import ratings_from_numpy
+    return [
+        ("resolve_device", lambda: resolve_device()),
+        ("init_state", lambda: init_state(3, 4)),
+        ("fit_global", lambda: elo.fit_global(3, [0], [1], [1.0])),
+        ("EagleRouter", lambda: EagleRouter(["a", "b"], [1.0, 2.0])),
+        ("DoubleBuffer", lambda: DoubleBuffer(VectorDB(4, 8), [1.0, 2.0])),
+        ("ratings_from_numpy", lambda: ratings_from_numpy([1.0])),
+    ]
+
+
+@pytest.mark.parametrize("idx", range(6))
+def test_default_device_is_the_card_and_raises_without_one(idx):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    name, call = _default_device_entry_points()[idx]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
+def test_explicit_cpu_device_runs():
+    from repro_torch.core.state import init_state
+    st = init_state(3, 4, capacity=8, device="cpu")
+    assert st.device.type == "cpu" and st.capacity == 8
