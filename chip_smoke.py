@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's routing path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's routing and serving paths on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -22,7 +23,29 @@ together), then:
      the plain versions and compares the choices;
   4. checks that every kernel of the path was launched in that run;
   5. times each kernel (CUDA events), its plain version, the library
-     call where one exists, and the path's end-to-end latencies.
+     call where one exists, and the path's end-to-end latencies;
+  6. holds the two attention kernels against their plain versions in
+     bf16, element by element, at the serving shapes of both head
+     layouts (qwen3-8b: prefill B=8, S=1024, H=32, Hk=8, dh=128, decode
+     B=16, T=2048; olmo-1b: B=13, H=Hk=16, S=1024, T=1056; each prefill
+     also at a ragged S and with a window, each decode over an fp32
+     cache with ragged lengths and against the last row of prefill),
+     checks that a control with one key dropped fails the bar, and
+     times each beside SDPA;
+  7. drives the serving path at full width: a ServingEngine over the
+     fleet ["olmo-1b", "qwen3-8b"] (full depth and width, random weights
+     from a seed, bf16 compute, fp32 KV cache of 1056 rows) behind a
+     router fitted at D = 1536, serving 64 requests in 4 serve() calls
+     (prompts of 128..1024 tokens, 32 new tokens, budgets over [1, 10],
+     25% of them compared and fed back), and checks that all five
+     kernels were launched in that run;
+  8. runs a group of each model through prefill and 4 decode steps with
+     the kernels (each call also held against its plain version on the
+     same inputs), with the plain attend, and with a control that drops
+     the newest key at every decode, and compares the calls, the logits
+     and the tokens;
+  9. times the time to first token and the decode step per model, the
+     serve() p50, peak memory, and profiles one qwen3-8b decode step.
 
 Any mismatch or exception exits non-zero. The last line of standard
 output is {"ok": true, "device": {...}}; the line before it is the
@@ -31,11 +54,13 @@ Everything measured is also written to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 sys.modules["jax"] = None           # the port must not need JAX
@@ -51,13 +76,54 @@ DIM, C_EXPECTED, R, M, N, P = 1536, 32768, 8, 10, 20, 0.5
 N_PER_DATASET = 5000
 PAIRS_PER_QUERY = 8
 FEEDBACK_ROUNDS, FEEDBACK_PROMPTS = 3, 50     # 50 prompts x 8 = 400 records
+# the serving slice: the fleet at full width, its router and its traffic
+FLEET = ("olmo-1b", "qwen3-8b")
+SERVE_MAX_LEN = 1056               # 1024-token prompt + 32 new tokens
+SERVE_CALLS, SERVE_BATCH, MAX_NEW = 4, 16, 32
+PROMPT_LEN = (128, 1024)
+TIME_BATCH, TIME_LEN, TIME_STEPS = 8, 1024, 16
+# attention kernel checks at the serving shapes, (B, S or T, H, Hk, dh),
+# in each fleet model's head layout: qwen3-8b's GQA (rep 4), and
+# olmo-1b's MHA (rep 1) at the group it is served (~13 of 16 requests,
+# prompts up to 1024 tokens, a cache of SERVE_MAX_LEN rows). The
+# qwen3-8b shapes are the ones in the kernels line.
+FLASH_SHAPES = {"qwen3-8b": (8, 1024, 32, 8, 128),
+                "olmo-1b": (13, 1024, 16, 16, 128)}
+DECODE_SHAPES = {"qwen3-8b": (16, 2048, 32, 8, 128),
+                 "olmo-1b": (13, 1056, 16, 16, 128)}
+RAGGED_S, WINDOW = 777, 256
+# a padded group of each model, kernel path against plain path
+COMPARE_LENS = {"qwen3-8b": (900, 613),
+                "olmo-1b": (1024, 977, 901, 850, 777, 640, 600, 512, 433,
+                            300, 256, 200, 128)}
 # tolerances: the JAX suite's own bars between its backends
 SIM_TOL = 1e-5                     # similarity (tests/test_kernels.py)
 R_RTOL, R_ATOL = 1e-5, 1e-3        # ratings (tests/test_router_state.py)
 CHOICE_TIE = 1e-3                  # top-two combined scores this close: a tie
+# bf16 attention, kernel against plain version, element by element: both
+# compute in fp32 (TF32 off) and round the output to bf16 once, so they
+# differ by one bf16 step (at most 2^-7 of the value) where their fp32
+# results straddle a rounding boundary. The bar is two steps of each
+# element (rtol 2^-6), plus 1e-4 for elements near zero, where fp32 sums
+# of ~1000 terms taken in another order differ by ~1e-6 of the terms'
+# size. A control (one key dropped from every row) must fail it.
+ATT_RTOL, ATT_ATOL = 2.0 ** -6, 1e-4
+# kernel path vs plain path through 36 layers of bf16: the two differ
+# where the plain path rounds its softmax weights to bf16 (one bf16 step,
+# 2^-8 relative, per attention output); 36 such independent steps add up
+# to about sqrt(36) * 2^-8 = 2.3% of the residual stream. The bar is
+# twice that, relative to the largest logit. It catches gross faults
+# only: with random weights attention is a small part of the residual
+# stream, and dropping the newest key at every decode moved olmo-1b's
+# logits by 0.64% of the largest (H100 80GB HBM3). The subtle faults are
+# caught by holding every kernel call of the model path against its
+# plain version (`kernels_held`).
+LOGIT_REL_BAR = 0.05
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12           # tensor cores
 PEAK_BYTES = 3.35e12
+ROUTE_KERNELS = ("similarity", "elo_scan_select", "elo_scan")
 # fp32 operations of one replay step of one query: difference, divide,
 # pow, add, reciprocal, difference, two products, two updates
 REPLAY_STEP_OPS = 10
@@ -95,9 +161,9 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak_flops=PEAK_FP32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -120,6 +186,14 @@ def choices_agree(got, want, combined):
     tied = (top2[:, 0] - top2[:, 1]).abs().nan_to_num(0.0) < CHOICE_TIE
     differ = got.long() != want.long()
     return int(differ.sum()), int((differ & ~tied).sum())
+
+
+def att_check(got, want):
+    """(max abs error, the largest ratio of an element's error to its
+    bar): attention passes where the ratio is at most 1."""
+    err = (got.float() - want.float()).abs()
+    bar = ATT_ATOL + ATT_RTOL * want.float().abs()
+    return float(err.max()), float((err / bar).max())
 
 
 def fail(msg):
@@ -239,10 +313,17 @@ def check_replay(dev, kernels, stats, fold_records):
     if not torch.allclose(got, want, rtol=R_RTOL, atol=R_ATOL):
         fail(f"elo_scan Q={nq}: max abs err {err_local}")
     ms_local = cuda_ms(lambda: elo_scan_cuda(r0, a, b, s, v), 200)
+    plain_local = cuda_ms(lambda: ref.elo_scan_ref(r0, a, b, s, v), 3,
+                          warmup=1)
+    bms_local, by_local = bound_ms(nq * t * (4 + 4 + 4 + 1) + nq * M * 4 * 2,
+                                   nq * t * REPLAY_STEP_OPS)
     log_time(stats,
              f"elo_scan Q={nq} T={t} M={M}: max_abs_err={err_local} "
-             f"kernel_ms={ms_local}")
-    stats["elo_scan_q1024"] = dict(max_abs_err=err_local, ms=ms_local)
+             f"kernel_ms={ms_local} plain_ms={plain_local} "
+             f"bound_ms={bms_local} ({by_local})")
+    stats["elo_scan_q1024"] = dict(max_abs_err=err_local, ms=ms_local,
+                                   plain_ms=plain_local, bound_ms=bms_local,
+                                   bound_by=by_local)
 
     # the global fold: Q = 1 over a prefix of the fit's record log
     fa, fb_, fs = (torch.tensor(x[:16384], device=dev) for x in fold_records)
@@ -485,6 +566,469 @@ def profile_route(disp, dbuf, router, test, stats):
                                     top=top)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the attention kernels against their plain versions, bf16
+# ---------------------------------------------------------------------------
+
+def _bf16(gen, shape, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+
+def _sdpa(q, k, v, **kw):
+    """The library call: PyTorch's fused attention on (B, H, S, dh)
+    views. Timed only; the port never calls it."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        enable_gqa=True, **kw)
+
+
+def check_flash(dev, kernels, stats):
+    """Each layout of FLASH_SHAPES at its S, a ragged S and a window,
+    against the plain version; the control (each row's own key masked,
+    an off-by-one on the causal diagonal) must fail the bar."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    gen = torch.Generator(device=dev).manual_seed(2)
+    errs, ratios, controls, timed = {}, {}, {}, {}
+    for model, (b, s_main, h, hk, dh) in FLASH_SHAPES.items():
+        for s, window in ((s_main, 0), (RAGGED_S, 0), (s_main, WINDOW)):
+            case = f"{model} S={s} window={window}"
+            q = _bf16(gen, (b, s, h, dh), dev)
+            k = _bf16(gen, (b, s, hk, dh), dev)
+            v = _bf16(gen, (b, s, hk, dh), dev)
+            got = flash_attention_cuda(q, k, v, causal=True, window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=True,
+                                           window=window)
+            errs[case], ratios[case] = att_check(got, want)
+            if not ratios[case] <= 1.0:
+                fail(f"flash_attention {case}: max abs err {errs[case]}, "
+                     f"{ratios[case]} times the bar")
+            if (s, window) != (s_main, 0):
+                continue
+            # row i through the kernel with keys 0..i-1 only, held on the
+            # rows with at least S/2 keys, where one key matters least
+            ctl = flash_attention_cuda(q[:, 1:], k[:, :-1], v[:, :-1],
+                                       causal=True)
+            controls[model] = att_check(ctl[:, s // 2:],
+                                        want[:, 1 + s // 2:])[1]
+            if not controls[model] > 1.0:
+                fail(f"flash_attention {case}: the control without the "
+                     f"diagonal key passes the bar ({controls[model]})")
+            ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True),
+                         10)
+            plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                            causal=True), 3)
+            lib = cuda_ms(lambda: _sdpa(q, k, v, is_causal=True), 10)
+            nbytes = 2.0 * (2 * b * s * h * dh + 2 * b * s * hk * dh)
+            flops = 4.0 * b * h * dh * s * (s + 1) / 2   # the causal pairs
+            bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+            timed[model] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                bound_ms=bms, bound_by=by)
+            log_time(stats,
+                     f"flash_attention bf16 {model} layout B={b} S={s} H={h} "
+                     f"Hk={hk} dh={dh} causal: kernel_ms={ms} plain_ms="
+                     f"{plain} library_ms(SDPA)={lib} bound_ms={bms} ({by})")
+    log(f"flash_attention max abs err {errs}; error over the bar (at most "
+        f"1) {ratios}; control without the diagonal key, over the bar "
+        f"(above 1) {controls}")
+    stats["flash_attention"] = dict(max_abs_err=errs, err_over_bar=ratios,
+                                    control_over_bar=controls, **timed)
+    kernels["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:85",
+        max_abs_err=max(errs.values()), **timed["qwen3-8b"])
+
+
+def check_decode(dev, kernels, stats):
+    """Each layout of DECODE_SHAPES over an fp32 cache with ragged
+    lengths, and over a full cache against the last row of flash; the
+    control (kv_len - 1: the newest key dropped) must fail the bar."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    gen = torch.Generator(device=dev).manual_seed(3)
+    errs, ratios, controls, timed = {}, {}, {}, {}
+    for model, (b, t, h, hk, dh) in DECODE_SHAPES.items():
+        q = _bf16(gen, (b, h, dh), dev)
+        k = torch.randn((b, t, hk, dh), generator=gen, device=dev)  # fp32
+        v = torch.randn((b, t, hk, dh), generator=gen, device=dev)
+        kv_len = torch.randint(1, t + 1, (b,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        kv_len[0] = t
+        got = decode_attention_cuda(q, k, v, kv_len)
+        # the kernel rounds the cache to q's type in registers, as the
+        # model's plain path does before its product
+        want = ref.decode_attention_ref(q, k.to(q.dtype), v.to(q.dtype),
+                                        kv_len)
+        errs[model], ratios[model] = att_check(got, want)
+        if not ratios[model] <= 1.0:
+            fail(f"decode_attention {model}: max abs err {errs[model]}, "
+                 f"{ratios[model]} times the bar")
+        # held on the rows with at least T/2 keys, where one key matters
+        # least
+        ctl = decode_attention_cuda(q, k, v, kv_len - 1)
+        long = kv_len >= t // 2
+        controls[model] = att_check(ctl[long], want[long])[1]
+        if not controls[model] > 1.0:
+            fail(f"decode_attention {model}: the control with kv_len - 1 "
+                 f"passes the bar ({controls[model]})")
+
+        # decode over a full cache == the last row of prefill
+        s = FLASH_SHAPES[model][1]
+        qf = _bf16(gen, (2, s, h, dh), dev)
+        kf = _bf16(gen, (2, s, hk, dh), dev)
+        vf = _bf16(gen, (2, s, hk, dh), dev)
+        full = flash_attention_cuda(qf, kf, vf, causal=True)
+        dec = decode_attention_cuda(qf[:, -1], kf, vf,
+                                    torch.full((2,), s, dtype=torch.int32,
+                                               device=dev))
+        row = f"{model} vs flash row"
+        errs[row], ratios[row] = att_check(dec, full[:, -1])
+        if not ratios[row] <= 1.0:
+            fail(f"decode vs the last row of flash, {model}: max abs err "
+                 f"{errs[row]}, {ratios[row]} times the bar")
+
+        ms = cuda_ms(lambda: decode_attention_cuda(q, k, v, kv_len), 50)
+        plain = cuda_ms(lambda: ref.decode_attention_ref(q, k, v, kv_len), 5)
+        q32 = q.float()[:, :, None]
+        mask = (torch.arange(t, device=dev)[None]
+                < kv_len[:, None])[:, None, None]
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q32, k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            enable_gqa=True), 20)
+        n_kv = float(kv_len.sum())
+        nbytes = n_kv * hk * dh * 4 * 2 + 2.0 * 2 * b * h * dh + 4 * b
+        bms, by = bound_ms(nbytes, 4.0 * h * dh * n_kv, PEAK_BF16_FLOPS)
+        timed[model] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                            bound_ms=bms, bound_by=by)
+        log_time(stats,
+                 f"decode_attention q bf16, cache fp32, {model} layout B={b} "
+                 f"T={t} H={h} Hk={hk} dh={dh}, {int(n_kv)} valid rows: "
+                 f"kernel_ms={ms} plain_ms={plain} library_ms(SDPA, fp32, "
+                 f"mask)={lib} bound_ms={bms} ({by})")
+    log(f"decode_attention max abs err {errs}; error over the bar (at most "
+        f"1) {ratios}; control with kv_len - 1, over the bar (above 1) "
+        f"{controls}")
+    stats["decode_attention"] = dict(max_abs_err=errs, err_over_bar=ratios,
+                                     control_over_bar=controls, **timed)
+    kernels["decode_attention"] = dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:75",
+        max_abs_err=max(errs.values()), **timed["qwen3-8b"])
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the serving path at full width
+# ---------------------------------------------------------------------------
+
+def quality_oracle(emb, mi):
+    """The serving launcher's simulated user, with a deterministic hash
+    (crc32) in place of Python's salted one, so runs repeat."""
+    return float(np.random.default_rng(
+        zlib.crc32(emb[:2].tobytes() + bytes([mi]))).random())
+
+
+def build_serving(dev, stats):
+    from repro_torch.configs import get_config
+    from repro_torch.core.router import EagleConfig, EagleRouter
+    from repro_torch.data.routerbench import make_corpus, pairwise_feedback
+    from repro_torch.serving import FleetModel, ServingEngine
+    names = list(FLEET)
+    corpus = make_corpus(seed=0, n_per_dataset=60, dim=DIM,
+                         model_names=names,
+                         costs=np.linspace(1.0, 8.0, len(names)))
+    fb = pairwise_feedback(corpus, corpus.train_idx, seed=0,
+                           pairs_per_query=4)
+    router = EagleRouter(names, corpus.costs, EagleConfig(embed_dim=DIM),
+                         db_capacity=1 << 15, device=dev)
+    router.fit(fb["emb"], fb["model_a"], fb["model_b"], fb["outcome"])
+    fleet = {}
+    for i, name in enumerate(names):
+        t0 = time.perf_counter()
+        fleet[name] = FleetModel(get_config(name), seed=i,
+                                 max_len=SERVE_MAX_LEN, device=dev)
+        torch.cuda.synchronize()
+        cfg = fleet[name].cfg
+        n_params = sum(x.numel() for x in _leaves(fleet[name].params))
+        log(f"{name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {n_params / 1e9:.3f}B "
+            f"parameters, compute {cfg.dtype}; init + cast "
+            f"{time.perf_counter() - t0:.1f} s")
+    engine = ServingEngine(fleet, router, compare_rate=0.25, seed=0,
+                           quality_oracle=quality_oracle)
+    engine.warmup()
+    torch.cuda.empty_cache()      # the fp32 copies the casts released
+    stats["serve_fleet"] = {n: dict(layers=m.cfg.n_layers,
+                                    d_model=m.cfg.d_model)
+                            for n, m in fleet.items()}
+    return engine, corpus
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def serve_requests(corpus, rng, n, vocab):
+    from repro_torch.serving import Request
+    idx = rng.choice(corpus.test_idx, n, replace=False)
+    return [Request(tokens=rng.integers(0, vocab, int(rng.integers(
+                        PROMPT_LEN[0], PROMPT_LEN[1] + 1))).astype(np.int32),
+                    embedding=corpus.embeddings[i],
+                    budget=float(rng.uniform(1.0, 10.0)),
+                    max_new_tokens=MAX_NEW, rid=k)
+            for k, i in enumerate(idx)]
+
+
+def drive_serving(engine, corpus, stats):
+    rng = np.random.default_rng(0)
+    db0 = engine.router.db.size
+    wall, groups = [], {n: 0 for n in FLEET}
+    vocab = min(m.cfg.vocab for m in engine.fleet.values())
+    for call in range(SERVE_CALLS):
+        reqs = serve_requests(corpus, rng, SERVE_BATCH, vocab)
+        t0 = time.perf_counter()
+        res = engine.serve(reqs)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        if len(res) != len(reqs):
+            fail(f"serve() answered {len(res)} of {len(reqs)} requests")
+        for req, r in zip(reqs, res):
+            vocab = engine.fleet[r.model].cfg.vocab
+            if r.rid != req.rid or r.tokens.shape != (MAX_NEW,) \
+                    or r.tokens.min() < 0 or r.tokens.max() >= vocab:
+                fail(f"response {r.rid} from {r.model}: tokens of shape "
+                     f"{r.tokens.shape} in [{r.tokens.min()}, "
+                     f"{r.tokens.max()}]")
+        for name in {r.model for r in res}:
+            groups[name] += 1
+        st = engine.stats
+        if st["served"] != SERVE_BATCH * (call + 1) \
+                or sum(st["per_model"].values()) != st["served"]:
+            fail(f"stats after call {call}: {st}")
+    st = engine.stats
+    if not (st["feedback"] > 0 and 0 < st["commits"] <= SERVE_CALLS):
+        fail(f"no feedback was committed: {st}")
+    if engine.router.db.size != db0 + st["feedback"] \
+            or int(engine.dbuf.front.size) != engine.router.db.size:
+        fail(f"DB holds {engine.router.db.size} rows, the front replica "
+             f"{int(engine.dbuf.front.size)}, after {st['feedback']} "
+             f"comparisons on {db0}")
+    if min(groups.values()) == 0:
+        fail(f"a model served no group: {groups}")
+    p50 = statistics.median(wall)
+    log_time(stats,
+             f"serving: {SERVE_CALLS} serve() calls of {SERVE_BATCH} "
+             f"requests: stats {st}; groups per model {groups}; wall s "
+             f"{wall}; p50 {p50:.3f} s")
+    stats["serve"] = dict(stats=st, groups=groups, wall_s=wall,
+                          p50_s=p50)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: kernel path vs plain path through the full model
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def kernels_held(worst, drop):
+    """Inside: the model's two attention kernels, each call also held
+    against its plain version on the same inputs; `worst` keeps each
+    kernel's largest error over the attention bar. `drop` keys are taken
+    off kv_len before the decode kernel (1: the control)."""
+    from unittest import mock
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+    flash, decode = L.flash_attention_cuda, L.decode_attention_cuda
+
+    def keep(kernel, got, want):
+        worst[kernel] = max(worst[kernel], att_check(got, want)[1])
+        return got
+
+    def flash_held(q, k, v, **kw):
+        return keep("flash_attention", flash(q, k, v, **kw),
+                    ref.flash_attention_ref(q, k, v, **kw))
+
+    def decode_held(q, k, v, kv_len, **kw):
+        # the plain version over the cache as the kernel reads it
+        return keep("decode_attention", decode(q, k, v, kv_len - drop, **kw),
+                    ref.decode_attention_ref(q, k.to(q.dtype), v.to(q.dtype),
+                                             kv_len, **kw))
+
+    with mock.patch.object(L, "flash_attention_cuda", flash_held), \
+            mock.patch.object(L, "decode_attention_cuda", decode_held):
+        yield
+
+
+@torch.inference_mode()
+def compare_model_paths(engine, stats):
+    """A padded group of each fleet model through prefill + 4 decode
+    steps three ways, fed the same tokens: the kernels, the plain attend,
+    and a control, the kernel path with the newest key dropped at every
+    decode (kv_len - 1). Every kernel call of the kernel path must pass
+    the attention bar against its plain version on the same inputs, and
+    the control's decode calls must fail it; the kernel path's logits
+    must lie within LOGIT_REL_BAR of the plain path's."""
+    from repro_torch.models import transformer as T
+    # path: (backend, keys dropped from kv_len; None: calls not held)
+    paths = {"kernels": ("cuda", 0), "plain": ("reference", None),
+             "control": ("cuda", 1)}
+    stats["model_paths"] = {}
+    for name in FLEET:
+        m = engine.fleet[name]
+        cfg, dev, lens = m.cfg, m.device, COMPARE_LENS[name]
+        rng = np.random.default_rng(4)
+        s = max(lens)
+        toks = np.zeros((len(lens), s), np.int32)       # padded, as served
+        for row, n in enumerate(lens):
+            toks[row, :n] = rng.integers(0, cfg.vocab, n)
+        toks = torch.tensor(toks, dtype=torch.int64, device=dev)
+        worst = {p: dict(flash_attention=0.0, decode_attention=0.0)
+                 for p in ("kernels", "control")}
+
+        def run(p, fn):
+            backend, drop = paths[p]
+            with (contextlib.nullcontext() if drop is None
+                  else kernels_held(worst[p], drop)):
+                return fn(backend)
+
+        out = {p: run(p, lambda b: T.prefill(
+                   cfg, m.params, toks, SERVE_MAX_LEN,
+                   cache_dtype=torch.float32, backend=b))
+               for p in paths}
+        rel, ctl_rel, flips, ties = [], [], 0, 0
+        for step in range(5):
+            lk, lp, lc = (out[p][0].float() for p in paths)
+            diff = (lk - lp).abs()
+            rel.append(float(diff.max() / lp.abs().max()))
+            ctl_rel.append(float((lc - lp).abs().max() / lp.abs().max()))
+            top2 = torch.topk(lp, 2, dim=-1).values
+            # a perturbation of at most e per logit flips an argmax only
+            # where the top two are within 2e
+            tied = (top2[:, 0] - top2[:, 1]) <= 2 * diff.max(dim=-1).values
+            differ = lk.argmax(-1) != lp.argmax(-1)
+            flips += int(differ.sum())
+            ties += int((differ & tied).sum())
+            if int((differ & ~tied).sum()):
+                fail(f"{name}, kernel vs plain path, step {step}: a greedy "
+                     "token differs without a near-tie")
+            if step == 4:
+                break
+            tok = lp.argmax(-1)[:, None]   # every path takes the same token
+            out = {p: run(p, lambda b: T.decode_step(
+                       cfg, m.params, out[p][1], tok, s + step, backend=b))
+                   for p in paths}
+        del out
+        held, ctl = worst["kernels"], worst["control"]
+        if max(held.values()) > 1.0:
+            fail(f"{name}: a kernel call on the model path misses its "
+                 f"plain version by more than the attention bar: {held}")
+        if not ctl["decode_attention"] > 1.0:
+            fail(f"{name}: the control's decode calls pass the attention "
+                 f"bar ({ctl['decode_attention']})")
+        if max(rel) > LOGIT_REL_BAR:
+            fail(f"{name}, kernel vs plain path: logits differ by "
+                 f"{max(rel)} of the largest logit (bar {LOGIT_REL_BAR})")
+        log(f"{name}, a group of {len(lens)} prompts of {lens} tokens "
+            f"through prefill + 4 decode steps: every kernel call against "
+            f"its plain version, error over the bar (at most 1) {held}, "
+            f"the control's calls (above 1) {ctl}; max |dlogit| / max "
+            f"|logit| per step, kernels vs plain attend {rel} (bar "
+            f"{LOGIT_REL_BAR}), control vs plain {ctl_rel}; greedy tokens "
+            f"differing {flips}, all at near-ties ({ties})")
+        stats["model_paths"][name] = dict(
+            calls_err_over_bar=held, control_calls_err_over_bar=ctl,
+            rel_logit_diff=rel, control_rel_logit_diff=ctl_rel,
+            token_flips=flips)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: serving times
+# ---------------------------------------------------------------------------
+
+@torch.inference_mode()
+def time_serving(engine, stats):
+    from repro_torch.models import transformer as T
+    rng = np.random.default_rng(5)
+    out = {}
+    for name, m in engine.fleet.items():
+        cfg = m.cfg
+        toks = torch.tensor(rng.integers(0, cfg.vocab,
+                                         (TIME_BATCH, TIME_LEN)),
+                            dtype=torch.int64, device=m.device)
+        ttft = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            logits, cache = T.prefill(cfg, m.params, toks, SERVE_MAX_LEN,
+                                      cache_dtype=torch.float32)
+            torch.cuda.synchronize()
+            ttft.append((time.perf_counter() - t0) * 1e3)
+        tok = logits.argmax(-1)[:, None]
+        T.decode_step(cfg, m.params, cache, tok, TIME_LEN)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TIME_STEPS):
+            logits, cache = T.decode_step(cfg, m.params, cache, tok,
+                                          TIME_LEN + 1 + i)
+            tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / TIME_STEPS
+        out[name] = dict(ttft_ms=statistics.median(ttft),
+                         decode_step_ms=step_ms,
+                         tokens_per_s=TIME_BATCH / step_ms * 1e3)
+        log_time(stats,
+                 f"{name}: time to first token (prefill of {TIME_BATCH} x "
+                 f"{TIME_LEN}) p50 {out[name]['ttft_ms']:.2f} ms of "
+                 f"{ttft}; decode step at batch {TIME_BATCH}, context "
+                 f"~{TIME_LEN}: {step_ms:.3f} ms = "
+                 f"{out[name]['tokens_per_s']:.1f} tokens/s")
+    stats["serve_times"] = out
+    del cache
+
+
+@torch.inference_mode()
+def profile_decode(engine, stats):
+    """Device time by op over 3 qwen3-8b decode steps at batch 8."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as T
+    m = engine.fleet["qwen3-8b"]
+    toks = torch.zeros((TIME_BATCH, TIME_LEN), dtype=torch.int64,
+                       device=m.device)
+    logits, cache = T.prefill(m.cfg, m.params, toks, SERVE_MAX_LEN,
+                              cache_dtype=torch.float32)
+    tok = logits.argmax(-1)[:, None]
+    T.decode_step(m.cfg, m.params, cache, tok, TIME_LEN)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(3):
+            T.decode_step(m.cfg, m.params, cache, tok, TIME_LEN + 1 + i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / 3)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    device_ms = sum(ms for _, ms in rows)
+    top = [(name[:60], ms) for name, ms in rows[:10]]
+    log_time(stats,
+             f"profile qwen3-8b decode step, batch {TIME_BATCH}: wall "
+             f"{wall_ms} ms/step under the profiler, device {device_ms} "
+             f"ms/step, busy {device_ms / wall_ms}; top: {top}")
+    stats["profile_decode"] = dict(wall_ms=wall_ms, device_ms=device_ms,
+                                   top=top)
+
+
 def main() -> int:
     # the preconditions come first, so a failed run prints no result
     if not torch.cuda.is_available():
@@ -526,25 +1070,48 @@ def main() -> int:
     router, disp, dbuf, test, grid = drive_main_path(dev, corpus, fb,
                                                      stats)
     torch.cuda.synchronize()
-    launches = _build.launch_counts()
-    log(f"launches on the main path: {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
+    launches = {"route": _build.launch_counts()}
+    log(f"launches on the routing path: {launches['route']}")
+    missing = [k for k in ROUTE_KERNELS if launches["route"][k] == 0]
     if missing:
-        fail(f"kernels never launched on the main path: {missing}")
-    stats["launches"] = launches
+        fail(f"kernels never launched on the routing path: {missing}")
     stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
     compare_route(router, dbuf, test, grid, stats)
     time_path(disp, dbuf, router, test, stats)
     profile_route(disp, dbuf, router, test, stats)
+    del router, disp, dbuf, corpus, fb
+
+    check_flash(dev, kernels, stats)
+    check_decode(dev, kernels, stats)
+    torch.cuda.empty_cache()
+    engine, serve_corpus = build_serving(dev, stats)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    drive_serving(engine, serve_corpus, stats)
+    torch.cuda.synchronize()
+    launches["serve"] = _build.launch_counts()
+    log(f"launches on the serving path: {launches['serve']}")
+    missing = [k for k, n in launches["serve"].items() if n == 0]
+    if missing:
+        fail(f"kernels never launched on the serving path: {missing}")
+    stats["launches"] = launches
+    stats["serve_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log_time(stats, f"peak device memory: routing path "
+             f"{stats['peak_mem_gb']:.2f} GB; serving path (weights, "
+             f"caches, activations) {stats['serve_peak_mem_gb']:.2f} GB")
+    compare_model_paths(engine, stats)
+    time_serving(engine, stats)
+    profile_decode(engine, stats)
 
     if any(m == "jax" or m.startswith("jax.") or m == "repro"
            or m.startswith("repro.") for m, v in sys.modules.items()
            if v is not None):
         fail("JAX or the JAX package was imported")
     for name, entry in kernels.items():
-        entry["launches"] = launches[name]
-    order = ("similarity", "elo_scan_select", "elo_scan")
+        path = "route" if name in ROUTE_KERNELS else "serve"
+        entry["launches"] = launches[path][name]
+    order = ROUTE_KERNELS + ("flash_attention", "decode_attention")
     line = {"kernels": [kernels[k] for k in order]}
     stats["kernels"] = line["kernels"]
     out = ROOT / "chiprun_out"

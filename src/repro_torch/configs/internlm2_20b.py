@@ -1,0 +1,17 @@
+"""internlm2-20b [arXiv:2403.17297] — dense, GQA kv=8."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="internlm2-20b",
+    arch_type="dense",
+    source="arXiv:2403.17297",
+    n_layers=48,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=16384,
+    vocab=92544,
+    rope_theta=1_000_000.0,
+    tie_embeddings=False,
+)

@@ -1,7 +1,8 @@
-"""Carry router state across from host arrays, so the port can route over
-exactly the state another implementation built (the parity tests hand
-over the JAX package's RouterState field by field, each taken with
-`np.asarray`)."""
+"""Carry router state and model parameters across from host arrays, so the
+port can route over exactly the state, and run exactly the weights,
+another implementation built (the parity tests hand over the JAX
+package's RouterState field by field and its `init_params` pytree leaf
+by leaf, each taken with `np.asarray`)."""
 from __future__ import annotations
 
 from typing import Mapping
@@ -11,6 +12,9 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.core.state import RouterState
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import Params, check_supported, \
+    torch_dtype
 
 _DTYPES = {"global_ratings": np.float32, "emb": np.float32,
            "model_a": np.int32, "model_b": np.int32, "outcome": np.float32,
@@ -33,3 +37,41 @@ def state_from_numpy(fields: Mapping[str, np.ndarray],
     return RouterState(**{
         name: torch.tensor(np.asarray(fields[name], dtype), device=dev)
         for name, dtype in _DTYPES.items()})
+
+
+#: attention projections stored as (d, H, hd) / (H, hd, d) in the JAX
+#: pytree; the port keeps them as 2-D matrices
+_FLATTEN = {"wq": lambda a: a.reshape(a.shape[0], -1),
+            "wk": lambda a: a.reshape(a.shape[0], -1),
+            "wv": lambda a: a.reshape(a.shape[0], -1),
+            "wo": lambda a: a.reshape(-1, a.shape[-1])}
+
+
+def model_params_from_numpy(cfg: ModelConfig, tree: Mapping,
+                            device: DeviceLike = None) -> Params:
+    """The port's parameters (`transformer.init_params`' layout) from a
+    dense model's pytree in the JAX package's layout, each leaf taken
+    with `np.asarray`: the stacked (L, ...) block leaves are split per
+    layer and the attention projections flattened to 2-D. Values and the
+    type `cfg.param_dtype` are kept exactly."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.param_dtype)
+
+    def t(a, name=""):
+        a = np.asarray(a, np.float32)   # bf16 widens exactly
+        return torch.tensor(_FLATTEN.get(name, lambda x: x)(a),
+                            device=dev).to(dtype)
+
+    out: Params = {"embed": t(tree["embed"]),
+                   "final_norm": {k: t(v)
+                                  for k, v in tree["final_norm"].items()}}
+    if "lm_head" in tree:
+        out["lm_head"] = t(tree["lm_head"])
+    blocks = tree["blocks"]
+    out["blocks"] = [
+        {group: {name: t(np.asarray(leaf)[i], name)
+                 for name, leaf in blocks[group].items()}
+         for group in ("attn_norm", "mlp_norm", "attn", "ffn")}
+        for i in range(cfg.n_layers)]
+    return out

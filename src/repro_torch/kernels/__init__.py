@@ -1,2 +1,2 @@
-"""Hand-written Hopper kernels of the routing path, their plain PyTorch
-versions (`ref`), and the dispatch wrappers (`ops`)."""
+"""Hand-written Hopper kernels of the routing and serving paths, their
+plain PyTorch versions (`ref`), and the dispatch wrappers (`ops`)."""

@@ -40,13 +40,28 @@ _SIGNATURES = {
                            + [ctypes.c_float] * 3 + [ctypes.c_int]
                            + [ctypes.c_void_p],
     },
+    "flash_attention": {
+        # q, k, v, out, B, S, H, Hk, dh, dtype, scale, causal, window,
+        # stream
+        "flash_attention_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                                  + [ctypes.c_float] + [ctypes.c_int] * 2
+                                  + [ctypes.c_void_p],
+    },
+    "decode_attention": {
+        # q, k, v, kv_len, out, part_acc, part_ml, B, T, H, Hk, dh,
+        # q dtype, kv dtype, scale, stream
+        "decode_attention_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                                   + [ctypes.c_float] + [ctypes.c_void_p],
+        "decode_attention_chunk": [],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 #: kernel launches per wrapper since the last reset_launches()
 _LAUNCHES: Dict[str, int] = {"similarity": 0, "elo_scan": 0,
-                             "elo_scan_select": 0}
+                             "elo_scan_select": 0, "flash_attention": 0,
+                             "decode_attention": 0}
 
 
 def count_launch(name: str) -> None:
@@ -55,6 +70,15 @@ def count_launch(name: str) -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(_LAUNCHES)
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    """The C entry points' element-type code: 0 = fp32, 1 = bf16."""
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise ValueError(f"the attention kernels take float32 or bfloat16, "
+                         f"not {dtype}")
+    return codes[dtype]
 
 
 def reset_launches() -> None:

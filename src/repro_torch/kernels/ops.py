@@ -6,14 +6,16 @@ backend:
                how the port runs on the CPU.
   "reference"  the plain version on any device: only so that a check on
                the card can hold a kernel against it. Nothing on the
-               routing path passes it.
+               routing or serving path passes it.
 
 There is no fallback: a kernel that fails on a CUDA tensor raises.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.elo_scan import elo_scan_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.retrieve_replay import (retrieve_replay_cuda,
                                                  retrieve_replay_select_cuda)
 from repro_torch.kernels.similarity_topk import similarity_cuda
@@ -65,3 +67,26 @@ def retrieve_replay_select(q, emb, model_a, model_b, outcome, valid, size,
                retrieve_replay_select_cuda)
     return fn(q, emb, model_a, model_b, outcome, valid, size, init_ratings,
               global_ratings, costs, budgets, n=n, k=k, p=p)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    backend: str = "cuda"):
+    """q: (B,S,H,dh); k/v: (B,S,Hk,dh) -> (B,S,H,dh). The kernel backend
+    keeps the TPU kernel's contract that S is a multiple of its 128-row
+    blocks."""
+    if backend == "cuda" and q.shape[1] % 128:
+        raise ValueError(f"flash_attention: S = {q.shape[1]} is not a "
+                         "multiple of 128")
+    fn = _pick(backend, ref.flash_attention_ref, flash_attention_cuda)
+    return fn(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k, v, kv_len, *, backend: str = "cuda"):
+    """q: (B,H,dh); k/v: (B,T,Hk,dh); kv_len: (B,) -> (B,H,dh). The kernel
+    backend keeps the TPU kernel's contract that T is a multiple of its
+    256-row blocks."""
+    if backend == "cuda" and k.shape[1] % 256:
+        raise ValueError(f"decode_attention: T = {k.shape[1]} is not a "
+                         "multiple of 256")
+    fn = _pick(backend, ref.decode_attention_ref, decode_attention_cuda)
+    return fn(q, k, v, kv_len)

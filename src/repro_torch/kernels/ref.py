@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of every kernel of the routing path.
+"""Plain PyTorch versions of every kernel of the routing and serving paths.
 
 Ports of the jnp oracles in the JAX package's `kernels/ref.py`, formula
 for formula (`norm + 1e-9`, `10 ** (d / 400)`): the CPU tests hold these
@@ -139,3 +139,52 @@ def retrieve_replay_select_ref(q, emb, model_a, model_b, outcome, valid,
     return retrieve_replay_pipeline(
         similarity_ref, replay, q, emb, model_a, model_b, outcome, valid,
         size, init_ratings, n=n)
+
+
+def _repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
+    """(B, T, Hk, dh) -> (B, T, Hk * rep, dh): query head h reads KV head
+    h // rep (`jnp.repeat` along the head axis)."""
+    return x.repeat_interleave(rep, dim=2) if rep > 1 else x
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+    """q: (B,S,H,dh), k/v: (B,T,Hk,dh). fp32 softmax; causal masks are
+    bottom-right aligned; `window` > 0 keeps the last `window` keys of
+    each row. `scale` defaults to dh ** -0.5. Returns (B,S,H,dh) in q's
+    type. A row with no key left is NaN (softmax of all -inf)."""
+    b, s, h, dh = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    rep = h // hk
+    scale = dh ** -0.5 if scale is None else scale
+    kk = _repeat_kv(k, rep).float()
+    vv = _repeat_kv(v, rep).float()
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), kk) * scale
+    if causal:
+        qp = torch.arange(s, device=q.device)[:, None]
+        kp = torch.arange(t, device=q.device)[None, :]
+        mask = kp <= qp + (t - s)
+        if window:
+            mask &= kp > qp + (t - s) - window
+        scores = torch.where(mask[None, None], scores,
+                             torch.full_like(scores, float("-inf")))
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhst,bthd->bshd", w, vv).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, kv_len, *, scale=None):
+    """Single-token decode. q: (B,H,dh); k/v: (B,T,Hk,dh); kv_len: (B,)
+    number of valid cache entries per sequence. Returns (B,H,dh) in q's
+    type."""
+    b, h, dh = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    rep = h // hk
+    scale = dh ** -0.5 if scale is None else scale
+    kk = _repeat_kv(k, rep).float()
+    vv = _repeat_kv(v, rep).float()
+    scores = torch.einsum("bhd,bthd->bht", q.float(), kk) * scale
+    mask = torch.arange(t, device=q.device)[None, :] < \
+        kv_len.to(q.device)[:, None]
+    scores = torch.where(mask[:, None, :], scores,
+                         torch.full_like(scores, float("-inf")))
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bht,bthd->bhd", w, vv).to(q.dtype)

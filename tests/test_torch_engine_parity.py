@@ -1,0 +1,142 @@
+"""The port's ServingEngine against the JAX package's, on the CPU: the same
+reduced dense fleet (olmo-1b and qwen3-8b, fp32, the JAX weights carried
+across), routers fitted on the same feedback, the same seeded requests and
+quality oracle, every request compared (compare_rate = 1.0).
+
+Choices, generated tokens, `stats` and the decision log must be equal;
+the global ratings after the online feedback within rtol 1e-5 / atol 1e-3
+(the JAX suite's bar between its backends, tests/test_router_state.py).
+"""
+import zlib
+
+import jax
+import numpy as np
+import pytest
+
+from repro import obs as JOBS
+from repro.configs import get_reduced_config as j_reduced
+from repro.core.router import EagleConfig as JConfig
+from repro.core.router import EagleRouter as JRouter
+from repro.data.routerbench import make_corpus, pairwise_feedback
+from repro.serving import engine as JENG
+from repro_torch import convert
+from repro_torch import obs as TOBS
+from repro_torch.configs import get_reduced_config as t_reduced
+from repro_torch.core.router import EagleConfig as TConfig
+from repro_torch.core.router import EagleRouter as TRouter
+from repro_torch.serving import engine as TENG
+
+jax.config.update("jax_platform_name", "cpu")
+
+NAMES = ["olmo-1b", "qwen3-8b"]
+DIM = 64
+MAX_LEN = 64
+R_RTOL, R_ATOL = 1e-5, 1e-3
+
+
+def oracle(emb, mi):
+    """The serving launcher's simulated user, with a deterministic hash
+    (crc32) in place of Python's salted one."""
+    return float(np.random.default_rng(
+        zlib.crc32(emb[:2].tobytes() + bytes([mi]))).random())
+
+
+@pytest.fixture(scope="module")
+def world():
+    corpus = make_corpus(seed=0, n_per_dataset=60, dim=DIM, model_names=NAMES,
+                         costs=np.linspace(1.0, 8.0, len(NAMES)))
+    fb = pairwise_feedback(corpus, corpus.train_idx, seed=0,
+                           pairs_per_query=4)
+    jfleet = {n: JENG.FleetModel(j_reduced(n, dtype="float32"), seed=i,
+                                 max_len=MAX_LEN)
+              for i, n in enumerate(NAMES)}
+    return corpus, fb, jfleet
+
+
+def _engines(world, **kw):
+    corpus, fb, jfleet = world
+    args = (fb["emb"], fb["model_a"], fb["model_b"], fb["outcome"])
+    jr = JRouter(NAMES, corpus.costs, JConfig(embed_dim=DIM),
+                 db_capacity=1 << 12)
+    jr.fit(*args)
+    tr = TRouter(NAMES, corpus.costs, TConfig(embed_dim=DIM),
+                 db_capacity=1 << 12, device="cpu")
+    tr.fit(*args)
+    tfleet = {n: TENG.FleetModel(
+        t_reduced(n, dtype="float32"), max_len=MAX_LEN, device="cpu",
+        params=convert.model_params_from_numpy(
+            t_reduced(n, dtype="float32"), m.params, device="cpu"))
+        for n, m in jfleet.items()}
+    je = JENG.ServingEngine(jfleet, jr, compare_rate=1.0, seed=0,
+                            quality_oracle=oracle,
+                            obs=JOBS.Observability(enabled=True), **kw)
+    te = TENG.ServingEngine(tfleet, tr, compare_rate=1.0, seed=0,
+                            quality_oracle=oracle,
+                            obs=TOBS.Observability(enabled=True), **kw)
+    return je, te
+
+
+def _requests(corpus, cls, seed, n):
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(corpus.test_idx, n, replace=False)
+    return [cls(tokens=rng.integers(0, 500, rng.integers(3, 14)).astype(
+                    np.int32),
+                embedding=corpus.embeddings[i],
+                budget=float(rng.uniform(1.0, 10.0)),
+                max_new_tokens=int(rng.integers(1, 5)), rid=k)
+            for k, i in enumerate(idx)]
+
+
+def _assert_same_responses(jres, tres):
+    assert len(jres) == len(tres)
+    for j, t in zip(jres, tres):
+        assert (t.rid, t.model) == (j.rid, j.model)
+        np.testing.assert_array_equal(t.tokens, np.asarray(j.tokens))
+
+
+def test_serve_matches_jax(world):
+    corpus = world[0]
+    je, te = _engines(world)
+    for step in range(2):
+        jres = je.serve(_requests(corpus, JENG.Request, step, 12))
+        tres = te.serve(_requests(corpus, TENG.Request, step, 12))
+        _assert_same_responses(jres, tres)
+    models = {r.model for r in tres}
+    assert models == set(NAMES), models          # both models got a group
+    assert te.stats == je.stats
+    assert te.stats["feedback"] == 24 and te.stats["commits"] == 2
+    np.testing.assert_allclose(te.router.global_ratings.numpy(),
+                               np.asarray(je.router.global_ratings),
+                               rtol=R_RTOL, atol=R_ATOL)
+    assert te.router.db.size == je.router.db.size
+    assert int(te.dbuf.front.size) == int(je.dbuf.front.size)
+    drop_ts = lambda recs: [{k: v for k, v in r.items() if k != "ts"}
+                            for r in recs]
+    assert drop_ts(te.obs.events.records("route")) == \
+        drop_ts(je.obs.events.records("route"))
+
+
+def test_serve_with_generation_buckets_matches_jax(world):
+    corpus = world[0]
+    je, te = _engines(world, gen_bucket=True, gen_pad_len=16)
+    jres = je.serve(_requests(corpus, JENG.Request, 7, 5))
+    tres = te.serve(_requests(corpus, TENG.Request, 7, 5))
+    _assert_same_responses(jres, tres)
+    assert te.stats == je.stats
+
+
+def test_warmup_and_metrics(world):
+    _, te = _engines(world)
+    assert te.warmup([3, 20]) == 2
+    te.warmup_generate(8, batch_sizes=[1, 3], max_new=2)
+    assert te.serve([]) == []
+    snap = te.metrics_snapshot()
+    assert snap["counters"]["serve_commits_total"] == 0
+    assert "serve_route_us" in snap["histograms"]
+
+
+def test_unported_options_raise(world):
+    je, te = _engines(world)
+    for kw in ({"mesh": object()}, {"prebake": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TENG.ServingEngine(te.fleet, te.router, **kw)

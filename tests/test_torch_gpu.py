@@ -9,8 +9,10 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import ops as KOPS
+from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.elo_scan import (MAX_MODELS, elo_scan_cuda,
                                           elo_scan_select_cuda)
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.similarity_topk import similarity_cuda
 
 pytestmark = pytest.mark.gpu
@@ -20,6 +22,10 @@ SIM_TOL = 1e-5
 # ratings: the JAX suite's bar (tests/test_router_state.py); the kernel
 # computes 10^x with powf and sums in the same order as the reference
 R_RTOL, R_ATOL = 1e-5, 1e-3
+# attention: the JAX suite's bars between its backends
+# (tests/test_kernels.py), 2e-3 in fp32 and 3e-2 in bf16, where the
+# output's own rounding is 2^-9 of its size
+ATT_TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
 
 
 @pytest.fixture
@@ -178,5 +184,200 @@ def test_wrappers_count_launches(dev):
                     for dt in (torch.int32, torch.int32, torch.float32,
                                torch.bool)))
     KOPS.similarity(x, x, backend="reference")
+    qkv = torch.ones((1, 128, 2, 32), device=dev)
+    flash_attention_cuda(qkv, qkv, qkv)
+    KOPS.flash_attention(qkv, qkv, qkv, backend="reference")
+    decode_attention_cuda(qkv[:, 0], qkv, qkv,
+                          torch.ones((1,), dtype=torch.int32, device=dev))
     assert _build.launch_counts() == {"similarity": 1, "elo_scan": 1,
-                                      "elo_scan_select": 0}
+                                      "elo_scan_select": 0,
+                                      "flash_attention": 1,
+                                      "decode_attention": 1}
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _normal(rng, shape, dtype, dev):
+    return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                        device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("b,s,h,hk,dh", [(1, 256, 4, 4, 64),
+                                         (2, 200, 8, 2, 32),
+                                         (1, 333, 8, 2, 128),
+                                         (2, 77, 4, 1, 128),
+                                         (1, 512, 8, 1, 128),
+                                         (2, 200, 16, 16, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(dev, b, s, h, hk, dh, dtype):
+    rng = np.random.default_rng(s + dh)
+    q = _normal(rng, (b, s, h, dh), dtype, dev)
+    k = _normal(rng, (b, s, hk, dh), dtype, dev)
+    v = _normal(rng, (b, s, hk, dh), dtype, dev)
+    got = flash_attention_cuda(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    tol = ATT_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("window,causal", [(1, True), (100, True),
+                                           (128, True), (0, False)])
+def test_flash_attention_window_and_noncausal(dev, window, causal):
+    """window = 1 leaves each row its own key: most key tiles are wholly
+    masked for most rows, which must contribute nothing."""
+    rng = np.random.default_rng(window)
+    b, s, h, hk, dh = 2, 300, 8, 2, 64
+    q = _normal(rng, (b, s, h, dh), torch.float32, dev)
+    k = _normal(rng, (b, s, hk, dh), torch.float32, dev)
+    v = _normal(rng, (b, s, hk, dh), torch.float32, dev)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                               scale=0.3)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=0.3)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    if window == 1:
+        torch.testing.assert_close(got, v.repeat_interleave(h // hk, dim=2),
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,t,h,hk,dh", [(2, 512, 4, 4, 64),
+                                         (3, 1000, 32, 8, 128),
+                                         (4, 77, 8, 1, 32),
+                                         (2, 300, 16, 2, 128),
+                                         (3, 1056, 16, 16, 128)])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+def test_decode_attention_kernel_matches_plain(dev, b, t, h, hk, dh,
+                                               q_dtype, kv_dtype):
+    rng = np.random.default_rng(t + h)
+    q = _normal(rng, (b, h, dh), q_dtype, dev)
+    k = _normal(rng, (b, t, hk, dh), kv_dtype, dev)
+    v = _normal(rng, (b, t, hk, dh), kv_dtype, dev)
+    lens = rng.integers(1, t + 1, b)
+    lens[0] = t                                   # one full cache
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = decode_attention_cuda(q, k, v, kv_len)
+    # the kernel rounds the cache to q's type, as the model's plain path
+    # does (`ck.astype(q.dtype)`) before its product
+    want = ref.decode_attention_ref(q, k.to(q_dtype), v.to(q_dtype), kv_len)
+    torch.cuda.synchronize()
+    assert got.dtype == q_dtype
+    tol = ATT_TOL[q_dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_decode_attention_empty_rows_are_zero(dev):
+    rng = np.random.default_rng(9)
+    b, t, h, hk, dh = 3, 260, 8, 2, 64
+    q = _normal(rng, (b, h, dh), torch.float32, dev)
+    k = _normal(rng, (b, t, hk, dh), torch.float32, dev)
+    v = _normal(rng, (b, t, hk, dh), torch.float32, dev)
+    kv_len = torch.tensor([0, 5, 129], dtype=torch.int32, device=dev)
+    got = decode_attention_cuda(q, k, v, kv_len)
+    want = ref.decode_attention_ref(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    torch.testing.assert_close(got[1:], want[1:], rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("s,hk", [(256, 4), (300, 1)])
+def test_decode_matches_flash_last_row(dev, s, hk):
+    """decode kernel over a full cache == last row of the prefill kernel
+    (the counterpart of tests/test_kernels.py's check on the TPU
+    kernels)."""
+    rng = np.random.default_rng(s)
+    b, h, dh = 2, 4, 64
+    q = _normal(rng, (b, s, h, dh), torch.float32, dev)
+    k = _normal(rng, (b, s, hk, dh), torch.float32, dev)
+    v = _normal(rng, (b, s, hk, dh), torch.float32, dev)
+    full = flash_attention_cuda(q, k, v, causal=True)
+    dec = decode_attention_cuda(q[:, -1], k, v,
+                                torch.full((b,), s, dtype=torch.int32,
+                                           device=dev))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dec, full[:, -1], rtol=2e-3, atol=2e-3)
+
+
+def test_attention_kernels_reject_uncovered_cases(dev):
+    x = torch.ones((1, 128, 4, 96), device=dev)
+    with pytest.raises(ValueError, match="head width"):
+        flash_attention_cuda(x, x, x)
+    h16 = torch.ones((1, 128, 16, 64), device=dev)
+    with pytest.raises(ValueError, match="up to 8"):
+        decode_attention_cuda(h16[:, 0], h16[:, :, :1], h16[:, :, :1],
+                              torch.ones((1,), dtype=torch.int32,
+                                         device=dev))
+    half = torch.ones((1, 128, 2, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_cuda(half, half, half)
+    q32 = torch.ones((1, 2, 64), device=dev)
+    kv16 = torch.ones((1, 128, 2, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="float32 cache"):
+        decode_attention_cuda(q32, kv16, kv16,
+                              torch.ones((1,), dtype=torch.int32,
+                                         device=dev))
+
+
+# ---------------------------------------------------------------------------
+# the model's attention route
+# ---------------------------------------------------------------------------
+
+def _reduced_model(dev, arch):
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.serving import FleetModel
+    return FleetModel(get_reduced_config(arch, dtype="float32"), seed=0,
+                      max_len=160, device=dev)
+
+
+def test_attention_cases_the_kernels_do_not_cover_raise_on_cuda(dev):
+    from repro_torch.models import layers as L
+    m = _reduced_model(dev, "qwen3-8b")
+    cfg, p = m.cfg, m.params["blocks"][0]["attn"]
+    x = torch.ones((2, 3, cfg.d_model), device=dev)
+    pos = torch.arange(3, device=dev).expand(2, 3)
+    shape = (2, 16, cfg.n_kv_heads, cfg.hd)
+    cache = {"k": torch.zeros(shape, device=dev),
+             "v": torch.zeros(shape, device=dev)}
+    with pytest.raises(NotImplementedError, match="cache index"):
+        L.apply_attention(cfg, p, x, pos + 4, theta=cfg.rope_theta,
+                          cache=cache, cache_index=4)
+    with pytest.raises(NotImplementedError, match="window"):
+        L.apply_attention(cfg, p, x, pos, theta=cfg.rope_theta, window=2)
+    # the same calls run the plain attend when asked for it
+    L.apply_attention(cfg, p, x, pos, theta=cfg.rope_theta, window=2,
+                      backend="reference")
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-8b"])
+def test_model_kernel_path_matches_plain_attention(dev, arch):
+    """A reduced fp32 model through the kernels and through the plain
+    attend: prefill + 5 decode steps fed the same tokens give logits
+    within the fp32 attention bar, and FleetModel.generate launches one
+    flash kernel per layer and one decode kernel per layer and step."""
+    from repro_torch.models import transformer as T
+    m = _reduced_model(dev, arch)
+    rng = np.random.default_rng(1)
+    toks = torch.tensor(rng.integers(0, 500, (3, 130)), device=dev)
+    runs = {b: T.prefill(m.cfg, m.params, toks, m.max_len, backend=b,
+                         cache_dtype=torch.float32)
+            for b in ("cuda", "reference")}
+    for i in range(6):
+        got, want = runs["cuda"][0], runs["reference"][0]
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+        tok = want.argmax(-1)[:, None]
+        runs = {b: T.decode_step(m.cfg, m.params, runs[b][1], tok, 130 + i,
+                                 backend=b) for b in runs}
+    _build.reset_launches()
+    m.generate(toks.cpu().numpy(), 6)
+    counts = _build.launch_counts()
+    assert counts["flash_attention"] == m.cfg.n_layers
+    assert counts["decode_attention"] == m.cfg.n_layers * 5

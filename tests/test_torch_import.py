@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -31,7 +32,7 @@ def test_port_imports_without_jax_or_the_jax_package():
                          env={**os.environ, "PYTHONPATH": str(SRC)})
     assert out.returncode == 0, out.stderr
     n, leaked = out.stdout.split(" ", 1)
-    assert int(n) >= 15
+    assert int(n) >= 30
     assert leaked.strip() == "[]"
 
 
@@ -41,7 +42,9 @@ def _default_device_entry_points():
     from repro_torch.core.router import EagleRouter
     from repro_torch.core.state import DoubleBuffer, init_state
     from repro_torch.core.vectordb import VectorDB
+    from repro_torch.configs import get_reduced_config
     from repro_torch.convert import ratings_from_numpy
+    from repro_torch.serving import FleetModel, ServingEngine
     return [
         ("resolve_device", lambda: resolve_device()),
         ("init_state", lambda: init_state(3, 4)),
@@ -49,10 +52,14 @@ def _default_device_entry_points():
         ("EagleRouter", lambda: EagleRouter(["a", "b"], [1.0, 2.0])),
         ("DoubleBuffer", lambda: DoubleBuffer(VectorDB(4, 8), [1.0, 2.0])),
         ("ratings_from_numpy", lambda: ratings_from_numpy([1.0])),
+        ("FleetModel", lambda: FleetModel(get_reduced_config("olmo-1b"))),
+        # the engine runs on its router's and its fleet's devices
+        ("ServingEngine", lambda: ServingEngine(
+            {}, EagleRouter([], np.zeros(0, np.float32)))),
     ]
 
 
-@pytest.mark.parametrize("idx", range(6))
+@pytest.mark.parametrize("idx", range(8))
 def test_default_device_is_the_card_and_raises_without_one(idx):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid here")
