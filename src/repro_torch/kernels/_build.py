@@ -7,7 +7,9 @@ at the root of the checkout. The library's file name carries a hash of
 its source, so an edited kernel is rebuilt and a stale one never loads.
 The wrappers load it with `ctypes` and launch on PyTorch's current
 stream; every C entry point returns `cudaGetLastError()` after its
-launch, which `check` turns into an exception.
+launch, which `check` turns into an exception. What `nvcc` printed
+(`-Xptxas=-v`: registers, shared memory and spills per kernel) is kept
+beside each library as `<library>.log`.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 #: C signatures of every entry point, per source file
 _SIGNATURES = {
@@ -32,6 +34,9 @@ _SIGNATURES = {
         # q, db, out, Q, N, D, stream
         "similarity_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                              + [ctypes.c_void_p],
+        # ..., tile (0: the path's choice; 8 streaming, 32/64/128 GEMM)
+        "similarity_launch_tile": [ctypes.c_void_p] * 3
+                                  + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     },
     "elo_scan": {
         # ratings, a, b, s, v, g, costs, budgets, out, choices,
@@ -122,6 +127,7 @@ def build(names: Iterable[str] = tuple(_SIGNATURES)) -> List[Path]:
     for name, tmp, out, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode == 0:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
         else:
             tmp.unlink(missing_ok=True)
@@ -129,6 +135,12 @@ def build(names: Iterable[str] = tuple(_SIGNATURES)) -> List[Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return [_lib_path(n) for n in names]
+
+
+def build_log(name: str) -> str:
+    """What `nvcc` printed when it built `csrc/<name>.cu`."""
+    (path,) = build([name])
+    return path.with_suffix(".log").read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -5,7 +5,10 @@ and its wrapper.
 The kernel takes any S (the ragged tail is masked) and head widths
 dh in {32, 64, 128}; `ops.flash_attention` keeps the JAX contract that S
 is a multiple of 128, and the model calls this wrapper directly, with
-its prompt's own length.
+its prompt's own length. bf16 inputs (the serving path's) run on the
+tensor cores (`wgmma`, K/V by TMA) and round the softmax weights to bf16
+before the second product, as the model's plain attend does; fp32 inputs
+run an exact CUDA-core kernel.
 """
 from __future__ import annotations
 

@@ -46,7 +46,12 @@ def _records(rng, q, t, m, dev, p_valid=0.7):
 
 
 @pytest.mark.parametrize("nq,n,d", [(1, 17, 64), (8, 300, 1536),
-                                    (130, 1000, 50), (257, 2049, 384)])
+                                    (130, 1000, 50), (257, 2049, 384),
+                                    # every tile at the path's D, ragged N
+                                    (1, 1001, 1536), (8, 1001, 1536),
+                                    (16, 1001, 1536), (64, 1001, 1536),
+                                    (65, 1001, 1536), (128, 1001, 1536),
+                                    (1024, 1001, 1536)])
 def test_similarity_kernel_matches_plain(dev, nq, n, d):
     rng = np.random.default_rng(nq + n)
     q = torch.tensor(rng.normal(size=(nq, d)), dtype=torch.float32,
@@ -57,6 +62,26 @@ def test_similarity_kernel_matches_plain(dev, nq, n, d):
     want = ref.similarity_ref(q, db)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=SIM_TOL, atol=SIM_TOL)
+
+
+@pytest.mark.parametrize("tile", [8, 32, 64, 128])
+@pytest.mark.parametrize("nq,n,d", [(5, 259, 1536), (3, 130, 50)])
+def test_similarity_every_tile_matches_plain(dev, tile, nq, n, d):
+    """Each tile the kernel can take (chip_smoke.py times them to place the
+    switch between them), with vector and scalar loads."""
+    rng = np.random.default_rng(tile + d)
+    q = torch.tensor(rng.normal(size=(nq, d)), dtype=torch.float32,
+                     device=dev)
+    db = torch.tensor(rng.normal(size=(n, d)), dtype=torch.float32,
+                      device=dev)
+    out = torch.empty((nq, n), device=dev)
+    lib = _build.library("similarity")
+    _build.check(lib.similarity_launch_tile(
+        q.data_ptr(), db.data_ptr(), out.data_ptr(), nq, n, d, tile,
+        _build.stream_handle(dev)), "similarity_launch_tile")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref.similarity_ref(q, db), rtol=SIM_TOL,
+                               atol=SIM_TOL)
 
 
 def test_similarity_topk_ties_lowest_index_first(dev):
@@ -227,24 +252,53 @@ def test_flash_attention_kernel_matches_plain(dev, b, s, h, hk, dh, dtype):
 
 @pytest.mark.parametrize("window,causal", [(1, True), (100, True),
                                            (128, True), (0, False)])
-def test_flash_attention_window_and_noncausal(dev, window, causal):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_window_and_noncausal(dev, window, causal, dtype):
     """window = 1 leaves each row its own key: most key tiles are wholly
-    masked for most rows, which must contribute nothing."""
+    masked for most rows, which must contribute nothing. fp32 runs the
+    CUDA-core kernel, bf16 the tensor-core one, each held to the JAX
+    suite's bar for its type (ATT_TOL: the bf16 kernel also rounds its
+    softmax weights to bf16, ~2^-9 of each term, well inside 3e-2). With
+    one key a row's weight is exactly 1, so both types give v exactly."""
     rng = np.random.default_rng(window)
     b, s, h, hk, dh = 2, 300, 8, 2, 64
-    q = _normal(rng, (b, s, h, dh), torch.float32, dev)
-    k = _normal(rng, (b, s, hk, dh), torch.float32, dev)
-    v = _normal(rng, (b, s, hk, dh), torch.float32, dev)
+    q = _normal(rng, (b, s, h, dh), dtype, dev)
+    k = _normal(rng, (b, s, hk, dh), dtype, dev)
+    v = _normal(rng, (b, s, hk, dh), dtype, dev)
     got = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                scale=0.3)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=0.3)
     torch.cuda.synchronize()
+    assert got.dtype == dtype
     assert bool(torch.isfinite(got).all())
-    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    tol = ATT_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
     if window == 1:
         torch.testing.assert_close(got, v.repeat_interleave(h // hk, dim=2),
                                    rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,s,h,hk,dh", [(2, 50, 8, 1, 128),
+                                         (3, 1, 8, 1, 64),
+                                         (1, 129, 16, 2, 128),
+                                         (2, 383, 8, 1, 32),
+                                         (1, 1000, 16, 2, 128)])
+def test_flash_attention_bf16_tile_edges(dev, b, s, h, hk, dh):
+    """The tensor-core kernel's 128-row tiles: S below one tile, S one
+    past a tile and S not a multiple of it (TMA zero-fills the rows past
+    S, and their scores are masked), with 8 query heads to a KV head."""
+    rng = np.random.default_rng(s * h)
+    q = _normal(rng, (b, s, h, dh), torch.bfloat16, dev)
+    k = _normal(rng, (b, s, hk, dh), torch.bfloat16, dev)
+    v = _normal(rng, (b, s, hk, dh), torch.bfloat16, dev)
+    got = flash_attention_cuda(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    tol = ATT_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
 
 
 @pytest.mark.parametrize("b,t,h,hk,dh", [(2, 512, 4, 4, 64),
