@@ -11,13 +11,18 @@ together), then:
 
   1. prints the card (name, power limit) and the torch/CUDA versions,
      the build time, each kernel's registers, shared memory and spills
-     (`-Xptxas -v`) and the tensor-core instructions in the flash
-     library (`cuobjdump -sass`);
+     (`-Xptxas -v`), the tensor-core instructions in the flash library
+     and the replay kernels' step loops (`cuobjdump -sass`);
   2. holds every kernel against its plain PyTorch version on the card,
      at the shapes the routing path gives it, with the stated
      tolerances: the similarity kernel at every bucket of the 8..1024
      ladder, each timed beside its bound and the library call (and, up
-     to 128, with every tile that could take it);
+     to 128, with every tile that could take it); the replay kernel on
+     each of its routes (the select epilogue at Q = 1024 and 8, the
+     gather route bit for bit against gather + kernel, the fit's whole
+     262,144-step fold against float32 and float64 host folds, with a
+     control that must fail), timed on the device over launches queued
+     ahead of it (`queued_ms`);
   3. drives the main path at the paper's width (D = 1536, N = 20, K = 32,
      P = 0.5, the 10-model fleet) over a RouterBench-scale corpus:
      fit (196k records, C = 32768, R = 8), a RouteDispatcher over a
@@ -190,6 +195,35 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters: int) -> float:
+    """Device time of one run of fn() with the host ahead of the device:
+    the launches of `iters` runs queue behind a spin kernel
+    (`torch.cuda._sleep`, >= 0.1 s), so CUDA events time the device's own
+    run of the sequence, the gaps between its kernels included. cuda_ms
+    over back-to-back calls measures the host instead when a call takes
+    longer than its kernels run (the replay's wrappers: tens of
+    microseconds of Python a call). A try counts only if the spin still
+    held the device when the last launch was queued (the start event not
+    yet reached); a try that the host outran is made again behind a
+    spin twice as long, up to four tries."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for spin in (1, 2, 4, 8):
+        torch.cuda._sleep(spin * 200_000_000)   # cycles: >= 0.1 s a unit
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / iters
+    fail(f"queued_ms: the host did not queue {iters} runs within a spin "
+         "of 0.8 s")
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops=PEAK_FP32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -242,17 +276,90 @@ def decode_check(got, want):
     return att_check(got, want, DECODE_ATOL, DECODE_RTOL)
 
 
+def sass(lib) -> str:
+    """`cuobjdump -sass` of a built library ("" where the toolkit has no
+    cuobjdump)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        return subprocess.run([tool, "-sass", str(lib)], check=True,
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+    except (OSError, subprocess.SubprocessError):
+        return ""
+
+
+SASS_COUNTED = ("MUFU.EX2", "MUFU.RCP", "MUFU.LG2", "FCHK", "CALL", "SHFL")
+
+
+def step_loops(listing: str):
+    """Per kernel function of a SASS listing: its instruction count, and
+    its step loop, the shortest backward branch whose span holds a SHFL
+    (a replay step shuffles its ratings): the instructions in that span,
+    the counted instructions among them (SASS_COUNTED), and, where the
+    span holds MUFU.EX2 (one a step), instructions per step. Work a step
+    calls out of the span (a CALL) is not in its count."""
+    import re
+    funcs, cur = {}, None
+    for line in listing.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            t = re.search(r"ILi(\d+)ELb(\d)ELb(\d)E", name)
+            if t:   # elo_scan_kernel<W, SELECT, GATHER>
+                name = "elo_scan_kernel<%s,%s,%s>" % t.groups()
+            elif "elo_scan_kernel" in name:
+                name = "elo_scan_kernel"
+            cur = funcs.setdefault(name, {"ins": [], "labels": {}})
+            continue
+        if cur is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            cur["labels"][m.group(1)] = len(cur["ins"])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+([^;]*);", line)
+        if m:
+            tokens = m.group(2).split()
+            mnem = tokens[1] if tokens[0].startswith("@") else tokens[0]
+            cur["ins"].append((int(m.group(1), 16), mnem, m.group(2)))
+    report = {}
+    for name, f in funcs.items():
+        ins = f["ins"]
+        at = {addr: i for i, (addr, _, _) in enumerate(ins)}
+        loops = []
+        for i, (_, mnem, text) in enumerate(ins):
+            m = re.search(r"\((\.L_x_\d+)\)|\b(0x[0-9a-f]+)\b", text)
+            if not (mnem.startswith("BRA") and m):
+                continue
+            tgt = f["labels"].get(m.group(1)) if m.group(1) \
+                else at.get(int(m.group(2), 16))
+            if tgt is not None and tgt <= i and any(
+                    mn.startswith("SHFL") for _, mn, _ in ins[tgt:i + 1]):
+                loops.append((i - tgt + 1, tgt, i))
+        entry = {"instructions": len(ins)}
+        if loops:
+            n, lo, hi = min(loops)
+            body = [mn for _, mn, _ in ins[lo:hi + 1]]
+            counts = {k: sum(mn.startswith(k) for mn in body)
+                      for k in SASS_COUNTED}
+            entry.update(loop_instructions=n, loop_counts=counts)
+            if counts["MUFU.EX2"]:
+                entry["per_step"] = n / counts["MUFU.EX2"]
+        report[name] = entry
+    return report
+
+
 def build_report(libs, stats):
     """Registers, shared memory and spills of each kernel (`-Xptxas -v`),
-    ptxas's notes on serialised `wgmma` or ignored `setmaxnreg`, and the
+    ptxas's notes on serialised `wgmma` or ignored `setmaxnreg`, the
     count of tensor-core instructions in the built flash library
-    (HGMMA: wgmma; HMMA: mma.sync), from `cuobjdump -sass` where the
-    toolkit has it."""
+    (HGMMA: wgmma; HMMA: mma.sync), and the replay kernels' step loops
+    (`step_loops`), from `cuobjdump -sass` where the toolkit has it."""
     import re
-    import shutil
     from repro_torch.kernels import _build
     report = {}
-    for name in ("similarity", "flash_attention"):
+    for name in ("similarity", "flash_attention", "elo_scan"):
         entry, lines = None, []
         for line in _build.build_log(name).splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -264,19 +371,20 @@ def build_report(libs, stats):
         report[name] = lines
         for line in lines:
             log(f"ptxas {name}: {line}")
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    flash = [p for p in libs if p.name.startswith("libflash_attention")][0]
-    try:
-        sass = subprocess.run([tool, "-sass", str(flash)], check=True,
-                              capture_output=True, text=True,
-                              timeout=300).stdout
-        counts = {op: len(re.findall(rf"\b{op}\b", sass))
-                  for op in ("HGMMA", "HMMA", "UTMALDG")}
-    except (OSError, subprocess.SubprocessError):
-        counts = "not available"
-    log(f"tensor-core instructions in {flash.name} (cuobjdump -sass): "
-        f"{counts}")
+    by_name = {p.name.split("-")[0][3:]: p for p in libs}
+    listing = sass(by_name["flash_attention"])
+    counts = {op: len(re.findall(rf"\b{op}\b", listing))
+              for op in ("HGMMA", "HMMA", "UTMALDG")} if listing \
+        else "not available"
+    log(f"tensor-core instructions in the flash library (cuobjdump "
+        f"-sass): {counts}")
     report["flash_sass"] = counts
+    listing = sass(by_name["elo_scan"])
+    loops = step_loops(listing) if listing else "not available"
+    log(f"replay kernels (cuobjdump -sass; W, SELECT, GATHER): "
+        f"instructions, step loop (span, counted instructions, per step) "
+        f"{loops}")
+    report["elo_scan_sass"] = loops
     stats["build"] = report
 
 
@@ -377,66 +485,236 @@ def replay_inputs(dev, gen, nq, t):
     return r0, a.int(), b.int(), s, v
 
 
-def check_replay(dev, kernels, stats, fold_records):
+def check_select(dev, nq, stats):
+    """elo_scan_select at Q queries x T = N * R pre-gathered records
+    against the plain version (R_RTOL / R_ATOL; choices equal except at
+    ties), timed. Returns (inputs, entry)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.elo_scan import (elo_scan_cuda,
-                                              elo_scan_select_cuda)
+    from repro_torch.kernels.elo_scan import elo_scan_select_cuda
     gen = torch.Generator(device=dev).manual_seed(1)
-    nq, t = 1024, N * R              # N neighbours x R records
+    t = N * R                        # N neighbours x R records
     r0, a, b, s, v = replay_inputs(dev, gen, nq, t)
     g = 1000 + 30 * torch.randn((M,), generator=gen, device=dev)
     costs = 0.5 + 40 * torch.rand((M,), generator=gen, device=dev)
     bud = 45 * torch.rand((nq,), generator=gen, device=dev)
-
-    got_r, got_c = elo_scan_select_cuda(r0, a, b, s, v, g, costs, bud, p=P)
-    want_r, want_c = ref.elo_scan_select_ref(r0, a, b, s, v, g, costs, bud,
-                                             p=P)
+    args = (r0, a, b, s, v, g, costs, bud)
+    got_r, got_c = elo_scan_select_cuda(*args, p=P)
+    want_r, want_c = ref.elo_scan_select_ref(*args, p=P)
     torch.cuda.synchronize()
     err = float((got_r - want_r).abs().max())
     if not torch.allclose(got_r, want_r, rtol=R_RTOL, atol=R_ATOL):
-        fail(f"elo_scan_select ratings: max abs err {err}")
+        fail(f"elo_scan_select Q={nq} ratings: max abs err {err}")
     comb = P * g[None] + (1 - P) * want_r
     comb = torch.where(costs[None] <= bud[:, None], comb,
                        torch.full_like(comb, float("-inf")))
     differ, untied = choices_agree(got_c, want_c, comb)
     if untied:
-        fail(f"elo_scan_select: {untied} choices differ without a tie")
-    ms = cuda_ms(lambda: elo_scan_select_cuda(r0, a, b, s, v, g, costs, bud,
-                                              p=P), 200)
-    plain = cuda_ms(lambda: ref.elo_scan_select_ref(r0, a, b, s, v, g, costs,
-                                                    bud, p=P), 3, warmup=1)
+        fail(f"elo_scan_select Q={nq}: {untied} choices differ without a "
+             "tie")
+    ms = queued_ms(lambda: elo_scan_select_cuda(*args, p=P), 50)
+    call = cuda_ms(lambda: elo_scan_select_cuda(*args, p=P), 200)
+    plain = cuda_ms(lambda: ref.elo_scan_select_ref(*args, p=P), 3,
+                    warmup=1)
+    # each input read once, each output written once; the valid steps
     nbytes = nq * t * (4 + 4 + 4 + 1) + nq * M * 4 * 2 + nq * 4 * 2 \
         + 2 * M * 4
-    flops = nq * t * REPLAY_STEP_OPS + nq * M * 3
-    bms, by = bound_ms(nbytes, flops)
+    bms, by = bound_ms(nbytes, int(v.sum()) * REPLAY_STEP_OPS + nq * M * 3)
     log_time(stats,
-             f"elo_scan_select Q={nq} T={t} M={M}: max_abs_err={err} choices "
-             f"differing at ties={differ} kernel_ms={ms} plain_ms={plain} "
+             f"elo_scan_select Q={nq} T={t} M={M} (pre-gathered records): "
+             f"max_abs_err={err} choices differing at ties={differ} "
+             f"kernel_ms={ms} (device, queued; {ms * 1e6 / t} ns a step) "
+             f"call_ms={call} (back-to-back calls) plain_ms={plain} "
              f"bound_ms={bms} ({by})")
-    stats["elo_scan_select"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                    bound_ms=bms, bound_by=by,
-                                    choices_differing_at_ties=differ)
-    kernels["elo_scan_select"] = dict(
-        name="elo_scan_select", route="cuda",
-        source="src/repro_torch/kernels/csrc/elo_scan.cu",
-        replaces="src/repro/kernels/elo_scan.py:124", max_abs_err=err,
-        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None)
+    entry = dict(max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain,
+                 bound_ms=bms, bound_by=by,
+                 choices_differing_at_ties=differ)
+    stats[f"elo_scan_select_q{nq}"] = entry
+    return args, entry
+
+
+def fold_log(dev, records, n_valid=None, pad=True):
+    """A global fold's record log as `core/elo.py` runs it: padded to its
+    pow-2 bucket (floor 64) with valid = step < T, on the card, each
+    (1, T_bucket). `n_valid` < T marks the records from it on invalid
+    (the control drops the last one); pad=False leaves the log at T."""
+    a, b, s = (np.asarray(x) for x in records)
+    t = len(a)
+    tb = 64 if pad else t
+    while tb < t:
+        tb *= 2
+
+    def padded(x, dtype):
+        return torch.tensor(np.pad(np.asarray(x, dtype), (0, tb - t)),
+                            device=dev)[None]
+    v = torch.arange(tb, device=dev)[None] < (t if n_valid is None
+                                              else n_valid)
+    return (padded(a, np.int32), padded(b, np.int32),
+            padded(s, np.float32), v)
+
+
+def check_fit_fold(dev, stats, fold_records):
+    """The fit's global fold at its real shape (Q = 1, the fit's whole
+    record log, padded), held against host folds of the plain formula in
+    float32 and float64 (`ref.elo_fold_host`): the kernel must lie no
+    farther from the float64 fold than max(2 x the float32 fold's
+    distance, R_ATOL + R_RTOL |r|), model by model, and a control (the
+    same log with its last record invalid) must miss that bar by
+    CONTROL_MIN. Timed beside its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.elo_scan import elo_scan_cuda
+    a, b, s = (np.asarray(x) for x in fold_records)
+    t = len(a)
+    rec = fold_log(dev, fold_records)
+    ctl_rec = fold_log(dev, fold_records, n_valid=t - 1)
+    g0 = torch.full((1, M), 1000.0, device=dev)
+    got = elo_scan_cuda(g0, *rec)[0].cpu().numpy()
+    ctl = elo_scan_cuda(g0, *ctl_rec)[0].cpu().numpy()
+    host, host_s = {}, {}
+    for name, dtype in (("float32", np.float32), ("float64", np.float64)):
+        t0 = time.perf_counter()
+        host[name] = ref.elo_fold_host(np.full(M, 1000.0), a, b, s,
+                                       np.ones(t, bool), dtype=dtype)
+        host_s[name] = time.perf_counter() - t0
+    r64 = host["float64"]
+    bar = np.maximum(2 * np.abs(host["float32"] - r64),
+                     R_ATOL + R_RTOL * np.abs(r64))
+
+    def over(r):
+        return float(np.max(np.abs(np.asarray(r, np.float64) - r64) / bar))
+    ratio, ctl_ratio = over(got), over(ctl)
+    if not ratio <= 1.0:
+        fail(f"fit fold T={t}: {ratio} times its bar from the float64 fold")
+    if not ctl_ratio >= CONTROL_MIN:
+        fail(f"fit fold: the control without the last record is only "
+             f"{ctl_ratio} times the bar (at least {CONTROL_MIN})")
+    ms = queued_ms(lambda: elo_scan_cuda(g0, *rec), 5)
+    unpadded = fold_log(dev, fold_records, pad=False)
+    ms_unpadded = queued_ms(lambda: elo_scan_cuda(g0, *unpadded), 5)
+    tb = rec[0].shape[1]
+    bms, by = bound_ms(tb * 13 + 2 * M * 4, t * REPLAY_STEP_OPS)
+    dist = {"float32 host": float(np.max(np.abs(host["float32"] - r64))),
+            "kernel": float(np.max(np.abs(got - r64)))}
+    log_time(stats,
+             f"elo_scan fit fold Q=1 T={tb} ({t} valid, the fit's own log): "
+             f"kernel_ms={ms} (device, queued; {ms * 1e6 / t} ns a valid "
+             f"step; the same {t} records unpadded {ms_unpadded} ms) "
+             f"bound_ms={bms} "
+             f"({by}); max distance from the float64 host fold {dist}, "
+             f"over the bar {ratio} (at most 1), control without the last "
+             f"record {ctl_ratio} (at least {CONTROL_MIN}); host folds s "
+             f"{host_s}")
+    stats["elo_scan_fit_fold"] = dict(
+        t=tb, valid=t, ms=ms, ns_per_valid_step=ms * 1e6 / t,
+        unpadded_ms=ms_unpadded, bound_ms=bms, bound_by=by,
+        distance_from_float64=dist, err_over_bar=ratio,
+        control_over_bar=ctl_ratio, host_fold_s=host_s)
+
+
+def check_fused(dev, kernels, stats, size):
+    """The routing path's replay: the gather route (records read in place
+    through top-n rows) at buckets 1024 and 8, held bit for bit against
+    the gather glue + pre-gathered kernel on the same inputs and against
+    the plain version (R_RTOL / R_ATOL, choices except at ties), each
+    timed. The top-n rows are drawn from the `size` live rows of a
+    C_EXPECTED-row DB."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.elo_scan import (elo_scan_gather_select_cuda,
+                                              elo_scan_select_cuda)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    _, pa, pb, ps, pv = replay_inputs(dev, gen, C_EXPECTED, R)
+    panels = (pa, pb, ps, pv)
+    g = 1000 + 30 * torch.randn((M,), generator=gen, device=dev)
+    costs = 0.5 + 40 * torch.rand((M,), generator=gen, device=dev)
+    for nq in (1024, 8):
+        top_i = torch.randint(0, size, (nq, N), generator=gen, device=dev)
+        hit = torch.ones((nq, N), dtype=torch.bool, device=dev)
+        bud = 45 * torch.rand((nq,), generator=gen, device=dev)
+        sel = (g, costs, bud)
+
+        def fused():
+            return elo_scan_gather_select_cuda(g, panels, top_i, hit, *sel,
+                                               p=P)
+
+        def unfused():
+            recs = ref.gather_records(*panels, top_i, hit)
+            return elo_scan_select_cuda(g.expand(nq, M), *recs, *sel, p=P)
+        got, two = fused(), unfused()
+        want = ref.elo_scan_gather_select_ref(g, panels, top_i, hit, *sel,
+                                              p=P)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], two[0]) and torch.equal(got[1], two[1])):
+            fail(f"gather route Q={nq}: differs from the pre-gathered "
+                 "kernel on the same records")
+        err = float((got[0] - want[0]).abs().max())
+        if not torch.allclose(got[0], want[0], rtol=R_RTOL, atol=R_ATOL):
+            fail(f"gather route Q={nq}: max abs err {err}")
+        comb = P * g[None] + (1 - P) * want[0]
+        comb = torch.where(costs[None] <= bud[:, None], comb,
+                           torch.full_like(comb, float("-inf")))
+        differ, untied = choices_agree(got[1], want[1], comb)
+        if untied:
+            fail(f"gather route Q={nq}: {untied} choices differ without a "
+                 "tie")
+        ms, unfused_q = queued_ms(fused, 50), queued_ms(unfused, 50)
+        call, unfused_call = cuda_ms(fused, 200), cuda_ms(unfused, 200)
+        plain = cuda_ms(lambda: ref.elo_scan_gather_select_ref(
+            g, panels, top_i, hit, *sel, p=P), 3, warmup=1)
+        rows = torch.unique(top_i[hit]).numel()
+        t = N * R
+        valid = int(pv[top_i].logical_and(hit[..., None]).sum())
+        nbytes = rows * R * 13 + nq * N * 9 + nq * M * 4 + nq * 4 * 2 \
+            + 3 * M * 4
+        bms, by = bound_ms(nbytes, valid * REPLAY_STEP_OPS + nq * M * 3)
+        log_time(stats,
+                 f"elo_scan_select gather route Q={nq} n={N} R={R} M={M}: "
+                 f"equal to gather + pre-gathered kernel; max_abs_err={err} "
+                 f"choices differing at ties={differ} kernel_ms={ms} "
+                 f"(device, queued; {ms * 1e6 / t} ns a step) against "
+                 f"{unfused_q} for gather + pre-gathered kernel; a call "
+                 f"{call} against {unfused_call} ms; plain_ms={plain} "
+                 f"bound_ms={bms} ({by})")
+        entry = dict(max_abs_err=err, ms=ms, unfused_ms=unfused_q,
+                     call_ms=call,
+                     unfused_call_ms=unfused_call, plain_ms=plain,
+                     bound_ms=bms, bound_by=by,
+                     choices_differing_at_ties=differ)
+        stats[f"elo_scan_gather_select_q{nq}"] = entry
+        if nq == 1024:
+            kernels["elo_scan_select"] = dict(
+                name="elo_scan_select", route="cuda",
+                source="src/repro_torch/kernels/csrc/elo_scan.cu",
+                replaces="src/repro/kernels/elo_scan.py:124",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
+def check_replay(dev, kernels, stats, fold_records):
+    """Every route of the replay kernel at the shapes the path gives it:
+    the select epilogue over pre-gathered records at Q = 1024 and 8, the
+    plain replay at Q = 1024, the fit's fold (prefix and whole), the
+    online fold and the gather route."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.elo_scan import elo_scan_cuda
+    select_args, _ = check_select(dev, 1024, stats)
+    check_select(dev, 8, stats)
 
     # the replay without the epilogue, at the same shape
+    r0, a, b, s, v = select_args[:5]
+    nq, t = a.shape
     got = elo_scan_cuda(r0, a, b, s, v)
     want = ref.elo_scan_ref(r0, a, b, s, v)
     torch.cuda.synchronize()
     err_local = float((got - want).abs().max())
     if not torch.allclose(got, want, rtol=R_RTOL, atol=R_ATOL):
         fail(f"elo_scan Q={nq}: max abs err {err_local}")
-    ms_local = cuda_ms(lambda: elo_scan_cuda(r0, a, b, s, v), 200)
+    ms_local = queued_ms(lambda: elo_scan_cuda(r0, a, b, s, v), 50)
     plain_local = cuda_ms(lambda: ref.elo_scan_ref(r0, a, b, s, v), 3,
                           warmup=1)
     bms_local, by_local = bound_ms(nq * t * (4 + 4 + 4 + 1) + nq * M * 4 * 2,
-                                   nq * t * REPLAY_STEP_OPS)
+                                   int(v.sum()) * REPLAY_STEP_OPS)
     log_time(stats,
              f"elo_scan Q={nq} T={t} M={M}: max_abs_err={err_local} "
-             f"kernel_ms={ms_local} plain_ms={plain_local} "
+             f"kernel_ms={ms_local} (device, queued) plain_ms={plain_local} "
              f"bound_ms={bms_local} ({by_local})")
     stats["elo_scan_q1024"] = dict(max_abs_err=err_local, ms=ms_local,
                                    plain_ms=plain_local, bound_ms=bms_local,
@@ -455,35 +733,59 @@ def check_replay(dev, kernels, stats, fold_records):
         fail(f"elo_scan global fold: max abs err {err_fold}")
     log(f"elo_scan global fold Q=1 T=16384: max_abs_err={err_fold}")
     stats["elo_scan_fold16384_err"] = err_fold
+    check_fit_fold(dev, stats, fold_records)
 
     # timed at the online update's shape: a 400-record fold, padded to 512
     t_up = 512
     ua, ub, us = (x[:, :t_up].contiguous() for x in fold[:3])
     uv = torch.arange(t_up, device=dev)[None] < 400
-    ms_up = cuda_ms(lambda: elo_scan_cuda(g0, ua, ub, us, uv), 200)
+    ms_up = queued_ms(lambda: elo_scan_cuda(g0, ua, ub, us, uv), 50)
+    call_up = cuda_ms(lambda: elo_scan_cuda(g0, ua, ub, us, uv), 200)
     plain_up = cuda_ms(lambda: ref.elo_scan_ref(g0, ua, ub, us, uv), 3,
                        warmup=1)
     nbytes = t_up * 13 + 2 * M * 4
     bms, by = bound_ms(nbytes, 400 * REPLAY_STEP_OPS)
     log_time(stats,
-             f"elo_scan Q=1 T={t_up} (online fold): kernel_ms={ms_up} "
-             f"plain_ms={plain_up} bound_ms={bms} ({by})")
-    stats["elo_scan_fold512"] = dict(ms=ms_up, plain_ms=plain_up,
-                                     bound_ms=bms, bound_by=by)
+             f"elo_scan Q=1 T={t_up} (online fold, 400 valid): kernel_ms="
+             f"{ms_up} (device, queued; {ms_up * 1e6 / 400} ns a valid step) "
+             f"call_ms={call_up} plain_ms={plain_up} bound_ms={bms} ({by})")
+    stats["elo_scan_fold512"] = dict(ms=ms_up, call_ms=call_up,
+                                     plain_ms=plain_up, bound_ms=bms,
+                                     bound_by=by)
     kernels["elo_scan"] = dict(
         name="elo_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/elo_scan.cu",
         replaces="src/repro/kernels/elo_scan.py:157",
         max_abs_err=max(err_local, err_fold), ms=ms_up, plain_ms=plain_up,
         bound_ms=bms, bound_by=by, library_ms=None)
+    check_fused(dev, kernels, stats, len(fold_records[0]) // PAIRS_PER_QUERY)
 
 
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def pregathered_selects():
+    """Inside: a count (in the one-element list yielded) of the replay
+    kernel's select launches over pre-gathered records, which the
+    routing path must not make: its replays read their records in
+    place."""
+    from unittest import mock
+    from repro_torch.kernels import elo_scan
+    launch, count = elo_scan._launch, [0]
+
+    def counted(*args, select, rows=None, **kw):
+        count[0] += bool(select and rows is None)
+        return launch(*args, select=select, rows=rows, **kw)
+    with mock.patch.object(elo_scan, "_launch", counted):
+        yield count
+
+
 def drive_main_path(dev, corpus, fb, stats):
+    from unittest import mock
     from repro_torch.configs.eagle import PAPER_CONFIG
+    from repro_torch.core import elo
     from repro_torch.core.dispatch import RouteDispatcher, bucket_ladder
     from repro_torch.core.router import EagleRouter
     from repro_torch.core.state import DoubleBuffer
@@ -492,8 +794,17 @@ def drive_main_path(dev, corpus, fb, stats):
 
     router = EagleRouter(corpus.model_names, corpus.costs, PAPER_CONFIG,
                          device=dev)
-    fit_s = router.fit(fb["emb"], fb["model_a"], fb["model_b"],
-                       fb["outcome"], query_id=fb["query_idx"])
+    fit_global, fold_s = elo.fit_global, []
+
+    def timed_fold(*args, **kw):     # fit()'s wall, split: the global fold
+        t0 = time.perf_counter()
+        out = fit_global(*args, **kw)
+        torch.cuda.synchronize()
+        fold_s.append(time.perf_counter() - t0)
+        return out
+    with mock.patch.object(elo, "fit_global", timed_fold):
+        fit_s = router.fit(fb["emb"], fb["model_a"], fb["model_b"],
+                           fb["outcome"], query_id=fb["query_idx"])
     db = router.db
     if (db.capacity, db.rcap, db.size) != (C_EXPECTED, R,
                                             len(corpus.train_idx)):
@@ -502,7 +813,11 @@ def drive_main_path(dev, corpus, fb, stats):
         fail("global ratings are not finite after fit")
     log_time(stats,
              f"fit: {len(fb['model_a'])} records, C={db.capacity} R={db.rcap} "
-             f"size={db.size}: {fit_s:.3f} s")
+             f"size={db.size}: {fit_s} s, of which the global fold "
+             f"(padding, upload, kernel) {fold_s[0]} s and db.add "
+             f"{fit_s - fold_s[0]} s")
+    stats["fit_s"] = dict(wall=fit_s, fold=fold_s[0],
+                          db_add=fit_s - fold_s[0])
 
     t0 = time.perf_counter()
     dbuf = DoubleBuffer(db, router.global_ratings, device=dev)
@@ -818,7 +1133,7 @@ def check_decode(dev, kernels, stats):
             fail(f"decode vs the last row of flash, {model}: max abs err "
                  f"{errs[row]}, {ratios[row]} times the bar")
 
-        ms = cuda_ms(lambda: decode_attention_cuda(q, k, v, kv_len), 50)
+        ms = cuda_ms(lambda: decode_attention_cuda(q, k, v, kv_len), 1000)
         plain = cuda_ms(lambda: ref.decode_attention_ref(q, k, v, kv_len), 5)
         q32 = q.float()[:, :, None]
         mask = (torch.arange(t, device=dev)[None]
@@ -1191,25 +1506,31 @@ def main() -> int:
     corpus = make_corpus(seed=0, n_per_dataset=N_PER_DATASET, dim=DIM)
     fb = pairwise_feedback(corpus, corpus.train_idx, seed=0,
                            pairs_per_query=PAIRS_PER_QUERY)
+    fold_records = (fb["model_a"], fb["model_b"], fb["outcome"])
     log(f"corpus: {len(corpus.embeddings)} prompts, "
         f"{len(fb['model_a'])} train records, {corpus.n_models} models "
         f"({time.perf_counter() - t0:.1f} s on the host)")
-
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
     kernels = {}
     check_similarity(dev, kernels, stats)
-    check_replay(dev, kernels, stats,
-                 (fb["model_a"], fb["model_b"], fb["outcome"]))
+    check_replay(dev, kernels, stats, fold_records)
 
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    router, disp, dbuf, test, grid = drive_main_path(dev, corpus, fb,
-                                                     stats)
+    with pregathered_selects() as unfused:
+        router, disp, dbuf, test, grid = drive_main_path(dev, corpus, fb,
+                                                         stats)
     torch.cuda.synchronize()
     launches = {"route": _build.launch_counts()}
-    log(f"launches on the routing path: {launches['route']}")
+    log(f"launches on the routing path: {launches['route']}, of which "
+        f"elo_scan_select over pre-gathered records: {unfused[0]}")
     missing = [k for k in ROUTE_KERNELS if launches["route"][k] == 0]
     if missing:
         fail(f"kernels never launched on the routing path: {missing}")
+    if unfused[0]:
+        fail(f"{unfused[0]} elo_scan_select launches of the routing path "
+             "did not take the gather route")
     stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
     compare_route(router, dbuf, test, grid, stats)
@@ -1249,8 +1570,6 @@ def main() -> int:
     order = ROUTE_KERNELS + ("flash_attention", "decode_attention")
     line = {"kernels": [kernels[k] for k in order]}
     stats["kernels"] = line["kernels"]
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(stats, indent=1))
     log(card)
     log(json.dumps(line))

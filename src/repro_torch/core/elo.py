@@ -86,22 +86,39 @@ def _host(x, dtype) -> np.ndarray:
     return np.asarray(x, dtype).reshape(-1)
 
 
+def _padded_records(a_idx, b_idx, outcome, dev):
+    """The record log padded to its pow-2 bucket, exactly as the JAX
+    package pads it (zeros past T, `valid` = step < T), in one host
+    buffer of int32 a | int32 b | float32 s | bool v, moved to `dev` in
+    one copy. Returns (a, b, s, v), each (T_bucket,) on `dev`.
+
+    For a CUDA device the buffer is pinned, so the copy is one DMA that
+    does not wait for the host; PyTorch's pinned-memory allocator reuses
+    it only after that copy has run."""
+    a = _host(a_idx, np.int32)
+    t = a.size
+    tb = _pad_bucket(t)
+    host = torch.empty(13 * tb, dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
+    cols = host.numpy()
+    cols[:12 * tb].view(np.int32).reshape(3, tb)[:, t:] = 0
+    cols[:4 * tb].view(np.int32)[:t] = a
+    cols[4 * tb:8 * tb].view(np.int32)[:t] = _host(b_idx, np.int32)
+    cols[8 * tb:12 * tb].view(np.float32)[:t] = _host(outcome, np.float32)
+    cols[12 * tb:12 * tb + t] = 1
+    cols[12 * tb + t:] = 0
+    buf = host.to(dev, non_blocking=True)
+    return (buf[:4 * tb].view(torch.int32), buf[4 * tb:8 * tb].view(
+        torch.int32), buf[8 * tb:12 * tb].view(torch.float32),
+        buf[12 * tb:].view(torch.bool))
+
+
 def _scan_padded(ratings, a_idx, b_idx, outcome, k):
     """Global fold over a record log padded to its pow-2 bucket with a
     `valid` mask, exactly as the JAX package pads it, so both packages
     run the same steps: one query (Q = 1) through the replay kernel, or
     through its plain version for CPU tensors."""
-    dev = ratings.device
-    t = _host(a_idx, np.int32).size
-    tb = _pad_bucket(t)
-
-    def padded(x, dtype):
-        return torch.as_tensor(np.pad(_host(x, dtype), (0, tb - t)),
-                               device=dev)
-
-    a, b = padded(a_idx, np.int32), padded(b_idx, np.int32)
-    s = padded(outcome, np.float32)
-    v = torch.arange(tb, device=dev) < t
+    a, b, s, v = _padded_records(a_idx, b_idx, outcome, ratings.device)
     return KOPS.elo_scan(ratings[None], a[None], b[None], s[None], v[None],
                          k=k)[0]
 

@@ -39,9 +39,13 @@ _SIGNATURES = {
                                   + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     },
     "elo_scan": {
-        # ratings, a, b, s, v, g, costs, budgets, out, choices,
-        # Q, T, M, k, p, 1 - p, select, stream
-        "elo_scan_launch": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+        # ratings, ratings row stride, a, b, s, v, top_i, hit, n, R, g,
+        # costs, budgets, budget stride, out, choices, Q, T, M, k, p,
+        # 1 - p, select, stream
+        "elo_scan_launch": [ctypes.c_void_p, ctypes.c_int]
+                           + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                           + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                           + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                            + [ctypes.c_float] * 3 + [ctypes.c_int]
                            + [ctypes.c_void_p],
     },

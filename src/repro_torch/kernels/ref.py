@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from functools import partial
 
+import numpy as np
 import torch
 
 
@@ -88,25 +89,47 @@ def budget_select_ref(scores, costs, budgets):
     return torch.where(feasible.any(dim=-1), choice, fallback).int()
 
 
+def elo_scan_gather_ref(init, panels, top_i, hit, *, k=32.0):
+    """The replay stage of the retrieval chain, plain: gather each query's
+    records from the (C, R) panels (model_a, model_b, outcome, valid)
+    through its top-n rows (`gather_records`), then replay them from the
+    (M,) prior. Returns (Q, M)."""
+    a, b, s, v = gather_records(*panels, top_i, hit)
+    prior = init.float().expand(top_i.shape[0], init.shape[-1])
+    return elo_replay_ref(prior, a, b, s, v, k=k)
+
+
+def elo_scan_gather_select_ref(init, panels, top_i, hit, global_ratings,
+                               costs, budgets, *, p=0.5, k=32.0):
+    """elo_scan_gather_ref with the budget-selection epilogue. Returns
+    (local (Q,M), choices (Q,) int32)."""
+    a, b, s, v = gather_records(*panels, top_i, hit)
+    prior = init.float().expand(top_i.shape[0], init.shape[-1])
+    return elo_scan_select_ref(prior, a, b, s, v, global_ratings, costs,
+                               budgets, p=p, k=k)
+
+
 def retrieve_replay_pipeline(similarity_fn, replay_fn, q, emb, model_a,
                              model_b, outcome, valid, size, init_ratings,
                              *, n):
     """The retrieval chain — similarity panel -> live-row masked stable
-    top-n -> farthest-first record gather -> replay from the broadcast
+    top-n -> replay of the neighbours' records, farthest first, from the
     prior — with the two stages injected, so the plain and the kernel
     routes share ONE copy of the glue.
 
-    replay_fn returns `local` or a `(local, *extras)` tuple; extras are
-    appended to the returned tuple (local, topk_idx, topk_scores)."""
+    replay_fn(init_ratings, (model_a, model_b, outcome, valid), top_i,
+    hit) gathers and replays (`elo_scan_gather_ref`, or the kernel's
+    fused gather); it returns `local` or a `(local, *extras)` tuple,
+    whose extras are appended to the returned (local, topk_idx,
+    topk_scores)."""
     scores = similarity_fn(q, emb)
     live = torch.arange(emb.shape[0], device=emb.device) < size
     scores = torch.where(live[None, :], scores,
                          torch.full_like(scores, float("-inf")))
     top_s, top_i = stable_topk(scores, n)
     hit = torch.isfinite(top_s)
-    a, b, s, v = gather_records(model_a, model_b, outcome, valid, top_i, hit)
-    init = init_ratings.float().expand(q.shape[0], init_ratings.shape[-1])
-    out = replay_fn(init, a, b, s, v)
+    out = replay_fn(init_ratings, (model_a, model_b, outcome, valid), top_i,
+                    hit)
     local, extras = (out[0], tuple(out[1:])) if isinstance(out, tuple) \
         else (out, ())
     return (local, top_i, top_s) + extras
@@ -116,7 +139,7 @@ def retrieve_replay_ref(q, emb, model_a, model_b, outcome, valid, size,
                         init_ratings, *, n, k=32.0):
     """Returns (local (Q,M), topk_idx (Q,n), topk_scores (Q,n))."""
     return retrieve_replay_pipeline(
-        similarity_ref, partial(elo_replay_ref, k=k), q, emb, model_a,
+        similarity_ref, partial(elo_scan_gather_ref, k=k), q, emb, model_a,
         model_b, outcome, valid, size, init_ratings, n=n)
 
 
@@ -134,11 +157,35 @@ def retrieve_replay_select_ref(q, emb, model_a, model_b, outcome, valid,
                                budgets, *, n, k=32.0, p=0.5):
     """retrieve_replay with the budget-selection epilogue. Returns
     (local (Q,M), topk_idx (Q,n), topk_scores (Q,n), choices (Q,))."""
-    replay = partial(elo_scan_select_ref, global_ratings=global_ratings,
-                     costs=costs, budgets=budgets, p=p, k=k)
+    replay = partial(elo_scan_gather_select_ref,
+                     global_ratings=global_ratings, costs=costs,
+                     budgets=budgets, p=p, k=k)
     return retrieve_replay_pipeline(
         similarity_ref, replay, q, emb, model_a, model_b, outcome, valid,
         size, init_ratings, n=n)
+
+
+def elo_fold_host(ratings, a_idx, b_idx, outcome, valid, *, k=32.0,
+                  dtype=np.float32):
+    """One query's replay on the host, a scalar at a time in `dtype`
+    (numpy float32 or float64 scalars), the plain formula
+    1 / (1 + 10 ** ((r_b - r_a) / 400)): the yardstick of a fold too long
+    for the plain version's per-step launches (the fit's 262,144 steps
+    take well under a second). A record with valid False, or with
+    a == b, changes nothing, as in the replay. Returns (M,) in `dtype`."""
+    r = [dtype(x) for x in np.asarray(ratings).reshape(-1)]
+    one, ten, c400, kk = dtype(1), dtype(10), dtype(400), dtype(k)
+    for ai, bi, si, vi in zip(np.asarray(a_idx).tolist(),
+                              np.asarray(b_idx).tolist(),
+                              np.asarray(outcome, dtype).tolist(),
+                              np.asarray(valid).tolist()):
+        if not vi or ai == bi:
+            continue
+        ra, rb = r[ai], r[bi]
+        delta = kk * (dtype(si) - one / (one + ten ** ((rb - ra) / c400)))
+        r[ai] = ra + delta
+        r[bi] = rb - delta
+    return np.asarray(r, dtype)
 
 
 def _repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:

@@ -1,14 +1,18 @@
 """The routing retrieval chain on the card: similarity kernel -> live-row
-mask -> stable top-n -> farthest-first record gather -> replay kernel.
+mask -> stable top-n -> replay kernel, which reads the neighbours' records
+in place (farthest first) through the top-n rows.
 
-Composes `similarity_cuda` and the replay kernels through the glue the
-plain version uses too (`ref.retrieve_replay_pipeline`), so the two
-routes cannot drift. Everything between the query embeddings and the
-choices stays on the device.
+Composes `similarity_cuda` and the replay kernel's gather route through
+the glue the plain version uses too (`ref.retrieve_replay_pipeline`), so
+the two routes cannot drift. Everything between the query embeddings and
+the choices stays on the device.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.elo_scan import elo_scan_cuda, elo_scan_select_cuda
+from functools import partial
+
+from repro_torch.kernels.elo_scan import (elo_scan_gather_cuda,
+                                          elo_scan_gather_select_cuda)
 from repro_torch.kernels.ref import retrieve_replay_pipeline
 from repro_torch.kernels.similarity_topk import similarity_cuda
 
@@ -20,13 +24,10 @@ def retrieve_replay_cuda(q, emb, model_a, model_b, outcome, valid, size,
 
     Returns (local_ratings (Q,M), topk_idx (Q,n), topk_scores (Q,n));
     rows past `size` score -inf and their records are masked out."""
-
-    def replay(init, a, b, s, v):
-        return elo_scan_cuda(init, a, b, s, v, k=k)
-
-    return retrieve_replay_pipeline(similarity_cuda, replay, q, emb,
-                                    model_a, model_b, outcome, valid, size,
-                                    init_ratings, n=n)
+    return retrieve_replay_pipeline(similarity_cuda,
+                                    partial(elo_scan_gather_cuda, k=k), q,
+                                    emb, model_a, model_b, outcome, valid,
+                                    size, init_ratings, n=n)
 
 
 def retrieve_replay_select_cuda(q, emb, model_a, model_b, outcome, valid,
@@ -36,11 +37,9 @@ def retrieve_replay_select_cuda(q, emb, model_a, model_b, outcome, valid,
     """retrieve_replay_cuda with the budget-selection epilogue fused into
     the replay kernel. Returns (local_ratings (Q,M), topk_idx (Q,n),
     topk_scores (Q,n), choices (Q,) int32)."""
-
-    def replay_select(init, a, b, s, v):
-        return elo_scan_select_cuda(init, a, b, s, v, global_ratings, costs,
-                                    budgets, p=p, k=k)
-
-    return retrieve_replay_pipeline(similarity_cuda, replay_select, q, emb,
+    replay = partial(elo_scan_gather_select_cuda,
+                     global_ratings=global_ratings, costs=costs,
+                     budgets=budgets, p=p, k=k)
+    return retrieve_replay_pipeline(similarity_cuda, replay, q, emb,
                                     model_a, model_b, outcome, valid, size,
                                     init_ratings, n=n)

@@ -11,6 +11,8 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels import ops as KOPS
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.elo_scan import (MAX_MODELS, elo_scan_cuda,
+                                          elo_scan_gather_cuda,
+                                          elo_scan_gather_select_cuda,
                                           elo_scan_select_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.similarity_topk import similarity_cuda
@@ -19,8 +21,12 @@ pytestmark = pytest.mark.gpu
 
 # similarity: the JAX suite's own bar between its backends
 SIM_TOL = 1e-5
-# ratings: the JAX suite's bar (tests/test_router_state.py); the kernel
-# computes 10^x with powf and sums in the same order as the reference
+# ratings: the JAX suite's bar (tests/test_router_state.py). The kernel
+# replays in the reference's order and applies r + delta * coef as it
+# does; it takes 10^x from one ex2.approx and 1 / x from one rcp.approx
+# (a few ulp each, where the plain version rounds powf and a division
+# once), and the ELO update damps an error in one step's expected score,
+# so the two stay far inside this bar at every T tested
 R_RTOL, R_ATOL = 1e-5, 1e-3
 # attention: the JAX suite's bars between its backends
 # (tests/test_kernels.py), 2e-3 in fp32 and 3e-2 in bf16, where the
@@ -96,8 +102,13 @@ def test_similarity_topk_ties_lowest_index_first(dev):
                        + 5 * torch.arange(6, device=dev)[:, None])
 
 
+# and every segment width (M <= 8, 16, 32: 4, 2, 1 queries a warp) at
+# every chunk tail (T below, just above and at multiples of the
+# 32-record chunk), at 37 queries, which fill no whole warp or block
 @pytest.mark.parametrize("nq,t,m", [(1, 1, 1), (5, 33, 10), (300, 160, 10),
-                                    (64, 70, MAX_MODELS)])
+                                    (64, 70, MAX_MODELS)]
+                         + [(37, t, m) for m in (1, 2, 10, 16, 17, 32)
+                            for t in (1, 31, 33, 160, 4097)])
 def test_elo_scan_kernel_matches_plain(dev, nq, t, m):
     rng = np.random.default_rng(t * m)
     r0 = torch.tensor(1000 + 50 * rng.normal(size=(nq, m)),
@@ -164,7 +175,7 @@ def test_elo_scan_rejects_too_many_models(dev):
         elo_scan_cuda(r0, a, a, a.float(), a.bool())
 
 
-@pytest.mark.parametrize("size", [0, 700, 1500])
+@pytest.mark.parametrize("size", [0, 5, 19, 700, 1500])
 def test_retrieve_replay_select_matches_reference(dev, size):
     rng = np.random.default_rng(size)
     nq, c, d, r, m, n = 64, 1500, 256, 8, 10, 20
@@ -198,6 +209,102 @@ def test_retrieve_replay_select_matches_reference(dev, size):
                                atol=R_ATOL)
     if size == 0:
         assert torch.equal(got[0], init.expand(nq, m))
+
+
+@pytest.mark.parametrize("m", [5, 10, 17])
+def test_elo_scan_select_segments_do_not_leak(dev, m):
+    """Neighbouring queries of one warp, each in its own segment: exact
+    ties (flat scores), budgets that fit nothing (the first cheapest
+    model), and distinct scores, side by side. Without records the
+    ratings are the inputs exactly, so the choices must equal the plain
+    version's exactly, ties included."""
+    nq = 24
+    rng = np.random.default_rng(m)
+    r0 = np.full((nq, m), 1000.0, np.float32)
+    r0[1::3] += rng.normal(size=(nq // 3, m)).astype(np.float32) * 50
+    costs = np.asarray(rng.permutation(np.arange(1, m + 1) % 4 + 1),
+                       np.float32)
+    bud = np.tile(np.asarray([2.5, 0.5, 10.0], np.float32), nq // 3)
+    bud[2::6] = 0.0                                    # nothing fits
+    args = [torch.tensor(x, device=dev) for x in (r0, np.full(m, 1000.0,
+                                                              np.float32),
+                                                  costs, bud)]
+    a = torch.zeros((nq, 4), dtype=torch.int32, device=dev)
+    s = torch.zeros((nq, 4), device=dev)
+    v = torch.zeros((nq, 4), dtype=torch.bool, device=dev)
+    got_r, got_c = elo_scan_select_cuda(args[0], a, a, s, v, *args[1:])
+    want_r, want_c = ref.elo_scan_select_ref(args[0], a, a, s, v,
+                                             *args[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(got_r, args[0])
+    assert torch.equal(got_c, want_c)
+
+
+def _panels(rng, c, r, m, dev):
+    return _records(rng, c, r, m, dev, p_valid=0.8)
+
+
+@pytest.mark.parametrize("m,nq,n,p_hit", [(10, 1024, 20, 1.0),
+                                          (10, 37, 20, 0.7), (4, 9, 3, 0.7),
+                                          (32, 5, 40, 0.7), (10, 13, 20, 0.0)])
+def test_gather_route_equals_pregathered(dev, m, nq, n, p_hit):
+    """The gather route reads the records in place through the top-n rows,
+    farthest first, with a miss (hit False) as invalid records: the same
+    records through the same arithmetic as `gather_records` + the
+    pre-gathered kernel, so ratings and choices are equal bit for bit;
+    with every row a miss, the ratings are the prior exactly."""
+    rng = np.random.default_rng(nq + n)
+    c, r = 300, 8
+    panels = _panels(rng, c, r, m, dev)
+    top_i = torch.tensor(rng.integers(0, c, (nq, n)), device=dev)
+    hit = torch.tensor(rng.random((nq, n)) < p_hit, device=dev)
+    g = torch.tensor(1000 + 30 * rng.normal(size=m), dtype=torch.float32,
+                     device=dev)
+    costs = torch.tensor(rng.uniform(0.5, 40, m), dtype=torch.float32,
+                         device=dev)
+    bud = torch.tensor(rng.uniform(0.0, 45, nq), dtype=torch.float32,
+                       device=dev)
+    recs = ref.gather_records(*panels, top_i, hit)
+    prior = g.expand(nq, m)
+    got = elo_scan_gather_select_cuda(g, panels, top_i, hit, g, costs, bud)
+    want = elo_scan_select_cuda(prior, *recs, g, costs, bud)
+    local = elo_scan_gather_cuda(g, panels, top_i, hit)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(local, elo_scan_cuda(prior, *recs))
+    torch.testing.assert_close(local, ref.elo_scan_gather_ref(
+        g, panels, top_i, hit), rtol=R_RTOL, atol=R_ATOL)
+    if p_hit == 0.0:
+        assert torch.equal(local, prior)
+
+
+def test_fold_of_262144_steps_matches_host_folds(dev):
+    """A fold at the fit's shape (Q = 1, 262,144 steps, the first 196,000
+    valid) against host folds of the plain formula: no farther from the
+    float64 fold than max(2 x the float32 fold's distance, R_ATOL +
+    R_RTOL |r|) per model. The float32 host fold measures what fp32
+    rounding alone does over this many steps, so the bar scales with it;
+    dropping the last valid record misses it by orders of magnitude."""
+    rng = np.random.default_rng(262144)
+    t, valid, m = 262144, 196000, 10
+    a = rng.integers(0, m, t).astype(np.int32)
+    b = ((a + rng.integers(1, m, t)) % m).astype(np.int32)
+    s = rng.choice([0.0, 0.5, 1.0], t).astype(np.float32)
+    v = np.arange(t) < valid
+    r0 = np.full(m, 1000.0)
+    host = {dt: ref.elo_fold_host(r0, a[:valid], b[:valid], s[:valid],
+                                  v[:valid], dtype=dt)
+            for dt in (np.float32, np.float64)}
+    r64 = host[np.float64]
+    bar = np.maximum(2 * np.abs(host[np.float32] - r64),
+                     R_ATOL + R_RTOL * np.abs(r64))
+    recs = [torch.tensor(x, device=dev)[None] for x in (a, b, s, v)]
+    init = torch.full((1, m), 1000.0, device=dev)
+    got = elo_scan_cuda(init, *recs)[0].cpu().numpy()
+    assert np.all(np.abs(got - r64) <= bar)
+    recs[3][0, valid - 1] = False
+    ctl = elo_scan_cuda(init, *recs)[0].cpu().numpy()
+    assert np.max(np.abs(ctl - r64) / bar) >= 10
 
 
 def test_wrappers_count_launches(dev):

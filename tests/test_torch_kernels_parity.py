@@ -181,7 +181,9 @@ def _chain_case(seed, size, dup=False, q_n=10, c=120, d=16, r=4, m=6):
     return q, emb, a, b, s, v, np.int32(size), init, g, costs, bud
 
 
-CHAIN_CASES = [(0, 0, False), (1, 70, False), (2, 120, False),
+# (seed, size, duplicate embeddings): an empty DB, fewer live rows than
+# n = 20 (misses), a part-full and a full DB, ties from duplicate rows
+CHAIN_CASES = [(0, 0, False), (4, 7, False), (1, 70, False), (2, 120, False),
                (3, 120, True)]
 
 
