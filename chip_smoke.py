@@ -56,7 +56,20 @@ together), then:
      the newest key at every decode, and compares the calls, the logits
      and the tokens;
   9. times the time to first token and the decode step per model, the
-     serve() p50, peak memory, and profiles one qwen3-8b decode step.
+     serve() p50, peak memory, and profiles one qwen3-8b decode step;
+ 10. drives the launcher (`repro_torch.launch.serve`): build_engine() at
+     its defaults (reduced ARCH_IDS[:4]) serves 8 requests through
+     serve() and 8 through `--admission`; holds whisper-large-v3's five
+     attention call sites (encoder flash over 1500 frames, causal
+     decoder flash, cross flash with S != S_kv, self decode, cross
+     decode over 1500 rows) against their plain versions with controls
+     and times them; then serves the launcher's default fleet at full
+     width and depth (whisper-large-v3, olmo-1b, mamba2-780m, qwen3-8b,
+     groups padded to 1024 tokens) behind one router: 2 serve() calls
+     of 16 requests and 32 requests through an AdmissionQueue at
+     Poisson arrivals of 20 req/s, every kernel and every whisper call
+     site launched, peak memory under 80 GB; then whisper and mamba2
+     kernel path against plain path, their times and profiles.
 
 Any mismatch or exception exits non-zero. The last line of standard
 output is {"ok": true, "device": {...}}; the line before it is the
@@ -71,7 +84,6 @@ import statistics
 import subprocess
 import sys
 import time
-import zlib
 from pathlib import Path
 
 sys.modules["jax"] = None           # the port must not need JAX
@@ -107,6 +119,35 @@ RAGGED_S, WINDOW = 777, 256
 COMPARE_LENS = {"qwen3-8b": (900, 613),
                 "olmo-1b": (1024, 977, 901, 850, 777, 640, 600, 512, 433,
                             300, 256, 200, 128)}
+# the launcher's default fleet (launch/serve.py: ARCH_IDS[:4]) at full
+# width: groups padded to LAUNCH_PAD_LEN tokens (a multiple of mamba2's
+# SSD chunk, 256), LAUNCH_CALLS serve() calls of SERVE_BATCH requests,
+# then ADMIT_REQUESTS through the admission queue at ADMIT_RATE req/s;
+# LAUNCH_SEED draws the requests (every model gets a group with it)
+LAUNCH_FLEET = ("whisper-large-v3", "olmo-1b", "mamba2-780m", "qwen3-8b")
+LAUNCH_PAD_LEN = 1024
+LAUNCH_CALLS, LAUNCH_SEED = 2, 0
+ADMIT_REQUESTS, ADMIT_RATE = 32, 20.0
+# whisper-large-v3's attention call sites at its serving shapes: flash
+# (B, S, S_kv, H, Hk, dh, causal) and decode (B, T, H, Hk, dh); the
+# encoder over 1500 frames, the cross prefill of a 1024-token prompt
+# against them, the causal decoder, and one token against the self
+# cache (SERVE_MAX_LEN rows) and the cross cache (1500 rows)
+WHISPER_FLASH = {"encoder": (8, 1500, 1500, 20, 20, 64, False),
+                 "cross prefill": (8, 1024, 1500, 20, 20, 64, False),
+                 "decoder": (8, 1024, 1024, 20, 20, 64, True)}
+WHISPER_DECODE = {"self decode": (16, SERVE_MAX_LEN, 20, 20, 64),
+                  "cross decode": (16, 1500, 20, 20, 64)}
+# the kernels line's entries for those sites, by the count_sites key of
+# their launches on the launcher fleet's run
+WHISPER_SITES = {"whisper flash encoder": "flash encoder",
+                 "whisper flash cross prefill": "flash cross",
+                 "whisper flash decoder": "flash causal",
+                 "whisper self decode": "decode self",
+                 "whisper cross decode": "decode cross"}
+COMPARE_LENS.update({
+    "whisper-large-v3": (1024, 900, 777, 640, 512, 300, 200, 128),
+    "mamba2-780m": (1024, 700, 513, 256)})   # padded to 1024: 4 chunks
 # tolerances: the JAX suite's own bars between its backends
 SIM_TOL = 1e-5                     # similarity (tests/test_kernels.py)
 R_RTOL, R_ATOL = 1e-5, 1e-3        # ratings (tests/test_router_state.py)
@@ -1167,17 +1208,11 @@ def check_decode(dev, kernels, stats):
 # phase 7: the serving path at full width
 # ---------------------------------------------------------------------------
 
-def quality_oracle(emb, mi):
-    """The serving launcher's simulated user, with a deterministic hash
-    (crc32) in place of Python's salted one, so runs repeat."""
-    return float(np.random.default_rng(
-        zlib.crc32(emb[:2].tobytes() + bytes([mi]))).random())
-
-
 def build_serving(dev, stats):
     from repro_torch.configs import get_config
     from repro_torch.core.router import EagleConfig, EagleRouter
     from repro_torch.data.routerbench import make_corpus, pairwise_feedback
+    from repro_torch.launch.serve import quality_oracle
     from repro_torch.serving import FleetModel, ServingEngine
     names = list(FLEET)
     corpus = make_corpus(seed=0, n_per_dataset=60, dim=DIM,
@@ -1232,6 +1267,20 @@ def serve_requests(corpus, rng, n, vocab):
             for k, i in enumerate(idx)]
 
 
+def check_responses(engine, reqs, res, where):
+    """Response i answers request i: its rid, max_new_tokens tokens, each
+    in its model's vocabulary."""
+    if len(res) != len(reqs):
+        fail(f"{where}: {len(res)} responses to {len(reqs)} requests")
+    for req, r in zip(reqs, res):
+        vocab = engine.fleet[r.model].cfg.vocab
+        if r.rid != req.rid or r.tokens.shape != (req.max_new_tokens,) \
+                or r.tokens.min() < 0 or r.tokens.max() >= vocab:
+            fail(f"{where}: response {r.rid} from {r.model}: tokens of "
+                 f"shape {r.tokens.shape} in [{r.tokens.min()}, "
+                 f"{r.tokens.max()}]")
+
+
 def drive_serving(engine, corpus, stats):
     rng = np.random.default_rng(0)
     db0 = engine.router.db.size
@@ -1243,15 +1292,7 @@ def drive_serving(engine, corpus, stats):
         res = engine.serve(reqs)
         torch.cuda.synchronize()
         wall.append(time.perf_counter() - t0)
-        if len(res) != len(reqs):
-            fail(f"serve() answered {len(res)} of {len(reqs)} requests")
-        for req, r in zip(reqs, res):
-            vocab = engine.fleet[r.model].cfg.vocab
-            if r.rid != req.rid or r.tokens.shape != (MAX_NEW,) \
-                    or r.tokens.min() < 0 or r.tokens.max() >= vocab:
-                fail(f"response {r.rid} from {r.model}: tokens of shape "
-                     f"{r.tokens.shape} in [{r.tokens.min()}, "
-                     f"{r.tokens.max()}]")
+        check_responses(engine, reqs, res, f"serve() call {call}")
         for name in {r.model for r in res}:
             groups[name] += 1
         st = engine.stats
@@ -1316,20 +1357,24 @@ def kernels_held(worst, drop):
 
 
 @torch.inference_mode()
-def compare_model_paths(engine, stats):
+def compare_model_paths(engine, stats, names=FLEET):
     """A padded group of each fleet model through prefill + 4 decode
     steps three ways, fed the same tokens: the kernels, the plain attend,
     and a control, the kernel path with the newest key dropped at every
-    decode (kv_len - 1). Every kernel call of the kernel path must pass
-    its bar (flash or decode) against its plain version on the same
-    inputs, and the control's decode calls must fail it; the logits
-    must lie within LOGIT_REL_BAR of the plain path's."""
+    decode (kv_len - 1; whisper's cross decode: the last frame). Every
+    kernel call of the kernel path must pass its bar (flash or decode)
+    against its plain version on the same inputs, and the control's
+    decode calls must fail it; the logits must lie within LOGIT_REL_BAR
+    of the plain path's. whisper's encoder reads seeded random frame
+    embeddings (distinct rows; the served stub is zeros). mamba2 has no
+    attention: its paths run the same code, so it has no control and no
+    kernel call to hold, and its logits are held to the same bar."""
     from repro_torch.models import transformer as T
     # path: (backend, keys dropped from kv_len; None: calls not held)
     paths = {"kernels": ("cuda", 0), "plain": ("reference", None),
              "control": ("cuda", 1)}
-    stats["model_paths"] = {}
-    for name in FLEET:
+    stats.setdefault("model_paths", {})
+    for name in names:
         m = engine.fleet[name]
         cfg, dev, lens = m.cfg, m.device, COMPARE_LENS[name]
         rng = np.random.default_rng(4)
@@ -1338,6 +1383,11 @@ def compare_model_paths(engine, stats):
         for row, n in enumerate(lens):
             toks[row, :n] = rng.integers(0, cfg.vocab, n)
         toks = torch.tensor(toks, dtype=torch.int64, device=dev)
+        enc = None
+        if cfg.arch_type == "encdec":
+            enc = torch.randn((len(lens), cfg.n_audio_frames, cfg.d_model),
+                              generator=torch.Generator(
+                                  device=dev).manual_seed(4), device=dev)
         worst = {p: dict(flash_attention=0.0, decode_attention=0.0)
                  for p in ("kernels", "control")}
 
@@ -1349,7 +1399,7 @@ def compare_model_paths(engine, stats):
 
         out = {p: run(p, lambda b: T.prefill(
                    cfg, m.params, toks, SERVE_MAX_LEN,
-                   cache_dtype=torch.float32, backend=b))
+                   cache_dtype=torch.float32, backend=b, enc_embeds=enc))
                for p in paths}
         rel, ctl_rel, flips, ties = [], [], 0, 0
         for step in range(5):
@@ -1378,7 +1428,7 @@ def compare_model_paths(engine, stats):
         if max(held.values()) > 1.0:
             fail(f"{name}: a kernel call on the model path misses its "
                  f"plain version by more than its bar: {held}")
-        if not ctl["decode_attention"] > 1.0:
+        if cfg.arch_type != "ssm" and not ctl["decode_attention"] > 1.0:
             fail(f"{name}: the control's decode calls pass the attention "
                  f"bar ({ctl['decode_attention']})")
         if max(rel) > LOGIT_REL_BAR:
@@ -1402,20 +1452,38 @@ def compare_model_paths(engine, stats):
 # ---------------------------------------------------------------------------
 
 @torch.inference_mode()
-def time_serving(engine, stats):
+def time_serving(engine, stats, names=FLEET):
+    """Time to first token (prefill of TIME_BATCH x TIME_LEN; whisper's
+    includes its encoder over the zero stub, which is also timed alone)
+    and the decode step at batch TIME_BATCH, per model."""
     from repro_torch.models import transformer as T
     rng = np.random.default_rng(5)
-    out = {}
-    for name, m in engine.fleet.items():
+    out = stats.setdefault("serve_times", {})
+    for name in names:
+        m = engine.fleet[name]
         cfg = m.cfg
         toks = torch.tensor(rng.integers(0, cfg.vocab,
                                          (TIME_BATCH, TIME_LEN)),
                             dtype=torch.int64, device=m.device)
+        enc = None
+        if cfg.arch_type == "encdec":
+            enc = torch.zeros((TIME_BATCH, cfg.n_audio_frames, cfg.d_model),
+                              device=m.device)
+            enc_ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                T._encode(cfg, m.params, enc, "cuda")
+                torch.cuda.synchronize()
+                enc_ms.append((time.perf_counter() - t0) * 1e3)
+            log_time(stats, f"{name}: encoder over {TIME_BATCH} x "
+                     f"{cfg.n_audio_frames} frames p50 "
+                     f"{statistics.median(enc_ms):.2f} ms of {enc_ms}")
         ttft = []
         for _ in range(3):
             t0 = time.perf_counter()
             logits, cache = T.prefill(cfg, m.params, toks, SERVE_MAX_LEN,
-                                      cache_dtype=torch.float32)
+                                      cache_dtype=torch.float32,
+                                      enc_embeds=enc)
             torch.cuda.synchronize()
             ttft.append((time.perf_counter() - t0) * 1e3)
         tok = logits.argmax(-1)[:, None]
@@ -1431,50 +1499,399 @@ def time_serving(engine, stats):
         out[name] = dict(ttft_ms=statistics.median(ttft),
                          decode_step_ms=step_ms,
                          tokens_per_s=TIME_BATCH / step_ms * 1e3)
+        if enc is not None:
+            out[name]["encoder_ms"] = statistics.median(enc_ms)
         log_time(stats,
                  f"{name}: time to first token (prefill of {TIME_BATCH} x "
                  f"{TIME_LEN}) p50 {out[name]['ttft_ms']:.2f} ms of "
                  f"{ttft}; decode step at batch {TIME_BATCH}, context "
                  f"~{TIME_LEN}: {step_ms:.3f} ms = "
                  f"{out[name]['tokens_per_s']:.1f} tokens/s")
-    stats["serve_times"] = out
-    del cache
+        del cache
 
 
 @torch.inference_mode()
-def profile_decode(engine, stats):
-    """Device time by op over 3 qwen3-8b decode steps at batch 8."""
+def profile_decode(engine, stats, name="qwen3-8b", what="decode"):
+    """Device time by op of one fleet model at batch TIME_BATCH, context
+    TIME_LEN: over 3 decode steps, or over one prefill (what="prefill";
+    whisper's includes its encoder over the zero stub)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer as T
-    m = engine.fleet["qwen3-8b"]
+    m = engine.fleet[name]
     toks = torch.zeros((TIME_BATCH, TIME_LEN), dtype=torch.int64,
                        device=m.device)
-    logits, cache = T.prefill(m.cfg, m.params, toks, SERVE_MAX_LEN,
-                              cache_dtype=torch.float32)
+    enc = None
+    if m.cfg.arch_type == "encdec":
+        enc = torch.zeros((TIME_BATCH, m.cfg.n_audio_frames, m.cfg.d_model),
+                          device=m.device)
+
+    def prefill():
+        return T.prefill(m.cfg, m.params, toks, SERVE_MAX_LEN,
+                         cache_dtype=torch.float32, enc_embeds=enc)
+    logits, cache = prefill()
     tok = logits.argmax(-1)[:, None]
     T.decode_step(m.cfg, m.params, cache, tok, TIME_LEN)
     torch.cuda.synchronize()
+    n = 3 if what == "decode" else 1
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(3):
-            T.decode_step(m.cfg, m.params, cache, tok, TIME_LEN + 1 + i)
+        for i in range(n):
+            if what == "decode":
+                T.decode_step(m.cfg, m.params, cache, tok, TIME_LEN + 1 + i)
+            else:
+                prefill()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-    rows = sorted(((e.key, e.self_device_time_total / 1e3 / 3)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / n)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
     device_ms = sum(ms for _, ms in rows)
-    top = [(name[:60], ms) for name, ms in rows[:10]]
+    top = [(op[:60], ms) for op, ms in rows[:10]]
     log_time(stats,
-             f"profile qwen3-8b decode step, batch {TIME_BATCH}: wall "
-             f"{wall_ms} ms/step under the profiler, device {device_ms} "
-             f"ms/step, busy {device_ms / wall_ms}; top: {top}")
-    stats["profile_decode"] = dict(wall_ms=wall_ms, device_ms=device_ms,
-                                   top=top)
+             f"profile {name} {what}{' step' if n == 3 else ''}, batch "
+             f"{TIME_BATCH}: wall {wall_ms} ms under the profiler, device "
+             f"{device_ms} ms, busy {device_ms / wall_ms}; top: {top}")
+    key = "profile_decode" if (name, what) == ("qwen3-8b", "decode") \
+        else f"profile_{what}_{name}"
+    stats[key] = dict(wall_ms=wall_ms, device_ms=device_ms, top=top)
+    del cache
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the launcher and its default fleet
+# ---------------------------------------------------------------------------
+
+def drive_launcher(stats):
+    """`launch.serve` at its defaults on the card: build_engine() (the
+    reduced ARCH_IDS[:4], max_len 64, a router at D = 64), 8 requests
+    through serve(), then 8 through `_serve_admitted` at the default
+    rate, window and wait (--admission); the requests as `main` makes
+    them."""
+    from repro_torch import obs as OBS
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as LS
+    from repro_torch.serving import Request
+    t0 = time.perf_counter()
+    # a telemetry scope of its own: `stats` counts this engine alone
+    engine, corpus = LS.build_engine(obs=OBS.Observability())
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    reqs = [Request(tokens=rng.integers(0, 100, rng.integers(4, 12)).astype(
+                        np.int32),
+                    embedding=corpus.embeddings[i], budget=5.0,
+                    max_new_tokens=4, rid=k)
+            for k, i in enumerate(corpus.test_idx[:16])]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = engine.serve(reqs[:8])
+    serve_s = time.perf_counter() - t0
+    check_responses(engine, reqs[:8], res, "launcher serve()")
+    t0 = time.perf_counter()
+    adm = LS._serve_admitted(engine, reqs[8:], 500.0, 8, 5.0)
+    admit_s = time.perf_counter() - t0
+    check_responses(engine, reqs[8:], adm, "launcher --admission")
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    models = sorted({r.model for r in res + adm})
+    log_time(stats, f"launcher at its defaults (reduced {list(engine.fleet)}"
+             f"): built in {build_s:.1f} s; serve() of 8 in {serve_s:.3f} "
+             f"s, --admission of 8 in {admit_s:.3f} s; models answering "
+             f"{models}; stats {engine.stats}; launches {counts}")
+    stats["launcher"] = dict(build_s=build_s, serve_s=serve_s,
+                             admission_s=admit_s, models=models,
+                             stats=engine.stats, launches=counts)
+    del engine
+
+
+def _whisper_site(kernels, key, name, nbytes, flops, got_ms, plain_ms,
+                  lib_ms, err):
+    bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    kernels[key] = dict(
+        name=name, route="cuda",
+        source="src/repro_torch/kernels/csrc/" + (
+            "flash_attention.cu" if "flash" in key
+            else "decode_attention.cu"),
+        replaces=("src/repro/kernels/flash_attention.py:85"
+                  if "flash" in key
+                  else "src/repro/kernels/decode_attention.py:75"),
+        max_abs_err=err, ms=got_ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=lib_ms)
+    return bms, by
+
+
+def check_whisper_attention(dev, kernels, stats):
+    """whisper-large-v3's five attention call sites in bf16 at its serving
+    shapes (WHISPER_FLASH, WHISPER_DECODE), each against its plain
+    version (the flash and decode bars of phase 6) with a control, one
+    key dropped, that must fail by CONTROL_MIN: the encoder and the
+    cross prefill drop the last key for every row (held on all rows),
+    the causal decoder each row's own key (rows with at least S/2 keys),
+    the decodes the newest row (kv_len - 1). Each timed beside its
+    bound and SDPA."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    gen = torch.Generator(device=dev).manual_seed(6)
+    report = {}
+    for site, (b, s, t, h, hk, dh, causal) in WHISPER_FLASH.items():
+        q = _bf16(gen, (b, s, h, dh), dev)
+        k = _bf16(gen, (b, t, hk, dh), dev)
+        v = _bf16(gen, (b, t, hk, dh), dev)
+        got = flash_attention_cuda(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        atol = flash_atol(q, k, v, causal=causal)
+        err, ratio = flash_check(got, want, atol)
+        if causal:
+            ctl = flash_attention_cuda(q[:, 1:], k[:, :-1], v[:, :-1],
+                                       causal=True)
+            control = flash_check(ctl[:, s // 2:], want[:, 1 + s // 2:],
+                                  atol[:, 1 + s // 2:])[1]
+        else:
+            ctl = flash_attention_cuda(q, k[:, :-1], v[:, :-1], causal=False)
+            control = flash_check(ctl, want, atol)[1]
+        if not (ratio <= 1.0 and control >= CONTROL_MIN):
+            fail(f"whisper flash {site} B={b} S={s} S_kv={t}: error over "
+                 f"the bar {ratio} (at most 1), control {control} (at "
+                 f"least {CONTROL_MIN})")
+        ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal),
+                     20)
+        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                        causal=causal), 3)
+        lib = cuda_ms(lambda: _sdpa(q, k, v, is_causal=causal), 20)
+        nbytes = 2.0 * (2 * b * s * h * dh + 2 * b * t * hk * dh)
+        pairs = s * (s + 1) / 2 if causal else s * t
+        flops = 4.0 * b * h * dh * pairs
+        bms, by = _whisper_site(kernels, f"whisper flash {site}",
+                                f"flash_attention (whisper {site})",
+                                nbytes, flops, ms, plain, lib, err)
+        report[site] = dict(max_abs_err=err, err_over_bar=ratio,
+                            control_over_bar=control, ms=ms, plain_ms=plain,
+                            library_ms=lib, bound_ms=bms, bound_by=by)
+        log_time(stats,
+                 f"flash_attention bf16 whisper {site} B={b} S={s} "
+                 f"S_kv={t} H={h} Hk={hk} dh={dh} causal={causal}: max abs "
+                 f"err {err}, over the bar {ratio}, control {control}; "
+                 f"kernel_ms={ms} ({bms / ms} of the bound) plain_ms={plain}"
+                 f" library_ms(SDPA)={lib} (kernel / SDPA {ms / lib}) "
+                 f"bound_ms={bms} ({by})")
+    for site, (b, t, h, hk, dh) in WHISPER_DECODE.items():
+        q = _bf16(gen, (b, h, dh), dev)
+        k = torch.randn((b, t, hk, dh), generator=gen, device=dev)  # fp32
+        v = torch.randn((b, t, hk, dh), generator=gen, device=dev)
+        if site == "cross decode":        # every frame, every row
+            kv_len = torch.full((b,), t, dtype=torch.int32, device=dev)
+        else:                             # prompts of 128..1024 + steps
+            kv_len = torch.randint(129, t + 1, (b,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+        got = decode_attention_cuda(q, k, v, kv_len)
+        want = ref.decode_attention_ref(q, k.to(q.dtype), v.to(q.dtype),
+                                        kv_len)
+        err, ratio = decode_check(got, want)
+        ctl = decode_attention_cuda(q, k, v, kv_len - 1)
+        control = decode_check(ctl, want)[1]
+        if not (ratio <= 1.0 and control >= CONTROL_MIN):
+            fail(f"whisper {site} B={b} T={t}: error over the bar {ratio} "
+                 f"(at most 1), control {control} (at least "
+                 f"{CONTROL_MIN})")
+        ms = cuda_ms(lambda: decode_attention_cuda(q, k, v, kv_len), 1000)
+        plain = cuda_ms(lambda: ref.decode_attention_ref(q, k, v, kv_len), 5)
+        mask = (torch.arange(t, device=dev)[None]
+                < kv_len[:, None])[:, None, None]
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.float()[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True), 20)
+        n_kv = float(kv_len.sum())
+        nbytes = n_kv * hk * dh * 4 * 2 + 2.0 * 2 * b * h * dh + 4 * b
+        bms, by = _whisper_site(kernels, f"whisper {site}",
+                                f"decode_attention (whisper {site})",
+                                nbytes, 4.0 * h * dh * n_kv, ms, plain, lib,
+                                err)
+        report[site] = dict(max_abs_err=err, err_over_bar=ratio,
+                            control_over_bar=control, ms=ms, plain_ms=plain,
+                            library_ms=lib, bound_ms=bms, bound_by=by)
+        log_time(stats,
+                 f"decode_attention q bf16, cache fp32, whisper {site} B={b} "
+                 f"T={t} H={h} Hk={hk} dh={dh}, {int(n_kv)} valid rows: max "
+                 f"abs err {err}, over the bar {ratio}, control {control}; "
+                 f"kernel_ms={ms} ({bms / ms} of the bound) plain_ms={plain}"
+                 f" library_ms(SDPA, fp32, mask)={lib} bound_ms={bms} ({by})")
+    stats["whisper_attention"] = report
+
+
+def build_launch_fleet(dev, serving, stats):
+    """A ServingEngine over ARCH_IDS[:4] at full width and depth
+    (whisper-large-v3 and mamba2-780m made here, olmo-1b and qwen3-8b
+    taken from the serving phase's engine: the same configs and
+    weights), bf16 compute, fp32 caches of SERVE_MAX_LEN rows, groups
+    padded to LAUNCH_PAD_LEN tokens (gen_bucket, gen_pad_len: mamba2's
+    chunk of 256 divides every group), behind a router fitted at
+    D = 1536 with the launcher's costs linspace(1, 8, 4)."""
+    from repro_torch import obs as OBS
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.core.router import EagleConfig, EagleRouter
+    from repro_torch.data.routerbench import make_corpus, pairwise_feedback
+    from repro_torch.launch.serve import quality_oracle
+    from repro_torch.serving import FleetModel, ServingEngine
+    names = list(ARCH_IDS[:4])
+    if tuple(names) != LAUNCH_FLEET:
+        fail(f"the launcher's default fleet is {names}")
+    corpus = make_corpus(seed=0, n_per_dataset=60, dim=DIM,
+                         model_names=names,
+                         costs=np.linspace(1.0, 8.0, len(names)))
+    fb = pairwise_feedback(corpus, corpus.train_idx, seed=0,
+                           pairs_per_query=4)
+    router = EagleRouter(names, corpus.costs, EagleConfig(embed_dim=DIM),
+                         db_capacity=1 << 15, device=dev)
+    router.fit(fb["emb"], fb["model_a"], fb["model_b"], fb["outcome"])
+    fleet = {}
+    for i, name in enumerate(names):
+        if name in serving.fleet:
+            fleet[name] = serving.fleet[name]
+            continue
+        t0 = time.perf_counter()
+        fleet[name] = FleetModel(get_config(name), seed=i,
+                                 max_len=SERVE_MAX_LEN, device=dev)
+        torch.cuda.synchronize()
+        cfg = fleet[name].cfg
+        n_params = sum(x.numel() for x in _leaves(fleet[name].params))
+        log(f"{name} ({cfg.arch_type}): {cfg.n_layers} layers"
+            f"{f' + {cfg.n_enc_layers} encoder' if cfg.n_enc_layers else ''}"
+            f", d_model {cfg.d_model}, {n_params / 1e9:.3f}B parameters, "
+            f"compute {cfg.dtype}; init + cast "
+            f"{time.perf_counter() - t0:.1f} s")
+    engine = ServingEngine(fleet, router, compare_rate=0.25, seed=0,
+                           quality_oracle=quality_oracle, gen_bucket=True,
+                           gen_pad_len=LAUNCH_PAD_LEN,
+                           obs=OBS.Observability())
+    engine.warmup()
+    torch.cuda.empty_cache()
+    return engine, corpus
+
+
+@contextlib.contextmanager
+def count_sites(engine, sites):
+    """Inside: each attention kernel launch attributed to its call site,
+    "<model> <site>", by the wrapper's own count before and after the
+    call (flash: causal, encoder (S = S_kv, no mask) or cross (S !=
+    S_kv); decode: cross over a model's n_audio_frames rows, else
+    self)."""
+    from unittest import mock
+    from repro_torch.kernels import _build
+    from repro_torch.models import layers as L
+    flash, decode = L.flash_attention_cuda, L.decode_attention_cuda
+    current = {}
+
+    def tally(kernel, site, fn, *a, **kw):
+        before = _build.launch_counts()[kernel]
+        out = fn(*a, **kw)
+        key = f"{current['model']} {site}"
+        sites[key] = sites.get(key, 0) + \
+            _build.launch_counts()[kernel] - before
+        return out
+
+    def flash_site(q, k, v, **kw):
+        site = "flash causal" if kw.get("causal", True) else \
+            "flash encoder" if k.shape[1] == q.shape[1] else "flash cross"
+        return tally("flash_attention", site, flash, q, k, v, **kw)
+
+    def decode_site(q, k, v, kv_len, **kw):
+        cfg = engine.fleet[current["model"]].cfg
+        site = "decode cross" if cfg.arch_type == "encdec" \
+            and k.shape[1] == cfg.n_audio_frames else "decode self"
+        return tally("decode_attention", site, decode, q, k, v, kv_len,
+                     **kw)
+
+    def tracked(name, generate):
+        def run(*a, **kw):
+            current["model"] = name
+            return generate(*a, **kw)
+        return run
+
+    for name, m in engine.fleet.items():
+        m.generate = tracked(name, m.generate)
+    try:
+        with mock.patch.object(L, "flash_attention_cuda", flash_site), \
+                mock.patch.object(L, "decode_attention_cuda", decode_site):
+            yield
+    finally:
+        for m in engine.fleet.values():
+            del m.generate
+
+
+def drive_launch_fleet(engine, corpus, stats):
+    """LAUNCH_CALLS serve() calls of SERVE_BATCH requests (prompts of
+    128..1024 tokens, MAX_NEW new tokens, budgets over [1, 10], 25% fed
+    back), then ADMIT_REQUESTS requests through an
+    AdmissionQueue.for_engine on the real clock at Poisson arrivals of
+    ADMIT_RATE req/s (`traffic.poisson_arrivals`, each request stamped
+    with its arrival time; the queue's defaults: window 32, max wait 5
+    ms). Every response is checked; every model must answer a group."""
+    from repro_torch.serving.admission import AdmissionQueue
+    from repro_torch.serving.traffic import poisson_arrivals
+    rng = np.random.default_rng(LAUNCH_SEED)
+    db0 = engine.router.db.size
+    wall, groups = [], {n: 0 for n in engine.fleet}
+    vocab = min(m.cfg.vocab for m in engine.fleet.values())
+    for call in range(LAUNCH_CALLS):
+        reqs = serve_requests(corpus, rng, SERVE_BATCH, vocab)
+        t0 = time.perf_counter()
+        res = engine.serve(reqs)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        check_responses(engine, reqs, res, f"serve() call {call}")
+        for name in {r.model for r in res}:
+            groups[name] += 1
+    queue = AdmissionQueue.for_engine(engine)
+    reqs = serve_requests(corpus, rng, ADMIT_REQUESTS, vocab)
+    arrivals = poisson_arrivals(ADMIT_RATE, ADMIT_REQUESTS, seed=LAUNCH_SEED)
+    # open loop on the real clock: every request whose arrival time has
+    # passed is submitted (stamped with that time) before the queue is
+    # pumped; then sleep to the next arrival or flush deadline
+    done, i, t0 = [], 0, time.perf_counter_ns()
+    due_at = [t0 + int(a) for a in arrivals]
+    while i < len(reqs) or queue.depth:
+        while i < len(reqs) and due_at[i] <= queue.now_ns():
+            reqs[i].arrival_ns = due_at[i]
+            if queue.submit(reqs[i]) is not None:
+                fail(f"the admission queue rejected request {reqs[i].rid}")
+            i += 1
+        done += queue.pump()
+        wake = [t for t in (due_at[i] if i < len(reqs) else None,
+                            queue.next_flush_ns()) if t is not None]
+        if wake:
+            time.sleep(max(0.0, (min(wake) - queue.now_ns()) / 1e9))
+    torch.cuda.synchronize()
+    check_responses(engine, reqs, sorted((c.response for c in done),
+                                         key=lambda r: r.rid), "admission")
+    for name in {c.response.model for c in done}:
+        groups[name] += 1
+    summary = queue.summary()
+    waits = [c.wait_us / 1e3 for c in done]
+    e2e = [c.e2e_us / 1e3 for c in done]
+    st = engine.stats
+    if engine.router.db.size != db0 + st["feedback"] or not st["commits"]:
+        fail(f"feedback not committed: {st}, DB {engine.router.db.size} "
+             f"rows on {db0}")
+    if min(groups.values()) == 0:
+        fail(f"a model of the launcher's fleet served no group: {groups}")
+    p50 = statistics.median(wall)
+    log_time(stats,
+             f"launcher fleet at full width: {LAUNCH_CALLS} serve() calls "
+             f"of {SERVE_BATCH}: wall s {wall}, p50 {p50:.3f} s; admission "
+             f"of {ADMIT_REQUESTS} at {ADMIT_RATE} req/s: {summary}, "
+             f"flushes (reason, n) "
+             f"{[(f.reason, f.n) for f in queue.flush_log]}, wait ms p50 "
+             f"{statistics.median(waits):.1f} max {max(waits):.1f}, e2e ms "
+             f"p50 {statistics.median(e2e):.1f} max {max(e2e):.1f}; stats "
+             f"{st}; groups per model {groups}")
+    stats["launch_fleet"] = dict(
+        serve_wall_s=wall, serve_p50_s=p50, admission=summary,
+        flushes=[(f.reason, f.n) for f in queue.flush_log],
+        wait_ms=waits, e2e_ms=e2e, stats=st, groups=groups)
 
 
 def main() -> int:
@@ -1560,14 +1977,52 @@ def main() -> int:
     time_serving(engine, stats)
     profile_decode(engine, stats)
 
+    drive_launcher(stats)
+    check_whisper_attention(dev, kernels, stats)
+    torch.cuda.empty_cache()
+    launch_engine, launch_corpus = build_launch_fleet(dev, engine, stats)
+    del engine, serve_corpus     # olmo-1b and qwen3-8b live on in the fleet
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sites = {}
+    _build.reset_launches()
+    with count_sites(launch_engine, sites):
+        drive_launch_fleet(launch_engine, launch_corpus, stats)
+    torch.cuda.synchronize()
+    launches["launch"] = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    stats.update(launch_sites=sites, launch_peak_mem_gb=peak)
+    log(f"launches on the launcher fleet's run: {launches['launch']}; by "
+        f"call site: {sites}")
+    log_time(stats, f"peak device memory of the launcher fleet's run "
+             f"(four models' weights, caches, activations): {peak:.2f} GB")
+    missing = [k for k, n in launches["launch"].items() if n == 0] + [
+        k for k, site in WHISPER_SITES.items()
+        if not sites.get(f"whisper-large-v3 {site}")]
+    if missing:
+        fail(f"never launched on the launcher fleet's run: {missing}")
+    if peak >= 80.0:
+        fail(f"the launcher fleet's peak device memory {peak:.2f} GB")
+    new_models = ("whisper-large-v3", "mamba2-780m")
+    compare_model_paths(launch_engine, stats, names=new_models)
+    time_serving(launch_engine, stats, names=new_models)
+    for name in new_models:
+        profile_decode(launch_engine, stats, name)
+    profile_decode(launch_engine, stats, "mamba2-780m", what="prefill")
+
     if any(m == "jax" or m.startswith("jax.") or m == "repro"
            or m.startswith("repro.") for m, v in sys.modules.items()
            if v is not None):
         fail("JAX or the JAX package was imported")
     for name, entry in kernels.items():
+        if name in WHISPER_SITES:
+            entry["launches"] = sites[f"whisper-large-v3 "
+                                      f"{WHISPER_SITES[name]}"]
+            continue
         path = "route" if name in ROUTE_KERNELS else "serve"
         entry["launches"] = launches[path][name]
-    order = ROUTE_KERNELS + ("flash_attention", "decode_attention")
+    order = ROUTE_KERNELS + ("flash_attention", "decode_attention") \
+        + tuple(WHISPER_SITES)
     line = {"kernels": [kernels[k] for k in order]}
     stats["kernels"] = line["kernels"]
     (out / "chip_smoke.json").write_text(json.dumps(stats, indent=1))

@@ -50,10 +50,12 @@ _FLATTEN = {"wq": lambda a: a.reshape(a.shape[0], -1),
 def model_params_from_numpy(cfg: ModelConfig, tree: Mapping,
                             device: DeviceLike = None) -> Params:
     """The port's parameters (`transformer.init_params`' layout) from a
-    dense model's pytree in the JAX package's layout, each leaf taken
-    with `np.asarray`: the stacked (L, ...) block leaves are split per
-    layer and the attention projections flattened to 2-D. Values and the
-    type `cfg.param_dtype` are kept exactly."""
+    model's pytree in the JAX package's layout, each leaf taken with
+    `np.asarray`: the stacked (L, ...) leaves of every block group
+    (dense and decoder blocks with their cross-attention, encoder
+    blocks, mamba2 blocks) are split per layer and the attention
+    projections flattened to 2-D. Values and the type `cfg.param_dtype`
+    are kept exactly."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
@@ -63,15 +65,22 @@ def model_params_from_numpy(cfg: ModelConfig, tree: Mapping,
         return torch.tensor(_FLATTEN.get(name, lambda x: x)(a),
                             device=dev).to(dtype)
 
+    def per_layer(blocks, n):
+        leaves = {group: {name: np.asarray(leaf, np.float32)
+                          for name, leaf in sub.items()}
+                  for group, sub in blocks.items()}
+        return [{group: {name: t(leaf[i], name)
+                         for name, leaf in sub.items()}
+                 for group, sub in leaves.items()}
+                for i in range(n)]
+
+    norm = lambda p: {k: t(v) for k, v in p.items()}
     out: Params = {"embed": t(tree["embed"]),
-                   "final_norm": {k: t(v)
-                                  for k, v in tree["final_norm"].items()}}
+                   "final_norm": norm(tree["final_norm"])}
     if "lm_head" in tree:
         out["lm_head"] = t(tree["lm_head"])
-    blocks = tree["blocks"]
-    out["blocks"] = [
-        {group: {name: t(np.asarray(leaf)[i], name)
-                 for name, leaf in blocks[group].items()}
-         for group in ("attn_norm", "mlp_norm", "attn", "ffn")}
-        for i in range(cfg.n_layers)]
+    out["blocks"] = per_layer(tree["blocks"], cfg.n_layers)
+    if cfg.arch_type == "encdec":
+        out["enc_blocks"] = per_layer(tree["enc_blocks"], cfg.n_enc_layers)
+        out["enc_norm"] = norm(tree["enc_norm"])
     return out

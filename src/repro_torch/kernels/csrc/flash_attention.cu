@@ -6,7 +6,10 @@
 // masked) v per (batch, head), GQA through kv head h / rep, optional
 // sliding window (a key is kept where kpos <= qpos and kpos > qpos -
 // window), fp32 running max, running sum and accumulator, q/k/v read as
-// fp32 or bf16, the output written in the input type.
+// fp32 or bf16, the output written in the input type. Without the causal
+// mask the keys may number S_kv != S (whisper's cross-attention: the
+// decoder's prompt against the encoder's 1500 frames): the key loop, the
+// tail mask and the K/V tensor maps run over S_kv, the work items over S.
 //
 // Bound: at the serving shape (B = 8, S = 1024, H = 32, Hk = 8, dh = 128,
 // causal) the two products are 6.9e10 FLOP over 67 MB of bf16 traffic, so
@@ -86,8 +89,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int s, int h,
-             int hk, float scale, int causal, int window) {
+             const T* __restrict__ v, T* __restrict__ out, int s, int skv,
+             int h, int hk, float scale, int causal, int window) {
   constexpr int RS = row_stride<T, DH>();
   constexpr int PS = BQ + 1;
   constexpr int TD = DH / 16;   // output columns per thread
@@ -107,8 +110,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t q_row = (size_t)h * DH;    // elements between query rows
   const size_t k_row = (size_t)hk * DH;
   const T* qb = q + ((size_t)b * s * h + head) * DH;
-  const T* kb = k + ((size_t)b * s * hk + kh) * DH;
-  const T* vb = v + ((size_t)b * s * hk + kh) * DH;
+  const T* kb = k + ((size_t)b * skv * hk + kh) * DH;
+  const T* vb = v + ((size_t)b * skv * hk + kh) * DH;
 
   for (int l = tid; l < BQ * DH; l += THREADS) {
     const int r = l / DH, c = l % DH;
@@ -124,14 +127,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < TD; ++j) acc[i][j] = 0.f;
   }
 
-  const int k_end = causal ? min(s, q0 + BQ) : s;
+  const int k_end = causal ? min(s, q0 + BQ) : skv;
   int k_begin = 0;
   if (causal && window > 0) k_begin = max(0, q0 - window + 1) / BK * BK;
 
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     for (int l = tid; l < BK * DH; l += THREADS) {
       const int r = l / DH, c = l % DH;
-      const bool in = k0 + r < s;
+      const bool in = k0 + r < skv;
       ks[r * RS + c] = in ? kb[(k0 + r) * k_row + c] : from_f<T>(0.f);
       vs[r * DH + c] = in ? vb[(k0 + r) * k_row + c] : from_f<T>(0.f);
     }
@@ -165,7 +168,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        bool ok = kpos < s;
+        bool ok = kpos < skv;
         if (causal) {
           ok = ok && kpos <= qpos;
           if (window > 0) ok = ok && kpos > qpos - window;
@@ -224,8 +227,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int s, int h, int hk, float scale, int causal, int window,
-           cudaStream_t stream) {
+           int s, int skv, int h, int hk, float scale, int causal,
+           int window, cudaStream_t stream) {
   const size_t bytes = smem_bytes<T, DH>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -234,24 +237,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   const dim3 grid((s + BQ - 1) / BQ, h, b);
   flash_kernel<T, DH><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), s, h, hk, scale,
+      static_cast<const T*>(v), static_cast<T*>(out), s, skv, h, hk, scale,
       causal, window);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dh(const void* q, const void* k, const void* v, void* out, int b,
-              int s, int h, int hk, int dh, float scale, int causal,
+              int s, int skv, int h, int hk, int dh, float scale, int causal,
               int window, cudaStream_t stream) {
   switch (dh) {
     case 32:
-      return launch<T, 32>(q, k, v, out, b, s, h, hk, scale, causal, window,
-                           stream);
+      return launch<T, 32>(q, k, v, out, b, s, skv, h, hk, scale, causal,
+                           window, stream);
     case 64:
-      return launch<T, 64>(q, k, v, out, b, s, h, hk, scale, causal, window,
-                           stream);
+      return launch<T, 64>(q, k, v, out, b, s, skv, h, hk, scale, causal,
+                           window, stream);
     case 128:
-      return launch<T, 128>(q, k, v, out, b, s, h, hk, scale, causal,
+      return launch<T, 128>(q, k, v, out, b, s, skv, h, hk, scale, causal,
                             window, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -416,15 +419,15 @@ struct Work {
 // Work items in the order the blocks take them: every (batch, head) of
 // the last (heaviest, under a causal mask) query tile first.
 __device__ __forceinline__ Work work_item(int w, int q_tiles, int batch,
-                                          int s, int h, int hk, int causal,
-                                          int window) {
+                                          int s, int skv, int h, int hk,
+                                          int causal, int window) {
   Work t;
   const int z = w / (h * batch), rem = w % (h * batch);
   t.head = rem % h;
   t.b = rem / h;
   t.kh = t.head / (h / hk);
   t.q0 = (q_tiles - 1 - z) * BQ;
-  const int k_end = causal ? min(s, t.q0 + BQ) : s;
+  const int k_end = causal ? min(s, t.q0 + BQ) : skv;
   t.k_begin = 0;
   if (causal && window > 0) t.k_begin = max(0, t.q0 - window + 1) / BKV * BKV;
   t.tiles = (k_end - t.k_begin + BKV - 1) / BKV;
@@ -436,8 +439,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
-                __nv_bfloat16* __restrict__ out, int s, int h, int hk,
-                float scale_log2, int causal, int window, int batch,
+                __nv_bfloat16* __restrict__ out, int s, int skv, int h,
+                int hk, float scale_log2, int causal, int window, int batch,
                 int q_tiles, int items) {
   using C = Cfg<DH>;
   extern __shared__ unsigned char smem_raw[];
@@ -474,7 +477,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       int it = 0;
       for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
         const Work t =
-            work_item(w, q_tiles, batch, s, h, hk, causal, window);
+            work_item(w, q_tiles, batch, s, skv, h, hk, causal, window);
         mbar_wait(q_empty, (n & 1) ^ 1);   // the last item's Q is read
         mbar_expect_tx(q_full, C::Q_BYTES);
 #pragma unroll
@@ -511,7 +514,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     int it = 0;
     for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
       const Work t =
-          work_item(w, q_tiles, batch, s, h, hk, causal, window);
+          work_item(w, q_tiles, batch, s, skv, h, hk, causal, window);
       const int row_lo =
           t.q0 + wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
       const int first = t.q0 + wg * 64, last = first + 63;
@@ -562,7 +565,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         pin(sc[1]);
 
         // mask, running max, rescale
-        const bool need = k0 + BKV > s ||
+        const bool need = k0 + BKV > skv ||
                           (causal && (k0 + BKV - 1 > first ||
                                       (window > 0 && k0 <= last - window)));
         float tmax[2] = {-INFINITY, -INFINITY};
@@ -575,7 +578,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             if (need) {
               const int row = row_lo + 8 * r2;
               const int key = k0 + hh * 64 + 8 * (j / 4) + cq + (j % 2);
-              bool ok = key < s;
+              bool ok = key < skv;
               if (causal) {
                 ok = ok && key <= row;
                 if (window > 0) ok = ok && key > row - window;
@@ -712,14 +715,14 @@ bool make_map(CUtensorMap* map, const void* ptr, int b, int s, int heads,
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int s, int h, int hk, float scale, int causal, int window,
-           cudaStream_t stream) {
+           int s, int skv, int h, int hk, float scale, int causal,
+           int window, cudaStream_t stream) {
   using C = Cfg<DH>;
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
   if (!make_map<DH>(&tq, q, b, s, h, BQ) ||
-      !make_map<DH>(&tk, k, b, s, hk, BKV) ||
-      !make_map<DH>(&tv, v, b, s, hk, BKV))
+      !make_map<DH>(&tk, k, b, skv, hk, BKV) ||
+      !make_map<DH>(&tv, v, b, skv, hk, BKV))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_tc_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -737,24 +740,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   const int q_tiles = (s + BQ - 1) / BQ;
   const int items = q_tiles * h * b;
   flash_tc_kernel<DH><<<min(items, sms), THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), s, h, hk,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), s, skv, h, hk,
       scale * 1.4426950408889634f, causal, window, b, q_tiles, items);
   return (int)cudaGetLastError();
 }
 
 int launch_dh(const void* q, const void* k, const void* v, void* out, int b,
-              int s, int h, int hk, int dh, float scale, int causal,
+              int s, int skv, int h, int hk, int dh, float scale, int causal,
               int window, cudaStream_t stream) {
   switch (dh) {
     case 32:
-      return launch<32>(q, k, v, out, b, s, h, hk, scale, causal, window,
-                        stream);
+      return launch<32>(q, k, v, out, b, s, skv, h, hk, scale, causal,
+                        window, stream);
     case 64:
-      return launch<64>(q, k, v, out, b, s, h, hk, scale, causal, window,
-                        stream);
+      return launch<64>(q, k, v, out, b, s, skv, h, hk, scale, causal,
+                        window, stream);
     case 128:
-      return launch<128>(q, k, v, out, b, s, h, hk, scale, causal, window,
-                         stream);
+      return launch<128>(q, k, v, out, b, s, skv, h, hk, scale, causal,
+                         window, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -764,19 +767,21 @@ int launch_dh(const void* q, const void* k, const void* v, void* out, int b,
 
 }  // namespace
 
-// q: (B, S, H, dh), k/v: (B, S, Hk, dh), out: (B, S, H, dh), contiguous;
+// q: (B, S, H, dh), k/v: (B, S_kv, Hk, dh), out: (B, S, H, dh),
+// contiguous; S_kv != S only without the causal mask (cross-attention);
 // dtype 0 = fp32 (CUDA cores), 1 = bf16 (tensor cores); window <= 0
 // disables the window.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int b, int s,
-                                      int h, int hk, int dh, int dtype,
-                                      float scale, int causal, int window,
-                                      cudaStream_t stream) {
+                                      int s_kv, int h, int hk, int dh,
+                                      int dtype, float scale, int causal,
+                                      int window, cudaStream_t stream) {
+  if (causal && s_kv != s) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_dh<float>(q, k, v, out, b, s, h, hk, dh, scale, causal,
-                            window, stream);
+    return launch_dh<float>(q, k, v, out, b, s, s_kv, h, hk, dh, scale,
+                            causal, window, stream);
   if (dtype == 1)
-    return tc::launch_dh(q, k, v, out, b, s, h, hk, dh, scale, causal,
+    return tc::launch_dh(q, k, v, out, b, s, s_kv, h, hk, dh, scale, causal,
                          window, stream);
   return (int)cudaErrorInvalidValue;
 }

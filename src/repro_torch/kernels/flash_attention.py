@@ -4,8 +4,11 @@ and its wrapper.
 
 The kernel takes any S (the ragged tail is masked) and head widths
 dh in {32, 64, 128}; `ops.flash_attention` keeps the JAX contract that S
-is a multiple of 128, and the model calls this wrapper directly, with
-its prompt's own length. bf16 inputs (the serving path's) run on the
+is a multiple of 128 (one S for q and k/v), and the model calls this
+wrapper directly, with its prompt's own length. Without the causal mask
+the keys may number S_kv != S: the cross-attention of an encoder-decoder
+(the TPU kernel assumes one S; the JAX model computes cross-attention in
+jnp `attend`). bf16 inputs (the serving path's) run on the
 tensor cores (`wgmma`, K/V by TMA) and round the softmax weights to bf16
 before the second product, as the model's plain attend does; fp32 inputs
 run an exact CUDA-core kernel.
@@ -24,9 +27,9 @@ HEAD_DIMS = (32, 64, 128)
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, S, H, dh); k/v: (B, S, Hk, dh), H a multiple of Hk; fp32 or
-    bf16, all one type. `window` > 0 keeps keys with kpos > qpos - window;
-    `scale` defaults to dh ** -0.5. Returns (B, S, H, dh) in q's type.
+    """q: (B, S, H, dh); k/v: (B, S_kv, Hk, dh), H a multiple of Hk, S_kv
+    = S under the causal mask; fp32 or bf16, all one type. `window` > 0
+    keeps keys with kpos > qpos - window; `scale` defaults to dh ** -0.5. Returns (B, S, H, dh) in q's type.
 
     CUDA tensors launch the kernel; CPU tensors take the plain version
     (`ref.flash_attention_ref`)."""
@@ -40,13 +43,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
         raise ValueError(f"flash_attention_cuda: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)} are not "
-                         "(B,S,H,dh), (B,S,Hk,dh), (B,S,Hk,dh)")
+                         "(B,S,H,dh), (B,S_kv,Hk,dh), (B,S_kv,Hk,dh)")
     b, s, h, dh = q.shape
-    hk = k.shape[2]
-    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != dh \
-            or h % hk != 0:
+    s_kv, hk = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != dh or h % hk != 0:
         raise ValueError(f"flash_attention_cuda: q {tuple(q.shape)} and "
                          f"k/v {tuple(k.shape)} do not match")
+    if causal and s_kv != s:
+        raise ValueError(f"flash_attention_cuda: {s} queries against "
+                         f"{s_kv} keys under the causal mask; a separate "
+                         "key length is taken without it only")
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda: head width {dh}; the "
                          f"kernel takes {HEAD_DIMS}")
@@ -60,8 +66,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     lib = _build.library("flash_attention")
     err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
-        hk, dh, code, float(dh ** -0.5 if scale is None else scale),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+        s_kv, h, hk, dh, code, float(dh ** -0.5 if scale is None else scale),
         int(causal), int(window), _build.stream_handle(q.device))
     _build.check(err, "flash_attention_cuda")
     _build.count_launch("flash_attention")

@@ -74,9 +74,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B,S,H,dh); k/v: (B,S,Hk,dh) -> (B,S,H,dh). The kernel backend
     keeps the TPU kernel's contract that S is a multiple of its 128-row
     blocks."""
-    if backend == "cuda" and q.shape[1] % 128:
-        raise ValueError(f"flash_attention: S = {q.shape[1]} is not a "
-                         "multiple of 128")
+    if backend == "cuda" and (q.shape[1] % 128 or k.shape[1] != q.shape[1]):
+        raise ValueError(f"flash_attention: S = {q.shape[1]} (keys "
+                         f"{k.shape[1]}) is not one length, a multiple of "
+                         "128")
     fn = _pick(backend, ref.flash_attention_ref, flash_attention_cuda)
     return fn(q, k, v, causal=causal, window=window)
 

@@ -1,0 +1,162 @@
+"""Serving launcher: an Eagle-routed multi-LLM fleet on the card (reduced
+configs, as the JAX package's launcher builds them).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 --fleet 4 \
+      --max-new 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --admission --rate 500
+
+A port of the JAX package's `launch/serve.py`, with the same CLI and
+defaults. The default fleet is `ARCH_IDS[:4]`: whisper-large-v3 (encdec),
+olmo-1b, mamba2-780m (ssm) and qwen3-8b. The flags whose modules are not
+ported yet raise NotImplementedError naming their ROADMAP item:
+`--serve-obs` and `--alert-log` (the exporter, quality monitor, SLO
+engine and alert sinks), `--db-shards` (the capacity-sharded routing DB)
+and `--prebake` (the capacity prebaker).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+import zlib
+
+import numpy as np
+
+from repro_torch import DeviceLike
+from repro_torch.configs import ARCH_IDS, get_reduced_config
+from repro_torch.core.router import EagleConfig, EagleRouter
+from repro_torch.data.routerbench import make_corpus, pairwise_feedback
+from repro_torch.serving.admission import AdmissionQueue
+from repro_torch.serving.engine import FleetModel, Request, ServingEngine
+
+
+def quality_oracle(emb, mi) -> float:
+    """The launcher's simulated user: a quality in [0, 1) per (prompt,
+    model). The JAX launcher hashes with Python's `hash`, which is salted
+    per process; crc32 makes runs repeat."""
+    return float(np.random.default_rng(
+        zlib.crc32(emb[:2].tobytes() + bytes([mi]))).random())
+
+
+def _not_ported(flag: str, what: str, item: str):
+    raise NotImplementedError(f"{flag}: {what} is not ported yet "
+                              f"(ROADMAP {item})")
+
+
+def build_engine(n_fleet: int = 4, dim: int = 64, seed: int = 0,
+                 compare_rate: float = 0.25, obs=None, db_shards: int = 0,
+                 prebake: bool = False, device: DeviceLike = None):
+    """The JAX launcher's engine: a router fitted on a synthetic
+    RouterBench corpus at `dim`, costs linspace(1, 8, n_fleet), in front
+    of `ARCH_IDS[:n_fleet]` at their reduced configs (max_len 64), on
+    `device` (the card by default). Returns (engine, corpus)."""
+    if db_shards:
+        _not_ported("--db-shards", "the capacity-sharded routing DB",
+                    "§2.5")
+    if prebake:
+        _not_ported("--prebake", "the capacity prebaker", "§2.5")
+    names = ARCH_IDS[:n_fleet]
+    corpus = make_corpus(seed=seed, n_per_dataset=60, dim=dim,
+                         model_names=names,
+                         costs=np.linspace(1.0, 8.0, n_fleet))
+    fb = pairwise_feedback(corpus, corpus.train_idx, seed=seed,
+                           pairs_per_query=4)
+    router = EagleRouter(names, corpus.costs, EagleConfig(embed_dim=dim),
+                         db_capacity=1 << 15, device=device)
+    router.fit(fb["emb"], fb["model_a"], fb["model_b"], fb["outcome"])
+    fleet = {n: FleetModel(get_reduced_config(n), seed=i, max_len=64,
+                           device=device)
+             for i, n in enumerate(names)}
+    engine = ServingEngine(fleet, router, compare_rate=compare_rate,
+                           seed=seed, quality_oracle=quality_oracle,
+                           obs=obs)
+    return engine, corpus
+
+
+def build_admission(engine: ServingEngine, *, window_bucket: int = 32,
+                    max_wait_ms: float = 5.0, shed_watermark: int = 128,
+                    reject_cap: int = 512, **cfg_kw) -> AdmissionQueue:
+    """Admission frontend in front of a launcher-built engine, sharing
+    its telemetry scope and its dispatcher's bucket ladder so coalesced
+    windows land on warmed bucket shapes."""
+    return AdmissionQueue.for_engine(
+        engine, window_bucket=window_bucket, max_wait_ms=max_wait_ms,
+        shed_watermark=shed_watermark, reject_cap=reject_cap, **cfg_kw)
+
+
+def _serve_admitted(engine, reqs, rate_hz: float, window: int,
+                    max_wait_ms: float):
+    """Real-clock demo loop: submit at Poisson gaps, pump the queue,
+    sleep until its next flush deadline, then drain."""
+    queue = build_admission(engine, window_bucket=window,
+                            max_wait_ms=max_wait_ms)
+    rng = np.random.default_rng(0)
+    responses = []
+    for req in reqs:
+        time.sleep(float(rng.exponential(1.0 / rate_hz)))
+        rej = queue.submit(req)
+        if rej is not None:
+            print(f"rejected rid={rej.rid} at depth {rej.depth}")
+        responses += [c.response for c in queue.pump()]
+        due = queue.next_flush_ns()
+        if due is not None:
+            time.sleep(max(0.0, (due - queue.now_ns()) / 1e9) * 0.5)
+    responses += [c.response for c in queue.drain()]
+    print("admission:", queue.summary())
+    return sorted(responses, key=lambda r: r.rid)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--fleet", type=int, default=4)
+    ap.add_argument("--budget", type=float, default=5.0)
+    ap.add_argument("--max-new", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--admission", action="store_true",
+                    help="stream requests through the admission queue "
+                         "on the real clock instead of one serve() call")
+    ap.add_argument("--rate", type=float, default=500.0,
+                    help="mean offered load (req/s) for --admission")
+    ap.add_argument("--window", type=int, default=8)
+    ap.add_argument("--max-wait-ms", type=float, default=5.0)
+    ap.add_argument("--serve-obs", type=int, default=None, metavar="PORT",
+                    help="start the observability exporter on PORT "
+                         "(not ported yet: ROADMAP §2.4)")
+    ap.add_argument("--alert-log", type=str, default=None, metavar="PATH",
+                    help="append webhook-shaped JSONL alerts to PATH "
+                         "(not ported yet: ROADMAP §2.4)")
+    ap.add_argument("--db-shards", type=int, default=0,
+                    help="capacity-shard the routing DB over N devices "
+                         "(not ported yet: ROADMAP §2.5)")
+    ap.add_argument("--prebake", action="store_true",
+                    help="bake the next capacity bucket in the background "
+                         "(not ported yet: ROADMAP §2.5)")
+    args = ap.parse_args(argv)
+
+    if args.serve_obs is not None:
+        _not_ported("--serve-obs", "the observability exporter", "§2.4")
+    if args.alert_log is not None:
+        _not_ported("--alert-log", "the alert sinks", "§2.4")
+    engine, corpus = build_engine(args.fleet, seed=args.seed,
+                                  db_shards=args.db_shards,
+                                  prebake=args.prebake)
+    rng = np.random.default_rng(args.seed)
+    test = corpus.test_idx[:args.requests]
+    reqs = [Request(tokens=rng.integers(0, 100, rng.integers(4, 12)).astype(
+                        np.int32),
+                    embedding=corpus.embeddings[i],
+                    budget=float(args.budget), max_new_tokens=args.max_new,
+                    rid=k)
+            for k, i in enumerate(test)]
+    if args.admission:
+        responses = _serve_admitted(engine, reqs, args.rate, args.window,
+                                    args.max_wait_ms)
+    else:
+        responses = engine.serve(reqs)
+    for r in responses[:8]:
+        print(f"req {r.rid:3d} -> {r.model:24s} tokens {r.tokens.tolist()}")
+    print("stats:", engine.stats)
+
+
+if __name__ == "__main__":
+    main()

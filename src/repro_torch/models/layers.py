@@ -1,20 +1,26 @@
-"""Transformer layers of the dense serving path: norms, RoPE, the gated MLP
-and self-attention, as plain functions on tensors.
+"""Transformer layers of the serving path: norms, RoPE, the gated MLP and
+attention, as plain functions on tensors.
 
 A port of the JAX package's `models/layers.py`: `apply_norm` (rmsnorm,
 layernorm, non-parametric LayerNorm, eps 1e-6, in fp32),
 `rms_norm_headwise`, split-half RoPE, `apply_mlp`, `attend` /
 `_attend_block`, and `apply_attention` for self-attention with and without
-a contiguous cache. Parameters come in the port's layout
-(`transformer.py`): projections as 2-D matrices, already in the compute
-type.
+a contiguous cache, bidirectional attention, and cross-attention
+(`kv_source`, `precomputed_kv`, no RoPE). Parameters come in the port's
+layout (`transformer.py`): projections as 2-D matrices, already in the
+compute type.
 
 On CUDA tensors `apply_attention` runs its attention through the
 hand-written kernels:
-  * prefill (cache_index 0: the S in-flight keys, causal, no window) ->
+  * causal prefill (cache_index 0: the S in-flight keys, no window) ->
     `flash_attention_cuda`;
+  * bidirectional attention over the S in-flight keys (whisper's
+    encoder) and cross-attention prefill over the source's S_kv keys ->
+    `flash_attention_cuda` with causal=False;
   * one token against the cache -> `decode_attention_cuda` with
     kv_len = index + 1;
+  * one token against the cached cross K/V -> `decode_attention_cuda`
+    with kv_len = every row;
 and raises for any other case. On CPU tensors, or with
 backend="reference", it runs the plain `attend` over the cache exactly as
 the JAX package does: that is what the CPU tests hold against JAX, and
@@ -35,6 +41,13 @@ NO_WINDOW = 1 << 30  # "disabled" sliding window
 _Q_BLOCK = 512       # query-chunk size: caps score memory at (B,H,blk,T)
 _MASKED = -1e30      # the plain path's masked score (finite, as in JAX)
 BACKENDS = ("cuda", "reference")
+
+
+def normal(gen: torch.Generator, shape, scale: float, dtype):
+    """A parameter of N(0, scale^2) values in `dtype`, drawn on the
+    generator's device (the JAX package's `jax.random.normal * scale`)."""
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -167,16 +180,36 @@ def attend(q, k, v, q_pos, kv_pos, *, window=NO_WINDOW, softcap=0.0,
 # ---------------------------------------------------------------------------
 
 def _attend_kernels(q, k, v, cache, cache_index: int, window, causal,
-                    kv_len):
-    """The two cases the kernels cover; anything else raises. q is scaled
-    in its own type first, as the plain path does, and the kernels get
+                    kv_len, cross):
+    """The cases the kernels cover (module docstring); anything else
+    raises. `cross`: None (self-attention), "prefill" (k/v: the source's
+    projections) or "decode" (k/v: the cached cross K/V). q is scaled in
+    its own type first, as the plain path does, and the kernels get
     scale = 1.0."""
     b, s = q.shape[:2]
-    if window != NO_WINDOW or not causal:
+    if window != NO_WINDOW:
         raise NotImplementedError(
-            "attention on CUDA: only causal attention without a window runs "
-            "through the kernels; a windowed decode is ROADMAP §2.2")
+            "attention on CUDA: a sliding window does not run through the "
+            "kernels; a windowed decode over a ring cache is ROADMAP §2.2")
     qs = _scale_q(q)
+    if cross == "decode":
+        if s != 1:
+            raise NotImplementedError(
+                f"attention on CUDA: {s} new tokens against cached cross "
+                "K/V; the decode kernel takes one")
+        if kv_len is None:
+            kv_len = torch.full((b,), k.shape[1], dtype=torch.int32,
+                                device=q.device)
+        return decode_attention_cuda(qs[:, 0], k, v, kv_len,
+                                     scale=1.0)[:, None]
+    if cross == "prefill" or (not causal and cache is None):
+        # every key is visible to every query: the source's frames, or
+        # the S in-flight keys of an encoder
+        return flash_attention_cuda(qs, k, v, causal=False, scale=1.0)
+    if not causal:
+        raise NotImplementedError(
+            "attention on CUDA: bidirectional attention over a cache does "
+            "not run through the kernels")
     if cache_index == 0:
         # prefill: the S in-flight keys are all the keys there are
         if cache is not None and cache["k"].dtype not in (torch.float32,
@@ -198,15 +231,25 @@ def _attend_kernels(q, k, v, cache, cache_index: int, window, causal,
 def apply_attention(cfg: ModelConfig, params, x, positions, *, theta,
                     window=NO_WINDOW, cache=None, cache_index: int = 0,
                     causal: bool = True, backend: str = "cuda",
-                    rope=None, kv_len=None):
-    """Self-attention with RoPE. x: (B,S,d); positions: (B,S); rope: the
-    rope_tables of `positions`, and kv_len: the (B,) int32 count of valid
-    cache rows after this call's write, when the caller has them (one
-    tensor serves every layer).
+                    tables=None, kv_len=None, rope: bool = True,
+                    kv_source=None, precomputed_kv=None):
+    """Attention. x: (B,S,d); positions: (B,S); tables: the rope_tables
+    of `positions`, and kv_len: the (B,) int32 count of valid cache rows
+    after this call's write (for cross-attention decode: of cross rows),
+    when the caller has them (one tensor serves every layer). rope=False
+    rotates neither q nor k (whisper's absolute positions).
 
-    cache: None, or dict(k, v) of one layer's (B, T, Hk, hd) buffers,
-    into which this call writes its S new keys and values at
-    `cache_index` IN PLACE (the JAX function returns a new cache).
+    Self-attention: cache is None, or dict(k, v) of one layer's (B, T,
+    Hk, hd) buffers, into which this call writes its S new keys and
+    values at `cache_index` IN PLACE (the JAX function returns a new
+    cache).
+    Cross-attention (non-causal, no RoPE, as in the JAX function):
+    `kv_source` (B, T, d) gives the keys and values, written IN PLACE
+    into `cache` (one layer's (B, T, Hk, hd) cross buffers) when it is
+    given, as the JAX prefill caches what it returns; or
+    `precomputed_kv` dict(k, v) holds them (decode), read in its stored
+    type and rounded to the compute type, as the JAX function's
+    `astype(q.dtype)`.
     Returns (B,S,d)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, "
@@ -214,21 +257,40 @@ def apply_attention(cfg: ModelConfig, params, x, positions, *, theta,
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x @ params["wq"]).view(b, s, h, hd)
-    k = (x @ params["wk"]).view(b, s, hk, hd)
-    v = (x @ params["wv"]).view(b, s, hk, hd)
+    cross = "decode" if precomputed_kv is not None else \
+        "prefill" if kv_source is not None else None
+    if cross == "decode":
+        k, v = precomputed_kv["k"], precomputed_kv["v"]
+    else:
+        src = x if kv_source is None else kv_source
+        t = src.shape[1]
+        k = (src @ params["wk"]).view(b, t, hk, hd)
+        v = (src @ params["wv"]).view(b, t, hk, hd)
     if cfg.qk_norm:
         q = rms_norm_headwise(q, params["q_norm"])
-        k = rms_norm_headwise(k, params["k_norm"])
-    rope = rope if rope is not None else rope_tables(positions, hd, theta)
-    q = apply_rope(q, positions, theta, rope)
-    k = apply_rope(k, positions, theta, rope)
+        if cross != "decode":
+            k = rms_norm_headwise(k, params["k_norm"])
+    if rope and cross is None:
+        tables = tables if tables is not None else \
+            rope_tables(positions, hd, theta)
+        q = apply_rope(q, positions, theta, tables)
+        k = apply_rope(k, positions, theta, tables)
     if cache is not None:
-        cache["k"][:, cache_index:cache_index + s] = k
-        cache["v"][:, cache_index:cache_index + s] = v
+        if cross == "decode":
+            raise ValueError("apply_attention: precomputed_kv takes no "
+                             "cache to write")
+        lo = 0 if cross else cache_index
+        cache["k"][:, lo:lo + k.shape[1]] = k
+        cache["v"][:, lo:lo + k.shape[1]] = v
 
     if x.is_cuda and backend == "cuda":
         out = _attend_kernels(q, k, v, cache, cache_index, window, causal,
-                              kv_len)
+                              kv_len, cross)
+    elif cross:
+        t = k.shape[1]
+        kv_pos = torch.arange(t, device=x.device).expand(b, t)
+        out = attend(q, k.to(q.dtype), v.to(q.dtype), positions, kv_pos,
+                     causal=False)
     elif cache is None:
         out = attend(q, k, v, positions, positions, window=window,
                      causal=causal)

@@ -1,15 +1,26 @@
-"""Model assembly for the dense serving path: parameters, the KV cache,
+"""Model assembly for the serving path: parameters, the decode cache,
 forward, prefill and decode_step.
 
-A port of the JAX package's `models/transformer.py` for arch_type "dense"
-with full attention (embed -> blocks(L) -> norm -> head). Where it
-differs:
+A port of the JAX package's `models/transformer.py` for three families:
 
-  * the layer stack is a Python loop over a list of per-layer parameter
+  dense (full attention)  embed -> blocks(L) -> norm -> head
+  ssm (mamba2)            embed -> ssm blocks(L) -> norm -> head
+  encdec (whisper)        enc blocks(Le, bidirectional) over stub frame
+                          embeddings -> dec blocks(L) with
+                          cross-attention; sinusoidal absolute positions
+                          on both stacks, no RoPE
+
+Where it differs:
+
+  * each layer stack is a Python loop over a list of per-layer parameter
     dicts (the JAX package scans stacked (L, ...) leaves);
-  * the KV cache is one preallocated (L, B, max_len, Hk, hd) buffer for K
-    and one for V, which prefill and decode_step write IN PLACE and
-    return; the JAX functions return a new cache;
+  * the cache is preallocated and written IN PLACE by prefill and
+    decode_step, which return it; the JAX functions return a new cache.
+    Dense: one (L, B, max_len, Hk, hd) buffer for K and one for V.
+    encdec: the same, and "cross": {k, v} of (L, B, n_audio_frames, Hk,
+    hd), filled at prefill from the encoder's output. ssm: the JAX
+    package's fp32 decode state, conv_x / conv_B / conv_C (L, B, k-1, C)
+    and ssm (L, B, H, P, N);
   * `cast_params` casts the parameters to the compute type once, at load,
     where the JAX layers cast at each use (`_cast`): the values are the
     same, and a decode step then reads the weights once in bf16 instead
@@ -17,9 +28,9 @@ differs:
   * prefill computes the logits of the last position only: the JAX
     prefill keeps row -1 of the full (B, S, V) panel, the same row.
 
-MoE, SSM, hybrid, encoder-decoder and VLM architectures, local:global
-window stacks (gemma3's ring cache) and MLA raise NotImplementedError;
-ROADMAP §2.2 queues them.
+Hybrid, MoE and VLM architectures, local:global window stacks
+(gemma3's ring cache) and MLA raise NotImplementedError; ROADMAP §2
+queues them.
 """
 from __future__ import annotations
 
@@ -28,12 +39,17 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+
+
+#: the architecture families this port runs
+FAMILIES = ("dense", "ssm", "encdec")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -43,14 +59,14 @@ def torch_dtype(name: str) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what this slice of the port does not
     run; it never falls back on another path."""
-    if cfg.arch_type != "dense":
+    if cfg.arch_type not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet "
-            "(ROADMAP §2.2: moe, ssm, hybrid, encdec, vlm)")
+            "(ROADMAP §2.1: hybrid; §2.3: moe, vlm)")
     if cfg.attn_kind != "full":
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attn_kind!r} is not ported yet "
-            "(ROADMAP §2.2: MLA)")
+            "(ROADMAP §2.3: MLA)")
     if cfg.local_global_ratio or cfg.window_cache:
         raise NotImplementedError(
             f"{cfg.name}: local:global sliding-window stacks need a "
@@ -60,11 +76,6 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
-
-def _normal(gen: torch.Generator, shape, scale: float, dtype):
-    return (torch.randn(shape, generator=gen, device=gen.device)
-            * scale).to(dtype)
-
 
 def _init_norm(cfg: ModelConfig, dtype, device) -> Params:
     if cfg.norm == "rmsnorm":
@@ -80,27 +91,41 @@ def _init_norm(cfg: ModelConfig, dtype, device) -> Params:
     raise ValueError(cfg.norm)
 
 
-def _init_block(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
-    d, h, hk, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                        cfg.d_ff)
-    dev = gen.device
+def _init_attention(cfg: ModelConfig, gen: torch.Generator,
+                    dtype) -> Params:
+    d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     attn = {
-        "wq": _normal(gen, (d, h * hd), d ** -0.5, dtype),
-        "wk": _normal(gen, (d, hk * hd), d ** -0.5, dtype),
-        "wv": _normal(gen, (d, hk * hd), d ** -0.5, dtype),
-        "wo": _normal(gen, (h * hd, d), (h * hd) ** -0.5, dtype),
+        "wq": L.normal(gen, (d, h * hd), d ** -0.5, dtype),
+        "wk": L.normal(gen, (d, hk * hd), d ** -0.5, dtype),
+        "wv": L.normal(gen, (d, hk * hd), d ** -0.5, dtype),
+        "wo": L.normal(gen, (h * hd, d), (h * hd) ** -0.5, dtype),
     }
     if cfg.qk_norm:
-        attn["q_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
-        attn["k_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
-    return {
-        "attn_norm": _init_norm(cfg, dtype, dev),
-        "mlp_norm": _init_norm(cfg, dtype, dev),
-        "attn": attn,
-        "ffn": {"w_gate": _normal(gen, (d, ff), d ** -0.5, dtype),
-                "w_up": _normal(gen, (d, ff), d ** -0.5, dtype),
-                "w_down": _normal(gen, (ff, d), ff ** -0.5, dtype)},
-    }
+        attn["q_norm"] = torch.ones((hd,), dtype=dtype, device=gen.device)
+        attn["k_norm"] = torch.ones((hd,), dtype=dtype, device=gen.device)
+    return attn
+
+
+def _init_block(cfg: ModelConfig, gen: torch.Generator, dtype,
+                cross: bool = False) -> Params:
+    d, ff = cfg.d_model, cfg.d_ff
+    dev = gen.device
+    p = {"attn_norm": _init_norm(cfg, dtype, dev),
+         "mlp_norm": _init_norm(cfg, dtype, dev),
+         "attn": _init_attention(cfg, gen, dtype)}
+    if cross:
+        p["cross_norm"] = _init_norm(cfg, dtype, dev)
+        p["cross"] = _init_attention(cfg, gen, dtype)
+    p["ffn"] = {"w_gate": L.normal(gen, (d, ff), d ** -0.5, dtype),
+                "w_up": L.normal(gen, (d, ff), d ** -0.5, dtype),
+                "w_down": L.normal(gen, (ff, d), ff ** -0.5, dtype)}
+    return p
+
+
+def _init_ssm_block(cfg: ModelConfig, gen: torch.Generator,
+                    dtype) -> Params:
+    return {"norm": _init_norm(cfg, dtype, gen.device),
+            "mamba": SSM.init_mamba2(cfg, gen, dtype)}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -111,35 +136,49 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     Layout: {"embed": (V, d), "final_norm", ["lm_head": (d, V)],
     "blocks": [per layer {"attn_norm", "mlp_norm", "attn": {"wq": (d,
     H*hd), "wk"/"wv": (d, Hk*hd), "wo": (H*hd, d), ["q_norm", "k_norm"]},
-    "ffn": {"w_gate"/"w_up": (d, ff), "w_down": (ff, d)}}]}."""
+    "ffn": {"w_gate"/"w_up": (d, ff), "w_down": (ff, d)}}]}; encdec adds
+    "cross_norm" and "cross" (an "attn" dict) to each decoder block, and
+    "enc_blocks" (Le blocks as dense ones) and "enc_norm"; an ssm block
+    is {"norm", "mamba": the JAX package's mamba2 dict}."""
     check_supported(cfg)
     cfg.validate()
     dtype = torch_dtype(cfg.param_dtype)
     p: Params = {
-        "embed": _normal(gen, (cfg.vocab, cfg.d_model), cfg.d_model ** -0.5,
+        "embed": L.normal(gen, (cfg.vocab, cfg.d_model), cfg.d_model ** -0.5,
                          dtype),
         "final_norm": _init_norm(cfg, dtype, gen.device),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = _normal(gen, (cfg.d_model, cfg.vocab),
+        p["lm_head"] = L.normal(gen, (cfg.d_model, cfg.vocab),
                                cfg.d_model ** -0.5, dtype)
-    p["blocks"] = [_init_block(cfg, gen, dtype) for _ in range(cfg.n_layers)]
+    if cfg.arch_type == "ssm":
+        p["blocks"] = [_init_ssm_block(cfg, gen, dtype)
+                       for _ in range(cfg.n_layers)]
+    elif cfg.arch_type == "encdec":
+        p["enc_blocks"] = [_init_block(cfg, gen, dtype)
+                           for _ in range(cfg.n_enc_layers)]
+        p["enc_norm"] = _init_norm(cfg, dtype, gen.device)
+        p["blocks"] = [_init_block(cfg, gen, dtype, cross=True)
+                       for _ in range(cfg.n_layers)]
+    else:
+        p["blocks"] = [_init_block(cfg, gen, dtype)
+                       for _ in range(cfg.n_layers)]
     return p
 
 
 def cast_params(cfg: ModelConfig, params: Params) -> Params:
     """Cast, IN PLACE, every parameter the JAX layers cast to the compute
-    type at use (embedding, head, the attention dict with its qk-norm
-    scales, the MLP) to that type, once. Norm parameters stay as they
+    type at use (embedding, head, the attention dicts with their qk-norm
+    scales, the MLP, the mamba2 dict) to that type, once. Norm parameters stay as they
     are: the norms read them in fp32. Each old tensor is released as its
     cast replaces it, so the peak is one leaf above the larger copy."""
     dt = torch_dtype(cfg.dtype)
     for name in ("embed", "lm_head"):
         if name in params:
             params[name] = params[name].to(dt)
-    for blk in params["blocks"]:
-        for group in ("attn", "ffn"):
-            for name in list(blk[group]):
+    for blk in params["blocks"] + params.get("enc_blocks", []):
+        for group in ("attn", "cross", "ffn", "mamba"):
+            for name in list(blk.get(group, ())):
                 blk[group][name] = blk[group][name].to(dt)
     return params
 
@@ -149,12 +188,26 @@ def cast_params(cfg: ModelConfig, params: Params) -> Params:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
-    """{"k", "v"}: zeroed (L, B, max_len, Hk, hd) buffers."""
+               dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+    """Zeroed decode state (module docstring). The ssm state is fp32
+    whatever `dtype` says, as in the JAX package."""
     check_supported(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    zeros = lambda shape, dt=dtype: torch.zeros((cfg.n_layers,) + shape,
+                                                dtype=dt, device=device)
+    if cfg.arch_type == "ssm":
+        gn, k = cfg.ssm_ngroups * cfg.ssm_state, cfg.ssm_conv
+        f32 = torch.float32
+        return {"conv_x": zeros((batch, k - 1, cfg.d_inner), f32),
+                "conv_B": zeros((batch, k - 1, gn), f32),
+                "conv_C": zeros((batch, k - 1, gn), f32),
+                "ssm": zeros((batch, cfg.ssm_nheads, cfg.ssm_head_dim,
+                              cfg.ssm_state), f32)}
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    cache = {"k": zeros(shape), "v": zeros(shape)}
+    if cfg.arch_type == "encdec":
+        shape = (batch, cfg.n_audio_frames, cfg.n_kv_heads, cfg.hd)
+        cache["cross"] = {"k": zeros(shape), "v": zeros(shape)}
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -176,35 +229,99 @@ def _logits(cfg: ModelConfig, params: Params, x):
     return logits
 
 
+def _sinusoidal_pos(positions, d: int):
+    """Absolute sinusoidal embedding computed from (B,S) positions, fp32
+    (whisper has no RoPE)."""
+    i = torch.arange(d // 2, dtype=torch.float32, device=positions.device)
+    ang = positions[..., None].float() / torch.pow(10000.0, 2.0 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _encode(cfg: ModelConfig, params: Params, enc_embeds, backend: str):
+    """Whisper's encoder over stub frame embeddings (B, F, d): blocks of
+    bidirectional self-attention without RoPE, then enc_norm."""
+    x = enc_embeds.to(torch_dtype(cfg.dtype))
+    b, f, _ = x.shape
+    positions = torch.arange(f, device=x.device).expand(b, f)
+    x = x + _sinusoidal_pos(positions, cfg.d_model).to(x.dtype)
+    for blk in params["enc_blocks"]:
+        h = L.apply_norm(cfg, blk["attn_norm"], x)
+        x = x + L.apply_attention(cfg, blk["attn"], h, positions,
+                                  theta=cfg.rope_theta, causal=False,
+                                  rope=False, backend=backend)
+        h = L.apply_norm(cfg, blk["mlp_norm"], x)
+        x = x + L.apply_mlp(cfg, blk["ffn"], h)
+    return L.apply_norm(cfg, params["enc_norm"], x)
+
+
+def _layer(cache, i: int):
+    """Layer i's views of a cache tree of (L, ...) buffers."""
+    return None if cache is None else {
+        k: _layer(v, i) if isinstance(v, dict) else v[i]
+        for k, v in cache.items()}
+
+
 def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
-            cache: Optional[Dict[str, torch.Tensor]] = None,
+            cache: Optional[Dict[str, Any]] = None,
             cache_index: int = 0, backend: str = "cuda",
-            last_only: bool = False):
+            last_only: bool = False, enc_embeds=None):
     """tokens: (B, S) -> (logits (B, S or 1, V), hidden (B, S or 1, d)).
 
-    With a cache, the S new keys and values are written into it at
-    `cache_index`, in place. `last_only` runs the final norm and the head
-    on the last position alone. `backend` selects the attention route on
-    CUDA tensors (layers.apply_attention)."""
+    With a cache, the S new keys and values (ssm: the state after the S
+    tokens) are written into it at `cache_index`, in place. encdec takes
+    `enc_embeds` (B, F, d), runs the encoder and, with a cache, stores
+    each decoder layer's cross K/V in it; without `enc_embeds` it reads
+    them from the cache (decode). `last_only` runs the final norm and
+    the head on the last position alone. `backend` selects the attention
+    route on CUDA tensors (layers.apply_attention)."""
     check_supported(cfg)
+    at = cfg.arch_type
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    rope = L.rope_tables(positions, cfg.hd, cfg.rope_theta)
-    # the valid cache rows after this call's write, once for every layer
-    kv_len = None if cache is None else torch.full(
-        (b,), cache_index + s, dtype=torch.int32, device=x.device)
-    for i, blk in enumerate(params["blocks"]):
-        kv = None if cache is None else {"k": cache["k"][i],
-                                         "v": cache["v"][i]}
-        h = L.apply_norm(cfg, blk["attn_norm"], x)
-        x = x + L.apply_attention(cfg, blk["attn"], h, positions,
-                                  theta=cfg.rope_theta, cache=kv,
-                                  cache_index=cache_index, backend=backend,
-                                  rope=rope, kv_len=kv_len)
-        h = L.apply_norm(cfg, blk["mlp_norm"], x)
-        x = x + L.apply_mlp(cfg, blk["ffn"], h)
+    if at == "ssm":
+        for i, blk in enumerate(params["blocks"]):
+            h = L.apply_norm(cfg, blk["norm"], x)
+            x = x + SSM.apply_mamba2(cfg, blk["mamba"], h,
+                                     cache=_layer(cache, i))[0]
+    else:
+        enc_out = cross_len = tables = None
+        if at == "encdec":
+            x = x + _sinusoidal_pos(positions, cfg.d_model).to(x.dtype)
+            if enc_embeds is not None:
+                enc_out = _encode(cfg, params, enc_embeds, backend)
+            elif cache is None:
+                raise ValueError(f"{cfg.name}: forward needs enc_embeds or "
+                                 "a cache holding the cross K/V")
+            else:
+                cross_len = torch.full((b,), cfg.n_audio_frames,
+                                       dtype=torch.int32, device=x.device)
+        else:
+            tables = L.rope_tables(positions, cfg.hd, cfg.rope_theta)
+        # the valid cache rows after this call's write, once for every
+        # layer
+        kv_len = None if cache is None else torch.full(
+            (b,), cache_index + s, dtype=torch.int32, device=x.device)
+        for i, blk in enumerate(params["blocks"]):
+            c = _layer(cache, i)
+            h = L.apply_norm(cfg, blk["attn_norm"], x)
+            x = x + L.apply_attention(
+                cfg, blk["attn"], h, positions, theta=cfg.rope_theta,
+                cache=c, cache_index=cache_index, backend=backend,
+                tables=tables, kv_len=kv_len, rope=at != "encdec")
+            if at == "encdec":
+                h = L.apply_norm(cfg, blk["cross_norm"], x)
+                cc = None if c is None else c["cross"]
+                if enc_out is not None:   # prefill: compute, then store
+                    kw = dict(kv_source=enc_out, cache=cc)
+                else:                     # decode: read the stored K/V
+                    kw = dict(precomputed_kv=cc, kv_len=cross_len)
+                x = x + L.apply_attention(
+                    cfg, blk["cross"], h, positions, theta=cfg.rope_theta,
+                    causal=False, backend=backend, rope=False, **kw)
+            h = L.apply_norm(cfg, blk["mlp_norm"], x)
+            x = x + L.apply_mlp(cfg, blk["ffn"], h)
     if last_only:
         x = x[:, -1:]
     x = L.apply_norm(cfg, params["final_norm"], x)
@@ -212,13 +329,16 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens, max_len: int, *,
-            cache_dtype=torch.bfloat16, backend: str = "cuda"):
+            cache_dtype=torch.bfloat16, backend: str = "cuda",
+            enc_embeds=None):
     """Run the prompt through the model, filling a fresh cache of size
-    max_len. tokens: (B, S). Returns (last_logits (B, V), cache)."""
+    max_len. tokens: (B, S); enc_embeds: encdec's (B, F, d) frame
+    embeddings. Returns (last_logits (B, V), cache)."""
     cache = init_cache(cfg, tokens.shape[0], max_len, cache_dtype,
                        device=tokens.device)
     logits, _ = forward(cfg, params, tokens, cache=cache, cache_index=0,
-                        backend=backend, last_only=True)
+                        backend=backend, last_only=True,
+                        enc_embeds=enc_embeds)
     return logits[:, -1], cache
 
 

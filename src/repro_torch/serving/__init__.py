@@ -1,6 +1,6 @@
-"""Serving stack: the engine (route -> group -> generate -> feedback).
-The JAX package's admission frontend and traffic harness are not ported
-yet."""
+"""Serving stack: engine (route -> group -> generate -> feedback),
+admission frontend (deadline-aware coalescing, backpressure), and the
+open-loop traffic harness."""
 from repro_torch.serving.engine import (FleetModel, Request, Response,
                                         ServingEngine)
 

@@ -5,19 +5,20 @@ Workflow per Fig. 1 of the paper:
   ②/③ Eagle ranks the fleet per request and picks the best model within
      the budget (core/dispatch.py over a DoubleBuffer)
   ④ requests are grouped per chosen model, batch-prefilled and greedily
-     decoded (FleetModel: the dense transformer, its attention in the
-     flash and decode kernels on the card)
+     decoded (FleetModel: a dense, mamba2 or whisper model, its attention
+     in the flash and decode kernels on the card)
   ⑤ with probability `compare_rate` a second model also answers and a
      simulated user preference is appended to the DB + ELO (the online,
      training-free update), then committed into the back buffer
 
 A port of the JAX package's `serving/engine.py`. Not ported yet (ROADMAP
-§2.2): the capacity-sharded route (`mesh=`), the background capacity
+§2.4-2.5): the capacity-sharded route (`mesh=`), the background capacity
 prebaker (`prebake=True`) and the router-quality monitor.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -40,6 +41,13 @@ class Request:
     budget: float
     max_new_tokens: int = 8
     rid: int = 0
+    # admission metadata (serving/admission.py): stamped arrival time
+    # (0 = unstamped -> the queue stamps at submit), end-to-end deadline
+    # (the coalescing window flushes by min(deadline, max_wait)), and
+    # priority class (higher flushes first)
+    arrival_ns: int = 0
+    deadline_ms: float = math.inf
+    priority: int = 0
 
 
 @dataclasses.dataclass
@@ -51,12 +59,14 @@ class Response:
 
 
 class FleetModel:
-    """One servable dense model: prefill + greedy decode.
+    """One servable model (dense, ssm or encdec): prefill + greedy decode.
 
     The parameters are made from `seed` on the device (or taken from
     `params`, in `transformer.init_params`' layout, e.g. carried across by
     `convert.model_params_from_numpy`) and cast to the compute type once.
-    The KV cache is fp32, as in the JAX package's FleetModel."""
+    The KV cache is fp32, as in the JAX package's FleetModel. An encdec
+    model's encoder reads a zero (B, n_audio_frames, d_model) stub of
+    frame embeddings, as the JAX FleetModel feeds it."""
 
     def __init__(self, cfg: ModelConfig, seed: int = 0, max_len: int = 128,
                  *, params: Optional[T.Params] = None,
@@ -77,8 +87,12 @@ class FleetModel:
         b, s = tokens.shape
         toks = torch.as_tensor(np.asarray(tokens, np.int64),
                                device=self.device)
+        enc = None
+        if self.cfg.arch_type == "encdec":
+            enc = torch.zeros((b, self.cfg.n_audio_frames,
+                               self.cfg.d_model), device=self.device)
         logits, cache = T.prefill(self.cfg, self.params, toks, self.max_len,
-                                  cache_dtype=torch.float32)
+                                  cache_dtype=torch.float32, enc_embeds=enc)
         tok = torch.argmax(logits, dim=-1)[:, None]
         outs = [tok]
         for i in range(max_new - 1):
@@ -107,11 +121,11 @@ class ServingEngine:
         if mesh is not None:
             raise NotImplementedError("ServingEngine(mesh=...): the "
                                       "capacity-sharded route is not ported "
-                                      "yet (ROADMAP §2.2)")
+                                      "yet (ROADMAP §2.5)")
         if prebake:
             raise NotImplementedError("ServingEngine(prebake=True): the "
                                       "capacity prebaker is not ported yet "
-                                      "(ROADMAP §2.2)")
+                                      "(ROADMAP §2.5)")
         assert list(fleet) == router.model_names, "fleet/router order mismatch"
         self.fleet = fleet
         self.router = router

@@ -164,3 +164,60 @@ def test_attend_window_matches_jax():
     pt = torch.tensor(pos, dtype=torch.int64)
     got = TL.attend(qt, kt, vt, pt, pt, window=w)
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,s,t,h,hk,dh", [
+    (2, 11, 16, 4, 4, 32),          # the reduced whisper's cross shape
+    (1, 40, 150, 8, 2, 64),         # GQA, keys outnumber queries
+    (2, 600, 1500, 4, 4, 64),       # S > 512: JAX's query-block loop
+    (1, 300, 77, 4, 4, 64),         # queries outnumber keys
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_cross_matches_jax_attend(b, s, t, h, hk, dh,
+                                                        dtype):
+    """Sq != Sk without the causal mask (whisper's cross-attention
+    prefill): the flash wrapper's plain version, which CPU tensors take,
+    against JAX `layers.attend`, the function JAX's cross-attention runs.
+    fp32: the same formula up to where q is scaled (1e-5); bf16: JAX
+    rounds q * scale and the weights to bf16 (3e-2, the bf16 bar)."""
+    rng = np.random.default_rng(s * t)
+    qj, qt = _pair(rng, (b, s, h, dh), dtype)
+    kj, kt = _pair(rng, (b, t, hk, dh), dtype)
+    vj, vt = _pair(rng, (b, t, hk, dh), dtype)
+    q_pos = np.broadcast_to(np.arange(s), (b, s)).astype(np.int32)
+    kv_pos = np.broadcast_to(np.arange(t), (b, t)).astype(np.int32)
+    want = JL.attend(qj, kj, vj, jnp.asarray(q_pos), jnp.asarray(kv_pos),
+                     causal=False)
+    got = flash_attention_cuda(qt, kt, vt, causal=False)   # CPU: plain
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    tol = EXACT if dtype == "float32" else TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_noncausal_matches_tpu_kernel(dtype):
+    """One S without the causal mask (whisper's encoder), against the TPU
+    kernel in interpret mode (the JAX suite's bars) and its oracle."""
+    rng = np.random.default_rng(8)
+    b, s, h, hk, dh = 2, 256, 4, 4, 64
+    qj, qt = _pair(rng, (b, s, h, dh), dtype)
+    kj, kt = _pair(rng, (b, s, hk, dh), dtype)
+    vj, vt = _pair(rng, (b, s, hk, dh), dtype)
+    kernel = flash_attention_pallas(qj, kj, vj, causal=False, interpret=True)
+    oracle = JREF.flash_attention_ref(qj, kj, vj, causal=False)
+    got = KOPS.flash_attention(qt, kt, vt, causal=False)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(kernel), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(got), _np(oracle),
+                               rtol=EXACT if dtype == "float32" else tol,
+                               atol=EXACT if dtype == "float32" else tol)
+
+
+def test_ops_keep_one_length_for_q_and_kv():
+    """The separate key length is the model's (flash_attention_cuda),
+    not the TPU kernel's contract, which `ops` keeps."""
+    q = torch.zeros((1, 128, 2, 32))
+    kv = torch.zeros((1, 256, 2, 32))
+    with pytest.raises(ValueError, match="one length"):
+        KOPS.flash_attention(q, kv, kv, causal=False)
+    KOPS.flash_attention(q, kv, kv, causal=False, backend="reference")

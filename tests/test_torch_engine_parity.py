@@ -140,3 +140,45 @@ def test_unported_options_raise(world):
     for kw in ({"mesh": object()}, {"prebake": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TENG.ServingEngine(te.fleet, te.router, **kw)
+
+
+def test_launcher_build_engine_matches_jax():
+    """The two launchers' default engines (ARCH_IDS[:4] at their reduced
+    configs: whisper-large-v3, olmo-1b, mamba2-780m, qwen3-8b, behind
+    routers fitted on the same corpus) route the same requests to the
+    same models, and every response has its rid and max_new tokens in
+    the vocabulary. Random weights differ between the frameworks, so
+    tokens are not compared."""
+    from repro.launch import serve as JSERVE
+    from repro_torch.launch import serve as TSERVE
+    je, corpus = JSERVE.build_engine()
+    te, _ = TSERVE.build_engine(device="cpu")
+    assert list(te.fleet) == list(je.fleet) == [
+        "whisper-large-v3", "olmo-1b", "mamba2-780m", "qwen3-8b"]
+    rng = np.random.default_rng(11)
+    budgets = [1.0, 2.5, 3.5, 5.5, 6.5, 8.0, 9.0, 10.0] * 2
+    args = [(rng.integers(0, 100, rng.integers(4, 12)).astype(np.int32),
+             corpus.embeddings[i], b)
+            for i, b in zip(corpus.test_idx[:16], budgets)]
+    jres = je.serve([JENG.Request(tokens=t, embedding=e, budget=b,
+                                  max_new_tokens=2, rid=k)
+                     for k, (t, e, b) in enumerate(args)])
+    tres = te.serve([TENG.Request(tokens=t, embedding=e, budget=b,
+                                  max_new_tokens=2, rid=k)
+                     for k, (t, e, b) in enumerate(args)])
+    assert [r.model for r in tres] == [r.model for r in jres]
+    assert len({r.model for r in tres}) >= 3
+    for k, r in enumerate(tres):
+        vocab = te.fleet[r.model].cfg.vocab
+        assert r.rid == k and r.tokens.shape == (2,)
+        assert 0 <= r.tokens.min() and r.tokens.max() < vocab
+
+
+def test_launcher_flags_not_ported_raise():
+    from repro_torch.launch import serve as TSERVE
+    for argv, item in ((["--serve-obs", "0"], "§2.4"),
+                       (["--alert-log", "x.jsonl"], "§2.4"),
+                       (["--db-shards", "2"], "§2.5"),
+                       (["--prebake"], "§2.5")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            TSERVE.main(argv)

@@ -542,3 +542,97 @@ def test_model_kernel_path_matches_plain_attention(dev, arch):
     counts = _build.launch_counts()
     assert counts["flash_attention"] == m.cfg.n_layers
     assert counts["decode_attention"] == m.cfg.n_layers * 5
+
+
+# ---------------------------------------------------------------------------
+# whisper's attention: bidirectional, cross-attention (Sq != Sk), cross
+# decode over 1500 frames; the encdec and ssm models' kernel path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,t,h,hk,dh", [(2, 11, 1500, 20, 20, 64),
+                                           (2, 1024, 1500, 20, 20, 64),
+                                           (1, 1500, 1500, 20, 20, 64),
+                                           (1, 130, 77, 8, 2, 128),
+                                           (3, 1, 300, 4, 4, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_separate_key_length(dev, b, s, t, h, hk, dh,
+                                             dtype):
+    """Without the causal mask the keys may number S_kv != S: whisper's
+    cross prefill (a prompt against 1500 frames: 11 full 128-key tiles
+    and a ragged tail of 92), its encoder (S = S_kv = 1500), and keys
+    fewer than the queries. Held to the JAX suite's bar for the type."""
+    rng = np.random.default_rng(s + t)
+    q = _normal(rng, (b, s, h, dh), dtype, dev)
+    k = _normal(rng, (b, t, hk, dh), dtype, dev)
+    v = _normal(rng, (b, t, hk, dh), dtype, dev)
+    got = flash_attention_cuda(q, k, v, causal=False)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    tol = ATT_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_flash_attention_causal_needs_one_length(dev):
+    q = torch.ones((1, 128, 4, 64), device=dev, dtype=torch.bfloat16)
+    kv = torch.ones((1, 256, 4, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="causal mask"):
+        flash_attention_cuda(q, kv, kv, causal=True)
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_whisper_cross_cache(dev, q_dtype):
+    """One token against whisper's cross cache: T = 1500 fp32 rows, all
+    valid, H = Hk = 20, dh = 64."""
+    rng = np.random.default_rng(1500)
+    b, t, h, dh = 16, 1500, 20, 64
+    q = _normal(rng, (b, h, dh), q_dtype, dev)
+    k = _normal(rng, (b, t, h, dh), torch.float32, dev)
+    v = _normal(rng, (b, t, h, dh), torch.float32, dev)
+    kv_len = torch.full((b,), t, dtype=torch.int32, device=dev)
+    got = decode_attention_cuda(q, k, v, kv_len)
+    want = ref.decode_attention_ref(q, k.to(q_dtype), v.to(q_dtype), kv_len)
+    torch.cuda.synchronize()
+    tol = ATT_TOL[q_dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "mamba2-780m"])
+def test_encdec_and_ssm_kernel_path_matches_plain(dev, arch):
+    """A reduced fp32 whisper (encoder flash, decoder flash, cross flash
+    with S_kv != S, self and cross decode) and mamba2 (no attention)
+    through the kernels and through the plain attend: prefill + 5 decode
+    steps fed the same tokens give logits within the fp32 attention bar,
+    and FleetModel.generate launches, per layer, one flash kernel a
+    prefill (whisper: encoder, decoder and cross) and one decode kernel
+    a step (whisper: self and cross)."""
+    from repro_torch.models import transformer as T
+    m = _reduced_model(dev, arch)
+    cfg = m.cfg
+    rng = np.random.default_rng(2)
+    toks = torch.tensor(rng.integers(0, 500, (3, 64)), device=dev)
+    enc = None
+    if cfg.arch_type == "encdec":
+        enc = torch.tensor(rng.normal(size=(3, cfg.n_audio_frames,
+                                            cfg.d_model)),
+                           dtype=torch.float32, device=dev)
+    runs = {b: T.prefill(cfg, m.params, toks, m.max_len, backend=b,
+                         cache_dtype=torch.float32, enc_embeds=enc)
+            for b in ("cuda", "reference")}
+    for i in range(6):
+        got, want = runs["cuda"][0], runs["reference"][0]
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+        tok = want.argmax(-1)[:, None]
+        runs = {b: T.decode_step(cfg, m.params, runs[b][1], tok, 64 + i,
+                                 backend=b) for b in runs}
+    _build.reset_launches()
+    m.generate(toks.cpu().numpy(), 6)
+    counts = _build.launch_counts()
+    if cfg.arch_type == "encdec":
+        assert counts["flash_attention"] == cfg.n_enc_layers \
+            + 2 * cfg.n_layers
+        assert counts["decode_attention"] == 2 * cfg.n_layers * 5
+    else:
+        assert counts["flash_attention"] == counts["decode_attention"] == 0

@@ -68,6 +68,36 @@ def test_default_device_is_the_card_and_raises_without_one(idx):
         call()
 
 
+_NEW_MODULES = r"""
+import sys
+sys.modules["jax"] = None
+import repro_torch.models.ssm, repro_torch.serving.admission
+import repro_torch.serving.traffic, repro_torch.launch.serve
+leaked = sorted(m for m, v in sys.modules.items() if v is not None and
+                (m in ("repro", "jax") or m.startswith(("repro.", "jax."))))
+print(leaked)
+"""
+
+
+def test_serving_launcher_modules_import_without_jax():
+    """The launcher's modules (the mamba2 block, admission, traffic, the
+    launcher itself) import with JAX blocked and load no JAX-package
+    module."""
+    out = subprocess.run([sys.executable, "-c", _NEW_MODULES], cwd=SRC,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_launcher_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from repro_torch.launch.serve import build_engine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine(n_fleet=2)
+
+
 def test_explicit_cpu_device_runs():
     from repro_torch.core.state import init_state
     st = init_state(3, 4, capacity=8, device="cpu")
