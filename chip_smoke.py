@@ -26,14 +26,21 @@ together), then:
   3. drives the main path at the paper's width (D = 1536, N = 20, K = 32,
      P = 0.5, the 10-model fleet) over a RouterBench-scale corpus:
      fit (196k records, C = 32768, R = 8), a RouteDispatcher over a
-     DoubleBuffer warmed on the 8..1024 ladder, ragged routing of the
-     10,500 test queries at several budgets, the AUC over the budget
-     grid, and 3 rounds of online feedback (global fold, commit,
-     route), then routes 1024 queries through the kernels and through
-     the plain versions and compares the choices;
+     DoubleBuffer whose route graphs are captured on the 8..1024 ladder
+     for both replicas, ragged routing of the 10,500 test queries at
+     several budgets, the AUC over the budget grid, and 3 rounds of
+     online feedback (global fold, commit, route), then routes 1024
+     queries through the kernels and through the plain versions and
+     compares the choices;
   4. checks that every kernel of the path was launched in that run;
   5. times each kernel (CUDA events), its plain version, the library
-     call where one exists, and the path's end-to-end latencies;
+     call where one exists, and the path's end-to-end latencies (route
+     p50 through the graphs at every bucket, and without them at 8, 64
+     and 1024); then the graph phase of the routing path: ragged
+     batches of 1..1499 queries with feedback committed between them,
+     across both replicas and a grow of the DB (C = 32768 -> 65536),
+     each batch's choices equal to the eager route's on the same state,
+     every capture a warmup's;
   6. holds the two attention kernels against their plain versions in
      bf16, element by element, at the serving shapes of both head
      layouts (qwen3-8b: prefill B=8, S=1024, H=32, Hk=8, dh=128, decode
@@ -48,15 +55,18 @@ together), then:
      from a seed, bf16 compute, fp32 KV cache of 1056 rows) behind a
      router fitted at D = 1536, serving 64 requests in 4 serve() calls
      (prompts of 128..1024 tokens, 32 new tokens, budgets over [1, 10],
-     25% of them compared and fed back), and checks that all five
-     kernels were launched in that run;
+     25% of them compared and fed back; each model's static decode state
+     sized at 16 rows, its decode graphs captured per row count), and
+     checks that all five kernels were launched in that run;
   8. runs a group of each model through prefill and 4 decode steps with
      the kernels (each call also held against its plain version on the
      same inputs), with the plain attend, and with a control that drops
      the newest key at every decode, and compares the calls, the logits
      and the tokens;
-  9. times the time to first token and the decode step per model, the
-     serve() p50, peak memory, and profiles one qwen3-8b decode step;
+  9. times the time to first token and the decode step per model, eager
+     and through its captured graph (wall, device and the replay's host
+     cost), the serve() p50, peak memory, and profiles an eager and a
+     replayed decode step of each model;
  10. drives the launcher (`repro_torch.launch.serve`): build_engine() at
      its defaults (reduced ARCH_IDS[:4]) serves 8 requests through
      serve() and 8 through `--admission`; holds whisper-large-v3's five
@@ -67,11 +77,16 @@ together), then:
      width and depth (whisper-large-v3, olmo-1b, mamba2-780m, qwen3-8b,
      groups padded to 1024 tokens) behind one router: 2 serve() calls
      of 16 requests and 32 requests through an AdmissionQueue at
-     Poisson arrivals of 20 req/s, every kernel and every whisper call
-     site launched, peak memory under 80 GB; then whisper and mamba2
+     Poisson arrivals of 20 req/s (windows of 16), after capturing every
+     model's decode graphs for 1..16 rows: nothing captured in that run,
+     every kernel and every whisper call site launched (replays credited
+     per site), peak memory under 80 GB; then each model's greedy tokens
+     through its graphs equal to the eager path's, whisper and mamba2
      kernel path against plain path, their times and profiles.
 
-Any mismatch or exception exits non-zero. The last line of standard
+Every CUDA graph is captured by `repro_torch.graphs` (counted process
+wide); a failed capture raises. Any mismatch or exception exits
+non-zero. The last line of standard
 output is {"ok": true, "device": {...}}; the line before it is the
 kernels' JSON, and the one before that the card's name and power limit.
 Everything measured is also written to chiprun_out/chip_smoke.json.
@@ -128,6 +143,18 @@ LAUNCH_FLEET = ("whisper-large-v3", "olmo-1b", "mamba2-780m", "qwen3-8b")
 LAUNCH_PAD_LEN = 1024
 LAUNCH_CALLS, LAUNCH_SEED = 2, 0
 ADMIT_REQUESTS, ADMIT_RATE = 32, 20.0
+# the decode graphs warmed for the launcher fleet: every row count its
+# traffic can make. An admission window of 16 bounds every group at 16
+# rows (the queue's default, 32, could make groups of 17..32, and
+# whisper's static caches alone take 0.84 GB a row: 26.8 GB at 32)
+LAUNCH_BUCKETS = (1, 2, 4, 8, 16)
+ADMIT_WINDOW = 16
+# the graph phase of the routing path: GRAPH_ROUNDS ragged batches, each
+# followed by GRAPH_FEED new prompts of feedback (8 pairs each) and a
+# commit; the DB grows past C_EXPECTED in the first rounds, and both
+# grown replicas are then routed
+GRAPH_ROUNDS, GRAPH_FEED = 20, 500
+ROUTE_P50_EAGER = (8, 64, 1024)
 # whisper-large-v3's attention call sites at its serving shapes: flash
 # (B, S, S_kv, H, Hk, dh, causal) and decode (B, T, H, Hk, dh); the
 # encoder over 1500 frames, the cross prefill of a 1024-token prompt
@@ -593,7 +620,7 @@ def fold_log(dev, records, n_valid=None, pad=True):
             padded(s, np.float32), v)
 
 
-def check_fit_fold(dev, stats, fold_records):
+def check_fit_fold(dev, kernels, stats, fold_records):
     """The fit's global fold at its real shape (Q = 1, the fit's whole
     record log, padded), held against host folds of the plain formula in
     float32 and float64 (`ref.elo_fold_host`): the kernel must lie no
@@ -644,11 +671,30 @@ def check_fit_fold(dev, stats, fold_records):
              f"over the bar {ratio} (at most 1), control without the last "
              f"record {ctl_ratio} (at least {CONTROL_MIN}); host folds s "
              f"{host_s}")
+    # the plain version on the same log, once (a Python loop of ~15
+    # launches a step: about a minute)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = ref.elo_scan_ref(g0, *rec)[0]
+    end.record()
+    torch.cuda.synchronize()
+    plain = start.elapsed_time(end)
+    err = float((torch.tensor(got, device=dev) - want).abs().max())
+    log_time(stats, f"elo_scan fit fold: plain_ms={plain} (one run), the "
+             f"kernel against it max_abs_err={err}")
     stats["elo_scan_fit_fold"] = dict(
         t=tb, valid=t, ms=ms, ns_per_valid_step=ms * 1e6 / t,
         unpadded_ms=ms_unpadded, bound_ms=bms, bound_by=by,
         distance_from_float64=dist, err_over_bar=ratio,
-        control_over_bar=ctl_ratio, host_fold_s=host_s)
+        control_over_bar=ctl_ratio, host_fold_s=host_s, plain_ms=plain,
+        max_abs_err=err)
+    kernels["elo_scan fit fold"] = dict(
+        name="elo_scan fit fold", route="cuda",
+        source="src/repro_torch/kernels/csrc/elo_scan.cu",
+        replaces="src/repro/kernels/elo_scan.py:157", max_abs_err=err,
+        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None)
 
 
 def check_fused(dev, kernels, stats, size):
@@ -774,7 +820,7 @@ def check_replay(dev, kernels, stats, fold_records):
         fail(f"elo_scan global fold: max abs err {err_fold}")
     log(f"elo_scan global fold Q=1 T=16384: max_abs_err={err_fold}")
     stats["elo_scan_fold16384_err"] = err_fold
-    check_fit_fold(dev, stats, fold_records)
+    check_fit_fold(dev, kernels, stats, fold_records)
 
     # timed at the online update's shape: a 400-record fold, padded to 512
     t_up = 512
@@ -823,6 +869,46 @@ def pregathered_selects():
         yield count
 
 
+def graph_pool_gb():
+    """Device memory held by CUDA graph memory pools in this process: the
+    caching allocator's segments that belong to a private pool (the
+    static inputs and states outside the graphs are not in them)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) != (0, 0)) / 1e9
+
+
+def warm_both(disp, dbuf, router, batch_sizes=None) -> int:
+    """Capture the dispatcher's route graphs on both replicas of the
+    double buffer, each while it is the front (two commits: the same
+    replica is the front after). Returns the number captured."""
+    n = 0
+    for _ in range(2):
+        n += disp.warmup(dbuf.front, batch_sizes)
+        dbuf.commit(router.global_ratings)
+    return n
+
+
+def eager_route(disp, state, q, budgets):
+    """A dispatch without its graph, as the dispatcher ran before it kept
+    graphs: each chunk padded to its bucket, pageable copies of the
+    queries and budgets, route_batch_choices, one readout."""
+    from repro_torch.core.state import route_batch_choices
+    q = np.atleast_2d(np.asarray(q, np.float32))
+    b = np.broadcast_to(np.asarray(budgets, np.float32),
+                        (q.shape[0],)).astype(np.float32)
+    out = []
+    for lo, hi in disp._chunks(q.shape[0]) or [(0, 0)]:
+        nq = hi - lo
+        qb = disp.bucket(nq)
+        qp = np.pad(q[lo:hi], ((0, qb - nq), (0, 0)))
+        bp = np.pad(b[lo:hi], (0, qb - nq))
+        res = route_batch_choices(state, torch.from_numpy(qp).to(state.device),
+                                  torch.from_numpy(bp).to(state.device),
+                                  disp.costs, **disp.kw)
+        out.append(res.choices[:nq].cpu().numpy())
+    return np.concatenate(out)
+
+
 def drive_main_path(dev, corpus, fb, stats):
     from unittest import mock
     from repro_torch.configs.eagle import PAPER_CONFIG
@@ -832,16 +918,19 @@ def drive_main_path(dev, corpus, fb, stats):
     from repro_torch.core.state import DoubleBuffer
     from repro_torch.data.routerbench import (budget_grid, evaluate_router,
                                               pairwise_feedback)
+    from repro_torch.kernels import _build
 
     router = EagleRouter(corpus.model_names, corpus.costs, PAPER_CONFIG,
                          device=dev)
-    fit_global, fold_s = elo.fit_global, []
+    fit_global, fold_s, fold_launches = elo.fit_global, [], []
 
     def timed_fold(*args, **kw):     # fit()'s wall, split: the global fold
+        n0 = _build.launch_counts()["elo_scan"]
         t0 = time.perf_counter()
         out = fit_global(*args, **kw)
         torch.cuda.synchronize()
         fold_s.append(time.perf_counter() - t0)
+        fold_launches.append(_build.launch_counts()["elo_scan"] - n0)
         return out
     with mock.patch.object(elo, "fit_global", timed_fold):
         fit_s = router.fit(fb["emb"], fb["model_a"], fb["model_b"],
@@ -859,6 +948,7 @@ def drive_main_path(dev, corpus, fb, stats):
              f"{fit_s - fold_s[0]} s")
     stats["fit_s"] = dict(wall=fit_s, fold=fold_s[0],
                           db_add=fit_s - fold_s[0])
+    stats["fit_fold_launches"] = fold_launches[0]
 
     t0 = time.perf_counter()
     dbuf = DoubleBuffer(db, router.global_ratings, device=dev)
@@ -866,11 +956,17 @@ def drive_main_path(dev, corpus, fb, stats):
     upload_s = time.perf_counter() - t0
     disp = RouteDispatcher.for_router(router)
     t0 = time.perf_counter()
-    warmed = disp.warmup(dbuf.front)
+    warmed = warm_both(disp, dbuf, router)
     warm_s = time.perf_counter() - t0
+    pool_gb = graph_pool_gb()
     log_time(stats,
-             f"double buffer upload {upload_s:.3f} s; warmup of {warmed} "
-             f"buckets {bucket_ladder()} {warm_s:.3f} s")
+             f"double buffer upload {upload_s:.3f} s; warmup: {warmed} route "
+             f"graphs (buckets {bucket_ladder()} x 2 replicas) captured in "
+             f"{warm_s:.3f} s (capture seconds "
+             f"{disp.cache_stats()['compile_s']:.3f}); their memory pool "
+             f"{pool_gb:.3f} GB")
+    stats["route_graphs"] = dict(warmed=warmed, warm_s=warm_s,
+                                 pool_gb=pool_gb)
 
     # ragged routing of the test split at several budgets
     rng = np.random.default_rng(0)
@@ -984,9 +1080,18 @@ def time_path(disp, dbuf, router, test, stats):
             disp.route(st, test[:qb], budget)
             ts.append((time.perf_counter() - t0) * 1e3)
         p50[qb] = statistics.median(ts)
+    eager = {}
+    for qb in ROUTE_P50_EAGER:
+        ts = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            eager_route(disp, st, test[:qb], budget)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        eager[qb] = statistics.median(ts)
     log_time(stats,
-             f"route p50 ms per bucket: {p50}")
-    stats["route_p50_ms"] = p50
+             f"route p50 ms per bucket through the graphs: {p50}; without "
+             f"them (eager): {eager}")
+    stats["route_p50_ms"], stats["route_p50_eager_ms"] = p50, eager
     rng = np.random.default_rng(5)
     a = rng.integers(0, M, 400).astype(np.int32)
     b = ((a + rng.integers(1, M, 400)) % M).astype(np.int32)
@@ -1037,6 +1142,120 @@ def profile_route(disp, dbuf, router, test, stats):
                  f"top: {top}")
         stats["profile"][qb] = dict(wall_ms=wall_ms, device_ms=device_ms,
                                     top=top)
+
+
+def drive_route_graphs(router, disp, dbuf, corpus, stats):
+    """The graph phase of the routing path: GRAPH_ROUNDS ragged batches
+    (1..1499 queries, budgets from the grid) through the warmed
+    dispatcher, each followed by GRAPH_FEED new prompts of feedback and
+    a commit, so that both replicas serve and the DB grows (C_EXPECTED ->
+    2 C_EXPECTED). After each commit the new front is warmed: only a
+    grown replica (new tensors, a new key) captures there, as the JAX
+    package's prebaker compiles the next capacity off the route. Every
+    batch's choices must equal the eager route's on the same state; no
+    capture may come from traffic (cache_stats: misses - warmed), and
+    the process-wide capture count must equal the warmups' captures.
+    Then a second grow: one prompt with R + 1 records doubles the
+    records per prompt, and each replica is warmed and routed as it
+    becomes the front. The cache must then hold the graphs of the two
+    live replicas only (the four freed ones' evicted with their pools);
+    the pool is reported after each grow."""
+    from repro_torch import graphs
+    from repro_torch.core.dispatch import bucket_ladder, replica
+    from repro_torch.data.routerbench import budget_grid, pairwise_feedback
+    rng = np.random.default_rng(7)
+    test = corpus.embeddings[corpus.test_idx]
+    grid = budget_grid(corpus.costs)
+    lo = FEEDBACK_ROUNDS * FEEDBACK_PROMPTS
+    new = pairwise_feedback(
+        corpus, corpus.test_idx[lo:lo + GRAPH_ROUNDS * GRAPH_FEED], seed=2,
+        pairs_per_query=PAIRS_PER_QUERY)
+    per = GRAPH_FEED * PAIRS_PER_QUERY
+    st0, c0 = disp.cache_stats(), graphs.capture_count()
+    warm_caps, replicas, grew, routed, differ = 0, set(), [], 0, 0
+    wall = 0.0
+    for rnd in range(GRAPH_ROUNDS):
+        front = dbuf.front
+        replicas.add(replica(front))
+        nq = int(rng.integers(1, 1500))
+        start = int(rng.integers(0, len(test) - nq))
+        q = test[start:start + nq]
+        b = rng.choice(grid, nq).astype(np.float32)
+        t0 = time.perf_counter()
+        got = disp.route(front, q, b)
+        wall += time.perf_counter() - t0
+        differ += int((got != eager_route(disp, front, q, b)).sum())
+        routed += nq
+        sl = slice(rnd * per, (rnd + 1) * per)
+        router.update(new["emb"][sl], new["model_a"][sl],
+                      new["model_b"][sl], new["outcome"][sl],
+                      query_id=new["query_idx"][sl])
+        dbuf.commit(router.global_ratings)
+        if dbuf.front.capacity != front.capacity:
+            grew.append(rnd)
+        warm_caps += disp.warmup(dbuf.front)
+    pool_gb = [graph_pool_gb()]
+    del front
+
+    def routed_front():                       # one checked batch
+        nq = int(rng.integers(1, 1500))
+        q, b = test[:nq], rng.choice(grid, nq).astype(np.float32)
+        got = disp.route(dbuf.front, q, b)
+        return nq, int((got != eager_route(disp, dbuf.front, q, b)).sum())
+    r0 = router.db.rcap
+    router.update(np.repeat(test[:1], r0 + 1, axis=0),
+                  np.zeros(r0 + 1, np.int32), np.ones(r0 + 1, np.int32),
+                  np.ones(r0 + 1, np.float32),
+                  query_id=np.full(r0 + 1, 1 << 40))
+    for _ in range(2):
+        dbuf.commit(router.global_ratings)
+        replicas.add(replica(dbuf.front))
+        warm_caps += disp.warmup(dbuf.front)
+        n, d = routed_front()
+        routed, differ = routed + n, differ + d
+    pool_gb.append(graph_pool_gb())
+    st = disp.cache_stats()
+    traffic = (st["misses"] - st0["misses"]) - (st["warmed"] - st0["warmed"])
+    captures = graphs.capture_count() - c0
+    live = {replica(dbuf.front), replica(dbuf._back[0])}
+    ladder = len(bucket_ladder(disp.min_bucket, disp.max_bucket))
+    evicted = disp.telemetry()["cache_evicted"]
+    log_time(stats,
+             f"graph phase: {GRAPH_ROUNDS} ragged batches, {routed} queries "
+             f"({routed / wall:.1f} queries/s through the graphs), feedback "
+             f"of {GRAPH_FEED} prompts and a commit after each; replicas "
+             f"routed {len(replicas)}; the DB grew to "
+             f"{router.db.capacity} rows at rounds {grew}; captures by the "
+             f"warmups after commits {warm_caps}, by traffic {traffic}, "
+             f"process-wide {captures}; choices differing from the eager "
+             f"route {differ}; then a second grow (records per prompt "
+             f"{r0} -> {router.db.rcap}); ledger "
+             f"{dict(st, keys=len(st['keys']))}, evicted {evicted}; the "
+             f"route graphs' pool after the first grow {pool_gb[0]:.3f} GB, "
+             f"after the second {pool_gb[1]:.3f} GB")
+    stats["route_graph_phase"] = dict(
+        routed=routed, queries_per_s=routed / wall, replicas=len(replicas),
+        grew_at=grew, warm_captures=warm_caps, traffic_captures=traffic,
+        captures=captures, choices_differing=differ, pool_gb=pool_gb,
+        evicted=evicted, records_per_prompt=[r0, router.db.rcap],
+        ledger={k: v for k, v in st.items() if k != "keys"})
+    if differ:
+        fail(f"graph phase: {differ} choices differ from the eager route")
+    if traffic or captures != warm_caps:
+        fail(f"graph phase: {traffic} captures by traffic, {captures} in "
+             f"the process against {warm_caps} by the warmups")
+    # the front's capacity changes once: the second replica grows while
+    # the first grown one is the front
+    if len(grew) != 1 or router.db.capacity != 2 * C_EXPECTED \
+            or router.db.rcap != 2 * r0 or len(replicas) != 6:
+        fail(f"graph phase: the front grew at rounds {grew} to "
+             f"{router.db.capacity} rows of {router.db.rcap} records, "
+             f"{len(replicas)} replicas routed")
+    if {k[-1] for k in st["keys"]} != live or st["entries"] != 2 * ladder \
+            or evicted != 4 * ladder:
+        fail(f"graph phase: {st['entries']} graphs cached over "
+             f"{len({k[-1] for k in st['keys']})} replicas ({evicted} "
+             f"evicted): the freed replicas' graphs were not evicted")
 
 
 # ---------------------------------------------------------------------------
@@ -1238,6 +1457,10 @@ def build_serving(dev, stats):
     engine = ServingEngine(fleet, router, compare_rate=0.25, seed=0,
                            quality_oracle=quality_oracle)
     engine.warmup()
+    # each model's static decode state at SERVE_BATCH rows, the largest
+    # group; the groups' own row counts are captured at first use
+    for m in fleet.values():
+        m.warmup([SERVE_BATCH])
     torch.cuda.empty_cache()      # the fp32 copies the casts released
     stats["serve_fleet"] = {n: dict(layers=m.cfg.n_layers,
                                     d_model=m.cfg.d_model)
@@ -1447,6 +1670,57 @@ def compare_model_paths(engine, stats, names=FLEET):
             token_flips=flips)
 
 
+@torch.inference_mode()
+def eager_generate(m, toks, max_new):
+    """Greedy tokens through the eager path (compare_model_paths'
+    kernel path): prefill into a fresh cache, then decode_step with an
+    int position and its own argmax, as FleetModel.generate runs them
+    through its graph."""
+    from repro_torch.models import transformer as T
+    t = torch.tensor(toks, dtype=torch.int64, device=m.device)
+    enc = None
+    if m.cfg.arch_type == "encdec":
+        enc = torch.zeros((t.shape[0], m.cfg.n_audio_frames,
+                           m.cfg.d_model), device=m.device)
+    logits, cache = T.prefill(m.cfg, m.params, t, m.max_len,
+                              cache_dtype=torch.float32, enc_embeds=enc)
+    tok = logits.argmax(-1)[:, None]
+    out = [tok]
+    for i in range(max_new - 1):
+        logits, cache = T.decode_step(m.cfg, m.params, cache, tok,
+                                      toks.shape[1] + i)
+        tok = logits.argmax(-1)[:, None]
+        out.append(tok)
+    return torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
+
+
+def compare_graph_generate(engine, stats):
+    """Each fleet model's greedy tokens through its captured decode
+    graphs (FleetModel.generate, a warmed row count of 8) against the
+    eager path's on the same padded group of 8 prompts of 128..1024
+    tokens, MAX_NEW tokens each: every token must be equal, and nothing
+    may be captured."""
+    rng = np.random.default_rng(8)
+    out = {}
+    for name, m in engine.fleet.items():
+        toks = np.zeros((8, LAUNCH_PAD_LEN), np.int32)
+        for row in range(8):
+            n = int(rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1))
+            toks[row, :n] = rng.integers(0, m.cfg.vocab, n)
+        misses = m.cache_stats()["misses"]
+        got = m.generate(toks, MAX_NEW)
+        want = eager_generate(m, toks, MAX_NEW)
+        out[name] = int((got != want).sum())
+        if m.cache_stats()["misses"] != misses:
+            fail(f"{name}: generate at 8 rows captured a graph")
+    log(f"greedy tokens through the decode graphs against the eager "
+        f"path, 8 prompts x {MAX_NEW} tokens per model: differing {out}")
+    stats["graph_tokens_differing"] = out
+    if any(out.values()):
+        fail(f"tokens through the decode graphs differ from the eager "
+             f"path's: {out}")
+
+
 # ---------------------------------------------------------------------------
 # phase 9: serving times
 # ---------------------------------------------------------------------------
@@ -1496,25 +1770,65 @@ def time_serving(engine, stats, names=FLEET):
             tok = logits.argmax(-1)[:, None]
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / TIME_STEPS
+        del cache
+        graph = graph_step_times(m, toks, enc)
         out[name] = dict(ttft_ms=statistics.median(ttft),
                          decode_step_ms=step_ms,
-                         tokens_per_s=TIME_BATCH / step_ms * 1e3)
+                         tokens_per_s=TIME_BATCH / step_ms * 1e3,
+                         graph=graph)
         if enc is not None:
             out[name]["encoder_ms"] = statistics.median(enc_ms)
         log_time(stats,
                  f"{name}: time to first token (prefill of {TIME_BATCH} x "
                  f"{TIME_LEN}) p50 {out[name]['ttft_ms']:.2f} ms of "
                  f"{ttft}; decode step at batch {TIME_BATCH}, context "
-                 f"~{TIME_LEN}: {step_ms:.3f} ms = "
-                 f"{out[name]['tokens_per_s']:.1f} tokens/s")
-        del cache
+                 f"~{TIME_LEN}: eager {step_ms:.3f} ms = "
+                 f"{out[name]['tokens_per_s']:.1f} tokens/s; through its "
+                 f"graph: wall {graph['wall_ms']:.3f} ms, device (events) "
+                 f"{graph['device_ms']:.3f} ms, host (index update and "
+                 f"replay, enqueued) {graph['host_ms']:.4f} ms = "
+                 f"{TIME_BATCH / graph['wall_ms'] * 1e3:.1f} tokens/s")
+
+
+@torch.inference_mode()
+def graph_step_times(m, toks, enc):
+    """One model's decode step at batch TIME_BATCH, context ~TIME_LEN,
+    through its captured graph (FleetModel's static state, as generate
+    drives it): the wall per step (host clock to a synchronise), the
+    device time per step (CUDA events around the steps: the host runs
+    far ahead of a replay, so no gap between graphs is counted), and the
+    host's cost per step (an index update and a replay, enqueued)."""
+    from repro_torch.models import transformer as T
+    step = m._step(TIME_BATCH)
+    cache, hist, index = m._view(TIME_BATCH)
+    logits, _ = T.prefill(m.cfg, m.params, toks, m.max_len,
+                          enc_embeds=enc, cache=cache)
+    hist[:, TIME_LEN] = logits.argmax(-1)
+    index.fill_(TIME_LEN)
+    step(cache, hist, index)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(TIME_STEPS):
+        index.fill_(TIME_LEN + 1 + i)
+        step(cache, hist, index)
+    end.record()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(wall_ms=wall * 1e3 / TIME_STEPS,
+                device_ms=start.elapsed_time(end) / TIME_STEPS,
+                host_ms=host * 1e3 / TIME_STEPS)
 
 
 @torch.inference_mode()
 def profile_decode(engine, stats, name="qwen3-8b", what="decode"):
     """Device time by op of one fleet model at batch TIME_BATCH, context
-    TIME_LEN: over 3 decode steps, or over one prefill (what="prefill";
-    whisper's includes its encoder over the zero stub)."""
+    TIME_LEN: over 3 eager decode steps, 3 replays of its captured decode
+    step (what="graph"), or one prefill (what="prefill"; whisper's
+    includes its encoder over the zero stub)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer as T
@@ -1532,14 +1846,25 @@ def profile_decode(engine, stats, name="qwen3-8b", what="decode"):
     logits, cache = prefill()
     tok = logits.argmax(-1)[:, None]
     T.decode_step(m.cfg, m.params, cache, tok, TIME_LEN)
+    if what == "graph":
+        del cache
+        step = m._step(TIME_BATCH)
+        cache, hist, index = m._view(TIME_BATCH)
+        T.prefill(m.cfg, m.params, toks, SERVE_MAX_LEN, enc_embeds=enc,
+                  cache=cache)
+        index.fill_(TIME_LEN)
+        step(cache, hist, index)
     torch.cuda.synchronize()
-    n = 3 if what == "decode" else 1
+    n = 1 if what == "prefill" else 3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(n):
             if what == "decode":
                 T.decode_step(m.cfg, m.params, cache, tok, TIME_LEN + 1 + i)
+            elif what == "graph":
+                index.fill_(TIME_LEN + 1 + i)
+                step(cache, hist, index)
             else:
                 prefill()
         torch.cuda.synchronize()
@@ -1571,6 +1896,7 @@ def drive_launcher(stats):
     through serve(), then 8 through `_serve_admitted` at the default
     rate, window and wait (--admission); the requests as `main` makes
     them."""
+    from repro_torch import graphs
     from repro_torch import obs as OBS
     from repro_torch.kernels import _build
     from repro_torch.launch import serve as LS
@@ -1579,6 +1905,7 @@ def drive_launcher(stats):
     # a telemetry scope of its own: `stats` counts this engine alone
     engine, corpus = LS.build_engine(obs=OBS.Observability())
     build_s = time.perf_counter() - t0
+    c0 = graphs.capture_count()
     rng = np.random.default_rng(0)
     reqs = [Request(tokens=rng.integers(0, 100, rng.integers(4, 12)).astype(
                         np.int32),
@@ -1597,10 +1924,18 @@ def drive_launcher(stats):
     torch.cuda.synchronize()
     counts = _build.launch_counts()
     models = sorted({r.model for r in res + adm})
+    captured = graphs.capture_count() - c0
+    if captured:
+        fail(f"the launcher at its defaults captured {captured} graphs "
+             "after build_engine warmed it")
     log_time(stats, f"launcher at its defaults (reduced {list(engine.fleet)}"
              f"): built in {build_s:.1f} s; serve() of 8 in {serve_s:.3f} "
              f"s, --admission of 8 in {admit_s:.3f} s; models answering "
-             f"{models}; stats {engine.stats}; launches {counts}")
+             f"{models}; stats {engine.stats}; launches {counts}; graphs "
+             f"captured after build_engine {captured} (route "
+             f"{engine.dispatch.cache_stats()['misses']} and decode "
+             f"{sum(m.cache_stats()['misses'] for m in engine.fleet.values())}"
+             f" at build)")
     stats["launcher"] = dict(build_s=build_s, serve_s=serve_s,
                              admission_s=admit_s, models=models,
                              stats=engine.stats, launches=counts)
@@ -1772,54 +2107,89 @@ def build_launch_fleet(dev, serving, stats):
     return engine, corpus
 
 
+def warm_launch_fleet(engine, stats):
+    """Capture every model's decode graphs for LAUNCH_BUCKETS rows (the
+    static states sized at the largest) and run a generate of
+    LAUNCH_PAD_LEN tokens at each (engine.warmup_generate). Reports the
+    captures, their seconds, the static states' memory (from their
+    shapes) and the process's graph pools (the route graphs' too)."""
+    t0 = time.perf_counter()
+    n = engine.warmup_generate(LAUNCH_PAD_LEN, batch_sizes=LAUNCH_BUCKETS)
+    warm_s = time.perf_counter() - t0
+    pools = graph_pool_gb()
+    state_gb = {name: sum(x.numel() * x.element_size()
+                          for x in _leaves(m._cache)) / 1e9
+                for name, m in engine.fleet.items()}
+    ledgers = {name: {k: v for k, v in m.cache_stats().items()}
+               for name, m in engine.fleet.items()}
+    log_time(stats,
+             f"launcher fleet warmup: {n} decode graphs captured for "
+             f"{LAUNCH_BUCKETS} rows in {warm_s:.1f} s (with a generate at "
+             f"each); static decode states GB {state_gb} (rows "
+             f"{ {k: m.rows for k, m in engine.fleet.items()} }); graph "
+             f"pools in the process (the decode graphs of the four models, "
+             f"the launch router's route graphs) {pools:.2f} GB; ledgers "
+             f"{ledgers}")
+    stats["launch_warmup"] = dict(captured=n, warm_s=warm_s,
+                                  state_gb=state_gb, pools_gb=pools,
+                                  ledgers=ledgers)
+
+
 @contextlib.contextmanager
-def count_sites(engine, sites):
-    """Inside: each attention kernel launch attributed to its call site,
-    "<model> <site>", by the wrapper's own count before and after the
-    call (flash: causal, encoder (S = S_kv, no mask) or cross (S !=
-    S_kv); decode: cross over a model's n_audio_frames rows, else
-    self)."""
+def count_sites(engine):
+    """Inside: each attention kernel launch carries the label of its call
+    site, "<model> <site>" (`_build.site`; flash: causal, encoder (S =
+    S_kv, no mask) or cross (S != S_kv); decode: cross over a model's
+    n_audio_frames rows, else self). A graph captured inside keeps the
+    labels in its recording, and each replay is credited under them, so
+    `site_launches()` attributes replayed launches too."""
     from unittest import mock
     from repro_torch.kernels import _build
     from repro_torch.models import layers as L
     flash, decode = L.flash_attention_cuda, L.decode_attention_cuda
     current = {}
 
-    def tally(kernel, site, fn, *a, **kw):
-        before = _build.launch_counts()[kernel]
-        out = fn(*a, **kw)
-        key = f"{current['model']} {site}"
-        sites[key] = sites.get(key, 0) + \
-            _build.launch_counts()[kernel] - before
-        return out
-
     def flash_site(q, k, v, **kw):
         site = "flash causal" if kw.get("causal", True) else \
             "flash encoder" if k.shape[1] == q.shape[1] else "flash cross"
-        return tally("flash_attention", site, flash, q, k, v, **kw)
+        with _build.site(f"{current['model']} {site}"):
+            return flash(q, k, v, **kw)
 
     def decode_site(q, k, v, kv_len, **kw):
         cfg = engine.fleet[current["model"]].cfg
         site = "decode cross" if cfg.arch_type == "encdec" \
             and k.shape[1] == cfg.n_audio_frames else "decode self"
-        return tally("decode_attention", site, decode, q, k, v, kv_len,
-                     **kw)
+        with _build.site(f"{current['model']} {site}"):
+            return decode(q, k, v, kv_len, **kw)
 
-    def tracked(name, generate):
+    def tracked(name, method):
         def run(*a, **kw):
             current["model"] = name
-            return generate(*a, **kw)
+            return method(*a, **kw)
         return run
 
     for name, m in engine.fleet.items():
         m.generate = tracked(name, m.generate)
+        m.warmup = tracked(name, m.warmup)
     try:
         with mock.patch.object(L, "flash_attention_cuda", flash_site), \
                 mock.patch.object(L, "decode_attention_cuda", decode_site):
             yield
     finally:
         for m in engine.fleet.values():
-            del m.generate
+            del m.generate, m.warmup
+
+
+def site_launches():
+    """The launches since the last reset by call-site label (summed over
+    the kernels), and "graph <kernel>" for a replayed graph's launches
+    that carry no label (the route graphs)."""
+    from repro_torch.kernels import _build
+    sites = {}
+    for (kernel, label), n in _build.site_counts().items():
+        key = label or f"graph {kernel}"
+        sites[key] = sites.get(key, 0) + n
+    return sites
 
 
 def drive_launch_fleet(engine, corpus, stats):
@@ -1828,8 +2198,9 @@ def drive_launch_fleet(engine, corpus, stats):
     back), then ADMIT_REQUESTS requests through an
     AdmissionQueue.for_engine on the real clock at Poisson arrivals of
     ADMIT_RATE req/s (`traffic.poisson_arrivals`, each request stamped
-    with its arrival time; the queue's defaults: window 32, max wait 5
-    ms). Every response is checked; every model must answer a group."""
+    with its arrival time; a window of ADMIT_WINDOW, the queue's default
+    max wait of 5 ms). Every response is checked; every model must
+    answer a group."""
     from repro_torch.serving.admission import AdmissionQueue
     from repro_torch.serving.traffic import poisson_arrivals
     rng = np.random.default_rng(LAUNCH_SEED)
@@ -1845,7 +2216,7 @@ def drive_launch_fleet(engine, corpus, stats):
         check_responses(engine, reqs, res, f"serve() call {call}")
         for name in {r.model for r in res}:
             groups[name] += 1
-    queue = AdmissionQueue.for_engine(engine)
+    queue = AdmissionQueue.for_engine(engine, window_bucket=ADMIT_WINDOW)
     reqs = serve_requests(corpus, rng, ADMIT_REQUESTS, vocab)
     arrivals = poisson_arrivals(ADMIT_RATE, ADMIT_REQUESTS, seed=LAUNCH_SEED)
     # open loop on the real clock: every request whose arrival time has
@@ -1904,6 +2275,7 @@ def main() -> int:
               "root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch import graphs
     from repro_torch.data.routerbench import make_corpus, pairwise_feedback
     from repro_torch.kernels import _build
 
@@ -1948,11 +2320,26 @@ def main() -> int:
     if unfused[0]:
         fail(f"{unfused[0]} elo_scan_select launches of the routing path "
              "did not take the gather route")
+    # each route went through a graph: its similarity and select launches
+    # are the replays' credits (a hit each) and the captures' eager
+    # warm-up runs (a warmed entry each), nothing else
+    ledger = disp.cache_stats()
+    replays = ledger["hits"] + ledger["warmed"]
+    if ledger["misses"] != ledger["warmed"] or any(
+            launches["route"][k] != replays
+            for k in ("similarity", "elo_scan_select")):
+        fail(f"routing path: launches {launches['route']} against "
+             f"{ledger['hits']} replays and {ledger['warmed']} warm-up "
+             f"runs ({ledger['misses']} captures)")
+    log(f"routing path through the route graphs: {ledger['hits']} replays "
+        f"(their launches credited), {ledger['warmed']} graphs captured by "
+        f"warmup, none by traffic")
     stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
     compare_route(router, dbuf, test, grid, stats)
     time_path(disp, dbuf, router, test, stats)
     profile_route(disp, dbuf, router, test, stats)
+    drive_route_graphs(router, disp, dbuf, corpus, stats)
     del router, disp, dbuf, corpus, fb
 
     check_flash(dev, kernels, stats)
@@ -1975,7 +2362,9 @@ def main() -> int:
              f"caches, activations) {stats['serve_peak_mem_gb']:.2f} GB")
     compare_model_paths(engine, stats)
     time_serving(engine, stats)
-    profile_decode(engine, stats)
+    for name in FLEET:
+        profile_decode(engine, stats, name)
+        profile_decode(engine, stats, name, what="graph")
 
     drive_launcher(stats)
     check_whisper_attention(dev, kernels, stats)
@@ -1983,31 +2372,56 @@ def main() -> int:
     launch_engine, launch_corpus = build_launch_fleet(dev, engine, stats)
     del engine, serve_corpus     # olmo-1b and qwen3-8b live on in the fleet
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    sites = {}
-    _build.reset_launches()
-    with count_sites(launch_engine, sites):
+    with count_sites(launch_engine):
+        warm_launch_fleet(launch_engine, stats)
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()  # and the warm-up generates' launches
+        c0 = graphs.capture_count()
+        route0 = launch_engine.dispatch.cache_stats()
+        decode0 = {n: m.cache_stats() for n, m in launch_engine.fleet.items()}
         drive_launch_fleet(launch_engine, launch_corpus, stats)
     torch.cuda.synchronize()
     launches["launch"] = _build.launch_counts()
+    sites = site_launches()
+    credited = _build.credited_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    stats.update(launch_sites=sites, launch_peak_mem_gb=peak)
-    log(f"launches on the launcher fleet's run: {launches['launch']}; by "
-        f"call site: {sites}")
+    captured = {"process": graphs.capture_count() - c0,
+                "route": launch_engine.dispatch.cache_stats()["misses"]
+                - route0["misses"]}
+    captured.update({n: m.cache_stats()["misses"] - decode0[n]["misses"]
+                     for n, m in launch_engine.fleet.items()})
+    stats.update(launch_sites=sites, launch_credited=credited,
+                 launch_peak_mem_gb=peak, launch_captures=captured)
+    log(f"launches on the launcher fleet's run: {launches['launch']}, of "
+        f"which credited by graph replays {credited}; by call site "
+        f"(replays credited per site): {sites}; graphs captured in the "
+        f"run {captured}")
     log_time(stats, f"peak device memory of the launcher fleet's run "
-             f"(four models' weights, caches, activations): {peak:.2f} GB")
+             f"(four models' weights, static decode states, graph pools, "
+             f"activations): {peak:.2f} GB")
     missing = [k for k, n in launches["launch"].items() if n == 0] + [
         k for k, site in WHISPER_SITES.items()
         if not sites.get(f"whisper-large-v3 {site}")]
     if missing:
         fail(f"never launched on the launcher fleet's run: {missing}")
+    if any(captured.values()):
+        fail(f"graphs captured after warmup on the launcher fleet's run: "
+             f"{captured}")
+    if credited.get("decode_attention") != \
+            launches["launch"]["decode_attention"]:
+        fail(f"decode launches {launches['launch']['decode_attention']}, "
+             f"of which credited by replays "
+             f"{credited.get('decode_attention')}: the decode path left "
+             "its graphs")
     if peak >= 80.0:
         fail(f"the launcher fleet's peak device memory {peak:.2f} GB")
+    compare_graph_generate(launch_engine, stats)
     new_models = ("whisper-large-v3", "mamba2-780m")
     compare_model_paths(launch_engine, stats, names=new_models)
     time_serving(launch_engine, stats, names=new_models)
     for name in new_models:
         profile_decode(launch_engine, stats, name)
+        profile_decode(launch_engine, stats, name, what="graph")
     profile_decode(launch_engine, stats, "mamba2-780m", what="prefill")
 
     if any(m == "jax" or m.startswith("jax.") or m == "repro"
@@ -2019,10 +2433,13 @@ def main() -> int:
             entry["launches"] = sites[f"whisper-large-v3 "
                                       f"{WHISPER_SITES[name]}"]
             continue
+        if name == "elo_scan fit fold":
+            entry["launches"] = stats["fit_fold_launches"]
+            continue
         path = "route" if name in ROUTE_KERNELS else "serve"
         entry["launches"] = launches[path][name]
-    order = ROUTE_KERNELS + ("flash_attention", "decode_attention") \
-        + tuple(WHISPER_SITES)
+    order = ROUTE_KERNELS + ("elo_scan fit fold", "flash_attention",
+                             "decode_attention") + tuple(WHISPER_SITES)
     line = {"kernels": [kernels[k] for k in order]}
     stats["kernels"] = line["kernels"]
     (out / "chip_smoke.json").write_text(json.dumps(stats, indent=1))

@@ -1,27 +1,60 @@
-"""Serving dispatch: query bucketing over the routing path.
+"""Steady-state dispatch layer: query bucketing over the routing path and
+an eviction-free cache of captured CUDA graphs, the counterpart of the
+JAX package's cache of compiled executables (its `core/dispatch.py`).
 
-Ragged batches are padded to power-of-two BUCKETS (the same policy
-elo._pad_bucket applies to record folds, with a smaller floor), so the
-set of shapes the device sees is the bucket ladder, not the traffic.
-Eager PyTorch compiles nothing per shape, but the ladder is what a
-cache of captured CUDA graphs keys on, and `warmup()` runs one dispatch
-per bucket so the first real request of any size finds the kernels
-built and loaded. Batches past `max_bucket` are routed in ladder-sized
-chunks.
+  * Ragged batches are padded to power-of-two BUCKETS (the same policy
+    elo._pad_bucket applies to record folds, with a smaller floor), so
+    the set of shapes the device sees is the bucket ladder, not the
+    traffic.
+  * Each dispatch is served from a cache entry keyed on
+    (bucket, capacity, records_per_query, mode, backend) — the JAX key —
+    plus the replica the entry reads. On the card an entry is a CUDA
+    graph of `route_batch_choices` (similarity kernel, stable top-n, the
+    replay kernel's gather-select route) captured over static query and
+    budget buffers and one RouterState's tensors, so the key carries
+    those tensors' addresses: `DoubleBuffer.front` alternates between
+    two replicas (two graphs a bucket), and a grow allocates new ones (a
+    new key, as the new capacity is in JAX). Commits write a replica in
+    place (core/state.py), so its graphs read what was committed. The
+    graphs of one state shape (capacity, records per prompt) share a
+    memory pool. Once a replica's tensors are freed (the old replicas
+    after a grow), its graphs can never be hit again: the next capture
+    evicts them, and the old shape's pool goes with its last graph.
+  * Queries and budgets are staged through pinned host memory and copied
+    in without blocking; the host reads the choices (and the top-n rows
+    for route_result) once per dispatch.
+  * A capture happens only on a miss, so `cache_stats()` is an exact
+    capture ledger; `warmup()` fills the cache before traffic and
+    returns how many entries it made (0 when warm). Its `entries` are
+    the live ones: the JAX cache evicts nothing, and neither does this
+    one but for the graphs of freed replicas (`telemetry()` counts them).
+  * On CPU tensors an entry runs the eager route: nothing is captured,
+    the key has no replica, nothing is evicted, and the keys, hits and
+    misses are the ones the JAX package counts.
+
+Batches past `max_bucket` are routed in ladder-sized chunks.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import weakref
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import graphs
+from repro_torch import obs as OBS
+from repro_torch.graphs import DispatchStats  # noqa: F401  (re-exported)
 from repro_torch.core import elo
 from repro_torch.core.state import RouterState, route_batch_choices
 
 #: default bucket ladder bounds (powers of two, inclusive)
 MIN_BUCKET = 8
 MAX_BUCKET = 1024
+
+#: the RouterState tensors a route graph reads
+_STATE_FIELDS = ("global_ratings", "emb", "model_a", "model_b", "outcome",
+                 "valid", "size")
 
 
 def batch_bucket(n: int, min_bucket: int = MIN_BUCKET,
@@ -43,17 +76,78 @@ def bucket_ladder(min_bucket: int = MIN_BUCKET,
     return tuple(out)
 
 
+def replica(state: RouterState) -> Optional[Tuple[int, ...]]:
+    """The storage a route graph over `state` reads (None on the CPU,
+    where nothing is captured)."""
+    if state.device.type != "cuda":
+        return None
+    return tuple(getattr(state, f).data_ptr() for f in _STATE_FIELDS)
+
+
+class _Entry:
+    """One cached dispatch at bucket `qb`: static query and budget
+    buffers (pinned host staging on the card) and the route step over
+    them, captured from `state` on the card."""
+
+    def __init__(self, state: RouterState, qb: int, costs, kw: Dict,
+                 pool):
+        dev = state.device
+        pinned = dev.type == "cuda"
+        self.q = torch.zeros((qb, state.dim), dtype=torch.float32,
+                             device=dev)
+        self.b = torch.zeros((qb,), dtype=torch.float32, device=dev)
+        q_host = torch.zeros((qb, state.dim), dtype=torch.float32,
+                             pin_memory=True) if pinned else self.q
+        b_host = torch.zeros((qb,), dtype=torch.float32,
+                             pin_memory=True) if pinned else self.b
+        self.q_np, self.b_np = q_host.numpy(), b_host.numpy()
+        self._host = (q_host, b_host) if pinned else None
+        self.costs = torch.as_tensor(costs, dtype=torch.float32, device=dev)
+        self.kw = kw
+        # the replica's tensors, to tell when they are gone (not kept
+        # alive by the entry: the graph reads them by address)
+        self._replica = [weakref.ref(getattr(state, f))
+                         for f in _STATE_FIELDS] if pinned else []
+        self.step = graphs.Step(self._route, state, device=dev, pool=pool)
+
+    def dead(self) -> bool:
+        """True once a tensor of the replica it reads is freed."""
+        return any(ref() is None for ref in self._replica)
+
+    def _route(self, state: RouterState):
+        return tuple(route_batch_choices(state, self.q, self.b, self.costs,
+                                         **self.kw))
+
+    def __call__(self, state: RouterState, q: np.ndarray, b: np.ndarray,
+                 with_topk: bool):
+        nq = q.shape[0]
+        self.q_np[:nq], self.q_np[nq:] = q, 0.0
+        self.b_np[:nq], self.b_np[nq:] = b, 0.0
+        if self._host is not None:
+            # the previous dispatch's readout waited for its copy, so the
+            # staging buffers are free to rewrite
+            self.q.copy_(self._host[0], non_blocking=True)
+            self.b.copy_(self._host[1], non_blocking=True)
+        choices, topk = self.step(state)
+        return (choices[:nq].cpu().numpy(),
+                topk[:nq].cpu().numpy() if with_topk else None)
+
+
 class RouteDispatcher:
-    """Routes host query batches over a RouterState: bucket-pad, one pass
-    of route_batch_choices, slice. One dispatcher per (routing config,
-    costs) pair; states of any capacity flow through it."""
+    """Owns the serving hot path's route graphs.
+
+    One dispatcher per (routing config, costs) pair; states of any
+    capacity or record width flow through it — the cache key carries
+    the shape-defining axes and, on the card, the replica. Routing runs
+    on the caller's thread and stream, one dispatch at a time."""
 
     def __init__(self, costs, *, p_global: float = 0.5,
                  n_neighbors: int = 20, k: float = 32.0,
                  backend: str = "cuda", mode: str = "combined",
                  init_rating: float = elo.DEFAULT_RATING,
                  min_bucket: int = MIN_BUCKET,
-                 max_bucket: int = MAX_BUCKET):
+                 max_bucket: int = MAX_BUCKET,
+                 obs: Optional[OBS.Observability] = None):
         self.costs = costs
         self.kw = dict(p_global=float(p_global),
                        n_neighbors=int(n_neighbors), k=float(k),
@@ -61,6 +155,59 @@ class RouteDispatcher:
                        init_rating=float(init_rating))
         self.min_bucket = min_bucket
         self.max_bucket = max_bucket
+        # telemetry handles, by the JAX package's names (metrics are
+        # always on; spans are gated by obs.enabled). The pad-waste
+        # ratio and the hit rate are derived from them at read time.
+        self.obs = OBS.get_obs(obs)
+        r = self.obs.registry
+        self._m_calls = r.counter(
+            "dispatch_calls_total", "route() dispatches")
+        self._m_rows = r.counter(
+            "dispatch_rows_total", "real query rows routed")
+        self._m_padded = r.counter(
+            "dispatch_padded_rows_total",
+            "bucket-padded rows dispatched (>= rows; waste = padded-rows)")
+        self._m_hits = r.counter(
+            "dispatch_cache_hits_total", "graph-cache hits")
+        self._m_misses = r.counter(
+            "dispatch_cache_misses_total",
+            "graph-cache misses == graphs this dispatcher captured")
+        self._m_compile_s = r.counter(
+            "dispatch_compile_seconds_total", "time spent capturing")
+        self._h_occupancy = r.histogram(
+            "dispatch_bucket_occupancy", "rows/bucket fill per dispatch",
+            bounds=[i / 16 for i in range(1, 17)])
+        # what the LAST dispatch filled: the SLO engine's live occupancy
+        # signal (the histogram's mean averages over all time)
+        self._g_occupancy = r.gauge(
+            "dispatch_occupancy_last", "rows/bucket fill, last dispatch")
+        self._bucket_counters: Dict[int, OBS.Counter] = {}
+        r.gauge("graph_captures_total",
+                "process-wide CUDA graph captures",
+                fn=graphs.capture_count)
+        m_misses, m_compile_s, obs = \
+            self._m_misses, self._m_compile_s, self.obs
+
+        def on_miss(key: Tuple, dt: float):
+            m_misses.inc()
+            m_compile_s.inc(dt)
+            obs.emit({"kind": "dispatch_compile", "bucket": key[0],
+                      "capacity": key[1], "records": key[2],
+                      "seconds": dt})
+        # the hooks hold the counters, not the dispatcher: no reference
+        # cycle, so a dropped dispatcher frees its graphs at once
+        self._cache = graphs.StepCache(on_hit=self._m_hits.inc,
+                                       on_miss=on_miss)
+        self.stats = self._cache.stats
+
+    def _bucket_counter(self, qb: int):
+        c = self._bucket_counters.get(qb)
+        if c is None:
+            c = self.obs.registry.counter(
+                "dispatch_bucket_total", "dispatches per bucket size",
+                bucket=str(qb))
+            self._bucket_counters[qb] = c
+        return c
 
     @classmethod
     def for_router(cls, router, **kw) -> "RouteDispatcher":
@@ -71,27 +218,89 @@ class RouteDispatcher:
                    backend=c.backend, mode=router.mode,
                    init_rating=c.init_rating, **kw)
 
+    # -- cache ---------------------------------------------------------------
     def bucket(self, n: int) -> int:
         return batch_bucket(n, self.min_bucket, self.max_bucket)
 
+    def _key(self, state: RouterState, qb: int) -> Tuple:
+        return (qb, state.capacity, state.records_per_query,
+                self.kw["mode"], self.kw["backend"], replica(state))
+
+    def _entry(self, state: RouterState, qb: int,
+               warm: bool = False) -> _Entry:
+        key = self._key(state, qb)
+        entry = self._cache.entries.get(key)
+        # (a dead entry on a hit: new tensors at a freed replica's
+        # addresses, which get graphs of their own)
+        if (entry is None or entry.dead()) and \
+                self._cache.evict(lambda k, e: e.dead()):
+            # the freed replicas' graphs and pools: give their memory back
+            torch.cuda.empty_cache()
+
+        def make(pool):
+            with self.obs.span(f"dispatch.compile.q{qb}"):
+                return _Entry(state, qb, self.costs, self.kw, pool)
+        return self._cache.get(key, make, device=state.device,
+                               group=key[1:3], warm=warm)
+
     def warmup(self, state: RouterState,
                batch_sizes: Optional[Sequence[int]] = None) -> int:
-        """One dispatch per bucket of the ladder (or of `batch_sizes`), so
-        the kernels are built and loaded before traffic. Returns the
-        number of buckets run."""
+        """Fill the cache for `state` at each bucket of the ladder (or of
+        `batch_sizes`) so that traffic on it never captures. Returns the
+        number of entries made (0 if already warm). A DoubleBuffer's two
+        replicas are two states: warm each while it is the front."""
         buckets = sorted({self.bucket(n) for n in batch_sizes}
                          if batch_sizes is not None
                          else bucket_ladder(self.min_bucket,
                                             self.max_bucket))
-        budget = float(torch.as_tensor(self.costs).max())
+        before = self.stats.misses
         for qb in buckets:
-            self.route(state, np.zeros((qb, state.dim), np.float32), budget)
-        return len(buckets)
+            self._entry(state, qb, warm=True)
+        return self.stats.misses - before
 
+    def cache_stats(self) -> Dict:
+        """The JAX package's readout: misses is the exact number of
+        entries (graphs, on the card) this dispatcher ever made; entries
+        and keys are the live ones (the freed replicas' graphs evicted)."""
+        return self._cache.as_dict()
+
+    def telemetry(self) -> Dict:
+        """Serving-efficiency readout from the raw counters: pad-waste
+        ratio (the share of dispatched rows that were padding), the hit
+        rate over traffic, and the capture ledger."""
+        rows = self._m_rows.value
+        padded = self._m_padded.value
+        hits, misses = self._m_hits.value, self._m_misses.value
+        # warmup()'s captures are deliberate, not traffic misses
+        traffic_misses = max(0, misses - self.stats.warmed)
+        return {
+            "calls": self._m_calls.value,
+            "rows": rows,
+            "padded_rows": padded,
+            "pad_waste_ratio": (padded - rows) / padded if padded else 0.0,
+            "cache_hit_rate": hits / (hits + traffic_misses)
+                              if (hits + traffic_misses) else 1.0,
+            "cache_hits": hits,
+            "cache_misses": misses,
+            "compile_seconds": self._m_compile_s.value,
+            "graph_captures_process": graphs.capture_count(),
+            "cache_evicted": self._cache.evicted,
+        }
+
+    def _record_dispatch(self, nq: int, qb: int):
+        self._m_calls.inc()
+        self._m_rows.inc(nq)
+        self._m_padded.inc(qb)
+        self._h_occupancy.observe(nq / qb)
+        self._g_occupancy.set(nq / qb)
+        self._bucket_counter(qb).inc()
+
+    # -- the hot path --------------------------------------------------------
     def _chunks(self, nq: int):
         """(lo, hi) spans of at most max_bucket rows. Routing is
         row-independent, so an oversized batch is dispatched as
-        ladder-sized chunks."""
+        ladder-sized chunks (an off-ladder size would miss the warmed
+        cache and capture on the hot path)."""
         return [(lo, min(lo + self.max_bucket, nq))
                 for lo in range(0, nq, self.max_bucket)]
 
@@ -99,32 +308,25 @@ class RouteDispatcher:
                    with_topk: bool):
         nq = q.shape[0]
         qb = self.bucket(nq)
-        if qb != nq:
-            q = np.pad(q, ((0, qb - nq), (0, 0)))
-            b = np.pad(b, (0, qb - nq))
-        res = route_batch_choices(state, torch.from_numpy(q).to(state.device),
-                                  torch.from_numpy(b).to(state.device),
-                                  self.costs, **self.kw)
-        return (res.choices[:nq].cpu().numpy(),
-                res.topk_idx[:nq].cpu().numpy() if with_topk else None)
-
-    def _host_batch(self, query_embs, budgets):
-        q = np.ascontiguousarray(np.atleast_2d(
-            np.asarray(query_embs, np.float32)))
-        b = np.broadcast_to(np.asarray(budgets, np.float32),
-                            (q.shape[0],)).astype(np.float32)
-        return q, b
+        self._record_dispatch(nq, qb)
+        name = "dispatch.route_result" if with_topk else "dispatch.route"
+        with self.obs.span(name):
+            return self._entry(state, qb)(state, q, b, with_topk)
 
     def _route(self, state, query_embs, budgets, with_topk: bool):
-        q, b = self._host_batch(query_embs, budgets)
-        parts = [self._route_one(state, q[lo:hi], b[lo:hi], with_topk)
-                 for lo, hi in self._chunks(q.shape[0])] \
-            or [self._route_one(state, q, b, with_topk)]
-        return parts
+        q = np.atleast_2d(np.asarray(query_embs, np.float32))
+        nq = q.shape[0]
+        b = np.broadcast_to(np.asarray(budgets, np.float32),
+                            (nq,)).astype(np.float32)
+        if nq <= self.max_bucket:
+            return [self._route_one(state, q, b, with_topk)]
+        return [self._route_one(state, q[lo:hi], b[lo:hi], with_topk)
+                for lo, hi in self._chunks(nq)]
 
     def route(self, state: RouterState, query_embs, budgets) -> np.ndarray:
-        """Bucket-pad, route, slice. Returns host (Q,) int32 choices — the
-        single readout of a routing step. Oversized batches are chunked."""
+        """Bucket-pad, dispatch the cached entry, slice. Returns host (Q,)
+        int32 choices — the single readout of a routing step. Oversized
+        batches are chunked."""
         parts = self._route(state, query_embs, budgets, with_topk=False)
         return np.concatenate([p[0] for p in parts])
 

@@ -114,7 +114,10 @@ def init_state(n_models: int, dim: int, capacity: int = 4096,
 
 
 def _ratings(global_ratings, dev: torch.device) -> torch.Tensor:
-    return torch.as_tensor(global_ratings, dtype=torch.float32, device=dev)
+    """A copy the state owns: commit() writes into it in place, so it
+    must not alias the router's ratings or another replica's."""
+    return torch.as_tensor(global_ratings, dtype=torch.float32,
+                           device=dev).clone()
 
 
 def _size(n: int, dev: torch.device) -> torch.Tensor:
@@ -142,12 +145,14 @@ def commit(db, global_ratings, prev: Optional[RouterState] = None,
 
     With a previous state of matching shape, only the rows touched since
     `consumer`'s last commit are uploaded, and they are copied IN PLACE
-    into `prev`'s tensors (`index_copy_`), which the returned state
-    shares: O(new records), no reallocation. `prev` must not be read
-    after this call — the counterpart of the JAX package's donated
-    buffers. That package pads the row count to a pow-2 bucket so its
-    scatter compiles once per bucket; eager PyTorch compiles nothing, so
-    the rows go as they are.
+    into `prev`'s tensors (`index_copy_`); the global ratings and the
+    live-row count are written into `prev`'s too. The returned state is
+    `prev`, over the same storage: O(new records), no reallocation, and
+    a CUDA graph captured over `prev` reads the committed state (the
+    dispatcher keys its graphs on that storage). This is the
+    counterpart of the JAX package's donated buffers. That package pads
+    the row count to a pow-2 bucket so its scatter compiles once per
+    bucket; eager PyTorch compiles nothing, so the rows go as they are.
 
     A shape change (a VectorDB._grow between commits) takes a full
     re-upload onto `prev`'s device, or onto `device` when there is no
@@ -157,7 +162,6 @@ def commit(db, global_ratings, prev: Optional[RouterState] = None,
     if (prev is None or tuple(prev.emb.shape) != db.emb.shape
             or tuple(prev.model_a.shape) != db.model_a.shape):
         return state_from_buffer(db, global_ratings, dev)
-    g = _ratings(global_ratings, dev)
     # rollback/clear guard: a drained row at/past the live count is
     # stale (its content is masked by `size` anyway) — drop it
     rows = rows[rows < db.size]
@@ -167,8 +171,10 @@ def commit(db, global_ratings, prev: Optional[RouterState] = None,
             host = getattr(db, field)[rows]
             getattr(prev, field).index_copy_(
                 0, idx, torch.as_tensor(host, device=dev))
-    return dataclasses.replace(prev, global_ratings=g,
-                               size=_size(db.size, dev))
+    prev.global_ratings.copy_(torch.as_tensor(global_ratings,
+                                              dtype=torch.float32))
+    prev.size.fill_(db.size)
+    return prev
 
 
 class DoubleBuffer:

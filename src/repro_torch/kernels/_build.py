@@ -10,16 +10,24 @@ stream; every C entry point returns `cudaGetLastError()` after its
 launch, which `check` turns into an exception. What `nvcc` printed
 (`-Xptxas=-v`: registers, shared memory and spills per kernel) is kept
 beside each library as `<library>.log`.
+
+Each wrapper counts its launches (`count_launch`), under the call-site
+label that `site()` has set, if any. A CUDA graph capture
+(`repro_torch.graphs`) enqueues kernels without launching them, and its
+replays launch them without running the wrappers: inside `recording()`
+the wrappers' counts go to the recording instead, with their labels, and
+`credit()` adds a recording to the counts once per replay.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -73,12 +81,76 @@ _LAUNCHES: Dict[str, int] = {"similarity": 0, "elo_scan": 0,
                              "decode_attention": 0}
 
 
+#: launches per (wrapper, call-site label) since the last reset
+_SITES: Dict[Tuple[str, Optional[str]], int] = {}
+#: of the launch counts, those credited by graph replays
+_CREDITED: Dict[str, int] = {}
+#: the open recording (see recording()) and call-site label (see site())
+_recording: Optional[Dict[Tuple[str, Optional[str]], int]] = None
+_site: Optional[str] = None
+
+
+def _add(sink: Dict, key, n: int = 1) -> None:
+    sink[key] = sink.get(key, 0) + n
+
+
 def count_launch(name: str) -> None:
-    _LAUNCHES[name] += 1
+    if _recording is not None:
+        _add(_recording, (name, _site))
+    else:
+        _add(_LAUNCHES, name)
+        _add(_SITES, (name, _site))
 
 
 def launch_counts() -> Dict[str, int]:
     return dict(_LAUNCHES)
+
+
+def site_counts() -> Dict[Tuple[str, Optional[str]], int]:
+    """Launches per (wrapper, call-site label; None where no label was
+    set), replays credited under the label their graph was captured
+    with."""
+    return dict(_SITES)
+
+
+def credited_counts() -> Dict[str, int]:
+    """Of launch_counts(), the launches credited by graph replays."""
+    return dict(_CREDITED)
+
+
+@contextlib.contextmanager
+def site(label: str):
+    """Inside: the wrappers' launches carry the call-site label `label`."""
+    global _site
+    outer, _site = _site, label
+    try:
+        yield
+    finally:
+        _site = outer
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside: the wrappers' launches are counted, with their call-site
+    labels, in the yielded dict, not in the launch counts (a graph
+    capture: nothing runs yet). Recordings do not nest."""
+    global _recording
+    if _recording is not None:
+        raise RuntimeError("a launch recording is already open")
+    _recording = rec = {}
+    try:
+        yield rec
+    finally:
+        _recording = None
+
+
+def credit(rec: Dict[Tuple[str, Optional[str]], int]) -> None:
+    """Add a recording's launches to the counts: one replay of the graph
+    it was recorded for."""
+    for (name, label), n in rec.items():
+        _add(_LAUNCHES, name, n)
+        _add(_CREDITED, name, n)
+        _add(_SITES, (name, label), n)
 
 
 def dtype_code(dtype: torch.dtype) -> int:
@@ -93,6 +165,8 @@ def dtype_code(dtype: torch.dtype) -> int:
 def reset_launches() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+    _SITES.clear()
+    _CREDITED.clear()
 
 
 def nvcc() -> str:

@@ -28,6 +28,14 @@ from repro_torch.data.routerbench import make_corpus, pairwise_feedback
 from repro_torch.serving.admission import AdmissionQueue
 from repro_torch.serving.engine import FleetModel, Request, ServingEngine
 
+#: the batch sizes build_engine warms (route graphs for their buckets,
+#: decode graphs for their row counts): the launcher's traffic at its
+#: defaults, one serve() of --requests 16 or --admission windows of
+#: --window 8, groups of 1..16 rows
+WARM_SIZES = (1, 2, 4, 8, 16)
+#: the prompt length of the warm-up generate (main's prompts: 4..11)
+WARM_PROMPT_LEN = 11
+
 
 def quality_oracle(emb, mi) -> float:
     """The launcher's simulated user: a quality in [0, 1) per (prompt,
@@ -48,7 +56,11 @@ def build_engine(n_fleet: int = 4, dim: int = 64, seed: int = 0,
     """The JAX launcher's engine: a router fitted on a synthetic
     RouterBench corpus at `dim`, costs linspace(1, 8, n_fleet), in front
     of `ARCH_IDS[:n_fleet]` at their reduced configs (max_len 64), on
-    `device` (the card by default). Returns (engine, corpus)."""
+    `device` (the card by default). Unlike the JAX launcher's, it pads
+    each model's group to the row ladder (gen_bucket) and warms before
+    traffic: the dispatcher's route graphs on both buffer replicas and
+    each model's decode graphs for WARM_SIZES, so the default traffic
+    captures nothing. Returns (engine, corpus)."""
     if db_shards:
         _not_ported("--db-shards", "the capacity-sharded routing DB",
                     "§2.5")
@@ -68,7 +80,9 @@ def build_engine(n_fleet: int = 4, dim: int = 64, seed: int = 0,
              for i, n in enumerate(names)}
     engine = ServingEngine(fleet, router, compare_rate=compare_rate,
                            seed=seed, quality_oracle=quality_oracle,
-                           obs=obs)
+                           obs=obs, gen_bucket=True,
+                           warmup_batch_sizes=WARM_SIZES)
+    engine.warmup_generate(WARM_PROMPT_LEN, batch_sizes=WARM_SIZES)
     return engine, corpus
 
 

@@ -4,7 +4,8 @@ One ModelConfig describes any architecture in the assigned pool: dense
 decoder-only, MoE, SSM (Mamba2), hybrid (Zamba2), encoder-decoder
 (Whisper) and VLM (LLaVA). A copy of the JAX package's module, so the
 port names the same configurations; ``repro_torch.models.transformer``
-runs the dense ones with full attention and refuses the rest.
+runs the dense (full attention), ssm and encdec families and refuses
+the rest, naming the item of ROADMAP §2.6 that queues each.
 """
 from __future__ import annotations
 

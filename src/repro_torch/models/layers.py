@@ -18,7 +18,8 @@ hand-written kernels:
     encoder) and cross-attention prefill over the source's S_kv keys ->
     `flash_attention_cuda` with causal=False;
   * one token against the cache -> `decode_attention_cuda` with
-    kv_len = index + 1;
+    kv_len = index + 1 (the index a Python int, or a (1,) int64 device
+    tensor, which a captured CUDA graph reads at each replay);
   * one token against the cached cross K/V -> `decode_attention_cuda`
     with kv_len = every row;
 and raises for any other case. On CPU tensors, or with
@@ -179,7 +180,7 @@ def attend(q, k, v, q_pos, kv_pos, *, window=NO_WINDOW, softcap=0.0,
 # Attention: projections, cache, and the kernel route
 # ---------------------------------------------------------------------------
 
-def _attend_kernels(q, k, v, cache, cache_index: int, window, causal,
+def _attend_kernels(q, k, v, cache, cache_index, window, causal,
                     kv_len, cross):
     """The cases the kernels cover (module docstring); anything else
     raises. `cross`: None (self-attention), "prefill" (k/v: the source's
@@ -190,7 +191,8 @@ def _attend_kernels(q, k, v, cache, cache_index: int, window, causal,
     if window != NO_WINDOW:
         raise NotImplementedError(
             "attention on CUDA: a sliding window does not run through the "
-            "kernels; a windowed decode over a ring cache is ROADMAP §2.2")
+            "kernels; gemma3's local layers need a window over the full "
+            "cache (ROADMAP §2.6, item 3: gemma3-12b)")
     qs = _scale_q(q)
     if cross == "decode":
         if s != 1:
@@ -210,7 +212,8 @@ def _attend_kernels(q, k, v, cache, cache_index: int, window, causal,
         raise NotImplementedError(
             "attention on CUDA: bidirectional attention over a cache does "
             "not run through the kernels")
-    if cache_index == 0:
+    on_device = isinstance(cache_index, torch.Tensor)
+    if not on_device and cache_index == 0:
         # prefill: the S in-flight keys are all the keys there are
         if cache is not None and cache["k"].dtype not in (torch.float32,
                                                           q.dtype):
@@ -219,8 +222,10 @@ def _attend_kernels(q, k, v, cache, cache_index: int, window, causal,
         return flash_attention_cuda(qs, k, v, causal=True, scale=1.0)
     if s == 1 and cache is not None:
         if kv_len is None:
-            kv_len = torch.full((b,), cache_index + 1, dtype=torch.int32,
-                                device=q.device)
+            kv_len = (cache_index + 1).to(torch.int32).expand(b) \
+                if on_device else torch.full((b,), cache_index + 1,
+                                             dtype=torch.int32,
+                                             device=q.device)
         return decode_attention_cuda(qs[:, 0], cache["k"], cache["v"],
                                      kv_len, scale=1.0)[:, None]
     raise NotImplementedError(
@@ -229,7 +234,7 @@ def _attend_kernels(q, k, v, cache, cache_index: int, window, causal,
 
 
 def apply_attention(cfg: ModelConfig, params, x, positions, *, theta,
-                    window=NO_WINDOW, cache=None, cache_index: int = 0,
+                    window=NO_WINDOW, cache=None, cache_index=0,
                     causal: bool = True, backend: str = "cuda",
                     tables=None, kv_len=None, rope: bool = True,
                     kv_source=None, precomputed_kv=None):
@@ -242,7 +247,9 @@ def apply_attention(cfg: ModelConfig, params, x, positions, *, theta,
     Self-attention: cache is None, or dict(k, v) of one layer's (B, T,
     Hk, hd) buffers, into which this call writes its S new keys and
     values at `cache_index` IN PLACE (the JAX function returns a new
-    cache).
+    cache). `cache_index` is a Python int, or for one new token a (1,)
+    int64 tensor on x's device (written with `index_copy_`, so the host
+    never reads it).
     Cross-attention (non-causal, no RoPE, as in the JAX function):
     `kv_source` (B, T, d) gives the keys and values, written IN PLACE
     into `cache` (one layer's (B, T, Hk, hd) cross buffers) when it is
@@ -279,9 +286,16 @@ def apply_attention(cfg: ModelConfig, params, x, positions, *, theta,
         if cross == "decode":
             raise ValueError("apply_attention: precomputed_kv takes no "
                              "cache to write")
-        lo = 0 if cross else cache_index
-        cache["k"][:, lo:lo + k.shape[1]] = k
-        cache["v"][:, lo:lo + k.shape[1]] = v
+        if isinstance(cache_index, torch.Tensor) and not cross:
+            if s != 1:
+                raise ValueError(f"apply_attention: {s} new tokens at a "
+                                 "device index; it takes one")
+            cache["k"].index_copy_(1, cache_index, k.to(cache["k"].dtype))
+            cache["v"].index_copy_(1, cache_index, v.to(cache["v"].dtype))
+        else:
+            lo = 0 if cross else cache_index
+            cache["k"][:, lo:lo + k.shape[1]] = k
+            cache["v"][:, lo:lo + k.shape[1]] = v
 
     if x.is_cuda and backend == "cuda":
         out = _attend_kernels(q, k, v, cache, cache_index, window, causal,

@@ -29,8 +29,13 @@ Where it differs:
     prefill keeps row -1 of the full (B, S, V) panel, the same row.
 
 Hybrid, MoE and VLM architectures, local:global window stacks
-(gemma3's ring cache) and MLA raise NotImplementedError; ROADMAP §2
-queues them.
+(gemma3's local layers, a window over the full cache) and MLA raise
+NotImplementedError naming the item of ROADMAP §2.6 that queues them.
+
+decode_step takes its position as a Python int or as a (1,) int64
+tensor on the device: the positions, the valid cache length and the
+cache write are then computed on the device, so a CUDA graph captured
+over one step serves every position (serving/engine.py).
 """
 from __future__ import annotations
 
@@ -50,6 +55,10 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 #: the architecture families this port runs
 FAMILIES = ("dense", "ssm", "encdec")
+#: the item of ROADMAP §2.6 each other family waits for
+QUEUED = {"moe": "item 1 (phi3.5-moe; deepseek-v3's MoE is item 6)",
+          "vlm": "item 4 (llava-next-mistral-7b)",
+          "hybrid": "item 5 (zamba2-7b)"}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -62,15 +71,16 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.arch_type not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet "
-            "(ROADMAP §2.1: hybrid; §2.3: moe, vlm)")
+            f"(ROADMAP §2.6, {QUEUED.get(cfg.arch_type, 'not queued')})")
     if cfg.attn_kind != "full":
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attn_kind!r} is not ported yet "
-            "(ROADMAP §2.3: MLA)")
+            "(ROADMAP §2.6, item 6: deepseek-v3-671b's MLA)")
     if cfg.local_global_ratio or cfg.window_cache:
         raise NotImplementedError(
             f"{cfg.name}: local:global sliding-window stacks need a "
-            "windowed decode over a ring cache (ROADMAP §2.2)")
+            "window over the full cache in prefill and decode (ROADMAP "
+            "§2.6, item 3: gemma3-12b)")
 
 
 # ---------------------------------------------------------------------------
@@ -263,12 +273,13 @@ def _layer(cache, i: int):
 
 def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
             cache: Optional[Dict[str, Any]] = None,
-            cache_index: int = 0, backend: str = "cuda",
+            cache_index=0, backend: str = "cuda",
             last_only: bool = False, enc_embeds=None):
     """tokens: (B, S) -> (logits (B, S or 1, V), hidden (B, S or 1, d)).
 
     With a cache, the S new keys and values (ssm: the state after the S
-    tokens) are written into it at `cache_index`, in place. encdec takes
+    tokens) are written into it at `cache_index`, in place: a Python
+    int, or for one token a (1,) int64 device tensor. encdec takes
     `enc_embeds` (B, F, d), runs the encoder and, with a cache, stores
     each decoder layer's cross K/V in it; without `enc_embeds` it reads
     them from the cache (decode). `last_only` runs the final norm and
@@ -301,8 +312,14 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
             tables = L.rope_tables(positions, cfg.hd, cfg.rope_theta)
         # the valid cache rows after this call's write, once for every
         # layer
-        kv_len = None if cache is None else torch.full(
-            (b,), cache_index + s, dtype=torch.int32, device=x.device)
+        if cache is None:
+            kv_len = None
+        elif isinstance(cache_index, torch.Tensor):
+            kv_len = (cache_index + s).to(torch.int32).expand(b) \
+                .contiguous()
+        else:
+            kv_len = torch.full((b,), cache_index + s, dtype=torch.int32,
+                                device=x.device)
         for i, blk in enumerate(params["blocks"]):
             c = _layer(cache, i)
             h = L.apply_norm(cfg, blk["attn_norm"], x)
@@ -330,25 +347,39 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
 
 def prefill(cfg: ModelConfig, params: Params, tokens, max_len: int, *,
             cache_dtype=torch.bfloat16, backend: str = "cuda",
-            enc_embeds=None):
+            enc_embeds=None, cache=None):
     """Run the prompt through the model, filling a fresh cache of size
-    max_len. tokens: (B, S); enc_embeds: encdec's (B, F, d) frame
-    embeddings. Returns (last_logits (B, V), cache)."""
-    cache = init_cache(cfg, tokens.shape[0], max_len, cache_dtype,
-                       device=tokens.device)
+    max_len, or `cache` (init_cache's tree for B rows, or views of its
+    leading B rows) in place, from the state a fresh cache holds. tokens: (B, S); enc_embeds: encdec's (B,
+    F, d) frame embeddings. Returns (last_logits (B, V), cache)."""
+    if cache is None:
+        cache = init_cache(cfg, tokens.shape[0], max_len, cache_dtype,
+                           device=tokens.device)
+    elif cfg.arch_type == "ssm":
+        # the prefill reads the recurrent state it starts from (the conv
+        # windows and the SSM state): a reused cache starts from zeros,
+        # as a fresh one does. Attention K/V past the prompt are masked.
+        for leaf in cache.values():
+            leaf.zero_()
     logits, _ = forward(cfg, params, tokens, cache=cache, cache_index=0,
                         backend=backend, last_only=True,
                         enc_embeds=enc_embeds)
     return logits[:, -1], cache
 
 
-def decode_step(cfg: ModelConfig, params: Params, cache, tokens, index: int,
-                *, backend: str = "cuda"):
-    """One decode step. tokens: (B, 1); index: the position written.
+def decode_step(cfg: ModelConfig, params: Params, cache, tokens, index, *,
+                backend: str = "cuda"):
+    """One decode step. tokens: (B, 1); index: the position written, a
+    Python int or a 0-d or (1,) int64 tensor on the tokens' device (read
+    on the device only; an int gives the same results bit for bit).
     Returns (logits (B, V), cache), the cache updated in place."""
     b = tokens.shape[0]
-    positions = torch.full((b, 1), int(index), dtype=torch.int64,
+    if not isinstance(index, torch.Tensor):
+        # a fill, not a copy from the host (which would wait for the
+        # stream)
+        index = torch.full((1,), int(index), dtype=torch.int64,
                            device=tokens.device)
-    logits, _ = forward(cfg, params, tokens, positions=positions,
-                        cache=cache, cache_index=int(index), backend=backend)
+    index = index.reshape(1)
+    logits, _ = forward(cfg, params, tokens, positions=index.expand(b, 1),
+                        cache=cache, cache_index=index, backend=backend)
     return logits[:, -1], cache

@@ -11,9 +11,15 @@ Workflow per Fig. 1 of the paper:
      simulated user preference is appended to the DB + ELO (the online,
      training-free update), then committed into the back buffer
 
-A port of the JAX package's `serving/engine.py`. Not ported yet (ROADMAP
-§2.4-2.5): the capacity-sharded route (`mesh=`), the background capacity
-prebaker (`prebake=True`) and the router-quality monitor.
+A port of the JAX package's `serving/engine.py`. Where the JAX package
+jits prefill and decode and serves routes from compiled executables, the
+port captures CUDA graphs: the dispatcher's route graphs
+(core/dispatch.py) and, per fleet model, one graph of the decode step
+per row count (`FleetModel`); prefill stays eager, as its length varies.
+`warmup()` and `warmup_generate()` capture before traffic. Not ported
+yet (ROADMAP §2.4-2.5): the capacity-sharded route (`mesh=`), the
+background capacity prebaker (`prebake=True`) and the router-quality
+monitor (`quality=`).
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import DeviceLike, obs as OBS, resolve_device
+from repro_torch import DeviceLike, graphs, obs as OBS, resolve_device
 from repro_torch.core.dispatch import (RouteDispatcher, batch_bucket,
                                        bucket_ladder)
 from repro_torch.core.router import EagleRouter
@@ -64,9 +70,23 @@ class FleetModel:
     The parameters are made from `seed` on the device (or taken from
     `params`, in `transformer.init_params`' layout, e.g. carried across by
     `convert.model_params_from_numpy`) and cast to the compute type once.
-    The KV cache is fp32, as in the JAX package's FleetModel. An encdec
-    model's encoder reads a zero (B, n_audio_frames, d_model) stub of
-    frame embeddings, as the JAX FleetModel feeds it."""
+    An encdec model's encoder reads a zero (B, n_audio_frames, d_model)
+    stub of frame embeddings, as the JAX FleetModel feeds it.
+
+    Decode runs on one static state: an fp32 cache (as in the JAX
+    package's FleetModel) of `rows` rows, a token history and a (1,)
+    device step index. A generate of B rows prefills the leading B rows
+    in place (eager, as S varies) and runs its steps through the decode
+    step for B rows: on the card a CUDA graph captured once per B (the
+    counterpart of the JAX FleetModel's jitted decode, compiled per
+    shape), so a step is one index update and one replay; on the CPU the
+    step runs eagerly. Each prefill starts from a zero state, as a fresh
+    cache does (`T.prefill`), so no request sees the last one's. The
+    graphs of one model share one memory pool. `stats` is their ledger,
+    as the dispatcher's: a row count not warmed is captured on first
+    use, as a miss; one past `rows` reallocates the state at that size,
+    and the steps captured over the old one are evicted with their pool
+    and captured again when next used."""
 
     def __init__(self, cfg: ModelConfig, seed: int = 0, max_len: int = 128,
                  *, params: Optional[T.Params] = None,
@@ -79,45 +99,110 @@ class FleetModel:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = T.init_params(cfg, gen)
         self.params = T.cast_params(cfg, params)
+        self._steps = graphs.StepCache()    # row count -> decode step
+        self.stats = self._steps.stats
+        self.rows = 0                       # of the static decode state
+        self._cache = self._hist = self._index = None
+
+    @torch.inference_mode()
+    def _alloc(self, rows: int) -> None:
+        self._steps.evict(lambda b, step: True)   # over the old state
+        self._cache = self._hist = self._index = None   # freed first
+        self._cache = T.init_cache(self.cfg, rows, self.max_len,
+                                   torch.float32, device=self.device)
+        # column p: the token at position p (p >= the prompt length)
+        self._hist = torch.zeros((rows, self.max_len + 1), dtype=torch.int64,
+                                 device=self.device)
+        self._index = torch.zeros((1,), dtype=torch.int64,
+                                  device=self.device)
+        self.rows = rows
+
+    def _view(self, b: int):
+        """The static state's leading b rows; each layer's slice of them
+        is contiguous, so the decode kernel reads it in place."""
+        def rows(tree):
+            return {k: rows(v) if isinstance(v, dict) else v[:, :b]
+                    for k, v in tree.items()}
+        return rows(self._cache), self._hist[:b], self._index
+
+    def _decode(self, cache, hist, index) -> None:
+        """One greedy step on the static state: the token at position
+        `index` in, the next one out into the history at index + 1."""
+        tok = hist.index_select(1, index)
+        logits, _ = T.decode_step(self.cfg, self.params, cache, tok, index)
+        hist.index_copy_(1, index + 1, torch.argmax(logits, dim=-1)[:, None])
+
+    @torch.inference_mode()
+    def _step(self, b: int, warm: bool = False) -> graphs.Step:
+        if b not in self._steps.entries and b > self.rows:
+            self._alloc(b)
+        # captured before a prefill writes the rows: its eager warm-up
+        # run writes the state at the index it holds
+        return self._steps.get(
+            b, lambda pool: graphs.Step(self._decode, *self._view(b),
+                                        device=self.device, pool=pool),
+            device=self.device, warm=warm)
+
+    def warmup(self, batch_sizes: Sequence[int]) -> int:
+        """Capture the decode step for each row count (the state sized at
+        the largest first). Returns the number captured (0 if warm)."""
+        before = self.stats.misses
+        for b in sorted(set(batch_sizes), reverse=True):
+            self._step(b, warm=True)
+        return self.stats.misses - before
+
+    def cache_stats(self) -> Dict:
+        """The decode steps' ledger: hits, misses (captures), warmed,
+        compile_s (capture seconds), entries and their row counts."""
+        return self._steps.as_dict()
 
     @torch.inference_mode()
     def generate(self, tokens: np.ndarray, max_new: int) -> np.ndarray:
         """tokens: (B, S) -> (B, max_new) greedy continuation. The tokens
         stay on the device until the end: one readout per call."""
         b, s = tokens.shape
+        if s + max_new > self.max_len + 1:
+            raise ValueError(f"generate: {s} prompt tokens + {max_new} new "
+                             f"ones do not fit a cache of {self.max_len}")
+        step = self._step(b)
+        cache, hist, index = self._view(b)
         toks = torch.as_tensor(np.asarray(tokens, np.int64),
                                device=self.device)
         enc = None
         if self.cfg.arch_type == "encdec":
             enc = torch.zeros((b, self.cfg.n_audio_frames,
                                self.cfg.d_model), device=self.device)
-        logits, cache = T.prefill(self.cfg, self.params, toks, self.max_len,
-                                  cache_dtype=torch.float32, enc_embeds=enc)
-        tok = torch.argmax(logits, dim=-1)[:, None]
-        outs = [tok]
+        logits, _ = T.prefill(self.cfg, self.params, toks, self.max_len,
+                              enc_embeds=enc, cache=cache)
+        hist[:, s] = torch.argmax(logits, dim=-1)
         for i in range(max_new - 1):
-            logits, cache = T.decode_step(self.cfg, self.params, cache, tok,
-                                          s + i)
-            tok = torch.argmax(logits, dim=-1)[:, None]
-            outs.append(tok)
-        return torch.cat(outs, dim=1).to(torch.int32).cpu().numpy()
+            index.fill_(s + i)
+            step(cache, hist, index)
+        return hist[:, s:s + max_new].to(torch.int32).cpu().numpy()
 
 
 class ServingEngine:
-    """Serving loop: routing runs through the bucketed dispatcher
-    (core/dispatch.py) over a double-buffered RouterState, so feedback
-    commits never write into the replica routing reads."""
-
-    #: generation row buckets: the power-of-two ladder between these
-    GEN_MIN_BUCKET, GEN_MAX_BUCKET = 1, 64
+    """Serving loop: routing runs through the bucketed dispatcher's graph
+    cache (core/dispatch.py) over a double-buffered RouterState, so
+    feedback commits never write into the replica routing reads, and
+    after warmup a serve() step captures nothing."""
 
     def __init__(self, fleet: Dict[str, FleetModel], router: EagleRouter,
                  compare_rate: float = 0.2, seed: int = 0,
                  quality_oracle: Optional[Callable] = None,
+                 dispatcher: Optional[RouteDispatcher] = None,
+                 warmup_batch_sizes: Optional[Sequence[int]] = None,
                  obs: Optional[OBS.Observability] = None,
-                 gen_bucket: bool = False,
+                 gen_bucket: bool = False, gen_min_bucket: int = 1,
+                 gen_max_bucket: int = 64,
                  gen_pad_len: Optional[int] = None,
+                 quality=None,
+                 now_ns: Callable[[], int] = time.time_ns,
                  mesh=None, prebake: bool = False):
+        if quality is not None:
+            raise NotImplementedError("ServingEngine(quality=...): the "
+                                      "router-quality monitor is not ported "
+                                      "yet (ROADMAP §2.4)")
         if mesh is not None:
             raise NotImplementedError("ServingEngine(mesh=...): the "
                                       "capacity-sharded route is not ported "
@@ -131,15 +216,22 @@ class ServingEngine:
         self.router = router
         self.compare_rate = compare_rate
         # generation-shape bucketing: pad each per-model group's rows to
-        # the power-of-two ladder (padded rows are independent in the
-        # batch dim, so real rows are untouched) and optionally floor the
-        # token panel length
+        # the power-of-two ladder between gen_min_bucket and
+        # gen_max_bucket (padded rows are independent in the batch dim,
+        # so real rows are untouched; each row count is one decode graph)
+        # and optionally floor the token panel length
         self.gen_bucket = gen_bucket
+        self.gen_min_bucket = gen_min_bucket
+        self.gen_max_bucket = gen_max_bucket
         self.gen_pad_len = gen_pad_len
         self.rng = np.random.default_rng(seed)
         self.quality_oracle = quality_oracle  # (emb, model_idx) -> quality
         self.obs = OBS.get_obs(obs)
-        self.dispatch = RouteDispatcher.for_router(router)
+        # the decision log's clock: injectable, so a replayed run's log
+        # repeats (AdmissionQueue takes the same)
+        self.now_ns = now_ns
+        self.dispatch = dispatcher or RouteDispatcher.for_router(
+            router, obs=self.obs)
         # two device replicas over the router's host buffer: route on the
         # front while commits copy into the back, then swap
         self.dbuf = DoubleBuffer(router.db, router.global_ratings,
@@ -167,6 +259,9 @@ class ServingEngine:
         self._h_commit = r.histogram("serve_commit_us",
                                      "double-buffer commit latency")
         self._sorted_costs = np.sort(router.costs.cpu().numpy())
+        self._warm_sizes: Optional[Sequence[int]] = None   # see warmup()
+        if warmup_batch_sizes is not None:
+            self.warmup(warmup_batch_sizes)
 
     @property
     def stats(self) -> Dict:
@@ -184,29 +279,43 @@ class ServingEngine:
         return self.obs.registry.json_snapshot()
 
     def warmup(self, batch_sizes: Optional[Sequence[int]] = None) -> int:
-        """One route per bucket of the dispatcher's ladder (kernels built
-        and loaded before traffic) and one commit per buffer replica.
-        Returns the number of buckets routed."""
-        n = self.dispatch.warmup(self.dbuf.front, batch_sizes)
+        """Fill the dispatcher's graph cache for the bucket ladder (or
+        `batch_sizes`) on both buffer replicas, each while it is the
+        front, with one commit after each (which runs the commit path
+        too). Call at startup; routing then never captures. A commit of
+        serve() that grows the DB makes a new replica: serve() warms it
+        for the same sizes before it routes on it, so those captures
+        are the commit's (counted as warmed), not a route's. Returns the
+        number of route graphs captured (on the CPU, where the key has
+        no replica: the JAX package's count)."""
+        self._warm_sizes = tuple(batch_sizes) if batch_sizes is not None \
+            else bucket_ladder(self.dispatch.min_bucket,
+                               self.dispatch.max_bucket)
+        n = 0
         for _ in range(2):
+            n += self.dispatch.warmup(self.dbuf.front, batch_sizes)
             self.dbuf.commit(self.router.global_ratings)
         return n
 
     def warmup_generate(self, prompt_len: int,
                         batch_sizes: Optional[Sequence[int]] = None,
-                        max_new: int = 2) -> None:
-        """Run every fleet model's prefill and decode once per generate
-        bucket at a fixed padded prompt length, so the kernels are built
-        and the allocator has seen those shapes before traffic."""
-        lo, hi = self.GEN_MIN_BUCKET, self.GEN_MAX_BUCKET
+                        max_new: int = 2) -> int:
+        """Capture every fleet model's decode step for the generate-bucket
+        ladder (or the buckets of `batch_sizes`), then run a generate of
+        `prompt_len` tokens at each, so the kernels are built and the
+        allocator has seen the prefill shapes before traffic. Returns the
+        number of decode graphs captured."""
+        lo, hi = self.gen_min_bucket, self.gen_max_bucket
         if batch_sizes is not None:
             buckets = sorted({batch_bucket(n, lo, hi) for n in batch_sizes})
         else:
             buckets = list(bucket_ladder(lo, hi))
+        n = sum(m.warmup(buckets) for m in self.fleet.values())
         for b in buckets:
             toks = np.zeros((b, prompt_len), np.int32)
             for m in self.fleet.values():
                 m.generate(toks, max_new)
+        return n
 
     def serve(self, requests: Sequence[Request]) -> List[Response]:
         if not len(requests):
@@ -238,8 +347,8 @@ class ServingEngine:
                 max_s = max(len(requests[i].tokens) for i in sel)
                 rows = int(sel.size)
                 if self.gen_bucket:
-                    rows = batch_bucket(rows, self.GEN_MIN_BUCKET,
-                                        self.GEN_MAX_BUCKET)
+                    rows = batch_bucket(rows, self.gen_min_bucket,
+                                        self.gen_max_bucket)
                     if self.gen_pad_len is not None:
                         max_s = max(max_s, self.gen_pad_len)
                 toks = np.zeros((rows, max_s), np.int32)
@@ -284,7 +393,10 @@ class ServingEngine:
                     self._m_feedback.inc(int(idxs.size))
                     tc = time.perf_counter()
                     with obs.span("serve.commit"):
-                        self.dbuf.commit(self.router.global_ratings)
+                        front = self.dbuf.commit(self.router.global_ratings)
+                        if self._warm_sizes is not None:
+                            # 0 unless the commit grew this replica
+                            self.dispatch.warmup(front, self._warm_sizes)
                     self._h_commit.observe(
                         (time.perf_counter() - tc) * 1e6)
                     self._m_commits.inc()
@@ -300,7 +412,7 @@ class ServingEngine:
         idx = choices.tolist()
         self.obs.events.emit_columns(
             "route", nb,
-            {"ts": time.time_ns() / 1e9, "batch": nb},
+            {"ts": self.now_ns() / 1e9, "batch": nb},
             {"rid": [r.rid for r in requests],
              "model": [names[c] for c in idx],
              "model_idx": idx,

@@ -125,6 +125,55 @@ def test_serve_with_generation_buckets_matches_jax(world):
     assert te.stats == je.stats
 
 
+def test_gen_min_bucket_matches_jax(world):
+    """tests/test_admission.py's row-padding case on both packages:
+    groups padded to a floor of 4 rows (5 requests -> 8) answer as the
+    unpadded engine does, and as the JAX engine with the same option."""
+    corpus = world[0]
+    je, te = _engines(world, gen_bucket=True, gen_min_bucket=4)
+    _, t_plain = _engines(world)
+    assert (te.gen_min_bucket, te.gen_max_bucket) == (4, 64)
+    jres = je.serve(_requests(corpus, JENG.Request, 2, 5))
+    tres = te.serve(_requests(corpus, TENG.Request, 2, 5))
+    _assert_same_responses(jres, tres)
+    _assert_same_responses(tres, t_plain.serve(_requests(corpus,
+                                                         TENG.Request, 2,
+                                                         5)))
+    rows = {r.model for r in tres}
+    assert all(te.fleet[m].cache_stats()["keys"][-1] >= 4 for m in rows)
+
+
+def test_warmup_batch_sizes_matches_jax(world):
+    """ServingEngine(warmup_batch_sizes=...) warms the dispatcher at
+    construction: the same entries as the JAX engine's (on the CPU the
+    port's key has no replica), every one taken by warmup."""
+    je, te = _engines(world, warmup_batch_sizes=[3, 20])
+    want = je.dispatch.cache_stats()
+    got = te.dispatch.cache_stats()
+    for k in ("hits", "misses", "warmed", "entries"):
+        assert got[k] == want[k], k
+    assert got["misses"] == got["warmed"] == 2
+    assert te.warmup([3, 20]) == 0
+
+
+def test_injected_clock_matches_jax_decision_log(world):
+    """An injected now_ns stamps the decision log on both engines: the
+    same records, timestamps included."""
+    corpus = world[0]
+    ticks = {"jax": iter(range(10**9, 10**12, 10**9)),
+             "torch": iter(range(10**9, 10**12, 10**9))}
+    je, te = _engines(world)
+    je.now_ns = lambda: next(ticks["jax"])
+    for step in range(2):
+        je.serve(_requests(corpus, JENG.Request, 20 + step, 6))
+    _, te = _engines(world, now_ns=lambda: next(ticks["torch"]))
+    for step in range(2):
+        te.serve(_requests(corpus, TENG.Request, 20 + step, 6))
+    got, want = (e.obs.events.records("route") for e in (te, je))
+    assert [r["ts"] for r in got] == [1.0] * 6 + [2.0] * 6
+    assert got == want
+
+
 def test_warmup_and_metrics(world):
     _, te = _engines(world)
     assert te.warmup([3, 20]) == 2
@@ -135,10 +184,38 @@ def test_warmup_and_metrics(world):
     assert "serve_route_us" in snap["histograms"]
 
 
+def test_commit_that_grows_the_db_is_warmed_before_routing(world):
+    """A warmed engine whose feedback grows the DB: the commit warms the
+    grown replica for the warmed sizes, so no route captures (every
+    miss is a warmup's) and the new capacity has every warmed bucket."""
+    corpus, fb, _ = world
+    _, te = _engines(world)
+    tr = TRouter(NAMES, corpus.costs, TConfig(embed_dim=DIM),
+                 db_capacity=16, device="cpu")
+    n = 250                               # rows, of a 256-row DB
+    tr.fit(fb["emb"][:n], fb["model_a"][:n], fb["model_b"][:n],
+           fb["outcome"][:n])
+    cap = tr.db.capacity
+    te = TENG.ServingEngine(te.fleet, tr, compare_rate=1.0, seed=0,
+                            quality_oracle=oracle,
+                            obs=TOBS.Observability(),
+                            warmup_batch_sizes=[12])
+    for step in range(4):
+        te.serve(_requests(corpus, TENG.Request, 40 + step, 12))
+        if tr.db.capacity != cap:
+            break
+    assert tr.db.capacity > cap
+    te.serve(_requests(corpus, TENG.Request, 99, 12))
+    st = te.dispatch.cache_stats()
+    assert st["misses"] == st["warmed"] == 2 and st["hits"] == step + 2
+    assert [k[1] for k in st["keys"]] == [cap, tr.db.capacity]
+
+
 def test_unported_options_raise(world):
     je, te = _engines(world)
-    for kw in ({"mesh": object()}, {"prebake": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw, item in (({"mesh": object()}, "§2.5"), ({"prebake": True}, "§2.5"),
+                     ({"quality": object()}, "§2.4")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             TENG.ServingEngine(te.fleet, te.router, **kw)
 
 

@@ -537,6 +537,7 @@ def test_model_kernel_path_matches_plain_attention(dev, arch):
         tok = want.argmax(-1)[:, None]
         runs = {b: T.decode_step(m.cfg, m.params, runs[b][1], tok, 130 + i,
                                  backend=b) for b in runs}
+    m.warmup([3])       # the decode graph: its eager warm-up run too
     _build.reset_launches()
     m.generate(toks.cpu().numpy(), 6)
     counts = _build.launch_counts()
@@ -627,6 +628,7 @@ def test_encdec_and_ssm_kernel_path_matches_plain(dev, arch):
         tok = want.argmax(-1)[:, None]
         runs = {b: T.decode_step(cfg, m.params, runs[b][1], tok, 64 + i,
                                  backend=b) for b in runs}
+    m.warmup([3])       # the decode graph: its eager warm-up run too
     _build.reset_launches()
     m.generate(toks.cpu().numpy(), 6)
     counts = _build.launch_counts()
@@ -636,3 +638,239 @@ def test_encdec_and_ssm_kernel_path_matches_plain(dev, arch):
         assert counts["decode_attention"] == 2 * cfg.n_layers * 5
     else:
         assert counts["flash_attention"] == counts["decode_attention"] == 0
+
+
+# ---------------------------------------------------------------------------
+# captured graphs: the dispatcher's route graphs and the decode step's
+# ---------------------------------------------------------------------------
+
+def _graph_router(dev, dim=64, capacity=256, n_prompts=200, seed=0):
+    from repro_torch.core.router import EagleConfig, EagleRouter
+    rng = np.random.default_rng(seed)
+    r = EagleRouter([f"m{i}" for i in range(6)], np.linspace(1.0, 8.0, 6),
+                    EagleConfig(embed_dim=dim), db_capacity=capacity,
+                    device=dev)
+    a = rng.integers(0, 6, n_prompts * 4)
+    r.fit(rng.normal(size=(n_prompts * 4, dim)).astype(np.float32), a,
+          (a + 1 + rng.integers(0, 5, a.size)) % 6,
+          rng.choice([0.0, 0.5, 1.0], a.size),
+          query_id=np.arange(a.size) // 4)
+    return r, rng
+
+
+def _eager_route(disp, state, q, b):
+    """The dispatch without a graph: the padded batch through
+    route_batch_choices, as the eager dispatcher ran it."""
+    from repro_torch.core.state import route_batch_choices
+    nq, qb = q.shape[0], disp.bucket(q.shape[0])
+    qp = torch.zeros((qb, q.shape[1]), device=state.device)
+    qp[:nq] = torch.from_numpy(q).to(state.device)
+    bp = torch.zeros((qb,), device=state.device)
+    bp[:nq] = torch.from_numpy(b).to(state.device)
+    res = route_batch_choices(state, qp, bp, disp.costs, **disp.kw)
+    return res.choices[:nq].cpu().numpy(), res.topk_idx[:nq].cpu().numpy()
+
+
+def test_route_graphs_equal_eager_routes(dev):
+    """At every bucket of the ladder, on both replicas of a DoubleBuffer,
+    after a commit and after a grow: the graph's choices and top-n rows
+    equal the eager route's on the same state. Once both replicas have
+    grown, the old replicas' graphs are evicted: the cache holds the
+    live replicas' graphs only."""
+    from repro_torch.core.dispatch import (RouteDispatcher, bucket_ladder,
+                                           replica)
+    from repro_torch.core.state import DoubleBuffer
+    r, rng = _graph_router(dev)
+    dbuf = DoubleBuffer(r.db, r.global_ratings, device=dev)
+    disp = RouteDispatcher.for_router(r, max_bucket=256)
+    rounds, seen = 0, set()
+    while r.db.capacity == 256 or rounds < 4:
+        st = dbuf.front
+        seen.add(replica(st))
+        disp.warmup(st)
+        for qb in bucket_ladder(8, 256):
+            for nq in (qb, qb // 2 + 1):
+                q = rng.normal(size=(nq, 64)).astype(np.float32)
+                b = rng.uniform(0.5, 9.0, nq).astype(np.float32)
+                ch, top = disp.route_result(st, q, b)
+                want_ch, want_top = _eager_route(disp, st, q, b)
+                np.testing.assert_array_equal(ch, want_ch)
+                np.testing.assert_array_equal(top, want_top)
+                np.testing.assert_array_equal(disp.route(st, q, b), ch)
+        n = 40
+        a = rng.integers(0, 6, n)
+        r.update(rng.normal(size=(n, 64)).astype(np.float32), a, (a + 1) % 6,
+                 np.ones(n), query_id=10_000 + rounds * n + np.arange(n))
+        dbuf.commit(r.global_ratings)
+        rounds += 1
+    assert r.db.capacity == 512
+    del st
+    for _ in range(2):            # both replicas at the grown capacity
+        seen.add(replica(dbuf.front))
+        disp.warmup(dbuf.front)
+        dbuf.commit(r.global_ratings)
+    ladder = len(bucket_ladder(8, 256))
+    stats = disp.cache_stats()
+    assert len(seen) == 4         # two replicas, before and after the grow
+    assert stats["misses"] == stats["warmed"] == 4 * ladder
+    assert stats["hits"] > 0 and stats["entries"] == 2 * ladder
+    assert {k[-1] for k in stats["keys"]} == {replica(dbuf.front),
+                                              replica(dbuf._back[0])}
+    assert disp.telemetry()["cache_evicted"] == 2 * ladder
+
+
+def test_ragged_run_after_warmup_captures_nothing(dev):
+    """Batches of 1..300 with feedback committed between them, across
+    both replicas and a grow, each replica warmed when it becomes the
+    front: every capture is a warmup's, none is traffic's, and the
+    process-wide count agrees."""
+    from repro_torch import graphs
+    from repro_torch.core.dispatch import RouteDispatcher
+    from repro_torch.core.state import DoubleBuffer
+    r, rng = _graph_router(dev, seed=1)
+    dbuf = DoubleBuffer(r.db, r.global_ratings, device=dev)
+    disp = RouteDispatcher.for_router(r, max_bucket=128)
+    c0 = graphs.capture_count()
+    for i in range(12):
+        disp.warmup(dbuf.front)
+        nq = int(rng.integers(1, 301))
+        q = rng.normal(size=(nq, 64)).astype(np.float32)
+        got = disp.route(dbuf.front, q, 5.0)
+        assert got.shape == (nq,)
+        a = rng.integers(0, 6, 20)
+        r.update(rng.normal(size=(20, 64)).astype(np.float32), a,
+                 (a + 2) % 6, np.zeros(20),
+                 query_id=20_000 + 20 * i + np.arange(20))
+        dbuf.commit(r.global_ratings)
+    assert r.db.capacity == 512
+    st = disp.cache_stats()
+    assert st["misses"] == st["warmed"] == graphs.capture_count() - c0
+
+
+def test_route_graph_launches_are_credited_on_replay(dev):
+    from repro_torch.core.dispatch import RouteDispatcher
+    r, rng = _graph_router(dev, seed=2)
+    disp = RouteDispatcher.for_router(r)
+    st = r.state
+    assert disp.warmup(st, [8]) == 1
+    (entry,) = disp._cache.entries.values()
+    assert entry.step.launches == {("similarity", None): 1,
+                                   ("elo_scan_select", None): 1}
+    _build.reset_launches()
+    for _ in range(3):
+        disp.route(st, rng.normal(size=(5, 64)).astype(np.float32), 4.0)
+    assert _build.launch_counts() == {"similarity": 3, "elo_scan": 0,
+                                      "elo_scan_select": 3,
+                                      "flash_attention": 0,
+                                      "decode_attention": 0}
+
+
+def test_serving_engine_warms_a_grown_replica(dev):
+    """A warmed ServingEngine whose feedback grows the DB on the card:
+    each commit that makes a grown replica warms it, so no route
+    captures, and the process captured only what the warmups did."""
+    from repro_torch import graphs
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.serving import FleetModel, Request, ServingEngine
+    r, rng = _graph_router(dev, n_prompts=250)
+    assert (r.db.capacity, r.db.size) == (256, 250)
+    names = r.model_names
+    fleet = {n: FleetModel(get_reduced_config("olmo-1b"), seed=i,
+                           max_len=32, device=dev)
+             for i, n in enumerate(names)}
+    c0 = graphs.capture_count()
+    engine = ServingEngine(fleet, r, compare_rate=1.0, seed=0,
+                           quality_oracle=lambda e, m: float(m % 3),
+                           warmup_batch_sizes=[16])
+    for i in range(6):
+        engine.serve([Request(tokens=rng.integers(0, 100, 6).astype(
+            np.int32), embedding=rng.normal(size=64).astype(np.float32),
+            budget=8.0, max_new_tokens=2, rid=16 * i + j)
+            for j in range(16)])
+    assert r.db.capacity == 512
+    st = engine.dispatch.cache_stats()
+    decode = sum(m.cache_stats()["misses"] for m in fleet.values())
+    assert st["misses"] == st["warmed"] == 4 and st["hits"] == 6
+    assert graphs.capture_count() - c0 == st["misses"] + decode
+
+
+def _full_width(arch, n_layers=2):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=n_layers,
+                               n_enc_layers=min(cfg.n_enc_layers, n_layers))
+
+
+def _eager_tokens(m, toks, max_new):
+    """Greedy tokens through the eager prefill and decode_step (an int
+    position, a fresh cache), the path the graph was captured from."""
+    from repro_torch.models import transformer as T
+    t = torch.tensor(toks, dtype=torch.int64, device=m.device)
+    enc = None
+    if m.cfg.arch_type == "encdec":
+        enc = torch.zeros((t.shape[0], m.cfg.n_audio_frames,
+                           m.cfg.d_model), device=m.device)
+    with torch.inference_mode():
+        logits, cache = T.prefill(m.cfg, m.params, t, m.max_len,
+                                  cache_dtype=torch.float32, enc_embeds=enc)
+        tok = logits.argmax(-1)[:, None]
+        out = [tok]
+        for i in range(max_new - 1):
+            logits, cache = T.decode_step(m.cfg, m.params, cache, tok,
+                                          toks.shape[1] + i)
+            tok = logits.argmax(-1)[:, None]
+            out.append(tok)
+    return torch.cat(out, dim=1).int().cpu().numpy()
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "olmo-1b",
+                                  "mamba2-780m", "qwen3-8b"])
+def test_captured_decode_tokens_equal_eager(dev, arch):
+    """The launcher fleet's models at full width and two layers, bf16:
+    generate through the captured decode graphs gives the eager path's
+    greedy tokens, at each warmed row count, with its launches credited
+    per replay and nothing captured after warmup."""
+    from repro_torch.serving import FleetModel
+    cfg = _full_width(arch)
+    m = FleetModel(cfg, seed=3, max_len=320, device=dev)
+    assert m.warmup([1, 2, 4]) == 3 and m.rows == 4
+    rng = np.random.default_rng(4)
+    s = 256     # a multiple of mamba2's SSD chunk
+    per_step = 0 if cfg.arch_type == "ssm" else \
+        cfg.n_layers * (2 if cfg.arch_type == "encdec" else 1)
+    for b in (4, 1, 2):
+        toks = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+        want = _eager_tokens(m, toks, 8)
+        _build.reset_launches()
+        got = m.generate(toks, 8)
+        assert _build.launch_counts()["decode_attention"] == 7 * per_step
+        np.testing.assert_array_equal(got, want)
+    st = m.cache_stats()
+    assert st["misses"] == st["warmed"] == 3 and st["hits"] == 3
+
+
+def test_failed_capture_raises(dev):
+    """A step that reads a device value on the host cannot be captured:
+    the capture raises, and nothing falls back to running eagerly. In a
+    process of its own, as a failed capture leaves PyTorch's capture
+    stream behind."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    script = (
+        "import torch\n"
+        "from repro_torch import graphs\n"
+        "x = torch.ones((4,), device='cuda')\n"
+        "try:\n"
+        "    graphs.Step(lambda t: t.sum().item(), x, device=x.device)\n"
+        "except RuntimeError:\n"
+        "    print('raised', graphs.capture_count())\n"
+        "else:\n"
+        "    print('captured')\n")
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(src)})
+    assert out.stdout.split() == ["raised", "0"], out.stdout + out.stderr

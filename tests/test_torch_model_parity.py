@@ -1,7 +1,7 @@
 """The port's dense model against the JAX package, on the CPU: layers
 (norms, RoPE, MLP, attention with and without a cache), prefill,
-decode_step and FleetModel.generate on the reduced olmo-1b and qwen3-8b,
-with the JAX `init_params` weights carried across by
+decode_step and FleetModel.generate on the reduced olmo-1b, qwen3-8b and
+internlm2-20b, with the JAX `init_params` weights carried across by
 `convert.model_params_from_numpy`.
 
 Bars: fp32 logits within 1e-4 (rtol and atol), the same arithmetic up to
@@ -30,15 +30,18 @@ from repro_torch.serving.engine import FleetModel as TFleetModel
 
 jax.config.update("jax_platform_name", "cpu")
 
-ARCHS = ["olmo-1b", "qwen3-8b"]
+ARCHS = ["olmo-1b", "qwen3-8b", "internlm2-20b"]
+#: internlm2-20b keeps its six query heads per KV head (48 / 8), which
+#: the reduced defaults (4 / 2) would lose
+SHAPES = {"internlm2-20b": dict(n_heads=6, n_kv_heads=1, d_model=192)}
 F32_TOL = 1e-4
 BF16_TOL = 0.1
 MAX_LEN = 48
 
 
 def _models(arch, dtype="float32", seed=0):
-    cfg_j = j_reduced(arch, dtype=dtype)
-    cfg_t = t_reduced(arch, dtype=dtype)
+    cfg_j = j_reduced(arch, dtype=dtype, **SHAPES.get(arch, {}))
+    cfg_t = t_reduced(arch, dtype=dtype, **SHAPES.get(arch, {}))
     pj = JT.init_params(cfg_j, jax.random.key(seed))
     pt = TT.cast_params(cfg_t, convert.model_params_from_numpy(
         cfg_t, pj, device="cpu"))
@@ -167,8 +170,8 @@ def test_forward_without_cache_matches_jax():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_fleet_model_generate_tokens_equal_jax(arch):
-    cfg_j = j_reduced(arch, dtype="float32")
-    cfg_t = t_reduced(arch, dtype="float32")
+    cfg_j = j_reduced(arch, dtype="float32", **SHAPES.get(arch, {}))
+    cfg_t = t_reduced(arch, dtype="float32", **SHAPES.get(arch, {}))
     jm = JFleetModel(cfg_j, seed=3, max_len=MAX_LEN)
     tm = TFleetModel(cfg_t, max_len=MAX_LEN, device="cpu",
                      params=convert.model_params_from_numpy(
