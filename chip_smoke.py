@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's routing and serving paths on one NVIDIA
-GPU.
+"""Drive the PyTorch/CUDA port's routing and serving paths, and the
+paper's experiments, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -83,6 +83,16 @@ together), then:
      per site), peak memory under 80 GB; then each model's greedy tokens
      through its graphs equal to the eager path's, whisper and mamba2
      kernel path against plain path, their times and profiles.
+ 11. the paper's experiments (`benchmarks_torch`) at the frozen regime
+     (300 prompts per dataset, D = 64, seed 0): holds KNN's similarity
+     call (a dataset's ~90 test rows against the 1,470 win-rate rows,
+     top-40) against the reference backend and times it, Eagle's D = 64
+     routes of the 630 test queries at every budget against the
+     reference backend, and a captured MLP fit and a captured SVM fit
+     against eager fits of 50 steps on the card; then runs Fig. 2 (both
+     regimes), Table 3a (its timed fits must capture nothing), Fig. 3b
+     and Fig. 4 as `python -m benchmarks_torch.run --quick` does, and
+     checks that KNN's and Eagle's kernels were launched in that run.
 
 Every CUDA graph is captured by `repro_torch.graphs` (counted process
 wide); a failed capture raises. Any mismatch or exception exits
@@ -229,6 +239,11 @@ ROUTE_KERNELS = ("similarity", "elo_scan_select", "elo_scan")
 # fp32 operations of one replay step of one query: difference, divide,
 # pow, add, reciprocal, difference, two products, two updates
 REPLAY_STEP_OPS = 10
+# the paper's experiments: captured MLP/SVM fits held against eager fits
+# on the card after FIT_STEPS steps. The graph replays the kernels the
+# eager step launches, over the same tensors, so the two agree to fp32
+# rounding (cuBLAS may pick another algorithm inside a capture)
+FIT_STEPS, FIT_TOL = 50, 1e-6
 
 
 def log(*a):
@@ -2265,6 +2280,238 @@ def drive_launch_fleet(engine, corpus, stats):
         wait_ms=waits, e2e_ms=e2e, stats=st, groups=groups)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the paper's experiments (benchmarks_torch) at the frozen regime
+# ---------------------------------------------------------------------------
+
+def paper_regime(dev):
+    """benchmarks_torch.common's frozen regime at seed 0 (300 prompts per
+    dataset, D = 64, 8 pairs per query): the corpus, its train split's
+    feedback and the online win-rate targets."""
+    from benchmarks_torch import common as C
+    from repro_torch.data.routerbench import winrate_targets
+    corpus, fb = C.build(0, dev)
+    return corpus, fb, winrate_targets(fb, corpus.n_models)
+
+
+@contextlib.contextmanager
+def knn_site():
+    """Inside: KNN's similarity launches carry the call-site label "knn"
+    (Eagle's carry none)."""
+    from unittest import mock
+    from repro_torch.kernels import _build
+    from repro_torch.routing import baselines as B
+    predict = B.KNNRouter.predict
+
+    def labelled(self, emb):
+        with _build.site("knn"):
+            return predict(self, emb)
+    with mock.patch.object(B.KNNRouter, "predict", labelled):
+        yield
+
+
+def check_knn(dev, kernels, stats, corpus, targets):
+    """KNN's similarity call at its Fig. 2 shape (a dataset's test rows
+    against the C win-rate rows, D = 64, top-40) against the reference
+    backend: the panel within SIM_TOL, the neighbours equal except at
+    near-ties, the predictions within 1e-6 where they agree; timed on the
+    device over launches queued ahead (the wrapper's host cost exceeds
+    the kernel's), beside the plain version, the library and the
+    bound."""
+    from repro_torch.kernels import ops as KOPS
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.similarity_topk import similarity_cuda
+    from repro_torch.routing.baselines import KNNRouter
+    got_r = KNNRouter(corpus.costs, device=dev)
+    want_r = KNNRouter(corpus.costs, backend="reference", device=dev)
+    for r in (got_r, want_r):
+        r.fit(*targets)
+    db = got_r.emb
+    test = corpus.test_idx[corpus.dataset_id[corpus.test_idx] == 0]
+    q = torch.tensor(corpus.embeddings[test], device=dev)
+    nq, c = q.shape[0], db.shape[0]
+    got = similarity_cuda(q, db)
+    want = ref.similarity_ref(q, want_r.emb)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=SIM_TOL, atol=SIM_TOL):
+        fail(f"similarity knn Q={nq} C={c}: max abs err {err}")
+    n = min(got_r.n, c)
+    gi = KOPS.similarity_topk(q, db, n)[1]
+    wi = KOPS.similarity_topk(q, want_r.emb, n, backend="reference")[1]
+    differ, untied = topk_rows_agree(gi, wi, want, n, SIM_TOL)
+    if untied:
+        fail(f"similarity knn: top-{n} differs on {untied} rows without a "
+             "near-tie")
+    same = (gi == wi).all(dim=1)
+    p_err = float((got_r.predict(q) - want_r.predict(q))[same].abs().max())
+    if p_err > 1e-6:
+        fail(f"knn predictions: max abs err {p_err} on rows with equal "
+             "neighbours")
+    # 50 runs: the plain version and the library launch ~7 kernels a
+    # run, and a stream holds about a thousand launches before the host
+    # blocks (which would end the queue ahead of the device)
+    ms = queued_ms(lambda: similarity_cuda(q, db), 50)
+    plain = queued_ms(lambda: ref.similarity_ref(q, db), 50)
+    lib = queued_ms(lambda: torch.matmul(
+        torch.nn.functional.normalize(q, dim=-1),
+        torch.nn.functional.normalize(db, dim=-1).T), 50)
+    d = q.shape[1]
+    nbytes = 4.0 * (nq * d + c * d + nq * c)
+    flops = 2.0 * nq * c * d + 2.0 * (nq + c) * d
+    bms, by = bound_ms(nbytes, flops)
+    log_time(stats, f"similarity knn Q={nq} C={c} D={d} top-{n}: "
+             f"max_abs_err={err} topk rows differing at near-ties={differ} "
+             f"prediction err={p_err} kernel_ms={ms} (device, queued) "
+             f"plain_ms={plain} library_ms={lib} bound_ms={bms} ({by})")
+    kernels["similarity knn"] = dict(
+        name="similarity knn", route="cuda",
+        source="src/repro_torch/kernels/csrc/similarity.cu",
+        replaces="src/repro/kernels/similarity_topk.py:42",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+        library_ms=lib)
+    stats["knn_similarity"] = dict(q=nq, c=c, topk_rows_near_tie=differ,
+                                   prediction_err=p_err)
+
+
+def check_eagle_d64(dev, stats, corpus, fb):
+    """Eagle at D = 64 (Fig. 2's router, fitted on the frozen regime's
+    11,760 records) routes the 630 test queries at every budget of the
+    grid through the kernels and through the plain versions: retrieval
+    equal except at near-ties, choices equal except at score ties, the
+    combined scores within the ratings' bar."""
+    from benchmarks_torch import common as C
+    from repro_torch.core.state import route_batch
+    from repro_torch.data.routerbench import budget_grid
+    from repro_torch.kernels import ref
+    router, _ = C.fit_eagle(corpus, fb, device=dev)
+    st = router.state
+    kw = router._kw()
+    kw.pop("backend")
+    n = kw["n_neighbors"]
+    q = torch.tensor(corpus.embeddings[corpus.test_idx], device=dev)
+    panel = ref.similarity_ref(q, st.emb)
+    panel[:, int(st.size):] = float("-inf")
+    totals = dict(choices=0, at_ties=0, retrieval_near_ties=0)
+    grid = budget_grid(corpus.costs)
+    for b in grid:
+        got = route_batch(st, q, float(b), router.costs, backend="cuda",
+                          **kw)
+        want = route_batch(st, q, float(b), router.costs,
+                           backend="reference", **kw)
+        t_differ, t_untied = topk_rows_agree(got.topk_idx, want.topk_idx,
+                                             panel, n, SIM_TOL)
+        if t_untied:
+            fail(f"eagle D=64 budget {b}: top-{n} differs on {t_untied} "
+                 "rows without a near-tie")
+        same = (got.topk_idx == want.topk_idx).all(dim=1)
+        comb = torch.where(router.costs[None] <= float(b), want.scores,
+                           torch.full_like(want.scores, float("-inf")))
+        c_differ, c_untied = choices_agree(got.choices[same],
+                                           want.choices[same], comb[same])
+        if c_untied:
+            fail(f"eagle D=64 budget {b}: {c_untied} choices differ "
+                 "without a tie")
+        if not torch.allclose(got.scores[same], want.scores[same],
+                              rtol=R_RTOL, atol=R_ATOL):
+            fail(f"eagle D=64 budget {b}: scores differ")
+        totals["choices"] += int((got.choices.long()
+                                  != want.choices.long()).sum())
+        totals["at_ties"] += c_differ
+        totals["retrieval_near_ties"] += t_differ
+    log(f"eagle D=64, {len(q)} test queries x {len(grid)} budgets, kernels "
+        f"vs plain on the card: {totals['choices']} choices differ "
+        f"({totals['at_ties']} at score ties, the rest on rows whose "
+        f"retrieval met a near-tie: {totals['retrieval_near_ties']})")
+    stats["eagle_d64_choices_differing"] = totals
+
+
+def check_fit_capture(dev, stats, costs, targets):
+    """A captured MLP fit and a captured SVM fit of FIT_STEPS steps
+    against an eager loop of the same steps on the card (TrainStep, no
+    graph): parameters and losses within FIT_TOL, one capture each."""
+    from repro_torch import graphs
+    from repro_torch.routing.baselines import MLPRouter, SVMRouter, TrainStep
+    errs = {}
+    for name, cls in (("mlp", MLPRouter), ("svm", SVMRouter)):
+        r = cls(costs, epochs=FIT_STEPS, device=dev)
+        c0 = graphs.capture_count()
+        r.fit(*targets)
+        if graphs.capture_count() - c0 != 1:
+            fail(f"{name} fit: {graphs.capture_count() - c0} captures, "
+                 "not 1")
+        x, y, mk = (r._f32(a) for a in targets)
+        init = r._init(x.shape[1], y.shape[1])
+        eager = TrainStep(r, x, y, init).load(x, y, mk, init)
+        for _ in range(FIT_STEPS):
+            eager()
+        torch.cuda.synchronize()
+        err = max(float((r.params[k] - v).detach().abs().max())
+                  for k, v in eager.params.items())
+        l_err = float((r.losses - eager.losses).abs().max())
+        if max(err, l_err) > FIT_TOL:
+            fail(f"{name}: captured fit against eager after {FIT_STEPS} "
+                 f"steps: parameters {err}, losses {l_err}")
+        # a step's device time through its graph (replays queued ahead)
+        # and its time eagerly (back-to-back, host included)
+        (_, step), = r._steps.entries.values()
+        graph_ms = queued_ms(step, FIT_STEPS)
+        eager_ms = cuda_ms(eager, FIT_STEPS)
+        errs[name] = dict(params=err, losses=l_err, graph_step_ms=graph_ms,
+                          eager_step_ms=eager_ms)
+        log_time(stats, f"{name} training step: {graph_ms} ms of device "
+                 f"time through its graph (queued), {eager_ms} ms eagerly")
+    log(f"captured fits against eager fits on the card, {FIT_STEPS} steps "
+        f"(max abs err): {errs}")
+    stats["fit_capture_err"] = errs
+
+
+def drive_paper(dev, stats):
+    """The paper's four experiments through benchmarks_torch at seed 0 (as
+    `python -m benchmarks_torch.run --quick`): Fig. 2 in both regimes,
+    Table 3a, Fig. 3b and Fig. 4 (a and b). Table 3a's timed fits must
+    capture nothing: its warm fits capture every MLP and SVM step (one
+    per router and stage), and `table3a_timing.timed` raises on a timed
+    fit that captured."""
+    from benchmarks_torch import (fig2_auc, fig3b_incremental,
+                                  fig4_ablation, table3a_timing)
+    from repro_torch import graphs
+    seeds = (0,)
+    t0 = time.perf_counter()
+    f2 = fig2_auc.run(seeds=seeds, device=dev)
+    t1 = time.perf_counter()
+    c0 = graphs.capture_count()
+    t3 = table3a_timing.run(seeds=seeds, device=dev)
+    captures = graphs.capture_count() - c0
+    warm = 2 * len(table3a_timing.STAGES) * len(seeds)
+    if captures != warm:
+        fail(f"table 3a: {captures} captures, not the {warm} of its warm "
+             "fits")
+    t2 = time.perf_counter()
+    f3 = fig3b_incremental.run(seeds=seeds, device=dev)
+    f4 = fig4_ablation.run(seeds=seeds, device=dev)
+    t4 = time.perf_counter()
+    stats["paper"] = dict(fig2=f2, table3a=t3, fig3b=f3, fig4=f4,
+                          table3a_captures=captures,
+                          table3a_timed_captures=captures - warm,
+                          wall_s=dict(fig2=t1 - t0, table3a=t2 - t1,
+                                      fig3b_fig4=t4 - t2))
+    for regime, summ in f2["regimes"].items():
+        log_time(stats, f"fig 2 ({regime}): summed AUC "
+                 + " ".join(f"{k}={summ[k]['mean']}"
+                            for k in ("eagle", "knn", "mlp", "svm"))
+                 + f"; eagle improvement % {summ['improvement_vs']}")
+    log_time(stats, f"table 3a: seconds {t3['seconds']}; eagle as % of the "
+             f"baselines' mean {t3['eagle_pct_of_baseline_mean']}; "
+             f"captures {captures} (warm fits {warm}, timed fits "
+             f"{captures - warm})")
+    log_time(stats, f"fig 3b: summed AUC by stage {f3['auc']}; eagle "
+             f"improvement % {f3['eagle_improvement_vs_baseline_mean_pct']}")
+    log_time(stats, f"fig 4: components {f4['components']}; N sweep "
+             f"{f4['n_sweep']}")
+    log(f"paper phase wall: {stats['paper']['wall_s']} s")
+
+
 def main() -> int:
     # the preconditions come first, so a failed run prints no result
     if not torch.cuda.is_available():
@@ -2424,10 +2671,29 @@ def main() -> int:
         profile_decode(launch_engine, stats, name, what="graph")
     profile_decode(launch_engine, stats, "mamba2-780m", what="prefill")
 
-    if any(m == "jax" or m.startswith("jax.") or m == "repro"
-           or m.startswith("repro.") for m, v in sys.modules.items()
-           if v is not None):
-        fail("JAX or the JAX package was imported")
+    del launch_engine, launch_corpus
+    torch.cuda.empty_cache()
+    corpus, fb, targets = paper_regime(dev)
+    check_knn(dev, kernels, stats, corpus, targets)
+    check_eagle_d64(dev, stats, corpus, fb)
+    check_fit_capture(dev, stats, corpus.costs, targets)
+    _build.reset_launches()
+    with knn_site():
+        drive_paper(dev, stats)
+    torch.cuda.synchronize()
+    launches["paper"] = _build.launch_counts()
+    knn_launches = _build.site_counts().get(("similarity", "knn"), 0)
+    log(f"launches on the paper's experiments: {launches['paper']}, of "
+        f"which KNN's similarity {knn_launches}")
+    missing = [k for k in ROUTE_KERNELS if launches["paper"][k] == 0]
+    if missing or not knn_launches:
+        fail(f"never launched on the paper's experiments: {missing}"
+             + ("" if knn_launches else " and KNN's similarity"))
+
+    if any(m == "jax" or m.startswith("jax.") or m in ("repro", "benchmarks")
+           or m.startswith(("repro.", "benchmarks.")) for m, v in
+           sys.modules.items() if v is not None):
+        fail("JAX, the JAX package or its benchmarks were imported")
     for name, entry in kernels.items():
         if name in WHISPER_SITES:
             entry["launches"] = sites[f"whisper-large-v3 "
@@ -2436,10 +2702,14 @@ def main() -> int:
         if name == "elo_scan fit fold":
             entry["launches"] = stats["fit_fold_launches"]
             continue
+        if name == "similarity knn":
+            entry["launches"] = knn_launches
+            continue
         path = "route" if name in ROUTE_KERNELS else "serve"
         entry["launches"] = launches[path][name]
     order = ROUTE_KERNELS + ("elo_scan fit fold", "flash_attention",
-                             "decode_attention") + tuple(WHISPER_SITES)
+                             "decode_attention") + tuple(WHISPER_SITES) \
+        + ("similarity knn",)
     line = {"kernels": [kernels[k] for k in order]}
     stats["kernels"] = line["kernels"]
     (out / "chip_smoke.json").write_text(json.dumps(stats, indent=1))

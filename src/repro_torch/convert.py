@@ -1,11 +1,12 @@
-"""Carry router state and model parameters across from host arrays, so the
-port can route over exactly the state, and run exactly the weights,
-another implementation built (the parity tests hand over the JAX
-package's RouterState field by field and its `init_params` pytree leaf
-by leaf, each taken with `np.asarray`)."""
+"""Carry router state, model parameters and baseline-router parameters
+across from host arrays, so the port can route over exactly the state,
+and run exactly the weights, another implementation built (the parity
+tests hand over the JAX package's RouterState field by field, its
+`init_params` pytree leaf by leaf and a baseline's initial weights, each
+taken with `np.asarray`)."""
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -84,3 +85,14 @@ def model_params_from_numpy(cfg: ModelConfig, tree: Mapping,
         out["enc_blocks"] = per_layer(tree["enc_blocks"], cfg.n_enc_layers)
         out["enc_norm"] = norm(tree["enc_norm"])
     return out
+
+
+def router_params_from_numpy(tree: Mapping[str, np.ndarray],
+                             device: DeviceLike = None
+                             ) -> Dict[str, torch.Tensor]:
+    """A baseline router's parameters (`routing/baselines.py`: the MLP's
+    w1, b1, w2, b2, the SVM's w, b) from a flat mapping of host arrays,
+    as fp32 tensors on the device, values kept exactly."""
+    dev = resolve_device(device)
+    return {name: torch.tensor(np.asarray(a, np.float32), device=dev)
+            for name, a in tree.items()}

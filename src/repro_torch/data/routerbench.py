@@ -19,9 +19,10 @@ evaluation protocol: 7 datasets, 70/30 split, cost-quality AUC.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 DATASETS = ["mmlu", "hellaswag", "gsm8k", "arc_challenge", "winogrande",
             "mbpp", "mt_bench"]
@@ -154,6 +155,35 @@ def pairwise_feedback(corpus: Corpus, query_idx: np.ndarray, *, seed: int = 0,
     }
 
 
+def winrate_targets(fb: Dict[str, np.ndarray], n_models: int):
+    """Convert pairwise feedback into per-query per-model win-rate targets —
+    the ONLY supervision available to quality regressors in a live system
+    (paper §1, challenge 2: feedback is limited to pairwise comparisons).
+
+    Returns (emb (Q,D), targets (Q,M), mask (Q,M)) over unique queries:
+    target = (wins + 0.5 draws) / appearances; mask marks observed models.
+    """
+    order = {}
+    for qi in fb["query_idx"]:
+        if qi not in order:
+            order[qi] = len(order)
+    q = len(order)
+    emb = np.zeros((q, fb["emb"].shape[1]), np.float32)
+    wins = np.zeros((q, n_models), np.float64)
+    cnt = np.zeros((q, n_models), np.float64)
+    for e, a, b, s, qi in zip(fb["emb"], fb["model_a"], fb["model_b"],
+                              fb["outcome"], fb["query_idx"]):
+        row = order[qi]
+        emb[row] = e
+        wins[row, a] += s
+        wins[row, b] += 1.0 - s
+        cnt[row, a] += 1
+        cnt[row, b] += 1
+    mask = cnt > 0
+    targets = np.divide(wins, cnt, out=np.full_like(wins, 0.5), where=mask)
+    return emb, targets.astype(np.float32), mask
+
+
 # ---------------------------------------------------------------------------
 # Evaluation protocol (paper §3.1): cost->quality curve + trapezoid AUC
 # ---------------------------------------------------------------------------
@@ -164,7 +194,8 @@ def budget_grid(costs: np.ndarray, n: int = 21) -> np.ndarray:
 
 def evaluate_router(route_fn, corpus: Corpus, *, budgets=None,
                     dataset: Optional[int] = None, idx=None):
-    """route_fn(emb (Q,D), budget scalar) -> (Q,) model choice.
+    """route_fn(emb (Q,D), budget scalar) -> (Q,) model choice: an array,
+    or a torch tensor on any device (one host copy per budget).
 
     Returns dict(budgets, quality (per budget), auc). Quality is the mean
     oracle quality of the chosen models over the test split.
@@ -179,7 +210,7 @@ def evaluate_router(route_fn, corpus: Corpus, *, budgets=None,
         budgets = budget_grid(corpus.costs)
     ys = []
     for b in budgets:
-        choice = np.asarray(route_fn(embs, float(b)))
+        choice = torch.as_tensor(route_fn(embs, float(b))).cpu().numpy()
         ys.append(float(qual[np.arange(len(idx)), choice].mean()))
     x = (np.asarray(budgets) - budgets[0]) / max(budgets[-1] - budgets[0], 1e-9)
     trapezoid = getattr(np, "trapezoid", None) or np.trapz  # numpy < 2

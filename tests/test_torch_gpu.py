@@ -874,3 +874,102 @@ def test_failed_capture_raises(dev):
                          text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": str(src)})
     assert out.stdout.split() == ["raised", "0"], out.stdout + out.stderr
+
+
+# ---------------------------------------------------------------------------
+# the paper's baselines and experiments
+# ---------------------------------------------------------------------------
+
+def _frozen_regime():
+    """benchmarks_torch.common's regime at seed 0 (300 prompts per
+    dataset, D = 64): the corpus and the online win-rate targets."""
+    from repro_torch.data.routerbench import (make_corpus, pairwise_feedback,
+                                              winrate_targets)
+    corpus = make_corpus(seed=0, n_per_dataset=300, dim=64)
+    fb = pairwise_feedback(corpus, corpus.train_idx, seed=0,
+                           pairs_per_query=8)
+    return corpus, fb, winrate_targets(fb, corpus.n_models)
+
+
+def test_knn_kernel_matches_reference_backend(dev):
+    """KNN at its Fig. 2 shape (Q = 90 test rows of a dataset, C = 1470
+    win-rate rows, D = 64, top-40): the kernel's scores within SIM_TOL of
+    the plain backend's, neighbours equal except at near-ties, the
+    predictions within 1e-6 where the neighbours agree."""
+    corpus, _, (emb, tgt, mask) = _frozen_regime()
+    from repro_torch.routing.baselines import KNNRouter
+    got_r = KNNRouter(corpus.costs, device=dev)
+    want_r = KNNRouter(corpus.costs, backend="reference", device=dev)
+    for r in (got_r, want_r):
+        r.fit(emb, tgt, mask)
+    assert got_r.emb.shape == (1470, 64)
+    test = corpus.test_idx[corpus.dataset_id[corpus.test_idx] == 0]
+    q = torch.tensor(corpus.embeddings[test], device=dev)
+    assert 80 <= q.shape[0] <= 100
+    _build.reset_launches()
+    gs, gi = KOPS.similarity_topk(q, got_r.emb, 40)
+    assert _build.launch_counts()["similarity"] == 1
+    ws, wi = KOPS.similarity_topk(q, want_r.emb, 40, backend="reference")
+    torch.testing.assert_close(gs, ws, rtol=SIM_TOL, atol=SIM_TOL)
+    panel = ref.similarity_ref(q, want_r.emb)
+    best = ref.stable_topk(panel, 41)[0]
+    tied = ((best[:, :-1] - best[:, 1:]).abs() < SIM_TOL).any(dim=1)
+    same = (gi == wi).all(dim=1)
+    assert bool((same | tied).all())
+    torch.testing.assert_close(got_r.predict(q)[same],
+                               want_r.predict(q)[same], rtol=0, atol=1e-6)
+
+
+def test_evaluate_router_takes_eagle_route_on_the_card(dev):
+    """`evaluate_router` over `EagleRouter.route`, which returns a device
+    tensor, gives the curve of the host choices it was given."""
+    from repro_torch.core.router import EagleConfig, EagleRouter
+    from repro_torch.data.routerbench import evaluate_router
+    corpus, fb, _ = _frozen_regime()
+    r = EagleRouter(corpus.model_names, corpus.costs,
+                    EagleConfig(embed_dim=64), db_capacity=4096, device=dev)
+    r.fit(fb["emb"], fb["model_a"], fb["model_b"], fb["outcome"],
+          query_id=fb["query_idx"])
+    assert r.route(corpus.embeddings[:3], 5.0).is_cuda
+    got = evaluate_router(lambda e, b: r.route(e, b), corpus, dataset=2)
+    want = evaluate_router(lambda e, b: r.route(e, b).cpu().numpy(),
+                           corpus, dataset=2)
+    np.testing.assert_array_equal(got["quality"], want["quality"])
+    assert got["auc"] == want["auc"] and 0 < got["auc"] < 1
+
+
+@pytest.mark.parametrize("name", ["mlp", "svm"])
+def test_captured_fit_equals_eager_fit(dev, name):
+    """A fit through the captured step takes exactly `epochs` steps from
+    the initial weights (the capture's eager warm-up step is undone):
+    its parameters and losses equal an eager TrainStep loop's on the
+    card within 1e-6; its first fit captured one graph, a second fit of
+    the same shape captures none and gives the same parameters."""
+    from repro_torch import graphs
+    from repro_torch.routing.baselines import MLPRouter, SVMRouter, TrainStep
+    corpus, _, (emb, tgt, mask) = _frozen_regime()
+    cls = MLPRouter if name == "mlp" else SVMRouter
+    r = cls(corpus.costs, epochs=50, device=dev)
+    c0 = graphs.capture_count()
+    r.fit(emb, tgt, mask)
+    assert graphs.capture_count() - c0 == 1
+    x, y, mk = (r._f32(a) for a in (emb, tgt, mask))
+    init = r._init(x.shape[1], y.shape[1])
+    eager = TrainStep(r, x, y, init).load(x, y, mk, init)
+    for _ in range(50):
+        eager()
+    torch.cuda.synchronize()
+    assert int(eager.state["step"]) == int(r._steps.entries[
+        (1470, 64, 10)][0].state["step"]) == 50
+    for k, v in eager.params.items():
+        torch.testing.assert_close(r.params[k].detach(), v.detach(),
+                                   rtol=0, atol=1e-6)
+    torch.testing.assert_close(r.losses, eager.losses, rtol=0, atol=1e-6)
+    first = {k: v.detach().clone() for k, v in r.params.items()}
+    c1 = graphs.capture_count()
+    r.fit(emb, tgt, mask)
+    assert graphs.capture_count() == c1
+    st = r.cache_stats()
+    assert (st["hits"], st["misses"]) == (1, 1)
+    for k, v in first.items():
+        torch.testing.assert_close(r.params[k].detach(), v, rtol=0, atol=0)

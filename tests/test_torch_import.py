@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-SRC = Path(__file__).resolve().parent.parent / "src"
+ROOT = Path(__file__).resolve().parent.parent
+SRC = ROOT / "src"
 
 _PROBE = r"""
 import pkgutil, sys
@@ -44,7 +45,10 @@ def _default_device_entry_points():
     from repro_torch.core.vectordb import VectorDB
     from repro_torch.configs import get_reduced_config
     from repro_torch.convert import ratings_from_numpy
+    from repro_torch.routing.baselines import (KNNRouter, MLPRouter,
+                                               SVMRouter)
     from repro_torch.serving import FleetModel, ServingEngine
+    from benchmarks_torch import common as bench
     return [
         ("resolve_device", lambda: resolve_device()),
         ("init_state", lambda: init_state(3, 4)),
@@ -56,10 +60,14 @@ def _default_device_entry_points():
         # the engine runs on its router's and its fleet's devices
         ("ServingEngine", lambda: ServingEngine(
             {}, EagleRouter([], np.zeros(0, np.float32)))),
+        ("KNNRouter", lambda: KNNRouter([1.0, 2.0])),
+        ("MLPRouter", lambda: MLPRouter([1.0, 2.0])),
+        ("SVMRouter", lambda: SVMRouter([1.0, 2.0])),
+        ("benchmarks_torch.common.build", lambda: bench.build(0)),
     ]
 
 
-@pytest.mark.parametrize("idx", range(8))
+@pytest.mark.parametrize("idx", range(12))
 def test_default_device_is_the_card_and_raises_without_one(idx):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid here")
@@ -102,3 +110,35 @@ def test_explicit_cpu_device_runs():
     from repro_torch.core.state import init_state
     st = init_state(3, 4, capacity=8, device="cpu")
     assert st.device.type == "cpu" and st.capacity == 8
+
+
+_BENCH_MODULES = r"""
+import pkgutil, sys
+sys.modules["jax"] = None
+import benchmarks_torch
+import repro_torch.routing.baselines, repro_torch.training.optim
+names = [m.name for m in pkgutil.walk_packages(benchmarks_torch.__path__,
+                                               "benchmarks_torch.")]
+for name in names:
+    __import__(name)
+leaked = sorted(m for m, v in sys.modules.items() if v is not None and
+                (m in ("repro", "jax", "benchmarks") or
+                 m.startswith(("repro.", "jax.", "benchmarks."))))
+print(sorted(names), leaked)
+"""
+
+
+def test_paper_experiments_import_without_jax():
+    """The baselines, the optimiser and every module of `benchmarks_torch`
+    import with JAX blocked and load nothing of the JAX package or of
+    `benchmarks`."""
+    out = subprocess.run([sys.executable, "-c", _BENCH_MODULES], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ,
+                              "PYTHONPATH": f"{SRC}{os.pathsep}{ROOT}"})
+    assert out.returncode == 0, out.stderr
+    names, leaked = out.stdout.strip().split("] ", 1)
+    for mod in ("common", "fig2_auc", "fig3b_incremental", "fig4_ablation",
+                "table3a_timing", "run"):
+        assert f"'benchmarks_torch.{mod}'" in names
+    assert leaked == "[]"
