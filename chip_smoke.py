@@ -40,7 +40,20 @@ together), then:
      batches of 1..1499 queries with feedback committed between them,
      across both replicas and a grow of the DB (C = 32768 -> 65536),
      each batch's choices equal to the eager route's on the same state,
-     every capture a warmup's;
+     every capture a warmup's; then the capacity-sharded route
+     (`drive_sharded`) over its own router, fitted with duplicate
+     prompts on the rows that straddle every shard boundary: DB meshes
+     of 1, 2 and 4 shards on the card beside the unsharded route, each
+     shard's similarity panel against its plain version and the
+     unsharded kernel's columns, routes at buckets 8, 64 and 1024 (the
+     tie queries first) equal to the unsharded route's bit for bit
+     before and after 3 feedback rounds, the replicas equal bit for bit,
+     route p50 per bucket and mesh, no capture after warmup, a control
+     (the merge without the last shard) that must change the top-n rows,
+     the composite against its plain version, and the capacity prebaker
+     across the grow C = 32768 -> 65536 on the 2-shard mesh with no hand
+     warmup (no capture by traffic, the grown replicas the prebaked ones,
+     the poll's stall and the first route on a grown replica);
   6. holds the two attention kernels against their plain versions in
      bf16, element by element, at the serving shapes of both head
      layouts (qwen3-8b: prefill B=8, S=1024, H=32, Hk=8, dh=128, decode
@@ -73,7 +86,8 @@ together), then:
      attention call sites (encoder flash over 1500 frames, causal
      decoder flash, cross flash with S != S_kv, self decode, cross
      decode over 1500 rows) against their plain versions with controls
-     and times them; then serves the launcher's default fleet at full
+     and times them; runs `python -m repro_torch.launch.serve --db-shards
+     1 --prebake` at its defaults; then serves the launcher's default fleet at full
      width and depth (whisper-large-v3, olmo-1b, mamba2-780m, qwen3-8b,
      groups padded to 1024 tokens) behind one router: 2 serve() calls
      of 16 requests and 32 requests through an AdmissionQueue at
@@ -81,8 +95,11 @@ together), then:
      model's decode graphs for 1..16 rows: nothing captured in that run,
      every kernel and every whisper call site launched (replays credited
      per site), peak memory under 80 GB; then each model's greedy tokens
-     through its graphs equal to the eager path's, whisper and mamba2
-     kernel path against plain path, their times and profiles.
+     through its graphs equal to the eager path's; a ServingEngine over a
+     2-shard DB mesh with the prebaker and an unsharded one, over the same
+     four models, give equal choices and tokens on the same 16 requests;
+     whisper and mamba2 kernel path against plain path, their times and
+     profiles.
  11. the paper's experiments (`benchmarks_torch`) at the frozen regime
      (300 prompts per dataset, D = 64, seed 0): holds KNN's similarity
      call (a dataset's ~90 test rows against the 1,470 win-rate rows,
@@ -105,6 +122,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -165,6 +183,18 @@ ADMIT_WINDOW = 16
 # grown replicas are then routed
 GRAPH_ROUNDS, GRAPH_FEED = 20, 500
 ROUTE_P50_EAGER = (8, 64, 1024)
+# the sharded phase: meshes of SHARDS shards on the one card, each warmed
+# on both replicas for SHARD_WARM[S] (None: the whole ladder; the 4-shard
+# and 1-shard ladders are cut to save the graph pools' memory), routes
+# checked at SHARD_BUCKETS_CHECKED; SHARD_ROUNDS feedback rounds of
+# SHARD_FEED prompts, then up to SHARD_GROW_ROUNDS more for the prebaker
+# to cross the grow to 2 C_EXPECTED; the control (the merge without the
+# last shard) must change the top-n rows of CONTROL_SHARE of the queries
+SHARDS = (1, 2, 4)
+SHARD_BUCKETS_CHECKED = (8, 64, 1024)
+SHARD_WARM = {1: SHARD_BUCKETS_CHECKED, 2: None, 4: SHARD_BUCKETS_CHECKED}
+SHARD_ROUNDS, SHARD_GROW_ROUNDS, SHARD_FEED = 3, 17, 500
+CONTROL_SHARE = 0.9
 # whisper-large-v3's attention call sites at its serving shapes: flash
 # (B, S, S_kv, H, Hk, dh, causal) and decode (B, T, H, Hk, dh); the
 # encoder over 1500 frames, the cross prefill of a 1024-token prompt
@@ -1274,6 +1304,437 @@ def drive_route_graphs(router, disp, dbuf, corpus, stats):
 
 
 # ---------------------------------------------------------------------------
+# phase 5b: the capacity-sharded route, its commit and the prebaker
+# ---------------------------------------------------------------------------
+
+def tie_embeddings(fb, first_row, rows):
+    """fb's record embeddings, where the prompt that lands on each row of
+    `rows` (prompts take rows in their first appearance, from
+    `first_row`) carries the embedding of the prompt before it: equal
+    scores on the two sides of a shard boundary."""
+    qis = fb["query_idx"]
+    _, first = np.unique(qis, return_index=True)
+    order = qis[np.sort(first)]
+    emb = fb["emb"].copy()
+    for row in rows:
+        k = row - first_row
+        if 0 < k < len(order):
+            emb[qis == order[k]] = emb[qis == order[k - 1]][0]
+    return emb
+
+
+def shard_routes_equal(disp, sst, base_route, q, grid, rng, where):
+    """Choices and topk_idx of the sharded dispatcher's route over `sst`
+    against `base_route(q, b)` (the unsharded kernel route) at
+    SHARD_BUCKETS_CHECKED, full and ragged, the tie queries first.
+    Returns the rows compared; fails on any difference."""
+    rows = 0
+    for qb in SHARD_BUCKETS_CHECKED:
+        for nq in (qb, qb // 2 + 1):
+            b = rng.choice(grid, nq).astype(np.float32)
+            ch, top = disp.route_result(sst, q[:nq], b)
+            want_ch, want_top = base_route(q[:nq], b)
+            bad = int((ch != want_ch).sum()) + int(
+                (top != want_top).any(axis=1).sum())
+            if bad:
+                fail(f"{where}: bucket {qb} ({nq} queries): {bad} choices "
+                     "or top-n rows differ from the unsharded route")
+            rows += nq
+    return rows
+
+
+def base_route_fn(disp, state):
+    """The unsharded kernel route over `state`, choices and top-n rows:
+    through the dispatcher's graph when it has one for the bucket, else
+    without one (eager_route's padding)."""
+    from repro_torch.core.state import route_batch_choices
+
+    def run(q, b):
+        if disp._key(state, disp.bucket(len(q))) in disp._cache.entries:
+            return disp.route_result(state, q, b)
+        qb = disp.bucket(len(q))
+        qp = torch.zeros((qb, q.shape[1]), device=state.device)
+        qp[:len(q)] = torch.from_numpy(q).to(state.device)
+        bp = torch.zeros((qb,), device=state.device)
+        bp[:len(q)] = torch.from_numpy(b).to(state.device)
+        res = route_batch_choices(state, qp, bp, disp.costs, **disp.kw)
+        return (res.choices[:len(q)].cpu().numpy(),
+                res.topk_idx[:len(q)].cpu().numpy())
+    return run
+
+
+def replicas_equal(base_buf, bufs):
+    """Fields of each sharded replica (shards concatenated) against the
+    unsharded replica at the same turn, bit for bit. Returns the fields
+    that differ."""
+    from repro_torch.sharding import DB_SHARDED
+    bad = []
+    for s, buf in bufs.items():
+        for want, got in ((base_buf.front, buf.front),
+                          (base_buf._back[0], buf._back[0])):
+            for f in DB_SHARDED:
+                if not torch.equal(getattr(want, f),
+                                   torch.cat(getattr(got, f))):
+                    bad.append((s, f))
+            if not (torch.equal(want.global_ratings, got.global_ratings[0])
+                    and int(want.size) == int(got.size[0])):
+                bad.append((s, "ratings/size"))
+    return bad
+
+
+def check_sharded_kernel(dev, sst, kernels, stats, q, grid, costs, g):
+    """The composite (per-shard similarity kernel, merge, replay kernel
+    over the merged records) at bucket 1024 against its plain version on
+    the same inputs: top-n rows equal but at near-ties, choices but at
+    score ties, ratings within R_RTOL / R_ATOL; timed beside the plain
+    version, the bound (the unsharded similarity's by operations plus
+    the replay's) and the library (normalise + matmul per shard)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.retrieve_replay import \
+        sharded_retrieve_replay_select_cuda
+    nq, s = len(q), len(sst.emb)
+    qt = torch.tensor(q, device=dev)
+    bud = torch.tensor(np.resize(grid, nq).astype(np.float32), device=dev)
+    args = (qt, sst.emb, sst.model_a, sst.model_b, sst.outcome, sst.valid,
+            sst.size, g, g, costs, bud)
+    got = sharded_retrieve_replay_select_cuda(*args, n=N, p=P)
+    want = ref.sharded_retrieve_replay_select_ref(*args, n=N, p=P)
+    torch.cuda.synchronize()
+    panel = ref.similarity_ref(qt, torch.cat(sst.emb))
+    panel[:, int(sst.size[0]):] = float("-inf")
+    t_differ, t_untied = topk_rows_agree(got[1], want[1], panel, N, SIM_TOL)
+    if t_untied:
+        fail(f"sharded composite S={s}: top-{N} differs on {t_untied} rows "
+             "without a near-tie")
+    same = (got[1] == want[1]).all(dim=1)
+    err = float((got[0][same] - want[0][same]).abs().max())
+    if not torch.allclose(got[0][same], want[0][same], rtol=R_RTOL,
+                          atol=R_ATOL):
+        fail(f"sharded composite S={s}: ratings max abs err {err}")
+    comb = P * g[None] + (1 - P) * want[0]
+    comb = torch.where(costs[None] <= bud[:, None], comb,
+                       torch.full_like(comb, float("-inf")))
+    c_differ, c_untied = choices_agree(got[3][same], want[3][same],
+                                       comb[same])
+    if c_untied:
+        fail(f"sharded composite S={s}: {c_untied} choices differ without "
+             "a tie")
+    ms = cuda_ms(lambda: sharded_retrieve_replay_select_cuda(
+        *args, n=N, p=P), 10)
+    plain = cuda_ms(lambda: ref.sharded_retrieve_replay_select_ref(
+        *args, n=N, p=P), 3, warmup=1)
+    lib = cuda_ms(lambda: [torch.matmul(
+        torch.nn.functional.normalize(qt, dim=-1),
+        torch.nn.functional.normalize(e, dim=-1).T) for e in sst.emb], 10)
+    c, t = sst.capacity, N * sst.records_per_query
+    sim_b = bound_ms(4.0 * (nq * DIM + c * DIM + nq * c),
+                     2.0 * nq * c * DIM + 2.0 * (nq + c) * DIM)[0]
+    rep_b = bound_ms(nq * t * (4 + 4 + 4 + 1) + nq * M * 4 * 2 + nq * 8,
+                     nq * t * REPLAY_STEP_OPS)[0]
+    log_time(stats,
+             f"sharded composite S={s} Q={nq} C={c} (C/S={sst.shard_rows}) "
+             f"D={DIM}: max_abs_err={err} top-n rows differing at "
+             f"near-ties={t_differ} choices at ties={c_differ} "
+             f"kernel_ms={ms} plain_ms={plain} library_ms={lib} (normalise "
+             f"+ matmul per shard) bound_ms={sim_b + rep_b} (similarity "
+             f"{sim_b} by operations + replay {rep_b})")
+    kernels["sharded_retrieve_replay_select"] = dict(
+        name="sharded_retrieve_replay_select", route="cuda",
+        source="src/repro_torch/kernels/retrieve_replay.py",
+        replaces="src/repro/kernels/retrieve_replay.py:75",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=sim_b + rep_b,
+        bound_by="operations", library_ms=lib)
+    stats["sharded_composite"] = dict(
+        shards=s, nq=nq, capacity=c, max_abs_err=err, ms=ms, plain_ms=plain,
+        library_ms=lib, bound_ms=sim_b + rep_b, topk_near_ties=t_differ,
+        choices_at_ties=c_differ)
+
+
+def route_p50(fn, reps=10):
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def drive_sharded(dev, corpus, fb, kernels, stats):
+    """The capacity-sharded route at the paper's width (D = 1536, N = 20,
+    M = 10, R = 8) over its own router, fitted from the main path's
+    records with duplicate prompts at rows C/4 and C/2 (and 3C/4 through
+    the first feedback round): on meshes of 1, 2 and 4 shards on the
+    card beside the unsharded route, each behind its DoubleBuffer and
+    dispatcher, warmed (SHARD_WARM) with each mesh's captures under the
+    call-site label "shards S". Checks each shard's similarity panel
+    against its plain version and the unsharded kernel's columns; then,
+    in the counted run, routes at SHARD_BUCKETS_CHECKED equal to the
+    unsharded route (choices and topk_idx), route p50 per bucket,
+    SHARD_ROUNDS feedback rounds with commits into every replica and
+    the replicas equal to the unsharded ones bit for bit, no capture
+    after the warmups. Then the control (the merge without the last
+    shard's candidates must change topk_idx on at least CONTROL_SHARE of
+    the rows at S = 2), the composite against its plain version, and
+    the prebaker over the 2-shard mesh across the grow C_EXPECTED ->
+    2 C_EXPECTED with no hand warmup. Returns the launch counts of the
+    counted run."""
+    from unittest import mock
+    from repro_torch import graphs
+    from repro_torch.configs.eagle import PAPER_CONFIG
+    from repro_torch.core.dispatch import (CapacityPrebaker, RouteDispatcher,
+                                           replica)
+    from repro_torch.core.router import EagleRouter
+    from repro_torch.core.state import (DoubleBuffer,
+                                        route_batch_choices_sharded)
+    from repro_torch.data.routerbench import budget_grid, pairwise_feedback
+    from repro_torch.kernels import _build, ref, similarity_topk
+    from repro_torch.kernels.similarity_topk import similarity_cuda
+    from repro_torch.launch.mesh import make_db_mesh
+    ties = [C_EXPECTED // 4, C_EXPECTED // 2, 3 * C_EXPECTED // 4]
+    router = EagleRouter(corpus.model_names, corpus.costs, PAPER_CONFIG,
+                         device=dev)
+    router.fit(tie_embeddings(fb, 0, ties), fb["model_a"], fb["model_b"],
+               fb["outcome"], query_id=fb["query_idx"])
+    db = router.db
+    rng = np.random.default_rng(11)
+    grid = budget_grid(corpus.costs)
+    test = corpus.embeddings[corpus.test_idx]
+    base_buf = DoubleBuffer(db, router.global_ratings, device=dev,
+                            tags=("flat_a", "flat_b"))
+    base = RouteDispatcher.for_router(router)
+    meshes = {s: make_db_mesh(s, [dev] * s) for s in SHARDS}
+    bufs = {s: DoubleBuffer(db, router.global_ratings, mesh=meshes[s],
+                            tags=(f"s{s}_a", f"s{s}_b")) for s in SHARDS}
+    disps = {s: RouteDispatcher.for_router(router, mesh=meshes[s])
+             for s in SHARDS}
+
+    # each shard's similarity kernel against its plain version, and
+    # against the unsharded kernel's columns (the bit-identity's root)
+    qt = torch.tensor(test[:1024], device=dev)
+    full = similarity_cuda(qt, base_buf.front.emb)
+    panels = {}
+    for s, buf in bufs.items():
+        errs, unequal = [], 0
+        for c, emb in enumerate(buf.front.emb):
+            got = similarity_cuda(qt, emb)
+            want = ref.similarity_ref(qt, emb)
+            errs.append(float((got - want).abs().max()))
+            lo = c * buf.front.shard_rows
+            unequal += int((got != full[:, lo:lo + emb.shape[0]]).sum())
+        panels[s] = dict(max_abs_err=errs, unequal_to_unsharded=unequal)
+        if max(errs) > SIM_TOL or unequal:
+            fail(f"sharded similarity S={s}: max abs err {errs}, "
+                 f"{unequal} scores unlike the unsharded kernel's")
+    del full
+    log(f"sharded similarity at Q=1024, C={C_EXPECTED}, D={DIM} per shard: "
+        f"{panels}")
+
+    # warmups: the unsharded route at the checked buckets, each mesh at
+    # SHARD_WARM[s]; every select launch of a sharded capture goes over
+    # pre-gathered records, none of the unsharded's
+    t0 = time.perf_counter()
+    with pregathered_selects() as pre:
+        warmed = {"flat": warm_both(base, base_buf, router,
+                                    SHARD_BUCKETS_CHECKED)}
+        flat_pre = pre[0]
+        for s in SHARDS:
+            with _build.site(f"shards {s}"):
+                warmed[s] = warm_both(disps[s], bufs[s], router,
+                                      SHARD_WARM[s])
+    warm_s = time.perf_counter() - t0
+    if flat_pre or pre[0] == 0:
+        fail(f"sharded warmups: {flat_pre} pre-gathered selects in the "
+             f"unsharded route's, {pre[0]} in all")
+    pool_gb = graph_pool_gb()
+    log_time(stats, f"sharded phase warmup: route graphs {warmed} captured "
+             f"in {warm_s:.2f} s; graph pools {pool_gb:.2f} GB")
+
+    # the counted run
+    _build.reset_launches()
+    c0 = graphs.capture_count()
+    led0 = {s: d.cache_stats() for s, d in disps.items()}
+
+    def queries():
+        """The tie queries (the rows before each duplicated boundary row
+        that is live), then test queries."""
+        live = [row for row in ties if row < db.size]
+        q = test[rng.integers(0, len(test), 1024)].copy()
+        k = len(live)
+        q[:k] = db.emb[[row - 1 for row in live]]
+        return q, k
+    checked, p50, n_ties = 0, {}, 0
+    q, n_ties = queries()
+    for s in SHARDS:
+        checked += shard_routes_equal(
+            disps[s], bufs[s].front, base_route_fn(base, base_buf.front), q,
+            grid, rng, f"S={s} before feedback")
+    budget = float(router.costs.max())
+    for qb in SHARD_BUCKETS_CHECKED:
+        p50[qb] = {"flat": route_p50(lambda: base.route(
+            base_buf.front, test[:qb], budget))}
+        for s in SHARDS:
+            p50[qb][s] = route_p50(lambda: disps[s].route(
+                bufs[s].front, test[:qb], budget))
+    def feed(rnd):
+        """Round `rnd`: SHARD_FEED new prompts of the test split, 8 pairs
+        each, the one landing on a boundary row of `ties` a duplicate."""
+        new = pairwise_feedback(
+            corpus, corpus.test_idx[rnd * SHARD_FEED:(rnd + 1) * SHARD_FEED],
+            seed=3 + rnd, pairs_per_query=PAIRS_PER_QUERY)
+        router.update(tie_embeddings(new, db.size, ties), new["model_a"],
+                      new["model_b"], new["outcome"],
+                      query_id=new["query_idx"])
+    for rnd in range(SHARD_ROUNDS):
+        feed(rnd)
+        base_buf.commit(router.global_ratings)
+        for s in SHARDS:
+            bufs[s].commit(router.global_ratings)
+        q, n_ties = queries()
+        for s in SHARDS:
+            checked += shard_routes_equal(
+                disps[s], bufs[s].front, base_route_fn(base, base_buf.front),
+                q, grid, rng, f"S={s} after feedback round {rnd}")
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    sites = site_launches()
+    per_shard = {s: {k: _build.site_counts().get((k, f"shards {s}"), 0)
+                     for k in ("similarity", "elo_scan_select")}
+                 for s in SHARDS}
+    captured = graphs.capture_count() - c0
+    traffic = {s: (d.cache_stats()["misses"] - led0[s]["misses"])
+               for s, d in disps.items()}
+    differ = replicas_equal(base_buf, bufs)
+    log_time(stats,
+             f"sharded route, counted run: {checked} rows at buckets "
+             f"{SHARD_BUCKETS_CHECKED} (the {n_ties} tie queries first) "
+             f"equal to the unsharded route at S = {SHARDS}, over "
+             f"{SHARD_ROUNDS} feedback rounds of {SHARD_FEED} prompts (DB "
+             f"{db.size} rows of {db.capacity}); route p50 ms per bucket "
+             f"(unsharded, then S) {p50}; replicas differing from the "
+             f"unsharded ones {differ}; captures after warmup {captured}, "
+             f"by traffic per S {traffic}; launches {counts}, by site "
+             f"{sites}; the sharded routes' (similarity, select) per S "
+             f"{per_shard}")
+    if differ:
+        fail(f"sharded replicas differ from the unsharded ones: {differ}")
+    if captured or any(traffic.values()):
+        fail(f"sharded route: {captured} captures after warmup, by "
+             f"traffic {traffic}")
+    missing = [(k, s) for s, n in per_shard.items() for k, c in n.items()
+               if not c]
+    if missing:
+        fail(f"sharded route: never launched {missing}")
+    stats["sharded"] = dict(rows_checked=checked, tie_queries=n_ties,
+                            panels=panels, warmed=warmed, warm_s=warm_s,
+                            pool_gb=pool_gb, route_p50_ms=p50,
+                            captured=captured, launches=counts,
+                            sites=sites, per_shard=per_shard)
+
+    # the control: the merge without the last shard's candidates
+    merge = similarity_topk.shard_merge_topk
+
+    def drop_last(top_s, top_i, payloads, n, device):
+        return merge(top_s[:-1], top_i[:-1], payloads[:-1], n, device)
+    st2 = bufs[2].front
+    bud = np.resize(grid, 1024).astype(np.float32)
+    want_top = base_route_fn(base, base_buf.front)(q, bud)[1]
+    with mock.patch.object(similarity_topk, "shard_merge_topk", drop_last):
+        ctl = route_batch_choices_sharded(st2, torch.tensor(q, device=dev),
+                                          torch.tensor(bud, device=dev),
+                                          router.costs, **disps[2].kw)
+    share = float((ctl.topk_idx.cpu().numpy() != want_top).any(axis=1).mean())
+    log(f"control (S=2, the merge without shard 1's candidates): top-n "
+        f"rows differ on {share:.4f} of 1024 queries (bar: at least "
+        f"{CONTROL_SHARE})")
+    if share < CONTROL_SHARE:
+        fail(f"sharded control: only {share} of the rows changed")
+    stats["sharded"]["control_share"] = share
+
+    check_sharded_kernel(dev, bufs[4].front, kernels, stats, q, grid,
+                         router.costs, bufs[4].front.global_ratings[0])
+    # the composite's launches on the counted run, over every mesh: each
+    # route S similarity launches (one a shard) and one select
+    kernels["sharded_retrieve_replay_select"]["launches"] = sum(
+        sum(n.values()) for n in per_shard.values())
+
+    # the prebaker over S = 2 across the grow, with no hand warmup; the
+    # other meshes go (memory), the unsharded replicas stay as reference
+    del disps[1], disps[4], bufs[1], bufs[4], st2, ctl, qt
+    torch.cuda.empty_cache()
+    disp, buf = disps[2], bufs[2]
+    prebaker = CapacityPrebaker(disp, db, dbuf=buf)
+    c0 = graphs.capture_count()
+    led0 = disp.cache_stats()
+    polls, first_route, grown_fronts, rnd = [], None, [], SHARD_ROUNDS
+    while len(grown_fronts) < 2:
+        if rnd >= SHARD_ROUNDS + SHARD_GROW_ROUNDS:
+            fail(f"prebaker: the DB did not grow past {C_EXPECTED} rows in "
+                 f"{SHARD_GROW_ROUNDS} rounds ({db.size} rows)")
+        nq = int(rng.integers(1, 1025))
+        qq = test[rng.integers(0, len(test), nq)]
+        b = rng.choice(grid, nq).astype(np.float32)
+        ch, top = disp.route_result(buf.front, qq, b)
+        want_ch, want_top = base_route_fn(base, base_buf.front)(qq, b)
+        if (ch != want_ch).any() or (top != want_top).any():
+            fail(f"prebaker round {rnd}: the sharded route differs from "
+                 "the unsharded")
+        feed(rnd)
+        rnd += 1
+        base_buf.commit(router.global_ratings)
+        front = buf.commit(router.global_ratings)
+        t0 = time.perf_counter()
+        baked = prebaker.poll()
+        polls.append(((time.perf_counter() - t0) * 1e3, baked))
+        if front.capacity > C_EXPECTED:
+            grown_fronts.append(replica(front))
+            if first_route is None:    # the first route on a grown replica
+                t0 = time.perf_counter()
+                disp.route(front, test[:64], budget)
+                first_route = (time.perf_counter() - t0) * 1e3
+    del front
+    torch.cuda.synchronize()
+    q, n_ties = queries()
+    rows = shard_routes_equal(disp, buf.front,
+                              base_route_fn(base, base_buf.front), q, grid,
+                              rng, f"S=2 at C={db.capacity}")
+    led = disp.cache_stats()
+    traffic = (led["misses"] - led0["misses"]) - \
+        (led["warmed"] - led0["warmed"])
+    captured = graphs.capture_count() - c0
+    bake_s = prebaker._m_bake_s.value
+    steady = {qb: route_p50(lambda: disp.route(buf.front, test[:qb],
+                                               budget))
+              for qb in SHARD_BUCKETS_CHECKED}
+    prepared = set(prebaker.prepared.get(db.capacity, ()))
+    log_time(stats,
+             f"prebaker (S=2): {rnd - SHARD_ROUNDS} rounds to C="
+             f"{db.capacity}; polls ms (stall, baked) "
+             f"{[p for p in polls if p[1]]}, the others' max "
+             f"{max(p[0] for p in polls if not p[1]):.3f} ms; bake "
+             f"{bake_s:.3f} s for {led['warmed'] - led0['warmed']} graphs "
+             f"({captured} captures in the process), by traffic "
+             f"{traffic}; the grown fronts prebaked: "
+             f"{[f in prepared for f in grown_fronts]}; the first route "
+             f"on a grown replica (64 queries) {first_route:.3f} ms, steady "
+             f"p50 after it {steady}; {rows} rows at C="
+             f"{db.capacity} equal to the unsharded route; evicted "
+             f"{disp.telemetry()['cache_evicted']}")
+    stats["prebaker"] = dict(
+        rounds=rnd - SHARD_ROUNDS, polls_ms=polls, bake_s=bake_s,
+        graphs=led["warmed"] - led0["warmed"], captured=captured,
+        traffic_captures=traffic,
+        fronts_prebaked=[f in prepared for f in grown_fronts],
+        first_route=first_route, steady_p50_ms=steady, rows_checked=rows,
+        evicted=disp.telemetry()["cache_evicted"])
+    if traffic or captured != led["warmed"] - led0["warmed"] or \
+            not all(f in prepared for f in grown_fronts) or not bake_s:
+        fail(f"prebaker: {traffic} captures by traffic, {captured} in the "
+             f"process, fronts prebaked "
+             f"{[f in prepared for f in grown_fronts]}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the attention kernels against their plain versions, bf16
 # ---------------------------------------------------------------------------
 
@@ -1955,6 +2416,22 @@ def drive_launcher(stats):
                              admission_s=admit_s, models=models,
                              stats=engine.stats, launches=counts)
     del engine
+    # the CLI with the sharded route and the prebaker, at its defaults
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--db-shards",
+         "1", "--prebake"], capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(SRC)})
+    cli_s = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    if out.returncode or not lines or not lines[-1].startswith("stats:"):
+        fail(f"python -m repro_torch.launch.serve --db-shards 1 --prebake "
+             f"exited {out.returncode}: {out.stdout[-2000:]}"
+             f"{out.stderr[-2000:]}")
+    log_time(stats, f"python -m repro_torch.launch.serve --db-shards 1 "
+             f"--prebake: exit 0 in {cli_s:.1f} s; {lines[0]} ... "
+             f"{lines[-1]}")
+    stats["launcher_sharded_cli"] = dict(seconds=cli_s, last=lines[-1])
 
 
 def _whisper_site(kernels, key, name, nbytes, flops, got_ms, plain_ms,
@@ -2072,6 +2549,72 @@ def check_whisper_attention(dev, kernels, stats):
     stats["whisper_attention"] = report
 
 
+def launch_router(dev):
+    """The launcher's router at D = 1536: fitted on its corpus (60 prompts
+    per dataset, costs linspace(1, 8, 4)). Returns (router, corpus)."""
+    from repro_torch.core.router import EagleConfig, EagleRouter
+    from repro_torch.data.routerbench import make_corpus, pairwise_feedback
+    corpus = make_corpus(seed=0, n_per_dataset=60, dim=DIM,
+                         model_names=list(LAUNCH_FLEET),
+                         costs=np.linspace(1.0, 8.0, len(LAUNCH_FLEET)))
+    fb = pairwise_feedback(corpus, corpus.train_idx, seed=0,
+                           pairs_per_query=4)
+    router = EagleRouter(list(LAUNCH_FLEET), corpus.costs,
+                         EagleConfig(embed_dim=DIM), db_capacity=1 << 15,
+                         device=dev)
+    router.fit(fb["emb"], fb["model_a"], fb["model_b"], fb["outcome"])
+    return router, corpus
+
+
+def compare_sharded_engine(dev, fleet, stats):
+    """Over the launcher fleet's models: a ServingEngine with a 2-shard DB
+    mesh on the card and the prebaker, and an unsharded one, each behind
+    a fresh launcher router and warmed for SERVE_BATCH, serve the same
+    SERVE_BATCH requests: equal choices and tokens, and no graph
+    captured by either serve()."""
+    from repro_torch import graphs
+    from repro_torch import obs as OBS
+    from repro_torch.launch.mesh import make_db_mesh
+    from repro_torch.launch.serve import quality_oracle
+    from repro_torch.serving import ServingEngine
+    engines, res = {}, {}
+    for name, kw in (("flat", {}), ("sharded", dict(
+            mesh=make_db_mesh(2, devices=[dev, dev]), prebake=True))):
+        router, corpus = launch_router(dev)
+        engines[name] = ServingEngine(
+            fleet, router, compare_rate=0.25, seed=0,
+            quality_oracle=quality_oracle, gen_bucket=True,
+            gen_pad_len=LAUNCH_PAD_LEN, obs=OBS.Observability(),
+            warmup_batch_sizes=(SERVE_BATCH,), **kw)
+    vocab = min(m.cfg.vocab for m in fleet.values())
+    wall = {}
+    c0 = graphs.capture_count()
+    for name, eng in engines.items():
+        reqs = serve_requests(corpus, np.random.default_rng(LAUNCH_SEED + 1),
+                              SERVE_BATCH, vocab)
+        t0 = time.perf_counter()
+        res[name] = eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        check_responses(eng, reqs, res[name], f"{name} engine")
+    captured = graphs.capture_count() - c0
+    differ = [r.rid for r, w in zip(res["sharded"], res["flat"])
+              if r.model != w.model or not np.array_equal(r.tokens,
+                                                          w.tokens)]
+    log_time(stats,
+             f"ServingEngine(mesh=2 shards, prebake=True) against the "
+             f"unsharded engine over the launcher fleet: {SERVE_BATCH} "
+             f"requests, models {sorted({r.model for r in res['flat']})}, "
+             f"responses differing {differ}; serve() wall s {wall}; graphs "
+             f"captured by the serve() calls {captured}; stats "
+             f"{engines['sharded'].stats}")
+    stats["sharded_engine"] = dict(differing=differ, wall_s=wall,
+                                   captured=captured)
+    if differ or captured:
+        fail(f"the sharded engine's responses {differ} differ from the "
+             f"unsharded engine's; {captured} graphs captured by serve()")
+
+
 def build_launch_fleet(dev, serving, stats):
     """A ServingEngine over ARCH_IDS[:4] at full width and depth
     (whisper-large-v3 and mamba2-780m made here, olmo-1b and qwen3-8b
@@ -2082,21 +2625,12 @@ def build_launch_fleet(dev, serving, stats):
     D = 1536 with the launcher's costs linspace(1, 8, 4)."""
     from repro_torch import obs as OBS
     from repro_torch.configs import ARCH_IDS, get_config
-    from repro_torch.core.router import EagleConfig, EagleRouter
-    from repro_torch.data.routerbench import make_corpus, pairwise_feedback
     from repro_torch.launch.serve import quality_oracle
     from repro_torch.serving import FleetModel, ServingEngine
     names = list(ARCH_IDS[:4])
     if tuple(names) != LAUNCH_FLEET:
         fail(f"the launcher's default fleet is {names}")
-    corpus = make_corpus(seed=0, n_per_dataset=60, dim=DIM,
-                         model_names=names,
-                         costs=np.linspace(1.0, 8.0, len(names)))
-    fb = pairwise_feedback(corpus, corpus.train_idx, seed=0,
-                           pairs_per_query=4)
-    router = EagleRouter(names, corpus.costs, EagleConfig(embed_dim=DIM),
-                         db_capacity=1 << 15, device=dev)
-    router.fit(fb["emb"], fb["model_a"], fb["model_b"], fb["outcome"])
+    router, corpus = launch_router(dev)
     fleet = {}
     for i, name in enumerate(names):
         if name in serving.fleet:
@@ -2587,7 +3121,15 @@ def main() -> int:
     time_path(disp, dbuf, router, test, stats)
     profile_route(disp, dbuf, router, test, stats)
     drive_route_graphs(router, disp, dbuf, corpus, stats)
-    del router, disp, dbuf, corpus, fb
+    del router, disp, dbuf
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches["sharded"] = drive_sharded(dev, corpus, fb, kernels, stats)
+    stats["sharded_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log_time(stats, f"peak device memory of the sharded phase "
+             f"{stats['sharded_peak_mem_gb']:.2f} GB")
+    del corpus, fb
+    torch.cuda.empty_cache()
 
     check_flash(dev, kernels, stats)
     check_decode(dev, kernels, stats)
@@ -2663,6 +3205,7 @@ def main() -> int:
     if peak >= 80.0:
         fail(f"the launcher fleet's peak device memory {peak:.2f} GB")
     compare_graph_generate(launch_engine, stats)
+    compare_sharded_engine(dev, launch_engine.fleet, stats)
     new_models = ("whisper-large-v3", "mamba2-780m")
     compare_model_paths(launch_engine, stats, names=new_models)
     time_serving(launch_engine, stats, names=new_models)
@@ -2705,9 +3248,13 @@ def main() -> int:
         if name == "similarity knn":
             entry["launches"] = knn_launches
             continue
+        if name == "sharded_retrieve_replay_select":
+            continue                 # set by drive_sharded
         path = "route" if name in ROUTE_KERNELS else "serve"
         entry["launches"] = launches[path][name]
-    order = ROUTE_KERNELS + ("elo_scan fit fold", "flash_attention",
+    order = ROUTE_KERNELS + ("elo_scan fit fold",
+                             "sharded_retrieve_replay_select",
+                             "flash_attention",
                              "decode_attention") + tuple(WHISPER_SITES) \
         + ("similarity knn",)
     line = {"kernels": [kernels[k] for k in order]}

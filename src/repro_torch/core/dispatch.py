@@ -31,13 +31,22 @@ JAX package's cache of compiled executables (its `core/dispatch.py`).
   * On CPU tensors an entry runs the eager route: nothing is captured,
     the key has no replica, nothing is evicted, and the keys, hits and
     misses are the ones the JAX package counts.
+  * With a DB mesh (launch/mesh.py, DESIGN.md §12) the dispatcher routes
+    ShardedRouterStates (route_batch_choices takes the sharded route for
+    them), and the key carries the mesh, as the JAX key does; the
+    replica is every shard's tensors. A mesh on one card is captured whole into each route
+    graph; a mesh over several cards routes eagerly (a graph holds one
+    device's work).
+  * `CapacityPrebaker` prepares the next capacity's replicas and
+    captures their ladder before a DB grow.
 
 Batches past `max_bucket` are routed in ladder-sized chunks.
 """
 from __future__ import annotations
 
+import time
 import weakref
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,7 +55,8 @@ from repro_torch import graphs
 from repro_torch import obs as OBS
 from repro_torch.graphs import DispatchStats  # noqa: F401  (re-exported)
 from repro_torch.core import elo
-from repro_torch.core.state import RouterState, route_batch_choices
+from repro_torch.core.state import (AnyState, ShardedRouterState,
+                                    route_batch_choices)
 
 #: default bucket ladder bounds (powers of two, inclusive)
 MIN_BUCKET = 8
@@ -76,21 +86,34 @@ def bucket_ladder(min_bucket: int = MIN_BUCKET,
     return tuple(out)
 
 
-def replica(state: RouterState) -> Optional[Tuple[int, ...]]:
+def _tensors(state: AnyState) -> List[torch.Tensor]:
+    """Every tensor a route over `state` reads: each shard's, when it is
+    sharded."""
+    if isinstance(state, ShardedRouterState):
+        return [t for f in _STATE_FIELDS for t in getattr(state, f)]
+    return [getattr(state, f) for f in _STATE_FIELDS]
+
+
+def replica(state: AnyState) -> Optional[Tuple[int, ...]]:
     """The storage a route graph over `state` reads (None on the CPU,
     where nothing is captured)."""
     if state.device.type != "cuda":
         return None
-    return tuple(getattr(state, f).data_ptr() for f in _STATE_FIELDS)
+    return tuple(t.data_ptr() for t in _tensors(state))
+
+
+def _one_device(state: AnyState) -> bool:
+    return not isinstance(state, ShardedRouterState) or \
+        len(state.mesh.distinct) == 1
 
 
 class _Entry:
     """One cached dispatch at bucket `qb`: static query and budget
     buffers (pinned host staging on the card) and the route step over
-    them, captured from `state` on the card."""
+    them, captured from `state` on the card (routed eagerly when the
+    state spans several cards)."""
 
-    def __init__(self, state: RouterState, qb: int, costs, kw: Dict,
-                 pool):
+    def __init__(self, state: AnyState, qb: int, costs, kw: Dict, pool):
         dev = state.device
         pinned = dev.type == "cuda"
         self.q = torch.zeros((qb, state.dim), dtype=torch.float32,
@@ -106,19 +129,20 @@ class _Entry:
         self.kw = kw
         # the replica's tensors, to tell when they are gone (not kept
         # alive by the entry: the graph reads them by address)
-        self._replica = [weakref.ref(getattr(state, f))
-                         for f in _STATE_FIELDS] if pinned else []
-        self.step = graphs.Step(self._route, state, device=dev, pool=pool)
+        self._replica = [weakref.ref(t) for t in _tensors(state)] \
+            if pinned else []
+        self.step = graphs.Step(self._route, state, device=dev, pool=pool) \
+            if _one_device(state) else self._route
 
     def dead(self) -> bool:
         """True once a tensor of the replica it reads is freed."""
         return any(ref() is None for ref in self._replica)
 
-    def _route(self, state: RouterState):
+    def _route(self, state: AnyState):
         return tuple(route_batch_choices(state, self.q, self.b, self.costs,
                                          **self.kw))
 
-    def __call__(self, state: RouterState, q: np.ndarray, b: np.ndarray,
+    def __call__(self, state: AnyState, q: np.ndarray, b: np.ndarray,
                  with_topk: bool):
         nq = q.shape[0]
         self.q_np[:nq], self.q_np[nq:] = q, 0.0
@@ -138,8 +162,9 @@ class RouteDispatcher:
 
     One dispatcher per (routing config, costs) pair; states of any
     capacity or record width flow through it — the cache key carries
-    the shape-defining axes and, on the card, the replica. Routing runs
-    on the caller's thread and stream, one dispatch at a time."""
+    the shape-defining axes, the DB mesh and, on the card, the replica.
+    Routing runs on the caller's thread and stream, one dispatch at a
+    time."""
 
     def __init__(self, costs, *, p_global: float = 0.5,
                  n_neighbors: int = 20, k: float = 32.0,
@@ -147,7 +172,10 @@ class RouteDispatcher:
                  init_rating: float = elo.DEFAULT_RATING,
                  min_bucket: int = MIN_BUCKET,
                  max_bucket: int = MAX_BUCKET,
+                 mesh=None,
                  obs: Optional[OBS.Observability] = None):
+        # with a DB mesh the dispatcher serves ShardedRouterStates over it
+        self.mesh = mesh
         self.costs = costs
         self.kw = dict(p_global=float(p_global),
                        n_neighbors=int(n_neighbors), k=float(k),
@@ -222,20 +250,22 @@ class RouteDispatcher:
     def bucket(self, n: int) -> int:
         return batch_bucket(n, self.min_bucket, self.max_bucket)
 
-    def _key(self, state: RouterState, qb: int) -> Tuple:
+    def _key(self, state: AnyState, qb: int) -> Tuple:
         return (qb, state.capacity, state.records_per_query,
-                self.kw["mode"], self.kw["backend"], replica(state))
+                self.kw["mode"], self.kw["backend"], self.mesh,
+                replica(state))
 
-    def _entry(self, state: RouterState, qb: int,
+    def _entry(self, state: AnyState, qb: int,
                warm: bool = False) -> _Entry:
+        if getattr(state, "mesh", None) != self.mesh:
+            raise ValueError(f"a dispatcher over the DB mesh {self.mesh} "
+                             f"got a state over {getattr(state, 'mesh', None)}")
         key = self._key(state, qb)
         entry = self._cache.entries.get(key)
         # (a dead entry on a hit: new tensors at a freed replica's
         # addresses, which get graphs of their own)
-        if (entry is None or entry.dead()) and \
-                self._cache.evict(lambda k, e: e.dead()):
-            # the freed replicas' graphs and pools: give their memory back
-            torch.cuda.empty_cache()
+        if entry is None or entry.dead():
+            self.evict_dead()
 
         def make(pool):
             with self.obs.span(f"dispatch.compile.q{qb}"):
@@ -243,7 +273,16 @@ class RouteDispatcher:
         return self._cache.get(key, make, device=state.device,
                                group=key[1:3], warm=warm)
 
-    def warmup(self, state: RouterState,
+    def evict_dead(self) -> int:
+        """Drop the graphs of freed replicas (and give their memory back).
+        A miss does it before it captures; the prebaker after each commit,
+        as a prebaked grow captures nothing. Returns how many went."""
+        n = self._cache.evict(lambda k, e: e.dead())
+        if n:
+            torch.cuda.empty_cache()
+        return n
+
+    def warmup(self, state: AnyState,
                batch_sizes: Optional[Sequence[int]] = None) -> int:
         """Fill the cache for `state` at each bucket of the ladder (or of
         `batch_sizes`) so that traffic on it never captures. Returns the
@@ -304,7 +343,7 @@ class RouteDispatcher:
         return [(lo, min(lo + self.max_bucket, nq))
                 for lo in range(0, nq, self.max_bucket)]
 
-    def _route_one(self, state: RouterState, q: np.ndarray, b: np.ndarray,
+    def _route_one(self, state: AnyState, q: np.ndarray, b: np.ndarray,
                    with_topk: bool):
         nq = q.shape[0]
         qb = self.bucket(nq)
@@ -323,16 +362,95 @@ class RouteDispatcher:
         return [self._route_one(state, q[lo:hi], b[lo:hi], with_topk)
                 for lo, hi in self._chunks(nq)]
 
-    def route(self, state: RouterState, query_embs, budgets) -> np.ndarray:
+    def route(self, state: AnyState, query_embs, budgets) -> np.ndarray:
         """Bucket-pad, dispatch the cached entry, slice. Returns host (Q,)
         int32 choices — the single readout of a routing step. Oversized
         batches are chunked."""
         parts = self._route(state, query_embs, budgets, with_topk=False)
         return np.concatenate([p[0] for p in parts])
 
-    def route_result(self, state: RouterState, query_embs, budgets):
+    def route_result(self, state: AnyState, query_embs, budgets):
         """route() that also returns the retrieval trace: (choices (Q,),
         topk_idx (Q, n)) as host arrays."""
         parts = self._route(state, query_embs, budgets, with_topk=True)
         return (np.concatenate([p[0] for p in parts]),
                 np.concatenate([p[1] for p in parts]))
+
+
+# ---------------------------------------------------------------------------
+# capacity prebaker: fill the cache BEFORE the DB grows
+# ---------------------------------------------------------------------------
+
+class CapacityPrebaker:
+    """Preparation of the NEXT capacity's route graphs before the DB grows.
+
+    A VectorDB._grow() doubles the panel shapes; each replica's next
+    commit is a full re-upload into new tensors, whose route graphs would
+    be captured on the hot path. poll() is a post-commit hook: once the
+    buffer fills past `watermark`, the double buffer allocates the two
+    replicas of db.next_capacity() (sharded when the dispatcher has a
+    mesh: `DoubleBuffer.prepare`) and their ladder (`batch_sizes`, or the
+    whole ladder) is captured into the dispatcher's cache, counted as
+    warmed entries. The grow's commits then copy into those replicas, so
+    the first dispatch after the grow is a cache hit.
+
+    The JAX package bakes from abstract shapes on a background thread and
+    needs no double buffer. A CUDA graph reads concrete tensors, so this
+    one takes the buffer whose grow will use them (`dbuf`); and it bakes
+    inside poll(), on the serving thread: while a stream captures, the
+    card refuses a device-wide synchronise from any other thread
+    (cudaErrorStreamCaptureUnsupported), and the serving path makes one
+    in every EagleRouter.update. That poll() stalls its serve() call by
+    the bake's seconds (`dispatch_prebake_seconds_total`). join() is kept
+    for the JAX package's callers: there is nothing left to wait for."""
+
+    def __init__(self, dispatch: RouteDispatcher, db, *, dbuf,
+                 watermark: float = 0.75,
+                 batch_sizes: Optional[Sequence[int]] = None,
+                 obs: Optional[OBS.Observability] = None):
+        self.dispatch = dispatch
+        self.db = db
+        self.dbuf = dbuf
+        self.watermark = watermark
+        self.batch_sizes = batch_sizes
+        self._baked = {db.capacity}
+        #: capacity -> the storage of the two replicas baked for it
+        #: (`replica()`: what the grown replicas' keys must be)
+        self.prepared: Dict[int, Tuple] = {}
+        self.obs = OBS.get_obs(obs)
+        self._m_bakes = self.obs.registry.counter(
+            "dispatch_prebake_total", "next-capacity bakes")
+        self._m_bake_s = self.obs.registry.counter(
+            "dispatch_prebake_seconds_total", "time spent prebaking")
+
+    def poll(self) -> bool:
+        """Post-commit hook: bake if the fill watermark is crossed and the
+        next capacity isn't covered yet, and drop the graphs of replicas
+        a grow freed (no capture follows a prebaked grow to do it).
+        Returns whether it baked."""
+        self.dispatch.evict_dead()
+        if self.db.size < self.watermark * self.db.capacity:
+            return False
+        nxt = self.db.next_capacity()
+        if nxt in self._baked:
+            return False
+        self._baked.add(nxt)
+        self._bake(nxt, self.db.rcap)
+        return True
+
+    def join(self, timeout: Optional[float] = None):
+        """The JAX package's wait for its bake thread; poll() baked."""
+
+    def _bake(self, capacity: int, records: int):
+        t0 = time.perf_counter()
+        with self.obs.span("dispatch.prebake"):
+            pair = self.dbuf.prepare(capacity, records)
+            n = sum(self.dispatch.warmup(st, self.batch_sizes)
+                    for st in pair)
+        self.prepared[capacity] = tuple(replica(st) for st in pair)
+        dt = time.perf_counter() - t0
+        self._m_bakes.inc()
+        self._m_bake_s.inc(dt)
+        self.obs.emit({"kind": "dispatch_prebake", "capacity": capacity,
+                       "records": records, "executables": n,
+                       "seconds": dt})

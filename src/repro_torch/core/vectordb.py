@@ -13,7 +13,7 @@ those rows into the device tensors.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -122,9 +122,24 @@ class VectorDB:
         ledger.clear()
         return rows
 
+    def drain_dirty_sharded(self, consumer: str = "default",
+                            n_shards: int = 1) -> List[np.ndarray]:
+        """drain_dirty() grouped by OWNING shard under the contiguous
+        capacity split (shard s owns rows [s*C/S, (s+1)*C/S):
+        sharding.db_state_specs), for the sharded commit's owner scatter.
+        Stale rows at/past the live count are dropped here, the
+        unsharded commit's guard."""
+        rows = self.drain_dirty(consumer)
+        rows = rows[rows < self.size]
+        c_local = self.capacity // n_shards
+        return [rows[(rows >= s * c_local) & (rows < (s + 1) * c_local)]
+                for s in range(n_shards)]
+
     def next_capacity(self, need_q: Optional[int] = None) -> int:
         """The capacity _grow() will allocate when the buffer next
-        overflows (doubling policy)."""
+        overflows (doubling policy): the capacity prebaker
+        (core.dispatch.CapacityPrebaker) prepares replicas of it before
+        the grow."""
         if need_q is None:
             need_q = self.capacity + 1
         if need_q <= self.capacity:

@@ -16,8 +16,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.elo_scan import elo_scan_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.retrieve_replay import (retrieve_replay_cuda,
-                                                 retrieve_replay_select_cuda)
+from repro_torch.kernels.retrieve_replay import (
+    retrieve_replay_cuda, retrieve_replay_select_cuda,
+    sharded_retrieve_replay_select_cuda)
 from repro_torch.kernels.similarity_topk import similarity_cuda
 
 BACKENDS = ("cuda", "reference")
@@ -65,6 +66,22 @@ def retrieve_replay_select(q, emb, model_a, model_b, outcome, valid, size,
     (local (Q,M), topk_idx (Q,n), topk_scores (Q,n), choices (Q,))."""
     fn = _pick(backend, ref.retrieve_replay_select_ref,
                retrieve_replay_select_cuda)
+    return fn(q, emb, model_a, model_b, outcome, valid, size, init_ratings,
+              global_ratings, costs, budgets, n=n, k=k, p=p)
+
+
+def retrieve_replay_select_sharded(q, emb, model_a, model_b, outcome,
+                                   valid, size, init_ratings,
+                                   global_ratings, costs, budgets, *,
+                                   n: int, k: float = 32.0, p: float = 0.5,
+                                   backend: str = "cuda"):
+    """The capacity-sharded retrieve_replay_select (DESIGN.md §12): emb,
+    model_a, model_b, outcome, valid and size are per-shard sequences
+    (shard s holds global rows [s*C_l, (s+1)*C_l) on its device), the
+    rest lie on shard 0's device. Returns (local (Q,M), topk_idx (Q,n)
+    GLOBAL rows, topk_scores (Q,n), choices (Q,))."""
+    fn = _pick(backend, ref.sharded_retrieve_replay_select_ref,
+               sharded_retrieve_replay_select_cuda)
     return fn(q, emb, model_a, model_b, outcome, valid, size, init_ratings,
               global_ratings, costs, budgets, n=n, k=k, p=p)
 

@@ -165,6 +165,80 @@ def retrieve_replay_select_ref(q, emb, model_a, model_b, outcome, valid,
         size, init_ratings, n=n)
 
 
+def sharded_retrieve_replay_pipeline(similarity_fn, replay_fn, q, emb,
+                                     model_a, model_b, outcome, valid,
+                                     size, init_ratings, *, n):
+    """The capacity-sharded retrieval chain (DESIGN.md §12), driven by one
+    process over every shard, the counterpart of the JAX package's
+    per-shard body under shard_map. emb, model_a, model_b, outcome and
+    valid are sequences of S per-shard tensors, shard s holding global
+    rows [s*C_l, (s+1)*C_l) on its device; size[s] is the live-row count
+    on shard s's device; q and init_ratings lie on shard 0's device (the
+    leader). Stages:
+
+      per shard: similarity panel -> global-row live mask -> stable top
+      min(n, C_l) -> the candidates' records gathered from that shard;
+      on the leader: the merge (shard_merge_topk, records carried by
+      position) -> farthest-first flatten -> replay from the broadcast
+      prior (+ epilogue).
+
+    The replay reads pre-gathered (Q, n*R) records: the merged winners'
+    records come from several shards' panels. Equal to
+    retrieve_replay_pipeline over the whole panels bit for bit, as long
+    as the similarity stage scores a row range as it scores the whole
+    (one allocation per shard). Both routes share this one copy of the
+    glue. Returns (local, topk_idx (GLOBAL rows), topk_scores) + the
+    replay's extras."""
+    from repro_torch.kernels.similarity_topk import (shard_local_topk,
+                                                     shard_merge_topk)
+    leader = q.device
+    c_local = emb[0].shape[0]
+    cand_s, cand_i, records = [], [], []
+    for s, e in enumerate(emb):
+        scores = similarity_fn(q.to(e.device), e)
+        offset = s * c_local
+        live = torch.arange(offset, offset + c_local, device=e.device) \
+            < size[s]
+        scores = torch.where(live[None, :], scores,
+                             torch.full_like(scores, float("-inf")))
+        loc_s, loc_i = shard_local_topk(scores, n)
+        cand_s.append(loc_s)
+        cand_i.append(loc_i + offset)
+        records.append(tuple(x[s][loc_i] for x in (model_a, model_b,
+                                                    outcome, valid)))
+    top_s, top_i, (ca, cb, cs, cv) = shard_merge_topk(
+        cand_s, cand_i, records, n, leader)
+    hit = torch.isfinite(top_s)
+    nq = q.shape[0]
+    # farthest-first flatten of the MERGED candidates: gather_records'
+    # replay order, minus the row gather the shards already did
+    a = torch.flip(ca, dims=[1]).reshape(nq, -1)
+    b = torch.flip(cb, dims=[1]).reshape(nq, -1)
+    s = torch.flip(cs, dims=[1]).reshape(nq, -1)
+    v = (torch.flip(cv, dims=[1])
+         & torch.flip(hit, dims=[1])[..., None]).reshape(nq, -1)
+    init = init_ratings.float().expand(nq, init_ratings.shape[-1])
+    out = replay_fn(init, a, b, s, v)
+    local, extras = (out[0], tuple(out[1:])) if isinstance(out, tuple) \
+        else (out, ())
+    return (local, top_i, top_s) + extras
+
+
+def sharded_retrieve_replay_select_ref(q, emb, model_a, model_b, outcome,
+                                       valid, size, init_ratings,
+                                       global_ratings, costs, budgets, *,
+                                       n, k=32.0, p=0.5):
+    """The sharded chain with the budget-selection epilogue, plain. The
+    per-shard arguments as in sharded_retrieve_replay_pipeline;
+    global_ratings, costs and budgets on the leader. Returns (local
+    (Q,M), topk_idx (Q,n) GLOBAL rows, topk_scores, choices (Q,))."""
+    replay = partial(elo_scan_select_ref, global_ratings=global_ratings,
+                     costs=costs, budgets=budgets, p=p, k=k)
+    return sharded_retrieve_replay_pipeline(
+        similarity_ref, replay, q, emb, model_a, model_b, outcome, valid,
+        size, init_ratings, n=n)
+
+
 def elo_fold_host(ratings, a_idx, b_idx, outcome, valid, *, k=32.0,
                   dtype=np.float32):
     """One query's replay on the host, a scalar at a time in `dtype`

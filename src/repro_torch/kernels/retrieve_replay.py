@@ -5,15 +5,19 @@ in place (farthest first) through the top-n rows.
 Composes `similarity_cuda` and the replay kernel's gather route through
 the glue the plain version uses too (`ref.retrieve_replay_pipeline`), so
 the two routes cannot drift. Everything between the query embeddings and
-the choices stays on the device.
+the choices stays on the device. The capacity-sharded chain
+(`sharded_retrieve_replay_select_cuda`) runs the similarity kernel per
+shard and the replay kernel over the merged, pre-gathered records.
 """
 from __future__ import annotations
 
 from functools import partial
 
 from repro_torch.kernels.elo_scan import (elo_scan_gather_cuda,
-                                          elo_scan_gather_select_cuda)
-from repro_torch.kernels.ref import retrieve_replay_pipeline
+                                          elo_scan_gather_select_cuda,
+                                          elo_scan_select_cuda)
+from repro_torch.kernels.ref import (retrieve_replay_pipeline,
+                                     sharded_retrieve_replay_pipeline)
 from repro_torch.kernels.similarity_topk import similarity_cuda
 
 
@@ -43,3 +47,26 @@ def retrieve_replay_select_cuda(q, emb, model_a, model_b, outcome, valid,
     return retrieve_replay_pipeline(similarity_cuda, replay, q, emb,
                                     model_a, model_b, outcome, valid, size,
                                     init_ratings, n=n)
+
+
+def sharded_retrieve_replay_select_cuda(q, emb, model_a, model_b, outcome,
+                                        valid, size, init_ratings,
+                                        global_ratings, costs, budgets, *,
+                                        n, k: float = 32.0, p: float = 0.5):
+    """The capacity-sharded chain on the card (DESIGN.md §12): the
+    similarity kernel on each shard's own rows, the local top-n and the
+    cross-shard merge through the glue the plain version uses too
+    (`ref.sharded_retrieve_replay_pipeline`), then the replay kernel with
+    its select epilogue, once on the leader, over the merged records
+    pre-gathered (they come from several shards' panels, so the gather
+    route, which reads one (C, R) panel, cannot take them).
+
+    emb, model_a, model_b, outcome, valid and size are per-shard
+    sequences (shard s: global rows [s*C_l, (s+1)*C_l), on its device);
+    the rest lie on the leader. Returns (local (Q,M), topk_idx (Q,n)
+    GLOBAL rows, topk_scores (Q,n), choices (Q,) int32)."""
+    replay = partial(elo_scan_select_cuda, global_ratings=global_ratings,
+                     costs=costs, budgets=budgets, p=p, k=k)
+    return sharded_retrieve_replay_pipeline(similarity_cuda, replay, q, emb,
+                                            model_a, model_b, outcome,
+                                            valid, size, init_ratings, n=n)

@@ -2,7 +2,9 @@
 (port of the TPU kernel `similarity_pallas`) and its wrapper.
 
 The top-k over the panel stays in PyTorch (`ref.stable_topk`): a stable
-descending sort, which keeps the lowest-index-first tie order.
+descending sort, which keeps the lowest-index-first tie order. So do the
+capacity-sharded route's per-shard top-k and cross-shard merge
+(`shard_local_topk`, `shard_merge_topk`).
 """
 from __future__ import annotations
 
@@ -37,3 +39,39 @@ def similarity_cuda(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     _build.check(err, "similarity_cuda")
     _build.count_launch("similarity")
     return out
+
+
+# ---------------------------------------------------------------------------
+# capacity-sharded retrieval: local top-k + cross-shard merge (DESIGN.md §12)
+# ---------------------------------------------------------------------------
+
+def shard_local_topk(scores: torch.Tensor, n: int):
+    """Per-shard candidate reduce over a LOCAL score panel (Q, C_l): keep
+    min(n, C_l) candidates, ties to the lowest local row. That k is exact:
+    one shard can hold at most min(n, C_l) rows of the global top-n.
+    Returns (top_scores (Q, kl), top_local_idx (Q, kl))."""
+    return ref.stable_topk(scores, min(n, scores.shape[-1]))
+
+
+def shard_merge_topk(top_s, top_i, payloads, n: int, device):
+    """Cross-shard top-n merge on `device` (the mesh's leader): each
+    shard's candidates (top_s[s], top_i[s] as GLOBAL rows, and the tuple
+    payloads[s] of (Q, kl, ...) tensors carried by position) are copied
+    there and pooled per query in (shard ascending, local rank ascending)
+    order, the counterpart of the JAX package's all_gather; then a stable
+    top-n over the pool. Under the contiguous capacity split equal scores
+    sit in the pool in ascending global row, so ties (the -inf rows of a
+    dead shard too) break as the single-device top-n breaks them.
+    Returns (merged_s (Q, n), merged_i (Q, n), merged_payloads)."""
+    def pool(parts):   # S x (Q, kl, ...) -> (Q, S*kl, ...)
+        return torch.cat([p.to(device) for p in parts], dim=1)
+
+    merged_s, pos = ref.stable_topk(pool(top_s), n)
+    merged_i = torch.gather(pool(top_i), 1, pos)
+    merged = []
+    for field in zip(*payloads):
+        x = pool(field)
+        idx = pos.reshape(pos.shape + (1,) * (x.ndim - 2)).expand(
+            pos.shape + x.shape[2:])
+        merged.append(torch.gather(x, 1, idx))
+    return merged_s, merged_i, tuple(merged)

@@ -7,11 +7,13 @@ configs, as the JAX package's launcher builds them).
 
 A port of the JAX package's `launch/serve.py`, with the same CLI and
 defaults. The default fleet is `ARCH_IDS[:4]`: whisper-large-v3 (encdec),
-olmo-1b, mamba2-780m (ssm) and qwen3-8b. The flags whose modules are not
-ported yet raise NotImplementedError naming their ROADMAP item:
-`--serve-obs` and `--alert-log` (the exporter, quality monitor, SLO
-engine and alert sinks), `--db-shards` (the capacity-sharded routing DB)
-and `--prebake` (the capacity prebaker).
+olmo-1b, mamba2-780m (ssm) and qwen3-8b. `--db-shards N` splits the
+routing DB's capacity over the first N cards (a `launch.mesh.DbMesh`),
+`--prebake` prepares the next capacity's replicas and route graphs
+before the DB grows. The flags whose modules are not ported yet raise
+NotImplementedError naming their ROADMAP item: `--serve-obs` and
+`--alert-log` (the exporter, quality monitor, SLO engine and alert
+sinks).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch import DeviceLike
 from repro_torch.configs import ARCH_IDS, get_reduced_config
 from repro_torch.core.router import EagleConfig, EagleRouter
 from repro_torch.data.routerbench import make_corpus, pairwise_feedback
+from repro_torch.launch.mesh import make_db_mesh
 from repro_torch.serving.admission import AdmissionQueue
 from repro_torch.serving.engine import FleetModel, Request, ServingEngine
 
@@ -60,12 +63,9 @@ def build_engine(n_fleet: int = 4, dim: int = 64, seed: int = 0,
     each model's group to the row ladder (gen_bucket) and warms before
     traffic: the dispatcher's route graphs on both buffer replicas and
     each model's decode graphs for WARM_SIZES, so the default traffic
-    captures nothing. Returns (engine, corpus)."""
-    if db_shards:
-        _not_ported("--db-shards", "the capacity-sharded routing DB",
-                    "§2.5")
-    if prebake:
-        _not_ported("--prebake", "the capacity prebaker", "§2.5")
+    captures nothing. `db_shards` > 0 splits the routing DB's capacity
+    over a DB mesh: the first `db_shards` cards, or that many shards on
+    `device` when one is named. Returns (engine, corpus)."""
     names = ARCH_IDS[:n_fleet]
     corpus = make_corpus(seed=seed, n_per_dataset=60, dim=dim,
                          model_names=names,
@@ -78,10 +78,15 @@ def build_engine(n_fleet: int = 4, dim: int = 64, seed: int = 0,
     fleet = {n: FleetModel(get_reduced_config(n), seed=i, max_len=64,
                            device=device)
              for i, n in enumerate(names)}
+    mesh = None
+    if db_shards:
+        mesh = make_db_mesh(db_shards, None if device is None
+                            else [device] * db_shards)
     engine = ServingEngine(fleet, router, compare_rate=compare_rate,
                            seed=seed, quality_oracle=quality_oracle,
                            obs=obs, gen_bucket=True,
-                           warmup_batch_sizes=WARM_SIZES)
+                           warmup_batch_sizes=WARM_SIZES, mesh=mesh,
+                           prebake=prebake)
     engine.warmup_generate(WARM_PROMPT_LEN, batch_sizes=WARM_SIZES)
     return engine, corpus
 
@@ -140,11 +145,11 @@ def main(argv=None):
                     help="append webhook-shaped JSONL alerts to PATH "
                          "(not ported yet: ROADMAP §2.4)")
     ap.add_argument("--db-shards", type=int, default=0,
-                    help="capacity-shard the routing DB over N devices "
-                         "(not ported yet: ROADMAP §2.5)")
+                    help="capacity-shard the routing DB over the first N "
+                         "cards")
     ap.add_argument("--prebake", action="store_true",
-                    help="bake the next capacity bucket in the background "
-                         "(not ported yet: ROADMAP §2.5)")
+                    help="prepare the next capacity's replicas and route "
+                         "graphs in the background before the DB grows")
     args = ap.parse_args(argv)
 
     if args.serve_obs is not None:

@@ -16,10 +16,11 @@ jits prefill and decode and serves routes from compiled executables, the
 port captures CUDA graphs: the dispatcher's route graphs
 (core/dispatch.py) and, per fleet model, one graph of the decode step
 per row count (`FleetModel`); prefill stays eager, as its length varies.
-`warmup()` and `warmup_generate()` capture before traffic. Not ported
-yet (ROADMAP §2.4-2.5): the capacity-sharded route (`mesh=`), the
-background capacity prebaker (`prebake=True`) and the router-quality
-monitor (`quality=`).
+`warmup()` and `warmup_generate()` capture before traffic. With a DB
+mesh (`mesh=`, launch/mesh.py) the dispatcher and both buffer replicas
+are capacity-sharded; with `prebake=True` a CapacityPrebaker prepares
+the next capacity's replicas and their route graphs before a DB grow.
+Not ported yet (ROADMAP §2.4): the router-quality monitor (`quality=`).
 """
 from __future__ import annotations
 
@@ -32,8 +33,8 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, graphs, obs as OBS, resolve_device
-from repro_torch.core.dispatch import (RouteDispatcher, batch_bucket,
-                                       bucket_ladder)
+from repro_torch.core.dispatch import (CapacityPrebaker, RouteDispatcher,
+                                       batch_bucket, bucket_ladder)
 from repro_torch.core.router import EagleRouter
 from repro_torch.core.state import DoubleBuffer
 from repro_torch.models import transformer as T
@@ -203,14 +204,6 @@ class ServingEngine:
             raise NotImplementedError("ServingEngine(quality=...): the "
                                       "router-quality monitor is not ported "
                                       "yet (ROADMAP §2.4)")
-        if mesh is not None:
-            raise NotImplementedError("ServingEngine(mesh=...): the "
-                                      "capacity-sharded route is not ported "
-                                      "yet (ROADMAP §2.5)")
-        if prebake:
-            raise NotImplementedError("ServingEngine(prebake=True): the "
-                                      "capacity prebaker is not ported yet "
-                                      "(ROADMAP §2.5)")
         assert list(fleet) == router.model_names, "fleet/router order mismatch"
         self.fleet = fleet
         self.router = router
@@ -230,12 +223,22 @@ class ServingEngine:
         # the decision log's clock: injectable, so a replayed run's log
         # repeats (AdmissionQueue takes the same)
         self.now_ns = now_ns
+        # with a DB mesh (launch.mesh.make_db_mesh) the dispatcher's
+        # route and both buffer replicas are capacity-sharded (DESIGN.md
+        # §12); everything downstream is mesh-agnostic
+        self.mesh = mesh
         self.dispatch = dispatcher or RouteDispatcher.for_router(
-            router, obs=self.obs)
+            router, obs=self.obs, mesh=mesh)
         # two device replicas over the router's host buffer: route on the
         # front while commits copy into the back, then swap
         self.dbuf = DoubleBuffer(router.db, router.global_ratings,
-                                 device=router.device)
+                                 device=router.device, mesh=mesh)
+        # the next capacity's replicas and route graphs, prepared in the
+        # background (polled after commits), so a DB grow captures
+        # nothing on the hot path
+        self.prebaker = CapacityPrebaker(
+            self.dispatch, router.db, dbuf=self.dbuf,
+            obs=self.obs) if prebake else None
         r = self.obs.registry
         self._m_served = r.counter("serve_requests_total",
                                    "requests served")
@@ -395,11 +398,14 @@ class ServingEngine:
                     with obs.span("serve.commit"):
                         front = self.dbuf.commit(self.router.global_ratings)
                         if self._warm_sizes is not None:
-                            # 0 unless the commit grew this replica
+                            # 0 unless the commit grew this replica into
+                            # tensors the prebaker did not prepare
                             self.dispatch.warmup(front, self._warm_sizes)
                     self._h_commit.observe(
                         (time.perf_counter() - tc) * 1e6)
                     self._m_commits.inc()
+                    if self.prebaker is not None:
+                        self.prebaker.poll()
         return responses
 
     def _emit_decisions(self, requests: Sequence[Request], budgets,

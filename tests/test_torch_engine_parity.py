@@ -212,11 +212,11 @@ def test_commit_that_grows_the_db_is_warmed_before_routing(world):
 
 
 def test_unported_options_raise(world):
+    """The one engine option still unported (mesh= and prebake= landed
+    with the sharded route: tests/test_torch_sharded_parity.py)."""
     je, te = _engines(world)
-    for kw, item in (({"mesh": object()}, "§2.5"), ({"prebake": True}, "§2.5"),
-                     ({"quality": object()}, "§2.4")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            TENG.ServingEngine(te.fleet, te.router, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP §2.4"):
+        TENG.ServingEngine(te.fleet, te.router, quality=object())
 
 
 def test_launcher_build_engine_matches_jax():
@@ -252,10 +252,9 @@ def test_launcher_build_engine_matches_jax():
 
 
 def test_launcher_flags_not_ported_raise():
+    """The obs plane's flags (--db-shards and --prebake landed with the
+    sharded route: tests/test_torch_sharded_parity.py)."""
     from repro_torch.launch import serve as TSERVE
-    for argv, item in ((["--serve-obs", "0"], "§2.4"),
-                       (["--alert-log", "x.jsonl"], "§2.4"),
-                       (["--db-shards", "2"], "§2.5"),
-                       (["--prebake"], "§2.5")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    for argv in (["--serve-obs", "0"], ["--alert-log", "x.jsonl"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP §2.4"):
             TSERVE.main(argv)

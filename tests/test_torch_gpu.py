@@ -973,3 +973,167 @@ def test_captured_fit_equals_eager_fit(dev, name):
     assert (st["hits"], st["misses"]) == (1, 1)
     for k, v in first.items():
         torch.testing.assert_close(r.params[k].detach(), v, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the capacity-sharded route, its commit and the capacity prebaker
+# ---------------------------------------------------------------------------
+
+def _tie_router(dev, dim, capacity, n_prompts, shards, seed=0):
+    """A router whose DB has duplicate embeddings on the row pairs that
+    straddle every boundary of `shards`' contiguous split (equal scores
+    across shards), and the queries that land exactly on them."""
+    from repro_torch.core.router import EagleConfig, EagleRouter
+    rng = np.random.default_rng(seed)
+    emb = rng.normal(size=(n_prompts, dim)).astype(np.float32)
+    ties = [c * capacity // s for s in shards for c in range(1, s)
+            if c * capacity // s < n_prompts]
+    for row in ties:
+        emb[row] = emb[row - 1]
+    r = EagleRouter([f"m{i}" for i in range(6)], np.linspace(1.0, 8.0, 6),
+                    EagleConfig(embed_dim=dim), db_capacity=capacity,
+                    device=dev)
+    a = rng.integers(0, 6, n_prompts * 4)
+    r.fit(np.repeat(emb, 4, axis=0), a,
+          (a + 1 + rng.integers(0, 5, a.size)) % 6,
+          rng.choice([0.0, 0.5, 1.0], a.size),
+          query_id=np.arange(a.size) // 4)
+    return r, rng, emb[[row - 1 for row in ties]]
+
+
+@pytest.mark.parametrize("dim,capacity,n_prompts", [(64, 256, 200),
+                                                    (1536, 4096, 3000)])
+@pytest.mark.parametrize("shards", [1, 2, 4])
+@pytest.mark.parametrize("mode", ["combined", "global", "local"])
+def test_sharded_route_bit_equal_to_unsharded(dev, dim, capacity, n_prompts,
+                                              shards, mode):
+    """Through the route graphs, at buckets 8, 64 and 1024 (ragged sizes),
+    the tie queries first: choices and topk_idx of the sharded route equal
+    the unsharded route's bit for bit; each shard's similarity panel
+    equals its columns of the unsharded kernel's panel bit for bit (at
+    C/S = 64, not a multiple of the kernel's 128-column block, too), and
+    lies within SIM_TOL of the plain version; a dead shard (every row past
+    size) ties at -inf like the unsharded tail."""
+    from repro_torch.core.dispatch import RouteDispatcher
+    from repro_torch.core.state import shard_state
+    from repro_torch.launch.mesh import make_db_mesh
+    r, rng, tie_q = _tie_router(dev, dim, capacity, n_prompts, [shards])
+    mesh = make_db_mesh(shards, [dev] * shards)
+    st = r.state
+    sst = shard_state(st, mesh)
+    r.mode = mode
+    base = RouteDispatcher.for_router(r)
+    disp = RouteDispatcher.for_router(r, mesh=mesh)
+    q = rng.normal(size=(1024, dim)).astype(np.float32)
+    q[:len(tie_q)] = tie_q
+    for c, emb in enumerate(sst.emb):
+        panel = similarity_cuda(torch.tensor(q, device=dev), emb)
+        lo = c * sst.shard_rows
+        full = similarity_cuda(torch.tensor(q, device=dev), st.emb)
+        assert torch.equal(panel, full[:, lo:lo + sst.shard_rows])
+        torch.testing.assert_close(panel, ref.similarity_ref(
+            torch.tensor(q, device=dev), emb), rtol=SIM_TOL, atol=SIM_TOL)
+    for qb in (8, 64, 1024):
+        for nq in (qb, qb // 2 + 1):
+            b = rng.uniform(0.5, 9.0, nq).astype(np.float32)
+            ch, top = disp.route_result(sst, q[:nq], b)
+            want_ch, want_top = base.route_result(st, q[:nq], b)
+            np.testing.assert_array_equal(ch, want_ch)
+            np.testing.assert_array_equal(top, want_top)
+
+
+def test_sharded_commit_in_place_equals_unsharded(dev):
+    """Appends and touches of rows in every shard, committed over a
+    4-shard mesh on the card: each shard written in place (its tensors
+    keep their addresses), their concatenation equal to the unsharded
+    commit's field for field, the ratings and size on the device."""
+    from repro_torch.core.dispatch import replica
+    from repro_torch.core.state import DoubleBuffer
+    from repro_torch.launch.mesh import make_db_mesh
+    r, rng, _ = _tie_router(dev, 64, 256, 150, [4])
+    mesh = make_db_mesh(4, [dev] * 4)
+    want = DoubleBuffer(r.db, r.global_ratings, device=dev,
+                        tags=("u_a", "u_b"))
+    got = DoubleBuffer(r.db, r.global_ratings, mesh=mesh)
+    ptrs = [replica(got.front), replica(got._back[0])]
+    for i in range(6):
+        n = 10
+        e = rng.normal(size=(n, 64)).astype(np.float32)
+        rows = np.concatenate([rng.integers(0, r.db.size, n // 2),
+                               r.db.size + np.arange(n - n // 2)])
+        a = rng.integers(0, 6, n)
+        # prompt k was fitted under query id k, so its row is k
+        r.update(e, a, (a + 1) % 6, np.ones(n), query_id=rows)
+        for d in (want, got):
+            d.commit(r.global_ratings)
+        for w, g in ((want.front, got.front), (want._back[0], got._back[0])):
+            for f in ("emb", "model_a", "model_b", "outcome", "valid"):
+                assert torch.equal(getattr(w, f), torch.cat(getattr(g, f)))
+            assert torch.equal(w.global_ratings, g.global_ratings[0])
+            assert int(w.size) == int(g.size[0])
+        assert int(got.front.size[-1]) == r.db.size
+    assert (r.db.capacity, r.db.rcap) == (256, 8)
+    assert {replica(got.front), replica(got._back[0])} == set(ptrs)
+
+
+@pytest.mark.parametrize("shards", [0, 2])
+def test_prebaker_grow_captures_nothing_on_traffic(dev, shards):
+    """A warmed dispatcher over a DoubleBuffer (unsharded, or over a
+    2-shard mesh on the card) with a CapacityPrebaker polled after each
+    commit, routing (each route's choices equal to the eager route's)
+    and committing: across the grow 256 -> 512 traffic captures nothing,
+    the grown replicas are the prebaked ones (same addresses), the freed
+    replicas' graphs are evicted, and every capture of the process is a
+    warmup's or the bake's."""
+    from repro_torch import graphs
+    from repro_torch import obs as OBS
+    from repro_torch.core.dispatch import (CapacityPrebaker, RouteDispatcher,
+                                           replica)
+    from repro_torch.core.state import DoubleBuffer
+    from repro_torch.launch.mesh import make_db_mesh
+    r, rng = _graph_router(dev, n_prompts=150, seed=3)
+    mesh = make_db_mesh(shards, [dev] * shards) if shards else None
+    dbuf = DoubleBuffer(r.db, r.global_ratings, device=dev, mesh=mesh)
+    disp = RouteDispatcher.for_router(r, max_bucket=64, mesh=mesh)
+    pb = CapacityPrebaker(disp, r.db, dbuf=dbuf, obs=OBS.Observability())
+    c0 = graphs.capture_count()
+    for _ in range(2):
+        disp.warmup(dbuf.front)
+        dbuf.commit(r.global_ratings)
+    warm = disp.cache_stats()["misses"]
+    qid = 50_000
+    while r.db.capacity == 256 or r.db.size < 300:
+        for _ in range(3):
+            nq = int(rng.integers(1, 65))
+            q = rng.normal(size=(nq, 64)).astype(np.float32)
+            b = rng.uniform(0.5, 9.0, nq).astype(np.float32)
+            got = disp.route(dbuf.front, q, b)
+            want = _eager_route(disp, dbuf.front, q, b)[0] if not shards \
+                else _eager_sharded(disp, dbuf.front, q, b)
+            np.testing.assert_array_equal(got, want)
+        a = rng.integers(0, 6, 8)
+        r.update(rng.normal(size=(8, 64)).astype(np.float32), a, (a + 1) % 6,
+                 np.ones(8), query_id=qid + np.arange(8))
+        qid += 8
+        dbuf.commit(r.global_ratings)
+        pb.poll()
+    assert r.db.capacity == 512 and set(pb.prepared) == {512}
+    assert {replica(dbuf.front), replica(dbuf._back[0])} == \
+        set(pb.prepared[512])
+    st = disp.cache_stats()
+    ladder = 4                          # buckets 8..64
+    assert st["misses"] == st["warmed"] == warm + 2 * ladder
+    assert graphs.capture_count() - c0 == st["misses"]
+    assert pb.obs.registry.counter("dispatch_prebake_total").value == 1
+    assert st["entries"] == 2 * ladder  # the old replicas' graphs evicted
+
+
+def _eager_sharded(disp, state, q, b):
+    from repro_torch.core.state import route_batch_choices_sharded
+    nq, qb = q.shape[0], disp.bucket(q.shape[0])
+    qp = torch.zeros((qb, q.shape[1]), device=state.device)
+    qp[:nq] = torch.from_numpy(q).to(state.device)
+    bp = torch.zeros((qb,), device=state.device)
+    bp[:nq] = torch.from_numpy(b).to(state.device)
+    res = route_batch_choices_sharded(state, qp, bp, disp.costs, **disp.kw)
+    return res.choices[:nq].cpu().numpy()

@@ -142,3 +142,28 @@ def test_paper_experiments_import_without_jax():
                 "table3a_timing", "run"):
         assert f"'benchmarks_torch.{mod}'" in names
     assert leaked == "[]"
+
+
+_SHARDED_MODULES = r"""
+import sys
+sys.modules["jax"] = None
+import repro_torch.sharding, repro_torch.launch.mesh
+import repro_torch.core.state, repro_torch.core.dispatch
+from repro_torch.launch.mesh import make_db_mesh
+mesh = make_db_mesh(2, ["cpu", "cpu"])
+repro_torch.sharding.check_db_mesh(mesh, 8)
+leaked = sorted(m for m, v in sys.modules.items() if v is not None and
+                (m in ("repro", "jax") or m.startswith(("repro.", "jax."))))
+print(leaked)
+"""
+
+
+def test_sharded_route_modules_import_without_jax():
+    """The sharded route's modules (the DB axis, the DB mesh, the sharded
+    state and the prebaker's dispatcher) import and make a mesh with JAX
+    blocked, and load no JAX-package module."""
+    out = subprocess.run([sys.executable, "-c", _SHARDED_MODULES], cwd=SRC,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
