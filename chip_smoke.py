@@ -54,6 +54,20 @@ together), then:
      across the grow C = 32768 -> 65536 on the 2-shard mesh with no hand
      warmup (no capture by traffic, the grown replicas the prebaked ones,
      the poll's stall and the first route on a grown replica);
+     then the operational obs plane (`drive_obs_plane`) over a router of
+     its own at the same width: the JAX package's obs gate (500 ragged
+     batches of 1..256 queries, each routed with the plane off and fully
+     on: spans, a decision record a request, the quality monitor, an
+     exporter scraped by a thread; the paired-delta overhead at most 5%
+     of the off-path p50, no capture after warmup, the trace, Prometheus
+     text and decision JSONL parsed), its overhead at buckets 8, 64 and
+     1024, the JAX quality gate (regret bit-equal to the oracle on 500
+     routed windows, no drift alert on the stationary run, one at least
+     after a +400 step, in the alert log too), and graph captures beside
+     a thread scraping all six routes: a fresh replica's route ladder,
+     and a ServingEngine(prebake=True) with the launcher's plane across
+     a DB grow (no capture by traffic, choices equal to the eager
+     route's);
   6. holds the two attention kernels against their plain versions in
      bf16, element by element, at the serving shapes of both head
      layouts (qwen3-8b: prefill B=8, S=1024, H=32, Hk=8, dh=128, decode
@@ -62,7 +76,8 @@ together), then:
      cache with ragged lengths and against the last row of prefill),
      checks that a control with one key dropped fails its bar (flash:
      floor scaled with rms(v), decode: fixed; derivations at the
-     constants) by 10x or more, and times each beside SDPA;
+     constants) by 10x or more, and times each beside SDPA (decode also
+     over launches queued ahead of the device, `queued_ms`);
   7. drives the serving path at full width: a ServingEngine over the
      fleet ["olmo-1b", "qwen3-8b"] (full depth and width, random weights
      from a seed, bf16 compute, fp32 KV cache of 1056 rows) behind a
@@ -87,8 +102,9 @@ together), then:
      decoder flash, cross flash with S != S_kv, self decode, cross
      decode over 1500 rows) against their plain versions with controls
      and times them; runs `python -m repro_torch.launch.serve --db-shards
-     1 --prebake` at its defaults; then serves the launcher's default fleet at full
-     width and depth (whisper-large-v3, olmo-1b, mamba2-780m, qwen3-8b,
+     1 --prebake` and with `--serve-obs 0 --alert-log PATH` (exit 0, the
+     plane's URL line) at its defaults; then serves the launcher's
+     default fleet at full width and depth (whisper-large-v3, olmo-1b, mamba2-780m, qwen3-8b,
      groups padded to 1024 tokens) behind one router: 2 serve() calls
      of 16 requests and 32 requests through an AdmissionQueue at
      Poisson arrivals of 20 req/s (windows of 16), after capturing every
@@ -96,8 +112,10 @@ together), then:
      every kernel and every whisper call site launched (replays credited
      per site), peak memory under 80 GB; then each model's greedy tokens
      through its graphs equal to the eager path's; a ServingEngine over a
-     2-shard DB mesh with the prebaker and an unsharded one, over the same
-     four models, give equal choices and tokens on the same 16 requests;
+     2-shard DB mesh with the prebaker, one with the launcher's obs plane
+     (its /quality counts the 16 decisions, its six routes answer 200)
+     and an unsharded one, over the same four models, give equal choices
+     and tokens on the same 16 requests;
      whisper and mamba2 kernel path against plain path, their times and
      profiles.
  11. the paper's experiments (`benchmarks_torch`) at the frozen regime
@@ -123,10 +141,14 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 sys.modules["jax"] = None           # the port must not need JAX
@@ -195,6 +217,20 @@ SHARD_BUCKETS_CHECKED = (8, 64, 1024)
 SHARD_WARM = {1: SHARD_BUCKETS_CHECKED, 2: None, 4: SHARD_BUCKETS_CHECKED}
 SHARD_ROUNDS, SHARD_GROW_ROUNDS, SHARD_FEED = 3, 17, 500
 CONTROL_SHARE = 0.9
+# the operational obs plane (`drive_obs_plane`), by the JAX package's two
+# gates: the obs gate (benchmarks/route_batch_bench.py:run_obs_gate: 500
+# ragged batches of 1..256 queries, a feedback commit every 20, each
+# routed with the plane off and on in alternating order; the paired-delta
+# overhead at most 5% of the off-path p50), repeated at OBS_BUCKETS for
+# OBS_BUCKET_STEPS steps each; and the quality gate
+# (benchmarks/queue_bench.py:run_quality_gate: 500 routed windows of
+# 1..32 queries, a stationary fold every 10, then a +400 step)
+OBS_STEPS, OBS_MAX_BATCH, OBS_COMMIT_EVERY, OBS_MAX_OVERHEAD = 500, 256, 20, 0.05
+OBS_BUCKETS, OBS_BUCKET_STEPS = (8, 64, 1024), 50
+QUALITY_STEPS, QUALITY_WINDOW, QUALITY_FOLD_EVERY = 500, 32, 10
+# the prebaker beside a scraper: serve() calls of PREBAKE_BATCH requests,
+# each compared and fed back, until both replicas have grown
+PREBAKE_BATCH, PREBAKE_ROUNDS = 1024, 16
 # whisper-large-v3's attention call sites at its serving shapes: flash
 # (B, S, S_kv, H, Hk, dh, causal) and decode (B, T, H, Hk, dh); the
 # encoder over 1500 frames, the cross prefill of a 1024-token prompt
@@ -1735,6 +1771,428 @@ def drive_sharded(dev, corpus, fb, kernels, stats):
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: the operational obs plane
+# ---------------------------------------------------------------------------
+
+_PROM_LINE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? [^ ]+$")
+
+
+def check_prometheus(text: str) -> int:
+    """Every non-comment line is `name{labels} value`; returns the number
+    of samples (the JAX obs gate's check)."""
+    samples = [ln for ln in text.strip().splitlines()
+               if not ln.startswith("#")]
+    bad = [ln for ln in samples if not _PROM_LINE.match(ln)]
+    if bad or not samples:
+        fail(f"Prometheus text: {len(samples)} samples, unparseable "
+             f"{bad[:3]}")
+    return len(samples)
+
+
+def check_chrome_trace(path: Path) -> int:
+    """The trace is traceEvents JSON with complete events and at least
+    one route span; returns the event count."""
+    evs = json.loads(path.read_text())["traceEvents"]
+    xs = [e for e in evs if e.get("ph") == "X"]
+    bad = [e for e in xs if not (isinstance(e["ts"], (int, float))
+                                 and e["dur"] >= 0 and e["name"]
+                                 and "pid" in e and "tid" in e)]
+    if not evs or bad or not any("route" in e["name"] for e in xs):
+        fail(f"Chrome trace {path.name}: {len(evs)} events, {len(bad)} "
+             "malformed, route spans "
+             f"{sum('route' in e['name'] for e in xs)}")
+    return len(evs)
+
+
+class Scraper:
+    """A thread that GETs `paths` of a running exporter in turn until it
+    is stopped, waiting `pause` seconds after each round, and counts the
+    scrapes by HTTP status and the errors (the first kept). It runs in
+    the process it scrapes: it touches no CUDA state, as the exporter's
+    own thread does not."""
+
+    def __init__(self, exporter, paths, pause: float):
+        self.exporter, self.paths, self.pause = exporter, paths, pause
+        self.scrapes, self.errors, self.first_error = 0, 0, None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, name="scraper",
+                                        daemon=True)
+
+    def _loop(self):
+        while not self._stop.is_set():
+            for path in self.paths:
+                try:
+                    with urllib.request.urlopen(self.exporter.url(path),
+                                                timeout=30) as r:
+                        r.read()
+                        ok = r.status == 200
+                except Exception as e:       # counted, reported by main
+                    ok = False
+                    self.first_error = self.first_error or repr(e)
+                self.scrapes += ok
+                self.errors += not ok
+            self._stop.wait(self.pause)
+
+    def __enter__(self) -> "Scraper":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+        if self._thread.is_alive():
+            fail("the scraper thread did not stop")
+        return False
+
+
+class StubModel:
+    """A fleet entry that answers zeros: routing and feedback do not read
+    the tokens."""
+
+    def generate(self, tokens, max_new):
+        return np.zeros((tokens.shape[0], max_new), np.int32)
+
+
+def obs_legs(ob, disp, dbuf, quality, sorted_costs, q, budgets, step,
+             off, on, routed):
+    """One step of the JAX obs gate: the same batch routed with the plane
+    off and fully on (a span around the route, a decision record per
+    request as the engine emits them, host arrays whose conversion the
+    event log defers, the monitor's capture), the order alternating by
+    step; the
+    host wall of each leg (us) appended to `off` and `on`. Returns the
+    requests routed on the enabled leg."""
+    nb = len(budgets)
+    for leg in (("off", "on") if step % 2 == 0 else ("on", "off")):
+        if leg == "off":
+            ob.disable()
+            t0 = time.perf_counter()
+            disp.route(dbuf.front, q, budgets)
+            off.append((time.perf_counter() - t0) * 1e6)
+            continue
+        ob.enable()
+        t0 = time.perf_counter()
+        with ob.span("bench.route_step"):
+            choices = disp.route(dbuf.front, q, budgets)
+            feas = np.searchsorted(sorted_costs, budgets, side="right")
+            ob.events.emit_columns(
+                "route", nb, {"step": step, "batch": nb},
+                {"rid": range(routed, routed + nb), "model_idx": choices,
+                 "budget": budgets, "feasible": feas})
+            quality.observe_batch(budgets, choices)
+        on.append((time.perf_counter() - t0) * 1e6)
+    ob.enable()
+    return nb
+
+
+def overhead(off, on):
+    """The JAX gate's estimator: the median of the paired per-step
+    differences over the off-path p50."""
+    p50_off = float(np.percentile(off, 50))
+    delta = float(np.median(np.asarray(on) - np.asarray(off)))
+    return dict(p50_off_us=p50_off, p50_on_us=float(np.percentile(on, 50)),
+                paired_delta_us=delta, overhead_frac=delta / p50_off,
+                steps=len(off))
+
+
+def drive_obs_plane(dev, corpus, fb, stats):
+    """The operational plane at the paper's width (D = 1536, C = 32768,
+    N = 20, K = 32, P = 0.5, the 10-model fleet) over a router of its
+    own behind a DoubleBuffer and a RouteDispatcher sharing one enabled
+    scope, with the quality monitor, the stock SLO rules and an exporter:
+
+      1. the JAX quality gate on the freshly fitted router (the JAX
+         gate's world: a fitted router, no feedback since): every step's
+         score_batch equal to routing_regret_oracle bit for bit, no alert
+         on the stationary run, one at least after a +400 step, as a
+         quality_alert event and in a LogFileSink file;
+      2. the JAX obs gate (OBS_STEPS ragged batches, a feedback commit
+         every OBS_COMMIT_EVERY, off and on legs) with a thread scraping
+         /metrics, /slo and /healthz throughout: paired-delta overhead at
+         most OBS_MAX_OVERHEAD of the off-path p50, no capture after
+         warmup, the Chrome trace, Prometheus text and decision JSONL
+         parse with one route record per routed request, scrapes and no
+         scrape error; then the overhead at OBS_BUCKETS (reported);
+      3. captures beside a thread scraping all six routes: a fresh
+         replica's route ladder (its choices equal to the eager route's),
+         then a ServingEngine(prebake=True) with the launcher's plane
+         across a DB grow (C_EXPECTED -> 2 C_EXPECTED): every capture
+         succeeds, none by traffic, each batch's choices equal to the
+         eager route's on the state it was routed on."""
+    from repro_torch import graphs
+    from repro_torch import obs as OBS
+    from repro_torch.configs.eagle import PAPER_CONFIG
+    from repro_torch.core.dispatch import RouteDispatcher
+    from repro_torch.core.router import EagleRouter
+    from repro_torch.core.state import DoubleBuffer, commit
+    from repro_torch.launch.serve import build_obs_plane, quality_oracle
+    from repro_torch.obs.alerts import LogFileSink
+    from repro_torch.obs.exporter import ROUTES, ObsExporter
+    from repro_torch.obs.quality import (RouterQualityMonitor,
+                                         routing_regret_oracle)
+    from repro_torch.obs.slo import SLOEngine, default_serving_rules
+    from repro_torch.serving import Request, ServingEngine
+    t_phase = time.perf_counter()
+    router = EagleRouter(corpus.model_names, corpus.costs, PAPER_CONFIG,
+                         device=dev)
+    router.fit(fb["emb"], fb["model_a"], fb["model_b"], fb["outcome"],
+               query_id=fb["query_idx"])
+    ob = OBS.Observability(enabled=True, trace_capacity=8 * OBS_STEPS + 64,
+                           event_capacity=1 << 20)
+    router.obs = ob
+    disp = RouteDispatcher.for_router(router, obs=ob)
+    dbuf = DoubleBuffer(router.db, router.global_ratings, device=dev, obs=ob,
+                        tags=("obs_a", "obs_b"))
+    quality = RouterQualityMonitor.for_router(router, obs=ob)
+    slo = SLOEngine(ob.registry, default_serving_rules(), obs=ob)
+    exporter = ObsExporter(ob, slo=slo, quality=quality).start()
+    embs = np.asarray(corpus.embeddings, np.float32)
+    lo_b, hi_b = float(corpus.costs.min()), float(corpus.costs.max())
+    sorted_costs = np.sort(np.asarray(corpus.costs, np.float32))
+    rng = np.random.default_rng(1)
+    qid = iter(range(20_000_000, 1 << 40, 4))
+
+    def batch(n=None):
+        bs = int(rng.integers(1, OBS_MAX_BATCH + 1)) if n is None else n
+        i = rng.integers(0, len(embs), bs)
+        return embs[i], rng.uniform(lo_b, hi_b, bs).astype(np.float32)
+
+    def feedback_cycle():
+        """4 pairwise records on fresh prompts, a commit, and the post-fold
+        ratings to the monitor (router.update bypasses feedback())."""
+        i = rng.integers(0, len(embs), 4)
+        base = next(qid)
+        router.update(embs[i], [0, 1, 2, 3], [1, 2, 3, 0],
+                      [1.0, 0.0, 0.5, 1.0],
+                      query_id=[base + j for j in range(4)])
+        dbuf.commit(router.global_ratings)
+        quality.observe_ratings(router.global_ratings.cpu().numpy())
+
+    t0 = time.perf_counter()
+    warmed = warm_both(disp, dbuf, router)
+    warm_s = time.perf_counter() - t0
+
+    # 1. the quality gate, on the freshly fitted router as in JAX
+    qob = OBS.Observability(enabled=True)
+    tmp = tempfile.TemporaryDirectory()
+    alert_path = Path(tmp.name) / "alerts.jsonl"
+    mon = RouterQualityMonitor.for_router(
+        router, obs=qob, attach=False, sinks=[LogFileSink(alert_path)])
+    rng_q = np.random.default_rng(31)
+    base = router.global_ratings.cpu().numpy().astype(np.float64)
+    mismatches = scored = 0
+    t0 = time.perf_counter()
+    for step in range(QUALITY_STEPS):
+        bs = int(rng_q.integers(1, QUALITY_WINDOW + 1))
+        i = rng_q.integers(0, len(embs), bs)
+        budgets = rng_q.uniform(lo_b, hi_b, bs).astype(np.float32)
+        choices = disp.route(dbuf.front, embs[i], budgets)
+        got = mon.score_batch(budgets, choices)
+        want = routing_regret_oracle(mon.ratings, mon.costs, budgets,
+                                     choices)
+        mismatches += not np.array_equal(got, want)
+        scored += bs
+        if (step + 1) % QUALITY_FOLD_EVERY == 0:
+            mon.observe_ratings(base + rng_q.normal(0.0, 1.0, M))
+    stationary = mon.alerts_fired
+    shifted = base.copy()
+    shifted[0] += 400.0
+    mon.observe_ratings(shifted + rng_q.normal(0.0, 1.0, M))
+    perturbed = mon.alerts_fired - stationary
+    quality_s = time.perf_counter() - t0
+    events = qob.events.records("quality_alert")
+    sink_docs = [json.loads(ln) for ln in alert_path.read_text().splitlines()
+                 ] if alert_path.exists() else []
+    tmp.cleanup()
+    snap = mon.snapshot()
+    log(f"quality gate ({QUALITY_STEPS} routed windows of 1..{QUALITY_WINDOW}"
+        f", {scored} requests, a stationary fold every {QUALITY_FOLD_EVERY}"
+        f"): regret unequal to the oracle on {mismatches} steps; alerts on "
+        f"the stationary run {stationary}, after the +400 step {perturbed}"
+        f" (events {len(events)}, alert-log lines {len(sink_docs)}: "
+        f"{[d['payload'].get('alert') for d in sink_docs]}); regret mean "
+        f"{snap['regret']['mean']:.3f} p99 {snap['regret']['p99']:.3f}; "
+        f"{quality_s:.2f} s")
+    stats["quality_gate"] = dict(
+        steps=QUALITY_STEPS, requests_scored=scored,
+        oracle_mismatches=mismatches, alerts_stationary=stationary,
+        alerts_after_perturbation=perturbed, alert_events=len(events),
+        alert_log_lines=len(sink_docs), wall_s=quality_s,
+        regret=snap["regret"])
+    if mismatches or stationary or perturbed < 1 or not events or not any(
+            d["event"] == "quality_alert" for d in sink_docs):
+        fail(f"quality gate: {mismatches} mismatches, {stationary} "
+             f"stationary alerts, {perturbed} after the step, {len(events)} "
+             f"events, alert log {sink_docs}")
+
+    # 2. the obs gate
+    args = (ob, disp, dbuf, quality, sorted_costs)
+    with Scraper(exporter, ("/metrics", "/slo", "/healthz"), 0.25) as gate:
+        for i in range(2):                    # a commit on each replica
+            feedback_cycle()
+        for step in range(3):                 # both legs' Python warm
+            obs_legs(*args, *batch(), step, [], [], 0)
+        c0, led0 = graphs.capture_count(), disp.cache_stats()
+        ob.events.clear()        # count exactly the loop's decision records
+        off, on, routed = [], [], 0
+        t0 = time.perf_counter()
+        for step in range(OBS_STEPS):
+            routed += obs_legs(*args, *batch(), step, off, on, routed)
+            if (step + 1) % OBS_COMMIT_EVERY == 0:
+                feedback_cycle()
+        captured = graphs.capture_count() - c0
+        led = disp.cache_stats()
+        traffic = led["misses"] - led0["misses"]
+        gate_s = time.perf_counter() - t0
+        ragged = overhead(off, on)
+        out = ROOT / "chiprun_out"
+        n_events = check_chrome_trace(
+            Path(ob.tracer.save_chrome_trace(out / "obs_trace.json")))
+        n_samples = check_prometheus(ob.registry.prometheus_text())
+        n_dumped = ob.events.dump(out / "obs_decisions.jsonl")
+        for line in (out / "obs_decisions.jsonl").read_text().splitlines():
+            json.loads(line)
+        n_route = len(ob.events.records("route"))
+        per_bucket = {}
+        for qb in OBS_BUCKETS:
+            off_b, on_b = [], []
+            for step in range(OBS_BUCKET_STEPS):
+                obs_legs(*args, *batch(qb), step, off_b, on_b, 0)
+            per_bucket[qb] = overhead(off_b, on_b)
+    gate_scrapes = dict(scrapes=gate.scrapes, errors=gate.errors,
+                        first_error=gate.first_error)
+    log_time(stats,
+             f"obs gate ({OBS_STEPS} ragged batches of 1..{OBS_MAX_BATCH}, "
+             f"a feedback commit every {OBS_COMMIT_EVERY}, the plane live: "
+             f"spans, decision records, the quality monitor, an exporter "
+             f"scraped every 0.25 s): route p50 off {ragged['p50_off_us']:.1f}"
+             f" us, on {ragged['p50_on_us']:.1f} us, paired delta "
+             f"{ragged['paired_delta_us']:+.2f} us = "
+             f"{ragged['overhead_frac'] * 100:+.2f}% (bar "
+             f"{OBS_MAX_OVERHEAD * 100:.0f}%); per bucket "
+             f"{ {qb: round(v['overhead_frac'] * 100, 2) for qb, v in per_bucket.items()} }% "
+             f"(p50 off us "
+             f"{ {qb: round(v['p50_off_us'], 1) for qb, v in per_bucket.items()} }); "
+             f"warmup {warmed} route graphs in {warm_s:.2f} s, captures "
+             f"after it {captured} (by traffic {traffic}); trace events "
+             f"{n_events}, Prometheus samples {n_samples}, route records "
+             f"{n_route} for {routed} routed requests ({n_dumped} dumped); "
+             f"scrapes {gate_scrapes}; loop {gate_s:.2f} s")
+    stats["obs_gate"] = dict(
+        ragged=ragged, per_bucket=per_bucket, warmed=warmed, warm_s=warm_s,
+        captured=captured, traffic_captures=traffic, trace_events=n_events,
+        prometheus_samples=n_samples, route_records=n_route, routed=routed,
+        spans_recorded=ob.tracer.recorded, spans_dropped=ob.tracer.dropped,
+        scrapes=gate_scrapes, loop_s=gate_s)
+    if ragged["overhead_frac"] > OBS_MAX_OVERHEAD:
+        fail(f"obs gate: the plane costs {ragged['overhead_frac'] * 100:.2f}"
+             f"% of route p50 (bar {OBS_MAX_OVERHEAD * 100:.0f}%)")
+    if captured or traffic:
+        fail(f"obs gate: {captured} captures after warmup, {traffic} by "
+             "traffic")
+    if n_route != routed or n_dumped < routed:
+        fail(f"obs gate: {n_route} route records ({n_dumped} dumped) for "
+             f"{routed} routed requests")
+    if not gate.scrapes or gate.errors:
+        fail(f"obs gate: scrapes {gate_scrapes}")
+
+    # 3a. a fresh replica's ladder captured beside a scraper of all routes
+    fresh = commit(router.db, router.global_ratings, None,
+                   consumer="obs_fresh", device=dev)
+    with Scraper(exporter, ROUTES, 0.001) as sc:
+        c1 = graphs.capture_count()
+        n_fresh = disp.warmup(fresh)
+        caps_fresh = graphs.capture_count() - c1
+        differ = 0
+        for qb in OBS_BUCKETS:
+            q, b = batch(qb)
+            differ += int((disp.route(fresh, q, b)
+                           != eager_route(disp, fresh, q, b)).sum())
+    exporter.stop()
+    fresh_scrapes = dict(scrapes=sc.scrapes, errors=sc.errors,
+                         first_error=sc.first_error)
+    log_time(stats,
+             f"a fresh replica's ladder beside a scraper of {list(ROUTES)}: "
+             f"{n_fresh} graphs captured ({caps_fresh} in the process), "
+             f"choices differing from the eager route {differ}; scrapes "
+             f"{fresh_scrapes}")
+    if n_fresh != caps_fresh or not n_fresh or differ or not sc.scrapes \
+            or sc.errors:
+        fail(f"capture beside a scraper: {n_fresh} warmed, {caps_fresh} "
+             f"captured, {differ} choices differ, scrapes {fresh_scrapes}")
+    del disp, dbuf, fresh
+    torch.cuda.empty_cache()
+
+    # 3b. the prebaker's bake across a grow beside a scraper
+    names = list(corpus.model_names)
+    engine = ServingEngine({n: StubModel() for n in names}, router,
+                           compare_rate=1.0, seed=0,
+                           quality_oracle=quality_oracle,
+                           obs=OBS.Observability(enabled=True),
+                           warmup_batch_sizes=(PREBAKE_BATCH,),
+                           prebake=True)
+    plane = build_obs_plane(engine)
+    c2, led0 = graphs.capture_count(), engine.dispatch.cache_stats()
+    serve_ms, differ, grown_routes, rounds, requests = [], 0, 0, 0, 0
+    with Scraper(plane, ROUTES, 0.001) as sc2:
+        while grown_routes < 2:
+            if rounds >= PREBAKE_ROUNDS:
+                fail(f"prebaker beside a scraper: the DB did not grow past "
+                     f"{C_EXPECTED} rows in {rounds} rounds")
+            q, b = batch(PREBAKE_BATCH)
+            front = engine.dbuf.front
+            grown_routes += front.capacity > C_EXPECTED
+            want = eager_route(engine.dispatch, front, q, b)
+            reqs = [Request(tokens=np.zeros(4, np.int32), embedding=e,
+                            budget=float(x), max_new_tokens=1,
+                            rid=requests + k)
+                    for k, (e, x) in enumerate(zip(q, b))]
+            t0 = time.perf_counter()
+            res = engine.serve(reqs)
+            serve_ms.append((time.perf_counter() - t0) * 1e3)
+            differ += int((np.asarray([names.index(r.model) for r in res])
+                           != want).sum())
+            requests += len(reqs)
+            rounds += 1
+        del front
+        with urllib.request.urlopen(plane.url("/quality"), timeout=30) as r:
+            decisions = json.loads(r.read())["decisions"]
+    plane.stop()
+    led = engine.dispatch.cache_stats()
+    traffic = (led["misses"] - led0["misses"]) - (led["warmed"]
+                                                  - led0["warmed"])
+    captured = graphs.capture_count() - c2
+    bake_s = engine.prebaker._m_bake_s.value
+    bake_scrapes = dict(scrapes=sc2.scrapes, errors=sc2.errors,
+                        first_error=sc2.first_error)
+    log_time(stats,
+             f"ServingEngine(prebake=True) with the launcher's plane beside "
+             f"a scraper of every route: {rounds} serve() calls of "
+             f"{PREBAKE_BATCH} requests, all fed back; C {C_EXPECTED} -> "
+             f"{router.db.capacity}; bake {bake_s:.3f} s ("
+             f"{led['warmed'] - led0['warmed']} graphs, {captured} captures "
+             f"in the process, by traffic {traffic}); serve() ms "
+             f"{[round(x, 1) for x in serve_ms]}; choices differing from "
+             f"the eager route {differ}; /quality decisions {decisions}; "
+             f"scrapes {bake_scrapes}")
+    stats["obs_capture"] = dict(
+        fresh_graphs=n_fresh, fresh_scrapes=fresh_scrapes, rounds=rounds,
+        bake_s=bake_s, baked=led["warmed"] - led0["warmed"],
+        captured=captured, traffic_captures=traffic, serve_ms=serve_ms,
+        choices_differing=differ, decisions=decisions,
+        scrapes=bake_scrapes)
+    if traffic or captured != led["warmed"] - led0["warmed"] or not bake_s \
+            or differ or decisions != requests or not sc2.scrapes \
+            or sc2.errors:
+        fail(f"prebaker beside a scraper: {traffic} captures by traffic, "
+             f"{captured} in the process, bake {bake_s} s, {differ} choices "
+             f"differ, /quality decisions {decisions} of {requests}, "
+             f"scrapes {bake_scrapes}")
+    stats["obs_phase_s"] = time.perf_counter() - t_phase
+    log_time(stats, f"obs plane phase wall: {stats['obs_phase_s']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the attention kernels against their plain versions, bf16
 # ---------------------------------------------------------------------------
 
@@ -1824,7 +2282,7 @@ def check_decode(dev, kernels, stats):
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     gen = torch.Generator(device=dev).manual_seed(3)
-    errs, ratios, controls, timed = {}, {}, {}, {}
+    errs, ratios, controls, timed, queued = {}, {}, {}, {}, {}
     for model, (b, t, h, hk, dh) in DECODE_SHAPES.items():
         q = _bf16(gen, (b, h, dh), dev)
         k = torch.randn((b, t, hk, dh), generator=gen, device=dev)  # fp32
@@ -1870,6 +2328,8 @@ def check_decode(dev, kernels, stats):
                  f"{errs[row]}, {ratios[row]} times the bar")
 
         ms = cuda_ms(lambda: decode_attention_cuda(q, k, v, kv_len), 1000)
+        # the device's own time, the host's launches queued ahead of it
+        qms = queued_ms(lambda: decode_attention_cuda(q, k, v, kv_len), 200)
         plain = cuda_ms(lambda: ref.decode_attention_ref(q, k, v, kv_len), 5)
         q32 = q.float()[:, :, None]
         mask = (torch.arange(t, device=dev)[None]
@@ -1882,16 +2342,19 @@ def check_decode(dev, kernels, stats):
         bms, by = bound_ms(nbytes, 4.0 * h * dh * n_kv, PEAK_BF16_FLOPS)
         timed[model] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                             bound_ms=bms, bound_by=by)
+        queued[model] = qms
         log_time(stats,
                  f"decode_attention q bf16, cache fp32, {model} layout B={b} "
                  f"T={t} H={h} Hk={hk} dh={dh}, {int(n_kv)} valid rows: "
-                 f"kernel_ms={ms} plain_ms={plain} library_ms(SDPA, fp32, "
-                 f"mask)={lib} bound_ms={bms} ({by})")
+                 f"kernel_ms={ms} ({bms / ms} of the bound) queued_ms={qms} "
+                 f"({bms / qms} of the bound) plain_ms={plain} "
+                 f"library_ms(SDPA, fp32, mask)={lib} bound_ms={bms} ({by})")
     log(f"decode_attention max abs err {errs}; error over the bar (at most "
         f"1) {ratios}; control with kv_len - 1, over the bar (at least "
         f"{CONTROL_MIN}) {controls}")
     stats["decode_attention"] = dict(max_abs_err=errs, err_over_bar=ratios,
-                                     control_over_bar=controls, **timed)
+                                     control_over_bar=controls,
+                                     queued_ms=queued, **timed)
     kernels["decode_attention"] = dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -2432,6 +2895,28 @@ def drive_launcher(stats):
              f"--prebake: exit 0 in {cli_s:.1f} s; {lines[0]} ... "
              f"{lines[-1]}")
     stats["launcher_sharded_cli"] = dict(seconds=cli_s, last=lines[-1])
+    # the CLI with the obs plane on an ephemeral port and an alert log
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--serve-obs",
+             "0", "--alert-log", str(Path(tmp) / "alerts.jsonl")],
+            capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(SRC)})
+        cli_s = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    url = [ln for ln in lines if re.fullmatch(
+        r"obs plane at http://127\.0\.0\.1:\d+ \(/metrics /trace "
+        r"/decisions /healthz /slo /quality\)", ln)]
+    if out.returncode or not url or not lines[-1].startswith("stats:"):
+        fail(f"python -m repro_torch.launch.serve --serve-obs 0 --alert-log "
+             f"exited {out.returncode}: {out.stdout[-2000:]}"
+             f"{out.stderr[-2000:]}")
+    log_time(stats, f"python -m repro_torch.launch.serve --serve-obs 0 "
+             f"--alert-log PATH: exit 0 in {cli_s:.1f} s; {url[0]} ... "
+             f"{lines[-1]}")
+    stats["launcher_obs_cli"] = dict(seconds=cli_s, url=url[0],
+                                     last=lines[-1])
 
 
 def _whisper_site(kernels, key, name, nbytes, flops, got_ms, plain_ms,
@@ -2525,6 +3010,7 @@ def check_whisper_attention(dev, kernels, stats):
                  f"(at most 1), control {control} (at least "
                  f"{CONTROL_MIN})")
         ms = cuda_ms(lambda: decode_attention_cuda(q, k, v, kv_len), 1000)
+        qms = queued_ms(lambda: decode_attention_cuda(q, k, v, kv_len), 200)
         plain = cuda_ms(lambda: ref.decode_attention_ref(q, k, v, kv_len), 5)
         mask = (torch.arange(t, device=dev)[None]
                 < kv_len[:, None])[:, None, None]
@@ -2538,13 +3024,15 @@ def check_whisper_attention(dev, kernels, stats):
                                 nbytes, 4.0 * h * dh * n_kv, ms, plain, lib,
                                 err)
         report[site] = dict(max_abs_err=err, err_over_bar=ratio,
-                            control_over_bar=control, ms=ms, plain_ms=plain,
-                            library_ms=lib, bound_ms=bms, bound_by=by)
+                            control_over_bar=control, ms=ms, queued_ms=qms,
+                            plain_ms=plain, library_ms=lib, bound_ms=bms,
+                            bound_by=by)
         log_time(stats,
                  f"decode_attention q bf16, cache fp32, whisper {site} B={b} "
                  f"T={t} H={h} Hk={hk} dh={dh}, {int(n_kv)} valid rows: max "
                  f"abs err {err}, over the bar {ratio}, control {control}; "
-                 f"kernel_ms={ms} ({bms / ms} of the bound) plain_ms={plain}"
+                 f"kernel_ms={ms} ({bms / ms} of the bound) queued_ms={qms} "
+                 f"({bms / qms} of the bound) plain_ms={plain}"
                  f" library_ms(SDPA, fp32, mask)={lib} bound_ms={bms} ({by})")
     stats["whisper_attention"] = report
 
@@ -2568,24 +3056,30 @@ def launch_router(dev):
 
 def compare_sharded_engine(dev, fleet, stats):
     """Over the launcher fleet's models: a ServingEngine with a 2-shard DB
-    mesh on the card and the prebaker, and an unsharded one, each behind
-    a fresh launcher router and warmed for SERVE_BATCH, serve the same
-    SERVE_BATCH requests: equal choices and tokens, and no graph
-    captured by either serve()."""
+    mesh on the card and the prebaker, one with the launcher's obs plane
+    (`build_obs_plane` over an enabled scope), and an unsharded one, each
+    behind a fresh launcher router and warmed for SERVE_BATCH, serve the
+    same SERVE_BATCH requests: equal choices and tokens, and no graph
+    captured by any serve(); the plane's /quality counts SERVE_BATCH
+    decisions and each of its six routes answers 200."""
     from repro_torch import graphs
     from repro_torch import obs as OBS
     from repro_torch.launch.mesh import make_db_mesh
-    from repro_torch.launch.serve import quality_oracle
+    from repro_torch.launch.serve import build_obs_plane, quality_oracle
+    from repro_torch.obs.exporter import ROUTES
     from repro_torch.serving import ServingEngine
     engines, res = {}, {}
     for name, kw in (("flat", {}), ("sharded", dict(
-            mesh=make_db_mesh(2, devices=[dev, dev]), prebake=True))):
+            mesh=make_db_mesh(2, devices=[dev, dev]), prebake=True)),
+            ("obs", dict(obs=OBS.Observability(enabled=True)))):
         router, corpus = launch_router(dev)
+        kw.setdefault("obs", OBS.Observability())
         engines[name] = ServingEngine(
             fleet, router, compare_rate=0.25, seed=0,
             quality_oracle=quality_oracle, gen_bucket=True,
-            gen_pad_len=LAUNCH_PAD_LEN, obs=OBS.Observability(),
-            warmup_batch_sizes=(SERVE_BATCH,), **kw)
+            gen_pad_len=LAUNCH_PAD_LEN, warmup_batch_sizes=(SERVE_BATCH,),
+            **kw)
+    plane = build_obs_plane(engines["obs"])
     vocab = min(m.cfg.vocab for m in fleet.values())
     wall = {}
     c0 = graphs.capture_count()
@@ -2598,21 +3092,38 @@ def compare_sharded_engine(dev, fleet, stats):
         wall[name] = time.perf_counter() - t0
         check_responses(eng, reqs, res[name], f"{name} engine")
     captured = graphs.capture_count() - c0
-    differ = [r.rid for r, w in zip(res["sharded"], res["flat"])
-              if r.model != w.model or not np.array_equal(r.tokens,
-                                                          w.tokens)]
+    statuses = {}
+    for path in ROUTES:
+        with urllib.request.urlopen(plane.url(path), timeout=30) as r:
+            body = r.read()
+            statuses[path] = r.status
+        if path == "/quality":
+            decisions = json.loads(body)["decisions"]
+    plane.stop()
+    differ = {name: [r.rid for r, w in zip(res[name], res["flat"])
+                     if r.model != w.model
+                     or not np.array_equal(r.tokens, w.tokens)]
+              for name in ("sharded", "obs")}
     log_time(stats,
-             f"ServingEngine(mesh=2 shards, prebake=True) against the "
-             f"unsharded engine over the launcher fleet: {SERVE_BATCH} "
-             f"requests, models {sorted({r.model for r in res['flat']})}, "
-             f"responses differing {differ}; serve() wall s {wall}; graphs "
-             f"captured by the serve() calls {captured}; stats "
+             f"ServingEngine(mesh=2 shards, prebake=True) and one with the "
+             f"launcher's obs plane against the unsharded engine over the "
+             f"launcher fleet: {SERVE_BATCH} requests, models "
+             f"{sorted({r.model for r in res['flat']})}, responses "
+             f"differing {differ}; serve() wall s {wall}; graphs captured "
+             f"by the serve() calls {captured}; the plane's routes "
+             f"{statuses}, /quality decisions {decisions}; stats "
              f"{engines['sharded'].stats}")
-    stats["sharded_engine"] = dict(differing=differ, wall_s=wall,
+    stats["sharded_engine"] = dict(differing=differ["sharded"], wall_s=wall,
                                    captured=captured)
-    if differ or captured:
-        fail(f"the sharded engine's responses {differ} differ from the "
-             f"unsharded engine's; {captured} graphs captured by serve()")
+    stats["obs_engine"] = dict(differing=differ["obs"], statuses=statuses,
+                               decisions=decisions)
+    if any(differ.values()) or captured:
+        fail(f"the sharded and obs engines' responses {differ} differ from "
+             f"the unsharded engine's; {captured} graphs captured by "
+             f"serve()")
+    if decisions != SERVE_BATCH or set(statuses.values()) != {200}:
+        fail(f"the obs engine's plane: /quality decisions {decisions}, "
+             f"routes {statuses}")
 
 
 def build_launch_fleet(dev, serving, stats):
@@ -3128,6 +3639,8 @@ def main() -> int:
     stats["sharded_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log_time(stats, f"peak device memory of the sharded phase "
              f"{stats['sharded_peak_mem_gb']:.2f} GB")
+    torch.cuda.empty_cache()
+    drive_obs_plane(dev, corpus, fb, stats)
     del corpus, fb
     torch.cuda.empty_cache()
 

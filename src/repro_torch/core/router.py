@@ -16,6 +16,8 @@ EagleRouter is a thin stateful shell over core/state.py: writes
 (fit/update/feedback) land in the host append buffer and the global
 ratings and lazily commit into a device RouterState; reads
 (scores/rank/route) are one pass of route_batch/batch_scores over it.
+`feedback` is the instrumented write: the JAX package's counters, span
+and quality-monitor hook.
 """
 from __future__ import annotations
 
@@ -23,9 +25,11 @@ import dataclasses
 import time
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch import obs as OBS
 from repro_torch.core import elo
 from repro_torch.core.state import (RouterState, RouteResult, batch_scores,
                                     combine_scores, commit, route_batch,
@@ -55,6 +59,15 @@ class EagleRouter:
     #: override this (see core.state.MODES).
     mode = "combined"
 
+    #: telemetry scope; None -> the module default (repro_torch.obs.DEFAULT).
+    #: ServingEngine points this at its own scope.
+    obs: Optional[OBS.Observability] = None
+
+    #: optional router-quality monitor (obs/quality.py): when attached,
+    #: every feedback fold feeds it the comparison outcomes and the
+    #: post-fold rating vector (trajectories + drift detection).
+    quality = None
+
     def __init__(self, model_names: Sequence[str], costs,
                  cfg: EagleConfig = EagleConfig(), db_capacity: int = 4096,
                  device: DeviceLike = None):
@@ -73,6 +86,8 @@ class EagleRouter:
         self.db = VectorDB(cfg.embed_dim, db_capacity)
         self._state: Optional[RouterState] = None
         self._stale = True
+        # (ratings tensor, its host copy): the last readout of feedback
+        self._host_copy = (None, None)
 
     # -- device state --------------------------------------------------------
     @property
@@ -152,9 +167,47 @@ class EagleRouter:
         return local
 
     # -- feedback loop (workflow step 6) ------------------------------------
+    def _host_ratings(self) -> np.ndarray:
+        """The global ratings on the host, copied once per rating vector:
+        `update` and `fit` make a new tensor, so a vector read after the
+        last fold is read again from the host."""
+        held, host = self._host_copy
+        if held is not self.global_ratings:
+            host = self.global_ratings.cpu().numpy()
+            self._host_copy = (self.global_ratings, host)
+        return host
+
     def feedback(self, query_emb, chosen, opponent, outcome) -> float:
-        """Record a user comparison between two served responses."""
-        return self.update(query_emb, chosen, opponent, outcome)
+        """Record a user comparison between two served responses.
+
+        Instrumented: the batch size lands in `router_feedback_total`,
+        and, when obs is enabled, the update's magnitude (max |delta
+        rating| of the global fold) in a histogram and the post-fold
+        ratings in the attached quality monitor. Those readouts are host
+        copies of M floats: the one before the fold is the previous
+        fold's readout while the vector has not changed since (no copy,
+        no synchronise), the one after it is taken after `update`'s own
+        synchronise."""
+        o = OBS.get_obs(self.obs)
+        before = self._host_ratings() if o.enabled else None
+        with o.span("router.feedback"):
+            dt = self.update(query_emb, chosen, opponent, outcome)
+        n = np.asarray(chosen).reshape(-1).size
+        o.registry.counter("router_feedback_total",
+                           "pairwise comparisons folded online").inc(n)
+        if before is not None:
+            after = self._host_ratings()
+            mag = float(np.max(np.abs(after - before)))
+            o.registry.histogram(
+                "router_elo_update_magnitude",
+                "max |delta global rating| per feedback fold",
+                bounds=OBS.geometric_bounds(1e-3, 100.0, 1.5)).observe(mag)
+            if self.quality is not None:
+                # the monitor rides the same host readout: win-rate
+                # accounting, then the post-fold trajectory and drift
+                self.quality.observe_feedback(chosen, opponent, outcome,
+                                              ratings=after)
+        return dt
 
 
 # ---------------------------------------------------------------------------

@@ -23,12 +23,14 @@ per shard and merges the candidates on shard 0's device.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch import obs as OBS
 from repro_torch import sharding as SHARD
 from repro_torch.core import elo
 from repro_torch.kernels import ops as KOPS
@@ -375,12 +377,19 @@ class DoubleBuffer:
 
     A grow of the host buffer makes each replica's next commit a full
     re-upload; into the replicas `prepare()` made for that shape when
-    there are any (the capacity prebaker's), else into new ones."""
+    there are any (the capacity prebaker's), else into new ones.
+
+    Each commit is counted in the `obs` scope, as in the JAX package:
+    `dbuf_swaps_total`, `dbuf_dirty_backlog` (the back replica's ledger
+    length as the commit starts), `dbuf_commit_us` (the host's time to
+    enqueue the commit: the copies run on the stream) and a
+    `state.commit` span."""
 
     TAGS = ("dbuf_a", "dbuf_b")   # the replicas' dirty-row ledgers
 
     def __init__(self, db, global_ratings, device: DeviceLike = None,
-                 mesh=None, tags: Tuple[str, str] = TAGS):
+                 mesh=None, tags: Tuple[str, str] = TAGS,
+                 obs: Optional[OBS.Observability] = None):
         self.db = db
         self.mesh = mesh
         dev = mesh.leader if mesh is not None else resolve_device(device)
@@ -393,6 +402,17 @@ class DoubleBuffer:
                              device=dev, mesh=mesh), back)
         #: (capacity, dim, records) -> replicas prepared for that shape
         self._spares: Dict[Tuple[int, int, int], List[AnyState]] = {}
+        self.obs = OBS.get_obs(obs)
+        r = self.obs.registry
+        self._m_swaps = r.counter(
+            "dbuf_swaps_total", "double-buffer commit/swap cycles")
+        self._g_backlog = r.gauge(
+            "dbuf_dirty_backlog",
+            "dirty rows pending in the back replica's ledger at commit")
+        self._h_commit_us = r.histogram(
+            "dbuf_commit_us",
+            "host-side commit enqueue latency (the copies run on the "
+            "stream)")
 
     @property
     def front(self) -> AnyState:
@@ -416,17 +436,22 @@ class DoubleBuffer:
         """Absorb pending feedback into the back replica, swap, return the
         new front."""
         st, tag = self._back
-        shape = _db_shape(self.db)
-        spares = self._spares.get(shape)
-        if spares and _shape(st) != shape:
-            self.db.drain_dirty(tag)
-            new = _load_state(self.db, global_ratings, spares.pop())
-        else:
-            new = commit(self.db, global_ratings, st, consumer=tag,
-                         mesh=self.mesh)
-        if spares == []:
-            del self._spares[shape]
+        self._g_backlog.set(len(self.db._dirty.get(tag, ())))
+        t0 = time.perf_counter_ns()
+        with self.obs.span("state.commit"):
+            shape = _db_shape(self.db)
+            spares = self._spares.get(shape)
+            if spares and _shape(st) != shape:
+                self.db.drain_dirty(tag)
+                new = _load_state(self.db, global_ratings, spares.pop())
+            else:
+                new = commit(self.db, global_ratings, st, consumer=tag,
+                             mesh=self.mesh)
+            if spares == []:
+                del self._spares[shape]
         self._back, self._front = self._front, (new, tag)
+        self._h_commit_us.observe((time.perf_counter_ns() - t0) / 1e3)
+        self._m_swaps.inc()
         return self.front
 
 

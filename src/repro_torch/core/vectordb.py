@@ -10,12 +10,19 @@ cost microseconds, not device round trips. Retrieval runs on the device
 against a RouterState (core/state.py): the buffer tracks which rows were
 touched since each replica's last sync, and `state.commit()` copies just
 those rows into the device tensors.
+
+Appends and grows are counted in the process default telemetry scope
+(`obs.get_obs(None)`), as in the JAX package: `vectordb_records_total`,
+the `vectordb_size` and `vectordb_capacity` gauges, `vectordb_grow_total`
+and a `db_grow` event.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from repro_torch import obs as OBS
 
 
 def _l2norm_np(x, eps=1e-9):
@@ -53,6 +60,13 @@ class VectorDB:
                     self.rcap * 2 if need_r > self.rcap else self.rcap)
         if (new_q, new_r) == (self.capacity, self.rcap):
             return
+        # rare at steady state, so an event worth logging
+        o = OBS.get_obs(None)
+        o.registry.counter(
+            "vectordb_grow_total",
+            "buffer reallocs (shape change -> full re-upload)").inc()
+        o.emit({"kind": "db_grow", "from": [self.capacity, self.rcap],
+                "to": [new_q, new_r], "size": self.size})
         emb = np.zeros((new_q, self.dim), np.float32)
         emb[:self.capacity] = self.emb
         self.emb = emb
@@ -104,6 +118,12 @@ class VectorDB:
             self.n_rec[row] += 1
             for ledger in self._dirty.values():
                 ledger.add(row)
+        o = OBS.get_obs(None)
+        o.registry.counter("vectordb_records_total",
+                           "feedback records appended").inc(b)
+        o.registry.gauge("vectordb_size", "live prompt rows").set(self.size)
+        o.registry.gauge("vectordb_capacity",
+                         "allocated prompt rows").set(self.capacity)
 
     def register_consumer(self, name: str):
         """Open a dirty-row ledger for another device replica of this

@@ -4,16 +4,19 @@ configs, as the JAX package's launcher builds them).
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 --fleet 4 \
       --max-new 2
   PYTHONPATH=src python -m repro_torch.launch.serve --admission --rate 500
+  PYTHONPATH=src python -m repro_torch.launch.serve --serve-obs 9100 \
+      --alert-log alerts.jsonl
 
 A port of the JAX package's `launch/serve.py`, with the same CLI and
 defaults. The default fleet is `ARCH_IDS[:4]`: whisper-large-v3 (encdec),
 olmo-1b, mamba2-780m (ssm) and qwen3-8b. `--db-shards N` splits the
 routing DB's capacity over the first N cards (a `launch.mesh.DbMesh`),
 `--prebake` prepares the next capacity's replicas and route graphs
-before the DB grows. The flags whose modules are not ported yet raise
-NotImplementedError naming their ROADMAP item: `--serve-obs` and
-`--alert-log` (the exporter, quality monitor, SLO engine and alert
-sinks).
+before the DB grows. `--serve-obs PORT` enables spans and events and
+starts the operational plane (`build_obs_plane`: the quality monitor, the
+stock SLO rules and the scrape exporter on 127.0.0.1:PORT, 0 for an
+ephemeral port); `--alert-log PATH` adds a JSONL alert sink to both
+monitors.
 """
 from __future__ import annotations
 
@@ -24,10 +27,15 @@ import zlib
 import numpy as np
 
 from repro_torch import DeviceLike
+from repro_torch import obs as OBS
 from repro_torch.configs import ARCH_IDS, get_reduced_config
 from repro_torch.core.router import EagleConfig, EagleRouter
 from repro_torch.data.routerbench import make_corpus, pairwise_feedback
 from repro_torch.launch.mesh import make_db_mesh
+from repro_torch.obs.alerts import LogFileSink
+from repro_torch.obs.exporter import ObsExporter
+from repro_torch.obs.quality import RouterQualityMonitor
+from repro_torch.obs.slo import SLOEngine, default_serving_rules
 from repro_torch.serving.admission import AdmissionQueue
 from repro_torch.serving.engine import FleetModel, Request, ServingEngine
 
@@ -46,11 +54,6 @@ def quality_oracle(emb, mi) -> float:
     per process; crc32 makes runs repeat."""
     return float(np.random.default_rng(
         zlib.crc32(emb[:2].tobytes() + bytes([mi]))).random())
-
-
-def _not_ported(flag: str, what: str, item: str):
-    raise NotImplementedError(f"{flag}: {what} is not ported yet "
-                              f"(ROADMAP {item})")
 
 
 def build_engine(n_fleet: int = 4, dim: int = 64, seed: int = 0,
@@ -89,6 +92,31 @@ def build_engine(n_fleet: int = 4, dim: int = 64, seed: int = 0,
                            prebake=prebake)
     engine.warmup_generate(WARM_PROMPT_LEN, batch_sizes=WARM_SIZES)
     return engine, corpus
+
+
+def build_obs_plane(engine: ServingEngine, *, port: int = 0,
+                    deadline_ms: float = 50.0,
+                    regret_bound: float = 50.0,
+                    alert_log: str = None) -> ObsExporter:
+    """The operational plane over a launcher-built engine: a quality
+    monitor attached to the router's feedback leg (its ratings and costs
+    copied to the host here), the stock SLO rules over the engine's
+    registry and a started scrape daemon. Returns the running exporter
+    (stop() when done; port 0 picks an ephemeral port, read it back from
+    `.port`). `alert_log` attaches a `LogFileSink` to both monitors:
+    drift alerts and SLO page transitions append webhook-shaped JSONL
+    there."""
+    sinks = [LogFileSink(alert_log)] if alert_log else []
+    quality = RouterQualityMonitor.for_router(engine.router,
+                                              obs=engine.obs,
+                                              sinks=sinks)
+    engine.quality = quality
+    slo = SLOEngine(engine.obs.registry,
+                    default_serving_rules(deadline_ms=deadline_ms,
+                                          regret_bound=regret_bound),
+                    sinks=sinks)
+    return ObsExporter(engine.obs, slo=slo, quality=quality,
+                       port=port).start()
 
 
 def build_admission(engine: ServingEngine, *, window_bucket: int = 32,
@@ -140,10 +168,11 @@ def main(argv=None):
     ap.add_argument("--max-wait-ms", type=float, default=5.0)
     ap.add_argument("--serve-obs", type=int, default=None, metavar="PORT",
                     help="start the observability exporter on PORT "
-                         "(not ported yet: ROADMAP §2.4)")
+                         "(0 = ephemeral) and enable span/event capture")
     ap.add_argument("--alert-log", type=str, default=None, metavar="PATH",
-                    help="append webhook-shaped JSONL alerts to PATH "
-                         "(not ported yet: ROADMAP §2.4)")
+                    help="append webhook-shaped JSONL alerts (quality "
+                         "drift + SLO page transitions) to PATH "
+                         "(needs --serve-obs)")
     ap.add_argument("--db-shards", type=int, default=0,
                     help="capacity-shard the routing DB over the first N "
                          "cards")
@@ -152,13 +181,17 @@ def main(argv=None):
                          "graphs in the background before the DB grows")
     args = ap.parse_args(argv)
 
-    if args.serve_obs is not None:
-        _not_ported("--serve-obs", "the observability exporter", "§2.4")
-    if args.alert_log is not None:
-        _not_ported("--alert-log", "the alert sinks", "§2.4")
-    engine, corpus = build_engine(args.fleet, seed=args.seed,
+    obs = OBS.Observability(enabled=True) if args.serve_obs is not None \
+        else None
+    engine, corpus = build_engine(args.fleet, seed=args.seed, obs=obs,
                                   db_shards=args.db_shards,
                                   prebake=args.prebake)
+    exporter = None
+    if args.serve_obs is not None:
+        exporter = build_obs_plane(engine, port=args.serve_obs,
+                                   alert_log=args.alert_log)
+        print(f"obs plane at http://127.0.0.1:{exporter.port} "
+              f"(/metrics /trace /decisions /healthz /slo /quality)")
     rng = np.random.default_rng(args.seed)
     test = corpus.test_idx[:args.requests]
     reqs = [Request(tokens=rng.integers(0, 100, rng.integers(4, 12)).astype(
@@ -167,14 +200,19 @@ def main(argv=None):
                     budget=float(args.budget), max_new_tokens=args.max_new,
                     rid=k)
             for k, i in enumerate(test)]
-    if args.admission:
-        responses = _serve_admitted(engine, reqs, args.rate, args.window,
-                                    args.max_wait_ms)
-    else:
-        responses = engine.serve(reqs)
-    for r in responses[:8]:
-        print(f"req {r.rid:3d} -> {r.model:24s} tokens {r.tokens.tolist()}")
-    print("stats:", engine.stats)
+    try:
+        if args.admission:
+            responses = _serve_admitted(engine, reqs, args.rate,
+                                        args.window, args.max_wait_ms)
+        else:
+            responses = engine.serve(reqs)
+        for r in responses[:8]:
+            print(f"req {r.rid:3d} -> {r.model:24s} tokens "
+                  f"{r.tokens.tolist()}")
+        print("stats:", engine.stats)
+    finally:
+        if exporter is not None:
+            exporter.stop()
 
 
 if __name__ == "__main__":

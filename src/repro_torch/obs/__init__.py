@@ -1,6 +1,8 @@
 """Observability substrate for the serving path: a copy of the JAX
-package's host-only `obs` modules (the exporter, SLO, quality and alert
-modules are not ported yet).
+package's host-only `obs` modules. Besides the three below, the
+operational plane: `quality` (routing regret, drift alarms), `slo` (rule
+status and burn rates over the registry), `alerts` (push sinks) and
+`exporter` (the stdlib HTTP scrape endpoint).
 
 Three instruments behind one bundle:
 

@@ -9,11 +9,15 @@ shapes:
   * `emit(record)` — one dict, one bounded-deque append (thread-safe,
     no serialization on the hot path);
   * `emit_columns(kind, n, shared, columns)` — a whole serve batch as
-    ONE compact columnar entry (a few list refs), expanded to n
-    per-request records lazily at `records()`/`dump()` time. This is
+    ONE compact columnar entry (a few list or array refs), expanded to
+    n per-request records lazily at `records()`/`dump()` time. This is
     what keeps the decision log inside the <5% hot-path overhead
     budget: the per-request dict construction happens offline, not
-    between route dispatches.
+    between route dispatches. A column may be a numpy array (the
+    port's serving path passes the dispatcher's host arrays): it is
+    turned into Python values at expansion too, so the hot path pays
+    no per-request conversion. Columns are kept by reference: the
+    caller does not write them again.
 
 `dump()` always writes ONE JSON LINE PER RECORD regardless of how the
 records were emitted. Passing `path=` streams records eagerly through
@@ -27,6 +31,8 @@ import threading
 from collections import deque
 from typing import Dict, Iterator, List, Optional, Sequence
 
+import numpy as np
+
 
 class _ColumnBatch:
     """n records sharing `shared` fields, per-record values columnar."""
@@ -38,7 +44,8 @@ class _ColumnBatch:
         self.shared, self.columns = shared, columns
 
     def expand(self) -> Iterator[Dict]:
-        cols = list(self.columns.items())
+        cols = [(k, v.tolist() if isinstance(v, np.ndarray) else v)
+                for k, v in self.columns.items()]
         for i in range(self.n):
             rec = {"kind": self.kind, **self.shared}
             for k, v in cols:

@@ -20,7 +20,9 @@ per row count (`FleetModel`); prefill stays eager, as its length varies.
 mesh (`mesh=`, launch/mesh.py) the dispatcher and both buffer replicas
 are capacity-sharded; with `prebake=True` a CapacityPrebaker prepares
 the next capacity's replicas and their route graphs before a DB grow.
-Not ported yet (ROADMAP §2.4): the router-quality monitor (`quality=`).
+With a router-quality monitor (`quality=`, obs/quality.py) each routed
+batch's budgets and choices, host arrays, are queued for it while obs is
+enabled, and the router's feedback feeds it each fold.
 """
 from __future__ import annotations
 
@@ -200,10 +202,6 @@ class ServingEngine:
                  quality=None,
                  now_ns: Callable[[], int] = time.time_ns,
                  mesh=None, prebake: bool = False):
-        if quality is not None:
-            raise NotImplementedError("ServingEngine(quality=...): the "
-                                      "router-quality monitor is not ported "
-                                      "yet (ROADMAP §2.4)")
         assert list(fleet) == router.model_names, "fleet/router order mismatch"
         self.fleet = fleet
         self.router = router
@@ -219,10 +217,18 @@ class ServingEngine:
         self.gen_pad_len = gen_pad_len
         self.rng = np.random.default_rng(seed)
         self.quality_oracle = quality_oracle  # (emb, model_idx) -> quality
+        # one telemetry scope threads through every layer the engine
+        # owns: dispatcher, double buffer, router feedback, serve spans
         self.obs = OBS.get_obs(obs)
+        router.obs = self.obs
         # the decision log's clock: injectable, so a replayed run's log
         # repeats (AdmissionQueue takes the same)
         self.now_ns = now_ns
+        # optional router-quality monitor (obs/quality.py): fed per routed
+        # batch on the obs-enabled path, per fold through router.feedback
+        self.quality = quality
+        if quality is not None:
+            router.quality = quality
         # with a DB mesh (launch.mesh.make_db_mesh) the dispatcher's
         # route and both buffer replicas are capacity-sharded (DESIGN.md
         # §12); everything downstream is mesh-agnostic
@@ -232,7 +238,8 @@ class ServingEngine:
         # two device replicas over the router's host buffer: route on the
         # front while commits copy into the back, then swap
         self.dbuf = DoubleBuffer(router.db, router.global_ratings,
-                                 device=router.device, mesh=mesh)
+                                 device=router.device, mesh=mesh,
+                                 obs=self.obs)
         # the next capacity's replicas and route graphs, prepared in the
         # background (polled after commits), so a DB grow captures
         # nothing on the hot path
@@ -262,6 +269,7 @@ class ServingEngine:
         self._h_commit = r.histogram("serve_commit_us",
                                      "double-buffer commit latency")
         self._sorted_costs = np.sort(router.costs.cpu().numpy())
+        self._names = np.asarray(router.model_names, dtype=object)
         self._warm_sizes: Optional[Sequence[int]] = None   # see warmup()
         if warmup_batch_sizes is not None:
             self.warmup(warmup_batch_sizes)
@@ -339,6 +347,8 @@ class ServingEngine:
             self._h_route.observe(route_dt * 1e6)
             if obs.enabled:
                 self._emit_decisions(requests, budgets, choices)
+                if self.quality is not None:
+                    self.quality.observe_batch(budgets, choices)
 
             # ④ group by chosen model, pad to a batch, generate. A
             # request's latency is routing + its OWN group's generation.
@@ -411,16 +421,16 @@ class ServingEngine:
     def _emit_decisions(self, requests: Sequence[Request], budgets,
                         choices):
         """One JSONL record per routed request: chosen model, budget,
-        feasible-set size (the offline AUC/cost analysis input)."""
+        feasible-set size (the offline AUC/cost analysis input). The
+        columns are host arrays, turned into Python values when the log
+        is read (`EventLog.emit_columns`), not here."""
         feas = np.searchsorted(self._sorted_costs, budgets, side="right")
-        names = self.router.model_names
         nb = len(requests)
-        idx = choices.tolist()
         self.obs.events.emit_columns(
             "route", nb,
             {"ts": self.now_ns() / 1e9, "batch": nb},
             {"rid": [r.rid for r in requests],
-             "model": [names[c] for c in idx],
-             "model_idx": idx,
-             "budget": budgets.tolist(),
-             "feasible": feas.tolist()})
+             "model": self._names[choices],
+             "model_idx": choices,
+             "budget": budgets,
+             "feasible": feas})

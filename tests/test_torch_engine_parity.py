@@ -212,11 +212,16 @@ def test_commit_that_grows_the_db_is_warmed_before_routing(world):
 
 
 def test_unported_options_raise(world):
-    """The one engine option still unported (mesh= and prebake= landed
-    with the sharded route: tests/test_torch_sharded_parity.py)."""
-    je, te = _engines(world)
-    with pytest.raises(NotImplementedError, match="ROADMAP §2.4"):
-        TENG.ServingEngine(te.fleet, te.router, quality=object())
+    """No engine option is left unported: quality=, the last one, is
+    accepted and wired as in JAX (the monitor on the router, the
+    engine's scope on the router and the double buffer; the monitor
+    itself: tests/test_torch_obs_parity.py)."""
+    from repro_torch.obs.quality import RouterQualityMonitor
+    _, te = _engines(world)
+    mon = RouterQualityMonitor.for_router(te.router, attach=False)
+    eng = TENG.ServingEngine(te.fleet, te.router, quality=mon)
+    assert eng.quality is mon and te.router.quality is mon
+    assert te.router.obs is eng.obs is eng.dbuf.obs
 
 
 def test_launcher_build_engine_matches_jax():
@@ -251,10 +256,22 @@ def test_launcher_build_engine_matches_jax():
         assert 0 <= r.tokens.min() and r.tokens.max() < vocab
 
 
-def test_launcher_flags_not_ported_raise():
-    """The obs plane's flags (--db-shards and --prebake landed with the
-    sharded route: tests/test_torch_sharded_parity.py)."""
+def test_launcher_flags_not_ported_raise(monkeypatch):
+    """The obs plane's flags, the last ones that raised, are ported:
+    `--serve-obs` builds the engine over an enabled scope, `--alert-log`
+    alone changes nothing, as in JAX (the plane itself and the CLI end
+    to end: tests/test_torch_obs_parity.py)."""
     from repro_torch.launch import serve as TSERVE
+
+    class Built(Exception):
+        pass
+    seen = []
+
+    def build_engine(*a, obs=None, **kw):
+        seen.append(obs)
+        raise Built
+    monkeypatch.setattr(TSERVE, "build_engine", build_engine)
     for argv in (["--serve-obs", "0"], ["--alert-log", "x.jsonl"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP §2.4"):
+        with pytest.raises(Built):
             TSERVE.main(argv)
+    assert seen[0].enabled and seen[1] is None
