@@ -17,7 +17,16 @@ together), then:
      at the shapes the routing path gives it, with the stated
      tolerances: the similarity kernel at every bucket of the 8..1024
      ladder, each timed beside its bound and the library call (and, up
-     to 128, with every tile that could take it); the replay kernel on
+     to 128, with every tile that could take it); the fused retrieve's
+     two kernels (retrieve_topn: similarity + live-row mask + a top-n a
+     column split, no panel; topn_merge: the top-n of its pool) at
+     buckets 1024, 64 and 8, bit for bit against the per-split stable
+     top-n of the similarity kernel's panel and against their plain
+     versions, timed (queued) beside their bounds, plain versions and
+     library chains and beside the panel + stable sort they replace; the
+     route over them (retrieve + gather replay) at those buckets bit for
+     bit against the panel route and against the plain version; the
+     replay kernel on
      each of its routes (the select epilogue at Q = 1024 and 8, the
      gather route bit for bit against gather + kernel, the fit's whole
      262,144-step fold against float32 and float64 host folds, with a
@@ -36,10 +45,13 @@ together), then:
   5. times each kernel (CUDA events), its plain version, the library
      call where one exists, and the path's end-to-end latencies (route
      p50 through the graphs at every bucket, and without them at 8, 64
-     and 1024); then the graph phase of the routing path: ragged
+     and 1024), and profiles routes at buckets 8 and 1024 (and eagerly at
+     1024): their device work must be the retrieve's two kernels, the
+     replay and copies; then the graph phase of the routing path: ragged
      batches of 1..1499 queries with feedback committed between them,
      across both replicas and a grow of the DB (C = 32768 -> 65536),
-     each batch's choices equal to the eager route's on the same state,
+     each batch's choices equal to the eager route's and the panel
+     route's on the same state and to the plain version's but at ties,
      every capture a warmup's; then the capacity-sharded route
      (`drive_sharded`) over its own router, fitted with duplicate
      prompts on the rows that straddle every shard boundary: DB meshes
@@ -49,8 +61,11 @@ together), then:
      tie queries first) equal to the unsharded route's bit for bit
      before and after 3 feedback rounds, the replicas equal bit for bit,
      route p50 per bucket and mesh, no capture after warmup, a control
-     (the merge without the last shard) that must change the top-n rows,
-     the composite against its plain version, and the capacity prebaker
+     (the merge kernel over the first of 2 shards' candidates) that must
+     change the top-n rows, the composite at S = 1, 2, 4 against the
+     panel route bit for bit and its plain version, timed beside the
+     panel route, each mesh's route profiled (the retrieve's kernels, the
+     replay and copies only), and the capacity prebaker
      across the grow C = 32768 -> 65536 on the 2-shard mesh with no hand
      warmup (no capture by traffic, the grown replicas the prebaked ones,
      the poll's stall and the first route on a grown replica);
@@ -85,7 +100,8 @@ together), then:
      (prompts of 128..1024 tokens, 32 new tokens, budgets over [1, 10],
      25% of them compared and fed back; each model's static decode state
      sized at 16 rows, its decode graphs captured per row count), and
-     checks that all five kernels were launched in that run;
+     checks that every kernel but the off-path similarity was launched
+     in that run;
   8. runs a group of each model through prefill and 4 decode steps with
      the kernels (each call also held against its plain version on the
      same inputs), with the plain attend, and with a control that drops
@@ -119,15 +135,20 @@ together), then:
      whisper and mamba2 kernel path against plain path, their times and
      profiles.
  11. the paper's experiments (`benchmarks_torch`) at the frozen regime
-     (300 prompts per dataset, D = 64, seed 0): holds KNN's similarity
+     (300 prompts per dataset, D = 64, seed 0): holds KNN's retrieve
      call (a dataset's ~90 test rows against the 1,470 win-rate rows,
-     top-40) against the reference backend and times it, Eagle's D = 64
+     top-40; the fused retrieve's two kernels) against the reference
+     backend and the similarity kernel's panel + stable sort and times
+     it, Eagle's D = 64
      routes of the 630 test queries at every budget against the
      reference backend, and a captured MLP fit and a captured SVM fit
      against eager fits of 50 steps on the card; then runs Fig. 2 (both
      regimes), Table 3a (its timed fits must capture nothing), Fig. 3b
      and Fig. 4 as `python -m benchmarks_torch.run --quick` does, and
      checks that KNN's and Eagle's kernels were launched in that run.
+     The similarity kernel is off every path since the fused retrieve:
+     it is checked in phase 2 and stays in the kernels line, launched 0
+     times on the path.
 
 Every CUDA graph is captured by `repro_torch.graphs` (counted process
 wide); a failed capture raises. Any mismatch or exception exits
@@ -301,7 +322,19 @@ LOGIT_REL_BAR = 0.05
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12           # tensor cores
 PEAK_BYTES = 3.35e12
-ROUTE_KERNELS = ("similarity", "elo_scan_select", "elo_scan")
+ROUTE_KERNELS = ("retrieve_topn", "topn_merge", "elo_scan_select",
+                 "elo_scan")
+# the fused retrieve's kernels checked and timed at these buckets (the
+# first is the kernels line's), with DEAD_ROWS rows past the live count
+RETRIEVE_BUCKETS = (1024, 64, 8)
+DEAD_ROWS = 768
+# kernels off every path since the fused retrieve: checked and timed in
+# phase 2, not required to launch on a path
+OFF_PATH = ("similarity",)
+# device-side names a route's profile may hold: the retrieve's two kernels,
+# the replay, and copies; anything else (a GEMM panel, a sort) fails
+ROUTE_PROFILE_KERNELS = ("topn_gemm_kernel", "topn_gemv_kernel",
+                         "topn_merge_kernel", "elo_scan_kernel")
 # fp32 operations of one replay step of one query: difference, divide,
 # pow, add, reciprocal, difference, two products, two updates
 REPLAY_STEP_OPS = 10
@@ -508,7 +541,8 @@ def build_report(libs, stats):
     import re
     from repro_torch.kernels import _build
     report = {}
-    for name in ("similarity", "flash_attention", "elo_scan"):
+    for name in ("similarity", "retrieve_topn", "flash_attention",
+                 "elo_scan"):
         entry, lines = None, []
         for line in _build.build_log(name).splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -621,6 +655,139 @@ def check_similarity(dev, kernels, stats):
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=lib)
     stats["similarity_buckets"] = buckets
+
+
+def retrieve_bound(nq, c, d, pool):
+    """The fused retrieve's bounds: kernel 1 reads q and the DB once and
+    writes its pool (the product's fp32 operations bound it at large Q),
+    kernel 2 reads the pool and writes the top-n (scores, int64 rows,
+    hit) with one comparison a candidate. Returns ((ms, by), (ms, by))."""
+    k1 = bound_ms(4.0 * (nq * d + c * d) + 8.0 * nq * pool,
+                  2.0 * nq * c * d + 2.0 * (nq + c) * d)
+    k2 = bound_ms(8.0 * nq * pool + 13.0 * nq * N, float(nq * pool))
+    return k1, k2
+
+
+def check_retrieve(dev, kernels, stats):
+    """The fused retrieve's two kernels at the routing path's shapes
+    (RETRIEVE_BUCKETS against C_EXPECTED rows of D = DIM, n = N, the
+    last DEAD_ROWS rows past the live count, duplicate rows on split
+    boundaries and the queries that tie on them): kernel 1's pool equal,
+    bit for bit, to the per-split stable top-n of the similarity kernel's
+    masked panel (`ref.panel_pool_ref`), its scores within SIM_TOL of the
+    plain similarity; kernel 2 over that pool equal to its plain version
+    bit for bit; the pair's top-n equal to the panel's stable sort bit for
+    bit and to the plain version's but at near-ties. Each kernel timed on
+    the device (`queued_ms`) beside its bound, its plain version and the
+    library chain (normalize + matmul + torch.topk for kernel 1;
+    torch.topk over the pool for kernel 2), and the pair beside the
+    panel + stable sort it replaces."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import retrieve_topn as RT
+    from repro_torch.kernels.similarity_topk import similarity_cuda
+    rng = torch.Generator(device=dev).manual_seed(2)
+    db0 = torch.randn((C_EXPECTED, DIM), generator=rng, device=dev)
+    live = C_EXPECTED - DEAD_ROWS
+    size = torch.tensor(live, dtype=torch.int32, device=dev)
+    norm = torch.nn.functional.normalize
+    buckets = {}
+    for nq in RETRIEVE_BUCKETS:
+        tile, rows, splits = RT.plan(nq, C_EXPECTED, DIM, RT._sm_count(dev))
+        ties = [rows * i for i in range(1, min(splits, 5))]
+        db = db0.clone()
+        for b in ties:
+            db[b] = db[b - 1]
+        q = torch.randn((nq, DIM), generator=rng, device=dev)
+        k = min(nq, len(ties))
+        q[:k] = db[[b - 1 for b in ties[:k]]]
+        pool_s, pool_i = RT.retrieve_topn_cuda(q, db, size, N)
+        top = RT.topn_merge_cuda(pool_s, pool_i, N)
+        panel = ref.mask_dead(similarity_cuda(q, db), 0, size)
+        want_pool = ref.panel_pool_ref(panel, N, rows)
+        want_top = ref.topn_merge_ref(pool_s, pool_i, N)[:3]
+        panel_top = ref.stable_topk(panel, N)
+        del panel
+        plain_panel = ref.mask_dead(ref.similarity_ref(q, db), 0, size)
+        plain_top = ref.stable_topk(plain_panel, N)
+        torch.cuda.synchronize()
+        if not (torch.equal(pool_s, want_pool[0])
+                and torch.equal(pool_i, want_pool[1])):
+            fail(f"retrieve_topn Q={nq}: the pool differs from the "
+                 "per-split stable top-n of the similarity kernel's panel")
+        if not all(torch.equal(x, y) for x, y in zip(top, want_top)):
+            fail(f"topn_merge Q={nq}: differs from its plain version")
+        if not (torch.equal(top[0], panel_top[0])
+                and torch.equal(top[1], panel_top[1])):
+            fail(f"retrieve Q={nq}: the top-{N} differs from the panel's "
+                 "stable sort")
+        hit = top[2]
+        err = float((top[0] - torch.gather(plain_panel, 1, top[1]))[hit]
+                    .abs().max())
+        if not err <= SIM_TOL:
+            fail(f"retrieve_topn Q={nq}: scores {err} from the plain "
+                 "similarity")
+        differ, untied = topk_rows_agree(top[1], plain_top[1], plain_panel,
+                                         N, SIM_TOL)
+        if untied:
+            fail(f"retrieve Q={nq}: top-{N} differs from the plain version "
+                 f"on {untied} rows without a near-tie")
+        del plain_panel, plain_top
+        # runs queued: a stream holds ~1000 launches ahead of the device,
+        # and the panel route and the library chain launch ~20 a run
+        iters = 20 if nq >= 256 else 50
+        k1_ms = queued_ms(lambda: RT.retrieve_topn_cuda(q, db, size, N),
+                          iters)
+        k2_ms = queued_ms(lambda: RT.topn_merge_cuda(pool_s, pool_i, N), 50)
+        pair_ms = queued_ms(lambda: RT.topn_cuda(q, db, size, N), iters)
+        sim_ms = queued_ms(lambda: similarity_cuda(q, db), iters)
+        panel_ms = queued_ms(lambda: ref.panel_topn_ref(
+            q, db, size, N, similarity_fn=similarity_cuda), 20)
+        plain1 = cuda_ms(lambda: ref.split_topn_ref(q, db, size, N, rows),
+                         3, warmup=1)
+        plain2 = cuda_ms(lambda: ref.topn_merge_ref(pool_s, pool_i, N), 3,
+                         warmup=1)
+        lib1 = queued_ms(lambda: torch.topk(
+            torch.matmul(norm(q, dim=-1), norm(db, dim=-1).T), N, dim=-1),
+            20)
+        lib2 = queued_ms(lambda: torch.topk(pool_s, N, dim=-1), 50)
+        pool = splits * N
+        (b1, by1), (b2, by2) = retrieve_bound(nq, C_EXPECTED, DIM, pool)
+        log_time(stats,
+                 f"retrieve Q={nq} C={C_EXPECTED} D={DIM} n={N} (tile "
+                 f"{tile}, {splits} splits of {rows} rows, pool {pool} a "
+                 f"query, {live} live rows): pool and top-n equal to the "
+                 f"similarity kernel's panel + stable sort; scores max abs "
+                 f"err {err} from the plain version, top-n rows differing "
+                 f"at near-ties {differ}; retrieve_topn ms {k1_ms} (queued) "
+                 f"bound {b1} ({by1}, {b1 / k1_ms} of it) plain {plain1} "
+                 f"library (normalize + matmul + topk) {lib1}; topn_merge "
+                 f"ms {k2_ms} bound {b2} ({by2}) plain {plain2} library "
+                 f"(topk over the pool) {lib2}; the pair {pair_ms} against "
+                 f"the similarity kernel alone {sim_ms} and its panel + "
+                 f"stable sort {panel_ms}")
+        buckets[nq] = dict(tile=tile, splits=splits, split_rows=rows,
+                           pool=pool, max_abs_err=err,
+                           topk_rows_near_tie=differ, retrieve_topn_ms=k1_ms,
+                           retrieve_topn_bound_ms=b1, retrieve_topn_plain_ms=
+                           plain1, retrieve_topn_library_ms=lib1,
+                           topn_merge_ms=k2_ms, topn_merge_bound_ms=b2,
+                           topn_merge_plain_ms=plain2,
+                           topn_merge_library_ms=lib2, pair_ms=pair_ms,
+                           similarity_ms=sim_ms, panel_sort_ms=panel_ms)
+        if nq == RETRIEVE_BUCKETS[0]:
+            src = "src/repro_torch/kernels/csrc/retrieve_topn.cu"
+            kernels["retrieve_topn"] = dict(
+                name="retrieve_topn", route="cuda", source=src,
+                replaces="src/repro/kernels/similarity_topk.py:42",
+                max_abs_err=err, ms=k1_ms, queued_ms=k1_ms, plain_ms=plain1,
+                bound_ms=b1, bound_by=by1, library_ms=lib1)
+            kernels["topn_merge"] = dict(
+                name="topn_merge", route="cuda", source=src,
+                replaces="src/repro/kernels/similarity_topk.py:91",
+                max_abs_err=0.0, ms=k2_ms, queued_ms=k2_ms, plain_ms=plain2,
+                bound_ms=b2, bound_by=by2, library_ms=lib2)
+        del q, db, pool_s, pool_i, top
+    stats["retrieve_buckets"] = buckets
 
 
 def replay_inputs(dev, gen, nq, t):
@@ -854,6 +1021,84 @@ def check_fused(dev, kernels, stats, size):
                 replaces="src/repro/kernels/elo_scan.py:124",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=None)
+    check_route_retrieve(dev, stats, panels, g, costs, size)
+
+
+def panel_route_fn(g, costs, bud, shards):
+    """The panel route on the card: the retrieve as the similarity kernel's
+    masked panel and a stable sort (per shard, then a stable-sort merge,
+    when `shards`), then the same replay kernel as the kernel route. Takes
+    the route's (q, emb, a, b, s, v, size, prior) and n."""
+    from functools import partial
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.elo_scan import (elo_scan_gather_select_cuda,
+                                              elo_scan_select_cuda)
+    from repro_torch.kernels.similarity_topk import similarity_cuda
+    if shards:
+        replay = partial(elo_scan_select_cuda, global_ratings=g, costs=costs,
+                         budgets=bud, p=P)
+        return partial(ref.sharded_retrieve_replay_pipeline, partial(
+            ref.sharded_panel_topn_ref, similarity_fn=similarity_cuda),
+            replay)
+    replay = partial(elo_scan_gather_select_cuda, global_ratings=g,
+                     costs=costs, budgets=bud, p=P)
+    return partial(ref.retrieve_replay_pipeline, partial(
+        ref.panel_topn_ref, similarity_fn=similarity_cuda), replay)
+
+
+def check_route_retrieve(dev, stats, panels, g, costs, size):
+    """The route's retrieve + replay (`retrieve_replay_select_cuda`: the
+    fused retrieve's two kernels and the gather replay) at
+    RETRIEVE_BUCKETS over a C_EXPECTED-row DB with `size` live rows, the
+    tie queries first: equal bit for bit (top-n rows and scores, ratings,
+    choices) to the panel route on the same inputs, and to the plain
+    version but at near-ties (top-n rows) and score ties (choices)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.retrieve_replay import \
+        retrieve_replay_select_cuda
+    gen = torch.Generator(device=dev).manual_seed(6)
+    db = torch.randn((C_EXPECTED, DIM), generator=gen, device=dev)
+    ties = [C_EXPECTED * i // 8 for i in range(1, 6)]   # split and shard
+    for b in ties:
+        db[b] = db[b - 1]
+    live = torch.tensor(size, dtype=torch.int32, device=dev)
+    out = {}
+    for nq in RETRIEVE_BUCKETS:
+        q = torch.randn((nq, DIM), generator=gen, device=dev)
+        k = min(nq, len(ties))
+        q[:k] = db[[b - 1 for b in ties[:k]]]
+        bud = 45 * torch.rand((nq,), generator=gen, device=dev)
+        args = (q, db, *panels, live, g, g, costs, bud)
+        got = retrieve_replay_select_cuda(*args, n=N, p=P)
+        panel = panel_route_fn(g, costs, bud, 0)(*args[:8], n=N)
+        want = ref.retrieve_replay_select_ref(*args, n=N, p=P)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, panel)):
+            fail(f"route Q={nq}: differs from the panel route on the same "
+                 "inputs")
+        plain_panel = ref.mask_dead(ref.similarity_ref(q, db), 0, live)
+        t_differ, t_untied = topk_rows_agree(got[1], want[1], plain_panel,
+                                             N, SIM_TOL)
+        del plain_panel
+        same = (got[1] == want[1]).all(dim=1)
+        err = float((got[0][same] - want[0][same]).abs().max())
+        comb = P * g[None] + (1 - P) * want[0]
+        comb = torch.where(costs[None] <= bud[:, None], comb,
+                           torch.full_like(comb, float("-inf")))
+        c_differ, c_untied = choices_agree(got[3][same], want[3][same],
+                                           comb[same])
+        if t_untied or c_untied or not torch.allclose(
+                got[0][same], want[0][same], rtol=R_RTOL, atol=R_ATOL):
+            fail(f"route Q={nq} against the plain version: {t_untied} top-n "
+                 f"rows and {c_untied} choices differ without a tie, "
+                 f"ratings max abs err {err}")
+        log(f"route Q={nq} (fused retrieve + gather replay): equal to the "
+            f"panel route bit for bit; against the plain version top-n rows "
+            f"differing at near-ties {t_differ}, choices at ties {c_differ},"
+            f" ratings max abs err {err}")
+        out[nq] = dict(topk_near_ties=t_differ, choices_at_ties=c_differ,
+                       max_abs_err=err)
+    stats["route_retrieve"] = out
 
 
 def check_replay(dev, kernels, stats, fold_records):
@@ -1111,41 +1356,63 @@ def drive_main_path(dev, corpus, fb, stats):
     return router, disp, dbuf, test, grid
 
 
-def compare_route(router, dbuf, test, grid, stats):
-    """1024 queries through the kernels and through the plain versions,
-    both on the card."""
+def route_vs_plain(router, st, q, bud, where):
+    """route_batch over `st` through the kernels and through the plain
+    versions, both on the card: top-n rows equal but at near-ties,
+    choices (where the rows agree) but at score ties, scores within
+    R_RTOL / R_ATOL. Returns (choices differing, of which at score
+    ties, rows differing at near-ties)."""
     from repro_torch.core.state import route_batch
     from repro_torch.kernels import ref
-    st = dbuf.front
-    q = torch.tensor(test[:1024], device=st.device)
-    bud = torch.linspace(float(grid[0]), float(grid[-1]), len(q),
-                         device=st.device)
     kw = router._kw()
     kw.pop("backend")
     got = route_batch(st, q, bud, router.costs, backend="cuda", **kw)
     want = route_batch(st, q, bud, router.costs, backend="reference", **kw)
     torch.cuda.synchronize()
-    panel = ref.similarity_ref(q, st.emb)
-    panel[:, int(st.size):] = float("-inf")
+    panel = ref.mask_dead(ref.similarity_ref(q, st.emb), 0, st.size)
     t_differ, t_untied = topk_rows_agree(got.topk_idx, want.topk_idx, panel,
                                          N, SIM_TOL)
+    del panel
     if t_untied:
-        fail(f"route: top-{N} differs on {t_untied} rows without a tie")
+        fail(f"{where}: top-{N} differs on {t_untied} rows without a tie")
     same = (got.topk_idx == want.topk_idx).all(dim=1)
     comb = torch.where(router.costs[None] <= bud[:, None], want.scores,
                        torch.full_like(want.scores, float("-inf")))
     c_differ, c_untied = choices_agree(got.choices[same], want.choices[same],
                                        comb[same])
     if c_untied:
-        fail(f"route: {c_untied} choices differ without a tie")
+        fail(f"{where}: {c_untied} choices differ without a tie")
     if not torch.allclose(got.scores[same], want.scores[same], rtol=R_RTOL,
                           atol=R_ATOL):
-        fail("route: scores differ")
+        fail(f"{where}: scores differ")
     n_diff = int((got.choices.long() != want.choices.long()).sum())
+    return n_diff, c_differ, t_differ
+
+
+def compare_route(router, dbuf, test, grid, stats):
+    """1024 queries through the kernels and through the plain versions,
+    both on the card."""
+    st = dbuf.front
+    q = torch.tensor(test[:1024], device=st.device)
+    bud = torch.linspace(float(grid[0]), float(grid[-1]), len(q),
+                         device=st.device)
+    n_diff, c_differ, t_differ = route_vs_plain(router, st, q, bud, "route")
     log(f"route {len(q)} queries, kernels vs plain on the card: {n_diff} "
         f"choices differ ({c_differ} at score ties, the rest on {t_differ} "
         f"rows whose retrieval met a near-tie)")
     stats["route_choices_differing"] = n_diff
+
+
+def panel_eager_route(disp, state, q, budgets):
+    """eager_route with the panel route's retrieve (the similarity
+    kernel's panel and a stable sort) in place of the fused one."""
+    from functools import partial
+    from unittest import mock
+    from repro_torch.kernels import ref, retrieve_replay
+    from repro_torch.kernels.similarity_topk import similarity_cuda
+    with mock.patch.object(retrieve_replay, "topn_cuda", partial(
+            ref.panel_topn_ref, similarity_fn=similarity_cuda)):
+        return eager_route(disp, state, q, budgets)
 
 
 def time_path(disp, dbuf, router, test, stats):
@@ -1217,12 +1484,47 @@ def profile_route(disp, dbuf, router, test, stats):
                       key=lambda r: -r[1])
         device_ms = sum(ms for _, ms in rows)
         top = [(name[:60], ms) for name, ms in rows[:8]]
+        check_route_names({name for name, _ in rows}, f"bucket {qb}")
         log_time(stats,
                  f"profile bucket {qb}: wall {wall_ms} ms/route, device "
                  f"{device_ms} ms/route, busy {device_ms / wall_ms}; "
                  f"top: {top}")
         stats["profile"][qb] = dict(wall_ms=wall_ms, device_ms=device_ms,
                                     top=top)
+    names = route_device_names(lambda: eager_route(disp, st, test[:1024],
+                                                   budget))
+    log(f"eager route at bucket 1024: device work {sorted(names)}")
+    stats["profile"]["eager_names"] = sorted(names)
+
+
+def check_route_names(names, where):
+    """A route's device work must be the retrieve's two kernels, the
+    replay and copies: no similarity panel, no sort, no glue."""
+    other = sorted(n for n in names if not n.startswith(("Memcpy", "Memset"))
+                   and not any(k in n for k in ROUTE_PROFILE_KERNELS))
+    if other:
+        fail(f"route {where}: device work besides the retrieve, the replay "
+             f"and copies: {other}")
+
+
+def route_device_names(fn):
+    """The names of the device work of one fn() under torch.profiler
+    (after a warm-up call), checked by check_route_names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and e.self_device_time_total > 0}
+    if not any(k in n for n in names for k in ROUTE_PROFILE_KERNELS):
+        fail(f"the profiler saw no route kernel: {sorted(names)}")
+    check_route_names(names, "under the profiler")
+    return names
 
 
 def drive_route_graphs(router, disp, dbuf, corpus, stats):
@@ -1254,6 +1556,8 @@ def drive_route_graphs(router, disp, dbuf, corpus, stats):
     per = GRAPH_FEED * PAIRS_PER_QUERY
     st0, c0 = disp.cache_stats(), graphs.capture_count()
     warm_caps, replicas, grew, routed, differ = 0, set(), [], 0, 0
+    panel_differ, plain_differ = 0, [0, 0, 0]
+    dev = dbuf.front.device
     wall = 0.0
     for rnd in range(GRAPH_ROUNDS):
         front = dbuf.front
@@ -1266,6 +1570,12 @@ def drive_route_graphs(router, disp, dbuf, corpus, stats):
         got = disp.route(front, q, b)
         wall += time.perf_counter() - t0
         differ += int((got != eager_route(disp, front, q, b)).sum())
+        panel_differ += int((got != panel_eager_route(disp, front, q,
+                                                      b)).sum())
+        plain = route_vs_plain(router, front, torch.tensor(q, device=dev),
+                               torch.tensor(b, device=dev),
+                               f"graph phase round {rnd}")
+        plain_differ = [x + y for x, y in zip(plain_differ, plain)]
         routed += nq
         sl = slice(rnd * per, (rnd + 1) * per)
         router.update(new["emb"][sl], new["model_a"][sl],
@@ -1309,7 +1619,10 @@ def drive_route_graphs(router, disp, dbuf, corpus, stats):
              f"{router.db.capacity} rows at rounds {grew}; captures by the "
              f"warmups after commits {warm_caps}, by traffic {traffic}, "
              f"process-wide {captures}; choices differing from the eager "
-             f"route {differ}; then a second grow (records per prompt "
+             f"route {differ}, from the panel route {panel_differ}, from the "
+             f"plain version (eager; differing, at score ties, top-n rows "
+             f"at near-ties) {plain_differ}; then a second grow (records "
+             f"per prompt "
              f"{r0} -> {router.db.rcap}); ledger "
              f"{dict(st, keys=len(st['keys']))}, evicted {evicted}; the "
              f"route graphs' pool after the first grow {pool_gb[0]:.3f} GB, "
@@ -1317,11 +1630,14 @@ def drive_route_graphs(router, disp, dbuf, corpus, stats):
     stats["route_graph_phase"] = dict(
         routed=routed, queries_per_s=routed / wall, replicas=len(replicas),
         grew_at=grew, warm_captures=warm_caps, traffic_captures=traffic,
-        captures=captures, choices_differing=differ, pool_gb=pool_gb,
+        captures=captures, choices_differing=differ,
+        panel_route_differing=panel_differ, plain_differing=plain_differ,
+        pool_gb=pool_gb,
         evicted=evicted, records_per_prompt=[r0, router.db.rcap],
         ledger={k: v for k, v in st.items() if k != "keys"})
-    if differ:
-        fail(f"graph phase: {differ} choices differ from the eager route")
+    if differ or panel_differ:
+        fail(f"graph phase: {differ} choices differ from the eager route, "
+             f"{panel_differ} from the panel route")
     if traffic or captures != warm_caps:
         fail(f"graph phase: {traffic} captures by traffic, {captures} in "
              f"the process against {warm_caps} by the warmups")
@@ -1419,12 +1735,18 @@ def replicas_equal(base_buf, bufs):
 
 
 def check_sharded_kernel(dev, sst, kernels, stats, q, grid, costs, g):
-    """The composite (per-shard similarity kernel, merge, replay kernel
-    over the merged records) at bucket 1024 against its plain version on
-    the same inputs: top-n rows equal but at near-ties, choices but at
-    score ties, ratings within R_RTOL / R_ATOL; timed beside the plain
-    version, the bound (the unsharded similarity's by operations plus
-    the replay's) and the library (normalise + matmul per shard)."""
+    """The composite at S = len(sst.emb) shards (per shard the fused
+    retrieve's two kernels, then the merge kernel and the replay kernel
+    on the leader) at bucket 1024 against the panel route on the same
+    inputs (per shard the similarity kernel's panel and a stable sort,
+    the merge by a stable sort, the same replay kernel) bit for bit, and
+    against its plain version: top-n rows equal but at near-ties, choices
+    but at score ties, ratings within R_RTOL / R_ATOL. Timed by CUDA
+    events over back-to-back calls and over calls queued ahead
+    (`queued_ms`), beside the panel route, the plain version, the bound
+    (the product's operations plus the replay's bytes) and the library
+    chain (per shard normalize + matmul + torch.topk(n), then torch.topk
+    over the pool). The kernels line takes the largest S."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.retrieve_replay import \
         sharded_retrieve_replay_select_cuda
@@ -1433,12 +1755,20 @@ def check_sharded_kernel(dev, sst, kernels, stats, q, grid, costs, g):
     bud = torch.tensor(np.resize(grid, nq).astype(np.float32), device=dev)
     args = (qt, sst.emb, sst.model_a, sst.model_b, sst.outcome, sst.valid,
             sst.size, g, g, costs, bud)
-    got = sharded_retrieve_replay_select_cuda(*args, n=N, p=P)
+    panel_route = panel_route_fn(g, costs, bud, s)
+
+    def composite():
+        return sharded_retrieve_replay_select_cuda(*args, n=N, p=P)
+    got, panel = composite(), panel_route(*args[:8], n=N)
     want = ref.sharded_retrieve_replay_select_ref(*args, n=N, p=P)
     torch.cuda.synchronize()
-    panel = ref.similarity_ref(qt, torch.cat(sst.emb))
-    panel[:, int(sst.size[0]):] = float("-inf")
-    t_differ, t_untied = topk_rows_agree(got[1], want[1], panel, N, SIM_TOL)
+    if not all(torch.equal(x, y) for x, y in zip(got, panel)):
+        fail(f"sharded composite S={s}: differs from the panel route on the "
+             "same inputs")
+    whole = ref.similarity_ref(qt, torch.cat(sst.emb))
+    whole[:, int(sst.size[0]):] = float("-inf")
+    t_differ, t_untied = topk_rows_agree(got[1], want[1], whole, N, SIM_TOL)
+    del whole
     if t_untied:
         fail(f"sharded composite S={s}: top-{N} differs on {t_untied} rows "
              "without a near-tie")
@@ -1455,35 +1785,54 @@ def check_sharded_kernel(dev, sst, kernels, stats, q, grid, costs, g):
     if c_untied:
         fail(f"sharded composite S={s}: {c_untied} choices differ without "
              "a tie")
-    ms = cuda_ms(lambda: sharded_retrieve_replay_select_cuda(
-        *args, n=N, p=P), 10)
+    norm = torch.nn.functional.normalize
+    c_l = sst.shard_rows
+
+    def chain():
+        parts = [torch.topk(torch.matmul(norm(qt, dim=-1),
+                                         norm(e, dim=-1).T),
+                            min(N, c_l), dim=-1) for e in sst.emb]
+        top, pos = torch.topk(torch.cat([v for v, _ in parts], 1), N, dim=-1)
+        rows = torch.cat([i + j * c_l for j, (_, i) in enumerate(parts)], 1)
+        return top, torch.gather(rows, 1, pos)
+    # queued runs: the panel route launches ~85 kernels a run at S = 4,
+    # and a stream holds ~1000 ahead of the device
+    ms = cuda_ms(composite, 10)
+    queued = queued_ms(composite, 10)
+    panel_ms = cuda_ms(lambda: panel_route(*args[:8], n=N), 10)
+    panel_queued = queued_ms(lambda: panel_route(*args[:8], n=N), 5)
     plain = cuda_ms(lambda: ref.sharded_retrieve_replay_select_ref(
         *args, n=N, p=P), 3, warmup=1)
-    lib = cuda_ms(lambda: [torch.matmul(
-        torch.nn.functional.normalize(qt, dim=-1),
-        torch.nn.functional.normalize(e, dim=-1).T) for e in sst.emb], 10)
+    lib = cuda_ms(chain, 10)
     c, t = sst.capacity, N * sst.records_per_query
-    sim_b = bound_ms(4.0 * (nq * DIM + c * DIM + nq * c),
+    pool = len(sst.emb) * min(N, c_l)
+    sim_b = bound_ms(4.0 * (nq * DIM + c * DIM) + 8.0 * nq * pool,
                      2.0 * nq * c * DIM + 2.0 * (nq + c) * DIM)[0]
     rep_b = bound_ms(nq * t * (4 + 4 + 4 + 1) + nq * M * 4 * 2 + nq * 8,
                      nq * t * REPLAY_STEP_OPS)[0]
     log_time(stats,
-             f"sharded composite S={s} Q={nq} C={c} (C/S={sst.shard_rows}) "
-             f"D={DIM}: max_abs_err={err} top-n rows differing at "
-             f"near-ties={t_differ} choices at ties={c_differ} "
-             f"kernel_ms={ms} plain_ms={plain} library_ms={lib} (normalise "
-             f"+ matmul per shard) bound_ms={sim_b + rep_b} (similarity "
-             f"{sim_b} by operations + replay {rep_b})")
-    kernels["sharded_retrieve_replay_select"] = dict(
-        name="sharded_retrieve_replay_select", route="cuda",
-        source="src/repro_torch/kernels/retrieve_replay.py",
-        replaces="src/repro/kernels/retrieve_replay.py:75",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=sim_b + rep_b,
-        bound_by="operations", library_ms=lib)
-    stats["sharded_composite"] = dict(
-        shards=s, nq=nq, capacity=c, max_abs_err=err, ms=ms, plain_ms=plain,
-        library_ms=lib, bound_ms=sim_b + rep_b, topk_near_ties=t_differ,
-        choices_at_ties=c_differ)
+             f"sharded composite S={s} Q={nq} C={c} (C/S={c_l}) D={DIM}: "
+             f"equal to the panel route bit for bit; against the plain "
+             f"version max_abs_err={err} top-n rows differing at "
+             f"near-ties={t_differ} choices at ties={c_differ}; "
+             f"kernel_ms={ms} (back-to-back calls; queued {queued}) against "
+             f"the panel route {panel_ms} (queued {panel_queued}); "
+             f"plain_ms={plain} library_ms={lib} (per shard normalize + "
+             f"matmul + topk, then topk over the pool) bound_ms="
+             f"{sim_b + rep_b} (retrieve {sim_b} by operations + replay "
+             f"{rep_b})")
+    stats.setdefault("sharded_composite", {})[s] = dict(
+        nq=nq, capacity=c, max_abs_err=err, ms=ms, queued_ms=queued,
+        panel_route_ms=panel_ms, panel_route_queued_ms=panel_queued,
+        plain_ms=plain, library_ms=lib, bound_ms=sim_b + rep_b,
+        topk_near_ties=t_differ, choices_at_ties=c_differ)
+    if s == max(SHARDS):
+        kernels["sharded_retrieve_replay_select"] = dict(
+            name="sharded_retrieve_replay_select", route="cuda",
+            source="src/repro_torch/kernels/retrieve_replay.py",
+            replaces="src/repro/kernels/retrieve_replay.py:75",
+            max_abs_err=err, ms=ms, queued_ms=queued, plain_ms=plain,
+            bound_ms=sim_b + rep_b, bound_by="operations", library_ms=lib)
 
 
 def route_p50(fn, reps=10):
@@ -1523,7 +1872,8 @@ def drive_sharded(dev, corpus, fb, kernels, stats):
     from repro_torch.core.state import (DoubleBuffer,
                                         route_batch_choices_sharded)
     from repro_torch.data.routerbench import budget_grid, pairwise_feedback
-    from repro_torch.kernels import _build, ref, similarity_topk
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import retrieve_topn as RT
     from repro_torch.kernels.similarity_topk import similarity_cuda
     from repro_torch.launch.mesh import make_db_mesh
     ties = [C_EXPECTED // 4, C_EXPECTED // 2, 3 * C_EXPECTED // 4]
@@ -1634,7 +1984,8 @@ def drive_sharded(dev, corpus, fb, kernels, stats):
     counts = _build.launch_counts()
     sites = site_launches()
     per_shard = {s: {k: _build.site_counts().get((k, f"shards {s}"), 0)
-                     for k in ("similarity", "elo_scan_select")}
+                     for k in ("retrieve_topn", "topn_merge",
+                               "elo_scan_select")}
                  for s in SHARDS}
     captured = graphs.capture_count() - c0
     traffic = {s: (d.cache_stats()["misses"] - led0[s]["misses"])
@@ -1649,7 +2000,7 @@ def drive_sharded(dev, corpus, fb, kernels, stats):
              f"(unsharded, then S) {p50}; replicas differing from the "
              f"unsharded ones {differ}; captures after warmup {captured}, "
              f"by traffic per S {traffic}; launches {counts}, by site "
-             f"{sites}; the sharded routes' (similarity, select) per S "
+             f"{sites}; the sharded routes' (retrieve, merge, select) per S "
              f"{per_shard}")
     if differ:
         fail(f"sharded replicas differ from the unsharded ones: {differ}")
@@ -1666,15 +2017,17 @@ def drive_sharded(dev, corpus, fb, kernels, stats):
                             captured=captured, launches=counts,
                             sites=sites, per_shard=per_shard)
 
-    # the control: the merge without the last shard's candidates
-    merge = similarity_topk.shard_merge_topk
+    # the control: the merge kernel over the first shard's candidates only
+    merge = RT.merge_shards_cuda
 
-    def drop_last(top_s, top_i, payloads, n, device):
-        return merge(top_s[:-1], top_i[:-1], payloads[:-1], n, device)
+    def drop_last(pool_s, pool_i, records, n):
+        kl = pool_s.shape[1] // 2
+        return merge(pool_s[:, :kl], pool_i[:, :kl],
+                     tuple(x[:, :kl] for x in records), n)
     st2 = bufs[2].front
     bud = np.resize(grid, 1024).astype(np.float32)
     want_top = base_route_fn(base, base_buf.front)(q, bud)[1]
-    with mock.patch.object(similarity_topk, "shard_merge_topk", drop_last):
+    with mock.patch.object(RT, "merge_shards_cuda", drop_last):
         ctl = route_batch_choices_sharded(st2, torch.tensor(q, device=dev),
                                           torch.tensor(bud, device=dev),
                                           router.costs, **disps[2].kw)
@@ -1686,10 +2039,20 @@ def drive_sharded(dev, corpus, fb, kernels, stats):
         fail(f"sharded control: only {share} of the rows changed")
     stats["sharded"]["control_share"] = share
 
-    check_sharded_kernel(dev, bufs[4].front, kernels, stats, q, grid,
-                         router.costs, bufs[4].front.global_ratings[0])
+    for s in SHARDS:
+        check_sharded_kernel(dev, bufs[s].front, kernels, stats, q, grid,
+                             router.costs, bufs[s].front.global_ratings[0])
+        qt1024 = torch.tensor(test[:1024], device=dev)
+        bud1024 = torch.full((1024,), budget, device=dev)
+        names = route_device_names(lambda: disps[s].route(
+            bufs[s].front, test[:1024], budget))
+        names |= route_device_names(lambda: route_batch_choices_sharded(
+            bufs[s].front, qt1024, bud1024, router.costs, **disps[s].kw))
+        stats["sharded"].setdefault("profile_names", {})[s] = sorted(names)
+        log(f"sharded route S={s} at bucket 1024, through its graph and "
+            f"eagerly: device work {sorted(names)}")
     # the composite's launches on the counted run, over every mesh: each
-    # route S similarity launches (one a shard) and one select
+    # route two retrieve launches a shard, the merge and the select
     kernels["sharded_retrieve_replay_select"]["launches"] = sum(
         sum(n.values()) for n in per_shard.values())
 
@@ -3341,7 +3704,7 @@ def paper_regime(dev):
 
 @contextlib.contextmanager
 def knn_site():
-    """Inside: KNN's similarity launches carry the call-site label "knn"
+    """Inside: KNN's retrieve launches carry the call-site label "knn"
     (Eagle's carry none)."""
     from unittest import mock
     from repro_torch.kernels import _build
@@ -3356,13 +3719,17 @@ def knn_site():
 
 
 def check_knn(dev, kernels, stats, corpus, targets):
-    """KNN's similarity call at its Fig. 2 shape (a dataset's test rows
-    against the C win-rate rows, D = 64, top-40) against the reference
-    backend: the panel within SIM_TOL, the neighbours equal except at
-    near-ties, the predictions within 1e-6 where they agree; timed on the
-    device over launches queued ahead (the wrapper's host cost exceeds
-    the kernel's), beside the plain version, the library and the
-    bound."""
+    """KNN's call (`ops.similarity_topk`: the fused retrieve's two kernels,
+    no live mask) at its Fig. 2 shape (a dataset's test rows against the
+    C win-rate rows, D = 64, top-40) against the reference backend (the
+    plain panel and its stable sort): the neighbours equal except at
+    near-ties, the scores within SIM_TOL, the predictions within 1e-6
+    where the neighbours agree; and bit for bit against the similarity
+    kernel's panel and its stable sort (the call before the fused
+    retrieve). Timed on the device over launches queued ahead (the
+    wrappers' host cost exceeds the kernels'), beside that panel route,
+    the plain version, the library chain (normalize + matmul + topk) and
+    the bound."""
     from repro_torch.kernels import ops as KOPS
     from repro_torch.kernels import ref
     from repro_torch.kernels.similarity_topk import similarity_cuda
@@ -3375,48 +3742,57 @@ def check_knn(dev, kernels, stats, corpus, targets):
     test = corpus.test_idx[corpus.dataset_id[corpus.test_idx] == 0]
     q = torch.tensor(corpus.embeddings[test], device=dev)
     nq, c = q.shape[0], db.shape[0]
-    got = similarity_cuda(q, db)
+    n = min(got_r.n, c)
+    gs, gi = KOPS.similarity_topk(q, db, n)
+    ws, wi = KOPS.similarity_topk(q, want_r.emb, n, backend="reference")
+    ps, pi = ref.stable_topk(similarity_cuda(q, db), n)
     want = ref.similarity_ref(q, want_r.emb)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=SIM_TOL, atol=SIM_TOL):
-        fail(f"similarity knn Q={nq} C={c}: max abs err {err}")
-    n = min(got_r.n, c)
-    gi = KOPS.similarity_topk(q, db, n)[1]
-    wi = KOPS.similarity_topk(q, want_r.emb, n, backend="reference")[1]
+    if not (torch.equal(gs, ps) and torch.equal(gi, pi)):
+        fail("knn: the fused retrieve differs from the similarity kernel's "
+             "panel and its stable sort")
+    err = float((gs - torch.gather(want, 1, gi)).abs().max())
+    if not err <= SIM_TOL:
+        fail(f"knn Q={nq} C={c}: scores max abs err {err}")
     differ, untied = topk_rows_agree(gi, wi, want, n, SIM_TOL)
     if untied:
-        fail(f"similarity knn: top-{n} differs on {untied} rows without a "
-             "near-tie")
+        fail(f"knn: top-{n} differs on {untied} rows without a near-tie")
     same = (gi == wi).all(dim=1)
     p_err = float((got_r.predict(q) - want_r.predict(q))[same].abs().max())
     if p_err > 1e-6:
         fail(f"knn predictions: max abs err {p_err} on rows with equal "
              "neighbours")
-    # 50 runs: the plain version and the library launch ~7 kernels a
-    # run, and a stream holds about a thousand launches before the host
-    # blocks (which would end the queue ahead of the device)
-    ms = queued_ms(lambda: similarity_cuda(q, db), 50)
-    plain = queued_ms(lambda: ref.similarity_ref(q, db), 50)
-    lib = queued_ms(lambda: torch.matmul(
-        torch.nn.functional.normalize(q, dim=-1),
-        torch.nn.functional.normalize(db, dim=-1).T), 50)
+    # 25 runs where a run launches ~10-20 kernels (the panel routes, the
+    # plain version, the library chain): a stream holds about a thousand
+    # launches before the host blocks (which would end the queue ahead
+    # of the device)
+    norm = torch.nn.functional.normalize
+    ms = queued_ms(lambda: KOPS.similarity_topk(q, db, n), 50)
+    panel_ms = queued_ms(lambda: ref.stable_topk(similarity_cuda(q, db), n),
+                         25)
+    plain = queued_ms(lambda: KOPS.similarity_topk(q, db, n,
+                                                   backend="reference"), 25)
+    lib = queued_ms(lambda: torch.topk(torch.matmul(
+        norm(q, dim=-1), norm(db, dim=-1).T), n, dim=-1), 25)
     d = q.shape[1]
-    nbytes = 4.0 * (nq * d + c * d + nq * c)
-    flops = 2.0 * nq * c * d + 2.0 * (nq + c) * d
-    bms, by = bound_ms(nbytes, flops)
-    log_time(stats, f"similarity knn Q={nq} C={c} D={d} top-{n}: "
-             f"max_abs_err={err} topk rows differing at near-ties={differ} "
-             f"prediction err={p_err} kernel_ms={ms} (device, queued) "
-             f"plain_ms={plain} library_ms={lib} bound_ms={bms} ({by})")
-    kernels["similarity knn"] = dict(
-        name="similarity knn", route="cuda",
-        source="src/repro_torch/kernels/csrc/similarity.cu",
+    from repro_torch.kernels import retrieve_topn as RT
+    pool = RT.plan(nq, c, d, RT._sm_count(dev))[2] * n
+    (b1, by1), (b2, _) = retrieve_bound(nq, c, d, pool)
+    log_time(stats, f"knn retrieve Q={nq} C={c} D={d} top-{n} (pool {pool}"
+             f"): equal to the similarity kernel's panel + stable sort; "
+             f"scores max abs err {err}, top-n rows differing at near-ties "
+             f"{differ}, prediction err {p_err}; the pair ms {ms} (device, "
+             f"queued) against the panel + stable sort {panel_ms}; "
+             f"plain_ms={plain} library_ms={lib} bound_ms={b1 + b2} ({by1})")
+    kernels["retrieve knn"] = dict(
+        name="retrieve knn", route="cuda",
+        source="src/repro_torch/kernels/csrc/retrieve_topn.cu",
         replaces="src/repro/kernels/similarity_topk.py:42",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-        library_ms=lib)
-    stats["knn_similarity"] = dict(q=nq, c=c, topk_rows_near_tie=differ,
-                                   prediction_err=p_err)
+        max_abs_err=err, ms=ms, queued_ms=ms, plain_ms=plain,
+        bound_ms=b1 + b2, bound_by=by1, library_ms=lib)
+    stats["knn_retrieve"] = dict(q=nq, c=c, pool=pool,
+                                 topk_rows_near_tie=differ,
+                                 prediction_err=p_err, panel_sort_ms=panel_ms)
 
 
 def check_eagle_d64(dev, stats, corpus, fb):
@@ -3595,6 +3971,7 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     kernels = {}
     check_similarity(dev, kernels, stats)
+    check_retrieve(dev, kernels, stats)
     check_replay(dev, kernels, stats, fold_records)
 
     torch.cuda.reset_peak_memory_stats()
@@ -3612,14 +3989,14 @@ def main() -> int:
     if unfused[0]:
         fail(f"{unfused[0]} elo_scan_select launches of the routing path "
              "did not take the gather route")
-    # each route went through a graph: its similarity and select launches
+    # each route went through a graph: its retrieve and select launches
     # are the replays' credits (a hit each) and the captures' eager
     # warm-up runs (a warmed entry each), nothing else
     ledger = disp.cache_stats()
     replays = ledger["hits"] + ledger["warmed"]
     if ledger["misses"] != ledger["warmed"] or any(
             launches["route"][k] != replays
-            for k in ("similarity", "elo_scan_select")):
+            for k in ("retrieve_topn", "topn_merge", "elo_scan_select")):
         fail(f"routing path: launches {launches['route']} against "
              f"{ledger['hits']} replays and {ledger['warmed']} warm-up "
              f"runs ({ledger['misses']} captures)")
@@ -3654,7 +4031,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches["serve"] = _build.launch_counts()
     log(f"launches on the serving path: {launches['serve']}")
-    missing = [k for k, n in launches["serve"].items() if n == 0]
+    missing = [k for k, n in launches["serve"].items()
+               if n == 0 and k not in OFF_PATH]
     if missing:
         fail(f"kernels never launched on the serving path: {missing}")
     stats["launches"] = launches
@@ -3701,7 +4079,8 @@ def main() -> int:
     log_time(stats, f"peak device memory of the launcher fleet's run "
              f"(four models' weights, static decode states, graph pools, "
              f"activations): {peak:.2f} GB")
-    missing = [k for k, n in launches["launch"].items() if n == 0] + [
+    missing = [k for k, n in launches["launch"].items()
+               if n == 0 and k not in OFF_PATH] + [
         k for k, site in WHISPER_SITES.items()
         if not sites.get(f"whisper-large-v3 {site}")]
     if missing:
@@ -3738,13 +4117,14 @@ def main() -> int:
         drive_paper(dev, stats)
     torch.cuda.synchronize()
     launches["paper"] = _build.launch_counts()
-    knn_launches = _build.site_counts().get(("similarity", "knn"), 0)
+    knn_launches = {k: _build.site_counts().get((k, "knn"), 0)
+                    for k in ("retrieve_topn", "topn_merge")}
     log(f"launches on the paper's experiments: {launches['paper']}, of "
-        f"which KNN's similarity {knn_launches}")
+        f"which KNN's retrieve {knn_launches}")
     missing = [k for k in ROUTE_KERNELS if launches["paper"][k] == 0]
-    if missing or not knn_launches:
-        fail(f"never launched on the paper's experiments: {missing}"
-             + ("" if knn_launches else " and KNN's similarity"))
+    if missing or not all(knn_launches.values()):
+        fail(f"never launched on the paper's experiments: {missing}, KNN's "
+             f"retrieve {knn_launches}")
 
     if any(m == "jax" or m.startswith("jax.") or m in ("repro", "benchmarks")
            or m.startswith(("repro.", "benchmarks.")) for m, v in
@@ -3758,18 +4138,20 @@ def main() -> int:
         if name == "elo_scan fit fold":
             entry["launches"] = stats["fit_fold_launches"]
             continue
-        if name == "similarity knn":
-            entry["launches"] = knn_launches
+        if name == "retrieve knn":
+            entry["launches"] = sum(knn_launches.values())
             continue
         if name == "sharded_retrieve_replay_select":
             continue                 # set by drive_sharded
-        path = "route" if name in ROUTE_KERNELS else "serve"
+        # similarity: off every path since the fused retrieve (0 here)
+        path = "route" if name in ROUTE_KERNELS + ("similarity",) \
+            else "serve"
         entry["launches"] = launches[path][name]
-    order = ROUTE_KERNELS + ("elo_scan fit fold",
+    order = ROUTE_KERNELS + ("similarity", "elo_scan fit fold",
                              "sharded_retrieve_replay_select",
                              "flash_attention",
                              "decode_attention") + tuple(WHISPER_SITES) \
-        + ("similarity knn",)
+        + ("retrieve knn",)
     line = {"kernels": [kernels[k] for k in order]}
     stats["kernels"] = line["kernels"]
     (out / "chip_smoke.json").write_text(json.dumps(stats, indent=1))

@@ -9,7 +9,7 @@ JAX package's cache of compiled executables (its `core/dispatch.py`).
   * Each dispatch is served from a cache entry keyed on
     (bucket, capacity, records_per_query, mode, backend) — the JAX key —
     plus the replica the entry reads. On the card an entry is a CUDA
-    graph of `route_batch_choices` (similarity kernel, stable top-n, the
+    graph of `route_batch_choices` (the fused retrieve's two kernels, the
     replay kernel's gather-select route) captured over static query and
     budget buffers and one RouterState's tensors, so the key carries
     those tensors' addresses: `DoubleBuffer.front` alternates between

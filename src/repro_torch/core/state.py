@@ -516,10 +516,12 @@ def batch_scores(state: RouterState, query_embs, *, p_global: float = 0.5,
 
 
 def _route(state: AnyState, q, budgets, costs, p_global, n_neighbors, k,
-           backend, mode, init_rating):
+           backend, mode, init_rating, with_scores=True):
     """Shared body of route_batch/route_batch_choices(_sharded): retrieval
     + replay with the budget selection in the replay kernel's epilogue
-    (the standalone select_within_budget stays as the parity oracle)."""
+    (the standalone select_within_budget stays as the parity oracle).
+    Without `with_scores` the combined scores are not formed (None): the
+    serving variants read only the choices and the top-n rows."""
     _check_mode(mode)
     q = _queries(state, q)
     nq, m = q.shape[0], state.n_models
@@ -548,6 +550,8 @@ def _route(state: AnyState, q, budgets, costs, p_global, n_neighbors, k,
         q, state.emb, state.model_a, state.model_b, state.outcome,
         state.valid, state.size, init, g, costs, budgets, n=n, k=k, p=p,
         backend=backend)
+    if not with_scores:
+        return choices, None, top_i
     scores = local if mode == "local" else combine_scores(g, local, p_global)
     return choices, scores, top_i
 
@@ -574,7 +578,8 @@ def route_batch_choices(state: RouterState, query_embs, budgets, costs, *,
     the choices and the retrieval trace (what the dispatcher reads). A
     ShardedRouterState takes the sharded route."""
     choices, _, top_i = _route(state, query_embs, budgets, costs, p_global,
-                               n_neighbors, k, backend, mode, init_rating)
+                               n_neighbors, k, backend, mode, init_rating,
+                               with_scores=False)
     return RouteChoices(choices, top_i)
 
 
@@ -595,5 +600,6 @@ def route_batch_choices_sharded(state: ShardedRouterState, query_embs,
                         "ShardedRouterState (core.state.shard_state, or "
                         "commit(mesh=...))")
     choices, _, top_i = _route(state, query_embs, budgets, costs, p_global,
-                               n_neighbors, k, backend, mode, init_rating)
+                               n_neighbors, k, backend, mode, init_rating,
+                               with_scores=False)
     return RouteChoices(choices, top_i)

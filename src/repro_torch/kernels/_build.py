@@ -71,6 +71,21 @@ _SIGNATURES = {
                                    + [ctypes.c_float] + [ctypes.c_void_p],
         "decode_attention_chunk": [],
     },
+    "retrieve_topn": {
+        # q, emb, Q, C, D, offset, size, n, tile, split rows, splits,
+        # pool_s, pool_i, stream
+        "retrieve_topn_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                                + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                                + [ctypes.c_void_p] * 3,
+        # pool_s, pool_i, Q, P, ld_in, k, top_s, top_i, idx64, ld_out,
+        # hit, a, b, s, v, R, by_row, offset, ld_src, out a, b, s, v,
+        # farthest, ld_dst, stream
+        "topn_merge_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                             + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                             + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                             + [ctypes.c_void_p],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -78,7 +93,8 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 #: kernel launches per wrapper since the last reset_launches()
 _LAUNCHES: Dict[str, int] = {"similarity": 0, "elo_scan": 0,
                              "elo_scan_select": 0, "flash_attention": 0,
-                             "decode_attention": 0}
+                             "decode_attention": 0, "retrieve_topn": 0,
+                             "topn_merge": 0}
 
 
 #: launches per (wrapper, call-site label) since the last reset
@@ -180,24 +196,32 @@ def nvcc() -> str:
                        "source and need the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+def _lib_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    """The library's path: its name carries a hash of the source, the
+    shared headers (`csrc/*.cuh`), the flags and any `-D` defines."""
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    flags = " ".join(NVCC_FLAGS + [f"-D{x}" for x in defines])
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()
+    tag = "".join(f"-{x.lower()}" for x in defines)
+    return BUILD_DIR / f"lib{name}{tag}-{digest[:12]}.so"
 
 
-def build(names: Iterable[str] = tuple(_SIGNATURES)) -> List[Path]:
+def build(names: Iterable[str] = tuple(_SIGNATURES),
+          defines: Tuple[str, ...] = ()) -> List[Path]:
     """Compile the named sources that are not built yet, one `nvcc` each,
-    all started together. Returns the library paths."""
+    all started together (with `defines`, a variant: `-D` each, a
+    library of its own). Returns the library paths."""
     names = list(names)
     jobs = []
     for name in names:
-        out = _lib_path(name)
+        out = _lib_path(name, defines)
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")   # then an atomic rename
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, *(f"-D{x}" for x in defines), "-o",
+               str(tmp), str(CSRC / f"{name}.cu")]
         jobs.append((name, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -212,7 +236,7 @@ def build(names: Iterable[str] = tuple(_SIGNATURES)) -> List[Path]:
             failed.append(f"nvcc failed to build {name}.cu:\n{log}")
     if failed:
         raise RuntimeError("\n".join(failed))
-    return [_lib_path(n) for n in names]
+    return [_lib_path(n, defines) for n in names]
 
 
 def build_log(name: str) -> str:
@@ -221,16 +245,18 @@ def build_log(name: str) -> str:
     return path.with_suffix(".log").read_text()
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built on first use."""
-    lib = _LIBS.get(name)
+def library(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu` (built with `defines`: a
+    control variant, which only the checks load), built on first use."""
+    key = name + "".join(f" -D{x}" for x in defines)
+    lib = _LIBS.get(key)
     if lib is None:
-        (path,) = build([name])
+        (path,) = build([name], defines)
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
+        _LIBS[key] = lib
     return lib
 
 

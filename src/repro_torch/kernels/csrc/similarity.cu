@@ -40,201 +40,32 @@
 //
 // A D that is not a multiple of 4 (or an unaligned pointer) takes the
 // same kernels with scalar loads; ragged Q and N are masked.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "similarity_tile.cuh"
+
+using namespace simtile;
 
 namespace {
 
-constexpr float EPS = 1e-18f;
-constexpr int THREADS = 256;
-constexpr int BN = 128;   // DB rows per GEMM block
-constexpr int PAD = 4;    // keeps rows of the staged chunk 16-byte aligned
-
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-// Four consecutive elements of row `r` from column `c` of a (rows, d)
-// matrix; zero past the ragged edges.
-template <bool VEC>
-__device__ __forceinline__ float4 load4(const float* __restrict__ x, int rows,
-                                        int d, int r, int c) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (r >= rows) return v;
-  const float* p = x + (size_t)r * d + c;
-  if constexpr (VEC) {
-    if (c < d) v = __ldg(reinterpret_cast<const float4*>(p));
-  } else {
-    if (c < d) v.x = __ldg(p);
-    if (c + 1 < d) v.y = __ldg(p + 1);
-    if (c + 2 < d) v.z = __ldg(p + 2);
-    if (c + 3 < d) v.w = __ldg(p + 3);
-  }
-  return v;
-}
-
 // ---------------------------------------------------------------------------
-// Q > 8: register-tiled SGEMM
+// Q > 8: register-tiled SGEMM (main loop: similarity_tile.cuh:gemm_tile)
 // ---------------------------------------------------------------------------
-
-template <int BM, int BK>
-struct Gemm {
-  static constexpr int TM = BM / 16;                 // rows per thread
-  static constexpr int RW = TM < 4 ? TM : 4;         // rows per shared read
-  static constexpr int RG = TM / RW;                 // row groups
-  static constexpr int KQ = BK / 4;                  // float4s in a chunk row
-  static constexpr int LA = (BM * KQ + THREADS - 1) / THREADS;
-  static constexpr int LB = BN * KQ / THREADS;
-  __device__ static int row(int ty, int i) {
-    return (i / RW) * (BM / RG) + ty * RW + (i % RW);
-  }
-  __device__ static int col(int tx, int j) {
-    return (j / 4) * (BN / 2) + tx * 4 + (j % 4);
-  }
-};
 
 template <int BM, int BK, bool VEC, bool VEC_OUT>
 __global__ void __launch_bounds__(THREADS, 2)
 gemm_kernel(const float* __restrict__ q, const float* __restrict__ db,
             float* __restrict__ out, int nq, int n, int d) {
   using G = Gemm<BM, BK>;
-  constexpr int KQ = G::KQ;
   constexpr int TM = G::TM, TN = 8;
-  __shared__ __align__(16) float as[2][BK][BM + PAD];
-  __shared__ __align__(16) float bs[2][BK][BN + PAD];
+  __shared__ __align__(16) GemmSmem<BM, BK> sm;
   __shared__ float inv_a[BM];
   __shared__ float inv_b[BN];
 
-  const int tid = threadIdx.x;
-  // warps in a 4 x 2 grid of 4 x 8 threads: per shared load a warp reads
-  // 4 distinct float4 of the query chunk and 8 of the DB chunk, one
-  // wavefront each
-  const int warp = tid / 32, lane = tid % 32;
-  const int ty = (warp / 2) * 4 + lane / 8;   // 0..15
-  const int tx = (warp % 2) * 8 + lane % 8;   // 0..15
+  const int ty = gemm_ty(threadIdx.x);
+  const int tx = gemm_tx(threadIdx.x);
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
-  // staging: slot s of this thread is row (tid + 256 s) / KQ, columns
-  // 4 * (tid % KQ) .. + 3 of the chunk
-  const int kq = tid % KQ;
-
-  float4 ra[G::LA], rb[G::LB];
-  float sq_a[G::LA], sq_b[G::LB];
-#pragma unroll
-  for (int s = 0; s < G::LA; ++s) sq_a[s] = 0.f;
-#pragma unroll
-  for (int s = 0; s < G::LB; ++s) sq_b[s] = 0.f;
-
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int s = 0; s < G::LA; ++s) {
-      const int l = tid + THREADS * s;
-      ra[s] = (l < BM * KQ)
-                  ? load4<VEC>(q, nq, d, row0 + l / KQ, k0 + 4 * kq)
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int s = 0; s < G::LB; ++s) {
-      const int l = tid + THREADS * s;
-      rb[s] = load4<VEC>(db, n, d, col0 + l / KQ, k0 + 4 * kq);
-    }
-  };
-  // the squares are taken here, when the loads have had a chunk's compute
-  // to arrive, so that nothing waits on them earlier
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int s = 0; s < G::LA; ++s) sq_a[s] += dot4(ra[s], ra[s]);
-#pragma unroll
-    for (int s = 0; s < G::LB; ++s) sq_b[s] += dot4(rb[s], rb[s]);
-#pragma unroll
-    for (int s = 0; s < G::LA; ++s) {
-      const int l = tid + THREADS * s;
-      if (l < BM * KQ) {
-        const int r = l / KQ;
-        as[buf][4 * kq + 0][r] = ra[s].x;
-        as[buf][4 * kq + 1][r] = ra[s].y;
-        as[buf][4 * kq + 2][r] = ra[s].z;
-        as[buf][4 * kq + 3][r] = ra[s].w;
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < G::LB; ++s) {
-      const int r = (tid + THREADS * s) / KQ;
-      bs[buf][4 * kq + 0][r] = rb[s].x;
-      bs[buf][4 * kq + 1][r] = rb[s].y;
-      bs[buf][4 * kq + 2][r] = rb[s].z;
-      bs[buf][4 * kq + 3][r] = rb[s].w;
-    }
-  };
-
   float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  const int chunks = (d + BK - 1) / BK;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int c = 0; c < chunks; ++c) {
-    const int cur = c & 1;
-    if (c + 1 < chunks) load((c + 1) * BK);   // in flight during compute
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int g = 0; g < G::RG; ++g) {
-        const float* pa = &as[cur][kk][G::row(ty, g * G::RW)];
-        if constexpr (G::RW == 4) {
-          const float4 v = *reinterpret_cast<const float4*>(pa);
-          a[g * 4 + 0] = v.x;
-          a[g * 4 + 1] = v.y;
-          a[g * 4 + 2] = v.z;
-          a[g * 4 + 3] = v.w;
-        } else {
-          const float2 v = *reinterpret_cast<const float2*>(pa);
-          a[g * G::RW + 0] = v.x;
-          a[g * G::RW + 1] = v.y;
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < 2; ++g) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(&bs[cur][kk][G::col(tx, 4 * g)]);
-        b[g * 4 + 0] = v.x;
-        b[g * 4 + 1] = v.y;
-        b[g * 4 + 2] = v.z;
-        b[g * 4 + 3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (c + 1 < chunks) store(cur ^ 1);
-    __syncthreads();
-  }
-
-  // the KQ neighbouring threads that staged a row hold its partial sums
-#pragma unroll
-  for (int s = 0; s < G::LA; ++s) {
-    float v = sq_a[s];
-#pragma unroll
-    for (int off = 1; off < KQ; off <<= 1)
-      v += __shfl_xor_sync(0xffffffffu, v, off);
-    const int l = tid + THREADS * s;
-    if (kq == 0 && l < BM * KQ) inv_a[l / KQ] = rsqrtf(v + EPS);
-  }
-#pragma unroll
-  for (int s = 0; s < G::LB; ++s) {
-    float v = sq_b[s];
-#pragma unroll
-    for (int off = 1; off < KQ; off <<= 1)
-      v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (kq == 0) inv_b[(tid + THREADS * s) / KQ] = rsqrtf(v + EPS);
-  }
-  __syncthreads();
+  gemm_tile<BM, BK, VEC>(q, db, nq, n, d, row0, col0, sm, inv_a, inv_b, acc);
 
   float ib[TN];
 #pragma unroll
@@ -249,10 +80,10 @@ gemm_kernel(const float* __restrict__ q, const float* __restrict__ db,
 #pragma unroll
     for (int g = 0; g < 2; ++g) {
       const int c = G::col(tx, 4 * g);
-      const float4 v = make_float4(acc[i][4 * g] * ia * ib[4 * g],
-                                   acc[i][4 * g + 1] * ia * ib[4 * g + 1],
-                                   acc[i][4 * g + 2] * ia * ib[4 * g + 2],
-                                   acc[i][4 * g + 3] * ia * ib[4 * g + 3]);
+      const float4 v = make_float4(cosine(acc[i][4 * g], ia, ib[4 * g]),
+                                   cosine(acc[i][4 * g + 1], ia, ib[4 * g + 1]),
+                                   cosine(acc[i][4 * g + 2], ia, ib[4 * g + 2]),
+                                   cosine(acc[i][4 * g + 3], ia, ib[4 * g + 3]));
       if constexpr (VEC_OUT) {
         if (col0 + c < n) *reinterpret_cast<float4*>(o + c) = v;
       } else {
@@ -280,116 +111,27 @@ int launch_gemm(const float* q, const float* db, float* out, int nq, int n,
 }
 
 // ---------------------------------------------------------------------------
-// Q <= 8: the DB streamed once, queries resident in shared memory
+// Q <= 8: the DB streamed once (similarity_tile.cuh:gemv_rows)
 // ---------------------------------------------------------------------------
-
-constexpr int QT = 8;     // query rows of the streaming kernel
-constexpr int R = 4;      // DB rows per warp
 
 template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
 gemv_kernel(const float* __restrict__ q, const float* __restrict__ db,
             float* __restrict__ out, int nq, int n, int d) {
-  constexpr int W = VEC ? 4 : 1;      // elements per lane per step
-  constexpr int STEP = 32 * W;
   extern __shared__ __align__(16) float qs[];   // QT x d, then QT norms
   float* inv_q = qs + QT * d;
+  gemv_queries(q, nq, d, qs, inv_q);
 
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  for (int l = tid; l < QT * d; l += THREADS) {
-    const int r = l / d;
-    qs[l] = r < nq ? q[(size_t)r * d + (l - r * d)] : 0.f;
-  }
-  __syncthreads();
-  for (int r = warp; r < QT; r += THREADS / 32) {
-    float v = 0.f;
-    for (int c = lane; c < d; c += 32) v += qs[r * d + c] * qs[r * d + c];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) inv_q[r] = rsqrtf(v + EPS);
-  }
-  __syncthreads();
-
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
   const int n0 = (blockIdx.x * (THREADS / 32) + warp) * R;
-  float acc[QT][R], sq[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    sq[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < QT; ++i) acc[i][r] = 0.f;
-  }
-
-  auto step = [&](const float4 (&x)[R], int c) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) sq[r] += dot4(x[r], x[r]);
-#pragma unroll
-    for (int i = 0; i < QT; ++i) {
-      float4 qv;
-      if constexpr (VEC) {
-        qv = *reinterpret_cast<const float4*>(qs + i * d + c);
-      } else {
-        qv = make_float4(qs[i * d + c], 0.f, 0.f, 0.f);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[i][r] += dot4(qv, x[r]);
-    }
-  };
-  auto fetch = [&](float4 (&x)[R], int c) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if constexpr (VEC) {
-        x[r] = load4<true>(db, n, d, n0 + r, c);
-      } else {
-        x[r] = make_float4(
-            (n0 + r < n && c < d) ? __ldg(db + (size_t)(n0 + r) * d + c) : 0.f,
-            0.f, 0.f, 0.f);
-      }
-    }
-  };
-
-  // two steps in flight: x1 is fetched before x0 is consumed
-  int c = lane * W;
-  float4 x0[R], x1[R];
-  fetch(x0, c);
-  for (; c < d; c += 2 * STEP) {
-    fetch(x1, c + STEP);
-    step(x0, c < d ? c : 0);
-    if (c + STEP < d) {
-      fetch(x0, c + 2 * STEP);
-      step(x1, c + STEP);
-    }
-  }
-
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      sq[r] += __shfl_xor_sync(0xffffffffu, sq[r], off);
-#pragma unroll
-      for (int i = 0; i < QT; ++i)
-        acc[i][r] += __shfl_xor_sync(0xffffffffu, acc[i][r], off);
-    }
-  }
-  // every lane holds every sum; lane i * R + r writes (query i, row r)
-  static_assert(QT * R == 32, "one output a lane");
-  float mine = 0.f, inv_row = 0.f;
-#pragma unroll
-  for (int i = 0; i < QT; ++i)
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (lane == i * R + r) {
-        mine = acc[i][r];
-        inv_row = rsqrtf(sq[r] + EPS);
-      }
+  float dot, inv_row;
+  gemv_rows<VEC>(qs, db, n, d, n0, dot, inv_row);
+  // lane i * R + r writes (query i, row r)
   const int i = lane / R, r = lane % R;
   if (i < nq && n0 + r < n)
-    out[(size_t)i * n + n0 + r] = mine * inv_q[i] * inv_row;
+    out[(size_t)i * n + n0 + r] = cosine(dot, inv_q[i], inv_row);
 }
-
-size_t gemv_smem(int d) { return ((size_t)QT * d + QT) * sizeof(float); }
 
 int launch_gemv(const float* q, const float* db, float* out, int nq, int n,
                 int d, bool vec, cudaStream_t stream) {
@@ -413,12 +155,6 @@ int launch_gemv(const float* q, const float* db, float* out, int nq, int n,
                                                              n, d);
   }
   return (int)cudaGetLastError();
-}
-
-constexpr size_t MAX_SMEM = 227 * 1024;
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace

@@ -19,6 +19,7 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.retrieve_replay import (
     retrieve_replay_cuda, retrieve_replay_select_cuda,
     sharded_retrieve_replay_select_cuda)
+from repro_torch.kernels.retrieve_topn import topn_cuda
 from repro_torch.kernels.similarity_topk import similarity_cuda
 
 BACKENDS = ("cuda", "reference")
@@ -38,8 +39,11 @@ def similarity(q, db, *, backend: str = "cuda"):
 
 
 def similarity_topk(q, db, n: int, *, backend: str = "cuda"):
-    """Score panel + stable top-n. Returns (top_scores, top_idx)."""
-    return ref.stable_topk(similarity(q, db, backend=backend), n)
+    """The top min(n, N) rows of db for each query by cosine similarity,
+    ties to the lowest row: the kernel pair (no panel) or the panel and
+    its stable sort. Returns (top_scores, top_idx)."""
+    fn = _pick(backend, ref.panel_topn_ref, topn_cuda)
+    return fn(q, db, None, n)[:2]
 
 
 def elo_scan(ratings, a_idx, b_idx, outcome, valid, *, k: float = 32.0,

@@ -109,25 +109,120 @@ def elo_scan_gather_select_ref(init, panels, top_i, hit, global_ratings,
                                budgets, p=p, k=k)
 
 
-def retrieve_replay_pipeline(similarity_fn, replay_fn, q, emb, model_a,
+#: the global row of a pool slot that holds no candidate: it ranks after
+#: every real one (csrc/retrieve_topn.cu:EMPTY_ROW)
+EMPTY_ROW = 2 ** 31 - 1
+
+
+def mask_dead(scores, offset, size):
+    """scores (Q, C) of global rows offset.., the rows at or past `size`
+    (the live-row count; None: every row live) at -inf."""
+    if size is None:
+        return scores
+    live = torch.arange(offset, offset + scores.shape[-1],
+                        device=scores.device) < size
+    return torch.where(live[None, :], scores,
+                       torch.full_like(scores, float("-inf")))
+
+
+def panel_topn_ref(q, emb, size, n, *, offset=0,
+                   similarity_fn=similarity_ref):
+    """The retrieve stage as one stable sort of the masked (Q, C) panel:
+    returns (top_s (Q, k), top_i (Q, k) int64 global rows, hit (Q, k)),
+    k = min(n, C); ties go to the lowest row, dead rows score -inf.
+    `similarity_fn` scores the panel (the plain version, or the similarity
+    kernel for the panel route on the card)."""
+    scores = mask_dead(similarity_fn(q, emb), offset, size)
+    top_s, top_i = stable_topk(scores, n)
+    return top_s, top_i + offset, torch.isfinite(top_s)
+
+
+def panel_pool_ref(scores, n, split_rows, *, offset=0):
+    """A (Q, C) panel of global rows offset.. cut into splits of
+    `split_rows` columns, each split's stable top-n, a split of fewer than
+    n columns padded with (-inf, EMPTY_ROW): the pool (pool_s (Q, splits
+    * n) fp32, pool_i (Q, splits * n) int32 global rows)."""
+    parts_s, parts_i = [], []
+    for c0 in range(0, scores.shape[1], split_rows):
+        top_s, top_i = stable_topk(scores[:, c0:c0 + split_rows], n)
+        pad = (0, n - top_s.shape[1])
+        parts_s.append(torch.nn.functional.pad(top_s, pad,
+                                               value=float("-inf")))
+        parts_i.append(torch.nn.functional.pad(
+            (top_i + c0 + offset).int(), pad, value=EMPTY_ROW))
+    if not parts_s:
+        return (scores.new_empty((scores.shape[0], 0)),
+                torch.empty((scores.shape[0], 0), dtype=torch.int32,
+                            device=scores.device))
+    return torch.cat(parts_s, dim=1), torch.cat(parts_i, dim=1)
+
+
+def split_topn_ref(q, emb, size, n, split_rows, *, offset=0):
+    """Plain version of kernel 1 (`retrieve_topn`): the masked panel's
+    pool of per-split top-n lists (`panel_pool_ref`)."""
+    return panel_pool_ref(mask_dead(similarity_ref(q, emb), offset, size),
+                          n, split_rows, offset=offset)
+
+
+def topn_merge_ref(pool_s, pool_i, k, *, panels=None, offset=0,
+                   carried=None, farthest_first=False):
+    """Plain version of kernel 2 (`topn_merge`): the top k of each pool row
+    in the order (score descending, global row ascending): a stable sort
+    by row, then a stable sort by score. Returns (top_s (Q, k), top_i
+    (Q, k) int64, hit (Q, k), records): records None, or the winners'
+    (model_a, model_b, outcome, valid) records gathered by row - offset
+    from the (C_l, R) `panels` or by pool position from the (Q, P, R)
+    `carried`, in rank order (Q, k, R) or, with farthest_first, the
+    replay's pre-gathered layout (Q, k * R), farthest first, valid &=
+    hit."""
+    by_row = torch.argsort(pool_i.long(), dim=-1, stable=True)
+    s, o = torch.sort(torch.gather(pool_s, 1, by_row), dim=-1,
+                      descending=True, stable=True)
+    pos = torch.gather(by_row, 1, o[:, :k])
+    top_s = s[:, :k]
+    top_i = torch.gather(pool_i, 1, pos).long()
+    hit = torch.isfinite(top_s)
+    if panels is not None:
+        recs = tuple(x[top_i - offset] for x in panels)
+    elif carried is not None:
+        idx = pos[..., None].expand(-1, -1, carried[0].shape[-1])
+        recs = tuple(torch.gather(x, 1, idx) for x in carried)
+    else:
+        return top_s, top_i, hit, None
+    if farthest_first:
+        nq = top_s.shape[0]
+        a, b, sc, v = (torch.flip(x, dims=[1]) for x in recs)
+        v = v & torch.flip(hit, dims=[1])[..., None]
+        recs = tuple(x.reshape(nq, -1) for x in (a, b, sc, v))
+    return top_s, top_i, hit, recs
+
+
+def two_stage_topn_ref(q, emb, size, n, split_rows, *, offset=0):
+    """The kernels' algorithm in plain PyTorch: split_topn_ref, then
+    topn_merge_ref over its pool. Equal to panel_topn_ref exactly: the
+    order is a strict total order (every candidate its own row), so the
+    top-n of the union is the top-n of the splits' top-n."""
+    pool_s, pool_i = split_topn_ref(q, emb, size, n, split_rows,
+                                    offset=offset)
+    return topn_merge_ref(pool_s, pool_i, min(n, emb.shape[0]))[:3]
+
+
+def retrieve_replay_pipeline(retrieve_fn, replay_fn, q, emb, model_a,
                              model_b, outcome, valid, size, init_ratings,
                              *, n):
-    """The retrieval chain — similarity panel -> live-row masked stable
-    top-n -> replay of the neighbours' records, farthest first, from the
-    prior — with the two stages injected, so the plain and the kernel
-    routes share ONE copy of the glue.
+    """The retrieval chain — live-row masked top-n by similarity -> replay
+    of the neighbours' records, farthest first, from the prior — with the
+    two stages injected, so the plain and the kernel routes share ONE
+    copy of the glue.
 
-    replay_fn(init_ratings, (model_a, model_b, outcome, valid), top_i,
-    hit) gathers and replays (`elo_scan_gather_ref`, or the kernel's
-    fused gather); it returns `local` or a `(local, *extras)` tuple,
-    whose extras are appended to the returned (local, topk_idx,
-    topk_scores)."""
-    scores = similarity_fn(q, emb)
-    live = torch.arange(emb.shape[0], device=emb.device) < size
-    scores = torch.where(live[None, :], scores,
-                         torch.full_like(scores, float("-inf")))
-    top_s, top_i = stable_topk(scores, n)
-    hit = torch.isfinite(top_s)
+    retrieve_fn(q, emb, size, n) returns (top_s, top_i, hit): the panel
+    and its stable sort (`panel_topn_ref`), or the kernel pair
+    (`retrieve_topn.topn_cuda`). replay_fn(init_ratings, (model_a,
+    model_b, outcome, valid), top_i, hit) gathers and replays
+    (`elo_scan_gather_ref`, or the kernel's fused gather); it returns
+    `local` or a `(local, *extras)` tuple, whose extras are appended to
+    the returned (local, topk_idx, topk_scores)."""
+    top_s, top_i, hit = retrieve_fn(q, emb, size, n)
     out = replay_fn(init_ratings, (model_a, model_b, outcome, valid), top_i,
                     hit)
     local, extras = (out[0], tuple(out[1:])) if isinstance(out, tuple) \
@@ -139,7 +234,7 @@ def retrieve_replay_ref(q, emb, model_a, model_b, outcome, valid, size,
                         init_ratings, *, n, k=32.0):
     """Returns (local (Q,M), topk_idx (Q,n), topk_scores (Q,n))."""
     return retrieve_replay_pipeline(
-        similarity_ref, partial(elo_scan_gather_ref, k=k), q, emb, model_a,
+        panel_topn_ref, partial(elo_scan_gather_ref, k=k), q, emb, model_a,
         model_b, outcome, valid, size, init_ratings, n=n)
 
 
@@ -161,51 +256,34 @@ def retrieve_replay_select_ref(q, emb, model_a, model_b, outcome, valid,
                      global_ratings=global_ratings, costs=costs,
                      budgets=budgets, p=p, k=k)
     return retrieve_replay_pipeline(
-        similarity_ref, replay, q, emb, model_a, model_b, outcome, valid,
+        panel_topn_ref, replay, q, emb, model_a, model_b, outcome, valid,
         size, init_ratings, n=n)
 
 
-def sharded_retrieve_replay_pipeline(similarity_fn, replay_fn, q, emb,
-                                     model_a, model_b, outcome, valid,
-                                     size, init_ratings, *, n):
-    """The capacity-sharded retrieval chain (DESIGN.md §12), driven by one
-    process over every shard, the counterpart of the JAX package's
-    per-shard body under shard_map. emb, model_a, model_b, outcome and
-    valid are sequences of S per-shard tensors, shard s holding global
-    rows [s*C_l, (s+1)*C_l) on its device; size[s] is the live-row count
-    on shard s's device; q and init_ratings lie on shard 0's device (the
-    leader). Stages:
-
-      per shard: similarity panel -> global-row live mask -> stable top
-      min(n, C_l) -> the candidates' records gathered from that shard;
-      on the leader: the merge (shard_merge_topk, records carried by
-      position) -> farthest-first flatten -> replay from the broadcast
-      prior (+ epilogue).
-
-    The replay reads pre-gathered (Q, n*R) records: the merged winners'
-    records come from several shards' panels. Equal to
-    retrieve_replay_pipeline over the whole panels bit for bit, as long
-    as the similarity stage scores a row range as it scores the whole
-    (one allocation per shard). Both routes share this one copy of the
-    glue. Returns (local, topk_idx (GLOBAL rows), topk_scores) + the
-    replay's extras."""
+def sharded_panel_topn_ref(q, emb, panels, size, n, *,
+                           similarity_fn=similarity_ref):
+    """The capacity-sharded retrieve stage (DESIGN.md §12) with a panel
+    and a stable sort per shard: per shard s, the masked panel of its rows
+    (global rows [s*C_l, (s+1)*C_l)), its stable top min(n, C_l)
+    (`shard_local_topk`) and their records gathered from its panels; on
+    the leader (q's device), the merge (`shard_merge_topk`, records
+    carried by position) and the farthest-first flatten. emb, the four
+    `panels` (model_a, model_b, outcome, valid) and size are per-shard
+    sequences. Returns (top_s (Q, k), top_i (Q, k) int64 global rows,
+    hit, (a, b, s, v) (Q, k * R) farthest first, valid &= hit)."""
     from repro_torch.kernels.similarity_topk import (shard_local_topk,
                                                      shard_merge_topk)
     leader = q.device
     c_local = emb[0].shape[0]
     cand_s, cand_i, records = [], [], []
     for s, e in enumerate(emb):
-        scores = similarity_fn(q.to(e.device), e)
         offset = s * c_local
-        live = torch.arange(offset, offset + c_local, device=e.device) \
-            < size[s]
-        scores = torch.where(live[None, :], scores,
-                             torch.full_like(scores, float("-inf")))
+        scores = mask_dead(similarity_fn(q.to(e.device), e), offset,
+                           size[s])
         loc_s, loc_i = shard_local_topk(scores, n)
         cand_s.append(loc_s)
         cand_i.append(loc_i + offset)
-        records.append(tuple(x[s][loc_i] for x in (model_a, model_b,
-                                                    outcome, valid)))
+        records.append(tuple(x[s][loc_i] for x in panels))
     top_s, top_i, (ca, cb, cs, cv) = shard_merge_topk(
         cand_s, cand_i, records, n, leader)
     hit = torch.isfinite(top_s)
@@ -217,6 +295,37 @@ def sharded_retrieve_replay_pipeline(similarity_fn, replay_fn, q, emb,
     s = torch.flip(cs, dims=[1]).reshape(nq, -1)
     v = (torch.flip(cv, dims=[1])
          & torch.flip(hit, dims=[1])[..., None]).reshape(nq, -1)
+    return top_s, top_i, hit, (a, b, s, v)
+
+
+def sharded_retrieve_replay_pipeline(retrieve_fn, replay_fn, q, emb,
+                                     model_a, model_b, outcome, valid,
+                                     size, init_ratings, *, n):
+    """The capacity-sharded retrieval chain (DESIGN.md §12), driven by one
+    process over every shard, the counterpart of the JAX package's
+    per-shard body under shard_map. emb, model_a, model_b, outcome and
+    valid are sequences of S per-shard tensors, shard s holding global
+    rows [s*C_l, (s+1)*C_l) on its device; size[s] is the live-row count
+    on shard s's device; q and init_ratings lie on shard 0's device (the
+    leader). Stages:
+
+      retrieve_fn(q, emb, (model_a, model_b, outcome, valid), size, n):
+      per shard its top min(n, C_l) candidates with their records, the
+      merge on the leader, the merged records in the replay's
+      pre-gathered layout (`sharded_panel_topn_ref`, or the kernel pair:
+      `retrieve_topn.sharded_topn_cuda`);
+      on the leader: the replay from the broadcast prior (+ epilogue).
+
+    The replay reads pre-gathered (Q, n*R) records: the merged winners'
+    records come from several shards' panels. Equal to
+    retrieve_replay_pipeline over the whole panels bit for bit, as long
+    as a shard's rows score as they score in the whole (one allocation
+    per shard). Both routes share this one copy of the glue. Returns
+    (local, topk_idx (GLOBAL rows), topk_scores) + the replay's
+    extras."""
+    top_s, top_i, _, (a, b, s, v) = retrieve_fn(
+        q, emb, (model_a, model_b, outcome, valid), size, n)
+    nq = q.shape[0]
     init = init_ratings.float().expand(nq, init_ratings.shape[-1])
     out = replay_fn(init, a, b, s, v)
     local, extras = (out[0], tuple(out[1:])) if isinstance(out, tuple) \
@@ -235,8 +344,8 @@ def sharded_retrieve_replay_select_ref(q, emb, model_a, model_b, outcome,
     replay = partial(elo_scan_select_ref, global_ratings=global_ratings,
                      costs=costs, budgets=budgets, p=p, k=k)
     return sharded_retrieve_replay_pipeline(
-        similarity_ref, replay, q, emb, model_a, model_b, outcome, valid,
-        size, init_ratings, n=n)
+        sharded_panel_topn_ref, replay, q, emb, model_a, model_b, outcome,
+        valid, size, init_ratings, n=n)
 
 
 def elo_fold_host(ratings, a_idx, b_idx, outcome, valid, *, k=32.0,

@@ -1,10 +1,13 @@
 """Cosine-similarity score panel: the CUDA kernel `csrc/similarity.cu`
 (port of the TPU kernel `similarity_pallas`) and its wrapper.
 
-The top-k over the panel stays in PyTorch (`ref.stable_topk`): a stable
-descending sort, which keeps the lowest-index-first tie order. So do the
-capacity-sharded route's per-shard top-k and cross-shard merge
-(`shard_local_topk`, `shard_merge_topk`).
+No route runs it: the routing path and KNN retrieve through the fused
+kernels of `retrieve_topn.py`, which score each pair as this kernel does
+(`csrc/similarity_tile.cuh`) and write no panel. The panel and a stable
+sort (`ref.stable_topk`, which keeps the lowest-index-first tie order)
+are the panel route those are held against, with the capacity-sharded
+route's per-shard top-k and cross-shard merge (`shard_local_topk`,
+`shard_merge_topk`) that `ref.sharded_panel_topn_ref` runs.
 """
 from __future__ import annotations
 

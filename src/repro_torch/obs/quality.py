@@ -319,10 +319,10 @@ class RouterQualityMonitor:
         refs appended + one counter; scoring is deferred to the next
         fold/readout (`flush`). This is what keeps the attached monitor
         inside the <5% overhead budget at any batch size."""
-        ch = np.asarray(choices, np.int64).reshape(-1)
-        self._m_decisions.inc(len(ch))
+        self._m_decisions.inc(len(choices))
         with self._pending_lock:
-            self._pending.append((np.asarray(budgets), ch))
+            # the refs as given (the int64 view is taken at the flush)
+            self._pending.append((budgets, choices))
             overflow = len(self._pending) >= self.cfg.max_pending
         if overflow:
             self.flush()
@@ -346,7 +346,8 @@ class RouterQualityMonitor:
         with self._score_lock:
             with self._pending_lock:
                 pending, self._pending = self._pending, []
-            for budgets, ch in pending:
+            for budgets, choices in pending:
+                ch = np.asarray(choices, np.int64).reshape(-1)
                 self._fold_batch(
                     ch, routing_regret(self.ratings, self.costs, budgets,
                                        ch))

@@ -34,6 +34,10 @@ from typing import Dict, List, Optional, Tuple
 
 from torch.profiler import record_function
 
+# bound once: a span is on the route path (two a routed batch)
+_clock = time.perf_counter_ns
+_thread_id = threading.get_ident
+
 
 def named_scope(name):
     """No-op: the JAX package tags traced ops with it."""
@@ -68,27 +72,25 @@ class _Span:
     def __enter__(self):
         tr = self.tracer
         tls = tr._tls
-        depth = getattr(tls, "depth", 0)
+        self.depth = depth = getattr(tls, "depth", 0)
         tls.depth = depth + 1
-        self.depth = depth
         if tr.profiler:
             self.annot = record_function(self.name)
             self.annot.__enter__()
         else:
             self.annot = None
-        self.t0 = time.perf_counter_ns()
+        self.t0 = _clock()
         return self
 
-    def __exit__(self, *exc):
-        t1 = time.perf_counter_ns()
+    def __exit__(self, exc_type, exc, tb):
+        t1 = _clock()
         if self.annot is not None:
             self.annot.__exit__(None, None, None)
         tr = self.tracer
-        tr._tls.depth = self.depth
+        tr._tls.depth = depth = self.depth
         seq = next(tr._seq)
-        tr._slots[seq % tr.capacity] = (
-            seq, self.name, self.t0, t1 - self.t0,
-            threading.get_ident(), self.depth)
+        tr._slots[seq % tr.capacity] = (seq, self.name, self.t0, t1 - self.t0,
+                                        _thread_id(), depth)
         return False
 
 

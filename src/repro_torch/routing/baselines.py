@@ -6,10 +6,10 @@ quality, trained on the pointwise quality matrix, or on win-rate targets
 with a mask of the observed entries (`data.routerbench.winrate_targets`):
 
   * KNN — 40 nearest neighbours by cosine similarity (Appendix A.2),
-    through the similarity kernel (`kernels/ops.py:similarity_topk`, a
-    stable top-k: JAX's tie order); the masked mean quality of the
-    neighbours, 0.5 where none observed the model. "Training" stores the
-    normalised corpus.
+    through the fused retrieve (`kernels/ops.py:similarity_topk`: no
+    score panel, ties to the lowest row, JAX's order); the masked mean
+    quality of the neighbours, 0.5 where none observed the model.
+    "Training" stores the normalised corpus.
   * MLP — two layers, hidden 100, ReLU, masked MSE, AdamW full-batch
     epochs (lr 1e-3, no decay, no clip).
   * SVM — LinearSVR with epsilon = 0 per model: the epsilon-insensitive

@@ -14,6 +14,7 @@ from repro_torch.kernels.elo_scan import (MAX_MODELS, elo_scan_cuda,
                                           elo_scan_gather_cuda,
                                           elo_scan_gather_select_cuda,
                                           elo_scan_select_cuda)
+from repro_torch.kernels import retrieve_topn as RT
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.similarity_topk import similarity_cuda
 
@@ -321,10 +322,13 @@ def test_wrappers_count_launches(dev):
     KOPS.flash_attention(qkv, qkv, qkv, backend="reference")
     decode_attention_cuda(qkv[:, 0], qkv, qkv,
                           torch.ones((1,), dtype=torch.int32, device=dev))
+    RT.topn_cuda(x, x, None, 2)
+    KOPS.similarity_topk(x, x, 2, backend="reference")
     assert _build.launch_counts() == {"similarity": 1, "elo_scan": 1,
                                       "elo_scan_select": 0,
                                       "flash_attention": 1,
-                                      "decode_attention": 1}
+                                      "decode_attention": 1,
+                                      "retrieve_topn": 1, "topn_merge": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -754,15 +758,17 @@ def test_route_graph_launches_are_credited_on_replay(dev):
     st = r.state
     assert disp.warmup(st, [8]) == 1
     (entry,) = disp._cache.entries.values()
-    assert entry.step.launches == {("similarity", None): 1,
+    assert entry.step.launches == {("retrieve_topn", None): 1,
+                                   ("topn_merge", None): 1,
                                    ("elo_scan_select", None): 1}
     _build.reset_launches()
     for _ in range(3):
         disp.route(st, rng.normal(size=(5, 64)).astype(np.float32), 4.0)
-    assert _build.launch_counts() == {"similarity": 3, "elo_scan": 0,
+    assert _build.launch_counts() == {"similarity": 0, "elo_scan": 0,
                                       "elo_scan_select": 3,
                                       "flash_attention": 0,
-                                      "decode_attention": 0}
+                                      "decode_attention": 0,
+                                      "retrieve_topn": 3, "topn_merge": 3}
 
 
 def test_serving_engine_warms_a_grown_replica(dev):
@@ -908,7 +914,9 @@ def test_knn_kernel_matches_reference_backend(dev):
     assert 80 <= q.shape[0] <= 100
     _build.reset_launches()
     gs, gi = KOPS.similarity_topk(q, got_r.emb, 40)
-    assert _build.launch_counts()["similarity"] == 1
+    counts = _build.launch_counts()
+    assert counts["retrieve_topn"] == counts["topn_merge"] == 1
+    assert counts["similarity"] == 0
     ws, wi = KOPS.similarity_topk(q, want_r.emb, 40, backend="reference")
     torch.testing.assert_close(gs, ws, rtol=SIM_TOL, atol=SIM_TOL)
     panel = ref.similarity_ref(q, want_r.emb)
@@ -1137,3 +1145,240 @@ def _eager_sharded(disp, state, q, b):
     bp[:nq] = torch.from_numpy(b).to(state.device)
     res = route_batch_choices_sharded(state, qp, bp, disp.costs, **disp.kw)
     return res.choices[:nq].cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# the fused retrieve: retrieve_topn (kernel 1) and topn_merge (kernel 2)
+# ---------------------------------------------------------------------------
+
+TIE_CONTROL = ("TOPN_CONTROL_TIE_HIGH",)
+
+
+def _tie_inputs(dev, nq, c, d, boundaries, seed=0):
+    """A DB with row b a copy of row b - 1 at each boundary (equal scores
+    on the two sides), queries equal to those rows first."""
+    rng = np.random.default_rng(seed)
+    db = rng.normal(size=(c, d)).astype(np.float32)
+    rows = [b for b in boundaries if 0 < b < c]
+    for b in rows:
+        db[b] = db[b - 1]
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    k = min(nq, len(rows))
+    q[:k] = db[[b - 1 for b in rows[:k]]]
+    return (torch.tensor(q, device=dev), torch.tensor(db, device=dev), rng,
+            k)
+
+
+@pytest.mark.parametrize("nq", [1, 8, 9, 32, 33, 64, 65, 1024])
+@pytest.mark.parametrize("n", [20, 64, 80])
+def test_retrieve_topn_kernel_matches_plain(dev, nq, n):
+    """Kernel 1 at every tile (streaming at Q <= 8, GEMM of 32, 64, 128
+    rows): its pool equals, bit for bit, the per-split stable top-n of the
+    similarity kernel's masked panel (the same scores, the same lists),
+    and its scores lie within SIM_TOL of the plain version's at the rows
+    it returns; ties straddle split boundaries, C is ragged, and rows past
+    `size` score -inf."""
+    c, d = 3001, 1536
+    tile, rows, splits = RT.plan(nq, c, d, RT._sm_count(dev))
+    q, db, _, _ = _tie_inputs(dev, nq, c, d, [rows * i for i in
+                                              range(1, 4)] + [700])
+    size = torch.tensor(c - 100, dtype=torch.int32, device=dev)
+    pool_s, pool_i = RT.retrieve_topn_cuda(q, db, size, n)
+    want_s, want_i = ref.panel_pool_ref(
+        ref.mask_dead(similarity_cuda(q, db), 0, size), n, rows)
+    torch.cuda.synchronize()
+    assert pool_s.shape == (nq, splits * n)
+    assert torch.equal(pool_i, want_i) and torch.equal(pool_s, want_s)
+    live = pool_i < c - 100
+    plain = torch.gather(ref.similarity_ref(q, db), 1,
+                         pool_i.clamp(0, c - 1).long())
+    torch.testing.assert_close(pool_s[live], plain[live], rtol=SIM_TOL,
+                               atol=SIM_TOL)
+
+
+@pytest.mark.parametrize("p,k,r", [(640, 20, 8), (5120, 20, 8), (60, 57, 3),
+                                   (128, 64, 16), (1280, 128, 8)])
+def test_topn_merge_kernel_matches_plain(dev, p, k, r):
+    """Kernel 2 over pools of few distinct scores (ties, -inf, empty
+    slots): the top k, the hit mask and both payload routes (by row from a
+    shard's panels in rank order; carried by position into the replay's
+    layout) equal the plain version's exactly."""
+    rng = np.random.default_rng(p + k)
+    nq, c = 37, 4 * p
+    vals = np.asarray([-np.inf, -1.0, 0.0, 0.5, 1.0], np.float32)
+    pool_s = torch.tensor(rng.choice(vals, (nq, p)), device=dev)
+    rows = np.stack([rng.permutation(c)[:p] for _ in range(nq)])
+    pool_i = torch.tensor(rows, dtype=torch.int32, device=dev)
+    pool_i[:, -3:] = ref.EMPTY_ROW              # unfilled slots
+    pool_s[:, -3:] = float("-inf")
+    panels = (torch.tensor(rng.integers(0, 10, (c, r)), dtype=torch.int32,
+                           device=dev),
+              torch.tensor(rng.integers(0, 10, (c, r)), dtype=torch.int32,
+                           device=dev),
+              torch.tensor(rng.random((c, r)), dtype=torch.float32,
+                           device=dev),
+              torch.tensor(rng.random((c, r)) < 0.5, device=dev))
+    got = RT.topn_merge_cuda(pool_s, pool_i, k)
+    want = ref.topn_merge_ref(pool_s, pool_i, k)
+    for x, y in zip(got, want[:3]):
+        assert torch.equal(x, y)
+    out = RT.shard_reduce_cuda(pool_s, pool_i, k, panels, 0)
+    want = ref.topn_merge_ref(pool_s, pool_i, k, panels=panels)
+    assert torch.equal(out[0], want[0])
+    assert torch.equal(out[1].long(), want[1])
+    for x, y in zip(out[2], want[3]):
+        assert torch.equal(x, y)
+    carried = tuple(x[pool_i.clamp(0, c - 1).long()] for x in panels)
+    got = RT.topn_merge_cuda(pool_s, pool_i, k, carried=carried)
+    want = ref.topn_merge_ref(pool_s, pool_i, k, carried=carried,
+                              farthest_first=True)
+    for x, y in zip(got[:3] + got[3], want[:3] + want[3]):
+        assert torch.equal(x, y)
+
+
+def test_retrieve_kernels_refuse_what_they_do_not_take(dev):
+    x = torch.ones((4, 8), device=dev)
+    with pytest.raises(ValueError, match="n = 129"):
+        RT.retrieve_topn_cuda(x, x, None, 129)
+    with pytest.raises(ValueError, match="k = 129"):
+        RT.topn_merge_cuda(torch.zeros((2, 200), device=dev),
+                           torch.zeros((2, 200), dtype=torch.int32,
+                                       device=dev), 129)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        RT.retrieve_topn_cuda(x, x.cpu(), None, 4)
+
+
+def _route_inputs(dev, nq, c, seed):
+    d, r, m = 1536, 8, 10
+    q, db, rng, k = _tie_inputs(dev, nq, c, d,
+                                [c // 4, c // 2, 3 * c // 4, 5 * 128,
+                                 7 * 32], seed)
+    recs = _records(rng, c, r, m, dev)
+    g = torch.tensor(1000 + 30 * rng.normal(size=m), dtype=torch.float32,
+                     device=dev)
+    costs = torch.tensor(rng.uniform(0.5, 40, m), dtype=torch.float32,
+                         device=dev)
+    bud = torch.tensor(rng.uniform(0.0, 45, nq), dtype=torch.float32,
+                       device=dev)
+    return q, db, recs, g, costs, bud, k
+
+
+def _split(x, s):
+    cl = x.shape[0] // s
+    return [x[i * cl:(i + 1) * cl].clone() for i in range(s)]
+
+
+def _panel_route(q, db, recs, size, g, costs, bud, n, shards):
+    """The panel + stable_topk composition on the card: the similarity
+    kernel's panel, the live mask and a stable sort, then the same replay
+    kernel as the route."""
+    from functools import partial
+    if shards == 0:
+        replay = partial(elo_scan_gather_select_cuda, global_ratings=g,
+                         costs=costs, budgets=bud)
+        return ref.retrieve_replay_pipeline(
+            partial(ref.panel_topn_ref, similarity_fn=similarity_cuda),
+            replay, q, db, *recs, size, g, n=n)
+    replay = partial(elo_scan_select_cuda, global_ratings=g, costs=costs,
+                     budgets=bud)
+    return ref.sharded_retrieve_replay_pipeline(
+        partial(ref.sharded_panel_topn_ref, similarity_fn=similarity_cuda),
+        replay, q, _split(db, shards), *(_split(x, shards) for x in recs),
+        [size] * shards, g, n=n)
+
+
+def _kernel_route(q, db, recs, size, g, costs, bud, n, shards):
+    if shards == 0:
+        return KOPS.retrieve_replay_select(q, db, *recs, size, g, g, costs,
+                                           bud, n=n)
+    return KOPS.retrieve_replay_select_sharded(
+        q, _split(db, shards), *(_split(x, shards) for x in recs),
+        [size] * shards, g, g, costs, bud, n=n)
+
+
+@pytest.mark.parametrize("bucket", [8, 64, 1024])
+@pytest.mark.parametrize("shards", [0, 1, 2, 4])
+def test_route_equals_panel_and_stable_sort(dev, bucket, shards):
+    """The route over the kernel pair (unsharded: shards 0; and S = 1, 2,
+    4 on the card) against the panel + stable_topk composition on the same
+    inputs: topk_idx, topk_scores, ratings and choices equal bit for bit,
+    the tie queries first (duplicates on the shard and split boundaries);
+    also with size below C and below n."""
+    c, n = 4096, 20
+    q, db, recs, g, costs, bud, _ = _route_inputs(dev, bucket, c, bucket)
+    for live in (c - 300, 13):
+        size = torch.tensor(live, dtype=torch.int32, device=dev)
+        got = _kernel_route(q, db, recs, size, g, costs, bud, n, shards)
+        want = _panel_route(q, db, recs, size, g, costs, bud, n, shards)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+        if live < n:
+            assert int((~torch.isfinite(got[2])).sum()) == bucket * (n - live)
+
+
+def test_route_controls_fail(dev):
+    """The checks above catch a merge that drops the last split (kernel 2
+    over all but the last n pool columns) and a kernel 1 that gives a tie
+    to the higher row (a build with TOPN_CONTROL_TIE_HIGH). The latter
+    shows only where the tie decides which rows a split keeps (kernel 2
+    orders what its pool holds): queries equal to a row copied n + 5
+    times inside one split."""
+    from unittest import mock
+    c, n, nq = 4096, 20, 1024
+    q, db, recs, g, costs, bud, _ = _route_inputs(dev, nq, c, 5)
+    db[100:100 + n + 5] = db[99]             # rows 99..124: one split
+    k = 8
+    q[:k] = db[99]
+    size = torch.tensor(c, dtype=torch.int32, device=dev)
+    want = _panel_route(q, db, recs, size, g, costs, bud, n, 0)[1]
+    pool_s, pool_i = RT.retrieve_topn_cuda(q, db, size, n)
+    dropped = RT.topn_merge_cuda(pool_s[:, :-n], pool_i[:, :-n], n)[1]
+    share = float((dropped != want).any(dim=1).float().mean())
+    assert share > 0.2
+    library = _build.library
+
+    def tie_high(name, defines=()):
+        return library(name, TIE_CONTROL if name == "retrieve_topn"
+                       else defines)
+    with mock.patch.object(_build, "library", tie_high):
+        ctl = _kernel_route(q, db, recs, size, g, costs, bud, n, 0)[1]
+    torch.cuda.synchronize()
+    assert torch.equal(want[:k], torch.arange(99, 99 + n, device=dev)
+                       .expand(k, n))
+    assert bool((ctl[:k] != want[:k]).any(dim=1).all())
+
+
+def test_route_graph_reads_size_after_a_commit(dev):
+    """A route graph captured over the kernel pair, replayed after commits
+    that add prompts in place (the live-row count changes on the device,
+    the replica keeps its tensors): the new prompts are retrieved (a query
+    equal to a new prompt's embedding has it as its first neighbour) and
+    the choices and top-n rows equal the eager route's."""
+    from repro_torch.core.dispatch import RouteDispatcher, replica
+    from repro_torch.core.state import DoubleBuffer
+    r, rng = _graph_router(dev, n_prompts=150, seed=4)
+    dbuf = DoubleBuffer(r.db, r.global_ratings, device=dev)
+    disp = RouteDispatcher.for_router(r, max_bucket=64)
+    for _ in range(2):
+        disp.warmup(dbuf.front)
+        dbuf.commit(r.global_ratings)
+    keys = {replica(dbuf.front), replica(dbuf._back[0])}
+    misses = disp.cache_stats()["misses"]
+    for rnd in range(3):
+        e = rng.normal(size=(8, 64)).astype(np.float32)
+        a = rng.integers(0, 6, 8)
+        first = r.db.size
+        r.update(e, a, (a + 1) % 6, np.ones(8),
+                 query_id=90_000 + 8 * rnd + np.arange(8))
+        dbuf.commit(r.global_ratings)
+        st = dbuf.front
+        b = rng.uniform(0.5, 9.0, 8).astype(np.float32)
+        ch, top = disp.route_result(st, e, b)
+        want_ch, want_top = _eager_route(disp, st, e, b)
+        np.testing.assert_array_equal(ch, want_ch)
+        np.testing.assert_array_equal(top, want_top)
+        np.testing.assert_array_equal(top[:, 0], first + np.arange(8))
+    assert r.db.capacity == 256
+    assert {replica(dbuf.front), replica(dbuf._back[0])} == keys
+    assert disp.cache_stats()["misses"] == misses
