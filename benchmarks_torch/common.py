@@ -9,7 +9,7 @@ from __future__ import annotations
 import json
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -30,12 +30,16 @@ PAIRS_PER_QUERY = 8
 SEEDS = (0, 1, 2, 3, 4)
 
 
-def build(seed: int, device: DeviceLike = None):
-    """The corpus (N_PER_DATASET prompts per dataset, DIM) and its train
-    split's pairwise feedback, host arrays. `device` is the run's: it is
-    resolved first, so a run without the card fails before it builds."""
+def build(seed: int, device: DeviceLike = None,
+          n_per_dataset: Optional[int] = None):
+    """The corpus (`n_per_dataset` prompts per dataset, by default
+    N_PER_DATASET; DIM) and its train split's pairwise feedback, host
+    arrays. `device` is the run's: it is resolved first, so a run without
+    the card fails before it builds."""
     resolve_device(device)
-    corpus = make_corpus(seed=seed, n_per_dataset=N_PER_DATASET, dim=DIM)
+    corpus = make_corpus(seed=seed, n_per_dataset=N_PER_DATASET
+                         if n_per_dataset is None else n_per_dataset,
+                         dim=DIM)
     fb = pairwise_feedback(corpus, corpus.train_idx, seed=seed,
                            pairs_per_query=PAIRS_PER_QUERY)
     return corpus, fb

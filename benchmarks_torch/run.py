@@ -3,10 +3,12 @@
   PYTHONPATH=src python -m benchmarks_torch.run [--quick] [--device cpu]
 
 Runs Fig. 2, Table 3a, Fig. 3b and Fig. 4 (`--quick`: seed 0 only; by
-default the five seeds of the frozen regime) on the card, prints the
-card's name and power limit, and at the end the same
-``name,us_per_call,derived`` CSV rows as `benchmarks/run.py` prints for
-these four; detailed JSON lands in results/torch/.
+default the five seeds of the frozen regime), the route benchmark, the
+admission queue benchmark (`--quick`: their smoke sizes) and the kernel
+microbenchmarks on the card, prints the card's name and power limit,
+and at the end the same ``name,us_per_call,derived`` CSV rows as
+`benchmarks/run.py` prints for these seven (its roofline section waits
+for the dry-run's port); detailed JSON lands in results/torch/.
 """
 from __future__ import annotations
 
@@ -86,6 +88,21 @@ def main():
                  f"eagle={c['eagle']['mean']:.3f}"
                  f"|global={c['global_only']['mean']:.3f}"
                  f"|local={c['local_only']['mean']:.3f}"))
+
+    section("Batch routing latency — fused route_batch vs legacy path")
+    from benchmarks_torch import route_batch_bench
+    for n, us, d in route_batch_bench.run(smoke=args.quick, device=dev):
+        rows.append((n, us, d))
+
+    section("Admission queue — coalescing, backpressure, goodput")
+    from benchmarks_torch import queue_bench
+    for n, us, d in queue_bench.run(smoke=args.quick, device=dev):
+        rows.append((n, us, d))
+
+    section("Kernel microbenchmarks")
+    from benchmarks_torch import kernels_bench
+    for n, us, d in kernels_bench.run(device=dev):
+        rows.append((n, us, d))
 
     print("\nname,us_per_call,derived")
     for n, us, d in rows:

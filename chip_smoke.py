@@ -24,9 +24,17 @@ together), then:
      top-n of the similarity kernel's panel and against their plain
      versions, timed (queued) beside their bounds, plain versions and
      library chains and beside the panel + stable sort they replace; the
-     route over them (retrieve + gather replay) at those buckets bit for
-     bit against the panel route and against the plain version; the
-     replay kernel on
+     same past 128 neighbours (n = 129, 256, 512, the kernels' bound being
+     512), unsharded and over 4 shards on the card, bit for bit against
+     the similarity kernel's panel at kernel 1's tile + stable sort, with
+     three controls that must change the top-n rows (the merge without
+     the last split; without the last shard; a kernel 1 built to give
+     ties to the higher row), timed beside their bounds; an
+     EagleRouter(n_neighbors=512) routed through its graphs (no capture
+     by traffic, choices equal to the eager and the panel route's), and
+     513 refused; the route over them (retrieve + gather replay) at those
+     buckets bit for bit against the panel route and against the plain
+     version; the replay kernel on
      each of its routes (the select epilogue at Q = 1024 and 8, the
      gather route bit for bit against gather + kernel, the fit's whole
      262,144-step fold against float32 and float64 host folds, with a
@@ -70,7 +78,8 @@ together), then:
      warmup (no capture by traffic, the grown replicas the prebaked ones,
      the poll's stall and the first route on a grown replica);
      then the operational obs plane (`drive_obs_plane`) over a router of
-     its own at the same width: the JAX package's obs gate (500 ragged
+     its own at the same width: the JAX package's obs gate (the loop of
+     `benchmarks_torch.route_batch_bench.obs_gate`; 500 ragged
      batches of 1..256 queries, each routed with the plane off and fully
      on: spans, a decision record a request, the quality monitor, an
      exporter scraped by a thread; the paired-delta overhead at most 5%
@@ -146,9 +155,16 @@ together), then:
      regimes), Table 3a (its timed fits must capture nothing), Fig. 3b
      and Fig. 4 as `python -m benchmarks_torch.run --quick` does, and
      checks that KNN's and Eagle's kernels were launched in that run.
-     The similarity kernel is off every path since the fused retrieve:
-     it is checked in phase 2 and stays in the kernels line, launched 0
-     times on the path.
+     The similarity kernel is off the serving route since the fused
+     retrieve: it is checked in phase 2, and its launches in the kernels
+     line are the legacy retrieval's of phase 12.
+ 12. the router path's benchmarks and examples (`benchmarks_torch/
+     {route_batch_bench,queue_bench,kernels_bench}.py`, `examples_torch/`)
+     at their smoke sizes: the fused route against the legacy
+     VectorDB.query path (choices equal), the ragged and sharded (S = 2,
+     4) loops with no capture after warmup, the queue and quality gates,
+     the kernel microbenchmarks, quickstart, online adaptation and
+     serve_routed (8 requests, the live exporter walk-through).
 
 Every CUDA graph is captured by `repro_torch.graphs` (counted process
 wide); a failed capture raises. Any mismatch or exception exits
@@ -328,8 +344,15 @@ ROUTE_KERNELS = ("retrieve_topn", "topn_merge", "elo_scan_select",
 # first is the kernels line's), with DEAD_ROWS rows past the live count
 RETRIEVE_BUCKETS = (1024, 64, 8)
 DEAD_ROWS = 768
-# kernels off every path since the fused retrieve: checked and timed in
-# phase 2, not required to launch on a path
+# the fused retrieve past 128 neighbours (ROADMAP §4.14): checked at
+# LARGE_N and RETRIEVE_BUCKETS, unsharded and over SHARDS_LARGE_N shards
+# on the card, with controls built with TIE_CONTROL; a router of MAX_N
+# neighbours routes LARGE_N_BATCHES (buckets 8, 64, 1024) through graphs
+LARGE_N, SHARDS_LARGE_N = (129, 256, 512), 4
+LARGE_N_BATCHES = (5, 50, 1000)
+TIE_CONTROL = ("TOPN_CONTROL_TIE_HIGH",)
+# the similarity kernel: off the serving route since the fused retrieve;
+# the legacy retrieval (`VectorDB.query`) of the route benchmark runs it
 OFF_PATH = ("similarity",)
 # device-side names a route's profile may hold: the retrieve's two kernels,
 # the replay, and copies; anything else (a GEMM panel, a sort) fails
@@ -378,32 +401,14 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def queued_ms(fn, iters: int) -> float:
-    """Device time of one run of fn() with the host ahead of the device:
-    the launches of `iters` runs queue behind a spin kernel
-    (`torch.cuda._sleep`, >= 0.1 s), so CUDA events time the device's own
-    run of the sequence, the gaps between its kernels included. cuda_ms
-    over back-to-back calls measures the host instead when a call takes
-    longer than its kernels run (the replay's wrappers: tens of
-    microseconds of Python a call). A try counts only if the spin still
-    held the device when the last launch was queued (the start event not
-    yet reached); a try that the host outran is made again behind a
-    spin twice as long, up to four tries."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    for spin in (1, 2, 4, 8):
-        torch.cuda._sleep(spin * 200_000_000)   # cycles: >= 0.1 s a unit
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        ahead = not start.query()
-        torch.cuda.synchronize()
-        if ahead:
-            return start.elapsed_time(end) / iters
-    fail(f"queued_ms: the host did not queue {iters} runs within a spin "
-         "of 0.8 s")
+    """Device time of one run of fn() with the host ahead of the device
+    (`benchmarks_torch.kernels_bench.device_ms`: `iters` runs queued
+    behind a spin kernel, timed by CUDA events). cuda_ms over
+    back-to-back calls measures the host instead when a call takes longer
+    than its kernels run (the replay's wrappers: tens of microseconds of
+    Python a call)."""
+    from benchmarks_torch.kernels_bench import device_ms
+    return device_ms(fn, iters)
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops=PEAK_FP32_FLOPS):
@@ -657,14 +662,14 @@ def check_similarity(dev, kernels, stats):
     stats["similarity_buckets"] = buckets
 
 
-def retrieve_bound(nq, c, d, pool):
+def retrieve_bound(nq, c, d, pool, n=N):
     """The fused retrieve's bounds: kernel 1 reads q and the DB once and
     writes its pool (the product's fp32 operations bound it at large Q),
     kernel 2 reads the pool and writes the top-n (scores, int64 rows,
     hit) with one comparison a candidate. Returns ((ms, by), (ms, by))."""
     k1 = bound_ms(4.0 * (nq * d + c * d) + 8.0 * nq * pool,
                   2.0 * nq * c * d + 2.0 * (nq + c) * d)
-    k2 = bound_ms(8.0 * nq * pool + 13.0 * nq * N, float(nq * pool))
+    k2 = bound_ms(8.0 * nq * pool + 13.0 * nq * n, float(nq * pool))
     return k1, k2
 
 
@@ -789,6 +794,253 @@ def check_retrieve(dev, kernels, stats):
         del q, db, pool_s, pool_i, top
     stats["retrieve_buckets"] = buckets
 
+
+
+def _shards(x, s):
+    cl = x.shape[0] // s
+    return [x[i * cl:(i + 1) * cl] for i in range(s)]
+
+
+def check_retrieve_large_n(dev, kernels, stats):
+    """The fused retrieve past 128 neighbours (ROADMAP §4.14: the kernels
+    take n up to MAX_N = 512, the replay kernel's bound): at LARGE_N and
+    RETRIEVE_BUCKETS over C_EXPECTED rows of D = DIM (DEAD_ROWS dead,
+    duplicates on split boundaries and the queries that tie on them),
+    kernel 1's pool equal to the per-split stable top-n of the similarity
+    kernel's masked panel (at kernel 1's tile: across tiles the scores may
+    differ in the last place), the pair's top-n to the panel's stable sort and
+    kernel 2 to its plain version, bit for bit; the capacity-sharded
+    retrieve at S = SHARDS_LARGE_N on the card equal to
+    `ref.sharded_panel_topn_ref` bit for bit (rows, scores, hits, the
+    pre-gathered records). Controls at bucket 1024, each of which must
+    change the top-n rows: the merge without the last split; the sharded
+    retrieve without the last shard; kernel 1 built with
+    TOPN_CONTROL_TIE_HIGH over a row copied n + 5 times inside one split.
+    Each kernel timed (queued) beside its bound, its plain version and the
+    library chain; the pair and the S = 4 composite beside the panel +
+    stable sort."""
+    from functools import partial
+    from unittest import mock
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import retrieve_topn as RT
+    from repro_torch.kernels.similarity_topk import similarity_cuda
+    gen = torch.Generator(device=dev).manual_seed(7)
+    db0 = torch.randn((C_EXPECTED, DIM), generator=gen, device=dev)
+    recs = (torch.randint(0, M, (C_EXPECTED, R), generator=gen, device=dev,
+                          dtype=torch.int32),
+            torch.randint(0, M, (C_EXPECTED, R), generator=gen, device=dev,
+                          dtype=torch.int32),
+            torch.rand((C_EXPECTED, R), generator=gen, device=dev),
+            torch.rand((C_EXPECTED, R), generator=gen, device=dev) < 0.8)
+    live = C_EXPECTED - DEAD_ROWS
+    size = torch.tensor(live, dtype=torch.int32, device=dev)
+    sizes = [size] * SHARDS_LARGE_N
+    panels = tuple(_shards(x, SHARDS_LARGE_N) for x in recs)
+    norm = torch.nn.functional.normalize
+    library = _build.library
+
+    def tie_high(name, defines=()):
+        return library(name, TIE_CONTROL if name == "retrieve_topn"
+                       else defines)
+    out = {}
+    for n in LARGE_N:
+        for nq in RETRIEVE_BUCKETS:
+            tile, rows, splits = RT.plan(nq, C_EXPECTED, DIM,
+                                         RT._sm_count(dev), n)
+            ties = [rows * i for i in range(1, min(splits, 5))]
+            db = db0.clone()
+            for b in ties:
+                db[b] = db[b - 1]
+            q = torch.randn((nq, DIM), generator=gen, device=dev)
+            k = min(nq, len(ties))
+            q[:k] = db[[b - 1 for b in ties[:k]]]
+            emb = _shards(db, SHARDS_LARGE_N)
+            # the similarity kernel at kernel 1's tile: across tiles scores
+            # may differ in the last place (n > 161 takes a smaller tile)
+            sim = partial(similarity_cuda, tile=tile)
+            pool_s, pool_i = RT.retrieve_topn_cuda(q, db, size, n)
+            top = RT.topn_merge_cuda(pool_s, pool_i, n, run=n)
+            sharded = RT.sharded_topn_cuda(q, emb, panels, sizes, n)
+            panel = ref.mask_dead(sim(q, db), 0, size)
+            want_pool = ref.panel_pool_ref(panel, n, rows)
+            panel_top = ref.stable_topk(panel, n)
+            del panel
+            want_top = ref.topn_merge_ref(pool_s, pool_i, n)[:3]
+            want_sh = ref.sharded_panel_topn_ref(
+                q, emb, panels, sizes, n, similarity_fn=partial(
+                    similarity_cuda, tile=RT.tile_for(nq, DIM, n)))
+            torch.cuda.synchronize()
+            where = f"retrieve n={n} Q={nq}"
+            if not (torch.equal(pool_s, want_pool[0])
+                    and torch.equal(pool_i, want_pool[1])):
+                fail(f"{where}: the pool differs from the per-split stable "
+                     "top-n of the similarity kernel's panel")
+            if not all(torch.equal(x, y) for x, y in zip(top, want_top)):
+                fail(f"{where}: topn_merge differs from its plain version")
+            if not (torch.equal(top[0], panel_top[0])
+                    and torch.equal(top[1], panel_top[1])):
+                fail(f"{where}: the top-n differs from the panel's stable "
+                     "sort")
+            if not all(torch.equal(x, y) for x, y in
+                       zip(sharded[:3] + sharded[3], want_sh[:3]
+                           + want_sh[3])):
+                fail(f"{where}: the S={SHARDS_LARGE_N} retrieve differs "
+                     "from the sharded panel + stable sort")
+            del want_pool, want_top, want_sh, sharded
+            ctl = {}
+            if nq == RETRIEVE_BUCKETS[0]:
+                dropped = RT.topn_merge_cuda(pool_s[:, :-n], pool_i[:, :-n],
+                                             n, run=n)[1]
+                ctl["split_dropped"] = float(
+                    (dropped != panel_top[1]).any(dim=1).float().mean())
+                fewer = RT.sharded_topn_cuda(
+                    q, emb[:-1], tuple(x[:-1] for x in panels), sizes[:-1],
+                    n)[1]
+                ctl["shard_dropped"] = float(
+                    (fewer != panel_top[1]).any(dim=1).float().mean())
+                dup = db.clone()
+                dup[100:100 + n + 5] = dup[99]   # rows 99..n+104: a split
+                qd = dup[99].expand(nq, DIM).contiguous()
+                with mock.patch.object(_build, "library", tie_high):
+                    high = RT.topn_cuda(qd, dup, size, n)[1]
+                ctl["tie_high"] = float(
+                    (high != torch.arange(99, 99 + n, device=dev))
+                    .any(dim=1).float().mean())
+                torch.cuda.synchronize()
+                if ctl["split_dropped"] < 0.2 or ctl["shard_dropped"] < 0.2 \
+                        or ctl["tie_high"] < 1.0:
+                    fail(f"{where}: a control did not change the top-n "
+                         f"rows: shares {ctl}")
+            iters = 10 if nq >= 256 else 30
+            k1_ms = queued_ms(lambda: RT.retrieve_topn_cuda(q, db, size, n),
+                              iters)
+            k2_ms = queued_ms(lambda: RT.topn_merge_cuda(pool_s, pool_i, n,
+                                                         run=n), iters)
+            pair_ms = queued_ms(lambda: RT.topn_cuda(q, db, size, n), iters)
+            s4_ms = queued_ms(lambda: RT.sharded_topn_cuda(
+                q, emb, panels, sizes, n), iters)
+            panel_ms = queued_ms(lambda: ref.panel_topn_ref(
+                q, db, size, n, similarity_fn=similarity_cuda), 10)
+            plain1 = cuda_ms(lambda: ref.split_topn_ref(q, db, size, n,
+                                                        rows), 2, warmup=1)
+            plain2 = cuda_ms(lambda: ref.topn_merge_ref(pool_s, pool_i, n),
+                             2, warmup=1)
+            lib1 = queued_ms(lambda: torch.topk(
+                torch.matmul(norm(q, dim=-1), norm(db, dim=-1).T), n,
+                dim=-1), 10)
+            lib2 = queued_ms(lambda: torch.topk(pool_s, n, dim=-1), iters)
+            pool = splits * n
+            (b1, by1), (b2, by2) = retrieve_bound(nq, C_EXPECTED, DIM, pool,
+                                                  n)
+            log_time(stats,
+                     f"{where} C={C_EXPECTED} D={DIM} (tile {tile}, {splits}"
+                     f" splits of {rows} rows, pool {pool} a query, {live} "
+                     f"live rows): pool, top-n and S={SHARDS_LARGE_N} equal "
+                     f"to the panel + stable sort; controls (share of rows "
+                     f"changed) {ctl}; retrieve_topn ms {k1_ms} (queued) "
+                     f"bound {b1} ({by1}, {b1 / k1_ms} of it) plain {plain1}"
+                     f" library (normalize + matmul + topk) {lib1}; "
+                     f"topn_merge (k={n}) ms {k2_ms} bound {b2} ({by2}) plain"
+                     f" {plain2} library (topk over the pool) {lib2}; the "
+                     f"pair {pair_ms}, S={SHARDS_LARGE_N} {s4_ms}, the panel "
+                     f"+ stable sort {panel_ms}")
+            out[f"n{n} q{nq}"] = dict(
+                n=n, q=nq, tile=tile, splits=splits, split_rows=rows,
+                pool=pool, controls=ctl, retrieve_topn_ms=k1_ms,
+                retrieve_topn_bound_ms=b1, retrieve_topn_plain_ms=plain1,
+                retrieve_topn_library_ms=lib1, topn_merge_ms=k2_ms,
+                topn_merge_bound_ms=b2, topn_merge_plain_ms=plain2,
+                topn_merge_library_ms=lib2, pair_ms=pair_ms,
+                sharded_ms=s4_ms, panel_sort_ms=panel_ms)
+            if n == LARGE_N[-1] and nq == RETRIEVE_BUCKETS[0]:
+                src = "src/repro_torch/kernels/csrc/retrieve_topn.cu"
+                kernels["retrieve_topn n512"] = dict(
+                    name="retrieve_topn n512", route="cuda", source=src,
+                    replaces="src/repro/kernels/similarity_topk.py:42",
+                    max_abs_err=0.0, ms=k1_ms, plain_ms=plain1, bound_ms=b1,
+                    bound_by=by1, library_ms=lib1)
+                kernels["topn_merge k512"] = dict(
+                    name="topn_merge k512", route="cuda", source=src,
+                    replaces="src/repro/kernels/similarity_topk.py:91",
+                    max_abs_err=0.0, ms=k2_ms, plain_ms=plain2, bound_ms=b2,
+                    bound_by=by2, library_ms=lib2)
+            del q, db, emb, pool_s, pool_i, top, panel_top
+    stats["retrieve_large_n"] = out
+
+
+def route_large_n(dev, corpus, fb, stats):
+    """An EagleRouter(n_neighbors = MAX_N) at the paper's width, fitted on
+    the corpus, routed through a RouteDispatcher's graphs at buckets 8, 64
+    and 1024 (warmed first): no capture by traffic, each batch's choices
+    equal to the eager route's and to the panel route's (the similarity
+    kernel's panel at the route's tile + stable sort) bit for bit; and a
+    router or dispatcher
+    of MAX_N + 1 neighbours raises when it is built. Returns the launches
+    of the routed run."""
+    import dataclasses
+    from functools import partial
+    from repro_torch import graphs
+    from repro_torch.configs.eagle import PAPER_CONFIG
+    from repro_torch.core.dispatch import RouteDispatcher
+    from repro_torch.core.router import EagleRouter
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import retrieve_topn as RT
+    from repro_torch.kernels.retrieve_topn import MAX_N
+    from repro_torch.kernels.similarity_topk import similarity_cuda
+    cfg = dataclasses.replace(PAPER_CONFIG, n_neighbors=MAX_N)
+    router = EagleRouter(corpus.model_names, corpus.costs, cfg, device=dev)
+    router.fit(fb["emb"], fb["model_a"], fb["model_b"], fb["outcome"],
+               query_id=fb["query_idx"])
+    disp = RouteDispatcher.for_router(router)
+    st = router.state
+    warmed = disp.warmup(st, LARGE_N_BATCHES)
+    rng = np.random.default_rng(9)
+    embs = np.asarray(corpus.embeddings[corpus.test_idx], np.float32)
+    batches = []
+    for nb in LARGE_N_BATCHES:
+        i = rng.integers(0, len(embs), nb)
+        batches.append((embs[i], rng.uniform(
+            corpus.costs.min(), corpus.costs.max(), nb).astype(np.float32)))
+    torch.cuda.synchronize()
+    c0, led0 = graphs.capture_count(), disp.cache_stats()
+    _build.reset_launches()
+    got = [disp.route(st, q, b) for q, b in batches]
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    led = disp.cache_stats()
+    captured = graphs.capture_count() - c0
+    traffic = led["misses"] - led0["misses"]
+    differ = sum(int((g != eager_route(disp, st, q, b)).sum())
+                 + int((g != panel_eager_route(disp, st, q, b, partial(
+                     similarity_cuda, tile=RT.tile_for(
+                         disp.bucket(len(q)), DIM, MAX_N)))).sum())
+                 for g, (q, b) in zip(got, batches))
+    refused = []
+    for make in (lambda: EagleRouter(
+            corpus.model_names, corpus.costs,
+            dataclasses.replace(cfg, n_neighbors=MAX_N + 1), device=dev),
+            lambda: RouteDispatcher(router.costs, n_neighbors=MAX_N + 1)):
+        try:
+            make()
+        except ValueError as e:
+            refused.append(str(e))
+    log(f"EagleRouter(n_neighbors={MAX_N}) at D={DIM}, C="
+        f"{router.db.capacity}: {warmed} route graphs warmed, batches "
+        f"{LARGE_N_BATCHES} routed through them with {captured} captures "
+        f"({traffic} by traffic), launches {launches}; choices differing "
+        f"from the eager route and the panel route {differ}; "
+        f"n_neighbors={MAX_N + 1} refused: {refused}")
+    stats["route_large_n"] = dict(warmed=warmed, captured=captured,
+                                  traffic_captures=traffic,
+                                  launches=launches, differ=differ,
+                                  refused=refused)
+    if captured or traffic or differ or len(refused) != 2 or not all(
+            str(MAX_N) in e for e in refused) or not all(
+            launches[k] == len(batches) for k in ("retrieve_topn",
+                                                    "topn_merge",
+                                                    "elo_scan_select")):
+        fail(f"the route at n = {MAX_N}: {stats['route_large_n']}")
+    return launches
 
 def replay_inputs(dev, gen, nq, t):
     a = torch.randint(0, M, (nq, t), generator=gen, device=dev,
@@ -1403,15 +1655,17 @@ def compare_route(router, dbuf, test, grid, stats):
     stats["route_choices_differing"] = n_diff
 
 
-def panel_eager_route(disp, state, q, budgets):
+def panel_eager_route(disp, state, q, budgets, similarity_fn=None):
     """eager_route with the panel route's retrieve (the similarity
-    kernel's panel and a stable sort) in place of the fused one."""
+    kernel's panel, or `similarity_fn`'s, and a stable sort) in place of
+    the fused one."""
     from functools import partial
     from unittest import mock
     from repro_torch.kernels import ref, retrieve_replay
     from repro_torch.kernels.similarity_topk import similarity_cuda
     with mock.patch.object(retrieve_replay, "topn_cuda", partial(
-            ref.panel_topn_ref, similarity_fn=similarity_cuda)):
+            ref.panel_topn_ref,
+            similarity_fn=similarity_fn or similarity_cuda)):
         return eager_route(disp, state, q, budgets)
 
 
@@ -2020,10 +2274,10 @@ def drive_sharded(dev, corpus, fb, kernels, stats):
     # the control: the merge kernel over the first shard's candidates only
     merge = RT.merge_shards_cuda
 
-    def drop_last(pool_s, pool_i, records, n):
+    def drop_last(pool_s, pool_i, records, n, shards):
         kl = pool_s.shape[1] // 2
         return merge(pool_s[:, :kl], pool_i[:, :kl],
-                     tuple(x[:, :kl] for x in records), n)
+                     tuple(x[:, :kl] for x in records), n, 1)
     st2 = bufs[2].front
     bud = np.resize(grid, 1024).astype(np.float32)
     want_top = base_route_fn(base, base_buf.front)(q, bud)[1]
@@ -2137,125 +2391,12 @@ def drive_sharded(dev, corpus, fb, kernels, stats):
 # phase 5c: the operational obs plane
 # ---------------------------------------------------------------------------
 
-_PROM_LINE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? [^ ]+$")
-
-
-def check_prometheus(text: str) -> int:
-    """Every non-comment line is `name{labels} value`; returns the number
-    of samples (the JAX obs gate's check)."""
-    samples = [ln for ln in text.strip().splitlines()
-               if not ln.startswith("#")]
-    bad = [ln for ln in samples if not _PROM_LINE.match(ln)]
-    if bad or not samples:
-        fail(f"Prometheus text: {len(samples)} samples, unparseable "
-             f"{bad[:3]}")
-    return len(samples)
-
-
-def check_chrome_trace(path: Path) -> int:
-    """The trace is traceEvents JSON with complete events and at least
-    one route span; returns the event count."""
-    evs = json.loads(path.read_text())["traceEvents"]
-    xs = [e for e in evs if e.get("ph") == "X"]
-    bad = [e for e in xs if not (isinstance(e["ts"], (int, float))
-                                 and e["dur"] >= 0 and e["name"]
-                                 and "pid" in e and "tid" in e)]
-    if not evs or bad or not any("route" in e["name"] for e in xs):
-        fail(f"Chrome trace {path.name}: {len(evs)} events, {len(bad)} "
-             "malformed, route spans "
-             f"{sum('route' in e['name'] for e in xs)}")
-    return len(evs)
-
-
-class Scraper:
-    """A thread that GETs `paths` of a running exporter in turn until it
-    is stopped, waiting `pause` seconds after each round, and counts the
-    scrapes by HTTP status and the errors (the first kept). It runs in
-    the process it scrapes: it touches no CUDA state, as the exporter's
-    own thread does not."""
-
-    def __init__(self, exporter, paths, pause: float):
-        self.exporter, self.paths, self.pause = exporter, paths, pause
-        self.scrapes, self.errors, self.first_error = 0, 0, None
-        self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._loop, name="scraper",
-                                        daemon=True)
-
-    def _loop(self):
-        while not self._stop.is_set():
-            for path in self.paths:
-                try:
-                    with urllib.request.urlopen(self.exporter.url(path),
-                                                timeout=30) as r:
-                        r.read()
-                        ok = r.status == 200
-                except Exception as e:       # counted, reported by main
-                    ok = False
-                    self.first_error = self.first_error or repr(e)
-                self.scrapes += ok
-                self.errors += not ok
-            self._stop.wait(self.pause)
-
-    def __enter__(self) -> "Scraper":
-        self._thread.start()
-        return self
-
-    def __exit__(self, *exc):
-        self._stop.set()
-        self._thread.join(timeout=60)
-        if self._thread.is_alive():
-            fail("the scraper thread did not stop")
-        return False
-
-
 class StubModel:
     """A fleet entry that answers zeros: routing and feedback do not read
     the tokens."""
 
     def generate(self, tokens, max_new):
         return np.zeros((tokens.shape[0], max_new), np.int32)
-
-
-def obs_legs(ob, disp, dbuf, quality, sorted_costs, q, budgets, step,
-             off, on, routed):
-    """One step of the JAX obs gate: the same batch routed with the plane
-    off and fully on (a span around the route, a decision record per
-    request as the engine emits them, host arrays whose conversion the
-    event log defers, the monitor's capture), the order alternating by
-    step; the
-    host wall of each leg (us) appended to `off` and `on`. Returns the
-    requests routed on the enabled leg."""
-    nb = len(budgets)
-    for leg in (("off", "on") if step % 2 == 0 else ("on", "off")):
-        if leg == "off":
-            ob.disable()
-            t0 = time.perf_counter()
-            disp.route(dbuf.front, q, budgets)
-            off.append((time.perf_counter() - t0) * 1e6)
-            continue
-        ob.enable()
-        t0 = time.perf_counter()
-        with ob.span("bench.route_step"):
-            choices = disp.route(dbuf.front, q, budgets)
-            feas = np.searchsorted(sorted_costs, budgets, side="right")
-            ob.events.emit_columns(
-                "route", nb, {"step": step, "batch": nb},
-                {"rid": range(routed, routed + nb), "model_idx": choices,
-                 "budget": budgets, "feasible": feas})
-            quality.observe_batch(budgets, choices)
-        on.append((time.perf_counter() - t0) * 1e6)
-    ob.enable()
-    return nb
-
-
-def overhead(off, on):
-    """The JAX gate's estimator: the median of the paired per-step
-    differences over the off-path p50."""
-    p50_off = float(np.percentile(off, 50))
-    delta = float(np.median(np.asarray(on) - np.asarray(off)))
-    return dict(p50_off_us=p50_off, p50_on_us=float(np.percentile(on, 50)),
-                paired_delta_us=delta, overhead_frac=delta / p50_off,
-                steps=len(off))
 
 
 def drive_obs_plane(dev, corpus, fb, stats):
@@ -2282,17 +2423,17 @@ def drive_obs_plane(dev, corpus, fb, stats):
          across a DB grow (C_EXPECTED -> 2 C_EXPECTED): every capture
          succeeds, none by traffic, each batch's choices equal to the
          eager route's on the state it was routed on."""
+    from benchmarks_torch import queue_bench as QB
+    from benchmarks_torch import route_batch_bench as RB
     from repro_torch import graphs
     from repro_torch import obs as OBS
     from repro_torch.configs.eagle import PAPER_CONFIG
-    from repro_torch.core.dispatch import RouteDispatcher
     from repro_torch.core.router import EagleRouter
-    from repro_torch.core.state import DoubleBuffer, commit
+    from repro_torch.core.state import commit
     from repro_torch.launch.serve import build_obs_plane, quality_oracle
     from repro_torch.obs.alerts import LogFileSink
     from repro_torch.obs.exporter import ROUTES, ObsExporter
-    from repro_torch.obs.quality import (RouterQualityMonitor,
-                                         routing_regret_oracle)
+    from repro_torch.obs.quality import RouterQualityMonitor
     from repro_torch.obs.slo import SLOEngine, default_serving_rules
     from repro_torch.serving import Request, ServingEngine
     t_phase = time.perf_counter()
@@ -2302,173 +2443,108 @@ def drive_obs_plane(dev, corpus, fb, stats):
                query_id=fb["query_idx"])
     ob = OBS.Observability(enabled=True, trace_capacity=8 * OBS_STEPS + 64,
                            event_capacity=1 << 20)
-    router.obs = ob
-    disp = RouteDispatcher.for_router(router, obs=ob)
-    dbuf = DoubleBuffer(router.db, router.global_ratings, device=dev, obs=ob,
-                        tags=("obs_a", "obs_b"))
+    # the gate's world (benchmarks_torch.route_batch_bench.RaggedWorld) at
+    # the paper's width: its dispatcher (the whole ladder) and double
+    # buffer share the enabled scope
+    w = RB.RaggedWorld(router, corpus.embeddings, corpus.costs,
+                       max_batch=OBS_MAX_BATCH, max_bucket=1024,
+                       commit_every=OBS_COMMIT_EVERY, obs=ob,
+                       tags=("obs_a", "obs_b"))
+    disp, dbuf = w.dispatch, w.dbuf
     quality = RouterQualityMonitor.for_router(router, obs=ob)
     slo = SLOEngine(ob.registry, default_serving_rules(), obs=ob)
     exporter = ObsExporter(ob, slo=slo, quality=quality).start()
-    embs = np.asarray(corpus.embeddings, np.float32)
-    lo_b, hi_b = float(corpus.costs.min()), float(corpus.costs.max())
-    sorted_costs = np.sort(np.asarray(corpus.costs, np.float32))
-    rng = np.random.default_rng(1)
-    qid = iter(range(20_000_000, 1 << 40, 4))
-
-    def batch(n=None):
-        bs = int(rng.integers(1, OBS_MAX_BATCH + 1)) if n is None else n
-        i = rng.integers(0, len(embs), bs)
-        return embs[i], rng.uniform(lo_b, hi_b, bs).astype(np.float32)
-
-    def feedback_cycle():
-        """4 pairwise records on fresh prompts, a commit, and the post-fold
-        ratings to the monitor (router.update bypasses feedback())."""
-        i = rng.integers(0, len(embs), 4)
-        base = next(qid)
-        router.update(embs[i], [0, 1, 2, 3], [1, 2, 3, 0],
-                      [1.0, 0.0, 0.5, 1.0],
-                      query_id=[base + j for j in range(4)])
-        dbuf.commit(router.global_ratings)
-        quality.observe_ratings(router.global_ratings.cpu().numpy())
+    sorted_costs = np.sort(w.costs)
 
     t0 = time.perf_counter()
     warmed = warm_both(disp, dbuf, router)
     warm_s = time.perf_counter() - t0
 
-    # 1. the quality gate, on the freshly fitted router as in JAX
+    # 1. the quality gate (benchmarks_torch.queue_bench.quality_gate), on
+    # the freshly fitted router as in JAX
     qob = OBS.Observability(enabled=True)
     tmp = tempfile.TemporaryDirectory()
     alert_path = Path(tmp.name) / "alerts.jsonl"
     mon = RouterQualityMonitor.for_router(
         router, obs=qob, attach=False, sinks=[LogFileSink(alert_path)])
-    rng_q = np.random.default_rng(31)
-    base = router.global_ratings.cpu().numpy().astype(np.float64)
-    mismatches = scored = 0
-    t0 = time.perf_counter()
-    for step in range(QUALITY_STEPS):
-        bs = int(rng_q.integers(1, QUALITY_WINDOW + 1))
-        i = rng_q.integers(0, len(embs), bs)
-        budgets = rng_q.uniform(lo_b, hi_b, bs).astype(np.float32)
-        choices = disp.route(dbuf.front, embs[i], budgets)
-        got = mon.score_batch(budgets, choices)
-        want = routing_regret_oracle(mon.ratings, mon.costs, budgets,
-                                     choices)
-        mismatches += not np.array_equal(got, want)
-        scored += bs
-        if (step + 1) % QUALITY_FOLD_EVERY == 0:
-            mon.observe_ratings(base + rng_q.normal(0.0, 1.0, M))
-    stationary = mon.alerts_fired
-    shifted = base.copy()
-    shifted[0] += 400.0
-    mon.observe_ratings(shifted + rng_q.normal(0.0, 1.0, M))
-    perturbed = mon.alerts_fired - stationary
-    quality_s = time.perf_counter() - t0
+    gate_q = QB.quality_gate(lambda q, b: disp.route(dbuf.front, q, b), mon,
+                             w.embs, w.bud_lo, w.bud_hi, steps=QUALITY_STEPS,
+                             window=QUALITY_WINDOW,
+                             fold_every=QUALITY_FOLD_EVERY)
     events = qob.events.records("quality_alert")
     sink_docs = [json.loads(ln) for ln in alert_path.read_text().splitlines()
                  ] if alert_path.exists() else []
     tmp.cleanup()
     snap = mon.snapshot()
     log(f"quality gate ({QUALITY_STEPS} routed windows of 1..{QUALITY_WINDOW}"
-        f", {scored} requests, a stationary fold every {QUALITY_FOLD_EVERY}"
-        f"): regret unequal to the oracle on {mismatches} steps; alerts on "
-        f"the stationary run {stationary}, after the +400 step {perturbed}"
-        f" (events {len(events)}, alert-log lines {len(sink_docs)}: "
+        f", {gate_q['requests_scored']} requests, a stationary fold every "
+        f"{QUALITY_FOLD_EVERY}): regret unequal to the oracle on "
+        f"{gate_q['oracle_mismatches']} steps; alerts on the stationary run "
+        f"{gate_q['alerts_stationary']}, after the +400 step "
+        f"{gate_q['alerts_after_perturbation']} (events {len(events)}, "
+        f"alert-log lines {len(sink_docs)}: "
         f"{[d['payload'].get('alert') for d in sink_docs]}); regret mean "
         f"{snap['regret']['mean']:.3f} p99 {snap['regret']['p99']:.3f}; "
-        f"{quality_s:.2f} s")
-    stats["quality_gate"] = dict(
-        steps=QUALITY_STEPS, requests_scored=scored,
-        oracle_mismatches=mismatches, alerts_stationary=stationary,
-        alerts_after_perturbation=perturbed, alert_events=len(events),
-        alert_log_lines=len(sink_docs), wall_s=quality_s,
-        regret=snap["regret"])
-    if mismatches or stationary or perturbed < 1 or not events or not any(
-            d["event"] == "quality_alert" for d in sink_docs):
-        fail(f"quality gate: {mismatches} mismatches, {stationary} "
-             f"stationary alerts, {perturbed} after the step, {len(events)} "
-             f"events, alert log {sink_docs}")
+        f"{gate_q['wall_s']:.2f} s")
+    stats["quality_gate"] = dict(gate_q, alert_events=len(events),
+                                 alert_log_lines=len(sink_docs),
+                                 regret=snap["regret"])
+    errs = QB.quality_gate_errors(gate_q, len(events))
+    if errs or not any(d["event"] == "quality_alert" for d in sink_docs):
+        fail(f"quality gate: {errs}, alert log {sink_docs}")
 
-    # 2. the obs gate
-    args = (ob, disp, dbuf, quality, sorted_costs)
-    with Scraper(exporter, ("/metrics", "/slo", "/healthz"), 0.25) as gate:
-        for i in range(2):                    # a commit on each replica
-            feedback_cycle()
-        for step in range(3):                 # both legs' Python warm
-            obs_legs(*args, *batch(), step, [], [], 0)
-        c0, led0 = graphs.capture_count(), disp.cache_stats()
-        ob.events.clear()        # count exactly the loop's decision records
-        off, on, routed = [], [], 0
-        t0 = time.perf_counter()
-        for step in range(OBS_STEPS):
-            routed += obs_legs(*args, *batch(), step, off, on, routed)
-            if (step + 1) % OBS_COMMIT_EVERY == 0:
-                feedback_cycle()
-        captured = graphs.capture_count() - c0
-        led = disp.cache_stats()
-        traffic = led["misses"] - led0["misses"]
-        gate_s = time.perf_counter() - t0
-        ragged = overhead(off, on)
-        out = ROOT / "chiprun_out"
-        n_events = check_chrome_trace(
-            Path(ob.tracer.save_chrome_trace(out / "obs_trace.json")))
-        n_samples = check_prometheus(ob.registry.prometheus_text())
-        n_dumped = ob.events.dump(out / "obs_decisions.jsonl")
-        for line in (out / "obs_decisions.jsonl").read_text().splitlines():
-            json.loads(line)
-        n_route = len(ob.events.records("route"))
-        per_bucket = {}
-        for qb in OBS_BUCKETS:
-            off_b, on_b = [], []
-            for step in range(OBS_BUCKET_STEPS):
-                obs_legs(*args, *batch(qb), step, off_b, on_b, 0)
-            per_bucket[qb] = overhead(off_b, on_b)
-    gate_scrapes = dict(scrapes=gate.scrapes, errors=gate.errors,
-                        first_error=gate.first_error)
+    # 2. the obs gate (benchmarks_torch.route_batch_bench.obs_gate): the
+    # world's warmup (two feedback commits; its graphs are warm), then
+    # OBS_STEPS paired steps beside a scraper; then the buckets, reported
+    t0 = time.perf_counter()
+    led0 = disp.cache_stats()
+    gate, scraper = RB.obs_gate(w, ob, quality, exporter, n_steps=OBS_STEPS,
+                                out_dir=ROOT / "chiprun_out",
+                                max_overhead=OBS_MAX_OVERHEAD)
+    traffic = disp.cache_stats()["misses"] - led0["misses"]
+    gate_s = time.perf_counter() - t0
+    per_bucket = {}
+    for qb in OBS_BUCKETS:
+        off_b, on_b = [], []
+        for step in range(OBS_BUCKET_STEPS):
+            RB.obs_legs(ob, w, quality, sorted_costs, *w.next_batch(qb),
+                        step, off_b, on_b, 0)
+        per_bucket[qb] = RB.overhead(off_b, on_b)
     log_time(stats,
              f"obs gate ({OBS_STEPS} ragged batches of 1..{OBS_MAX_BATCH}, "
              f"a feedback commit every {OBS_COMMIT_EVERY}, the plane live: "
              f"spans, decision records, the quality monitor, an exporter "
-             f"scraped every 0.25 s): route p50 off {ragged['p50_off_us']:.1f}"
-             f" us, on {ragged['p50_on_us']:.1f} us, paired delta "
-             f"{ragged['paired_delta_us']:+.2f} us = "
-             f"{ragged['overhead_frac'] * 100:+.2f}% (bar "
+             f"scraped every 0.25 s): route p50 off {gate['p50_off_us']:.1f}"
+             f" us, on {gate['p50_on_us']:.1f} us, paired delta "
+             f"{gate['paired_delta_us']:+.2f} us = "
+             f"{gate['overhead_frac'] * 100:+.2f}% (bar "
              f"{OBS_MAX_OVERHEAD * 100:.0f}%); per bucket "
              f"{ {qb: round(v['overhead_frac'] * 100, 2) for qb, v in per_bucket.items()} }% "
              f"(p50 off us "
              f"{ {qb: round(v['p50_off_us'], 1) for qb, v in per_bucket.items()} }); "
              f"warmup {warmed} route graphs in {warm_s:.2f} s, captures "
-             f"after it {captured} (by traffic {traffic}); trace events "
-             f"{n_events}, Prometheus samples {n_samples}, route records "
-             f"{n_route} for {routed} routed requests ({n_dumped} dumped); "
-             f"scrapes {gate_scrapes}; loop {gate_s:.2f} s")
-    stats["obs_gate"] = dict(
-        ragged=ragged, per_bucket=per_bucket, warmed=warmed, warm_s=warm_s,
-        captured=captured, traffic_captures=traffic, trace_events=n_events,
-        prometheus_samples=n_samples, route_records=n_route, routed=routed,
-        spans_recorded=ob.tracer.recorded, spans_dropped=ob.tracer.dropped,
-        scrapes=gate_scrapes, loop_s=gate_s)
-    if ragged["overhead_frac"] > OBS_MAX_OVERHEAD:
-        fail(f"obs gate: the plane costs {ragged['overhead_frac'] * 100:.2f}"
-             f"% of route p50 (bar {OBS_MAX_OVERHEAD * 100:.0f}%)")
-    if captured or traffic:
-        fail(f"obs gate: {captured} captures after warmup, {traffic} by "
-             "traffic")
-    if n_route != routed or n_dumped < routed:
-        fail(f"obs gate: {n_route} route records ({n_dumped} dumped) for "
-             f"{routed} routed requests")
-    if not gate.scrapes or gate.errors:
-        fail(f"obs gate: scrapes {gate_scrapes}")
+             f"after it {gate['post_warmup_xla_compiles']} (by traffic "
+             f"{traffic}); trace events {gate['trace_events']}, Prometheus "
+             f"samples {gate['prometheus_samples']}, route records "
+             f"{gate['decision_records']} ({gate['dumped_records']} dumped);"
+             f" scrapes {scraper.stats()}; gate {gate_s:.2f} s")
+    stats["obs_gate"] = dict(gate, per_bucket=per_bucket, warmed=warmed,
+                             warm_s=warm_s, traffic_captures=traffic,
+                             scrapes=scraper.stats(), loop_s=gate_s)
+    errs = RB.obs_gate_errors(gate)
+    if errs or traffic:
+        fail(f"obs gate: {errs}, captures by traffic {traffic}")
 
     # 3a. a fresh replica's ladder captured beside a scraper of all routes
     fresh = commit(router.db, router.global_ratings, None,
                    consumer="obs_fresh", device=dev)
-    with Scraper(exporter, ROUTES, 0.001) as sc:
+    with RB.Scraper(exporter, ROUTES, 0.001) as sc:
         c1 = graphs.capture_count()
         n_fresh = disp.warmup(fresh)
         caps_fresh = graphs.capture_count() - c1
         differ = 0
         for qb in OBS_BUCKETS:
-            q, b = batch(qb)
+            q, b = w.next_batch(qb)
             differ += int((disp.route(fresh, q, b)
                            != eager_route(disp, fresh, q, b)).sum())
     exporter.stop()
@@ -2497,12 +2573,12 @@ def drive_obs_plane(dev, corpus, fb, stats):
     plane = build_obs_plane(engine)
     c2, led0 = graphs.capture_count(), engine.dispatch.cache_stats()
     serve_ms, differ, grown_routes, rounds, requests = [], 0, 0, 0, 0
-    with Scraper(plane, ROUTES, 0.001) as sc2:
+    with RB.Scraper(plane, ROUTES, 0.001) as sc2:
         while grown_routes < 2:
             if rounds >= PREBAKE_ROUNDS:
                 fail(f"prebaker beside a scraper: the DB did not grow past "
                      f"{C_EXPECTED} rows in {rounds} rounds")
-            q, b = batch(PREBAKE_BATCH)
+            q, b = w.next_batch(PREBAKE_BATCH)
             front = engine.dbuf.front
             grown_routes += front.capacity > C_EXPECTED
             want = eager_route(engine.dispatch, front, q, b)
@@ -3933,6 +4009,71 @@ def drive_paper(dev, stats):
     log(f"paper phase wall: {stats['paper']['wall_s']} s")
 
 
+
+def _example(name):
+    """examples_torch/<name>.py as a module (its main not run)."""
+    import importlib.util
+    path = ROOT / "examples_torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def drive_router_benchmarks(dev, stats):
+    """The router path's benchmarks and examples (ROADMAP §2.9.1) at their
+    smoke sizes on the card, as their CLIs run them: the route benchmark's
+    `run` (the fused route against the legacy VectorDB.query +
+    gather_feedback + local_elo path, choices asserted equal; the
+    similarity kernel's launches are the legacy retrieval's), its ragged
+    loop under --assert-steady-state and its sharded loop at S = 2 and 4
+    under --assert-sharded (no capture after warmup, choices equal to the
+    unsharded route's); the queue benchmark under --assert-queue and
+    --assert-quality; the kernel microbenchmarks; and the three examples
+    at their smallest settings. Returns the launches of the legacy run."""
+    from benchmarks_torch import kernels_bench, queue_bench
+    from benchmarks_torch import route_batch_bench as RB
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    rows = RB.run(smoke=True, device=dev)
+    torch.cuda.synchronize()
+    legacy = _build.launch_counts()
+    wall = {"run": time.perf_counter() - t0}
+    if not legacy["similarity"]:
+        fail(f"the legacy route launched no similarity kernel: {legacy}")
+    ragged = RB.run_ragged(smoke=True, assert_steady_state=True, device=dev)
+    sharded = {s: RB.run_sharded(smoke=True, mesh_n=s, assert_sharded=True,
+                                 device=dev) for s in (2, 4)}
+    wall["ragged_sharded"] = time.perf_counter() - t0 - wall["run"]
+    t1 = time.perf_counter()
+    queue_rows = queue_bench.run(smoke=True, assert_queue=True, device=dev)
+    quality = queue_bench.run_quality_gate(smoke=True, assert_quality=True,
+                                           device=dev)
+    wall["queue"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    kernel_rows = kernels_bench.run(device=dev)
+    wall["kernels"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    _example("quickstart").main(["--device", "cuda"])
+    _example("online_adaptation").main(["--device", "cuda"])
+    _example("serve_routed").main(["--device", "cuda", "--requests", "8",
+                                   "--fleet", "2", "--max-new", "2",
+                                   "--serve-obs"])
+    wall["examples"] = time.perf_counter() - t1
+    stats["router_benchmarks"] = dict(
+        route=rows, legacy_launches=legacy, ragged=ragged, sharded=sharded,
+        queue=queue_rows, quality_gate=quality, kernels=kernel_rows,
+        wall_s=wall)
+    log_time(stats, f"router-path benchmarks and examples: legacy route "
+             f"launches {legacy}; ragged p50 {ragged['route_p50_us']:.1f} "
+             f"us, captures after warmup "
+             f"{ragged['post_warmup_xla_compiles']}; sharded "
+             f"{ {s: (round(v['route_p50_us'], 1), v['oracle_mismatches']) for s, v in sharded.items()} }"
+             f" (p50 us, mismatches); wall s {wall}")
+    return legacy
+
 def main() -> int:
     # the preconditions come first, so a failed run prints no result
     if not torch.cuda.is_available():
@@ -3954,9 +4095,16 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}"
         f"; devices {torch.cuda.device_count()}")
     t0 = time.perf_counter()
+    # the tie-high control build of retrieve_topn.cu, beside the others
+    control = threading.Thread(target=_build.build, args=(
+        ["retrieve_topn"], TIE_CONTROL), name="control-build")
+    control.start()
     libs = _build.build()
+    control.join()
     stats = {"card": card, "build_s": time.perf_counter() - t0}
-    log(f"built {[p.name for p in libs]} in {stats['build_s']:.1f} s")
+    log(f"built {[p.name for p in libs]} and the control "
+        f"{_build._lib_path('retrieve_topn', TIE_CONTROL).name} in "
+        f"{stats['build_s']:.1f} s")
     build_report(libs, stats)
 
     t0 = time.perf_counter()
@@ -3972,7 +4120,10 @@ def main() -> int:
     kernels = {}
     check_similarity(dev, kernels, stats)
     check_retrieve(dev, kernels, stats)
+    check_retrieve_large_n(dev, kernels, stats)
     check_replay(dev, kernels, stats, fold_records)
+    launches = {"large_n": route_large_n(dev, corpus, fb, stats)}
+    torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -3980,7 +4131,7 @@ def main() -> int:
         router, disp, dbuf, test, grid = drive_main_path(dev, corpus, fb,
                                                          stats)
     torch.cuda.synchronize()
-    launches = {"route": _build.launch_counts()}
+    launches["route"] = _build.launch_counts()
     log(f"launches on the routing path: {launches['route']}, of which "
         f"elo_scan_select over pre-gathered records: {unfused[0]}")
     missing = [k for k in ROUTE_KERNELS if launches["route"][k] == 0]
@@ -4125,11 +4276,14 @@ def main() -> int:
     if missing or not all(knn_launches.values()):
         fail(f"never launched on the paper's experiments: {missing}, KNN's "
              f"retrieve {knn_launches}")
+    launches["legacy"] = drive_router_benchmarks(dev, stats)
 
-    if any(m == "jax" or m.startswith("jax.") or m in ("repro", "benchmarks")
-           or m.startswith(("repro.", "benchmarks.")) for m, v in
+    if any(m == "jax" or m.startswith("jax.") or m in ("repro", "benchmarks",
+                                                       "examples")
+           or m.startswith(("repro.", "benchmarks.", "examples.")) for m, v in
            sys.modules.items() if v is not None):
-        fail("JAX, the JAX package or its benchmarks were imported")
+        fail("JAX, the JAX package or its benchmarks or examples were "
+             "imported")
     for name, entry in kernels.items():
         if name in WHISPER_SITES:
             entry["launches"] = sites[f"whisper-large-v3 "
@@ -4143,15 +4297,19 @@ def main() -> int:
             continue
         if name == "sharded_retrieve_replay_select":
             continue                 # set by drive_sharded
-        # similarity: off every path since the fused retrieve (0 here)
-        path = "route" if name in ROUTE_KERNELS + ("similarity",) \
-            else "serve"
+        if name in ("retrieve_topn n512", "topn_merge k512"):
+            entry["launches"] = launches["large_n"][name.split()[0]]
+            continue
+        # similarity: off the serving route since the fused retrieve; the
+        # legacy retrieval (VectorDB.query) of the route benchmark runs it
+        path = "route" if name in ROUTE_KERNELS else \
+            "legacy" if name == "similarity" else "serve"
         entry["launches"] = launches[path][name]
     order = ROUTE_KERNELS + ("similarity", "elo_scan fit fold",
                              "sharded_retrieve_replay_select",
                              "flash_attention",
                              "decode_attention") + tuple(WHISPER_SITES) \
-        + ("retrieve knn",)
+        + ("retrieve knn", "retrieve_topn n512", "topn_merge k512")
     line = {"kernels": [kernels[k] for k in order]}
     stats["kernels"] = line["kernels"]
     (out / "chip_smoke.json").write_text(json.dumps(stats, indent=1))

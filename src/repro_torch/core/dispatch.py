@@ -57,6 +57,7 @@ from repro_torch.graphs import DispatchStats  # noqa: F401  (re-exported)
 from repro_torch.core import elo
 from repro_torch.core.state import (AnyState, ShardedRouterState,
                                     route_batch_choices)
+from repro_torch.kernels.retrieve_topn import check_neighbours
 
 #: default bucket ladder bounds (powers of two, inclusive)
 MIN_BUCKET = 8
@@ -174,6 +175,10 @@ class RouteDispatcher:
                  max_bucket: int = MAX_BUCKET,
                  mesh=None,
                  obs: Optional[OBS.Observability] = None):
+        if backend == "cuda":
+            check_neighbours(int(n_neighbors),
+                             mesh.leader if mesh is not None else
+                             getattr(costs, "device", "cpu"))
         # with a DB mesh the dispatcher serves ShardedRouterStates over it
         self.mesh = mesh
         self.costs = costs

@@ -36,6 +36,7 @@ from repro_torch.core.state import (RouterState, RouteResult, batch_scores,
                                     select_within_budget)
 from repro_torch.core.vectordb import VectorDB
 from repro_torch.kernels import ops as KOPS
+from repro_torch.kernels.retrieve_topn import check_neighbours
 
 __all__ = ["EagleConfig", "EagleRouter", "GlobalOnlyRouter",
            "LocalOnlyRouter", "combine_scores", "select_within_budget"]
@@ -73,6 +74,8 @@ class EagleRouter:
                  device: DeviceLike = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        if cfg.backend == "cuda":
+            check_neighbours(cfg.n_neighbors, self.device)
         self.model_names = list(model_names)
         self.n_models = len(model_names)
         self.costs = torch.as_tensor(costs, dtype=torch.float32,
@@ -83,7 +86,7 @@ class EagleRouter:
         self.global_ratings = torch.full((self.n_models,), cfg.init_rating,
                                          dtype=torch.float32,
                                          device=self.device)
-        self.db = VectorDB(cfg.embed_dim, db_capacity)
+        self.db = VectorDB(cfg.embed_dim, db_capacity, backend=cfg.backend)
         self._state: Optional[RouterState] = None
         self._stale = True
         # (ratings tensor, its host copy): the last readout of feedback

@@ -9,7 +9,10 @@ Storage lives in host numpy: appends are the online hot path and must
 cost microseconds, not device round trips. Retrieval runs on the device
 against a RouterState (core/state.py): the buffer tracks which rows were
 touched since each replica's last sync, and `state.commit()` copies just
-those rows into the device tensors.
+those rows into the device tensors. The `query`/`gather_feedback`
+methods are the LEGACY object-path retrieval, as the JAX package keeps
+them: the route benchmark (`benchmarks_torch/route_batch_bench.py`)
+holds the fused route against them; no serving path calls them.
 
 Appends and grows are counted in the process default telemetry scope
 (`obs.get_obs(None)`), as in the JAX package: `vectordb_records_total`,
@@ -18,11 +21,14 @@ and a `db_grow` event.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch import obs as OBS
+from repro_torch.kernels import ops as KOPS
+from repro_torch.kernels.ref import stable_topk
 
 
 def _l2norm_np(x, eps=1e-9):
@@ -31,13 +37,15 @@ def _l2norm_np(x, eps=1e-9):
 
 class VectorDB:
     def __init__(self, dim: int, capacity: int = 4096,
-                 records_per_query: int = 8):
+                 records_per_query: int = 8, backend: str = "cuda"):
         self.dim = dim
         self.capacity = capacity
         self.rcap = records_per_query
+        self.backend = backend             # kernels.ops backend of query()
         self.size = 0                      # prompts stored
         self._alloc(capacity, records_per_query)
         self._row_of: Dict[int, int] = {}
+        self._device: Optional[Tuple[torch.Tensor]] = None  # emb snapshot
         # rows touched since last commit, ONE ledger per device replica:
         # every registered consumer sees every touch until it drains, so
         # double-buffered states absorb rows landing between their turns
@@ -67,6 +75,7 @@ class VectorDB:
             "buffer reallocs (shape change -> full re-upload)").inc()
         o.emit({"kind": "db_grow", "from": [self.capacity, self.rcap],
                 "to": [new_q, new_r], "size": self.size})
+        self._device = None
         emb = np.zeros((new_q, self.dim), np.float32)
         emb[:self.capacity] = self.emb
         self.emb = emb
@@ -118,6 +127,7 @@ class VectorDB:
             self.n_rec[row] += 1
             for ledger in self._dirty.values():
                 ledger.add(row)
+        self._device = None  # invalidate the device snapshot
         o = OBS.get_obs(None)
         o.registry.counter("vectordb_records_total",
                            "feedback records appended").inc(b)
@@ -176,5 +186,50 @@ class VectorDB:
         self._row_of.clear()
         self.n_rec[:] = 0
         self.valid[:] = False
+        self._device = None
         for ledger in self._dirty.values():
             ledger.clear()
+
+    def _snapshot(self, device: torch.device) -> Tuple[torch.Tensor]:
+        """A copy of `emb` on `device`, kept until a write or a query from
+        another device."""
+        if self._device is None or self._device[0].device != device:
+            self._device = (torch.tensor(self.emb, device=device),)
+        return self._device
+
+    def query(self, q, n: int):
+        """LEGACY object-path retrieval (see module docstring): the top
+        min(n, capacity) prompts by cosine similarity among the live rows,
+        ties to the lowest row, on q's device (a numpy q: the CPU).
+        Returns (idx (Q, k) int64, scores (Q, k), hit (Q, k))."""
+        q = torch.as_tensor(q, dtype=torch.float32)
+        q = q[None] if q.ndim == 1 else q
+        (emb,) = self._snapshot(q.device)
+        q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + 1e-9)
+        scores = KOPS.similarity(q, emb, backend=self.backend)
+        live = torch.arange(self.capacity, device=q.device) < self.size
+        scores = torch.where(live[None, :], scores,
+                             torch.full_like(scores, float("-inf")))
+        top_s, top_i = stable_topk(scores, min(n, self.capacity))
+        return top_i, top_s, torch.isfinite(top_s)
+
+    def gather_feedback(self, idx, hit):
+        """LEGACY host-side record gather (the indices come back to the
+        host for numpy fancy-indexing; the fused route gathers on the
+        device). idx: (Q, N) prompt rows -> flattened (Q, N*R) neighbour
+        records (model_a, model_b, outcome, valid) for the local ELO
+        replay, on idx's device, valid = valid[idx] & hit.
+
+        Replay order is FARTHEST neighbour first: ELO is recency-weighted,
+        so the most similar prompts are replayed last to carry the most
+        influence."""
+        dev = idx.device if torch.is_tensor(idx) else torch.device("cpu")
+        idx = np.asarray(torch.as_tensor(idx).cpu())[:, ::-1]
+        hit = np.asarray(torch.as_tensor(hit).cpu())[:, ::-1]
+        nq = idx.shape[0]
+
+        def out(x):
+            return torch.from_numpy(x.reshape(nq, -1)).to(dev)
+        return (out(self.model_a[idx]), out(self.model_b[idx]),
+                out(self.outcome[idx]),
+                out(self.valid[idx] & hit[..., None]))

@@ -77,10 +77,10 @@ _SIGNATURES = {
         "retrieve_topn_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                                 + [ctypes.c_void_p] + [ctypes.c_int] * 4
                                 + [ctypes.c_void_p] * 3,
-        # pool_s, pool_i, Q, P, ld_in, k, top_s, top_i, idx64, ld_out,
+        # pool_s, pool_i, Q, P, ld_in, k, run, top_s, top_i, idx64, ld_out,
         # hit, a, b, s, v, R, by_row, offset, ld_src, out a, b, s, v,
         # farthest, ld_dst, stream
-        "topn_merge_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+        "topn_merge_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
                              + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                              + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                              + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2

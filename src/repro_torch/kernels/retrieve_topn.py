@@ -9,7 +9,8 @@ compositions the routes call.
                       pool, never a (Q, C) panel
   topn_merge_cuda     kernel 2: the top-k of each query's pool (the
                       unsharded reduce; with records carried by pool
-                      position, the cross-shard merge)
+                      position, the cross-shard merge); past k = 128 a
+                      merge of the pool's sorted runs by one warp
   shard_reduce_cuda   kernel 2: a shard's top min(n, C_l) with the
                       candidates' records gathered from its panels
   topn_cuda           the unsharded retrieve: kernel 1, kernel 2
@@ -23,8 +24,9 @@ strict total order and the top-n of a union is the top-n of the parts'
 top-n: the result equals one stable sort of the whole masked panel
 (`ref.panel_topn_ref`), ties and dead rows included, at any split.
 
-CUDA tensors launch the kernels, and n is at most MAX_N (128) there; CPU
-tensors take the plain versions (`ref.split_topn_ref`,
+CUDA tensors launch the kernels, and n is at most MAX_N (512, the replay
+kernel's `elo_scan.MAX_NEIGHBOURS`) there; CPU tensors take the plain
+versions (`ref.split_topn_ref`,
 `ref.topn_merge_ref`) through the same glue. Nothing here reads `size` on the host or branches
 on data, so the routes capture into CUDA graphs: a commit changes the
 live-row count in place, and the next replay reads it on the device.
@@ -37,13 +39,21 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-#: the largest n the kernels take (four list entries a warp lane; the
-#: paper's ablation, Fig. 4, routes with up to 80 neighbours)
-MAX_N = 128
+#: the largest n the kernels take (sixteen list entries a warp lane): the
+#: replay kernel's bound (the paper's ablation, Fig. 4, routes with up to
+#: 80 neighbours; the JAX package has no bound)
+MAX_N = 512
+#: past this n the split plan changes (a smaller GEMM tile where the lists
+#: do not fit, and at most STAGED // n splits), and kernel 2 merges the
+#: pool's sorted runs in place of its rounds over the whole pool
+PLAN_N = ROUNDS_K = 128
 #: the streaming kernel's query rows and DB rows a step; a GEMM tile's
 #: DB rows; a block's shared memory
 QT, CHUNK, BN = 8, 32, 128
 MAX_SMEM = 227 * 1024
+#: the pool entries (8 B each) that the merge kernel stages in shared
+#: memory; a larger pool is read in place each of its k rounds
+STAGED = MAX_SMEM // 8
 #: the H100 SXM's SMs: the split plan of the plain version on the CPU
 H100_SMS = 132
 #: the records' element types (core/state.py's DB panels)
@@ -62,28 +72,71 @@ def _sm_count(device: torch.device) -> int:
     return _SMS[idx]
 
 
-def tile_for(nq: int, d: int) -> int:
+def _batch_scratch(n: int) -> int:
+    """Past n = PLAN_N each warp merges a batch of 32 into its list with 32
+    ints of scratch (`list_merge_batch`)."""
+    return QT * 32 * 4 if n > PLAN_N else 0
+
+
+def gemm_smem(bm: int, n: int) -> int:
+    """Shared memory of a GEMM block of `bm` query rows keeping n-entry
+    lists (`TopnSmem::bytes`): the tile's scores over the staging
+    buffers, the inverse norms, bm x n (score, row) entries and the
+    warps' scratch."""
+    bk = 32 if bm == 32 else 16
+    stage = (2 * bk * (bm + 4) + 2 * bk * (BN + 4)) * 4
+    return (max(bm * BN * 4, stage) + (bm + BN) * 4 + bm * n * 8
+            + _batch_scratch(n))
+
+
+def gemv_smem(d: int, n: int) -> int:
+    """Shared memory of the streaming kernel (`topn_gemv_smem`): QT query
+    rows, their norms, a step's scores and, past n = PLAN_N, each warp's
+    list in shared memory."""
+    lists = QT * n * 8 + _batch_scratch(n) if n > PLAN_N else 0
+    return (QT * d + QT + QT * CHUNK) * 4 + lists
+
+
+def tile_for(nq: int, d: int, n: int = 1) -> int:
     """Kernel 1's tile, as the similarity kernel picks it: the streaming
     kernel (8) for Q <= 8 while its queries (and a step's scores) fit in
-    shared memory, else the GEMM with 32, 64 or 128 query rows."""
-    if nq <= QT and (QT * d + QT + QT * CHUNK) * 4 <= MAX_SMEM:
+    shared memory, else the GEMM with 32, 64 or 128 query rows; for large
+    n the largest of those whose lists fit in shared memory (n = 256: 64
+    rows, n = 512: 32)."""
+    if nq <= QT and gemv_smem(d, n) <= MAX_SMEM:
         return QT
-    return 32 if nq <= 32 else 64 if nq <= 64 else 128
+    tile = 32 if nq <= 32 else 64 if nq <= 64 else 128
+    while tile > 32 and gemm_smem(tile, n) > MAX_SMEM:
+        tile //= 2
+    return tile
 
 
-def plan(nq: int, c: int, d: int, sms: int = H100_SMS) -> Tuple[int, int,
-                                                                 int]:
+def plan(nq: int, c: int, d: int, sms: int = H100_SMS,
+         n: int = 1) -> Tuple[int, int, int]:
     """(tile, DB rows a split, splits) of kernel 1 over C >= 1 rows: splits
     of whole tiles (128 rows; 32 for the streaming kernel), as many as
     make about two blocks an SM with the tile's row blocks (bucket 1024,
-    C = 32768: 8 row blocks x 32 splits of 1024 rows)."""
-    tile = tile_for(nq, d)
+    C = 32768: 8 row blocks x 32 splits of 1024 rows). Past n = PLAN_N
+    the splits are also at most STAGED // n, so that the merge stages
+    the pool (n = 512: 56 splits)."""
+    tile = tile_for(nq, d, n)
     unit = CHUNK if tile == QT else BN
     units = -(-c // unit)
     row_blocks = 1 if tile == QT else -(-nq // tile)
     want = max(1, 2 * sms // row_blocks)
+    if n > PLAN_N:
+        want = max(1, min(want, STAGED // n))
     per = -(-units // min(units, want))
     return tile, per * unit, -(-units // per)
+
+
+def check_neighbours(n: int, device) -> None:
+    """Raise if a route of n neighbours on `device` would exceed the
+    kernels' bound (CUDA only; the plain versions take any n). Called
+    where a router or a dispatcher is built, ahead of its first route."""
+    if torch.device(device).type == "cuda" and n > MAX_N:
+        raise ValueError(f"n_neighbors = {n}: the CUDA retrieve keeps at "
+                         f"most {MAX_N} neighbours a query")
 
 
 def _check_on(name, dev, *xs):
@@ -119,7 +172,7 @@ def retrieve_topn_cuda(q: torch.Tensor, emb: torch.Tensor, size, n: int, *,
     the plan's split width."""
     nq, c = q.shape[0], emb.shape[0]
     if q.device.type == "cpu" and emb.device.type == "cpu":
-        rows = plan(nq, c, q.shape[1])[1] if c else 1
+        rows = plan(nq, c, q.shape[1], n=n)[1] if c else 1
         return ref.split_topn_ref(q, emb, size, n, rows, offset=offset)
     name = "retrieve_topn_cuda"
     _check_on(name, q.device, q, emb)
@@ -133,7 +186,8 @@ def retrieve_topn_cuda(q: torch.Tensor, emb: torch.Tensor, size, n: int, *,
     q = q.float().contiguous()
     emb = emb.float().contiguous()
     d = q.shape[1]
-    tile, rows, splits = plan(nq, c, d, _sm_count(dev)) if c else (0, 0, 0)
+    tile, rows, splits = plan(nq, c, d, _sm_count(dev), n) if c \
+        else (0, 0, 0)
     pool_s = torch.empty((nq, splits * n), dtype=torch.float32, device=dev)
     pool_i = torch.empty((nq, splits * n), dtype=torch.int32, device=dev)
     if pool_s.numel() == 0:
@@ -149,7 +203,7 @@ def retrieve_topn_cuda(q: torch.Tensor, emb: torch.Tensor, size, n: int, *,
     return pool_s, pool_i
 
 
-def _check_pool(name, pool_s, pool_i, k):
+def _check_pool(name, pool_s, pool_i, k, run):
     if pool_s.ndim != 2 or pool_i.shape != pool_s.shape:
         raise ValueError(f"{name}: pools {tuple(pool_s.shape)} and "
                          f"{tuple(pool_i.shape)} are not one (Q, P)")
@@ -161,6 +215,10 @@ def _check_pool(name, pool_s, pool_i, k):
     if not 1 <= k <= min(MAX_N, pool_s.shape[1]):
         raise ValueError(f"{name}: k = {k} of a pool of "
                          f"{pool_s.shape[1]} (at most {MAX_N})")
+    if k > ROUNDS_K and not (run and pool_s.shape[1] % run == 0):
+        raise ValueError(f"{name}: k = {k} merges the pool's sorted runs; "
+                         f"run = {run} does not divide its "
+                         f"{pool_s.shape[1]} columns")
 
 
 def _check_records(name, recs):
@@ -171,8 +229,9 @@ def _check_records(name, recs):
                              "int32, float32, bool")
 
 
-def _merge_launch(pool_s, pool_i, k, top_s, top_i, hit, src=None, by_row=0,
-                  offset=0, ld_src=0, dst=None, farthest=0, ld_dst=0):
+def _merge_launch(pool_s, pool_i, k, run, top_s, top_i, hit, src=None,
+                  by_row=0, offset=0, ld_src=0, dst=None, farthest=0,
+                  ld_dst=0):
     nq, p = pool_s.shape
     r = src[0].shape[-1] if src is not None else 0
     ptr = (lambda xs: [x.data_ptr() for x in xs] if xs is not None
@@ -181,7 +240,7 @@ def _merge_launch(pool_s, pool_i, k, top_s, top_i, hit, src=None, by_row=0,
     lib = _build.library("retrieve_topn")
     err = lib.topn_merge_launch(
         pool_s.data_ptr(), pool_i.data_ptr(), nq, p, pool_s.stride(0), k,
-        top_s.data_ptr(), top_i.data_ptr(), int(top_i.dtype == torch.int64),
+        run or 0, top_s.data_ptr(), top_i.data_ptr(), int(top_i.dtype == torch.int64),
         top_s.stride(0), None if hit is None else hit.data_ptr(), *ptr(src),
         r, by_row, offset, ld_src, *ptr(dst), farthest, ld_dst,
         _build.stream_handle(dev))
@@ -190,10 +249,12 @@ def _merge_launch(pool_s, pool_i, k, top_s, top_i, hit, src=None, by_row=0,
 
 
 def topn_merge_cuda(pool_s: torch.Tensor, pool_i: torch.Tensor, k: int, *,
-                    carried=None):
+                    carried=None, run: Optional[int] = None):
     """Kernel 2: the top k of each row of a (Q, P) candidate pool (pool_s
     fp32, pool_i int32 global rows, any row stride) in the order (score
-    descending, row ascending).
+    descending, row ascending). Past k = ROUNDS_K the pool must be sorted
+    runs of `run` entries in that order (kernel 1's lists: run = n; a
+    shard's reduce: its k), which the kernel merges.
 
     Returns (top_s (Q, k), top_i (Q, k) int64, hit (Q, k) bool) and, with
     `carried` = the pool's (model_a, model_b, outcome, valid) records, each
@@ -217,12 +278,12 @@ def topn_merge_cuda(pool_s: torch.Tensor, pool_i: torch.Tensor, k: int, *,
         recs = tuple(torch.empty((nq, k * r), dtype=x.dtype, device=dev)
                      for x in carried)
     if nq and k:
-        _check_pool(name, pool_s, pool_i, k)
+        _check_pool(name, pool_s, pool_i, k, run)
         if carried is None:
-            _merge_launch(pool_s, pool_i, k, top_s, top_i, hit.view(
+            _merge_launch(pool_s, pool_i, k, run, top_s, top_i, hit.view(
                 torch.uint8))
         else:
-            _merge_launch(pool_s, pool_i, k, top_s, top_i,
+            _merge_launch(pool_s, pool_i, k, run, top_s, top_i,
                           hit.view(torch.uint8), src=_bytes(carried),
                           ld_src=carried[0].stride(0), dst=_bytes(recs),
                           farthest=1, ld_dst=recs[0].stride(0))
@@ -235,10 +296,11 @@ def _bytes(recs):
 
 
 def shard_reduce_cuda(pool_s, pool_i, k: int, panels, offset: int, *,
-                      out=None):
-    """Kernel 2 on a shard: the top k of its pool with each winner's
-    records gathered from the shard's (C_l, R) `panels` (model_a,
-    model_b, outcome, valid) at row - offset, in rank order. Writes
+                      out=None, run: Optional[int] = None):
+    """Kernel 2 on a shard: the top k of its pool (sorted runs of `run`,
+    kernel 1's n, past k = ROUNDS_K) with each winner's records gathered
+    from the shard's (C_l, R) `panels` (model_a, model_b, outcome, valid)
+    at row - offset, in rank order. Writes
     (cand_s (Q, k) fp32, cand_i (Q, k) int32 global rows, records (Q, k,
     R) each) into `out` (views, e.g. the shard's columns of the leader's
     pool) or new tensors, and returns them. CPU tensors take
@@ -270,8 +332,8 @@ def shard_reduce_cuda(pool_s, pool_i, k: int, panels, offset: int, *,
         raise ValueError(f"{name}: outputs not laid out as (Q, k) and "
                          "(Q, k, R) rows")
     if nq and k:
-        _check_pool(name, pool_s, pool_i, k)
-        _merge_launch(pool_s, pool_i, k, cand_s, cand_i, None,
+        _check_pool(name, pool_s, pool_i, k, run)
+        _merge_launch(pool_s, pool_i, k, run, cand_s, cand_i, None,
                       src=_bytes(panels), by_row=1, offset=offset,
                       dst=_bytes(recs), ld_dst=recs[0].stride(0))
     return out
@@ -282,16 +344,17 @@ def topn_cuda(q, emb, size, n: int):
     Returns (top_s (Q, k), top_i (Q, k) int64, hit (Q, k)), k = min(n,
     C): what `ref.panel_topn_ref` returns, exactly."""
     pool_s, pool_i = retrieve_topn_cuda(q, emb, size, n)
-    return topn_merge_cuda(pool_s, pool_i, min(n, emb.shape[0]))
+    return topn_merge_cuda(pool_s, pool_i, min(n, emb.shape[0]), run=n)
 
 
-def merge_shards_cuda(pool_s, pool_i, records, n: int):
+def merge_shards_cuda(pool_s, pool_i, records, n: int, shards: int):
     """The cross-shard merge on the leader: kernel 2 over the shards'
-    pooled candidates (`sharded_topn_cuda`'s pool), their records carried
-    by pool position. Returns topn_merge_cuda's (top_s, top_i, hit,
-    records in the replay's layout)."""
+    pooled candidates (`sharded_topn_cuda`'s pool: `shards` runs, each in
+    rank order), their records carried by pool position. Returns
+    topn_merge_cuda's (top_s, top_i, hit, records in the replay's
+    layout)."""
     return topn_merge_cuda(pool_s, pool_i, min(n, pool_s.shape[1]),
-                           carried=records)
+                           carried=records, run=pool_s.shape[1] // shards)
 
 
 def sharded_topn_cuda(q, emb, panels, size, n: int):
@@ -321,8 +384,9 @@ def sharded_topn_cuda(q, emb, panels, size, n: int):
         cand = retrieve_topn_cuda(q if here else q.to(e.device), e, size[s],
                                   n, offset=s * c_local)
         got = shard_reduce_cuda(*cand, kl, tuple(x[s] for x in panels),
-                                s * c_local, out=dst if here else None)
+                                s * c_local, out=dst if here else None,
+                                run=n)
         if not here:
             for x, y in zip(dst[:2] + dst[2], got[:2] + got[2]):
                 x.copy_(y)
-    return merge_shards_cuda(pool_s, pool_i, recs, n)
+    return merge_shards_cuda(pool_s, pool_i, recs, n, len(emb))

@@ -16,11 +16,17 @@ import torch
 from repro_torch.kernels import _build, ref
 
 
-def similarity_cuda(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+def similarity_cuda(q: torch.Tensor, db: torch.Tensor, *,
+                    tile: int = 0) -> torch.Tensor:
     """q: (Q, D), db: (N, D) -> (Q, N) fp32 cosine scores.
 
     CUDA tensors launch the kernel; CPU tensors take the plain version
-    (`ref.similarity_ref`)."""
+    (`ref.similarity_ref`). `tile` 0 lets the kernel pick its tile by Q
+    (`retrieve_topn.tile_for` at n <= 161); 8 forces the streaming kernel
+    and 32, 64, 128 the GEMM of that many query rows. Scores are equal bit
+    for bit between this kernel and `retrieve_topn` at the same tile;
+    across tiles they may differ in the last place, so a check of the
+    retrieve at n > 161 (a smaller GEMM tile) passes its tile here."""
     if q.device.type == "cpu" and db.device.type == "cpu":
         return ref.similarity_ref(q, db)
     if not (q.is_cuda and db.is_cuda and q.device == db.device):
@@ -37,8 +43,9 @@ def similarity_cuda(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = _build.library("similarity")
-    err = lib.similarity_launch(q.data_ptr(), db.data_ptr(), out.data_ptr(),
-                                nq, n, d, _build.stream_handle(q.device))
+    err = lib.similarity_launch_tile(q.data_ptr(), db.data_ptr(),
+                                     out.data_ptr(), nq, n, d, tile,
+                                     _build.stream_handle(q.device))
     _build.check(err, "similarity_cuda")
     _build.count_launch("similarity")
     return out

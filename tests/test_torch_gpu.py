@@ -3,6 +3,8 @@ card. Marked `gpu`: without a CUDA device every test here skips.
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -1236,16 +1238,166 @@ def test_topn_merge_kernel_matches_plain(dev, p, k, r):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("runs,run,k,r", [(8, 512, 512, 8),
+                                           (54, 512, 512, 8),
+                                           (3, 200, 129, 3),
+                                           (205, 129, 129, 8),
+                                           (40, 300, 300, 16)])
+def test_topn_merge_runs_kernel_matches_plain(dev, runs, run, k, r):
+    """Kernel 2 past k = 128 merges the pool's sorted runs (kernel 1's
+    lists; a shard's reduce): over runs of few distinct scores (ties,
+    -inf dead rows, unfilled slots at each run's end), in the order
+    (score descending, row ascending), the top k, the hit mask and both
+    payload routes equal the plain version's exactly; an unsorted pool
+    needs no run below k = 129, and past it raises without one."""
+    rng = np.random.default_rng(runs + k)
+    nq, p = 9, runs * run
+    c = 2 * p
+    vals = np.asarray([-np.inf, -1.0, 0.0, 0.5, 1.0], np.float32)
+    pool_s = rng.choice(vals, (nq, p)).astype(np.float32)
+    pool_i = np.stack([rng.permutation(c)[:p] for _ in range(nq)]
+                      ).astype(np.int32)
+    pool_s[:, run - 3:run] = -np.inf             # run 0 not filled
+    pool_i[:, run - 3:run] = ref.EMPTY_ROW
+    for j in range(runs):                        # each run sorted
+        cols = slice(j * run, (j + 1) * run)
+        order = np.lexsort((pool_i[:, cols], -pool_s[:, cols]), axis=1)
+        pool_s[:, cols] = np.take_along_axis(pool_s[:, cols], order, 1)
+        pool_i[:, cols] = np.take_along_axis(pool_i[:, cols], order, 1)
+    pool_s = torch.tensor(pool_s, device=dev)
+    pool_i = torch.tensor(pool_i, device=dev)
+    panels = (torch.tensor(rng.integers(0, 10, (c, r)), dtype=torch.int32,
+                           device=dev),
+              torch.tensor(rng.integers(0, 10, (c, r)), dtype=torch.int32,
+                           device=dev),
+              torch.tensor(rng.random((c, r)), dtype=torch.float32,
+                           device=dev),
+              torch.tensor(rng.random((c, r)) < 0.5, device=dev))
+    got = RT.topn_merge_cuda(pool_s, pool_i, k, run=run)
+    want = ref.topn_merge_ref(pool_s, pool_i, k)
+    for x, y in zip(got, want[:3]):
+        assert torch.equal(x, y)
+    out = RT.shard_reduce_cuda(pool_s, pool_i, k, panels, 0, run=run)
+    want = ref.topn_merge_ref(pool_s, pool_i, k, panels=panels)
+    assert torch.equal(out[0], want[0])
+    assert torch.equal(out[1].long(), want[1])
+    for x, y in zip(out[2], want[3]):
+        assert torch.equal(x, y)
+    carried = tuple(x[pool_i.clamp(0, c - 1).long()] for x in panels)
+    got = RT.topn_merge_cuda(pool_s, pool_i, k, carried=carried, run=run)
+    want = ref.topn_merge_ref(pool_s, pool_i, k, carried=carried,
+                              farthest_first=True)
+    for x, y in zip(got[:3] + got[3], want[:3] + want[3]):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="sorted runs"):
+        RT.topn_merge_cuda(pool_s, pool_i, k)
+
+
 def test_retrieve_kernels_refuse_what_they_do_not_take(dev):
     x = torch.ones((4, 8), device=dev)
-    with pytest.raises(ValueError, match="n = 129"):
-        RT.retrieve_topn_cuda(x, x, None, 129)
-    with pytest.raises(ValueError, match="k = 129"):
-        RT.topn_merge_cuda(torch.zeros((2, 200), device=dev),
-                           torch.zeros((2, 200), dtype=torch.int32,
-                                       device=dev), 129)
+    with pytest.raises(ValueError, match="n = 513.*512"):
+        RT.retrieve_topn_cuda(x, x, None, 513)
+    with pytest.raises(ValueError, match="k = 513.*512"):
+        RT.topn_merge_cuda(torch.zeros((2, 600), device=dev),
+                           torch.zeros((2, 600), dtype=torch.int32,
+                                       device=dev), 513)
     with pytest.raises(ValueError, match="one CUDA device"):
         RT.retrieve_topn_cuda(x, x.cpu(), None, 4)
+
+
+@pytest.mark.parametrize("nq", [1, 8, 9, 64, 65, 1024])
+@pytest.mark.parametrize("n", [129, 256, 512])
+def test_retrieve_large_n_equals_panel_and_stable_sort(dev, nq, n):
+    """n past 128 (NE = 8 and 16 list entries a lane; the GEMM tile cut to
+    the rows whose lists fit, the splits capped so the merge stages its
+    pool): kernel 1's pool equals the per-split stable top-n of the
+    similarity kernel's masked panel at the same tile, and the merge one
+    stable sort of it (`ref.panel_topn_ref`), bit for bit, ties on the
+    split boundaries, rows past `size` dead; and a DB smaller than n."""
+    c, d = 3001, 1536
+    tile, rows, splits = RT.plan(nq, c, d, RT._sm_count(dev), n)
+    assert tile == RT.tile_for(nq, d, n) and splits * n <= RT.STAGED
+    q, db, _, _ = _tie_inputs(dev, nq, c, d, [rows * i for i in
+                                              range(1, 4)] + [700], n)
+    sim = partial(similarity_cuda, tile=tile)     # scores of the same tile
+    size = torch.tensor(c - 100, dtype=torch.int32, device=dev)
+    pool_s, pool_i = RT.retrieve_topn_cuda(q, db, size, n)
+    want_s, want_i = ref.panel_pool_ref(
+        ref.mask_dead(sim(q, db), 0, size), n, rows)
+    assert torch.equal(pool_i, want_i) and torch.equal(pool_s, want_s)
+    got = RT.topn_cuda(q, db, size, n)
+    want = ref.panel_topn_ref(q, db, size, n, similarity_fn=sim)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    small = db[:n - 37]                      # C < n: k = C, none dead
+    got = RT.topn_cuda(q, small, None, n)
+    want = ref.panel_topn_ref(q, small, None, n, similarity_fn=sim)
+    torch.cuda.synchronize()
+    assert got[1].shape == (nq, n - 37)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n", [129, 256, 512])
+def test_retrieve_large_n_tied_panels(dev, n):
+    """A DB of few distinct rows (every score tied many times over, the
+    ties deciding which rows each split keeps): the pair equals one
+    stable sort of the panel bit for bit at buckets 8, 64 and 1024."""
+    rng = np.random.default_rng(n)
+    c, d = 4096, 64
+    base = rng.normal(size=(5, d)).astype(np.float32)
+    db = torch.tensor(base[rng.integers(0, 5, c)], device=dev)
+    for nq in (8, 64, 1024):
+        q = torch.tensor(base[rng.integers(0, 5, nq)], device=dev)
+        size = torch.tensor(c - 77, dtype=torch.int32, device=dev)
+        got = RT.topn_cuda(q, db, size, n)
+        want = ref.panel_topn_ref(q, db, size, n, similarity_fn=partial(
+            similarity_cuda, tile=RT.tile_for(nq, d, n)))
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4])
+@pytest.mark.parametrize("n", [129, 256, 512])
+def test_sharded_retrieve_large_n_equals_panel(dev, shards, n):
+    """The capacity-sharded retrieve at n past 128 on one card (per shard
+    kernel 1 and the reduce with records, then the merge on the leader)
+    equals `ref.sharded_panel_topn_ref` over the similarity kernel's
+    panels bit for bit: rows, scores, hits and the pre-gathered records;
+    with n above a shard's rows too (C_l = 256 at S = 4)."""
+    c = 1024
+    q, db, recs, _, _, _, _ = _route_inputs(dev, 64, c, n + shards)
+    size = torch.tensor(c - 50, dtype=torch.int32, device=dev)
+    emb = _split(db, shards)
+    panels = tuple(_split(x, shards) for x in recs)
+    got = RT.sharded_topn_cuda(q, emb, panels, [size] * shards, n)
+    want = ref.sharded_panel_topn_ref(q, emb, panels, [size] * shards, n,
+                                      similarity_fn=partial(
+                                          similarity_cuda,
+                                          tile=RT.tile_for(64, 1536, n)))
+    torch.cuda.synchronize()
+    for x, y in zip(got[:3] + got[3], want[:3] + want[3]):
+        assert torch.equal(x, y)
+
+
+def test_routers_refuse_more_neighbours_than_the_kernels_keep(dev):
+    """An EagleRouter or a RouteDispatcher on the card with n_neighbors
+    past MAX_N raises when it is built, not at its first route; the
+    reference backend and the CPU take any n."""
+    from repro_torch.core.dispatch import RouteDispatcher
+    from repro_torch.core.router import EagleConfig, EagleRouter
+    with pytest.raises(ValueError, match="513.*512"):
+        EagleRouter(["a", "b"], [1.0, 2.0], EagleConfig(n_neighbors=513),
+                    device=dev)
+    with pytest.raises(ValueError, match="513.*512"):
+        RouteDispatcher(torch.ones(2, device=dev), n_neighbors=513)
+    EagleRouter(["a", "b"], [1.0, 2.0], EagleConfig(n_neighbors=512),
+                device=dev)
+    EagleRouter(["a", "b"], [1.0, 2.0],
+                EagleConfig(n_neighbors=513, backend="reference"),
+                device=dev)
+    RouteDispatcher(torch.ones(2), n_neighbors=513)
 
 
 def _route_inputs(dev, nq, c, seed):

@@ -167,3 +167,48 @@ def test_sharded_route_modules_import_without_jax():
                          env={**os.environ, "PYTHONPATH": str(SRC)})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+_ROUTER_PATH_MODULES = r"""
+import importlib.util, pathlib, sys
+sys.modules["jax"] = None
+import benchmarks_torch.route_batch_bench, benchmarks_torch.queue_bench
+import benchmarks_torch.kernels_bench, benchmarks_torch.run
+names = []
+for path in sorted(pathlib.Path("examples_torch").glob("*.py")):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    names.append(path.stem)
+leaked = sorted(m for m, v in sys.modules.items() if v is not None and
+                (m in ("repro", "jax", "benchmarks", "examples") or
+                 m.startswith(("repro.", "jax.", "benchmarks.",
+                               "examples."))))
+print(names, leaked)
+"""
+
+
+def test_router_path_benchmarks_and_examples_import_without_jax():
+    """The route, queue and kernel benchmarks and every example of
+    `examples_torch/` import with JAX blocked and load nothing of the JAX
+    package, `benchmarks` or `examples`."""
+    out = subprocess.run([sys.executable, "-c", _ROUTER_PATH_MODULES],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120,
+                         env={**os.environ,
+                              "PYTHONPATH": f"{SRC}{os.pathsep}{ROOT}"})
+    assert out.returncode == 0, out.stderr
+    names, leaked = out.stdout.strip().split("] ", 1)
+    for name in ("online_adaptation", "quickstart", "serve_routed"):
+        assert f"'{name}'" in names
+    assert leaked == "[]"
+
+
+@pytest.mark.parametrize("module", ["route_batch_bench", "queue_bench",
+                                    "kernels_bench"])
+def test_router_path_benchmarks_default_to_the_card(module):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    import importlib
+    mod = importlib.import_module(f"benchmarks_torch.{module}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])

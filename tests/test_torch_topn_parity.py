@@ -279,3 +279,49 @@ def test_plan_takes_similarity_tiles_and_covers_the_db(nq, tile):
         assert blocks <= 2 * RT.H100_SMS or rows == unit
     assert RT.plan(1024, 32768, 1536) == (128, 1024, 32)
     assert RT.plan(8, 32768, 1536) == (8, 128, 256)
+
+
+@pytest.mark.parametrize("nq", [8, 64, 1024])
+@pytest.mark.parametrize("n", [256, 512])
+@pytest.mark.parametrize("size", [1900, 300])
+def test_large_n_two_stage_at_the_plan_equals_jax_top_k(nq, n, size):
+    """n past 128 with the split plan the kernels take there (the GEMM
+    tile whose lists fit, the splits capped at STAGED // n): the plain
+    two-stage retrieve equals `jax.lax.top_k` and one stable sort over the
+    same masked panel, ties on the split boundaries, size below C and
+    below n. (`lax.top_k` runs over the port's panel: 512 ranks of 2,000
+    scores hold gaps near fp32's rounding, which the two packages'
+    similarities may order either way, ROADMAP §4.5.)"""
+    rng = np.random.default_rng(nq + n + size)
+    c, d = 2000, 16
+    tile, rows, splits = RT.plan(nq, c, 1536, n=n)
+    assert splits * n <= RT.STAGED and (splits - 1) * rows < c
+    q, db = _tied_db(rng, c, d, [rows * i for i in range(1, 6)] + [999])
+    q = np.concatenate([q, rng.normal(size=(nq - len(q), d))
+                        .astype(np.float32)]) if nq > len(q) else q[:nq]
+    scores = TREF.mask_dead(TREF.similarity_ref(torch.tensor(q),
+                                                torch.tensor(db)), 0, size)
+    want = np.asarray(jax.lax.top_k(jnp.asarray(scores.numpy()), n)[1])
+    top_s, top_i, hit = _two_stage(q, db, size, n, rows)
+    np.testing.assert_array_equal(top_i.numpy(), want)
+    panel = TREF.panel_topn_ref(torch.tensor(q), torch.tensor(db), size, n)
+    for got, ref_ in zip((top_s, top_i, hit), panel):
+        assert torch.equal(got, ref_)
+    assert int((~hit).sum()) == len(q) * max(0, n - size)
+
+
+def test_plan_past_128_neighbours():
+    """Past n = 128 the plan keeps the lists in shared memory (n = 256: 64
+    query rows a GEMM block, n = 512: 32) and caps the splits so that the
+    merge stages the pool; at n <= 128 it is as before."""
+    assert RT.plan(1024, 32768, 1536, n=128) == (128, 1024, 32)
+    assert RT.plan(8, 32768, 1536, n=128) == (8, 128, 256)
+    assert RT.tile_for(1024, 1536, 129) == 128
+    assert RT.tile_for(1024, 1536, 256) == 64
+    assert RT.tile_for(1024, 1536, 512) == RT.tile_for(64, 1536, 512) == 32
+    for n in (129, 256, 512):
+        for nq in (8, 64, 1024):
+            tile, rows, splits = RT.plan(nq, 32768, 1536, n=n)
+            assert splits * n <= RT.STAGED
+            assert tile == 8 or RT.gemm_smem(tile, n) <= RT.MAX_SMEM
+    assert RT.gemm_smem(128, 162) > RT.MAX_SMEM >= RT.gemm_smem(128, 161)
