@@ -143,6 +143,21 @@ together), then:
      and tokens on the same 16 requests;
      whisper and mamba2 kernel path against plain path, their times and
      profiles.
+ 10b. the moe family (`drive_moe`): phi3.5-moe's two attention call
+     sites (prefill B=8, S=1024, H=32, Hk=8, dh=128; decode over its
+     cache of 1056 rows) against their plain versions with controls and
+     timed; then phi3.5-moe at full width (d_model 4096, 16 experts of
+     6400, top-2; 16 of its 32 layers, 42.1 GB in bf16) beside olmo-1b
+     behind a router at D = 1536: decode graphs for 1..16 rows, 2
+     serve() calls of 16 requests (phi answering a group in each), no
+     capture, its call sites' launches counted, peak memory under 80
+     GB; greedy tokens through the graphs equal to the eager path's;
+     phi's kernel path against its plain path (the experts pinned to
+     the kernel path's); one layer's MoE FFN in bf16 at 8 x 1024 tokens
+     and 8 decode rows against fp32 within a derived bar, its dropped
+     pairs equal to the host's count; TTFT, the decode step, profiles
+     and the MoE FFN's share of them; the launcher with `--fleet 5`
+     (reduced) in process, phi answering, and as the CLI.
  11. the paper's experiments (`benchmarks_torch`) at the frozen regime
      (300 prompts per dataset, D = 64, seed 0): holds KNN's retrieve
      call (a dataset's ~90 test rows against the 1,470 win-rate rows,
@@ -176,6 +191,7 @@ Everything measured is also written to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import re
@@ -288,6 +304,49 @@ WHISPER_SITES = {"whisper flash encoder": "flash encoder",
 COMPARE_LENS.update({
     "whisper-large-v3": (1024, 900, 777, 640, 512, 300, 200, 128),
     "mamba2-780m": (1024, 700, 513, 256)})   # padded to 1024: 4 chunks
+# the moe family (ROADMAP §2.6.1): phi3.5-moe at full width (d_model
+# 4096, 32 / 8 heads of 128, 16 experts of width 6400, top-2, vocab
+# 32064, bf16) cut to MOE_LAYERS of its 32 layers, its one reduction:
+# 21.1B parameters, 42.1 GB in bf16 (all 32 layers: 83.7 GB, more than
+# the card). It is served beside olmo-1b at full width (costs 1 and 8)
+# behind a router at D = 1536: MOE_CALLS serve() calls of SERVE_BATCH
+# requests drawn with MOE_SEED (phi answers a group in each: 2 and 4
+# requests in a rehearsal on the CPU with stub models), groups padded to
+# LAUNCH_PAD_LEN tokens and the row ladder, decode graphs for
+# LAUNCH_BUCKETS rows
+MOE_MODEL, MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 16
+MOE_FLEET = ("olmo-1b", MOE_MODEL)
+MOE_CALLS, MOE_SEED = 2, 0
+COMPARE_LENS[MOE_MODEL] = (1024, 900, 777, 640, 512, 300, 200, 128)
+# phi's two attention call sites at its serving shapes (H = 32, Hk = 8,
+# dh = 128): the causal prefill of 8 x 1024 and one token against its
+# cache of SERVE_MAX_LEN rows; the kernels line's entries, by the
+# count_sites key of their launches on the MoE fleet's run
+PHI_FLASH = {"prefill": (8, 1024, 1024, 32, 8, 128, True)}
+PHI_DECODE = {"self decode": (16, SERVE_MAX_LEN, 32, 8, 128)}
+PHI_SITES = {"phi flash prefill": "flash causal",
+             "phi self decode": "decode self"}
+# the MoE FFN on the card: one layer's bf16 weights at 8 x 1024 tokens
+# and at 8 decode rows, against the same function in fp32 (the same bf16
+# weights and activations, widened; TF32 off). Both take the same experts
+# and slots: the router reads the same fp32 values in both. The bf16 path
+# rounds, each to u = 2^-8 relative (bf16's unit roundoff, the products
+# accumulated in fp32): the gate and up products g and v, silu(g), the
+# gated product h = silu(g) v, the down product y_k of each of the k
+# choices, the choice's weight w_k, the weighted output and the sum over
+# the choices. A relative error e of g moves silu(g) by a e, a = 1 + g (1
+# - sigmoid(g)); so h_j moves by eps_j h_j, eps_j the sum of four
+# independent roundings, of variance (a_j^2 + 3) u^2 / 3 (each uniform on
+# [-u, u]). Through y_k,i = sum_j h_j W_ji over 6400 terms they sum to a
+# normal error of variance sigma_i^2 = (u^2 / 3) sum_k w_k^2 sum_j (a_j^2
+# + 3) h_j^2 W_ji^2 (fp32, from the reference's own g, h, w); the four
+# roundings after it move an element by at most u each of a choice's
+# term: 4 u sum_k w_k |y_k,i|. The bar, element by element:
+# MOE_SIGMAS sigma_i + 4 u sum_k w_k |y_k,i|. A normal variable passes
+# 8 sigma with probability 1.2e-15: 4e-8 expected excesses in the 3.4e7
+# elements of the prefill. Predicted largest error over the bar 0.2-0.5.
+MOE_SIGMAS, MOE_ROUND = 8.0, 2.0 ** -8
+MOE_FFN_SHAPES = {"prefill": (8, 1024), "decode": (8, 1)}
 # tolerances: the JAX suite's own bars between its backends
 SIM_TOL = 1e-5                     # similarity (tests/test_kernels.py)
 R_RTOL, R_ATOL = 1e-5, 1e-3        # ratings (tests/test_router_state.py)
@@ -2957,6 +3016,31 @@ def kernels_held(worst, drop):
         yield
 
 
+@contextlib.contextmanager
+def pinned_experts(calls, record):
+    """Inside: each `moe.route` call records the experts it chose into
+    `calls` (record), or takes the ones recorded there, in the same
+    order, with its weights renormalised from its own gates at them."""
+    from unittest import mock
+    from repro_torch.models import moe as MOE
+    route, replay = MOE.route, iter(list(calls))
+    if record:
+        calls.clear()
+
+    def pinned(cfg, router, xt):
+        top_w, top_e, gates = route(cfg, router, xt)
+        if record:
+            calls.append(top_e)
+            return top_w, top_e, gates
+        top_e = next(replay)
+        top_w = gates.gather(1, top_e)
+        return (top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9), top_e,
+                gates)
+
+    with mock.patch.object(MOE, "route", pinned):
+        yield
+
+
 @torch.inference_mode()
 def compare_model_paths(engine, stats, names=FLEET):
     """A padded group of each fleet model through prefill + 4 decode
@@ -2969,7 +3053,11 @@ def compare_model_paths(engine, stats, names=FLEET):
     of the plain path's. whisper's encoder reads seeded random frame
     embeddings (distinct rows; the served stub is zeros). mamba2 has no
     attention: its paths run the same code, so it has no control and no
-    kernel call to hold, and its logits are held to the same bar."""
+    kernel call to hold, and its logits are held to the same bar. A MoE
+    model's plain and control paths take the kernel path's experts
+    (`pinned_experts`): a near-tied gate could otherwise flip a token's
+    expert, and a capacity drop after it, and move its logits by a
+    whole expert's output, which is no attention fault."""
     from repro_torch.models import transformer as T
     # path: (backend, keys dropped from kv_len; None: calls not held)
     paths = {"kernels": ("cuda", 0), "plain": ("reference", None),
@@ -2991,11 +3079,14 @@ def compare_model_paths(engine, stats, names=FLEET):
                                   device=dev).manual_seed(4), device=dev)
         worst = {p: dict(flash_attention=0.0, decode_attention=0.0)
                  for p in ("kernels", "control")}
+        experts = [] if cfg.arch_type == "moe" else None
 
         def run(p, fn):
             backend, drop = paths[p]
             with (contextlib.nullcontext() if drop is None
-                  else kernels_held(worst[p], drop)):
+                  else kernels_held(worst[p], drop)), \
+                    (contextlib.nullcontext() if experts is None
+                     else pinned_experts(experts, record=p == "kernels")):
                 return fn(backend)
 
         out = {p: run(p, lambda b: T.prefill(
@@ -3072,7 +3163,7 @@ def eager_generate(m, toks, max_new):
     return torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
 
 
-def compare_graph_generate(engine, stats):
+def compare_graph_generate(engine, stats, key="graph_tokens_differing"):
     """Each fleet model's greedy tokens through its captured decode
     graphs (FleetModel.generate, a warmed row count of 8) against the
     eager path's on the same padded group of 8 prompts of 128..1024
@@ -3093,7 +3184,7 @@ def compare_graph_generate(engine, stats):
             fail(f"{name}: generate at 8 rows captured a graph")
     log(f"greedy tokens through the decode graphs against the eager "
         f"path, 8 prompts x {MAX_NEW} tokens per model: differing {out}")
-    stats["graph_tokens_differing"] = out
+    stats[key] = out
     if any(out.values()):
         fail(f"tokens through the decode graphs differ from the eager "
              f"path's: {out}")
@@ -3358,8 +3449,8 @@ def drive_launcher(stats):
                                      last=lines[-1])
 
 
-def _whisper_site(kernels, key, name, nbytes, flops, got_ms, plain_ms,
-                  lib_ms, err):
+def _site_entry(kernels, key, name, nbytes, flops, got_ms, plain_ms,
+                lib_ms, err):
     bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
     kernels[key] = dict(
         name=name, route="cuda",
@@ -3374,21 +3465,25 @@ def _whisper_site(kernels, key, name, nbytes, flops, got_ms, plain_ms,
     return bms, by
 
 
-def check_whisper_attention(dev, kernels, stats):
-    """whisper-large-v3's five attention call sites in bf16 at its serving
-    shapes (WHISPER_FLASH, WHISPER_DECODE), each against its plain
-    version (the flash and decode bars of phase 6) with a control, one
-    key dropped, that must fail by CONTROL_MIN: the encoder and the
-    cross prefill drop the last key for every row (held on all rows),
-    the causal decoder each row's own key (rows with at least S/2 keys),
-    the decodes the newest row (kv_len - 1). Each timed beside its
-    bound and SDPA."""
+def check_site_attention(dev, kernels, stats, model="whisper",
+                         flash_shapes=WHISPER_FLASH,
+                         decode_shapes=WHISPER_DECODE, seed=6):
+    """A model's attention call sites in bf16 at its serving shapes
+    (whisper-large-v3's five: WHISPER_FLASH, WHISPER_DECODE; phi3.5-moe's
+    two: PHI_FLASH, PHI_DECODE), each against its plain version (the
+    flash and decode bars of phase 6) with a control, one key dropped,
+    that must fail by CONTROL_MIN: a bidirectional flash site (the
+    encoder, the cross prefill) drops the last key for every row (held
+    on all rows), a causal one each row's own key (rows with at least
+    S/2 keys), the decodes the newest row (kv_len - 1). Each timed
+    beside its bound and SDPA; the kernels line's entries are
+    "<model> flash <site>" and "<model> <site>"."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    gen = torch.Generator(device=dev).manual_seed(6)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     report = {}
-    for site, (b, s, t, h, hk, dh, causal) in WHISPER_FLASH.items():
+    for site, (b, s, t, h, hk, dh, causal) in flash_shapes.items():
         q = _bf16(gen, (b, s, h, dh), dev)
         k = _bf16(gen, (b, t, hk, dh), dev)
         v = _bf16(gen, (b, t, hk, dh), dev)
@@ -3405,7 +3500,7 @@ def check_whisper_attention(dev, kernels, stats):
             ctl = flash_attention_cuda(q, k[:, :-1], v[:, :-1], causal=False)
             control = flash_check(ctl, want, atol)[1]
         if not (ratio <= 1.0 and control >= CONTROL_MIN):
-            fail(f"whisper flash {site} B={b} S={s} S_kv={t}: error over "
+            fail(f"{model} flash {site} B={b} S={s} S_kv={t}: error over "
                  f"the bar {ratio} (at most 1), control {control} (at "
                  f"least {CONTROL_MIN})")
         ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal),
@@ -3416,20 +3511,20 @@ def check_whisper_attention(dev, kernels, stats):
         nbytes = 2.0 * (2 * b * s * h * dh + 2 * b * t * hk * dh)
         pairs = s * (s + 1) / 2 if causal else s * t
         flops = 4.0 * b * h * dh * pairs
-        bms, by = _whisper_site(kernels, f"whisper flash {site}",
-                                f"flash_attention (whisper {site})",
-                                nbytes, flops, ms, plain, lib, err)
+        bms, by = _site_entry(kernels, f"{model} flash {site}",
+                              f"flash_attention ({model} {site})",
+                              nbytes, flops, ms, plain, lib, err)
         report[site] = dict(max_abs_err=err, err_over_bar=ratio,
                             control_over_bar=control, ms=ms, plain_ms=plain,
                             library_ms=lib, bound_ms=bms, bound_by=by)
         log_time(stats,
-                 f"flash_attention bf16 whisper {site} B={b} S={s} "
+                 f"flash_attention bf16 {model} {site} B={b} S={s} "
                  f"S_kv={t} H={h} Hk={hk} dh={dh} causal={causal}: max abs "
                  f"err {err}, over the bar {ratio}, control {control}; "
                  f"kernel_ms={ms} ({bms / ms} of the bound) plain_ms={plain}"
                  f" library_ms(SDPA)={lib} (kernel / SDPA {ms / lib}) "
                  f"bound_ms={bms} ({by})")
-    for site, (b, t, h, hk, dh) in WHISPER_DECODE.items():
+    for site, (b, t, h, hk, dh) in decode_shapes.items():
         q = _bf16(gen, (b, h, dh), dev)
         k = torch.randn((b, t, hk, dh), generator=gen, device=dev)  # fp32
         v = torch.randn((b, t, hk, dh), generator=gen, device=dev)
@@ -3445,7 +3540,7 @@ def check_whisper_attention(dev, kernels, stats):
         ctl = decode_attention_cuda(q, k, v, kv_len - 1)
         control = decode_check(ctl, want)[1]
         if not (ratio <= 1.0 and control >= CONTROL_MIN):
-            fail(f"whisper {site} B={b} T={t}: error over the bar {ratio} "
+            fail(f"{model} {site} B={b} T={t}: error over the bar {ratio} "
                  f"(at most 1), control {control} (at least "
                  f"{CONTROL_MIN})")
         ms = cuda_ms(lambda: decode_attention_cuda(q, k, v, kv_len), 1000)
@@ -3458,22 +3553,22 @@ def check_whisper_attention(dev, kernels, stats):
             attn_mask=mask, enable_gqa=True), 20)
         n_kv = float(kv_len.sum())
         nbytes = n_kv * hk * dh * 4 * 2 + 2.0 * 2 * b * h * dh + 4 * b
-        bms, by = _whisper_site(kernels, f"whisper {site}",
-                                f"decode_attention (whisper {site})",
-                                nbytes, 4.0 * h * dh * n_kv, ms, plain, lib,
-                                err)
+        bms, by = _site_entry(kernels, f"{model} {site}",
+                              f"decode_attention ({model} {site})",
+                              nbytes, 4.0 * h * dh * n_kv, ms, plain, lib,
+                              err)
         report[site] = dict(max_abs_err=err, err_over_bar=ratio,
                             control_over_bar=control, ms=ms, queued_ms=qms,
                             plain_ms=plain, library_ms=lib, bound_ms=bms,
                             bound_by=by)
         log_time(stats,
-                 f"decode_attention q bf16, cache fp32, whisper {site} B={b} "
+                 f"decode_attention q bf16, cache fp32, {model} {site} B={b} "
                  f"T={t} H={h} Hk={hk} dh={dh}, {int(n_kv)} valid rows: max "
                  f"abs err {err}, over the bar {ratio}, control {control}; "
                  f"kernel_ms={ms} ({bms / ms} of the bound) queued_ms={qms} "
                  f"({bms / qms} of the bound) plain_ms={plain}"
                  f" library_ms(SDPA, fp32, mask)={lib} bound_ms={bms} ({by})")
-    stats["whisper_attention"] = report
+    stats[f"{model}_attention"] = report
 
 
 def launch_router(dev):
@@ -3762,6 +3857,319 @@ def drive_launch_fleet(engine, corpus, stats):
         serve_wall_s=wall, serve_p50_s=p50, admission=summary,
         flushes=[(f.reason, f.n) for f in queue.flush_log],
         wait_ms=waits, e2e_ms=e2e, stats=st, groups=groups)
+
+
+# ---------------------------------------------------------------------------
+# phase 10b: the moe family, phi3.5-moe at full width beside olmo-1b
+# ---------------------------------------------------------------------------
+
+def build_moe_fleet(dev, stats):
+    """A ServingEngine over MOE_FLEET: olmo-1b at full width and depth,
+    phi3.5-moe at full width and MOE_LAYERS layers (each block cast to
+    bf16 as it is drawn), fp32 caches of SERVE_MAX_LEN rows, groups
+    padded to LAUNCH_PAD_LEN tokens and the row ladder, behind a router
+    fitted at D = 1536 with costs linspace(1, 8, 2)."""
+    import dataclasses
+    from repro_torch import obs as OBS
+    from repro_torch.configs import get_config
+    from repro_torch.core.router import EagleConfig, EagleRouter
+    from repro_torch.data.routerbench import make_corpus, pairwise_feedback
+    from repro_torch.launch.serve import quality_oracle
+    from repro_torch.models.config import count_params
+    from repro_torch.serving import FleetModel, ServingEngine
+    names = list(MOE_FLEET)
+    corpus = make_corpus(seed=0, n_per_dataset=60, dim=DIM,
+                         model_names=names,
+                         costs=np.linspace(1.0, 8.0, len(names)))
+    fb = pairwise_feedback(corpus, corpus.train_idx, seed=0,
+                           pairs_per_query=4)
+    router = EagleRouter(names, corpus.costs, EagleConfig(embed_dim=DIM),
+                         db_capacity=1 << 15, device=dev)
+    router.fit(fb["emb"], fb["model_a"], fb["model_b"], fb["outcome"])
+    fleet = {}
+    for i, name in enumerate(names):
+        cfg = get_config(name)
+        if name == MOE_MODEL:
+            full = cfg
+            cfg = dataclasses.replace(cfg, n_layers=MOE_LAYERS)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fleet[name] = FleetModel(cfg, seed=i, max_len=SERVE_MAX_LEN,
+                                 device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(x.numel() for x in _leaves(fleet[name].params))
+        gb = sum(x.numel() * x.element_size()
+                 for x in _leaves(fleet[name].params)) / 1e9
+        experts = f", {cfg.n_experts} experts of {cfg.expert_ff}, top-" \
+            f"{cfg.experts_per_tok}" if cfg.n_experts else ""
+        log(f"{name} ({cfg.arch_type}): {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads{experts}"
+            f", {n_params / 1e9:.3f}B parameters ({gb:.2f} GB), compute "
+            f"{cfg.dtype}; init + cast {time.perf_counter() - t0:.1f} s, "
+            f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    stats["moe_model"] = dict(
+        layers=MOE_LAYERS, of_layers=full.n_layers,
+        params=sum(x.numel() for x in _leaves(fleet[MOE_MODEL].params)),
+        full_params=count_params(full))
+    engine = ServingEngine(fleet, router, compare_rate=0.25, seed=0,
+                           quality_oracle=quality_oracle, gen_bucket=True,
+                           gen_pad_len=LAUNCH_PAD_LEN,
+                           obs=OBS.Observability())
+    engine.warmup()
+    torch.cuda.empty_cache()
+    return engine, corpus
+
+
+def drive_moe_fleet(engine, corpus, stats):
+    """MOE_CALLS serve() calls of SERVE_BATCH requests (prompts of
+    128..1024 tokens, MAX_NEW new tokens, budgets over [1, 10], 25% fed
+    back), drawn with MOE_SEED: every response checked, phi must answer
+    a group in each call."""
+    rng = np.random.default_rng(MOE_SEED)
+    db0 = engine.router.db.size
+    vocab = min(m.cfg.vocab for m in engine.fleet.values())
+    wall, groups = [], []
+    for call in range(MOE_CALLS):
+        reqs = serve_requests(corpus, rng, SERVE_BATCH, vocab)
+        t0 = time.perf_counter()
+        res = engine.serve(reqs)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        check_responses(engine, reqs, res, f"MoE fleet serve() call {call}")
+        groups.append({n: sum(r.model == n for r in res)
+                       for n in engine.fleet})
+    st = engine.stats
+    if engine.router.db.size != db0 + st["feedback"] or not st["commits"]:
+        fail(f"MoE fleet: feedback not committed: {st}")
+    if not all(g[MOE_MODEL] for g in groups):
+        fail(f"{MOE_MODEL} answered no group in a serve() call: {groups}")
+    p50 = statistics.median(wall)
+    log_time(stats,
+             f"MoE fleet {list(engine.fleet)}: {MOE_CALLS} serve() calls of "
+             f"{SERVE_BATCH}: requests per model {groups}; wall s {wall}, "
+             f"p50 {p50:.3f} s; stats {st}")
+    stats["moe_fleet"] = dict(serve_wall_s=wall, serve_p50_s=p50,
+                              groups=groups, stats=st)
+
+
+def moe_err_over_bar(cfg, ffn, x):
+    """The MoE FFN on bf16 `x` (B, S, d) with a layer's bf16 weights,
+    against the same function in fp32 on the same values: (max abs
+    error, the largest ratio of an element's error to its bar, pairs
+    dropped by the device's slots, pairs the host drops from the same
+    top-k). The bar: MOE_SIGMAS."""
+    import torch.nn.functional as F
+    from repro_torch.models import moe as MOE
+    u = MOE_ROUND
+    b, s, d = x.shape
+    t, e, k = b * s, cfg.n_experts, cfg.experts_per_tok
+    got = MOE.apply_moe(cfg, ffn, x)[0].float().reshape(t, d)
+    p32 = {n: ffn[n].float() for n in ("router", "w_gate", "w_up",
+                                       "w_down")}
+    xt = x.float().reshape(t, d)
+    want = MOE.apply_moe(cfg, p32, xt[None])[0][0]
+    dp = MOE.dispatch(cfg, p32["router"], xt)
+    buf = torch.cat([xt, xt.new_zeros((1, d))])[dp.src].view(e, dp.cap, d)
+    g = torch.bmm(buf, p32["w_gate"])
+    h = F.silu(g) * torch.bmm(buf, p32["w_up"])
+    a = 1.0 + g * (1.0 - torch.sigmoid(g))
+    var = torch.bmm((a * a + 3.0) * h * h, p32["w_down"].square())
+    del g, a, buf
+    y_k = torch.bmm(h, p32["w_down"]).abs().view(-1, d)
+    var = var.view(-1, d) * (u * u / 3.0)
+    idx = torch.where(dp.keep, dp.pair, 0)
+    w = dp.top_w.reshape(-1, 1) * dp.keep[:, None]
+    sigma = (var[idx] * w * w).view(t, k, d).sum(1).sqrt()
+    bar = MOE_SIGMAS * sigma + 4.0 * u * (y_k[idx] * w).view(t, k, d).sum(1)
+    err = (got - want).abs()
+    ratio = float((err / bar).nan_to_num(nan=0.0).max())
+    # the slots on the host: each pair the next of its expert, in order
+    flat = dp.top_e.reshape(-1).cpu().numpy()
+    host_drops = int(sum(max(0, int((flat == ex).sum()) - dp.cap)
+                         for ex in range(e)))
+    return float(err.max()), ratio, int((~dp.keep).sum()), host_drops
+
+
+@torch.inference_mode()
+def check_moe_ffn(m, stats):
+    """phi's first layer's MoE FFN at MOE_FFN_SHAPES (the activations
+    seeded normal values in bf16, as a unit-scale norm gives them)
+    against its fp32 evaluation within the bar at MOE_SIGMAS; the pairs
+    dropped on the device equal the host's count from the same top-k.
+    Each timed (bf16; the decode size queued): the FFN's device time
+    for the share of the step it takes."""
+    from repro_torch.models import moe as MOE
+    cfg, ffn = m.cfg, m.params["blocks"][0]["ffn"]
+    gen = torch.Generator(device=m.device).manual_seed(9)
+    report = {}
+    for case, (b, s) in MOE_FFN_SHAPES.items():
+        x = _bf16(gen, (b, s, cfg.d_model), m.device)
+        err, ratio, drops, host = moe_err_over_bar(cfg, ffn, x)
+        torch.cuda.empty_cache()
+        if not ratio <= 1.0 or drops != host:
+            fail(f"MoE FFN {case} ({b} x {s} tokens): error over the bar "
+                 f"{ratio} (at most 1), pairs dropped {drops}, on the host "
+                 f"{host}")
+        run = lambda: MOE.apply_moe(cfg, ffn, x)
+        # ~50 launches a call: 8 queued stay well inside a stream's queue
+        ms = cuda_ms(run, 10) if s > 1 else queued_ms(run, 8)
+        report[case] = dict(tokens=b * s, capacity=MOE.capacity(cfg, b * s),
+                            max_abs_err=err, err_over_bar=ratio,
+                            dropped=drops, ms=ms)
+        log_time(stats,
+                 f"MoE FFN bf16 ({cfg.n_experts} experts of "
+                 f"{cfg.expert_ff}, top-{cfg.experts_per_tok}) at {b} x {s} "
+                 f"tokens, capacity {MOE.capacity(cfg, b * s)}: max abs err "
+                 f"{err} against fp32, over the bar {ratio} (bar "
+                 f"{MOE_SIGMAS} sigma + 4u sum_k w_k |y_k|); pairs dropped "
+                 f"{drops} (host {host}); device ms a layer {ms}")
+    stats["moe_ffn"] = report
+
+
+def moe_share(stats):
+    """The MoE FFN's share of phi's prefill (8 x 1024) and of its
+    decode step through the graph (batch 8): MOE_LAYERS times one
+    layer's FFN time (check_moe_ffn) over the profiled device time
+    (profile_decode)."""
+    ffn = stats["moe_ffn"]
+    share = {
+        "prefill": MOE_LAYERS * ffn["prefill"]["ms"]
+        / stats[f"profile_prefill_{MOE_MODEL}"]["device_ms"],
+        "decode": MOE_LAYERS * ffn["decode"]["ms"]
+        / stats[f"profile_graph_{MOE_MODEL}"]["device_ms"]}
+    log_time(stats, f"{MOE_MODEL}: the MoE FFN's share of the device time "
+             f"(16 layers x one layer's FFN over the profiled total): "
+             f"prefill of 8 x 1024 {share['prefill']}, decode step at "
+             f"batch 8 through its graph {share['decode']}")
+    stats["moe_share"] = share
+
+
+def drive_launcher_fleet5(stats):
+    """The launcher with `--fleet 5` at its reduced configs: in process,
+    build_engine(n_fleet=5) serves 8 requests of which phi3.5-moe
+    answers at least one (the first test prompt the router sends to phi
+    at a budget of 10, then 7 at budgets over [1, 10]); then the CLI,
+    `python -m repro_torch.launch.serve --fleet 5 --requests 17 --budget
+    10`, must exit 0 with its stats line."""
+    from repro_torch import obs as OBS
+    from repro_torch.launch import serve as LS
+    from repro_torch.serving import Request
+    t0 = time.perf_counter()
+    engine, corpus = LS.build_engine(n_fleet=5, obs=OBS.Observability())
+    build_s = time.perf_counter() - t0
+    names = list(engine.fleet)
+    test = corpus.test_idx
+    choice = engine.router.route(corpus.embeddings[test],
+                                 np.full(len(test), 10.0, np.float32))
+    phi = [int(i) for i in np.nonzero(
+        choice.cpu().numpy() == names.index(MOE_MODEL))[0]]
+    if not phi:
+        fail(f"the launcher's router sends no test prompt to {MOE_MODEL}")
+    rng = np.random.default_rng(0)
+    idx = [phi[0]] + [i for i in range(len(test)) if i != phi[0]][:7]
+    reqs = [Request(tokens=rng.integers(0, 100, rng.integers(4, 12)).astype(
+                        np.int32),
+                    embedding=corpus.embeddings[test[i]],
+                    budget=10.0 if k == 0 else float(rng.uniform(1, 10)),
+                    max_new_tokens=4, rid=k)
+            for k, i in enumerate(idx)]
+    res = engine.serve(reqs)
+    torch.cuda.synchronize()
+    check_responses(engine, reqs, res, "launcher --fleet 5 serve()")
+    models = sorted({r.model for r in res})
+    if MOE_MODEL not in models:
+        fail(f"launcher --fleet 5: {MOE_MODEL} answered none of {models}")
+    del engine
+    t1 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--fleet", "5",
+         "--requests", "17", "--budget", "10"], capture_output=True,
+        text=True, timeout=600, env={**os.environ, "PYTHONPATH": str(SRC)})
+    cli_s = time.perf_counter() - t1
+    lines = out.stdout.strip().splitlines()
+    if out.returncode or not lines or not lines[-1].startswith("stats:"):
+        fail(f"python -m repro_torch.launch.serve --fleet 5 exited "
+             f"{out.returncode}: {out.stdout[-2000:]}{out.stderr[-2000:]}")
+    log_time(stats, f"launcher --fleet 5 (reduced {names}): built in "
+             f"{build_s:.1f} s, serve() of 8: models answering {models}; "
+             f"python -m repro_torch.launch.serve --fleet 5 --requests 17 "
+             f"--budget 10: exit 0 in {cli_s:.1f} s; {lines[-1]}")
+    stats["launcher_fleet5"] = dict(build_s=build_s, models=models,
+                                    cli_s=cli_s, cli_last=lines[-1])
+
+
+def drive_moe(dev, kernels, stats):
+    """The moe family's phase: phi's attention call sites, the MoE fleet
+    served with every decode graph warmed (launches per call site,
+    nothing captured, peak memory), greedy tokens through the graphs
+    against the eager path's, phi's kernel path against its plain path,
+    its MoE FFN against fp32, its times and profiles, then the launcher
+    with --fleet 5. Returns (launches, launches by call site) of the
+    served run."""
+    from repro_torch import graphs
+    from repro_torch.kernels import _build
+    # the launcher fleet's models sit in reference cycles (a decode
+    # graph's step holds its model's bound method): free them first
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device memory held before the MoE phase "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    check_site_attention(dev, kernels, stats, "phi", PHI_FLASH, PHI_DECODE,
+                         seed=7)
+    torch.cuda.empty_cache()
+    engine, corpus = build_moe_fleet(dev, stats)
+    with count_sites(engine):
+        t0 = time.perf_counter()
+        n = engine.warmup_generate(LAUNCH_PAD_LEN, batch_sizes=LAUNCH_BUCKETS)
+        log_time(stats, f"MoE fleet warmup: {n} decode graphs captured for "
+                 f"{LAUNCH_BUCKETS} rows in {time.perf_counter() - t0:.1f} "
+                 f"s (with a generate at each); graph pools "
+                 f"{graph_pool_gb():.2f} GB")
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        c0 = graphs.capture_count()
+        drive_moe_fleet(engine, corpus, stats)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    sites = site_launches()
+    credited = _build.credited_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    captured = graphs.capture_count() - c0
+    stats.update(moe_launches=launches, moe_sites=sites,
+                 moe_peak_mem_gb=peak, moe_captures=captured)
+    log(f"launches on the MoE fleet's run: {launches}, of which credited by "
+        f"graph replays {credited}; by call site {sites}; graphs captured "
+        f"in the run {captured}")
+    log_time(stats, f"peak device memory of the MoE fleet's run (phi at "
+             f"{MOE_LAYERS} layers and olmo-1b: weights, static decode "
+             f"states, graph pools, activations): {peak:.2f} GB")
+    missing = [k for k in ("flash_attention", "decode_attention")
+               if not launches[k]] + [
+        k for k, site in PHI_SITES.items()
+        if not sites.get(f"{MOE_MODEL} {site}")]
+    if missing:
+        fail(f"never launched on the MoE fleet's run: {missing}")
+    if captured:
+        fail(f"{captured} graphs captured after warmup on the MoE fleet's "
+             "run")
+    if credited.get("decode_attention") != launches["decode_attention"]:
+        fail(f"decode launches {launches['decode_attention']}, of which "
+             f"credited by replays {credited.get('decode_attention')}: the "
+             "decode path left its graphs")
+    if peak >= 80.0:
+        fail(f"the MoE fleet's peak device memory {peak:.2f} GB")
+    compare_graph_generate(engine, stats, key="moe_graph_tokens_differing")
+    compare_model_paths(engine, stats, names=(MOE_MODEL,))
+    check_moe_ffn(engine.fleet[MOE_MODEL], stats)
+    time_serving(engine, stats, names=(MOE_MODEL,))
+    for what in ("prefill", "graph"):
+        profile_decode(engine, stats, MOE_MODEL, what=what)
+    moe_share(stats)
+    del engine, corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+    drive_launcher_fleet5(stats)
+    return launches, sites
 
 
 # ---------------------------------------------------------------------------
@@ -4198,7 +4606,7 @@ def main() -> int:
         profile_decode(engine, stats, name, what="graph")
 
     drive_launcher(stats)
-    check_whisper_attention(dev, kernels, stats)
+    check_site_attention(dev, kernels, stats)
     torch.cuda.empty_cache()
     launch_engine, launch_corpus = build_launch_fleet(dev, engine, stats)
     del engine, serve_corpus     # olmo-1b and qwen3-8b live on in the fleet
@@ -4259,6 +4667,9 @@ def main() -> int:
 
     del launch_engine, launch_corpus
     torch.cuda.empty_cache()
+    launches["moe"], moe_sites = drive_moe(dev, kernels, stats)
+
+    torch.cuda.empty_cache()
     corpus, fb, targets = paper_regime(dev)
     check_knn(dev, kernels, stats, corpus, targets)
     check_eagle_d64(dev, stats, corpus, fb)
@@ -4289,6 +4700,9 @@ def main() -> int:
             entry["launches"] = sites[f"whisper-large-v3 "
                                       f"{WHISPER_SITES[name]}"]
             continue
+        if name in PHI_SITES:
+            entry["launches"] = moe_sites[f"{MOE_MODEL} {PHI_SITES[name]}"]
+            continue
         if name == "elo_scan fit fold":
             entry["launches"] = stats["fit_fold_launches"]
             continue
@@ -4309,7 +4723,8 @@ def main() -> int:
                              "sharded_retrieve_replay_select",
                              "flash_attention",
                              "decode_attention") + tuple(WHISPER_SITES) \
-        + ("retrieve knn", "retrieve_topn n512", "topn_merge k512")
+        + tuple(PHI_SITES) + ("retrieve knn", "retrieve_topn n512",
+                              "topn_merge k512")
     line = {"kernels": [kernels[k] for k in order]}
     stats["kernels"] = line["kernels"]
     (out / "chip_smoke.json").write_text(json.dumps(stats, indent=1))

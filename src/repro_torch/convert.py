@@ -54,9 +54,12 @@ def model_params_from_numpy(cfg: ModelConfig, tree: Mapping,
     model's pytree in the JAX package's layout, each leaf taken with
     `np.asarray`: the stacked (L, ...) leaves of every block group
     (dense and decoder blocks with their cross-attention, encoder
-    blocks, mamba2 blocks) are split per layer and the attention
-    projections flattened to 2-D. Values and the type `cfg.param_dtype`
-    are kept exactly."""
+    blocks, mamba2 blocks, the moe family's dense_blocks then moe_blocks,
+    either of which may be None, into one list) are split per layer, at
+    any depth of nesting (a MoE's "shared" dict), and the attention
+    projections flattened to 2-D; the (E, d, ff) expert leaves keep
+    their shape. Values and the type `cfg.param_dtype` are kept
+    exactly."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
@@ -66,21 +69,31 @@ def model_params_from_numpy(cfg: ModelConfig, tree: Mapping,
         return torch.tensor(_FLATTEN.get(name, lambda x: x)(a),
                             device=dev).to(dtype)
 
+    def host(tree):     # every stacked leaf read once
+        return {k: host(v) if isinstance(v, Mapping)
+                else np.asarray(v, np.float32) for k, v in tree.items()}
+
+    def layer(leaves, i):
+        return {k: layer(v, i) if isinstance(v, dict) else t(v[i], k)
+                for k, v in leaves.items()}
+
     def per_layer(blocks, n):
-        leaves = {group: {name: np.asarray(leaf, np.float32)
-                          for name, leaf in sub.items()}
-                  for group, sub in blocks.items()}
-        return [{group: {name: t(leaf[i], name)
-                         for name, leaf in sub.items()}
-                 for group, sub in leaves.items()}
-                for i in range(n)]
+        if blocks is None:
+            return []
+        leaves = host(blocks)
+        return [layer(leaves, i) for i in range(n)]
 
     norm = lambda p: {k: t(v) for k, v in p.items()}
     out: Params = {"embed": t(tree["embed"]),
                    "final_norm": norm(tree["final_norm"])}
     if "lm_head" in tree:
         out["lm_head"] = t(tree["lm_head"])
-    out["blocks"] = per_layer(tree["blocks"], cfg.n_layers)
+    if cfg.arch_type == "moe":
+        k = cfg.first_k_dense
+        out["blocks"] = per_layer(tree["dense_blocks"], k) + per_layer(
+            tree["moe_blocks"], cfg.n_layers - k)
+    else:
+        out["blocks"] = per_layer(tree["blocks"], cfg.n_layers)
     if cfg.arch_type == "encdec":
         out["enc_blocks"] = per_layer(tree["enc_blocks"], cfg.n_enc_layers)
         out["enc_norm"] = norm(tree["enc_norm"])

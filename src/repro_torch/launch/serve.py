@@ -9,10 +9,12 @@ configs, as the JAX package's launcher builds them).
 
 A port of the JAX package's `launch/serve.py`, with the same CLI and
 defaults. The default fleet is `ARCH_IDS[:4]`: whisper-large-v3 (encdec),
-olmo-1b, mamba2-780m (ssm) and qwen3-8b. `--db-shards N` splits the
-routing DB's capacity over the first N cards (a `launch.mesh.DbMesh`),
-`--prebake` prepares the next capacity's replicas and route graphs
-before the DB grows. `--serve-obs PORT` enables spans and events and
+olmo-1b, mamba2-780m (ssm) and qwen3-8b; `--fleet 5` adds phi3.5-moe
+(moe) and `--fleet 6` internlm2-20b (dense); from 7 on `check_supported`
+raises, naming the ROADMAP item that queues gemma3-12b. `--db-shards N`
+splits the routing DB's capacity over the first N cards (a
+`launch.mesh.DbMesh`), `--prebake` prepares the next capacity's
+replicas and route graphs before the DB grows. `--serve-obs PORT` enables spans and events and
 starts the operational plane (`build_obs_plane`: the quality monitor, the
 stock SLO rules and the scrape exporter on 127.0.0.1:PORT, 0 for an
 ephemeral port); `--alert-log PATH` adds a JSONL alert sink to both

@@ -1,9 +1,12 @@
 """Model assembly for the serving path: parameters, the decode cache,
 forward, prefill and decode_step.
 
-A port of the JAX package's `models/transformer.py` for three families:
+A port of the JAX package's `models/transformer.py` for four families:
 
   dense (full attention)  embed -> blocks(L) -> norm -> head
+  moe (phi3.5-moe)        embed -> blocks(L) -> norm -> head, each block's
+                          FFN dense below first_k_dense and a mixture of
+                          experts from there on (models/moe.py)
   ssm (mamba2)            embed -> ssm blocks(L) -> norm -> head
   encdec (whisper)        enc blocks(Le, bidirectional) over stub frame
                           embeddings -> dec blocks(L) with
@@ -13,10 +16,13 @@ A port of the JAX package's `models/transformer.py` for three families:
 Where it differs:
 
   * each layer stack is a Python loop over a list of per-layer parameter
-    dicts (the JAX package scans stacked (L, ...) leaves);
+    dicts (the JAX package scans stacked (L, ...) leaves; its moe family
+    keeps two stacks, dense_blocks and moe_blocks, which the port's one
+    list holds in that order);
   * the cache is preallocated and written IN PLACE by prefill and
     decode_step, which return it; the JAX functions return a new cache.
-    Dense: one (L, B, max_len, Hk, hd) buffer for K and one for V.
+    Dense and moe: one (L, B, max_len, Hk, hd) buffer for K and one for
+    V (the JAX moe cache splits it into kv_dense and kv_moe).
     encdec: the same, and "cross": {k, v} of (L, B, n_audio_frames, Hk,
     hd), filled at prefill from the encoder's output. ssm: the JAX
     package's fp32 decode state, conv_x / conv_B / conv_C (L, B, k-1, C)
@@ -24,13 +30,19 @@ Where it differs:
   * `cast_params` casts the parameters to the compute type once, at load,
     where the JAX layers cast at each use (`_cast`): the values are the
     same, and a decode step then reads the weights once in bf16 instead
-    of reading fp32, writing bf16 and reading that again;
+    of reading fp32, writing bf16 and reading that again. The MoE router
+    is not cast: the JAX package reads it in fp32.
+    `init_params(..., cast=True)` casts each block as it is drawn, so a
+    full-width model never exists in fp32 whole;
+  * forward does not return the MoE auxiliary loss (serving ignores it;
+    `moe.apply_moe` returns it);
   * prefill computes the logits of the last position only: the JAX
     prefill keeps row -1 of the full (B, S, V) panel, the same row.
 
-Hybrid, MoE and VLM architectures, local:global window stacks
-(gemma3's local layers, a window over the full cache) and MLA raise
-NotImplementedError naming the item of ROADMAP §2.6 that queues them.
+Hybrid and VLM architectures, local:global window stacks (gemma3's
+local layers, a window over the full cache) and MLA (deepseek-v3, whose
+MoE runs here) raise NotImplementedError naming the item of ROADMAP §2.6
+that queues them.
 
 decode_step takes its position as a Python int or as a (1,) int64
 tensor on the device: the positions, the valid cache length and the
@@ -44,6 +56,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 
@@ -54,10 +67,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 #: the architecture families this port runs
-FAMILIES = ("dense", "ssm", "encdec")
+FAMILIES = ("dense", "moe", "ssm", "encdec")
 #: the item of ROADMAP §2.6 each other family waits for
-QUEUED = {"moe": "item 1 (phi3.5-moe; deepseek-v3's MoE is item 6)",
-          "vlm": "item 4 (llava-next-mistral-7b)",
+QUEUED = {"vlm": "item 4 (llava-next-mistral-7b)",
           "hybrid": "item 5 (zamba2-7b)"}
 
 
@@ -117,7 +129,7 @@ def _init_attention(cfg: ModelConfig, gen: torch.Generator,
 
 
 def _init_block(cfg: ModelConfig, gen: torch.Generator, dtype,
-                cross: bool = False) -> Params:
+                cross: bool = False, moe: bool = False) -> Params:
     d, ff = cfg.d_model, cfg.d_ff
     dev = gen.device
     p = {"attn_norm": _init_norm(cfg, dtype, dev),
@@ -126,9 +138,12 @@ def _init_block(cfg: ModelConfig, gen: torch.Generator, dtype,
     if cross:
         p["cross_norm"] = _init_norm(cfg, dtype, dev)
         p["cross"] = _init_attention(cfg, gen, dtype)
-    p["ffn"] = {"w_gate": L.normal(gen, (d, ff), d ** -0.5, dtype),
-                "w_up": L.normal(gen, (d, ff), d ** -0.5, dtype),
-                "w_down": L.normal(gen, (ff, d), ff ** -0.5, dtype)}
+    if moe:
+        p["ffn"] = MOE.init_moe(cfg, gen, dtype)
+    else:
+        p["ffn"] = {"w_gate": L.normal(gen, (d, ff), d ** -0.5, dtype),
+                    "w_up": L.normal(gen, (d, ff), d ** -0.5, dtype),
+                    "w_down": L.normal(gen, (ff, d), ff ** -0.5, dtype)}
     return p
 
 
@@ -138,21 +153,27 @@ def _init_ssm_block(cfg: ModelConfig, gen: torch.Generator,
             "mamba": SSM.init_mamba2(cfg, gen, dtype)}
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                cast: bool = False) -> Params:
     """Random parameters in `cfg.param_dtype` on the generator's device,
     with the JAX package's shapes and scales (its numbers differ: a
-    torch.Generator is not a JAX key).
+    torch.Generator is not a JAX key). With `cast`, each block and the
+    embedding and head are cast as `cast_params` casts them as soon as
+    they are drawn: the same values, and the peak stays one block above
+    the model in the compute type.
 
     Layout: {"embed": (V, d), "final_norm", ["lm_head": (d, V)],
     "blocks": [per layer {"attn_norm", "mlp_norm", "attn": {"wq": (d,
     H*hd), "wk"/"wv": (d, Hk*hd), "wo": (H*hd, d), ["q_norm", "k_norm"]},
-    "ffn": {"w_gate"/"w_up": (d, ff), "w_down": (ff, d)}}]}; encdec adds
-    "cross_norm" and "cross" (an "attn" dict) to each decoder block, and
-    "enc_blocks" (Le blocks as dense ones) and "enc_norm"; an ssm block
-    is {"norm", "mamba": the JAX package's mamba2 dict}."""
+    "ffn": {"w_gate"/"w_up": (d, ff), "w_down": (ff, d)}}]}; a moe
+    block's "ffn" from first_k_dense on is `moe.init_moe`'s dict; encdec
+    adds "cross_norm" and "cross" (an "attn" dict) to each decoder block,
+    and "enc_blocks" (Le blocks as dense ones) and "enc_norm"; an ssm
+    block is {"norm", "mamba": the JAX package's mamba2 dict}."""
     check_supported(cfg)
     cfg.validate()
     dtype = torch_dtype(cfg.param_dtype)
+    done = (lambda blk: _cast_block(cfg, blk)) if cast else (lambda blk: blk)
     p: Params = {
         "embed": L.normal(gen, (cfg.vocab, cfg.d_model), cfg.d_model ** -0.5,
                          dtype),
@@ -161,35 +182,62 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     if not cfg.tie_embeddings:
         p["lm_head"] = L.normal(gen, (cfg.d_model, cfg.vocab),
                                cfg.d_model ** -0.5, dtype)
+    if cast:
+        _cast_heads(cfg, p)
     if cfg.arch_type == "ssm":
-        p["blocks"] = [_init_ssm_block(cfg, gen, dtype)
+        p["blocks"] = [done(_init_ssm_block(cfg, gen, dtype))
                        for _ in range(cfg.n_layers)]
     elif cfg.arch_type == "encdec":
-        p["enc_blocks"] = [_init_block(cfg, gen, dtype)
+        p["enc_blocks"] = [done(_init_block(cfg, gen, dtype))
                            for _ in range(cfg.n_enc_layers)]
         p["enc_norm"] = _init_norm(cfg, dtype, gen.device)
-        p["blocks"] = [_init_block(cfg, gen, dtype, cross=True)
+        p["blocks"] = [done(_init_block(cfg, gen, dtype, cross=True))
                        for _ in range(cfg.n_layers)]
     else:
-        p["blocks"] = [_init_block(cfg, gen, dtype)
-                       for _ in range(cfg.n_layers)]
+        p["blocks"] = [done(_init_block(cfg, gen, dtype, moe=kind == "moe"))
+                       for kind in cfg.layer_kinds()]
     return p
+
+
+#: parameters that keep their type: the MoE router, which the JAX package
+#: reads in fp32 (a bf16 router would change the experts chosen)
+_KEEP = ("router",)
+
+
+def _cast_tree(tree: Params, dt) -> None:
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            _cast_tree(leaf, dt)
+        elif name not in _KEEP:
+            tree[name] = leaf.to(dt)
+
+
+def _cast_block(cfg: ModelConfig, blk: Params) -> Params:
+    dt = torch_dtype(cfg.dtype)
+    for group in ("attn", "cross", "ffn", "mamba"):
+        if group in blk:
+            _cast_tree(blk[group], dt)
+    return blk
+
+
+def _cast_heads(cfg: ModelConfig, params: Params) -> None:
+    dt = torch_dtype(cfg.dtype)
+    for name in ("embed", "lm_head"):
+        if name in params:
+            params[name] = params[name].to(dt)
 
 
 def cast_params(cfg: ModelConfig, params: Params) -> Params:
     """Cast, IN PLACE, every parameter the JAX layers cast to the compute
     type at use (embedding, head, the attention dicts with their qk-norm
-    scales, the MLP, the mamba2 dict) to that type, once. Norm parameters stay as they
-    are: the norms read them in fp32. Each old tensor is released as its
-    cast replaces it, so the peak is one leaf above the larger copy."""
-    dt = torch_dtype(cfg.dtype)
-    for name in ("embed", "lm_head"):
-        if name in params:
-            params[name] = params[name].to(dt)
+    scales, the MLP, the MoE's experts with its shared experts, the
+    mamba2 dict) to that type, once. Norm parameters and the MoE router
+    stay as they are: the norms and the router read them in fp32. Each
+    old tensor is released as its cast replaces it, so the peak is one
+    leaf above the larger copy."""
+    _cast_heads(cfg, params)
     for blk in params["blocks"] + params.get("enc_blocks", []):
-        for group in ("attn", "cross", "ffn", "mamba"):
-            for name in list(blk.get(group, ())):
-                blk[group][name] = blk[group][name].to(dt)
+        _cast_block(cfg, blk)
     return params
 
 
@@ -320,6 +368,7 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
         else:
             kv_len = torch.full((b,), cache_index + s, dtype=torch.int32,
                                 device=x.device)
+        moe = [kind == "moe" for kind in cfg.layer_kinds()]
         for i, blk in enumerate(params["blocks"]):
             c = _layer(cache, i)
             h = L.apply_norm(cfg, blk["attn_norm"], x)
@@ -338,7 +387,10 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
                     cfg, blk["cross"], h, positions, theta=cfg.rope_theta,
                     causal=False, backend=backend, rope=False, **kw)
             h = L.apply_norm(cfg, blk["mlp_norm"], x)
-            x = x + L.apply_mlp(cfg, blk["ffn"], h)
+            if moe[i]:
+                x = x + MOE.apply_moe(cfg, blk["ffn"], h)[0]
+            else:
+                x = x + L.apply_mlp(cfg, blk["ffn"], h)
     if last_only:
         x = x[:, -1:]
     x = L.apply_norm(cfg, params["final_norm"], x)

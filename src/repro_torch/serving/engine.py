@@ -5,8 +5,8 @@ Workflow per Fig. 1 of the paper:
   ②/③ Eagle ranks the fleet per request and picks the best model within
      the budget (core/dispatch.py over a DoubleBuffer)
   ④ requests are grouped per chosen model, batch-prefilled and greedily
-     decoded (FleetModel: a dense, mamba2 or whisper model, its attention
-     in the flash and decode kernels on the card)
+     decoded (FleetModel: a dense, MoE, mamba2 or whisper model, its
+     attention in the flash and decode kernels on the card)
   ⑤ with probability `compare_rate` a second model also answers and a
      simulated user preference is appended to the DB + ELO (the online,
      training-free update), then committed into the back buffer
@@ -68,11 +68,13 @@ class Response:
 
 
 class FleetModel:
-    """One servable model (dense, ssm or encdec): prefill + greedy decode.
+    """One servable model (dense, moe, ssm or encdec): prefill + greedy
+    decode.
 
-    The parameters are made from `seed` on the device (or taken from
-    `params`, in `transformer.init_params`' layout, e.g. carried across by
-    `convert.model_params_from_numpy`) and cast to the compute type once.
+    The parameters are made from `seed` on the device, each block cast to
+    the compute type as it is drawn (or taken from `params`, in
+    `transformer.init_params`' layout, e.g. carried across by
+    `convert.model_params_from_numpy`, and cast once).
     An encdec model's encoder reads a zero (B, n_audio_frames, d_model)
     stub of frame embeddings, as the JAX FleetModel feeds it.
 
@@ -100,7 +102,7 @@ class FleetModel:
         self.device = resolve_device(device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = T.init_params(cfg, gen)
+            params = T.init_params(cfg, gen, cast=True)
         self.params = T.cast_params(cfg, params)
         self._steps = graphs.StepCache()    # row count -> decode step
         self.stats = self._steps.stats
@@ -208,9 +210,14 @@ class ServingEngine:
         self.compare_rate = compare_rate
         # generation-shape bucketing: pad each per-model group's rows to
         # the power-of-two ladder between gen_min_bucket and
-        # gen_max_bucket (padded rows are independent in the batch dim,
-        # so real rows are untouched; each row count is one decode graph)
-        # and optionally floor the token panel length
+        # gen_max_bucket (each row count is one decode graph) and
+        # optionally floor the token panel length. Padded rows and
+        # positions leave a dense, ssm or encdec model's real rows
+        # untouched, but not a MoE's: they raise the token count T of
+        # the call, and with it each expert's capacity, and take slots
+        # (a padded position before the next row's tokens, a padded row
+        # after every real token). The JAX engine pads the same way, so
+        # the two answer alike
         self.gen_bucket = gen_bucket
         self.gen_min_bucket = gen_min_bucket
         self.gen_max_bucket = gen_max_bucket

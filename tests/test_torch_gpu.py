@@ -524,12 +524,14 @@ def test_attention_cases_the_kernels_do_not_cover_raise_on_cuda(dev):
                       backend="reference")
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-8b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-8b",
+                                  "phi3.5-moe-42b-a6.6b"])
 def test_model_kernel_path_matches_plain_attention(dev, arch):
-    """A reduced fp32 model through the kernels and through the plain
-    attend: prefill + 5 decode steps fed the same tokens give logits
-    within the fp32 attention bar, and FleetModel.generate launches one
-    flash kernel per layer and one decode kernel per layer and step."""
+    """A reduced fp32 model (dense, or phi3.5-moe's mixture of experts)
+    through the kernels and through the plain attend: prefill + 5 decode
+    steps fed the same tokens give logits within the fp32 attention bar,
+    and FleetModel.generate launches one flash kernel per layer and one
+    decode kernel per layer and step."""
     from repro_torch.models import transformer as T
     m = _reduced_model(dev, arch)
     rng = np.random.default_rng(1)
@@ -833,12 +835,14 @@ def _eager_tokens(m, toks, max_new):
 
 
 @pytest.mark.parametrize("arch", ["whisper-large-v3", "olmo-1b",
-                                  "mamba2-780m", "qwen3-8b"])
+                                  "mamba2-780m", "qwen3-8b",
+                                  "phi3.5-moe-42b-a6.6b"])
 def test_captured_decode_tokens_equal_eager(dev, arch):
-    """The launcher fleet's models at full width and two layers, bf16:
-    generate through the captured decode graphs gives the eager path's
-    greedy tokens, at each warmed row count, with its launches credited
-    per replay and nothing captured after warmup."""
+    """The launcher fleet's models (`--fleet 5`) at full width and two
+    layers, bf16: generate through the captured decode graphs gives the
+    eager path's greedy tokens, at each warmed row count, with its
+    launches credited per replay and nothing captured after warmup (the
+    MoE's routing, slots and combine run inside the graph)."""
     from repro_torch.serving import FleetModel
     cfg = _full_width(arch)
     m = FleetModel(cfg, seed=3, max_len=320, device=dev)
@@ -856,6 +860,45 @@ def test_captured_decode_tokens_equal_eager(dev, arch):
         np.testing.assert_array_equal(got, want)
     st = m.cache_stats()
     assert st["misses"] == st["warmed"] == 3 and st["hits"] == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,cf", [(3, 7, 1.25), (8, 1024, 1.25),
+                                    (8, 1, 1.25), (2, 50, 0.5)])
+def test_apply_moe_on_cuda_matches_cpu(dev, dtype, b, s, cf):
+    """The MoE FFN of the reduced phi3.5-moe on CUDA tensors against the
+    same inputs on the CPU: the same experts and the same pairs dropped,
+    y within 1e-4 in fp32 (TF32 off) and within 2^-5 of the largest |y|
+    in bf16 (tests/test_torch_moe_parity.py's bar against JAX), aux
+    within 1e-5."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import moe as MOE
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    cfg = get_reduced_config("phi3.5-moe-42b-a6.6b", dtype=name,
+                             capacity_factor=cf)
+    p = MOE.init_moe(cfg, torch.Generator().manual_seed(0), torch.float32)
+    p = {k: v if k == "router" else v.to(dtype) for k, v in p.items()}
+    x = torch.randn((b, s, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1)).to(dtype)
+    want, aux_want = MOE.apply_moe(cfg, p, x)
+    got, aux = MOE.apply_moe(cfg, {k: v.to(dev) for k, v in p.items()},
+                             x.to(dev))
+    dp_cpu = MOE.dispatch(cfg, p["router"], x.reshape(b * s, -1))
+    dp_gpu = MOE.dispatch(cfg, p["router"].to(dev),
+                          x.to(dev).reshape(b * s, -1))
+    torch.cuda.synchronize()
+    assert torch.equal(dp_gpu.top_e.cpu(), dp_cpu.top_e)
+    assert torch.equal(dp_gpu.keep.cpu(), dp_cpu.keep)
+    if cf < 1:
+        assert int((~dp_cpu.keep).sum()) > 0
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    else:
+        bar = 2.0 ** -5 * float(want.float().abs().max())
+        assert float((got.cpu().float() - want.float()).abs().max()) <= bar
+    torch.testing.assert_close(aux.cpu(), aux_want, rtol=1e-5, atol=1e-5)
 
 
 def test_failed_capture_raises(dev):

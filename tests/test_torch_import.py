@@ -79,7 +79,8 @@ def test_default_device_is_the_card_and_raises_without_one(idx):
 _NEW_MODULES = r"""
 import sys
 sys.modules["jax"] = None
-import repro_torch.models.ssm, repro_torch.serving.admission
+import repro_torch.models.ssm, repro_torch.models.moe
+import repro_torch.serving.admission
 import repro_torch.serving.traffic, repro_torch.launch.serve
 leaked = sorted(m for m, v in sys.modules.items() if v is not None and
                 (m in ("repro", "jax") or m.startswith(("repro.", "jax."))))
@@ -88,9 +89,9 @@ print(leaked)
 
 
 def test_serving_launcher_modules_import_without_jax():
-    """The launcher's modules (the mamba2 block, admission, traffic, the
-    launcher itself) import with JAX blocked and load no JAX-package
-    module."""
+    """The launcher's modules (the mamba2 block, the MoE FFN, admission,
+    traffic, the launcher itself) import with JAX blocked and load no
+    JAX-package module."""
     out = subprocess.run([sys.executable, "-c", _NEW_MODULES], cwd=SRC,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(SRC)})

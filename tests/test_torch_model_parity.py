@@ -66,9 +66,8 @@ def test_configs_are_the_jax_packages():
         assert vars(t_config(arch)) == vars(j_config(arch)), arch
 
 
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "gemma3-12b",
-                                  "llava-next-mistral-7b", "zamba2-7b",
-                                  "deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", ["gemma3-12b", "llava-next-mistral-7b",
+                                  "zamba2-7b", "deepseek-v3-671b"])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TFleetModel(t_reduced(arch), device="cpu")
