@@ -181,13 +181,14 @@ def _cases(dev: torch.device, shapes):
     bb, tt, h, dh = shapes["decode"]
     qd = randn(bb, h, dh, dtype=torch.bfloat16)
     kd = randn(bb, tt, h, dh, dtype=torch.bfloat16)
+    vd = randn(bb, tt, h, dh, dtype=torch.bfloat16)
     kl = torch.full((bb,), tt, dtype=torch.int32, device=dev)
-    d_bytes = 2.0 * bb * tt * h * dh * 2
+    d_bytes = 2.0 * bb * tt * h * dh * 2         # K and V, both distinct
     cases.append((
         "decode_attention_8k",
-        lambda: ops.decode_attention(qd, kd, kd, kl),
-        lambda: ops.decode_attention(qd, kd, kd, kl, backend="reference"),
-        lambda: sdpa(qd[:, :, None], kd.transpose(1, 2), kd.transpose(1, 2)),
+        lambda: ops.decode_attention(qd, kd, vd, kl),
+        lambda: ops.decode_attention(qd, kd, vd, kl, backend="reference"),
+        lambda: sdpa(qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)),
         d_bytes + 4.0 * bb * h * dh, 4.0 * bb * h * tt * dh, PEAK_BF16,
         lambda us: f"{d_bytes / us / 1e3:.1f}GB/s"))
 

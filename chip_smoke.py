@@ -97,11 +97,15 @@ together), then:
      layouts (qwen3-8b: prefill B=8, S=1024, H=32, Hk=8, dh=128, decode
      B=16, T=2048; olmo-1b: B=13, H=Hk=16, S=1024, T=1056; each prefill
      also at a ragged S and with a window, each decode over an fp32
-     cache with ragged lengths and against the last row of prefill),
-     checks that a control with one key dropped fails its bar (flash:
-     floor scaled with rms(v), decode: fixed; derivations at the
-     constants) by 10x or more, and times each beside SDPA (decode also
-     over launches queued ahead of the device, `queued_ms`);
+     cache with ragged lengths and against the last row of prefill; the
+     decode also at phi3.5-moe's layout and over a full bf16 cache of
+     8192 rows, and each decode layout captured in a CUDA graph whose
+     three replays must equal the eager call bit for bit: the kernel's
+     arrival counters reset themselves), checks that a control with one
+     key dropped fails its bar (flash: floor scaled with rms(v), decode:
+     fixed; derivations at the constants) by 10x or more, and times each
+     beside SDPA (decode also over launches queued ahead of the device,
+     `queued_ms`);
   7. drives the serving path at full width: a ServingEngine over the
      fleet ["olmo-1b", "qwen3-8b"] (full depth and width, random weights
      from a seed, bf16 compute, fp32 KV cache of 1056 rows) behind a
@@ -231,7 +235,15 @@ TIME_BATCH, TIME_LEN, TIME_STEPS = 8, 1024, 16
 FLASH_SHAPES = {"qwen3-8b": (8, 1024, 32, 8, 128),
                 "olmo-1b": (13, 1024, 16, 16, 128)}
 DECODE_SHAPES = {"qwen3-8b": (16, 2048, 32, 8, 128),
-                 "olmo-1b": (13, 1056, 16, 16, 128)}
+                 "olmo-1b": (13, 1056, 16, 16, 128),
+                 "phi3.5-moe": (16, SERVE_MAX_LEN, 32, 8, 128),
+                 "bf16 8k": (8, 8192, 8, 8, 128)}
+# the decode layouts over a bf16 cache (every row valid: the kernels
+# bench's decode_attention_8k; no fleet model keeps a bf16 cache), and
+# the prefill length of each layout's check against the last row of flash
+DECODE_BF16 = ("bf16 8k",)
+DECODE_FLASH_S = {"qwen3-8b": 1024, "olmo-1b": 1024, "phi3.5-moe": 1024,
+                  "bf16 8k": 8192}
 RAGGED_S, WINDOW = 777, 256
 # a padded group of each model, kernel path against plain path
 COMPARE_LENS = {"qwen3-8b": (900, 613),
@@ -2773,21 +2785,32 @@ def check_flash(dev, kernels, stats):
 
 
 def check_decode(dev, kernels, stats):
-    """Each layout of DECODE_SHAPES over an fp32 cache with ragged
-    lengths, and over a full cache against the last row of flash; the
-    control (kv_len - 1: the newest key dropped) must fail the bar."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    """Each layout of DECODE_SHAPES with ragged lengths over an fp32 cache
+    (DECODE_BF16: every row of a bf16 cache), and over a full cache
+    against the last row of flash; the control (kv_len - 1: the newest
+    key dropped) must fail the bar; one captured graph of the call,
+    replayed three times into a zeroed output, must equal the eager call
+    bit for bit (the last split of each (b, KV head) resets its arrival
+    counter, or a replay would merge too early or never)."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    decode_attention_cuda = DA.decode_attention_cuda
     gen = torch.Generator(device=dev).manual_seed(3)
-    errs, ratios, controls, timed, queued = {}, {}, {}, {}, {}
+    errs, ratios, controls, timed, queued, replays = {}, {}, {}, {}, {}, {}
     for model, (b, t, h, hk, dh) in DECODE_SHAPES.items():
+        bf16 = model in DECODE_BF16
         q = _bf16(gen, (b, h, dh), dev)
-        k = torch.randn((b, t, hk, dh), generator=gen, device=dev)  # fp32
-        v = torch.randn((b, t, hk, dh), generator=gen, device=dev)
-        kv_len = torch.randint(1, t + 1, (b,), generator=gen, device=dev,
-                               dtype=torch.int32)
-        kv_len[0] = t
+        if bf16:
+            k, v = _bf16(gen, (b, t, hk, dh), dev), _bf16(gen, (b, t, hk, dh),
+                                                         dev)
+            kv_len = torch.full((b,), t, dtype=torch.int32, device=dev)
+        else:
+            k = torch.randn((b, t, hk, dh), generator=gen, device=dev)
+            v = torch.randn((b, t, hk, dh), generator=gen, device=dev)
+            kv_len = torch.randint(1, t + 1, (b,), generator=gen, device=dev,
+                                   dtype=torch.int32)
+            kv_len[0] = t
         got = decode_attention_cuda(q, k, v, kv_len)
         # the kernel rounds the cache to q's type in registers, as the
         # model's plain path does before its product
@@ -2807,9 +2830,28 @@ def check_decode(dev, kernels, stats):
                  f"is only {controls[model]} times the bar (at least "
                  f"{CONTROL_MIN})")
 
+        # one captured graph of the call, replayed into a zeroed output
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            g_out = decode_attention_cuda(q, k, v, kv_len)
+        same = []
+        for _ in range(3):
+            g_out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            same.append(bool(torch.equal(g_out, got)))
+        counters = sum(int(x.count_nonzero())
+                       for x in DA._ARRIVALS.get(dev.index or 0, []))
+        replays[model] = dict(equal=same, counters_left=counters)
+        if not all(same) or counters:
+            fail(f"decode_attention {model}: graph replays equal to the "
+                 f"eager call {same}, arrival counters left non-zero "
+                 f"{counters}")
+        del graph, g_out
+
         # decode over a full cache == the last row of prefill, held to
         # the flash bar: the flash kernel rounds its weights to bf16
-        s = FLASH_SHAPES[model][1]
+        s = DECODE_FLASH_S[model]
         qf = _bf16(gen, (2, s, h, dh), dev)
         kf = _bf16(gen, (2, s, hk, dh), dev)
         vf = _bf16(gen, (2, s, hk, dh), dev)
@@ -2824,35 +2866,59 @@ def check_decode(dev, kernels, stats):
         if not ratios[row] <= 1.0:
             fail(f"decode vs the last row of flash, {model}: max abs err "
                  f"{errs[row]}, {ratios[row]} times the bar")
+        del qf, kf, vf, full
 
         ms = cuda_ms(lambda: decode_attention_cuda(q, k, v, kv_len), 1000)
         # the device's own time, the host's launches queued ahead of it
         qms = queued_ms(lambda: decode_attention_cuda(q, k, v, kv_len), 200)
         plain = cuda_ms(lambda: ref.decode_attention_ref(q, k, v, kv_len), 5)
-        q32 = q.float()[:, :, None]
-        mask = (torch.arange(t, device=dev)[None]
-                < kv_len[:, None])[:, None, None]
-        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q32, k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
-            enable_gqa=True), 20)
+        if bf16:       # every row valid: no mask
+            lib_what = "SDPA, bf16, GQA"
+            lib = queued_ms(lambda: _sdpa(q[:, None], k, v)[:, :, 0], 200)
+        else:
+            lib_what = "SDPA, fp32, mask"
+            q32 = q.float()[:, :, None]
+            mask = (torch.arange(t, device=dev)[None]
+                    < kv_len[:, None])[:, None, None]
+            lib = cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q32, k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True), 20)
         n_kv = float(kv_len.sum())
-        nbytes = n_kv * hk * dh * 4 * 2 + 2.0 * 2 * b * h * dh + 4 * b
+        nbytes = (n_kv * hk * dh * k.element_size() * 2 + 2.0 * 2 * b * h * dh
+                  + 4 * b)
         bms, by = bound_ms(nbytes, 4.0 * h * dh * n_kv, PEAK_BF16_FLOPS)
         timed[model] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                             bound_ms=bms, bound_by=by)
         queued[model] = qms
+        n_split, split_rows = DA.split_plan(b, t, hk, dh, k.element_size(),
+                                            DA._sm_count(dev))
         log_time(stats,
-                 f"decode_attention q bf16, cache fp32, {model} layout B={b} "
-                 f"T={t} H={h} Hk={hk} dh={dh}, {int(n_kv)} valid rows: "
+                 f"decode_attention q bf16, cache {k.dtype}, {model} layout "
+                 f"B={b} T={t} H={h} Hk={hk} dh={dh}, {int(n_kv)} valid "
+                 f"rows, {n_split} splits of {split_rows} rows: "
                  f"kernel_ms={ms} ({bms / ms} of the bound) queued_ms={qms} "
                  f"({bms / qms} of the bound) plain_ms={plain} "
-                 f"library_ms(SDPA, fp32, mask)={lib} bound_ms={bms} ({by})")
+                 f"library_ms({lib_what})={lib} bound_ms={bms} ({by})")
+    # the split plan counts on BLOCKS_PER_SM resident blocks an SM
+    lib = _build.library("decode_attention")
+    occupancy = {f"{pair} dh={dh} rep={rep}":
+                 lib.decode_attention_occupancy(*codes, dh, rep)
+                 for pair, codes in (("fp32/fp32", (0, 0)),
+                                     ("bf16/fp32", (1, 0)),
+                                     ("bf16/bf16", (1, 1)))
+                 for dh in DA.HEAD_DIMS for rep in (1, 2, 4, 8)}
+    if set(occupancy.values()) != {DA.BLOCKS_PER_SM}:
+        fail(f"decode_attention: resident blocks an SM {occupancy}, the "
+             f"split plan counts on {DA.BLOCKS_PER_SM}")
     log(f"decode_attention max abs err {errs}; error over the bar (at most "
         f"1) {ratios}; control with kv_len - 1, over the bar (at least "
-        f"{CONTROL_MIN}) {controls}")
+        f"{CONTROL_MIN}) {controls}; graph replays {replays}; resident "
+        f"blocks an SM {occupancy}")
     stats["decode_attention"] = dict(max_abs_err=errs, err_over_bar=ratios,
                                      control_over_bar=controls,
-                                     queued_ms=queued, **timed)
+                                     queued_ms=queued, graph_replays=replays,
+                                     occupancy=occupancy, **timed)
     kernels["decode_attention"] = dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",

@@ -65,11 +65,12 @@ _SIGNATURES = {
                                   + [ctypes.c_void_p],
     },
     "decode_attention": {
-        # q, k, v, kv_len, out, part_acc, part_ml, B, T, H, Hk, dh,
-        # q dtype, kv dtype, scale, stream
-        "decode_attention_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        # q, k, v, kv_len, out, part_acc, part_ml, arrivals, B, T, H, Hk,
+        # dh, q dtype, kv dtype, n_split, split_rows, scale, stream
+        "decode_attention_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                                    + [ctypes.c_float] + [ctypes.c_void_p],
-        "decode_attention_chunk": [],
+        # q dtype, kv dtype, dh, rep -> resident blocks an SM
+        "decode_attention_occupancy": [ctypes.c_int] * 4,
     },
     "retrieve_topn": {
         # q, emb, Q, C, D, offset, size, n, tile, split rows, splits,

@@ -7,17 +7,71 @@ each value to the query's type in registers, so the model's fp32 cache
 is never copied. It takes any T; `ops.decode_attention` keeps the JAX
 contract that T is a multiple of 256, and the model calls this wrapper
 directly over its cache of `max_len` rows.
+
+One launch a call: a block per (b, KV head, split) streams its split's
+rows through a ring of shared-memory stages, and the last split of each
+(b, KV head) to finish merges the splits' partials. `split_plan` chooses
+the splits from the card; the merge's arrival counters live in one
+zeroed buffer per device that the kernel leaves zeroed.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.retrieve_topn import H100_SMS, _sm_count
 
 HEAD_DIMS = (32, 64, 128)
 MAX_REP = 8     # query heads per KV head that one block computes
+#: the kernel's stage: K and V rows of STAGE_BYTES in all
+#: (`csrc/decode_attention.cu`: STAGE_BYTES, Tile::ROWS)
+STAGE_BYTES = 32768
+#: resident blocks an SM (two stages of 32 KB, 128 threads; the card's
+#: own count: `decode_attention_occupancy` of the library)
+BLOCKS_PER_SM = 3
+#: blocks planned for WAVES full waves of the SMs, each split at least
+#: MIN_STAGES stages long (chosen on the H100 among 2, 4, 8 waves)
+WAVES, MIN_STAGES = 4, 4
+
+#: per device index: the arrival counters (uint32, zero between calls;
+#: the kernel counts a (b, KV head)'s splits there and its last split
+#: resets them, so calls on one device follow one stream's order). A
+#: larger grid takes a new buffer; the old ones stay alive for the graphs
+#: captured over them.
+_ARRIVALS: Dict[int, List[torch.Tensor]] = {}
+
+
+def stage_rows(dh: int, itemsize: int) -> int:
+    """Cache rows a stage holds, of K and of V."""
+    return STAGE_BYTES // (2 * dh * itemsize)
+
+
+def split_plan(b: int, t: int, hk: int, dh: int, itemsize: int,
+               sms: int = H100_SMS) -> Tuple[int, int]:
+    """(n_split, split_rows): split s of each (b, KV head) takes cache
+    rows [s * split_rows, (s + 1) * split_rows) of T. About WAVES waves
+    of BLOCKS_PER_SM blocks on each of `sms` SMs over the B * Hk pairs,
+    each split a whole number of stages and at least MIN_STAGES of them
+    (one split where T is shorter). It depends on the shapes and the
+    card alone, never on kv_len, so a captured graph stays valid."""
+    rows = stage_rows(dh, itemsize)
+    pairs = max(b * hk, 1)
+    want = max(1, (WAVES * BLOCKS_PER_SM * sms + pairs // 2) // pairs)
+    most = max(1, -(-t // (MIN_STAGES * rows)))
+    split_rows = -(-max(t, 1) // min(want, most))
+    split_rows = -(-split_rows // rows) * rows
+    return -(-max(t, 1) // split_rows), split_rows
+
+
+def _arrivals(dev: torch.device, n: int) -> torch.Tensor:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    bufs = _ARRIVALS.setdefault(idx, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32,
+                                device=dev))
+    return bufs[-1]
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -74,15 +128,18 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0 or t == 0:
         return out.zero_()
     lib = _build.library("decode_attention")
-    n_split = -(-t // lib.decode_attention_chunk())
-    part_acc = torch.empty((b, h, n_split, dh), dtype=torch.float32,
-                           device=dev)
-    part_ml = torch.empty((b, h, n_split, 2), dtype=torch.float32,
-                          device=dev)
+    rep = h // hk
+    n_split, split_rows = split_plan(b, t, hk, dh, k.element_size(),
+                                     _sm_count(dev))
+    part_acc = torch.empty((b, hk, n_split, rep, dh) if n_split > 1
+                           else (1,), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((b, hk, n_split, rep, 2) if n_split > 1
+                          else (1,), dtype=torch.float32, device=dev)
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), b, t, h, hk,
-        dh, q_code, kv_code, float(dh ** -0.5 if scale is None else scale),
+        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+        _arrivals(dev, b * hk).data_ptr(), b, t, h, hk, dh, q_code, kv_code,
+        n_split, split_rows, float(dh ** -0.5 if scale is None else scale),
         _build.stream_handle(dev))
     _build.check(err, "decode_attention_cuda")
     _build.count_launch("decode_attention")

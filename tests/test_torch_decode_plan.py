@@ -1,0 +1,143 @@
+"""The decode kernel's split plan (`decode_attention.split_plan`) on the
+CPU: every cache row in exactly one split, the same plan on every call,
+about `WAVES` waves of blocks on the H100 at the serving layouts, and the
+kernel's combine at the plan's splits (each active split's running max,
+sum and unnormalised accumulator, merged as the last split to arrive
+merges them) against the JAX package's decode oracle.
+
+Bar of the combine: 1e-5, the JAX suite's fp32 bar for one formula in
+another summation order (`tests/test_torch_attention_parity.py`: EXACT).
+"""
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as JREF
+from repro_torch.kernels import decode_attention as DA
+
+jax.config.update("jax_platform_name", "cpu")
+
+GRID_B = (1, 2, 8, 13, 16)
+GRID_T = (1, 7, 33, 77, 128, 300, 1000, 1056, 1500, 2048, 8192)
+GRID_HK = (1, 2, 8, 16, 20)
+# (dh, bytes a cache value): the instances the kernel is built for
+WIDTHS = [(32, 4), (64, 4), (128, 4), (32, 2), (64, 2), (128, 2)]
+# the main path's layouts (B, T, Hk, dh, cache bytes): qwen3-8b, olmo-1b,
+# whisper self and cross, phi3.5-moe, the bf16 8k row
+LAYOUTS = {"qwen3-8b": (16, 2048, 8, 128, 4),
+           "olmo-1b": (13, 1056, 16, 128, 4),
+           "whisper self": (16, 1056, 20, 64, 4),
+           "whisper cross": (16, 1500, 20, 64, 4),
+           "phi3.5-moe": (16, 1056, 8, 128, 4),
+           "bf16 8k": (8, 8192, 8, 128, 2)}
+EXACT = 1e-5
+
+
+@pytest.mark.parametrize("dh,itemsize", WIDTHS)
+def test_split_plan_takes_every_row_once(dh, itemsize):
+    """Every cache row in one split, none empty, whole stages a split, and
+    the same plan on every call: it depends on the shapes and the SM
+    count alone, never on kv_len (it never sees one), so a captured graph
+    stays valid."""
+    rows = DA.stage_rows(dh, itemsize)
+    for b, t, hk in itertools.product(GRID_B, GRID_T, GRID_HK):
+        plan = DA.split_plan(b, t, hk, dh, itemsize)
+        assert DA.split_plan(b, t, hk, dh, itemsize) == plan
+        n_split, split_rows = plan
+        assert n_split >= 1 and split_rows % rows == 0
+        owners = np.zeros(t, np.int64)
+        for s in range(n_split):
+            lo, hi = s * split_rows, min((s + 1) * split_rows, t)
+            assert lo < hi, (b, t, hk, plan)      # no split without rows
+            owners[lo:hi] += 1
+        assert (owners == 1).all(), (b, t, hk, plan)
+        # no more splits than MIN_STAGES stages of rows each can make
+        assert n_split <= max(1, -(-t // (DA.MIN_STAGES * rows)))
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_split_plan_fills_the_card(layout):
+    """At the main path's layouts: about WAVES waves of BLOCKS_PER_SM
+    blocks on the H100's 132 SMs, or as many splits as MIN_STAGES allows."""
+    b, t, hk, dh, size = LAYOUTS[layout]
+    n_split, split_rows = DA.split_plan(b, t, hk, dh, size)
+    rows = DA.stage_rows(dh, size)
+    waves = b * hk * n_split / (DA.BLOCKS_PER_SM * DA.H100_SMS)
+    capped = n_split == -(-t // (DA.MIN_STAGES * rows))
+    assert capped or DA.WAVES / 2 <= waves <= DA.WAVES * 2, (n_split, waves)
+    assert split_rows >= rows
+
+
+def _combine(q, k, v, kv_len, split_rows):
+    """The kernel's arithmetic at split granularity, in float64: each
+    active split's (max, sum, accumulator) of exp2 over scores scaled by
+    log2(e), merged by the last to arrive; kv_len = 0 gives zeros."""
+    b, h, dh = q.shape
+    hk = k.shape[2]
+    rep = h // hk
+    scale2 = dh ** -0.5 * np.log2(np.e)
+    out = np.zeros((b, h, dh))
+    for bb, head in itertools.product(range(b), range(h)):
+        length = int(kv_len[bb])
+        n_active = -(-length // split_rows) if length > 0 else 1
+        parts = []
+        for s in range(n_active):
+            rows = slice(s * split_rows, min((s + 1) * split_rows, length))
+            kk, vv = k[bb, rows, head // rep], v[bb, rows, head // rep]
+            sc = kk @ q[bb, head] * scale2
+            m = sc.max() if sc.size else -np.inf
+            p = np.exp2(sc - m) if sc.size else sc
+            parts.append((m, p.sum(), p @ vv))
+        mx = max(m for m, _, _ in parts)
+        if mx == -np.inf:
+            continue
+        f = [np.exp2(m - mx) for m, _, _ in parts]
+        l_tot = sum(fi * l for fi, (_, l, _) in zip(f, parts))
+        a_tot = sum(fi * a for fi, (_, _, a) in zip(f, parts))
+        out[bb, head] = a_tot / max(l_tot, 1e-30)
+    return out
+
+
+@pytest.mark.parametrize("b,t,h,hk,dh", [(3, 300, 8, 2, 64),
+                                         (2, 1056, 6, 1, 128),
+                                         (4, 77, 4, 4, 32)])
+def test_combine_at_the_plans_splits_matches_jax(b, t, h, hk, dh):
+    rng = np.random.default_rng(t + h)
+    q = rng.normal(size=(b, h, dh)).astype(np.float32)
+    k = rng.normal(size=(b, t, hk, dh)).astype(np.float32)
+    v = rng.normal(size=(b, t, hk, dh)).astype(np.float32)
+    # few SMs: several splits even at these small shapes
+    n_split, split_rows = DA.split_plan(b, t, hk, dh, 4, sms=2)
+    rows = DA.stage_rows(dh, 4)
+    lens = [t, 1, rows - 1, rows + 1, split_rows - 1, split_rows,
+            split_rows + 1, t - 1]
+    for i in range(0, len(lens), b):
+        kv = np.array([min(max(x, 1), t) for x in (lens[i:i + b] + [t] * b)
+                       [:b]], np.int32)
+        got = _combine(q.astype(np.float64), k.astype(np.float64),
+                       v.astype(np.float64), kv, split_rows)
+        want = np.asarray(JREF.decode_attention_ref(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(kv)))
+        np.testing.assert_allclose(got, want, rtol=EXACT, atol=EXACT)
+    zero = _combine(q.astype(np.float64), k.astype(np.float64),
+                    v.astype(np.float64), np.zeros(b, np.int32), split_rows)
+    assert (zero == 0).all()
+
+
+def test_cpu_wrapper_takes_the_plain_version():
+    """A CPU tensor takes `ref.decode_attention_ref` (the wrapper plans
+    nothing and allocates no counters there)."""
+    rng = np.random.default_rng(5)
+    q = torch.tensor(rng.normal(size=(2, 8, 64)), dtype=torch.float32)
+    k = torch.tensor(rng.normal(size=(2, 100, 2, 64)), dtype=torch.float32)
+    kv = torch.tensor([100, 3], dtype=torch.int32)
+    got = DA.decode_attention_cuda(q, k, k, kv)
+    want = np.asarray(JREF.decode_attention_ref(
+        jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+        jnp.asarray(k.numpy()), jnp.asarray(kv.numpy())))
+    np.testing.assert_allclose(got.numpy(), want, rtol=EXACT, atol=EXACT)
+    assert DA._ARRIVALS == {}

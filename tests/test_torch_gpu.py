@@ -418,7 +418,9 @@ def test_flash_attention_bf16_tile_edges(dev, b, s, h, hk, dh):
                                          (3, 1000, 32, 8, 128),
                                          (4, 77, 8, 1, 32),
                                          (2, 300, 16, 2, 128),
-                                         (3, 1056, 16, 16, 128)])
+                                         (3, 1056, 16, 16, 128),
+                                         # internlm2-20b's 48 / 8 (rep 6)
+                                         (2, 700, 48, 8, 128)])
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.bfloat16, torch.float32)])
@@ -440,6 +442,77 @@ def test_decode_attention_kernel_matches_plain(dev, b, t, h, hk, dh,
     tol = ATT_TOL[q_dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=tol)
+
+
+# the decode kernel's edges, (B, T, H, Hk, dh): lengths at 1, at a stage
+# boundary +-1 and at a split boundary +-1 of the wrapper's plan, and a
+# cache shorter than one stage
+DECODE_EDGES = [(3, 2048, 32, 8, 128), (3, 1056, 20, 20, 64),
+                (3, 1500, 8, 1, 32), (3, 20, 16, 4, 128)]
+
+
+@pytest.mark.parametrize("b,t,h,hk,dh", DECODE_EDGES)
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+def test_decode_attention_edge_lengths(dev, b, t, h, hk, dh, q_dtype,
+                                       kv_dtype):
+    from repro_torch.kernels import decode_attention as DA
+    rng = np.random.default_rng(t + dh)
+    q = _normal(rng, (b, h, dh), q_dtype, dev)
+    k = _normal(rng, (b, t, hk, dh), kv_dtype, dev)
+    v = _normal(rng, (b, t, hk, dh), kv_dtype, dev)
+    size = torch.finfo(kv_dtype).bits // 8
+    stage = DA.stage_rows(dh, size)
+    _, split = DA.split_plan(b, t, hk, dh, size, DA._sm_count(dev))
+    lens = sorted({min(max(x, 1), t) for x in
+                   (1, stage - 1, stage, stage + 1, split - 1, split,
+                    split + 1, t)})
+    lens += [t] * (-len(lens) % b)
+    for i in range(0, len(lens), b):
+        kv_len = torch.tensor(lens[i:i + b], dtype=torch.int32, device=dev)
+        got = decode_attention_cuda(q, k, v, kv_len)
+        want = ref.decode_attention_ref(q, k.to(q_dtype), v.to(q_dtype),
+                                        kv_len)
+        torch.cuda.synchronize()
+        tol = ATT_TOL[q_dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("b,t,h,hk,dh,kv_dtype", [
+    (16, 1056, 32, 8, 128, torch.float32),
+    (8, 4096, 8, 8, 128, torch.bfloat16)])
+def test_decode_attention_graph_replays_equal_eager(dev, b, t, h, hk, dh,
+                                                    kv_dtype):
+    """One captured graph of the kernel, replayed 3 times into a zeroed
+    output, equals the eager call bit for bit, and the arrival counters
+    are zero after each replay: the last split of a (b, KV head) resets
+    its counter (else a replay merges too early or never)."""
+    from repro_torch.kernels import decode_attention as DA
+    rng = np.random.default_rng(t)
+    q = _normal(rng, (b, h, dh), torch.bfloat16, dev)
+    k = _normal(rng, (b, t, hk, dh), kv_dtype, dev)
+    v = _normal(rng, (b, t, hk, dh), kv_dtype, dev)
+    kv_len = torch.tensor(rng.integers(1, t + 1, b), dtype=torch.int32,
+                          device=dev)
+    eager = decode_attention_cuda(q, k, v, kv_len)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention_cuda(q, k, v, kv_len)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention_cuda(q, k, v, kv_len)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        idx = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        assert all(int(x.count_nonzero()) == 0 for x in DA._ARRIVALS[idx])
 
 
 def test_decode_attention_empty_rows_are_zero(dev):
