@@ -162,6 +162,23 @@ together), then:
      pairs equal to the host's count; TTFT, the decode step, profiles
      and the MoE FFN's share of them; the launcher with `--fleet 5`
      (reduced) in process, phi answering, and as the CLI.
+ 10c. the dense families (`drive_dense`): the attention call sites of
+     internlm2-20b (H = 48, Hk = 8), gemma3-12b (dh = 256, H = 16, Hk =
+     8; its local layers with their window of 1024, its global ones
+     without) and llava-next-mistral-7b (a prefill of 2,880 image rows +
+     1,024 tokens, a cache of 3,936 rows) against their plain versions
+     with controls and timed, and a window that bites (flash at S =
+     4096, decode over 4,096 rows, window 1024; the control the same
+     call without the window); then each of the three at full width and
+     full depth beside olmo-1b behind a router at D = 1536, one engine at
+     a time: decode graphs for 1..16 rows, 2 serve() calls of 16
+     requests (the model answering a group in each), no capture, its
+     call sites' launches counted, peak memory under 80 GB; greedy
+     tokens through the graphs equal to the eager path's; its kernel
+     path against its plain path; TTFT, the decode step and a profile of
+     a replayed step; then the launcher with `--fleet 8` (reduced) in
+     process and as the CLI, and `--fleet 9` refused, naming zamba2-7b's
+     ROADMAP item.
  11. the paper's experiments (`benchmarks_torch`) at the frozen regime
      (300 prompts per dataset, D = 64, seed 0): holds KNN's retrieve
      call (a dataset's ~90 test rows against the 1,470 win-rate rows,
@@ -359,6 +376,57 @@ PHI_SITES = {"phi flash prefill": "flash causal",
 # elements of the prefill. Predicted largest error over the bar 0.2-0.5.
 MOE_SIGMAS, MOE_ROUND = 8.0, 2.0 ** -8
 MOE_FFN_SHAPES = {"prefill": (8, 1024), "decode": (8, 1)}
+# the dense families (ROADMAP §2.6.2-4) at full width and full depth:
+# internlm2-20b (48 layers, 48 / 8 heads of 128; 39.7 GB in bf16),
+# gemma3-12b (48 layers, 40 local with a window of 1024 and rope theta
+# 10k, 8 global at 1M; 16 / 8 heads of 256; 23.5 GB) and
+# llava-next-mistral-7b (32 layers, 32 / 8 heads of 128, 2,880 stub image
+# rows before each prompt; 14.5 GB). Each is served beside olmo-1b (costs
+# 1 and 8) behind a router at D = 1536, one engine at a time (freed before
+# the next), DENSE_CALLS serve() calls of SERVE_BATCH requests drawn with
+# DENSE_SEED, groups padded to LAUNCH_PAD_LEN tokens, decode graphs for
+# LAUNCH_BUCKETS rows. llava's cache counts the image rows: 2880 + 1024 +
+# 32 = 3936 rows, DENSE_MAX_LEN.
+DENSE_MODELS = ("internlm2-20b", "gemma3-12b", "llava-next-mistral-7b")
+DENSE_MAX_LEN = {"llava-next-mistral-7b": 2880 + LAUNCH_PAD_LEN + MAX_NEW}
+DENSE_CALLS, DENSE_SEED = 2, 0
+COMPARE_LENS.update({"internlm2-20b": (1024, 900, 640, 300),
+                     "gemma3-12b": (1024, 900, 640, 300),
+                     "llava-next-mistral-7b": (1024, 700)})
+# their attention call sites at the serving shapes, bf16 queries:
+# flash (B, S, S_kv, H, Hk, dh, causal, window), decode (B, T, H, Hk, dh,
+# window, least kv_len) over fp32 caches of SERVE_MAX_LEN rows (llava:
+# DENSE_MAX_LEN, every row past its image rows and a 128-token prompt).
+# gemma3's local sites carry its window of 1024: at these lengths it
+# drops at most 32 of 1,056 keys, so WINDOW_BITE below proves the window
+DENSE_FLASH = {
+    "internlm2": {"prefill": (8, 1024, 1024, 48, 8, 128, True)},
+    "gemma3": {"prefill local": (8, 1024, 1024, 16, 8, 256, True, 1024),
+               "prefill global": (8, 1024, 1024, 16, 8, 256, True)},
+    "llava": {"prefill": (4, 3904, 3904, 32, 8, 128, True)}}
+DENSE_DECODE = {
+    "internlm2": {"self decode": (16, SERVE_MAX_LEN, 48, 8, 128)},
+    "gemma3": {"self decode local": (16, SERVE_MAX_LEN, 16, 8, 256, 1024),
+               "self decode global": (16, SERVE_MAX_LEN, 16, 8, 256)},
+    "llava": {"self decode": (16, DENSE_MAX_LEN["llava-next-mistral-7b"],
+                              32, 8, 128, 0, 2880 + 129)}}
+# the kernels line's entries for those sites, by the count_sites key of
+# their launches on the model's served run
+DENSE_SITES = {
+    "internlm2 flash prefill": "internlm2-20b flash causal",
+    "internlm2 self decode": "internlm2-20b decode self",
+    "gemma3 flash prefill local": "gemma3-12b flash causal window",
+    "gemma3 flash prefill global": "gemma3-12b flash causal",
+    "gemma3 self decode local": "gemma3-12b decode self window",
+    "gemma3 self decode global": "gemma3-12b decode self",
+    "llava flash prefill": "llava-next-mistral-7b flash causal",
+    "llava self decode": "llava-next-mistral-7b decode self"}
+# a window that bites: gemma3's heads and window over 4,096 keys (flash)
+# and a cache of 4,096 rows with kv_len in [3,900, 4,096] (decode); the
+# control is the same call without the window, which must fail the bar
+# by CONTROL_MIN
+WINDOW_BITE = {"flash": (2, 4096, 16, 8, 256, 1024),
+               "decode": (16, 4096, 16, 8, 256, 1024, 3900)}
 # tolerances: the JAX suite's own bars between its backends
 SIM_TOL = 1e-5                     # similarity (tests/test_kernels.py)
 R_RTOL, R_ATOL = 1e-5, 1e-3        # ratings (tests/test_router_state.py)
@@ -3044,6 +3112,22 @@ def drive_serving(engine, corpus, stats):
                           p50_s=p50)
 
 
+def stub_inputs(cfg, b, dev, gen=None):
+    """(the stub embeddings a model's prefill reads, as keyword arguments;
+    the rows they put before the prompt in the cache): whisper's frames
+    and llava's image rows, zeros as FleetModel feeds them, or seeded
+    normal values from `gen` (distinct rows)."""
+    def stub(n):
+        shape = (b, n, cfg.d_model)
+        return torch.zeros(shape, device=dev) if gen is None else \
+            torch.randn(shape, generator=gen, device=dev)
+    if cfg.arch_type == "encdec":
+        return {"enc_embeds": stub(cfg.n_audio_frames)}, 0
+    if cfg.arch_type == "vlm":
+        return {"img_embeds": stub(cfg.n_image_tokens)}, cfg.n_image_tokens
+    return {}, 0
+
+
 # ---------------------------------------------------------------------------
 # phase 8: kernel path vs plain path through the full model
 # ---------------------------------------------------------------------------
@@ -3138,11 +3222,8 @@ def compare_model_paths(engine, stats, names=FLEET):
         for row, n in enumerate(lens):
             toks[row, :n] = rng.integers(0, cfg.vocab, n)
         toks = torch.tensor(toks, dtype=torch.int64, device=dev)
-        enc = None
-        if cfg.arch_type == "encdec":
-            enc = torch.randn((len(lens), cfg.n_audio_frames, cfg.d_model),
-                              generator=torch.Generator(
-                                  device=dev).manual_seed(4), device=dev)
+        stub, n_img = stub_inputs(cfg, len(lens), dev,
+                                  torch.Generator(device=dev).manual_seed(4))
         worst = {p: dict(flash_attention=0.0, decode_attention=0.0)
                  for p in ("kernels", "control")}
         experts = [] if cfg.arch_type == "moe" else None
@@ -3156,8 +3237,8 @@ def compare_model_paths(engine, stats, names=FLEET):
                 return fn(backend)
 
         out = {p: run(p, lambda b: T.prefill(
-                   cfg, m.params, toks, SERVE_MAX_LEN,
-                   cache_dtype=torch.float32, backend=b, enc_embeds=enc))
+                   cfg, m.params, toks, m.max_len,
+                   cache_dtype=torch.float32, backend=b, **stub))
                for p in paths}
         rel, ctl_rel, flips, ties = [], [], 0, 0
         for step in range(5):
@@ -3179,7 +3260,8 @@ def compare_model_paths(engine, stats, names=FLEET):
                 break
             tok = lp.argmax(-1)[:, None]   # every path takes the same token
             out = {p: run(p, lambda b: T.decode_step(
-                       cfg, m.params, out[p][1], tok, s + step, backend=b))
+                       cfg, m.params, out[p][1], tok, n_img + s + step,
+                       backend=b))
                    for p in paths}
         del out
         held, ctl = worst["kernels"], worst["control"]
@@ -3213,31 +3295,30 @@ def eager_generate(m, toks, max_new):
     through its graph."""
     from repro_torch.models import transformer as T
     t = torch.tensor(toks, dtype=torch.int64, device=m.device)
-    enc = None
-    if m.cfg.arch_type == "encdec":
-        enc = torch.zeros((t.shape[0], m.cfg.n_audio_frames,
-                           m.cfg.d_model), device=m.device)
+    stub, n_img = stub_inputs(m.cfg, t.shape[0], m.device)
     logits, cache = T.prefill(m.cfg, m.params, t, m.max_len,
-                              cache_dtype=torch.float32, enc_embeds=enc)
+                              cache_dtype=torch.float32, **stub)
     tok = logits.argmax(-1)[:, None]
     out = [tok]
     for i in range(max_new - 1):
         logits, cache = T.decode_step(m.cfg, m.params, cache, tok,
-                                      toks.shape[1] + i)
+                                      n_img + toks.shape[1] + i)
         tok = logits.argmax(-1)[:, None]
         out.append(tok)
     return torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
 
 
-def compare_graph_generate(engine, stats, key="graph_tokens_differing"):
-    """Each fleet model's greedy tokens through its captured decode
-    graphs (FleetModel.generate, a warmed row count of 8) against the
-    eager path's on the same padded group of 8 prompts of 128..1024
-    tokens, MAX_NEW tokens each: every token must be equal, and nothing
-    may be captured."""
+def compare_graph_generate(engine, stats, key="graph_tokens_differing",
+                           names=None):
+    """Each fleet model's (of `names`: every one by default) greedy
+    tokens through its captured decode graphs (FleetModel.generate, a
+    warmed row count of 8) against the eager path's on the same padded
+    group of 8 prompts of 128..1024 tokens, MAX_NEW tokens each: every
+    token must be equal, and nothing may be captured."""
     rng = np.random.default_rng(8)
     out = {}
-    for name, m in engine.fleet.items():
+    for name in names or list(engine.fleet):
+        m = engine.fleet[name]
         toks = np.zeros((8, LAUNCH_PAD_LEN), np.int32)
         for row in range(8):
             n = int(rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1))
@@ -3274,10 +3355,9 @@ def time_serving(engine, stats, names=FLEET):
         toks = torch.tensor(rng.integers(0, cfg.vocab,
                                          (TIME_BATCH, TIME_LEN)),
                             dtype=torch.int64, device=m.device)
-        enc = None
-        if cfg.arch_type == "encdec":
-            enc = torch.zeros((TIME_BATCH, cfg.n_audio_frames, cfg.d_model),
-                              device=m.device)
+        stub, n_img = stub_inputs(cfg, TIME_BATCH, m.device)
+        enc = stub.get("enc_embeds")
+        if enc is not None:
             enc_ms = []
             for _ in range(3):
                 t0 = time.perf_counter()
@@ -3290,34 +3370,35 @@ def time_serving(engine, stats, names=FLEET):
         ttft = []
         for _ in range(3):
             t0 = time.perf_counter()
-            logits, cache = T.prefill(cfg, m.params, toks, SERVE_MAX_LEN,
-                                      cache_dtype=torch.float32,
-                                      enc_embeds=enc)
+            logits, cache = T.prefill(cfg, m.params, toks, m.max_len,
+                                      cache_dtype=torch.float32, **stub)
             torch.cuda.synchronize()
             ttft.append((time.perf_counter() - t0) * 1e3)
         tok = logits.argmax(-1)[:, None]
-        T.decode_step(cfg, m.params, cache, tok, TIME_LEN)
+        pos = n_img + TIME_LEN        # the first decode position
+        T.decode_step(cfg, m.params, cache, tok, pos)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(TIME_STEPS):
             logits, cache = T.decode_step(cfg, m.params, cache, tok,
-                                          TIME_LEN + 1 + i)
+                                          pos + 1 + i)
             tok = logits.argmax(-1)[:, None]
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / TIME_STEPS
         del cache
-        graph = graph_step_times(m, toks, enc)
+        graph = graph_step_times(m, toks, stub, pos)
         out[name] = dict(ttft_ms=statistics.median(ttft),
                          decode_step_ms=step_ms,
                          tokens_per_s=TIME_BATCH / step_ms * 1e3,
                          graph=graph)
         if enc is not None:
             out[name]["encoder_ms"] = statistics.median(enc_ms)
+        img = f" after {n_img} image rows" if n_img else ""
         log_time(stats,
                  f"{name}: time to first token (prefill of {TIME_BATCH} x "
-                 f"{TIME_LEN}) p50 {out[name]['ttft_ms']:.2f} ms of "
+                 f"{TIME_LEN}{img}) p50 {out[name]['ttft_ms']:.2f} ms of "
                  f"{ttft}; decode step at batch {TIME_BATCH}, context "
-                 f"~{TIME_LEN}: eager {step_ms:.3f} ms = "
+                 f"~{pos}: eager {step_ms:.3f} ms = "
                  f"{out[name]['tokens_per_s']:.1f} tokens/s; through its "
                  f"graph: wall {graph['wall_ms']:.3f} ms, device (events) "
                  f"{graph['device_ms']:.3f} ms, host (index update and "
@@ -3326,20 +3407,21 @@ def time_serving(engine, stats, names=FLEET):
 
 
 @torch.inference_mode()
-def graph_step_times(m, toks, enc):
-    """One model's decode step at batch TIME_BATCH, context ~TIME_LEN,
-    through its captured graph (FleetModel's static state, as generate
-    drives it): the wall per step (host clock to a synchronise), the
-    device time per step (CUDA events around the steps: the host runs
-    far ahead of a replay, so no gap between graphs is counted), and the
-    host's cost per step (an index update and a replay, enqueued)."""
+def graph_step_times(m, toks, stub, pos):
+    """One model's decode step at batch TIME_BATCH, at position `pos`
+    (TIME_LEN after any stub rows), through its captured graph
+    (FleetModel's static state, as generate drives it): the wall per
+    step (host clock to a synchronise), the device time per step (CUDA
+    events around the steps: the host runs far ahead of a replay, so no
+    gap between graphs is counted), and the host's cost per step (an
+    index update and a replay, enqueued)."""
     from repro_torch.models import transformer as T
     step = m._step(TIME_BATCH)
     cache, hist, index = m._view(TIME_BATCH)
-    logits, _ = T.prefill(m.cfg, m.params, toks, m.max_len,
-                          enc_embeds=enc, cache=cache)
-    hist[:, TIME_LEN] = logits.argmax(-1)
-    index.fill_(TIME_LEN)
+    logits, _ = T.prefill(m.cfg, m.params, toks, m.max_len, cache=cache,
+                          **stub)
+    hist[:, pos] = logits.argmax(-1)
+    index.fill_(pos)
     step(cache, hist, index)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -3347,7 +3429,7 @@ def graph_step_times(m, toks, enc):
     t0 = time.perf_counter()
     start.record()
     for i in range(TIME_STEPS):
-        index.fill_(TIME_LEN + 1 + i)
+        index.fill_(pos + 1 + i)
         step(cache, hist, index)
     end.record()
     host = time.perf_counter() - t0
@@ -3370,24 +3452,21 @@ def profile_decode(engine, stats, name="qwen3-8b", what="decode"):
     m = engine.fleet[name]
     toks = torch.zeros((TIME_BATCH, TIME_LEN), dtype=torch.int64,
                        device=m.device)
-    enc = None
-    if m.cfg.arch_type == "encdec":
-        enc = torch.zeros((TIME_BATCH, m.cfg.n_audio_frames, m.cfg.d_model),
-                          device=m.device)
+    stub, n_img = stub_inputs(m.cfg, TIME_BATCH, m.device)
+    pos = n_img + TIME_LEN
 
     def prefill():
-        return T.prefill(m.cfg, m.params, toks, SERVE_MAX_LEN,
-                         cache_dtype=torch.float32, enc_embeds=enc)
+        return T.prefill(m.cfg, m.params, toks, m.max_len,
+                         cache_dtype=torch.float32, **stub)
     logits, cache = prefill()
     tok = logits.argmax(-1)[:, None]
-    T.decode_step(m.cfg, m.params, cache, tok, TIME_LEN)
+    T.decode_step(m.cfg, m.params, cache, tok, pos)
     if what == "graph":
         del cache
         step = m._step(TIME_BATCH)
         cache, hist, index = m._view(TIME_BATCH)
-        T.prefill(m.cfg, m.params, toks, SERVE_MAX_LEN, enc_embeds=enc,
-                  cache=cache)
-        index.fill_(TIME_LEN)
+        T.prefill(m.cfg, m.params, toks, m.max_len, cache=cache, **stub)
+        index.fill_(pos)
         step(cache, hist, index)
     torch.cuda.synchronize()
     n = 1 if what == "prefill" else 3
@@ -3396,9 +3475,9 @@ def profile_decode(engine, stats, name="qwen3-8b", what="decode"):
         t0 = time.perf_counter()
         for i in range(n):
             if what == "decode":
-                T.decode_step(m.cfg, m.params, cache, tok, TIME_LEN + 1 + i)
+                T.decode_step(m.cfg, m.params, cache, tok, pos + 1 + i)
             elif what == "graph":
-                index.fill_(TIME_LEN + 1 + i)
+                index.fill_(pos + 1 + i)
                 step(cache, hist, index)
             else:
                 prefill()
@@ -3424,6 +3503,15 @@ def profile_decode(engine, stats, name="qwen3-8b", what="decode"):
 # ---------------------------------------------------------------------------
 # phase 10: the launcher and its default fleet
 # ---------------------------------------------------------------------------
+
+def launch_cli(*args):
+    """`python -m repro_torch.launch.serve ARGS` in a subprocess on the
+    card, from this checkout's sources (a CompletedProcess)."""
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *args],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(SRC)})
+
 
 def drive_launcher(stats):
     """`launch.serve` at its defaults on the card: build_engine() (the
@@ -3477,10 +3565,7 @@ def drive_launcher(stats):
     del engine
     # the CLI with the sharded route and the prebaker, at its defaults
     t0 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--db-shards",
-         "1", "--prebake"], capture_output=True, text=True, timeout=600,
-        env={**os.environ, "PYTHONPATH": str(SRC)})
+    out = launch_cli("--db-shards", "1", "--prebake")
     cli_s = time.perf_counter() - t0
     lines = out.stdout.strip().splitlines()
     if out.returncode or not lines or not lines[-1].startswith("stats:"):
@@ -3494,11 +3579,8 @@ def drive_launcher(stats):
     # the CLI with the obs plane on an ephemeral port and an alert log
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        out = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve", "--serve-obs",
-             "0", "--alert-log", str(Path(tmp) / "alerts.jsonl")],
-            capture_output=True, text=True, timeout=600,
-            env={**os.environ, "PYTHONPATH": str(SRC)})
+        out = launch_cli("--serve-obs", "0", "--alert-log",
+                         str(Path(tmp) / "alerts.jsonl"))
         cli_s = time.perf_counter() - t0
     lines = out.stdout.strip().splitlines()
     url = [ln for ln in lines if re.fullmatch(
@@ -3531,51 +3613,71 @@ def _site_entry(kernels, key, name, nbytes, flops, got_ms, plain_ms,
     return bms, by
 
 
+def _band(s, t, window, dev):
+    """The (S, T) boolean mask of a causal window (bottom-right aligned,
+    as the kernels'): SDPA's explicit mask for a windowed call."""
+    qp = torch.arange(s, device=dev)[:, None] + (t - s)
+    kp = torch.arange(t, device=dev)[None, :]
+    return (kp <= qp) & (kp > qp - window)
+
+
 def check_site_attention(dev, kernels, stats, model="whisper",
                          flash_shapes=WHISPER_FLASH,
                          decode_shapes=WHISPER_DECODE, seed=6):
     """A model's attention call sites in bf16 at its serving shapes
     (whisper-large-v3's five: WHISPER_FLASH, WHISPER_DECODE; phi3.5-moe's
-    two: PHI_FLASH, PHI_DECODE), each against its plain version (the
-    flash and decode bars of phase 6) with a control, one key dropped,
-    that must fail by CONTROL_MIN: a bidirectional flash site (the
-    encoder, the cross prefill) drops the last key for every row (held
-    on all rows), a causal one each row's own key (rows with at least
-    S/2 keys), the decodes the newest row (kv_len - 1). Each timed
-    beside its bound and SDPA; the kernels line's entries are
-    "<model> flash <site>" and "<model> <site>"."""
+    two: PHI_FLASH, PHI_DECODE; the dense families': DENSE_FLASH,
+    DENSE_DECODE), each against its plain version (the flash and decode
+    bars of phase 6) with a control, one key dropped, that must fail by
+    CONTROL_MIN: a bidirectional flash site (the encoder, the cross
+    prefill) drops the last key for every row (held on all rows), a
+    causal one each row's own key (rows with at least S/2 keys), the
+    decodes the newest row (kv_len - 1; under a window w, w - 1 too, so
+    the window keeps its first row). A flash shape may end in a window
+    (0: none), a decode shape in a window and the least kv_len drawn
+    (else 129: prompts of 128..1024 + steps). Each timed beside its bound
+    and SDPA (with an explicit mask for a window); the kernels line's
+    entries are "<model> flash <site>" and "<model> <site>"."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     gen = torch.Generator(device=dev).manual_seed(seed)
     report = {}
-    for site, (b, s, t, h, hk, dh, causal) in flash_shapes.items():
+    for site, shape in flash_shapes.items():
+        b, s, t, h, hk, dh, causal = shape[:7]
+        window = shape[7] if len(shape) > 7 else 0
         q = _bf16(gen, (b, s, h, dh), dev)
         k = _bf16(gen, (b, t, hk, dh), dev)
         v = _bf16(gen, (b, t, hk, dh), dev)
-        got = flash_attention_cuda(q, k, v, causal=causal)
-        want = ref.flash_attention_ref(q, k, v, causal=causal)
-        atol = flash_atol(q, k, v, causal=causal)
+        got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window)
+        atol = flash_atol(q, k, v, causal=causal, window=window)
         err, ratio = flash_check(got, want, atol)
         if causal:
             ctl = flash_attention_cuda(q[:, 1:], k[:, :-1], v[:, :-1],
-                                       causal=True)
+                                       causal=True, window=window)
             control = flash_check(ctl[:, s // 2:], want[:, 1 + s // 2:],
                                   atol[:, 1 + s // 2:])[1]
         else:
             ctl = flash_attention_cuda(q, k[:, :-1], v[:, :-1], causal=False)
             control = flash_check(ctl, want, atol)[1]
         if not (ratio <= 1.0 and control >= CONTROL_MIN):
-            fail(f"{model} flash {site} B={b} S={s} S_kv={t}: error over "
-                 f"the bar {ratio} (at most 1), control {control} (at "
-                 f"least {CONTROL_MIN})")
-        ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal),
-                     20)
-        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v,
-                                                        causal=causal), 3)
-        lib = cuda_ms(lambda: _sdpa(q, k, v, is_causal=causal), 20)
+            fail(f"{model} flash {site} B={b} S={s} S_kv={t} window="
+                 f"{window}: error over the bar {ratio} (at most 1), "
+                 f"control {control} (at least {CONTROL_MIN})")
+        ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal,
+                                                  window=window), 20)
+        plain = cuda_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window), 3)
+        if window:
+            band = _band(s, t, window, dev)
+            lib = cuda_ms(lambda: _sdpa(q, k, v, attn_mask=band), 20)
+            pairs = float(band.sum())
+        else:
+            lib = cuda_ms(lambda: _sdpa(q, k, v, is_causal=causal), 20)
+            pairs = s * (s + 1) / 2 if causal else s * t
         nbytes = 2.0 * (2 * b * s * h * dh + 2 * b * t * hk * dh)
-        pairs = s * (s + 1) / 2 if causal else s * t
         flops = 4.0 * b * h * dh * pairs
         bms, by = _site_entry(kernels, f"{model} flash {site}",
                               f"flash_attention ({model} {site})",
@@ -3585,39 +3687,50 @@ def check_site_attention(dev, kernels, stats, model="whisper",
                             library_ms=lib, bound_ms=bms, bound_by=by)
         log_time(stats,
                  f"flash_attention bf16 {model} {site} B={b} S={s} "
-                 f"S_kv={t} H={h} Hk={hk} dh={dh} causal={causal}: max abs "
+                 f"S_kv={t} H={h} Hk={hk} dh={dh} causal={causal} window="
+                 f"{window}: max abs "
                  f"err {err}, over the bar {ratio}, control {control}; "
                  f"kernel_ms={ms} ({bms / ms} of the bound) plain_ms={plain}"
                  f" library_ms(SDPA)={lib} (kernel / SDPA {ms / lib}) "
                  f"bound_ms={bms} ({by})")
-    for site, (b, t, h, hk, dh) in decode_shapes.items():
+    for site, shape in decode_shapes.items():
+        b, t, h, hk, dh = shape[:5]
+        window = shape[5] if len(shape) > 5 else 0
+        least = shape[6] if len(shape) > 6 else 129
         q = _bf16(gen, (b, h, dh), dev)
         k = torch.randn((b, t, hk, dh), generator=gen, device=dev)  # fp32
         v = torch.randn((b, t, hk, dh), generator=gen, device=dev)
         if site == "cross decode":        # every frame, every row
             kv_len = torch.full((b,), t, dtype=torch.int32, device=dev)
         else:                             # prompts of 128..1024 + steps
-            kv_len = torch.randint(129, t + 1, (b,), generator=gen,
+            kv_len = torch.randint(least, t + 1, (b,), generator=gen,
                                    device=dev, dtype=torch.int32)
-        got = decode_attention_cuda(q, k, v, kv_len)
+        got = decode_attention_cuda(q, k, v, kv_len, window=window)
         want = ref.decode_attention_ref(q, k.to(q.dtype), v.to(q.dtype),
-                                        kv_len)
+                                        kv_len, window=window)
         err, ratio = decode_check(got, want)
-        ctl = decode_attention_cuda(q, k, v, kv_len - 1)
+        ctl = decode_attention_cuda(q, k, v, kv_len - 1,
+                                    window=max(window - 1, 0))
         control = decode_check(ctl, want)[1]
         if not (ratio <= 1.0 and control >= CONTROL_MIN):
-            fail(f"{model} {site} B={b} T={t}: error over the bar {ratio} "
-                 f"(at most 1), control {control} (at least "
-                 f"{CONTROL_MIN})")
-        ms = cuda_ms(lambda: decode_attention_cuda(q, k, v, kv_len), 1000)
-        qms = queued_ms(lambda: decode_attention_cuda(q, k, v, kv_len), 200)
-        plain = cuda_ms(lambda: ref.decode_attention_ref(q, k, v, kv_len), 5)
-        mask = (torch.arange(t, device=dev)[None]
-                < kv_len[:, None])[:, None, None]
+            fail(f"{model} {site} B={b} T={t} window={window}: error over "
+                 f"the bar {ratio} (at most 1), control {control} (at "
+                 f"least {CONTROL_MIN})")
+        ms = cuda_ms(lambda: decode_attention_cuda(q, k, v, kv_len,
+                                                   window=window), 1000)
+        qms = queued_ms(lambda: decode_attention_cuda(q, k, v, kv_len,
+                                                      window=window), 200)
+        plain = cuda_ms(lambda: ref.decode_attention_ref(
+            q, k, v, kv_len, window=window), 5)
+        rows = torch.arange(t, device=dev)[None]
+        mask = rows < kv_len[:, None]
+        if window:
+            mask &= rows >= kv_len[:, None] - window
+        mask = mask[:, None, None]
         lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q.float()[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=mask, enable_gqa=True), 20)
-        n_kv = float(kv_len.sum())
+        n_kv = float(mask.sum())
         nbytes = n_kv * hk * dh * 4 * 2 + 2.0 * 2 * b * h * dh + 4 * b
         bms, by = _site_entry(kernels, f"{model} {site}",
                               f"decode_attention ({model} {site})",
@@ -3629,7 +3742,8 @@ def check_site_attention(dev, kernels, stats, model="whisper",
                             bound_by=by)
         log_time(stats,
                  f"decode_attention q bf16, cache fp32, {model} {site} B={b} "
-                 f"T={t} H={h} Hk={hk} dh={dh}, {int(n_kv)} valid rows: max "
+                 f"T={t} H={h} Hk={hk} dh={dh} window={window}, {int(n_kv)} "
+                 f"valid rows: max "
                  f"abs err {err}, over the bar {ratio}, control {control}; "
                  f"kernel_ms={ms} ({bms / ms} of the bound) queued_ms={qms} "
                  f"({bms / qms} of the bound) plain_ms={plain}"
@@ -3800,7 +3914,8 @@ def count_sites(engine):
     """Inside: each attention kernel launch carries the label of its call
     site, "<model> <site>" (`_build.site`; flash: causal, encoder (S =
     S_kv, no mask) or cross (S != S_kv); decode: cross over a model's
-    n_audio_frames rows, else self). A graph captured inside keeps the
+    n_audio_frames rows, else self; " window" after a windowed call's:
+    gemma3's local layers). A graph captured inside keeps the
     labels in its recording, and each replay is credited under them, so
     `site_launches()` attributes replayed launches too."""
     from unittest import mock
@@ -3812,6 +3927,8 @@ def count_sites(engine):
     def flash_site(q, k, v, **kw):
         site = "flash causal" if kw.get("causal", True) else \
             "flash encoder" if k.shape[1] == q.shape[1] else "flash cross"
+        if kw.get("window"):
+            site += " window"
         with _build.site(f"{current['model']} {site}"):
             return flash(q, k, v, **kw)
 
@@ -3819,6 +3936,8 @@ def count_sites(engine):
         cfg = engine.fleet[current["model"]].cfg
         site = "decode cross" if cfg.arch_type == "encdec" \
             and k.shape[1] == cfg.n_audio_frames else "decode self"
+        if kw.get("window"):
+            site += " window"
         with _build.site(f"{current['model']} {site}"):
             return decode(q, k, v, kv_len, **kw)
 
@@ -4147,10 +4266,7 @@ def drive_launcher_fleet5(stats):
         fail(f"launcher --fleet 5: {MOE_MODEL} answered none of {models}")
     del engine
     t1 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--fleet", "5",
-         "--requests", "17", "--budget", "10"], capture_output=True,
-        text=True, timeout=600, env={**os.environ, "PYTHONPATH": str(SRC)})
+    out = launch_cli("--fleet", "5", "--requests", "17", "--budget", "10")
     cli_s = time.perf_counter() - t1
     lines = out.stdout.strip().splitlines()
     if out.returncode or not lines or not lines[-1].startswith("stats:"):
@@ -4235,6 +4351,326 @@ def drive_moe(dev, kernels, stats):
     gc.collect()
     torch.cuda.empty_cache()
     drive_launcher_fleet5(stats)
+    return launches, sites
+
+
+# ---------------------------------------------------------------------------
+# phase 10c: the dense families at full width and depth
+# ---------------------------------------------------------------------------
+
+def check_window_bite(dev, stats):
+    """WINDOW_BITE: the flash kernel at S = 4096 and the decode kernel over
+    4,096 rows, both with gemma3's window of 1024 and head width 256, where
+    the window drops most keys: each against its plain version with the
+    window (the bars of phase 6), and the same call without the window,
+    the control, must fail the bar by CONTROL_MIN. Each timed beside its
+    bound, the plain version and SDPA with the band as an explicit
+    mask."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    gen = torch.Generator(device=dev).manual_seed(11)
+    report = {}
+    b, s, h, hk, dh, w = WINDOW_BITE["flash"]
+    q = _bf16(gen, (b, s, h, dh), dev)
+    k = _bf16(gen, (b, s, hk, dh), dev)
+    v = _bf16(gen, (b, s, hk, dh), dev)
+    got = flash_attention_cuda(q, k, v, causal=True, window=w)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=w)
+    atol = flash_atol(q, k, v, causal=True, window=w)
+    err, ratio = flash_check(got, want, atol)
+    control = flash_check(flash_attention_cuda(q, k, v, causal=True), want,
+                          atol)[1]
+    if not (ratio <= 1.0 and control >= CONTROL_MIN):
+        fail(f"flash window {w} at S={s}: error over the bar {ratio} (at "
+             f"most 1), without the window {control} (at least "
+             f"{CONTROL_MIN})")
+    band = _band(s, s, w, dev)
+    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True,
+                                              window=w), 20)
+    plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True,
+                                                    window=w), 3)
+    lib = cuda_ms(lambda: _sdpa(q, k, v, attn_mask=band), 20)
+    nbytes = 2.0 * (2 * b * s * h * dh + 2 * b * s * hk * dh)
+    bms, by = bound_ms(nbytes, 4.0 * b * h * dh * float(band.sum()),
+                       PEAK_BF16_FLOPS)
+    report["flash"] = dict(max_abs_err=err, err_over_bar=ratio,
+                           control_over_bar=control, ms=ms, plain_ms=plain,
+                           library_ms=lib, bound_ms=bms, bound_by=by)
+    log_time(stats,
+             f"flash_attention bf16 window {w} biting: B={b} S={s} H={h} "
+             f"Hk={hk} dh={dh}: max abs err {err}, over the bar {ratio}, "
+             f"without the window {control}; kernel_ms={ms} ({bms / ms} of "
+             f"the bound) plain_ms={plain} library_ms(SDPA, band mask)="
+             f"{lib} bound_ms={bms} ({by})")
+    del q, k, v, got, want, atol, band
+    b, t, h, hk, dh, w, least = WINDOW_BITE["decode"]
+    q = _bf16(gen, (b, h, dh), dev)
+    k = torch.randn((b, t, hk, dh), generator=gen, device=dev)   # fp32
+    v = torch.randn((b, t, hk, dh), generator=gen, device=dev)
+    kv_len = torch.randint(least, t + 1, (b,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    got = decode_attention_cuda(q, k, v, kv_len, window=w)
+    want = ref.decode_attention_ref(q, k.to(q.dtype), v.to(q.dtype), kv_len,
+                                    window=w)
+    err, ratio = decode_check(got, want)
+    control = decode_check(decode_attention_cuda(q, k, v, kv_len), want)[1]
+    if not (ratio <= 1.0 and control >= CONTROL_MIN):
+        fail(f"decode window {w} over T={t}: error over the bar {ratio} (at "
+             f"most 1), without the window {control} (at least "
+             f"{CONTROL_MIN})")
+    rows = torch.arange(t, device=dev)[None]
+    mask = ((rows < kv_len[:, None]) & (rows >= kv_len[:, None] - w))
+    run = lambda: decode_attention_cuda(q, k, v, kv_len, window=w)
+    qms = queued_ms(run, 200)
+    ms = cuda_ms(run, 1000)
+    plain = cuda_ms(lambda: ref.decode_attention_ref(q, k, v, kv_len,
+                                                     window=w), 5)
+    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q.float()[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask[:, None, None], enable_gqa=True), 20)
+    n_kv = float(mask.sum())
+    bms, by = bound_ms(n_kv * hk * dh * 4 * 2 + 2.0 * 2 * b * h * dh + 4 * b,
+                       4.0 * h * dh * n_kv, PEAK_BF16_FLOPS)
+    report["decode"] = dict(max_abs_err=err, err_over_bar=ratio,
+                            control_over_bar=control, ms=ms, queued_ms=qms,
+                            plain_ms=plain, library_ms=lib, bound_ms=bms,
+                            bound_by=by)
+    log_time(stats,
+             f"decode_attention q bf16, cache fp32, window {w} biting: B={b} "
+             f"T={t} H={h} Hk={hk} dh={dh}, kv_len {least}..{t}, "
+             f"{int(n_kv)} rows in the windows: max abs err {err}, over the "
+             f"bar {ratio}, without the window {control}; kernel_ms={ms} "
+             f"queued_ms={qms} ({bms / qms} of the bound) plain_ms={plain} "
+             f"library_ms(SDPA, fp32, mask)={lib} bound_ms={bms} ({by})")
+    stats["window_bite"] = report
+
+
+def build_dense_engine(dev, name, olmo, seed, stats):
+    """A ServingEngine over olmo-1b (`olmo`, shared by the dense phase's
+    engines) and `name` at full width and depth (each block cast to bf16
+    as it is drawn), an fp32 cache of SERVE_MAX_LEN rows (llava:
+    DENSE_MAX_LEN), groups padded to LAUNCH_PAD_LEN tokens and the row
+    ladder, behind a router fitted at D = 1536 with costs linspace(1, 8,
+    2)."""
+    from repro_torch import obs as OBS
+    from repro_torch.configs import get_config
+    from repro_torch.core.router import EagleConfig, EagleRouter
+    from repro_torch.data.routerbench import make_corpus, pairwise_feedback
+    from repro_torch.launch.serve import quality_oracle
+    from repro_torch.models.config import count_params
+    from repro_torch.serving import FleetModel, ServingEngine
+    names = ["olmo-1b", name]
+    corpus = make_corpus(seed=0, n_per_dataset=60, dim=DIM,
+                         model_names=names,
+                         costs=np.linspace(1.0, 8.0, len(names)))
+    fb = pairwise_feedback(corpus, corpus.train_idx, seed=0,
+                           pairs_per_query=4)
+    router = EagleRouter(names, corpus.costs, EagleConfig(embed_dim=DIM),
+                         db_capacity=1 << 15, device=dev)
+    router.fit(fb["emb"], fb["model_a"], fb["model_b"], fb["outcome"])
+    cfg = get_config(name)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = FleetModel(cfg, seed=seed,
+                       max_len=DENSE_MAX_LEN.get(name, SERVE_MAX_LEN),
+                       device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(model.params))
+    gb = sum(x.numel() * x.element_size()
+             for x in _leaves(model.params)) / 1e9
+    kinds = {k: cfg.layer_kinds().count(k) for k in set(cfg.layer_kinds())}
+    log(f"{name} ({cfg.arch_type}): {cfg.n_layers} layers {kinds}, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}"
+        f"{f', {cfg.n_image_tokens} image rows' if cfg.n_image_tokens else ''}"
+        f", {n_params / 1e9:.3f}B parameters ({gb:.2f} GB; count_params "
+        f"{count_params(cfg) / 1e9:.3f}B), cache of {model.max_len} rows; "
+        f"init + cast {time.perf_counter() - t0:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    stats.setdefault("dense_models", {})[name] = dict(
+        layers=cfg.n_layers, params=n_params, gb=gb, max_len=model.max_len)
+    engine = ServingEngine({"olmo-1b": olmo, name: model}, router,
+                           compare_rate=0.25, seed=0,
+                           quality_oracle=quality_oracle, gen_bucket=True,
+                           gen_pad_len=LAUNCH_PAD_LEN,
+                           obs=OBS.Observability())
+    engine.warmup()
+    torch.cuda.empty_cache()
+    return engine, corpus
+
+
+def drive_dense_engine(engine, corpus, name, stats):
+    """DENSE_CALLS serve() calls of SERVE_BATCH requests (prompts of
+    128..1024 tokens, MAX_NEW new tokens, budgets over [1, 10], 25% fed
+    back), drawn with DENSE_SEED: every response checked, `name` must
+    answer a group in each call."""
+    rng = np.random.default_rng(DENSE_SEED)
+    db0 = engine.router.db.size
+    vocab = min(m.cfg.vocab for m in engine.fleet.values())
+    wall, groups = [], []
+    for call in range(DENSE_CALLS):
+        reqs = serve_requests(corpus, rng, SERVE_BATCH, vocab)
+        t0 = time.perf_counter()
+        res = engine.serve(reqs)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        check_responses(engine, reqs, res, f"{name} serve() call {call}")
+        groups.append({n: sum(r.model == n for r in res)
+                       for n in engine.fleet})
+    st = engine.stats
+    if engine.router.db.size != db0 + st["feedback"] or not st["commits"]:
+        fail(f"{name} engine: feedback not committed: {st}")
+    if not all(g[name] for g in groups):
+        fail(f"{name} answered no group in a serve() call: {groups}")
+    p50 = statistics.median(wall)
+    log_time(stats,
+             f"{name} beside olmo-1b: {DENSE_CALLS} serve() calls of "
+             f"{SERVE_BATCH}: requests per model {groups}; wall s {wall}, "
+             f"p50 {p50:.3f} s; stats {st}")
+    return dict(serve_wall_s=wall, serve_p50_s=p50, groups=groups, stats=st)
+
+
+def drive_launcher_fleet8(stats):
+    """The launcher with `--fleet 8` at its reduced configs: in process,
+    build_engine(n_fleet=8) serves 16 requests at budgets over [1, 10]
+    (every answer checked); then the CLI, `python -m
+    repro_torch.launch.serve --fleet 8 --requests 16`, must exit 0 with
+    its stats line, and `--fleet 9` must fail on zamba2-7b's ROADMAP
+    item."""
+    from repro_torch import obs as OBS
+    from repro_torch.launch import serve as LS
+    from repro_torch.serving import Request
+    t0 = time.perf_counter()
+    engine, corpus = LS.build_engine(n_fleet=8, obs=OBS.Observability())
+    build_s = time.perf_counter() - t0
+    names = list(engine.fleet)
+    if names[5:] != list(DENSE_MODELS):
+        fail(f"launcher --fleet 8 built {names}")
+    rng = np.random.default_rng(0)
+    test = corpus.test_idx
+    reqs = [Request(tokens=rng.integers(0, 100, rng.integers(4, 12)).astype(
+                        np.int32),
+                    embedding=corpus.embeddings[test[i]],
+                    budget=float(rng.uniform(1, 10)), max_new_tokens=4,
+                    rid=i) for i in range(16)]
+    res = engine.serve(reqs)
+    torch.cuda.synchronize()
+    check_responses(engine, reqs, res, "launcher --fleet 8 serve()")
+    models = sorted({r.model for r in res})
+    del engine
+    gc.collect()
+    t1 = time.perf_counter()
+    out = launch_cli("--fleet", "8", "--requests", "16")
+    cli_s = time.perf_counter() - t1
+    lines = out.stdout.strip().splitlines()
+    if out.returncode or not lines or not lines[-1].startswith("stats:"):
+        fail(f"python -m repro_torch.launch.serve --fleet 8 exited "
+             f"{out.returncode}: {out.stdout[-2000:]}{out.stderr[-2000:]}")
+    nine = launch_cli("--fleet", "9", "--requests", "2")
+    if nine.returncode == 0 or "item 5 (zamba2-7b)" not in nine.stderr:
+        fail(f"--fleet 9 exited {nine.returncode} without naming zamba2's "
+             f"ROADMAP item: {nine.stderr[-2000:]}")
+    log_time(stats, f"launcher --fleet 8 (reduced {names}): built in "
+             f"{build_s:.1f} s, serve() of 16: models answering {models}; "
+             f"python -m repro_torch.launch.serve --fleet 8 --requests 16: "
+             f"exit 0 in {cli_s:.1f} s; {lines[-1]}; --fleet 9: exit "
+             f"{nine.returncode}, {nine.stderr.strip().splitlines()[-1]}")
+    stats["launcher_fleet8"] = dict(build_s=build_s, models=models,
+                                    cli_s=cli_s, cli_last=lines[-1])
+
+
+def drive_dense(dev, kernels, stats):
+    """The dense families' phase: their attention call sites and the
+    biting window, then each of DENSE_MODELS at full width and depth
+    beside olmo-1b, one engine at a time: decode graphs warmed, served
+    with launches per call site, nothing captured, peak memory under 80
+    GB; greedy tokens through the graphs against the eager path's, the
+    kernel path against the plain path, TTFT and the decode step, and a
+    profile of the replayed step; then the launcher with --fleet 8.
+    Returns (launches by model, launches by call site) of the served
+    runs."""
+    from repro_torch import graphs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.serving import FleetModel
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    log(f"device memory held before the dense phase "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    for i, short in enumerate(DENSE_FLASH):
+        check_site_attention(dev, kernels, stats, short, DENSE_FLASH[short],
+                             DENSE_DECODE[short], seed=20 + i)
+        torch.cuda.empty_cache()
+    check_window_bite(dev, stats)
+    torch.cuda.empty_cache()
+    olmo = FleetModel(get_config("olmo-1b"), seed=0, max_len=SERVE_MAX_LEN,
+                      device=dev)
+    launches, sites, report = {}, {}, {}
+    for i, name in enumerate(DENSE_MODELS):
+        t0 = time.perf_counter()
+        engine, corpus = build_dense_engine(dev, name, olmo, i + 1, stats)
+        with count_sites(engine):
+            n = engine.warmup_generate(LAUNCH_PAD_LEN,
+                                       batch_sizes=LAUNCH_BUCKETS)
+            log_time(stats, f"{name} engine warmup: {n} decode graphs "
+                     f"captured for {LAUNCH_BUCKETS} rows (with a generate "
+                     f"at each); graph pools {graph_pool_gb():.2f} GB")
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            c0 = graphs.capture_count()
+            report[name] = drive_dense_engine(engine, corpus, name, stats)
+        torch.cuda.synchronize()
+        launches[name] = _build.launch_counts()
+        run_sites = site_launches()
+        sites.update({k: v for k, v in run_sites.items()
+                      if k.startswith(name)})
+        credited = _build.credited_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        captured = graphs.capture_count() - c0
+        report[name].update(launches=launches[name], sites=run_sites,
+                            peak_mem_gb=peak, captures=captured)
+        log(f"launches on the {name} engine's run: {launches[name]}, of "
+            f"which credited by graph replays {credited}; by call site "
+            f"{run_sites}; graphs captured in the run {captured}")
+        log_time(stats, f"peak device memory of the {name} engine's run "
+                 f"(with olmo-1b: weights, static decode states, graph "
+                 f"pools, activations): {peak:.2f} GB")
+        short = name.split("-")[0]    # DENSE_FLASH's and DENSE_SITES' key
+        missing = [k for k in ("flash_attention", "decode_attention")
+                   if not launches[name][k]] + [
+            k for k, site in DENSE_SITES.items()
+            if k.startswith(short + " ") and not run_sites.get(site)]
+        if missing:
+            fail(f"never launched on the {name} engine's run: {missing}")
+        if captured:
+            fail(f"{captured} graphs captured after warmup on the {name} "
+                 "engine's run")
+        if credited.get("decode_attention") != \
+                launches[name]["decode_attention"]:
+            fail(f"{name}: decode launches "
+                 f"{launches[name]['decode_attention']}, of which credited "
+                 f"by replays {credited.get('decode_attention')}: the "
+                 "decode path left its graphs")
+        if peak >= 80.0:
+            fail(f"the {name} engine's peak device memory {peak:.2f} GB")
+        compare_graph_generate(engine, stats, names=(name,),
+                               key=f"graph_tokens_differing_{short}")
+        compare_model_paths(engine, stats, names=(name,))
+        time_serving(engine, stats, names=(name,))
+        profile_decode(engine, stats, name, what="graph")
+        report[name]["wall_s"] = time.perf_counter() - t0
+        del engine, corpus
+        gc.collect()
+        torch.cuda.empty_cache()
+    del olmo
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["dense"] = report
+    drive_launcher_fleet8(stats)
+    stats["dense_phase_s"] = time.perf_counter() - t_phase
+    log_time(stats, f"dense phase wall: {stats['dense_phase_s']:.1f} s "
+             f"(engines: { {n: r['wall_s'] for n, r in report.items()} })")
     return launches, sites
 
 
@@ -4734,6 +5170,8 @@ def main() -> int:
     del launch_engine, launch_corpus
     torch.cuda.empty_cache()
     launches["moe"], moe_sites = drive_moe(dev, kernels, stats)
+    torch.cuda.empty_cache()
+    launches["dense"], dense_sites = drive_dense(dev, kernels, stats)
 
     torch.cuda.empty_cache()
     corpus, fb, targets = paper_regime(dev)
@@ -4769,6 +5207,9 @@ def main() -> int:
         if name in PHI_SITES:
             entry["launches"] = moe_sites[f"{MOE_MODEL} {PHI_SITES[name]}"]
             continue
+        if name in DENSE_SITES:
+            entry["launches"] = dense_sites[DENSE_SITES[name]]
+            continue
         if name == "elo_scan fit fold":
             entry["launches"] = stats["fit_fold_launches"]
             continue
@@ -4789,8 +5230,8 @@ def main() -> int:
                              "sharded_retrieve_replay_select",
                              "flash_attention",
                              "decode_attention") + tuple(WHISPER_SITES) \
-        + tuple(PHI_SITES) + ("retrieve knn", "retrieve_topn n512",
-                              "topn_merge k512")
+        + tuple(PHI_SITES) + tuple(DENSE_SITES) + (
+            "retrieve knn", "retrieve_topn n512", "topn_merge k512")
     line = {"kernels": [kernels[k] for k in order]}
     stats["kernels"] = line["kernels"]
     (out / "chip_smoke.json").write_text(json.dumps(stats, indent=1))

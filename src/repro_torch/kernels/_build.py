@@ -66,8 +66,8 @@ _SIGNATURES = {
     },
     "decode_attention": {
         # q, k, v, kv_len, out, part_acc, part_ml, arrivals, B, T, H, Hk,
-        # dh, q dtype, kv dtype, n_split, split_rows, scale, stream
-        "decode_attention_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+        # dh, q dtype, kv dtype, n_split, split_rows, window, scale, stream
+        "decode_attention_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                                    + [ctypes.c_float] + [ctypes.c_void_p],
         # q dtype, kv dtype, dh, rep -> resident blocks an SM
         "decode_attention_occupancy": [ctypes.c_int] * 4,

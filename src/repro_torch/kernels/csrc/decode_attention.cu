@@ -5,7 +5,11 @@
 // Replaces the TPU kernel `decode_attention_pallas` (body `_decode_kernel`)
 // in src/repro/kernels/decode_attention.py: out[b, h] = softmax(q[b, h] .
 // k[b, t, h / rep] * scale over t < kv_len[b]) . v[b, t, h / rep], fp32
-// softmax state, GQA through kv head h / rep.
+// softmax state, GQA through kv head h / rep. With a window w > 0 only the
+// rows kv_len[b] - w <= t < kv_len[b] count: the query at position
+// kv_len[b] - 1 under a sliding window over the full cache (gemma3's local
+// layers; the JAX model computes that decode in jnp `attend`, the TPU
+// kernel has no window).
 //
 // Bound: by bytes. Every valid cache row is read once (2 * Hk * dh values
 // per position) against 4 FLOP per cached value and query head; at the
@@ -22,7 +26,10 @@
 // chooses the split count from the card (`decode_attention.split_plan`:
 // about four waves of blocks over the SMs, at least four stages a split),
 // static for a given (B, T, Hk, dh), so CUDA graphs stay valid. Splits
-// that start at or past kv_len[b] exit at once.
+// that start at or past kv_len[b], or end at or before the window's first
+// row max(0, kv_len[b] - w) (computed on the device, so one captured graph
+// serves every position), exit at once; the arrival count and the merge
+// take the splits in between only.
 //
 // Inside its split a block streams the rows through a ring of two 32 KB
 // stages in shared memory, each holding ROWS rows of K and the same rows
@@ -34,7 +41,11 @@
 // TMA bulk copies all read slower or no faster. Each warp takes
 // its own ROWS / 4 rows of a stage, 8 at a step, and keeps its own online
 // softmax (running max and sum per head, a rescaled fp32 accumulator): no
-// block-wide pass waits on another. Two ways to compute a step:
+// block-wide pass waits on another. At dh = 256 over an fp32 cache a stage
+// holds 16 rows, two steps: the warps take the steps of successive stages
+// in turn (stage s's to warps 2s mod 4 and 2s + 1 mod 4), so each warp
+// works every other stage and the stage keeps its 32 KB and three blocks an
+// SM. Two ways to compute a step:
 //   tensor cores (a bf16 query over rep >= 2 heads: qwen3-8b, phi3.5-moe):
 //     the heads are the rows of `mma.sync` tiles (`stream_mma`), so the
 //     products and the softmax's shuffles cost the same at any rep;
@@ -44,9 +55,10 @@
 //       shuffles a head sum the quarters; odd keys walk the chunks from
 //       another quad, so the two keys of a quarter-warp read different
 //       banks;
-//     p . v: lane (key group, column group) owns 4 contiguous columns and
-//       reads them for its keys (one 16- or 8-byte read a row); the
-//       step's weights come from shared memory, not from shuffles.
+//     p . v: lane (key group, column group) owns 4 contiguous columns
+//       (at dh = 256: two groups of 4, 128 columns apart) and reads them
+//       for its keys (one 16- or 8-byte read a row); the step's weights
+//       come from shared memory, not from shuffles.
 //     The registers hold REP heads, rep rounded up to 1, 2, 4 or 8.
 //
 // Combine. The four warps' states merge in shared memory. A split that
@@ -88,10 +100,15 @@ struct Tile {
   static constexpr int STAGE = 32768;                  // K and V bytes
   static constexpr int ROWS = STAGE / (2 * ROW_BYTES);  // a stage's rows
   static constexpr int STAGES = RING_BYTES / STAGE;
+  static constexpr int SPS = ROWS / STEP;         // a stage's steps
   static constexpr int WROWS = ROWS / NW;         // a warp's, a stage
-  static constexpr int CG = DH / 4;   // p . v: 4-column groups
+  static constexpr int C4 = DH / 4;               // 4-column groups a row
+  static constexpr int CG = C4 < 32 ? C4 : 32;    // p . v: lanes over them
+  static constexpr int NCG = C4 / CG;             // p . v: groups a lane
   static constexpr int KG = 32 / CG;  // p . v: key groups in a warp
-  static_assert(CPR % 4 == 0 && WROWS % STEP == 0, "stage shape");
+  static_assert(CPR % 4 == 0 && ROWS % STEP == 0 &&
+                    (SPS % NW == 0 || NW % SPS == 0) && C4 % CG == 0,
+                "stage shape");
   static_assert(RING_BYTES >= NW * MAX_REP * (DH + 2) * 4,
                 "the warps' merge fits in the stages");
 };
@@ -214,12 +231,15 @@ __device__ __forceinline__ void mma_k16(float* c, unsigned a0, unsigned a2,
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
 }
+// c: rows 0..7 of the tile (the heads); rows 8..15 of A are zero, their
+// sums start at 0 and are dropped, so they hold no registers between steps
 __device__ __forceinline__ void mma_k8(float* c, unsigned a0, unsigned b0) {
+  float d2, d3;
   asm volatile(
       "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(0u), "r"(b0));
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %7, %7};\n"
+      : "+f"(c[0]), "+f"(c[1]), "=f"(d2), "=f"(d3)
+      : "r"(a0), "r"(0u), "r"(b0), "f"(0.f));
 }
 template <bool TRANS>
 __device__ __forceinline__ void ldsm_x4(unsigned* r, unsigned addr) {
@@ -257,10 +277,17 @@ __device__ __forceinline__ void stream(unsigned char* smem, const CT* kb,
     cp_async_commit();
     const unsigned char* ks = smem + (s % TL::STAGES) * TL::STAGE;
     const int stage_n = min(TL::ROWS, n - s * TL::ROWS);
+    if constexpr (TL::SPS >= NW) {
 #pragma unroll 1
-    for (int row0 = warp * TL::WROWS;
-         row0 < (warp + 1) * TL::WROWS && row0 < stage_n; row0 += STEP)
-      step(ks, ks + TL::STAGE / 2, row0, stage_n);
+      for (int row0 = warp * TL::WROWS;
+           row0 < (warp + 1) * TL::WROWS && row0 < stage_n; row0 += STEP)
+        step(ks, ks + TL::STAGE / 2, row0, stage_n);
+    } else {
+      // fewer steps than warps: step j of stage s to warp (s SPS + j) % NW
+      const int j = (warp + NW - (s * TL::SPS) % NW) % NW;
+      if (j < TL::SPS && j * STEP < stage_n)
+        step(ks, ks + TL::STAGE / 2, j * STEP, stage_n);
+    }
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -280,13 +307,14 @@ __device__ __forceinline__ void stream_cores(unsigned char* smem,
   const int key = lane / 4, part = lane % 4;     // scores
   const int cg = lane % TL::CG, kg = lane / TL::CG;   // p . v
   float* pw = psh + warp * REP * STEP;
-  float m_run[REP], l_run[REP], acc[REP][4];
+  constexpr int NA = 4 * TL::NCG;     // accumulated columns a lane
+  float m_run[REP], l_run[REP], acc[REP][NA];
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
     m_run[r] = -INFINITY;
     l_run[r] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
+    for (int e = 0; e < NA; ++e) acc[r][e] = 0.f;
   }
   // byte offset of this lane's 4 columns in a row
   constexpr int COL_BYTES = 4 * (int)sizeof(CT);
@@ -338,7 +366,7 @@ __device__ __forceinline__ void stream_cores(unsigned char* smem,
         m_run[r] = m_new;
         l_run[r] = l_run[r] * corr + p;   // this lane's key's share
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[r][e] *= corr;
+        for (int e = 0; e < NA; ++e) acc[r][e] *= corr;
         if (part == 0) pw[r * STEP + key] = p;
       }
     }
@@ -346,14 +374,18 @@ __device__ __forceinline__ void stream_cores(unsigned char* smem,
 #pragma unroll
     for (int j = kg; j < STEP; j += TL::KG) {
       const int vr = row0 + j;
-      float vv[4];
-      load_vals<QT, CT, 4>(vs + vr * TL::ROW_BYTES + cg * COL_BYTES, vv);
 #pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        if (r < rep) {
-          const float p = pw[r * STEP + j];
+      for (int c = 0; c < TL::NCG; ++c) {
+        float vv[4];
+        load_vals<QT, CT, 4>(
+            vs + vr * TL::ROW_BYTES + (cg + c * TL::CG) * COL_BYTES, vv);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[r][e] += p * vv[e];
+        for (int r = 0; r < REP; ++r) {
+          if (r < rep) {
+            const float p = pw[r * STEP + j];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[r][4 * c + e] += p * vv[e];
+          }
         }
       }
     }
@@ -373,11 +405,15 @@ __device__ __forceinline__ void stream_cores(unsigned char* smem,
 #pragma unroll
       for (int off = TL::CG; off < 32; off <<= 1)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
+        for (int e = 0; e < NA; ++e)
           acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], off);
       if (kg == 0)
-        *reinterpret_cast<float4*>(racc + (warp * REP + r) * DH + cg * 4) =
-            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+#pragma unroll
+        for (int c = 0; c < TL::NCG; ++c)
+          *reinterpret_cast<float4*>(racc + (warp * REP + r) * DH +
+                                     (cg + c * TL::CG) * 4) =
+              make_float4(acc[r][4 * c], acc[r][4 * c + 1],
+                          acc[r][4 * c + 2], acc[r][4 * c + 3]);
       if (lane == 0) {
         rml[(warp * REP + r) * 2] = m_run[r];
         rml[(warp * REP + r) * 2 + 1] = x;
@@ -414,11 +450,10 @@ __device__ __forceinline__ void stream_mma(unsigned char* smem,
     qa[ks][0] = g < rep ? pack_bf16(qr[0], qr[1]) : 0u;
     qa[ks][1] = g < rep ? pack_bf16(qr[8], qr[9]) : 0u;
   }
-  float o[NTILES][4];
+  // O rows 0..7 (the heads): lane (g, t) holds O[g][8 i + 2t (+1)]
+  float o[NTILES][2];
 #pragma unroll
-  for (int i = 0; i < NTILES; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+  for (int i = 0; i < NTILES; ++i) o[i][0] = o[i][1] = 0.f;
   float m_run = -INFINITY, l_run = 0.f;
 
   stream<true, CT, DH>(smem, kb, vb, row_stride, n, n_stages,
@@ -534,7 +569,7 @@ decode_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
               const CT* __restrict__ v, const int* __restrict__ kv_len,
               QT* __restrict__ out, float* __restrict__ part_acc,
               float* __restrict__ part_ml, unsigned* __restrict__ arrivals,
-              int t, int h, int hk, int n_split, int split_rows,
+              int t, int h, int hk, int n_split, int split_rows, int window,
               float scale2) {
   using TL = Tile<CT, DH>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -546,13 +581,19 @@ decode_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
   const int rep = h / hk;
   const int tid = threadIdx.x;
   const int len = min(max(kv_len[b], 0), t);
+  // the valid rows [lo, len): the window's start, or row 0
+  const int lo = window > 0 ? max(len - window, 0) : 0;
+  const int s_lo = lo / split_rows;     // the first split holding one
   const int k0 = split * split_rows;
-  if (split > 0 && k0 >= len) return;   // no valid row in this split
-  const int n = max(min(split_rows, len - k0), 0);   // its valid rows
-  const int n_active = len > 0 ? (len + split_rows - 1) / split_rows : 1;
+  // no valid row in this split (an empty row is split 0's)
+  if (len > 0 ? split < s_lo || k0 >= len : split > 0) return;
+  const int r0 = max(k0, lo);
+  const int n = max(min(k0 + split_rows, len) - r0, 0);   // its valid rows
+  const int n_active =
+      len > 0 ? (len + split_rows - 1) / split_rows - s_lo : 1;
   const int n_stages = (n + TL::ROWS - 1) / TL::ROWS;
   const size_t row_stride = (size_t)hk * DH;
-  const size_t first = (((size_t)b * t + k0) * hk + kh) * DH;
+  const size_t first = (((size_t)b * t + r0) * hk + kh) * DH;
   const CT* kb = k + first;
   const CT* vb = v + first;
 
@@ -582,8 +623,8 @@ decode_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
 
   const size_t pair = (size_t)b * hk + kh;
   // the split's state, head r and columns 4 c .. 4 c + 3 a thread
-  for (int i = tid; i < rep * TL::CG; i += NT) {
-    const int r = i / TL::CG, c = i % TL::CG;
+  for (int i = tid; i < rep * TL::C4; i += NT) {
+    const int r = i / TL::C4, c = i % TL::C4;
     float mx = -INFINITY;
 #pragma unroll
     for (int w = 0; w < NW; ++w) mx = fmaxf(mx, rml[(w * REP + r) * 2]);
@@ -624,9 +665,10 @@ decode_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
   __syncthreads();
   if (!last) return;
   __threadfence();      // the other splits' partials are visible
-  for (int i = tid; i < rep * TL::CG; i += NT) {
-    const int r = i / TL::CG, c = i % TL::CG;
-    const size_t p0 = pair * n_split * rep + r;    // split 0, head r
+  for (int i = tid; i < rep * TL::C4; i += NT) {
+    const int r = i / TL::C4, c = i % TL::C4;
+    // split s_lo, head r: the active splits follow it
+    const size_t p0 = (pair * n_split + s_lo) * rep + r;
     float mx = -INFINITY;
     for (int sp = 0; sp < n_active; ++sp)
       mx = fmaxf(mx, __ldcg(part_ml + (p0 + (size_t)sp * rep) * 2));
@@ -652,8 +694,8 @@ struct Launch {
   static int run(const void* q, const void* k, const void* v,
                  const int* kv_len, void* out, float* part_acc,
                  float* part_ml, unsigned* arrivals, int b, int t, int h,
-                 int hk, int n_split, int split_rows, float scale,
-                 cudaStream_t stream) {
+                 int hk, int n_split, int split_rows, int window,
+                 float scale, cudaStream_t stream) {
     const auto kernel = decode_kernel<QT, CT, DH, REP, MMA>;
     const size_t bytes = smem_bytes(DH, REP);
     cudaError_t err = cudaFuncSetAttribute(
@@ -662,7 +704,8 @@ struct Launch {
     kernel<<<dim3(n_split, hk, b), NT, bytes, stream>>>(
         static_cast<const QT*>(q), static_cast<const CT*>(k),
         static_cast<const CT*>(v), kv_len, static_cast<QT*>(out), part_acc,
-        part_ml, arrivals, t, h, hk, n_split, split_rows, scale * LOG2E);
+        part_ml, arrivals, t, h, hk, n_split, split_rows, window,
+        scale * LOG2E);
     return (int)cudaGetLastError();
   }
 };
@@ -706,6 +749,7 @@ int by_dh(int dh, int rep, A... args) {
     case 32: return by_rep<F, QT, CT, 32>(rep, args...);
     case 64: return by_rep<F, QT, CT, 64>(rep, args...);
     case 128: return by_rep<F, QT, CT, 128>(rep, args...);
+    case 256: return by_rep<F, QT, CT, 256>(rep, args...);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -728,8 +772,9 @@ int dispatch(int q_dtype, int kv_dtype, int dh, int rep, A... args) {
 // part_acc: (B, Hk, n_split, H / Hk, dh) and part_ml: (B, Hk, n_split,
 // H / Hk, 2) fp32 scratch (unused when n_split = 1); arrivals: B * Hk
 // uint32 counters, zero before the call and zero after it. Split s takes
-// rows [s * split_rows, (s + 1) * split_rows). q_dtype/kv_dtype: 0 = fp32,
-// 1 = bf16; the pairs are (fp32, fp32), (bf16, fp32) and (bf16, bf16).
+// rows [s * split_rows, (s + 1) * split_rows). window > 0 keeps only the
+// rows at or past kv_len - window; 0 disables it. q_dtype/kv_dtype: 0 =
+// fp32, 1 = bf16; the pairs are (fp32, fp32), (bf16, fp32) and (bf16, bf16).
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const int* kv_len,
                                        void* out, float* part_acc,
@@ -737,13 +782,14 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                                        int b, int t, int h, int hk, int dh,
                                        int q_dtype, int kv_dtype,
                                        int n_split, int split_rows,
-                                       float scale, cudaStream_t stream) {
+                                       int window, float scale,
+                                       cudaStream_t stream) {
   if (hk <= 0 || h % hk != 0 || n_split <= 0 || split_rows <= 0 ||
-      (long long)n_split * split_rows < t)
+      window < 0 || (long long)n_split * split_rows < t)
     return (int)cudaErrorInvalidValue;
   return dispatch<Launch>(q_dtype, kv_dtype, dh, h / hk, q, k, v, kv_len,
                           out, part_acc, part_ml, arrivals, b, t, h, hk,
-                          n_split, split_rows, scale, stream);
+                          n_split, split_rows, window, scale, stream);
 }
 
 // resident blocks an SM for the pair, dh and rep (a negative CUDA error

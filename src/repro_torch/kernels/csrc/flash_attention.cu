@@ -47,6 +47,12 @@
 // in shared memory, a thread owns 4 x 4 scores and 4 x dh / 16 outputs,
 // the 64 x 64 probability tile goes through shared memory.
 //
+// Head widths 32, 64, 128 and 256. At dh = 256 (gemma3-12b) the bf16 route
+// takes key tiles of 64 rows (Q 64 KB + two stages of K and V at 32 KB
+// each: 193 KB of the 227 KB a block has; 128-key tiles would need 321
+// KB), and each consumer holds its 64 x 256 fp32 O in 128 registers; the
+// fp32 route's Q, K, V and P tiles take 213 KB, one block an SM.
+//
 // Both routes: key tiles past the diagonal are never loaded, nor tiles
 // wholly before the window; heavier (later) query tiles are scheduled
 // first. Masked scores give p = 0 exactly (never exp(-inf - -inf)), and
@@ -256,6 +262,9 @@ int launch_dh(const void* q, const void* k, const void* v, void* out, int b,
     case 128:
       return launch<T, 128>(q, k, v, out, b, s, skv, h, hk, scale, causal,
                             window, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, out, b, s, skv, h, hk, scale, causal,
+                            window, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -268,7 +277,6 @@ int launch_dh(const void* q, const void* k, const void* v, void* out, int b,
 namespace tc {
 
 constexpr int BQ = 128;        // query rows per block: two consumers of 64
-constexpr int BKV = 128;       // keys per tile
 constexpr int STAGES = 2;      // K/V ring
 constexpr int THREADS = 384;   // warpgroups 0, 1 consume; 2 loads
 constexpr int CONSUMERS = 256;
@@ -283,6 +291,10 @@ struct Cfg {
   static constexpr int NCH = DH / SWE;         // chunks in a row
   static constexpr int NO = SWE / 2;           // O floats a thread, a chunk
   static constexpr uint64_t LAYOUT = SWB == 128 ? 1 : 2;   // wgmma swizzle
+  // keys a tile: 128, or 64 at dh = 256, where two stages of 128-key K
+  // and V tiles (256 KB) and Q (64 KB) would pass the 227 KB a block has
+  static constexpr int BKV = DH == 256 ? 64 : 128;
+  static constexpr int NH = BKV / 64;          // 64-key halves of S a tile
   static constexpr int Q_BYTES = BQ * DH * 2;
   static constexpr int KV_BYTES = BKV * DH * 2;
   static constexpr int BARS = 2 + 3 * STAGES;
@@ -417,10 +429,14 @@ struct Work {
 };
 
 // Work items in the order the blocks take them: every (batch, head) of
-// the last (heaviest, under a causal mask) query tile first.
+// the last (heaviest, under a causal mask) query tile first. Under a window
+// every tile past the first window's reads about as many key tiles, so the
+// order no longer follows the work; it is kept.
+template <int DH>
 __device__ __forceinline__ Work work_item(int w, int q_tiles, int batch,
                                           int s, int skv, int h, int hk,
                                           int causal, int window) {
+  constexpr int BKV = Cfg<DH>::BKV;
   Work t;
   const int z = w / (h * batch), rem = w % (h * batch);
   t.head = rem % h;
@@ -443,6 +459,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 int hk, float scale_log2, int causal, int window, int batch,
                 int q_tiles, int items) {
   using C = Cfg<DH>;
+  constexpr int BKV = C::BKV;
   extern __shared__ unsigned char smem_raw[];
   // tiles start on 1024 bytes, the period of the 128-byte swizzle
   const uint32_t qs = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -477,7 +494,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       int it = 0;
       for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
         const Work t =
-            work_item(w, q_tiles, batch, s, skv, h, hk, causal, window);
+            work_item<DH>(w, q_tiles, batch, s, skv, h, hk, causal,
+                          window);
         mbar_wait(q_empty, (n & 1) ^ 1);   // the last item's Q is read
         mbar_expect_tx(q_full, C::Q_BYTES);
 #pragma unroll
@@ -514,7 +532,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     int it = 0;
     for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
       const Work t =
-          work_item(w, q_tiles, batch, s, skv, h, hk, causal, window);
+          work_item<DH>(w, q_tiles, batch, s, skv, h, hk, causal, window);
       const int row_lo =
           t.q0 + wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
       const int first = t.q0 + wg * 64, last = first + 63;
@@ -536,14 +554,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         const uint32_t vt = vs + st * C::KV_BYTES;
 
         // S = Q K^T: keys 0..63 of the tile in sc[0], 64..127 in sc[1]
-        float sc[2][32];
+        float sc[C::NH][32];
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
+        for (int hh = 0; hh < C::NH; ++hh)
 #pragma unroll
           for (int j = 0; j < 32; ++j) sc[hh][j] = 0.f;
         mbar_wait(k_full(st), par);
-        pin(sc[0]);
-        pin(sc[1]);
+#pragma unroll
+        for (int hh = 0; hh < C::NH; ++hh) pin(sc[hh]);
         wg_fence();
 #pragma unroll
         for (int c = 0; c < C::NCH; ++c)
@@ -552,7 +570,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             const uint64_t da =
                 gmma_desc<DH>(qa + c * BQ * C::SWB + kq * 32, 16, SBO);
 #pragma unroll
-            for (int hh = 0; hh < 2; ++hh)
+            for (int hh = 0; hh < C::NH; ++hh)
               mma_ss_n64(sc[hh], da,
                          gmma_desc<DH>(kt + c * BKV * C::SWB +
                                            hh * 64 * C::SWB + kq * 32,
@@ -561,8 +579,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
           }
         wg_commit();
         wg_wait0();
-        pin(sc[0]);
-        pin(sc[1]);
+#pragma unroll
+        for (int hh = 0; hh < C::NH; ++hh) pin(sc[hh]);
 
         // mask, running max, rescale
         const bool need = k0 + BKV > skv ||
@@ -570,7 +588,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                                       (window > 0 && k0 <= last - window)));
         float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
+        for (int hh = 0; hh < C::NH; ++hh)
 #pragma unroll
           for (int j = 0; j < 32; ++j) {
             const int r2 = (j / 2) % 2;
@@ -721,8 +739,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
   if (!make_map<DH>(&tq, q, b, s, h, BQ) ||
-      !make_map<DH>(&tk, k, b, skv, hk, BKV) ||
-      !make_map<DH>(&tv, v, b, skv, hk, BKV))
+      !make_map<DH>(&tk, k, b, skv, hk, C::BKV) ||
+      !make_map<DH>(&tv, v, b, skv, hk, C::BKV))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_tc_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -757,6 +775,9 @@ int launch_dh(const void* q, const void* k, const void* v, void* out, int b,
                         window, stream);
     case 128:
       return launch<128>(q, k, v, out, b, s, skv, h, hk, scale, causal,
+                         window, stream);
+    case 256:
+      return launch<256>(q, k, v, out, b, s, skv, h, hk, scale, causal,
                          window, stream);
     default:
       return (int)cudaErrorInvalidValue;

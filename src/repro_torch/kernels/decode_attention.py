@@ -12,7 +12,10 @@ One launch a call: a block per (b, KV head, split) streams its split's
 rows through a ring of shared-memory stages, and the last split of each
 (b, KV head) to finish merges the splits' partials. `split_plan` chooses
 the splits from the card; the merge's arrival counters live in one
-zeroed buffer per device that the kernel leaves zeroed.
+zeroed buffer per device that the kernel leaves zeroed. A `window` keeps
+the last `window` rows before kv_len (gemma3's local layers over a full
+cache); the kernel computes each row's first key on the device, so the
+splits and a captured graph do not depend on kv_len.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.retrieve_topn import H100_SMS, _sm_count
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 MAX_REP = 8     # query heads per KV head that one block computes
 #: the kernel's stage: K and V rows of STAGE_BYTES in all
 #: (`csrc/decode_attention.cu`: STAGE_BYTES, Tile::ROWS)
@@ -76,17 +79,19 @@ def _arrivals(dev: torch.device, n: int) -> torch.Tensor:
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_len: torch.Tensor, *,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          window: int = 0) -> torch.Tensor:
     """q: (B, H, dh); k/v: (B, T, Hk, dh); kv_len: (B,) valid cache rows
-    per sequence. `scale` defaults to dh ** -0.5. Returns (B, H, dh) in
-    q's type; a row with kv_len = 0 gives zeros.
+    per sequence. `scale` defaults to dh ** -0.5; `window` > 0 keeps the
+    rows kv_len - window <= r < kv_len. Returns (B, H, dh) in q's type;
+    a row with kv_len = 0 gives zeros.
 
     CUDA tensors launch the kernel; CPU tensors take the plain version
     (`ref.decode_attention_ref`) over the cache rounded to q's type, as
     the kernel reads it."""
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k.to(q.dtype), v.to(q.dtype),
-                                        kv_len, scale=scale)
+                                        kv_len, scale=scale, window=window)
     dev = q.device
     if not (q.is_cuda and k.device == dev and v.device == dev
             and kv_len.device == dev):
@@ -109,6 +114,9 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention_cuda: {h} query heads over {hk} "
                          f"KV heads; the kernel takes up to {MAX_REP} per "
                          "KV head")
+    if window < 0:
+        raise ValueError(f"decode_attention_cuda: window {window}; 0 "
+                         "disables it")
     if k.dtype != v.dtype:
         raise ValueError(f"decode_attention_cuda: k of {k.dtype}, v of "
                          f"{v.dtype}")
@@ -139,7 +147,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
         out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
         _arrivals(dev, b * hk).data_ptr(), b, t, h, hk, dh, q_code, kv_code,
-        n_split, split_rows, float(dh ** -0.5 if scale is None else scale),
+        n_split, split_rows, int(window),
+        float(dh ** -0.5 if scale is None else scale),
         _build.stream_handle(dev))
     _build.check(err, "decode_attention_cuda")
     _build.count_launch("decode_attention")

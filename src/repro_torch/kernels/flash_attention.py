@@ -3,7 +3,8 @@
 and its wrapper.
 
 The kernel takes any S (the ragged tail is masked) and head widths
-dh in {32, 64, 128}; `ops.flash_attention` keeps the JAX contract that S
+dh in {32, 64, 128, 256} (256: gemma3-12b; key tiles of 64 rows on the
+tensor cores); `ops.flash_attention` keeps the JAX contract that S
 is a multiple of 128 (one S for q and k/v), and the model calls this
 wrapper directly, with its prompt's own length. Without the causal mask
 the keys may number S_kv != S: the cross-attention of an encoder-decoder
@@ -21,7 +22,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -401,10 +401,12 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
     return torch.einsum("bhst,bthd->bshd", w, vv).to(q.dtype)
 
 
-def decode_attention_ref(q, k, v, kv_len, *, scale=None):
+def decode_attention_ref(q, k, v, kv_len, *, scale=None, window=0):
     """Single-token decode. q: (B,H,dh); k/v: (B,T,Hk,dh); kv_len: (B,)
-    number of valid cache entries per sequence. Returns (B,H,dh) in q's
-    type."""
+    number of valid cache entries per sequence. `window` > 0 keeps only
+    rows r with kv_len - window <= r < kv_len: the query at position
+    kv_len - 1 under the causal window of `flash_attention_ref`. Returns
+    (B,H,dh) in q's type."""
     b, h, dh = q.shape
     t, hk = k.shape[1], k.shape[2]
     rep = h // hk
@@ -412,8 +414,11 @@ def decode_attention_ref(q, k, v, kv_len, *, scale=None):
     kk = _repeat_kv(k, rep).float()
     vv = _repeat_kv(v, rep).float()
     scores = torch.einsum("bhd,bthd->bht", q.float(), kk) * scale
-    mask = torch.arange(t, device=q.device)[None, :] < \
-        kv_len.to(q.device)[:, None]
+    rows = torch.arange(t, device=q.device)[None, :]
+    lens = kv_len.to(q.device)[:, None]
+    mask = rows < lens
+    if window:
+        mask &= rows >= lens - window
     scores = torch.where(mask[:, None, :], scores,
                          torch.full_like(scores, float("-inf")))
     w = torch.softmax(scores, dim=-1)

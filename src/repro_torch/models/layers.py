@@ -12,17 +12,21 @@ compute type.
 
 On CUDA tensors `apply_attention` runs its attention through the
 hand-written kernels:
-  * causal prefill (cache_index 0: the S in-flight keys, no window) ->
-    `flash_attention_cuda`;
+  * causal prefill (cache_index 0: the S in-flight keys, with the
+    layer's sliding window if it has one) -> `flash_attention_cuda`;
   * bidirectional attention over the S in-flight keys (whisper's
     encoder) and cross-attention prefill over the source's S_kv keys ->
     `flash_attention_cuda` with causal=False;
   * one token against the cache -> `decode_attention_cuda` with
     kv_len = index + 1 (the index a Python int, or a (1,) int64 device
-    tensor, which a captured CUDA graph reads at each replay);
+    tensor, which a captured CUDA graph reads at each replay), and the
+    layer's window: gemma3's local layers keep the rows index - window <
+    r <= index of the full cache;
   * one token against the cached cross K/V -> `decode_attention_cuda`
     with kv_len = every row;
-and raises for any other case. On CPU tensors, or with
+and raises for any other case (a window on cross-attention or
+bidirectional attention among them: the JAX model sets none there). On
+CPU tensors, or with
 backend="reference", it runs the plain `attend` over the cache exactly as
 the JAX package does: that is what the CPU tests hold against JAX, and
 what the card's check holds the kernels against.
@@ -188,11 +192,12 @@ def _attend_kernels(q, k, v, cache, cache_index, window, causal,
     its own type first, as the plain path does, and the kernels get
     scale = 1.0."""
     b, s = q.shape[:2]
-    if window != NO_WINDOW:
+    win = 0 if window == NO_WINDOW else int(window)
+    if win and (cross or not causal):
         raise NotImplementedError(
-            "attention on CUDA: a sliding window does not run through the "
-            "kernels; gemma3's local layers need a window over the full "
-            "cache (ROADMAP §2.6, item 3: gemma3-12b)")
+            "attention on CUDA: a sliding window runs through the kernels "
+            "on causal self-attention only, not on cross-attention or "
+            "bidirectional attention")
     qs = _scale_q(q)
     if cross == "decode":
         if s != 1:
@@ -219,7 +224,8 @@ def _attend_kernels(q, k, v, cache, cache_index, window, causal,
                                                           q.dtype):
             # attend over the values the cache holds, as the plain path
             k, v = (x.to(cache["k"].dtype).to(q.dtype) for x in (k, v))
-        return flash_attention_cuda(qs, k, v, causal=True, scale=1.0)
+        return flash_attention_cuda(qs, k, v, causal=True, window=win,
+                                    scale=1.0)
     if s == 1 and cache is not None:
         if kv_len is None:
             kv_len = (cache_index + 1).to(torch.int32).expand(b) \
@@ -227,7 +233,7 @@ def _attend_kernels(q, k, v, cache, cache_index, window, causal,
                                              dtype=torch.int32,
                                              device=q.device)
         return decode_attention_cuda(qs[:, 0], cache["k"], cache["v"],
-                                     kv_len, scale=1.0)[:, None]
+                                     kv_len, scale=1.0, window=win)[:, None]
     raise NotImplementedError(
         f"attention on CUDA: {s} new tokens at cache index {cache_index}; "
         "the kernels cover a prefill from index 0 and a one-token decode")

@@ -1,9 +1,15 @@
 """Model assembly for the serving path: parameters, the decode cache,
 forward, prefill and decode_step.
 
-A port of the JAX package's `models/transformer.py` for four families:
+A port of the JAX package's `models/transformer.py` for five families:
 
-  dense (full attention)  embed -> blocks(L) -> norm -> head
+  dense                   embed -> blocks(L) -> norm -> head; gemma3's
+                          local:global stacks among them (local layers:
+                          a sliding window over the full cache and rope
+                          theta 10k; global layers: every key and 1M)
+  vlm (llava)             the dense stack over stub image embeddings
+                          prepended to the embedded text, positions
+                          0..N-1 for the image rows, N.. for the text
   moe (phi3.5-moe)        embed -> blocks(L) -> norm -> head, each block's
                           FFN dense below first_k_dense and a mixture of
                           experts from there on (models/moe.py)
@@ -39,10 +45,9 @@ Where it differs:
   * prefill computes the logits of the last position only: the JAX
     prefill keeps row -1 of the full (B, S, V) panel, the same row.
 
-Hybrid and VLM architectures, local:global window stacks (gemma3's
-local layers, a window over the full cache) and MLA (deepseek-v3, whose
-MoE runs here) raise NotImplementedError naming the item of ROADMAP §2.6
-that queues them.
+The hybrid family, MLA (deepseek-v3, whose MoE runs here) and the
+dry-run's ring cache for local layers (`window_cache`) raise
+NotImplementedError naming the item of ROADMAP §2 that queues them.
 
 decode_step takes its position as a Python int or as a (1,) int64
 tensor on the device: the positions, the valid cache length and the
@@ -67,10 +72,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 #: the architecture families this port runs
-FAMILIES = ("dense", "moe", "ssm", "encdec")
+FAMILIES = ("dense", "moe", "ssm", "encdec", "vlm")
 #: the item of ROADMAP §2.6 each other family waits for
-QUEUED = {"vlm": "item 4 (llava-next-mistral-7b)",
-          "hybrid": "item 5 (zamba2-7b)"}
+QUEUED = {"hybrid": "item 5 (zamba2-7b)"}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -88,11 +92,23 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attn_kind!r} is not ported yet "
             "(ROADMAP §2.6, item 6: deepseek-v3-671b's MLA)")
-    if cfg.local_global_ratio or cfg.window_cache:
+    if cfg.window_cache and cfg.local_global_ratio and cfg.sliding_window:
         raise NotImplementedError(
-            f"{cfg.name}: local:global sliding-window stacks need a "
-            "window over the full cache in prefill and decode (ROADMAP "
-            "§2.6, item 3: gemma3-12b)")
+            f"{cfg.name}: window_cache keeps ring caches of the window's "
+            "size for the local layers, which only the dry-run sets; it "
+            "is not ported (ROADMAP §2.8, with the dry-run); the full "
+            "caches serve local layers here")
+
+
+def layer_schedules(cfg: ModelConfig):
+    """[(rope theta, window)] of each layer, as the JAX package's
+    `_layer_schedules` computes them: gemma3's global layers take
+    rope_theta_global, its local layers sliding_window; every other
+    layer rope_theta and no window (layers.NO_WINDOW)."""
+    return [(cfg.rope_theta_global if k == "global" and cfg.rope_theta_global
+             else cfg.rope_theta,
+             cfg.sliding_window if k == "local" and cfg.sliding_window
+             else L.NO_WINDOW) for k in cfg.layer_kinds()]
 
 
 # ---------------------------------------------------------------------------
@@ -322,7 +338,7 @@ def _layer(cache, i: int):
 def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
             cache: Optional[Dict[str, Any]] = None,
             cache_index=0, backend: str = "cuda",
-            last_only: bool = False, enc_embeds=None):
+            last_only: bool = False, enc_embeds=None, img_embeds=None):
     """tokens: (B, S) -> (logits (B, S or 1, V), hidden (B, S or 1, d)).
 
     With a cache, the S new keys and values (ssm: the state after the S
@@ -330,22 +346,36 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
     int, or for one token a (1,) int64 device tensor. encdec takes
     `enc_embeds` (B, F, d), runs the encoder and, with a cache, stores
     each decoder layer's cross K/V in it; without `enc_embeds` it reads
-    them from the cache (decode). `last_only` runs the final norm and
-    the head on the last position alone. `backend` selects the attention
-    route on CUDA tensors (layers.apply_attention)."""
+    them from the cache (decode). vlm takes `img_embeds` (B, N, d),
+    cast to the compute type and put before the embedded text (the
+    sqrt(d) scale is the text's alone); the image rows take positions
+    0..N-1 and given text `positions` follow them (the JAX forward's
+    concatenation), so the S new rows are N + S_text. `last_only` runs
+    the final norm and the head on the last position alone. `backend`
+    selects the attention route on CUDA tensors
+    (layers.apply_attention)."""
     check_supported(cfg)
     at = cfg.arch_type
-    b, s = tokens.shape
+    b, s_tok = tokens.shape
     x = _embed(cfg, params, tokens)
+    if at == "vlm" and img_embeds is not None:
+        x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
+    s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
+    elif s != s_tok:
+        positions = torch.cat([torch.arange(
+            s - s_tok, dtype=positions.dtype,
+            device=x.device).expand(b, s - s_tok), positions], dim=1)
     if at == "ssm":
         for i, blk in enumerate(params["blocks"]):
             h = L.apply_norm(cfg, blk["norm"], x)
             x = x + SSM.apply_mamba2(cfg, blk["mamba"], h,
                                      cache=_layer(cache, i))[0]
     else:
-        enc_out = cross_len = tables = None
+        enc_out = cross_len = None
+        schedule = layer_schedules(cfg)
+        tables = {}
         if at == "encdec":
             x = x + _sinusoidal_pos(positions, cfg.d_model).to(x.dtype)
             if enc_embeds is not None:
@@ -357,7 +387,9 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
                 cross_len = torch.full((b,), cfg.n_audio_frames,
                                        dtype=torch.int32, device=x.device)
         else:
-            tables = L.rope_tables(positions, cfg.hd, cfg.rope_theta)
+            # one table per distinct theta, for every layer that takes it
+            tables = {th: L.rope_tables(positions, cfg.hd, th)
+                      for th in sorted({th for th, _ in schedule})}
         # the valid cache rows after this call's write, once for every
         # layer
         if cache is None:
@@ -371,11 +403,13 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
         moe = [kind == "moe" for kind in cfg.layer_kinds()]
         for i, blk in enumerate(params["blocks"]):
             c = _layer(cache, i)
+            theta, window = schedule[i]
             h = L.apply_norm(cfg, blk["attn_norm"], x)
             x = x + L.apply_attention(
-                cfg, blk["attn"], h, positions, theta=cfg.rope_theta,
+                cfg, blk["attn"], h, positions, theta=theta, window=window,
                 cache=c, cache_index=cache_index, backend=backend,
-                tables=tables, kv_len=kv_len, rope=at != "encdec")
+                tables=tables.get(theta), kv_len=kv_len,
+                rope=at != "encdec")
             if at == "encdec":
                 h = L.apply_norm(cfg, blk["cross_norm"], x)
                 cc = None if c is None else c["cross"]
@@ -399,11 +433,13 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
 
 def prefill(cfg: ModelConfig, params: Params, tokens, max_len: int, *,
             cache_dtype=torch.bfloat16, backend: str = "cuda",
-            enc_embeds=None, cache=None):
+            enc_embeds=None, img_embeds=None, cache=None):
     """Run the prompt through the model, filling a fresh cache of size
     max_len, or `cache` (init_cache's tree for B rows, or views of its
-    leading B rows) in place, from the state a fresh cache holds. tokens: (B, S); enc_embeds: encdec's (B,
-    F, d) frame embeddings. Returns (last_logits (B, V), cache)."""
+    leading B rows) in place, from the state a fresh cache holds.
+    tokens: (B, S); enc_embeds: encdec's (B, F, d) frame embeddings;
+    img_embeds: vlm's (B, N, d) image embeddings, whose N rows the cache
+    holds before the prompt's. Returns (last_logits (B, V), cache)."""
     if cache is None:
         cache = init_cache(cfg, tokens.shape[0], max_len, cache_dtype,
                            device=tokens.device)
@@ -415,7 +451,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens, max_len: int, *,
             leaf.zero_()
     logits, _ = forward(cfg, params, tokens, cache=cache, cache_index=0,
                         backend=backend, last_only=True,
-                        enc_embeds=enc_embeds)
+                        enc_embeds=enc_embeds, img_embeds=img_embeds)
     return logits[:, -1], cache
 
 

@@ -68,15 +68,19 @@ class Response:
 
 
 class FleetModel:
-    """One servable model (dense, moe, ssm or encdec): prefill + greedy
-    decode.
+    """One servable model (dense, moe, ssm, encdec or vlm): prefill +
+    greedy decode.
 
     The parameters are made from `seed` on the device, each block cast to
     the compute type as it is drawn (or taken from `params`, in
     `transformer.init_params`' layout, e.g. carried across by
     `convert.model_params_from_numpy`, and cast once).
     An encdec model's encoder reads a zero (B, n_audio_frames, d_model)
-    stub of frame embeddings, as the JAX FleetModel feeds it.
+    stub of frame embeddings, and a vlm a zero (B, n_image_tokens,
+    d_model) stub of image embeddings before the prompt, as the JAX
+    FleetModel feeds them; the image rows count in the cache and in
+    every position after them (a prompt of S tokens needs S +
+    n_image_tokens + max_new <= max_len + 1).
 
     Decode runs on one static state: an fp32 cache (as in the JAX
     package's FleetModel) of `rows` rows, a token history and a (1,)
@@ -166,19 +170,27 @@ class FleetModel:
         """tokens: (B, S) -> (B, max_new) greedy continuation. The tokens
         stay on the device until the end: one readout per call."""
         b, s = tokens.shape
-        if s + max_new > self.max_len + 1:
-            raise ValueError(f"generate: {s} prompt tokens + {max_new} new "
-                             f"ones do not fit a cache of {self.max_len}")
+        n_img = self.cfg.n_image_tokens if self.cfg.arch_type == "vlm" \
+            else 0
+        if s + n_img + max_new > self.max_len + 1:
+            img = f" + {n_img} image rows" if n_img else ""
+            raise ValueError(f"generate: {s} prompt tokens{img} + {max_new} "
+                             f"new ones do not fit a cache of "
+                             f"{self.max_len}")
         step = self._step(b)
         cache, hist, index = self._view(b)
         toks = torch.as_tensor(np.asarray(tokens, np.int64),
                                device=self.device)
-        enc = None
+        enc = img = None
         if self.cfg.arch_type == "encdec":
             enc = torch.zeros((b, self.cfg.n_audio_frames,
                                self.cfg.d_model), device=self.device)
+        if n_img:
+            img = torch.zeros((b, n_img, self.cfg.d_model),
+                              device=self.device)
         logits, _ = T.prefill(self.cfg, self.params, toks, self.max_len,
-                              enc_embeds=enc, cache=cache)
+                              enc_embeds=enc, img_embeds=img, cache=cache)
+        s += n_img      # the first new token's position
         hist[:, s] = torch.argmax(logits, dim=-1)
         for i in range(max_new - 1):
             index.fill_(s + i)

@@ -79,9 +79,39 @@ def test_flash_attention_sliding_window_matches_tpu_kernel():
     assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("window,dh,dtype", [
+    (128, 64, "float32"),       # a window, the TPU kernel's own test width
+    (0, 256, "float32"),        # gemma3's head width
+    (0, 256, "bfloat16"),
+    (200, 256, "float32"),      # both: gemma3's local layers
+    (1, 256, "bfloat16")])
+def test_flash_attention_plain_window_and_dh256_match_tpu_kernel(window, dh,
+                                                                 dtype):
+    """The plain version (which CPU tensors take) with a window and at dh
+    = 256 against the TPU kernel in interpret mode, the JAX suite's bars,
+    and against the JAX oracle (window = 0: the oracle has none)."""
+    rng = np.random.default_rng(window + dh)
+    b, s, h, hk = 1, 512, 4, 2
+    qj, qt = _pair(rng, (b, s, h, dh), dtype)
+    kj, kt = _pair(rng, (b, s, hk, dh), dtype)
+    vj, vt = _pair(rng, (b, s, hk, dh), dtype)
+    kernel = flash_attention_pallas(qj, kj, vj, causal=True, window=window,
+                                    interpret=True)
+    got = flash_attention_cuda(qt, kt, vt, causal=True, window=window)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(kernel), rtol=tol, atol=tol)
+    if not window:
+        oracle = JREF.flash_attention_ref(qj, kj, vj, causal=True)
+        exact = EXACT if dtype == "float32" else tol
+        np.testing.assert_allclose(_np(got), _np(oracle), rtol=exact,
+                                   atol=exact)
+
+
 @pytest.mark.parametrize("b,t,h,hk,dh", [(2, 512, 4, 4, 64),
                                          (1, 1024, 8, 2, 128),
-                                         (3, 256, 2, 1, 32)])
+                                         (3, 256, 2, 1, 32),
+                                         (2, 512, 16, 8, 256)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_plain_matches_tpu_kernel(b, t, h, hk, dh, dtype):
     rng = np.random.default_rng(6)
@@ -101,6 +131,37 @@ def test_decode_attention_plain_matches_tpu_kernel(b, t, h, hk, dh, dtype):
     np.testing.assert_allclose(_np(got), _np(oracle),
                                rtol=EXACT if dtype == "float32" else tol,
                                atol=EXACT if dtype == "float32" else tol)
+
+
+@pytest.mark.parametrize("window", [1, 8, 100, 300, 600])
+@pytest.mark.parametrize("dh", [64, 256])
+def test_decode_attention_plain_window_matches_jax_attend(window, dh):
+    """decode_attention_ref(window=w) against the JAX model's windowed
+    decode over a full cache (`layers.attend`, kv_pos = arange(T), the
+    query at kv_len - 1; the TPU decode kernel has no window): windows
+    below, near and above kv_len, kv_len ragged, the rows past kv_len
+    holding values that must not count."""
+    rng = np.random.default_rng(window * dh)
+    b, t, h, hk = 3, 512, 8, 2
+    qj, qt = _pair(rng, (b, 1, h, dh), "float32")
+    kj, kt = _pair(rng, (b, t, hk, dh), "float32")
+    vj, vt = _pair(rng, (b, t, hk, dh), "float32")
+    lens = np.array([t, 300, 7], np.int32)
+    q_pos = (lens - 1)[:, None]
+    kv_pos = np.broadcast_to(np.arange(t), (b, t)).astype(np.int32)
+    want = JL.attend(qj, kj, vj, jnp.asarray(q_pos), jnp.asarray(kv_pos),
+                     window=window)[:, 0]
+    got = decode_attention_cuda(qt[:, 0], kt, vt, torch.tensor(lens),
+                                window=window)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=EXACT, atol=EXACT)
+    # and the window is the flash plain version's, at its last row
+    qf = torch.tensor(rng.normal(size=(1, t, h, dh)).astype(np.float32))
+    full = flash_attention_cuda(qf, kt[:1], vt[:1], causal=True,
+                                window=window)
+    row = decode_attention_cuda(qf[:, -1], kt[:1], vt[:1],
+                                torch.tensor([t], dtype=torch.int32),
+                                window=window)
+    torch.testing.assert_close(row, full[:, -1], rtol=EXACT, atol=EXACT)
 
 
 def test_decode_matches_flash_last_row():

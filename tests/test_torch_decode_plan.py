@@ -25,7 +25,8 @@ GRID_B = (1, 2, 8, 13, 16)
 GRID_T = (1, 7, 33, 77, 128, 300, 1000, 1056, 1500, 2048, 8192)
 GRID_HK = (1, 2, 8, 16, 20)
 # (dh, bytes a cache value): the instances the kernel is built for
-WIDTHS = [(32, 4), (64, 4), (128, 4), (32, 2), (64, 2), (128, 2)]
+WIDTHS = [(32, 4), (64, 4), (128, 4), (256, 4), (32, 2), (64, 2), (128, 2),
+          (256, 2)]
 # the main path's layouts (B, T, Hk, dh, cache bytes): qwen3-8b, olmo-1b,
 # whisper self and cross, phi3.5-moe, the bf16 8k row
 LAYOUTS = {"qwen3-8b": (16, 2048, 8, 128, 4),
@@ -33,7 +34,10 @@ LAYOUTS = {"qwen3-8b": (16, 2048, 8, 128, 4),
            "whisper self": (16, 1056, 20, 64, 4),
            "whisper cross": (16, 1500, 20, 64, 4),
            "phi3.5-moe": (16, 1056, 8, 128, 4),
-           "bf16 8k": (8, 8192, 8, 128, 2)}
+           "bf16 8k": (8, 8192, 8, 128, 2),
+           "internlm2-20b": (16, 1056, 8, 128, 4),
+           "gemma3-12b": (16, 1056, 8, 256, 4),
+           "llava-next-mistral-7b": (16, 3936, 8, 128, 4)}
 EXACT = 1e-5
 
 
@@ -72,10 +76,12 @@ def test_split_plan_fills_the_card(layout):
     assert split_rows >= rows
 
 
-def _combine(q, k, v, kv_len, split_rows):
+def _combine(q, k, v, kv_len, split_rows, window=0):
     """The kernel's arithmetic at split granularity, in float64: each
     active split's (max, sum, accumulator) of exp2 over scores scaled by
-    log2(e), merged by the last to arrive; kv_len = 0 gives zeros."""
+    log2(e), merged by the last to arrive; kv_len = 0 gives zeros. With
+    a window the active splits are those that hold a row of [lo,
+    kv_len), lo = max(0, kv_len - window), each over its rows there."""
     b, h, dh = q.shape
     hk = k.shape[2]
     rep = h // hk
@@ -83,10 +89,13 @@ def _combine(q, k, v, kv_len, split_rows):
     out = np.zeros((b, h, dh))
     for bb, head in itertools.product(range(b), range(h)):
         length = int(kv_len[bb])
-        n_active = -(-length // split_rows) if length > 0 else 1
+        lo = max(0, length - window) if window else 0
+        s_lo = lo // split_rows
+        n_active = -(-length // split_rows) - s_lo if length > 0 else 1
         parts = []
-        for s in range(n_active):
-            rows = slice(s * split_rows, min((s + 1) * split_rows, length))
+        for s in range(s_lo, s_lo + n_active):
+            rows = slice(max(s * split_rows, lo),
+                         min((s + 1) * split_rows, length))
             kk, vv = k[bb, rows, head // rep], v[bb, rows, head // rep]
             sc = kk @ q[bb, head] * scale2
             m = sc.max() if sc.size else -np.inf
@@ -126,6 +135,36 @@ def test_combine_at_the_plans_splits_matches_jax(b, t, h, hk, dh):
     zero = _combine(q.astype(np.float64), k.astype(np.float64),
                     v.astype(np.float64), np.zeros(b, np.int32), split_rows)
     assert (zero == 0).all()
+
+
+@pytest.mark.parametrize("window", [1, 100, 128, 129, 500])
+def test_windowed_combine_at_the_plans_splits_matches_jax(window):
+    """The kernel's windowed arithmetic: splits wholly before the
+    window's first row take no part (they exit, and the arrival count
+    and the merge start at the first split holding a row), the first
+    active split starts mid-split; against JAX `layers.attend` over the
+    full cache at the query position kv_len - 1."""
+    from repro.models import layers as JL
+    b, t, h, hk, dh = 4, 1056, 8, 2, 128
+    rng = np.random.default_rng(window)
+    q = rng.normal(size=(b, h, dh)).astype(np.float32)
+    k = rng.normal(size=(b, t, hk, dh)).astype(np.float32)
+    v = rng.normal(size=(b, t, hk, dh)).astype(np.float32)
+    n_split, split_rows = DA.split_plan(b, t, hk, dh, 4)
+    assert n_split >= 8     # windows that skip whole splits
+    kv = np.array([t, 2 * split_rows + 3, split_rows, 5], np.int32)
+    got = _combine(q.astype(np.float64), k.astype(np.float64),
+                   v.astype(np.float64), kv, split_rows, window)
+    kv_pos = np.broadcast_to(np.arange(t), (b, t)).astype(np.int32)
+    want = np.asarray(JL.attend(
+        jnp.asarray(q[:, None]), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray((kv - 1)[:, None]), jnp.asarray(kv_pos),
+        window=window))[:, 0]
+    np.testing.assert_allclose(got, want, rtol=EXACT, atol=EXACT)
+    plain = DA.decode_attention_cuda(torch.tensor(q), torch.tensor(k),
+                                     torch.tensor(v), torch.tensor(kv),
+                                     window=window)
+    np.testing.assert_allclose(plain.numpy(), want, rtol=EXACT, atol=EXACT)
 
 
 def test_cpu_wrapper_takes_the_plain_version():

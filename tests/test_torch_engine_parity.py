@@ -275,3 +275,41 @@ def test_launcher_flags_not_ported_raise(monkeypatch):
         with pytest.raises(Built):
             TSERVE.main(argv)
     assert seen[0].enabled and seen[1] is None
+
+
+def test_launcher_fleet_of_eight_matches_jax():
+    """Both launchers' `build_engine(n_fleet=8)`: ARCH_IDS[:8] at their
+    reduced configs (the dense internlm2-20b, gemma3-12b's local:global
+    stack and llava-next-mistral-7b's image rows last), behind routers
+    fitted on the same corpus. The port's fleet takes the JAX weights
+    (`convert.model_params_from_numpy`), so the same requests get the
+    same models and the same greedy tokens, in bf16 as the launcher runs
+    them. At a budget of 7 the test prompts 7 and 20 go to internlm2-20b
+    and gemma3-12b; llava (cost 8) takes every prompt it can afford."""
+    from repro.launch import serve as JSERVE
+    from repro_torch.launch import serve as TSERVE
+    from repro_torch.models import transformer as TT
+    je, corpus = JSERVE.build_engine(n_fleet=8)
+    te, _ = TSERVE.build_engine(n_fleet=8, device="cpu")
+    assert list(te.fleet) == list(je.fleet)
+    assert list(te.fleet)[5:] == ["internlm2-20b", "gemma3-12b",
+                                  "llava-next-mistral-7b"]
+    for name, m in te.fleet.items():
+        m.params = TT.cast_params(m.cfg, convert.model_params_from_numpy(
+            m.cfg, je.fleet[name].params, device="cpu"))
+    rng = np.random.default_rng(11)
+    test = corpus.test_idx
+    picks = [(i, b) for i, b in zip(test[:16], [1.0, 2.5, 3.5, 5.5, 6.5,
+                                                8.0, 9.0, 10.0] * 2)]
+    picks += [(test[7], 7.0), (test[20], 7.0)]
+    args = [(rng.integers(0, 100, rng.integers(4, 12)).astype(np.int32),
+             corpus.embeddings[i], b) for i, b in picks]
+    jres = je.serve([JENG.Request(tokens=t, embedding=e, budget=b,
+                                  max_new_tokens=3, rid=k)
+                     for k, (t, e, b) in enumerate(args)])
+    tres = te.serve([TENG.Request(tokens=t, embedding=e, budget=b,
+                                  max_new_tokens=3, rid=k)
+                     for k, (t, e, b) in enumerate(args)])
+    _assert_same_responses(jres, tres)
+    assert {"internlm2-20b", "gemma3-12b", "llava-next-mistral-7b"} <= {
+        r.model for r in tres}

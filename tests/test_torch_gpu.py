@@ -515,6 +515,111 @@ def test_decode_attention_graph_replays_equal_eager(dev, b, t, h, hk, dh,
         assert all(int(x.count_nonzero()) == 0 for x in DA._ARRIVALS[idx])
 
 
+# gemma3-12b's head width (dh = 256) on both flash routes, with and
+# without its sliding window (window 1: a row's own key alone)
+@pytest.mark.parametrize("window", [0, 1, 100, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_dh256_matches_plain(dev, window, dtype):
+    """dh = 256: the tensor-core route's 64-key tiles and the CUDA-core
+    route's 213 KB of tiles, at gemma3's 2 query heads a KV head, S past
+    the window and not a multiple of a tile; the JAX suite's bars."""
+    rng = np.random.default_rng(window + 256)
+    b, s, h, hk, dh = 2, 1100, 4, 2, 256
+    q = _normal(rng, (b, s, h, dh), dtype, dev)
+    k = _normal(rng, (b, s, hk, dh), dtype, dev)
+    v = _normal(rng, (b, s, hk, dh), dtype, dev)
+    got = flash_attention_cuda(q, k, v, causal=True, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    tol = ATT_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+    if window == 1:
+        torch.testing.assert_close(got, v.repeat_interleave(h // hk, dim=2),
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("window", [0, 1, 100, 1024])
+@pytest.mark.parametrize("rep", [2, 6])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+def test_decode_attention_dh256_and_windows(dev, window, rep, q_dtype,
+                                            kv_dtype):
+    """dh = 256 over both cache types at rep 2 (gemma3: the tensor-core
+    route for a bf16 query) and rep 6, with a window below kv_len, equal
+    to it and far above it, and a row whose window starts past the end of
+    its first splits (those splits exit; the merge takes the rest)."""
+    from repro_torch.kernels import decode_attention as DA
+    rng = np.random.default_rng(window + rep)
+    b, t, hk, dh = 4, 1056, 2, 256
+    h = rep * hk
+    q = _normal(rng, (b, h, dh), q_dtype, dev)
+    k = _normal(rng, (b, t, hk, dh), kv_dtype, dev)
+    v = _normal(rng, (b, t, hk, dh), kv_dtype, dev)
+    size = torch.finfo(kv_dtype).bits // 8
+    n_split, split = DA.split_plan(b, t, hk, dh, size, DA._sm_count(dev))
+    assert n_split >= 4
+    w = window or 100
+    lens = [max(w // 2, 1), min(w, t), t, 3 * split + 5]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = decode_attention_cuda(q, k, v, kv_len, window=window)
+    want = ref.decode_attention_ref(q, k.to(q_dtype), v.to(q_dtype), kv_len,
+                                    window=window)
+    torch.cuda.synchronize()
+    tol = ATT_TOL[q_dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+    if window == 1:     # the newest row alone: its v, exactly
+        rows = (kv_len.long() - 1)
+        newest = v.to(q_dtype)[torch.arange(b, device=dev), rows]
+        torch.testing.assert_close(
+            got, newest.repeat_interleave(rep, dim=1), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,t,h,hk,dh,kv_dtype,window", [
+    (16, 1056, 16, 8, 256, torch.float32, 1024),
+    (8, 4096, 8, 8, 128, torch.bfloat16, 1024),
+    (4, 1056, 12, 2, 256, torch.bfloat16, 37)])
+def test_decode_attention_windowed_graph_replays_equal_eager(
+        dev, b, t, h, hk, dh, kv_dtype, window):
+    """A windowed call captured once: three replays into a zeroed output
+    equal the eager call bit for bit, the arrival counters back at 0 after
+    each (only the splits in each row's window count there), and a replay
+    after kv_len moves follows it (each row's first key is computed on
+    the device)."""
+    from repro_torch.kernels import decode_attention as DA
+    rng = np.random.default_rng(t + dh)
+    q = _normal(rng, (b, h, dh), torch.bfloat16, dev)
+    k = _normal(rng, (b, t, hk, dh), kv_dtype, dev)
+    v = _normal(rng, (b, t, hk, dh), kv_dtype, dev)
+    kv_len = torch.tensor(rng.integers(1, t + 1, b), dtype=torch.int32,
+                          device=dev)
+    eager = decode_attention_cuda(q, k, v, kv_len, window=window)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention_cuda(q, k, v, kv_len, window=window)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention_cuda(q, k, v, kv_len, window=window)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert all(int(x.count_nonzero()) == 0 for x in DA._ARRIVALS[idx])
+    kv_len.copy_(torch.tensor(rng.integers(1, t + 1, b), dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, decode_attention_cuda(q, k, v, kv_len,
+                                                  window=window))
+    assert all(int(x.count_nonzero()) == 0 for x in DA._ARRIVALS[idx])
+
+
 def test_decode_attention_empty_rows_are_zero(dev):
     rng = np.random.default_rng(9)
     b, t, h, hk, dh = 3, 260, 8, 2, 64
@@ -571,11 +676,17 @@ def test_attention_kernels_reject_uncovered_cases(dev):
 # the model's attention route
 # ---------------------------------------------------------------------------
 
+#: reduced configs of the model tests: gemma3 with its 5 local layers and
+#: one global, a window that bites at prompts of 130 tokens
+REDUCED = {"gemma3-12b": dict(n_layers=6, sliding_window=50)}
+
+
 def _reduced_model(dev, arch):
     from repro_torch.configs import get_reduced_config
     from repro_torch.serving import FleetModel
-    return FleetModel(get_reduced_config(arch, dtype="float32"), seed=0,
-                      max_len=160, device=dev)
+    return FleetModel(get_reduced_config(arch, dtype="float32",
+                                         **REDUCED.get(arch, {})),
+                      seed=0, max_len=160, device=dev)
 
 
 def test_attention_cases_the_kernels_do_not_cover_raise_on_cuda(dev):
@@ -590,17 +701,40 @@ def test_attention_cases_the_kernels_do_not_cover_raise_on_cuda(dev):
     with pytest.raises(NotImplementedError, match="cache index"):
         L.apply_attention(cfg, p, x, pos + 4, theta=cfg.rope_theta,
                           cache=cache, cache_index=4)
+    # a window on bidirectional attention: the JAX model sets none there
     with pytest.raises(NotImplementedError, match="window"):
-        L.apply_attention(cfg, p, x, pos, theta=cfg.rope_theta, window=2)
-    # the same calls run the plain attend when asked for it
+        L.apply_attention(cfg, p, x, pos, theta=cfg.rope_theta, window=2,
+                          causal=False)
+    # the same call runs the plain attend when asked for it
     L.apply_attention(cfg, p, x, pos, theta=cfg.rope_theta, window=2,
-                      backend="reference")
+                      causal=False, backend="reference")
+    # a causal window runs through the kernels: a prefill through the
+    # flash kernel, a decode through the decode kernel, each equal to the
+    # plain path (the JAX suite's fp32 bar)
+    plain = {k: v.clone() for k, v in cache.items()}
+    x = torch.randn((2, 11, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    pos = torch.arange(11, device=dev).expand(2, 11)
+    for lo, hi in ((0, 10), (10, 11)):
+        _build.reset_launches()
+        got = L.apply_attention(cfg, p, x[:, lo:hi], pos[:, lo:hi],
+                                theta=cfg.rope_theta, window=3, cache=cache,
+                                cache_index=lo)
+        counts = _build.launch_counts()
+        assert (counts["flash_attention"], counts["decode_attention"]) == \
+            ((1, 0) if lo == 0 else (0, 1))
+        want = L.apply_attention(cfg, p, x[:, lo:hi], pos[:, lo:hi],
+                                 theta=cfg.rope_theta, window=3, cache=plain,
+                                 cache_index=lo, backend="reference")
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-8b",
-                                  "phi3.5-moe-42b-a6.6b"])
+                                  "phi3.5-moe-42b-a6.6b", "internlm2-20b",
+                                  "gemma3-12b", "llava-next-mistral-7b"])
 def test_model_kernel_path_matches_plain_attention(dev, arch):
-    """A reduced fp32 model (dense, or phi3.5-moe's mixture of experts)
+    """A reduced fp32 model (dense, phi3.5-moe's mixture of experts,
+    gemma3's windowed local layers, llava's image rows in generate)
     through the kernels and through the plain attend: prefill + 5 decode
     steps fed the same tokens give logits within the fp32 attention bar,
     and FleetModel.generate launches one flash kernel per layer and one
@@ -878,11 +1012,14 @@ def test_serving_engine_warms_a_grown_replica(dev):
 
 
 def _full_width(arch, n_layers=2):
+    """Full width, cut depth; llava's 2,880 image rows cut to 32, so its
+    cache stays short."""
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     return dataclasses.replace(cfg, n_layers=n_layers,
-                               n_enc_layers=min(cfg.n_enc_layers, n_layers))
+                               n_enc_layers=min(cfg.n_enc_layers, n_layers),
+                               n_image_tokens=min(cfg.n_image_tokens, 32))
 
 
 def _eager_tokens(m, toks, max_new):
@@ -890,18 +1027,23 @@ def _eager_tokens(m, toks, max_new):
     position, a fresh cache), the path the graph was captured from."""
     from repro_torch.models import transformer as T
     t = torch.tensor(toks, dtype=torch.int64, device=m.device)
-    enc = None
+    enc = img = None
+    n_img = m.cfg.n_image_tokens if m.cfg.arch_type == "vlm" else 0
     if m.cfg.arch_type == "encdec":
         enc = torch.zeros((t.shape[0], m.cfg.n_audio_frames,
                            m.cfg.d_model), device=m.device)
+    if n_img:
+        img = torch.zeros((t.shape[0], n_img, m.cfg.d_model),
+                          device=m.device)
     with torch.inference_mode():
         logits, cache = T.prefill(m.cfg, m.params, t, m.max_len,
-                                  cache_dtype=torch.float32, enc_embeds=enc)
+                                  cache_dtype=torch.float32, enc_embeds=enc,
+                                  img_embeds=img)
         tok = logits.argmax(-1)[:, None]
         out = [tok]
         for i in range(max_new - 1):
             logits, cache = T.decode_step(m.cfg, m.params, cache, tok,
-                                          toks.shape[1] + i)
+                                          n_img + toks.shape[1] + i)
             tok = logits.argmax(-1)[:, None]
             out.append(tok)
     return torch.cat(out, dim=1).int().cpu().numpy()
@@ -909,15 +1051,17 @@ def _eager_tokens(m, toks, max_new):
 
 @pytest.mark.parametrize("arch", ["whisper-large-v3", "olmo-1b",
                                   "mamba2-780m", "qwen3-8b",
-                                  "phi3.5-moe-42b-a6.6b"])
+                                  "phi3.5-moe-42b-a6.6b", "internlm2-20b",
+                                  "gemma3-12b", "llava-next-mistral-7b"])
 def test_captured_decode_tokens_equal_eager(dev, arch):
-    """The launcher fleet's models (`--fleet 5`) at full width and two
-    layers, bf16: generate through the captured decode graphs gives the
+    """The launcher fleet's models (`--fleet 8`) at full width and two
+    layers (gemma3 six: five local, one global), bf16: generate through
+    the captured decode graphs gives the
     eager path's greedy tokens, at each warmed row count, with its
     launches credited per replay and nothing captured after warmup (the
     MoE's routing, slots and combine run inside the graph)."""
     from repro_torch.serving import FleetModel
-    cfg = _full_width(arch)
+    cfg = _full_width(arch, 6 if arch == "gemma3-12b" else 2)
     m = FleetModel(cfg, seed=3, max_len=320, device=dev)
     assert m.warmup([1, 2, 4]) == 3 and m.rows == 4
     rng = np.random.default_rng(4)
