@@ -176,9 +176,19 @@ together), then:
      call sites' launches counted, peak memory under 80 GB; greedy
      tokens through the graphs equal to the eager path's; its kernel
      path against its plain path; TTFT, the decode step and a profile of
-     a replayed step; then the launcher with `--fleet 8` (reduced) in
-     process and as the CLI, and `--fleet 9` refused, naming zamba2-7b's
-     ROADMAP item.
+     a replayed step.
+ 10d. the last two families (`drive_hybrid_mla`): the attention call
+     sites of zamba2-7b (dh = 112, H = Hk = 32: flash prefill and its
+     self decode over the fp32 cache) and deepseek-v3's MLA prefill
+     (flash at query/key width 192, value width 128, H = Hk = 128)
+     against their plain versions with controls and timed; then zamba2-7b
+     at full width and full depth (13 groups of 5 mamba2 blocks and the
+     shared attention block, 3 tail blocks) and deepseek-v3 at full
+     width and DEEPSEEK_LAYERS of its 61 layers (3 dense, 1 MoE), each
+     beside olmo-1b as the dense phase serves its models (deepseek's
+     absorbed decode is plain PyTorch: its decode has no kernel call);
+     then the launcher with `--fleet 10` (reduced: every model of
+     ARCH_IDS) in process and as the CLI.
  11. the paper's experiments (`benchmarks_torch`) at the frozen regime
      (300 prompts per dataset, D = 64, seed 0): holds KNN's retrieve
      call (a dataset's ~90 test rows against the 1,470 win-rate rows,
@@ -427,6 +437,27 @@ DENSE_SITES = {
 # by CONTROL_MIN
 WINDOW_BITE = {"flash": (2, 4096, 16, 8, 256, 1024),
                "decode": (16, 4096, 16, 8, 256, 1024, 3900)}
+# phase 10d: zamba2-7b (hybrid; 81 blocks, 68 of them mamba2, 32 / 32
+# heads of 112; 11.2 GB in bf16) at full depth, and deepseek-v3's MLA
+# over its MoE at DEEPSEEK_LAYERS of 61 layers (3 dense and 1 MoE of 256
+# routed experts and one shared: ~15.1 B parameters, 30.2 GB in bf16),
+# each served beside olmo-1b as the dense phase serves its models
+HYBRID_MODELS = ("zamba2-7b", "deepseek-v3-671b")
+DEEPSEEK_LAYERS = 4
+COMPARE_LENS.update({"zamba2-7b": (1024, 900, 640, 300),
+                     "deepseek-v3-671b": (1024, 900, 640, 300)})
+# their call sites: flash (B, S, S_kv, H, Hk, dh or (dk, dv), causal),
+# zamba2's self decode (B, T, H, Hk, dh) over an fp32 cache; deepseek's
+# decode (the absorbed form) is plain PyTorch and has no site
+HYBRID_FLASH = {"zamba2": {"prefill": (8, 1024, 1024, 32, 32, 112, True)},
+                "deepseek": {"prefill": (8, 1024, 1024, 128, 128,
+                                         (192, 128), True)}}
+HYBRID_DECODE = {"zamba2": {"self decode": (16, SERVE_MAX_LEN, 32, 32,
+                                            112)},
+                 "deepseek": {}}
+HYBRID_SITES = {"zamba2 flash prefill": "zamba2-7b flash causal",
+                "zamba2 self decode": "zamba2-7b decode self",
+                "deepseek flash prefill": "deepseek-v3-671b flash causal"}
 # tolerances: the JAX suite's own bars between its backends
 SIM_TOL = 1e-5                     # similarity (tests/test_kernels.py)
 R_RTOL, R_ATOL = 1e-5, 1e-3        # ratings (tests/test_router_state.py)
@@ -3203,7 +3234,10 @@ def compare_model_paths(engine, stats, names=FLEET):
     of the plain path's. whisper's encoder reads seeded random frame
     embeddings (distinct rows; the served stub is zeros). mamba2 has no
     attention: its paths run the same code, so it has no control and no
-    kernel call to hold, and its logits are held to the same bar. A MoE
+    kernel call to hold, and its logits are held to the same bar; an MLA
+    model's decode (the absorbed form) is plain PyTorch on every path, so
+    its control has no decode call to fail (its flash control is
+    check_site_attention's). A MoE
     model's plain and control paths take the kernel path's experts
     (`pinned_experts`): a near-tied gate could otherwise flip a token's
     expert, and a capacity drop after it, and move its logits by a
@@ -3268,7 +3302,8 @@ def compare_model_paths(engine, stats, names=FLEET):
         if max(held.values()) > 1.0:
             fail(f"{name}: a kernel call on the model path misses its "
                  f"plain version by more than its bar: {held}")
-        if cfg.arch_type != "ssm" and not ctl["decode_attention"] > 1.0:
+        if cfg.arch_type != "ssm" and cfg.attn_kind != "mla" and \
+                not ctl["decode_attention"] > 1.0:
             fail(f"{name}: the control's decode calls pass the attention "
                  f"bar ({ctl['decode_attention']})")
         if max(rel) > LOGIT_REL_BAR:
@@ -3627,7 +3662,9 @@ def check_site_attention(dev, kernels, stats, model="whisper",
     """A model's attention call sites in bf16 at its serving shapes
     (whisper-large-v3's five: WHISPER_FLASH, WHISPER_DECODE; phi3.5-moe's
     two: PHI_FLASH, PHI_DECODE; the dense families': DENSE_FLASH,
-    DENSE_DECODE), each against its plain version (the flash and decode
+    DENSE_DECODE; zamba2-7b's and deepseek-v3's: HYBRID_FLASH,
+    HYBRID_DECODE, a flash dh of (dk, dv) giving v its own width), each
+    against its plain version (the flash and decode
     bars of phase 6) with a control, one key dropped, that must fail by
     CONTROL_MIN: a bidirectional flash site (the encoder, the cross
     prefill) drops the last key for every row (held on all rows), a
@@ -3646,9 +3683,10 @@ def check_site_attention(dev, kernels, stats, model="whisper",
     for site, shape in flash_shapes.items():
         b, s, t, h, hk, dh, causal = shape[:7]
         window = shape[7] if len(shape) > 7 else 0
-        q = _bf16(gen, (b, s, h, dh), dev)
-        k = _bf16(gen, (b, t, hk, dh), dev)
-        v = _bf16(gen, (b, t, hk, dh), dev)
+        dk, dv = dh if isinstance(dh, tuple) else (dh, dh)
+        q = _bf16(gen, (b, s, h, dk), dev)
+        k = _bf16(gen, (b, t, hk, dk), dev)
+        v = _bf16(gen, (b, t, hk, dv), dev)
         got = flash_attention_cuda(q, k, v, causal=causal, window=window)
         want = ref.flash_attention_ref(q, k, v, causal=causal,
                                        window=window)
@@ -3677,8 +3715,9 @@ def check_site_attention(dev, kernels, stats, model="whisper",
         else:
             lib = cuda_ms(lambda: _sdpa(q, k, v, is_causal=causal), 20)
             pairs = s * (s + 1) / 2 if causal else s * t
-        nbytes = 2.0 * (2 * b * s * h * dh + 2 * b * t * hk * dh)
-        flops = 4.0 * b * h * dh * pairs
+        # q and k of width dk, v and the output of width dv
+        nbytes = 2.0 * (b * s * h * (dk + dv) + b * t * hk * (dk + dv))
+        flops = 2.0 * b * h * (dk + dv) * pairs
         bms, by = _site_entry(kernels, f"{model} flash {site}",
                               f"flash_attention ({model} {site})",
                               nbytes, flops, ms, plain, lib, err)
@@ -4446,13 +4485,13 @@ def check_window_bite(dev, stats):
     stats["window_bite"] = report
 
 
-def build_dense_engine(dev, name, olmo, seed, stats):
+def build_dense_engine(dev, name, olmo, seed, stats, cfg=None):
     """A ServingEngine over olmo-1b (`olmo`, shared by the dense phase's
     engines) and `name` at full width and depth (each block cast to bf16
-    as it is drawn), an fp32 cache of SERVE_MAX_LEN rows (llava:
-    DENSE_MAX_LEN), groups padded to LAUNCH_PAD_LEN tokens and the row
-    ladder, behind a router fitted at D = 1536 with costs linspace(1, 8,
-    2)."""
+    as it is drawn; `cfg`: another depth), an fp32 cache of SERVE_MAX_LEN
+    rows (llava: DENSE_MAX_LEN), groups padded to LAUNCH_PAD_LEN tokens
+    and the row ladder, behind a router fitted at D = 1536 with costs
+    linspace(1, 8, 2)."""
     from repro_torch import obs as OBS
     from repro_torch.configs import get_config
     from repro_torch.core.router import EagleConfig, EagleRouter
@@ -4469,7 +4508,7 @@ def build_dense_engine(dev, name, olmo, seed, stats):
     router = EagleRouter(names, corpus.costs, EagleConfig(embed_dim=DIM),
                          db_capacity=1 << 15, device=dev)
     router.fit(fb["emb"], fb["model_a"], fb["model_b"], fb["outcome"])
-    cfg = get_config(name)
+    cfg = cfg or get_config(name)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = FleetModel(cfg, seed=seed,
@@ -4480,8 +4519,12 @@ def build_dense_engine(dev, name, olmo, seed, stats):
     gb = sum(x.numel() * x.element_size()
              for x in _leaves(model.params)) / 1e9
     kinds = {k: cfg.layer_kinds().count(k) for k in set(cfg.layer_kinds())}
+    heads = (f"MLA over {cfg.n_heads} heads of {cfg.qk_nope_dim} + "
+             f"{cfg.qk_rope_dim} / {cfg.v_head_dim}, latent "
+             f"{cfg.kv_lora_rank}" if cfg.attn_kind == "mla" else
+             f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}")
     log(f"{name} ({cfg.arch_type}): {cfg.n_layers} layers {kinds}, d_model "
-        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}"
+        f"{cfg.d_model}, {heads}"
         f"{f', {cfg.n_image_tokens} image rows' if cfg.n_image_tokens else ''}"
         f", {n_params / 1e9:.3f}B parameters ({gb:.2f} GB; count_params "
         f"{count_params(cfg) / 1e9:.3f}B), cache of {model.max_len} rows; "
@@ -4530,22 +4573,81 @@ def drive_dense_engine(engine, corpus, name, stats):
     return dict(serve_wall_s=wall, serve_p50_s=p50, groups=groups, stats=st)
 
 
-def drive_launcher_fleet8(stats):
-    """The launcher with `--fleet 8` at its reduced configs: in process,
-    build_engine(n_fleet=8) serves 16 requests at budgets over [1, 10]
-    (every answer checked); then the CLI, `python -m
-    repro_torch.launch.serve --fleet 8 --requests 16`, must exit 0 with
-    its stats line, and `--fleet 9` must fail on zamba2-7b's ROADMAP
-    item."""
+def serve_full_model(engine, corpus, name, want_sites, stats):
+    """One full-width model's engine (build_dense_engine's, beside
+    olmo-1b): decode graphs warmed, served (drive_dense_engine) with
+    launches per call site, nothing captured, every site of `want_sites`
+    launched, peak memory under 80 GB; greedy tokens through the graphs
+    against the eager path's, the kernel path against the plain path,
+    TTFT and the decode step, and a profile of a replayed step. Returns
+    (report, launches, launches by call site) of the served run."""
+    from repro_torch import graphs
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    with count_sites(engine):
+        n = engine.warmup_generate(LAUNCH_PAD_LEN,
+                                   batch_sizes=LAUNCH_BUCKETS)
+        log_time(stats, f"{name} engine warmup: {n} decode graphs "
+                 f"captured for {LAUNCH_BUCKETS} rows (with a generate "
+                 f"at each); graph pools {graph_pool_gb():.2f} GB")
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        c0 = graphs.capture_count()
+        report = drive_dense_engine(engine, corpus, name, stats)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    run_sites = site_launches()
+    credited = _build.credited_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    captured = graphs.capture_count() - c0
+    report.update(launches=launches, sites=run_sites, peak_mem_gb=peak,
+                  captures=captured)
+    log(f"launches on the {name} engine's run: {launches}, of which "
+        f"credited by graph replays {credited}; by call site {run_sites}; "
+        f"graphs captured in the run {captured}")
+    log_time(stats, f"peak device memory of the {name} engine's run (with "
+             f"olmo-1b: weights, static decode states, graph pools, "
+             f"activations): {peak:.2f} GB")
+    missing = [k for k in ("flash_attention", "decode_attention")
+               if not launches[k]] + [
+        site for site in want_sites if not run_sites.get(site)]
+    if missing:
+        fail(f"never launched on the {name} engine's run: {missing}")
+    if captured:
+        fail(f"{captured} graphs captured after warmup on the {name} "
+             "engine's run")
+    if credited.get("decode_attention") != launches["decode_attention"]:
+        fail(f"{name}: decode launches {launches['decode_attention']}, of "
+             f"which credited by replays {credited.get('decode_attention')}"
+             ": the decode path left its graphs")
+    if peak >= 80.0:
+        fail(f"the {name} engine's peak device memory {peak:.2f} GB")
+    compare_graph_generate(engine, stats, names=(name,),
+                           key=f"graph_tokens_differing_{name.split('-')[0]}")
+    compare_model_paths(engine, stats, names=(name,))
+    time_serving(engine, stats, names=(name,))
+    profile_decode(engine, stats, name, what="graph")
+    report["wall_s"] = time.perf_counter() - t0
+    return report, launches, run_sites
+
+
+def drive_launcher_fleet10(stats):
+    """The launcher with `--fleet 10` at its reduced configs (every model
+    of ARCH_IDS: the dense families, zamba2-7b's hybrid stack and
+    deepseek-v3's MLA last): in process, build_engine(n_fleet=10) serves
+    16 requests at budgets over [1, 10] (every answer checked; its warmup
+    generated on every model, the new ones among them); then the CLI,
+    `python -m repro_torch.launch.serve --fleet 10 --requests 16`, must
+    exit 0 with its stats line."""
     from repro_torch import obs as OBS
     from repro_torch.launch import serve as LS
     from repro_torch.serving import Request
     t0 = time.perf_counter()
-    engine, corpus = LS.build_engine(n_fleet=8, obs=OBS.Observability())
+    engine, corpus = LS.build_engine(n_fleet=10, obs=OBS.Observability())
     build_s = time.perf_counter() - t0
     names = list(engine.fleet)
-    if names[5:] != list(DENSE_MODELS):
-        fail(f"launcher --fleet 8 built {names}")
+    if names[5:] != list(DENSE_MODELS + HYBRID_MODELS):
+        fail(f"launcher --fleet 10 built {names}")
     rng = np.random.default_rng(0)
     test = corpus.test_idx
     reqs = [Request(tokens=rng.integers(0, 100, rng.integers(4, 12)).astype(
@@ -4555,40 +4657,30 @@ def drive_launcher_fleet8(stats):
                     rid=i) for i in range(16)]
     res = engine.serve(reqs)
     torch.cuda.synchronize()
-    check_responses(engine, reqs, res, "launcher --fleet 8 serve()")
+    check_responses(engine, reqs, res, "launcher --fleet 10 serve()")
     models = sorted({r.model for r in res})
     del engine
     gc.collect()
     t1 = time.perf_counter()
-    out = launch_cli("--fleet", "8", "--requests", "16")
+    out = launch_cli("--fleet", "10", "--requests", "16")
     cli_s = time.perf_counter() - t1
     lines = out.stdout.strip().splitlines()
     if out.returncode or not lines or not lines[-1].startswith("stats:"):
-        fail(f"python -m repro_torch.launch.serve --fleet 8 exited "
+        fail(f"python -m repro_torch.launch.serve --fleet 10 exited "
              f"{out.returncode}: {out.stdout[-2000:]}{out.stderr[-2000:]}")
-    nine = launch_cli("--fleet", "9", "--requests", "2")
-    if nine.returncode == 0 or "item 5 (zamba2-7b)" not in nine.stderr:
-        fail(f"--fleet 9 exited {nine.returncode} without naming zamba2's "
-             f"ROADMAP item: {nine.stderr[-2000:]}")
-    log_time(stats, f"launcher --fleet 8 (reduced {names}): built in "
+    log_time(stats, f"launcher --fleet 10 (reduced {names}): built in "
              f"{build_s:.1f} s, serve() of 16: models answering {models}; "
-             f"python -m repro_torch.launch.serve --fleet 8 --requests 16: "
-             f"exit 0 in {cli_s:.1f} s; {lines[-1]}; --fleet 9: exit "
-             f"{nine.returncode}, {nine.stderr.strip().splitlines()[-1]}")
-    stats["launcher_fleet8"] = dict(build_s=build_s, models=models,
-                                    cli_s=cli_s, cli_last=lines[-1])
+             f"python -m repro_torch.launch.serve --fleet 10 --requests 16: "
+             f"exit 0 in {cli_s:.1f} s; {lines[-1]}")
+    stats["launcher_fleet10"] = dict(build_s=build_s, models=models,
+                                     cli_s=cli_s, cli_last=lines[-1])
 
 
 def drive_dense(dev, kernels, stats):
     """The dense families' phase: their attention call sites and the
     biting window, then each of DENSE_MODELS at full width and depth
-    beside olmo-1b, one engine at a time: decode graphs warmed, served
-    with launches per call site, nothing captured, peak memory under 80
-    GB; greedy tokens through the graphs against the eager path's, the
-    kernel path against the plain path, TTFT and the decode step, and a
-    profile of the replayed step; then the launcher with --fleet 8.
-    Returns (launches by model, launches by call site) of the served
-    runs."""
+    beside olmo-1b, one engine at a time (`serve_full_model`). Returns
+    (launches by model, launches by call site) of the served runs."""
     from repro_torch import graphs
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
@@ -4608,58 +4700,14 @@ def drive_dense(dev, kernels, stats):
                       device=dev)
     launches, sites, report = {}, {}, {}
     for i, name in enumerate(DENSE_MODELS):
-        t0 = time.perf_counter()
         engine, corpus = build_dense_engine(dev, name, olmo, i + 1, stats)
-        with count_sites(engine):
-            n = engine.warmup_generate(LAUNCH_PAD_LEN,
-                                       batch_sizes=LAUNCH_BUCKETS)
-            log_time(stats, f"{name} engine warmup: {n} decode graphs "
-                     f"captured for {LAUNCH_BUCKETS} rows (with a generate "
-                     f"at each); graph pools {graph_pool_gb():.2f} GB")
-            torch.cuda.reset_peak_memory_stats()
-            _build.reset_launches()
-            c0 = graphs.capture_count()
-            report[name] = drive_dense_engine(engine, corpus, name, stats)
-        torch.cuda.synchronize()
-        launches[name] = _build.launch_counts()
-        run_sites = site_launches()
+        short = name.split("-")[0]    # DENSE_FLASH's and DENSE_SITES' key
+        report[name], launches[name], run_sites = serve_full_model(
+            engine, corpus, name,
+            [v for k, v in DENSE_SITES.items() if k.startswith(short + " ")],
+            stats)
         sites.update({k: v for k, v in run_sites.items()
                       if k.startswith(name)})
-        credited = _build.credited_counts()
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        captured = graphs.capture_count() - c0
-        report[name].update(launches=launches[name], sites=run_sites,
-                            peak_mem_gb=peak, captures=captured)
-        log(f"launches on the {name} engine's run: {launches[name]}, of "
-            f"which credited by graph replays {credited}; by call site "
-            f"{run_sites}; graphs captured in the run {captured}")
-        log_time(stats, f"peak device memory of the {name} engine's run "
-                 f"(with olmo-1b: weights, static decode states, graph "
-                 f"pools, activations): {peak:.2f} GB")
-        short = name.split("-")[0]    # DENSE_FLASH's and DENSE_SITES' key
-        missing = [k for k in ("flash_attention", "decode_attention")
-                   if not launches[name][k]] + [
-            k for k, site in DENSE_SITES.items()
-            if k.startswith(short + " ") and not run_sites.get(site)]
-        if missing:
-            fail(f"never launched on the {name} engine's run: {missing}")
-        if captured:
-            fail(f"{captured} graphs captured after warmup on the {name} "
-                 "engine's run")
-        if credited.get("decode_attention") != \
-                launches[name]["decode_attention"]:
-            fail(f"{name}: decode launches "
-                 f"{launches[name]['decode_attention']}, of which credited "
-                 f"by replays {credited.get('decode_attention')}: the "
-                 "decode path left its graphs")
-        if peak >= 80.0:
-            fail(f"the {name} engine's peak device memory {peak:.2f} GB")
-        compare_graph_generate(engine, stats, names=(name,),
-                               key=f"graph_tokens_differing_{short}")
-        compare_model_paths(engine, stats, names=(name,))
-        time_serving(engine, stats, names=(name,))
-        profile_decode(engine, stats, name, what="graph")
-        report[name]["wall_s"] = time.perf_counter() - t0
         del engine, corpus
         gc.collect()
         torch.cuda.empty_cache()
@@ -4667,10 +4715,70 @@ def drive_dense(dev, kernels, stats):
     gc.collect()
     torch.cuda.empty_cache()
     stats["dense"] = report
-    drive_launcher_fleet8(stats)
     stats["dense_phase_s"] = time.perf_counter() - t_phase
     log_time(stats, f"dense phase wall: {stats['dense_phase_s']:.1f} s "
              f"(engines: { {n: r['wall_s'] for n, r in report.items()} })")
+    return launches, sites
+
+
+# ---------------------------------------------------------------------------
+# phase 10d: zamba2-7b (hybrid) and deepseek-v3's MLA
+# ---------------------------------------------------------------------------
+
+def drive_hybrid_mla(dev, kernels, stats):
+    """The last two families: zamba2-7b's and deepseek-v3's attention call
+    sites (HYBRID_FLASH, HYBRID_DECODE), then zamba2-7b at full width and
+    depth and deepseek-v3 at full width and DEEPSEEK_LAYERS layers, each
+    beside olmo-1b, one engine at a time (`serve_full_model`; zamba2's
+    prefill profiled too: 68 mamba2 blocks of SSD panels), then the
+    launcher with --fleet 10. Returns (launches by model, launches by
+    call site) of the served runs."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.serving import FleetModel
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    log(f"device memory held before the hybrid and MLA phase "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    for i, short in enumerate(HYBRID_FLASH):
+        check_site_attention(dev, kernels, stats, short, HYBRID_FLASH[short],
+                             HYBRID_DECODE[short], seed=30 + i)
+        torch.cuda.empty_cache()
+    olmo = FleetModel(get_config("olmo-1b"), seed=0, max_len=SERVE_MAX_LEN,
+                      device=dev)
+    cfgs = {"zamba2-7b": get_config("zamba2-7b"),
+            "deepseek-v3-671b": dataclasses.replace(
+                get_config("deepseek-v3-671b"), n_layers=DEEPSEEK_LAYERS)}
+    launches, sites, report = {}, {}, {}
+    for i, name in enumerate(HYBRID_MODELS):
+        t0 = time.perf_counter()
+        engine, corpus = build_dense_engine(dev, name, olmo, i + 10, stats,
+                                            cfg=cfgs[name])
+        build_s = time.perf_counter() - t0
+        short = name.split("-")[0]
+        report[name], launches[name], run_sites = serve_full_model(
+            engine, corpus, name,
+            [v for k, v in HYBRID_SITES.items() if k.startswith(short + " ")],
+            stats)
+        report[name]["build_s"] = build_s
+        if name == "zamba2-7b":
+            profile_decode(engine, stats, name, what="prefill")
+        sites.update({k: v for k, v in run_sites.items()
+                      if k.startswith(name)})
+        del engine, corpus
+        gc.collect()
+        torch.cuda.empty_cache()
+    del olmo
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["hybrid_mla"] = report
+    drive_launcher_fleet10(stats)
+    stats["hybrid_mla_phase_s"] = time.perf_counter() - t_phase
+    log_time(stats, f"hybrid and MLA phase wall: "
+             f"{stats['hybrid_mla_phase_s']:.1f} s (engines: "
+             f"{ {n: (r['build_s'], r['wall_s']) for n, r in report.items()} }"
+             f" s to build, s to serve and check)")
     return launches, sites
 
 
@@ -5172,6 +5280,9 @@ def main() -> int:
     launches["moe"], moe_sites = drive_moe(dev, kernels, stats)
     torch.cuda.empty_cache()
     launches["dense"], dense_sites = drive_dense(dev, kernels, stats)
+    torch.cuda.empty_cache()
+    launches["hybrid_mla"], hybrid_sites = drive_hybrid_mla(dev, kernels,
+                                                            stats)
 
     torch.cuda.empty_cache()
     corpus, fb, targets = paper_regime(dev)
@@ -5210,6 +5321,9 @@ def main() -> int:
         if name in DENSE_SITES:
             entry["launches"] = dense_sites[DENSE_SITES[name]]
             continue
+        if name in HYBRID_SITES:
+            entry["launches"] = hybrid_sites[HYBRID_SITES[name]]
+            continue
         if name == "elo_scan fit fold":
             entry["launches"] = stats["fit_fold_launches"]
             continue
@@ -5230,7 +5344,7 @@ def main() -> int:
                              "sharded_retrieve_replay_select",
                              "flash_attention",
                              "decode_attention") + tuple(WHISPER_SITES) \
-        + tuple(PHI_SITES) + tuple(DENSE_SITES) + (
+        + tuple(PHI_SITES) + tuple(DENSE_SITES) + tuple(HYBRID_SITES) + (
             "retrieve knn", "retrieve_topn n512", "topn_merge k512")
     line = {"kernels": [kernels[k] for k in order]}
     stats["kernels"] = line["kernels"]

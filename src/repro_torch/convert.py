@@ -15,7 +15,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.core.state import RouterState
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Params, check_supported, \
-    torch_dtype
+    hybrid_shape, torch_dtype
 
 _DTYPES = {"global_ratings": np.float32, "emb": np.float32,
            "model_a": np.int32, "model_b": np.int32, "outcome": np.float32,
@@ -55,11 +55,15 @@ def model_params_from_numpy(cfg: ModelConfig, tree: Mapping,
     `np.asarray`: the stacked (L, ...) leaves of every block group
     (dense and decoder blocks with their cross-attention, encoder
     blocks, mamba2 blocks, the moe family's dense_blocks then moe_blocks,
-    either of which may be None, into one list) are split per layer, at
-    any depth of nesting (a MoE's "shared" dict), and the attention
-    projections flattened to 2-D; the (E, d, ff) expert leaves keep
-    their shape. Values and the type `cfg.param_dtype` are kept
-    exactly."""
+    either of which may be None, into one list; the hybrid family's
+    (G, per, ...) groups into G lists and its tail) are split per layer,
+    at any depth of nesting (a MoE's "shared" dict), and the attention
+    projections flattened to 2-D (MLA's wo too; its (r, H, k) up
+    projections keep their shape); the hybrid's unstacked shared block
+    is taken as one block; the (E, d, ff) expert leaves keep their
+    shape. deepseek-v3's multi-token-prediction head ("mtp") is not
+    carried: only the JAX package's training loss reads it. Values and
+    the type `cfg.param_dtype` are kept exactly."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
@@ -73,15 +77,27 @@ def model_params_from_numpy(cfg: ModelConfig, tree: Mapping,
         return {k: host(v) if isinstance(v, Mapping)
                 else np.asarray(v, np.float32) for k, v in tree.items()}
 
-    def layer(leaves, i):
-        return {k: layer(v, i) if isinstance(v, dict) else t(v[i], k)
+    def pick(leaves, i):     # block i's host leaves
+        return {k: pick(v, i) if isinstance(v, dict) else v[i]
                 for k, v in leaves.items()}
+
+    def block(leaves):
+        return {k: block(v) if isinstance(v, dict) else t(v, k)
+                for k, v in leaves.items()}
+
+    def layer(leaves, i):
+        return block(pick(leaves, i))
 
     def per_layer(blocks, n):
         if blocks is None:
             return []
         leaves = host(blocks)
         return [layer(leaves, i) for i in range(n)]
+
+    def groups(blocks, n, per):      # (G, per, ...) leaves
+        leaves = host(blocks)
+        return [[layer(pick(leaves, g), i) for i in range(per)]
+                for g in range(n)]
 
     norm = lambda p: {k: t(v) for k, v in p.items()}
     out: Params = {"embed": t(tree["embed"]),
@@ -92,6 +108,11 @@ def model_params_from_numpy(cfg: ModelConfig, tree: Mapping,
         k = cfg.first_k_dense
         out["blocks"] = per_layer(tree["dense_blocks"], k) + per_layer(
             tree["moe_blocks"], cfg.n_layers - k)
+    elif cfg.arch_type == "hybrid":
+        n_groups, per, tail = hybrid_shape(cfg)
+        out["groups"] = groups(tree["groups"], n_groups, per)
+        out["shared_attn"] = block(host(tree["shared_attn"]))
+        out["tail"] = per_layer(tree["tail"], tail)
     else:
         out["blocks"] = per_layer(tree["blocks"], cfg.n_layers)
     if cfg.arch_type == "encdec":

@@ -58,9 +58,9 @@ _SIGNATURES = {
                            + [ctypes.c_void_p],
     },
     "flash_attention": {
-        # q, k, v, out, B, S, S_kv, H, Hk, dh, dtype, scale, causal,
+        # q, k, v, out, B, S, S_kv, H, Hk, dk, dv, dtype, scale, causal,
         # window, stream
-        "flash_attention_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        "flash_attention_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                                   + [ctypes.c_float] + [ctypes.c_int] * 2
                                   + [ctypes.c_void_p],
     },

@@ -69,6 +69,15 @@
 // writes the output, then resets the counter to 0, so the counters are
 // zero again for the next call or graph replay. No second launch.
 //
+// Head widths 32, 64, 112, 128 and 256. A width that is no power of two
+// (112: zamba2-7b's 32 heads over d = 3584) is staged at the next one
+// (128): each cache row's 16-byte chunks land as they are, the chunks past
+// the width are zero-filled without a read, and the queries are zero there
+// too, so the scores are the 112-column ones; the stage keeps its rows and
+// lane splits of dh = 128, the padded columns' p . v sums are computed and
+// never stored. The cache is read at its own width (no padded copy), so
+// the bytes moved are the 112-column ones.
+//
 // The cache is read in its stored type and each value is rounded to the
 // query's type in registers (the `ck.astype(q.dtype)` of the model's
 // plain path), so no cast copy of the cache is made. Products and sums
@@ -92,30 +101,40 @@ constexpr int RING_BYTES = 65536;     // the ring of stages a block
 constexpr int STEP = 8;               // a warp's keys a step (4 lanes a key)
 constexpr float LOG2E = 1.4426950408889634f;
 
+// the width a cache row of dh columns is staged at: the next power of two
+constexpr int staged(int dh) {
+  return dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
+}
+
 template <typename CT, int DH>
 struct Tile {
-  static constexpr int ROW_BYTES = DH * (int)sizeof(CT);
+  static constexpr int DP = staged(DH);           // staged row width
+  static constexpr int ROW_BYTES = DP * (int)sizeof(CT);
   static constexpr int CPR = ROW_BYTES / 16;      // 16-byte chunks a row
+  static constexpr int CPG = DH * (int)sizeof(CT) / 16;  // of them, read
   static constexpr int VPC = 16 / (int)sizeof(CT);  // values a chunk
   static constexpr int STAGE = 32768;                  // K and V bytes
   static constexpr int ROWS = STAGE / (2 * ROW_BYTES);  // a stage's rows
   static constexpr int STAGES = RING_BYTES / STAGE;
   static constexpr int SPS = ROWS / STEP;         // a stage's steps
   static constexpr int WROWS = ROWS / NW;         // a warp's, a stage
-  static constexpr int C4 = DH / 4;               // 4-column groups a row
+  static constexpr int C4 = DP / 4;               // 4-column groups a row
+  static constexpr int C4G = DH / 4;              // of them, stored
   static constexpr int CG = C4 < 32 ? C4 : 32;    // p . v: lanes over them
   static constexpr int NCG = C4 / CG;             // p . v: groups a lane
   static constexpr int KG = 32 / CG;  // p . v: key groups in a warp
   static_assert(CPR % 4 == 0 && ROWS % STEP == 0 &&
-                    (SPS % NW == 0 || NW % SPS == 0) && C4 % CG == 0,
+                    (SPS % NW == 0 || NW % SPS == 0) && C4 % CG == 0 &&
+                    CPG * 16 == DH * (int)sizeof(CT),
                 "stage shape");
-  static_assert(RING_BYTES >= NW * MAX_REP * (DH + 2) * 4,
+  static_assert(RING_BYTES >= NW * MAX_REP * (DP + 2) * 4,
                 "the warps' merge fits in the stages");
 };
 
-// dynamic shared memory: the stages, the queries, the step's weights
+// dynamic shared memory: the stages, the queries (at the staged width),
+// the step's weights
 constexpr size_t smem_bytes(int dh, int rep) {
-  return (size_t)RING_BYTES + (size_t)rep * dh * 4 +
+  return (size_t)RING_BYTES + (size_t)rep * staged(dh) * 4 +
          (size_t)NW * rep * STEP * 4;
 }
 
@@ -193,7 +212,8 @@ __device__ __forceinline__ int swz(int r, int c) {
 }
 
 // issue the copies of split rows [r0, r0 + ROWS) into a stage (rows in
-// order); rows at or past n are zero-filled without a read
+// order); rows at or past n, and a staged row's chunks past the cache's
+// width, are zero-filled without a read
 template <bool SWZ, typename CT, int DH>
 __device__ __forceinline__ void load_stage(unsigned char* st, const CT* kb,
                                            const CT* vb, size_t row_stride,
@@ -205,7 +225,7 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const CT* kb,
   for (int j = 0; j < CHUNKS / NT; ++j) {
     const int i = tid + j * NT;
     const int row = i / TL::CPR, c = i % TL::CPR;
-    const bool ok = r0 + row < n;
+    const bool ok = r0 + row < n && (TL::CPG == TL::CPR || c < TL::CPG);
     const size_t off = (size_t)(ok ? r0 + row : 0) * row_stride +
                        (size_t)c * TL::VPC;
     const int dst = row * TL::ROW_BYTES + swz<SWZ, TL::CPR>(row, c) * 16;
@@ -295,7 +315,8 @@ __device__ __forceinline__ void stream(unsigned char* smem, const CT* kb,
 
 // The CUDA-core path (fp32 queries, or rep = 1; fp32 products): each
 // warp's online softmax over its steps, then the warps' states in shared
-// memory: racc [NW][REP][DH], rml [NW][REP][2] at the ring.
+// memory: racc [NW][REP][DP], rml [NW][REP][2] at the ring (DP: the staged
+// width; the queries qsh are [REP][DP], zero past DH).
 template <typename QT, typename CT, int DH, int REP>
 __device__ __forceinline__ void stream_cores(unsigned char* smem,
                                              const float* qsh, float* psh,
@@ -337,7 +358,7 @@ __device__ __forceinline__ void stream_cores(unsigned char* smem,
       for (int r = 0; r < REP; ++r) {
         if (r < rep) {
           const float4* qp =
-              reinterpret_cast<const float4*>(qsh + r * DH + c * TL::VPC);
+              reinterpret_cast<const float4*>(qsh + r * TL::DP + c * TL::VPC);
 #pragma unroll
           for (int e = 0; e < TL::VPC / 4; ++e) {
             const float4 qq = qp[e];
@@ -394,7 +415,7 @@ __device__ __forceinline__ void stream_cores(unsigned char* smem,
 
   // the warp's sums: over its keys' lanes, and over the key groups
   float* racc = reinterpret_cast<float*>(smem);
-  float* rml = racc + NW * REP * DH;
+  float* rml = racc + NW * REP * TL::DP;
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
     if (r < rep) {
@@ -410,7 +431,7 @@ __device__ __forceinline__ void stream_cores(unsigned char* smem,
       if (kg == 0)
 #pragma unroll
         for (int c = 0; c < TL::NCG; ++c)
-          *reinterpret_cast<float4*>(racc + (warp * REP + r) * DH +
+          *reinterpret_cast<float4*>(racc + (warp * REP + r) * TL::DP +
                                      (cg + c * TL::CG) * 4) =
               make_float4(acc[r][4 * c], acc[r][4 * c + 1],
                           acc[r][4 * c + 2], acc[r][4 * c + 3]);
@@ -439,14 +460,14 @@ __device__ __forceinline__ void stream_mma(unsigned char* smem,
                                            float scale2) {
   using TL = Tile<CT, DH>;
   constexpr bool BF16 = std::is_same<CT, __nv_bfloat16>::value;
-  constexpr int KS = DH / 16, NTILES = DH / 8;
+  constexpr int KS = TL::DP / 16, NTILES = TL::DP / 8;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, t = lane % 4;
   // A fragments of Q: row g, columns 16 ks + 2t (+1) and + 8
   unsigned qa[KS][2];
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
-    const float* qr = qsh + g * DH + 16 * ks + 2 * t;
+    const float* qr = qsh + g * TL::DP + 16 * ks + 2 * t;
     qa[ks][0] = g < rep ? pack_bf16(qr[0], qr[1]) : 0u;
     qa[ks][1] = g < rep ? pack_bf16(qr[8], qr[9]) : 0u;
   }
@@ -548,11 +569,11 @@ __device__ __forceinline__ void stream_mma(unsigned char* smem,
   l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
   l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
   float* racc = reinterpret_cast<float*>(smem);
-  float* rml = racc + NW * REP * DH;
+  float* rml = racc + NW * REP * TL::DP;
   if (g < rep) {
 #pragma unroll
     for (int i = 0; i < NTILES; ++i)
-      *reinterpret_cast<float2*>(racc + (warp * REP + g) * DH + 8 * i +
+      *reinterpret_cast<float2*>(racc + (warp * REP + g) * TL::DP + 8 * i +
                                  2 * t) = make_float2(o[i][0], o[i][1]);
     if (t == 0) {
       rml[(warp * REP + g) * 2] = m_run;
@@ -574,7 +595,7 @@ decode_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
   using TL = Tile<CT, DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* qsh = reinterpret_cast<float*>(smem + RING_BYTES);
-  float* psh = qsh + REP * DH;          // [NW][REP][STEP] weights
+  float* psh = qsh + REP * TL::DP;      // [NW][REP][STEP] weights
   __shared__ int last;
 
   const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
@@ -607,8 +628,11 @@ decode_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
   // the rep heads' queries as floats (the CUDA-core path's times scale *
   // log2(e); the tensor-core path scales its fp32 scores)
   const size_t head0 = (size_t)b * h + (size_t)kh * rep;
-  for (int l = tid; l < rep * DH; l += NT)
-    qsh[l] = to_f(q[head0 * DH + l]) * (MMA ? 1.f : scale2);
+  for (int l = tid; l < rep * TL::DP; l += NT) {
+    const int r = l / TL::DP, c = l % TL::DP;   // zero past the width
+    qsh[l] = c < DH ? to_f(q[(head0 + r) * DH + c]) * (MMA ? 1.f : scale2)
+                    : 0.f;
+  }
   if constexpr (MMA) {
     __syncthreads();    // the queries, before the A fragments
     stream_mma<CT, DH, REP>(smem, qsh, kb, vb, row_stride, n, n_stages, rep,
@@ -618,13 +642,14 @@ decode_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
                                   n_stages, rep);
   }
   __syncthreads();
-  float* racc = reinterpret_cast<float*>(smem);   // [NW][REP][DH]
-  float* rml = racc + NW * REP * DH;              // [NW][REP][2]
+  float* racc = reinterpret_cast<float*>(smem);   // [NW][REP][DP]
+  float* rml = racc + NW * REP * TL::DP;          // [NW][REP][2]
 
   const size_t pair = (size_t)b * hk + kh;
-  // the split's state, head r and columns 4 c .. 4 c + 3 a thread
-  for (int i = tid; i < rep * TL::C4; i += NT) {
-    const int r = i / TL::C4, c = i % TL::C4;
+  // the split's state, head r and columns 4 c .. 4 c + 3 a thread (the
+  // stored ones, c < DH / 4)
+  for (int i = tid; i < rep * TL::C4G; i += NT) {
+    const int r = i / TL::C4G, c = i % TL::C4G;
     float mx = -INFINITY;
 #pragma unroll
     for (int w = 0; w < NW; ++w) mx = fmaxf(mx, rml[(w * REP + r) * 2]);
@@ -637,7 +662,7 @@ decode_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
         const float f = exp2f(mw - mx);
         l += f * rml[(w * REP + r) * 2 + 1];
         const float4 x = *reinterpret_cast<const float4*>(
-            racc + (w * REP + r) * DH + c * 4);
+            racc + (w * REP + r) * TL::DP + c * 4);
         a[0] += f * x.x; a[1] += f * x.y; a[2] += f * x.z; a[3] += f * x.w;
       }
     }
@@ -665,8 +690,8 @@ decode_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
   __syncthreads();
   if (!last) return;
   __threadfence();      // the other splits' partials are visible
-  for (int i = tid; i < rep * TL::C4; i += NT) {
-    const int r = i / TL::C4, c = i % TL::C4;
+  for (int i = tid; i < rep * TL::C4G; i += NT) {
+    const int r = i / TL::C4G, c = i % TL::C4G;
     // split s_lo, head r: the active splits follow it
     const size_t p0 = (pair * n_split + s_lo) * rep + r;
     float mx = -INFINITY;
@@ -748,6 +773,7 @@ int by_dh(int dh, int rep, A... args) {
   switch (dh) {
     case 32: return by_rep<F, QT, CT, 32>(rep, args...);
     case 64: return by_rep<F, QT, CT, 64>(rep, args...);
+    case 112: return by_rep<F, QT, CT, 112>(rep, args...);
     case 128: return by_rep<F, QT, CT, 128>(rep, args...);
     case 256: return by_rep<F, QT, CT, 256>(rep, args...);
     default: return (int)cudaErrorInvalidValue;

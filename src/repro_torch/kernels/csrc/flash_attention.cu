@@ -41,17 +41,28 @@
 // path rounds its weights to bf16 there too); `chip_smoke.py` derives its
 // bar from it.
 //
-// fp32 (only the GPU tests reach it), `flash_kernel<float, DH>`: the
+// fp32 (only the GPU tests reach it), `flash_kernel<float, DK, DV>`: the
 // CUDA-core kernel, exact in fp32. One block per (64-row query tile, head,
 // batch) with 256 threads in a 16 x 16 grid; Q, K and V tiles of 64 rows
 // in shared memory, a thread owns 4 x 4 scores and 4 x dh / 16 outputs,
 // the 64 x 64 probability tile goes through shared memory.
 //
-// Head widths 32, 64, 128 and 256. At dh = 256 (gemma3-12b) the bf16 route
+// Head widths 32, 64, 112, 128 and 256, the value as wide as the key, and
+// one pair apart: a query/key width of 192 against a value width of 128
+// (deepseek-v3's MLA prefill in its expanded form: 128 + 64 rope columns
+// of q and k, 128 of v). Both routes are templates over the two widths
+// (DK, DV). At dh = 256 (gemma3-12b) the bf16 route
 // takes key tiles of 64 rows (Q 64 KB + two stages of K and V at 32 KB
 // each: 193 KB of the 227 KB a block has; 128-key tiles would need 321
 // KB), and each consumer holds its 64 x 256 fp32 O in 128 registers; the
-// fp32 route's Q, K, V and P tiles take 213 KB, one block an SM.
+// fp32 route's Q, K, V and P tiles take 213 KB, one block an SM. At (192,
+// 128) Q is 48 KB and a stage 48 KB of K and 32 KB of V: 128-key tiles fit
+// (209 KB). At dh = 112 (zamba2-7b) a row is staged 128 wide: the tensor
+// maps' inner extent is 112 and their boxes 64 columns, so TMA fills
+// columns 112..127 of the second chunk with zeros; Q K^T skips that
+// chunk's last 16-column step, P V computes its 16 columns and the
+// epilogue stores none of them. The fp32 route takes 112 as it is (7
+// columns a thread).
 //
 // Both routes: key tiles past the diagonal are never loaded, nor tiles
 // wholly before the window; heavier (later) query tiles are scheduled
@@ -85,26 +96,27 @@ __host__ __device__ constexpr int row_stride() {
   return DH + (sizeof(T) == 4 ? 1 : 2);
 }
 
-template <typename T, int DH>
+template <typename T, int DK, int DV>
 constexpr size_t smem_bytes() {
-  return (size_t)(BQ + BK) * row_stride<T, DH>() * sizeof(T)  // Q, K
-         + (size_t)BK * DH * sizeof(T)                         // V
+  return (size_t)(BQ + BK) * row_stride<T, DK>() * sizeof(T)  // Q, K
+         + (size_t)BK * DV * sizeof(T)                         // V
          + (size_t)BK * (BQ + 1) * sizeof(float);              // P
 }
 
-template <typename T, int DH>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int s, int skv,
              int h, int hk, float scale, int causal, int window) {
-  constexpr int RS = row_stride<T, DH>();
+  constexpr int RS = row_stride<T, DK>();
   constexpr int PS = BQ + 1;
-  constexpr int TD = DH / 16;   // output columns per thread
+  constexpr int TD = DV / 16;   // output columns per thread
+  static_assert(DV % 16 == 0, "16 lanes over the value columns");
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
   T* ks = qs + BQ * RS;
   T* vs = ks + BK * RS;
-  float* ps = reinterpret_cast<float*>(vs + BK * DH);
+  float* ps = reinterpret_cast<float*>(vs + BK * DV);
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -113,14 +125,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int head = blockIdx.y;
   const int b = blockIdx.z;
   const int kh = head / (h / hk);
-  const size_t q_row = (size_t)h * DH;    // elements between query rows
-  const size_t k_row = (size_t)hk * DH;
-  const T* qb = q + ((size_t)b * s * h + head) * DH;
-  const T* kb = k + ((size_t)b * skv * hk + kh) * DH;
-  const T* vb = v + ((size_t)b * skv * hk + kh) * DH;
+  const size_t q_row = (size_t)h * DK;    // elements between query rows
+  const size_t k_row = (size_t)hk * DK;
+  const size_t v_row = (size_t)hk * DV;
+  const T* qb = q + ((size_t)b * s * h + head) * DK;
+  const T* kb = k + ((size_t)b * skv * hk + kh) * DK;
+  const T* vb = v + ((size_t)b * skv * hk + kh) * DV;
 
-  for (int l = tid; l < BQ * DH; l += THREADS) {
-    const int r = l / DH, c = l % DH;
+  for (int l = tid; l < BQ * DK; l += THREADS) {
+    const int r = l / DK, c = l % DK;
     qs[r * RS + c] = (q0 + r < s) ? qb[(q0 + r) * q_row + c] : from_f<T>(0.f);
   }
 
@@ -138,11 +151,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (causal && window > 0) k_begin = max(0, q0 - window + 1) / BK * BK;
 
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    for (int l = tid; l < BK * DH; l += THREADS) {
-      const int r = l / DH, c = l % DH;
-      const bool in = k0 + r < skv;
-      ks[r * RS + c] = in ? kb[(k0 + r) * k_row + c] : from_f<T>(0.f);
-      vs[r * DH + c] = in ? vb[(k0 + r) * k_row + c] : from_f<T>(0.f);
+    for (int l = tid; l < BK * DK; l += THREADS) {
+      const int r = l / DK, c = l % DK;
+      ks[r * RS + c] =
+          k0 + r < skv ? kb[(k0 + r) * k_row + c] : from_f<T>(0.f);
+    }
+    for (int l = tid; l < BK * DV; l += THREADS) {
+      const int r = l / DV, c = l % DV;
+      vs[r * DV + c] =
+          k0 + r < skv ? vb[(k0 + r) * v_row + c] : from_f<T>(0.f);
     }
     __syncthreads();
 
@@ -153,7 +170,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < TN; ++j) sc[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
+    for (int d = 0; d < DK; ++d) {
       float a[TM], bk[TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i) a[i] = to_f(qs[(ty + 16 * i) * RS + d]);
@@ -212,7 +229,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < TM; ++i) p[i] = ps[kk * PS + ty + 16 * i];
 #pragma unroll
       for (int j = 0; j < TD; ++j) {
-        const float vv = to_f(vs[kk * DH + tx + 16 * j]);
+        const float vv = to_f(vs[kk * DV + tx + 16 * j]);
 #pragma unroll
         for (int i = 0; i < TM; ++i) acc[i][j] += p[i] * vv;
       }
@@ -225,50 +242,56 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= s) continue;
     const float inv = 1.f / fmaxf(lsum[i], 1e-30f);
-    T* o = out + (((size_t)b * s + qpos) * h + head) * DH;
+    T* o = out + (((size_t)b * s + qpos) * h + head) * DV;
 #pragma unroll
     for (int j = 0; j < TD; ++j) o[tx + 16 * j] = from_f<T>(acc[i][j] * inv);
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DK, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int s, int skv, int h, int hk, float scale, int causal,
            int window, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<T, DH>();
+  const size_t bytes = smem_bytes<T, DK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<T, DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((s + BQ - 1) / BQ, h, b);
-  flash_kernel<T, DH><<<grid, THREADS, bytes, stream>>>(
+  flash_kernel<T, DK, DV><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), s, skv, h, hk, scale,
       causal, window);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, void* out, int b,
-              int s, int skv, int h, int hk, int dh, float scale, int causal,
-              int window, cudaStream_t stream) {
-  switch (dh) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, b, s, skv, h, hk, scale, causal,
-                           window, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, b, s, skv, h, hk, scale, causal,
-                           window, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, b, s, skv, h, hk, scale, causal,
-                            window, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, out, b, s, skv, h, hk, scale, causal,
-                            window, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+// L<DK, DV>::run(args...) for the widths the kernels take: (dh, dh) at dh
+// in {32, 64, 112, 128, 256}, and (192, 128)
+template <template <int, int> class L, typename... A>
+int by_widths(int dk, int dv, A... args) {
+  if (dk == dv) {
+    switch (dk) {
+      case 32: return L<32, 32>::run(args...);
+      case 64: return L<64, 64>::run(args...);
+      case 112: return L<112, 112>::run(args...);
+      case 128: return L<128, 128>::run(args...);
+      case 256: return L<256, 256>::run(args...);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
+  if (dk == 192 && dv == 128) return L<192, 128>::run(args...);
+  return (int)cudaErrorInvalidValue;
 }
+
+template <int DK, int DV>
+struct LaunchF32 {
+  static int run(const void* q, const void* k, const void* v, void* out,
+                 int b, int s, int skv, int h, int hk, float scale,
+                 int causal, int window, cudaStream_t stream) {
+    return launch<float, DK, DV>(q, k, v, out, b, s, skv, h, hk, scale,
+                                 causal, window, stream);
+  }
+};
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (wgmma), TMA, warp-specialised
@@ -281,25 +304,37 @@ constexpr int STAGES = 2;      // K/V ring
 constexpr int THREADS = 384;   // warpgroups 0, 1 consume; 2 loads
 constexpr int CONSUMERS = 256;
 
-template <int DH>
+constexpr int SMEM_MAX = 232448;   // dynamic shared memory a block
+
+// DK: the query/key width, DV: the value width
+template <int DK, int DV>
 struct Cfg {
   // a row of a staged tile is cut into chunks of SWB bytes (the swizzle
   // width: 128, or 64 at dh = 32); chunk c of an R-row tile is R rows of
-  // SWB bytes at offset c * R * SWB
-  static constexpr int SWB = DH * 2 < 128 ? DH * 2 : 128;
-  static constexpr int SWE = SWB / 2;          // elements in a chunk row
-  static constexpr int NCH = DH / SWE;         // chunks in a row
+  // SWB bytes at offset c * R * SWB. A width that is no multiple of a
+  // chunk (112) ends in a chunk that TMA fills with zeros past the width.
+  static constexpr int SWB = DK * 2 < 128 ? DK * 2 : 128;
+  static_assert((DV * 2 < 128 ? DV * 2 : 128) == SWB,
+                "K and V tiles share one swizzle");
+  static constexpr int SWE = SWB / 2;               // elements in a chunk row
+  static constexpr int NCK = (DK + SWE - 1) / SWE;  // chunks in a Q or K row
+  static constexpr int NCV = (DV + SWE - 1) / SWE;  // chunks in a V or O row
   static constexpr int NO = SWE / 2;           // O floats a thread, a chunk
   static constexpr uint64_t LAYOUT = SWB == 128 ? 1 : 2;   // wgmma swizzle
-  // keys a tile: 128, or 64 at dh = 256, where two stages of 128-key K
-  // and V tiles (256 KB) and Q (64 KB) would pass the 227 KB a block has
-  static constexpr int BKV = DH == 256 ? 64 : 128;
-  static constexpr int NH = BKV / 64;          // 64-key halves of S a tile
-  static constexpr int Q_BYTES = BQ * DH * 2;
-  static constexpr int KV_BYTES = BKV * DH * 2;
+  static constexpr int Q_BYTES = BQ * NCK * SWB;
   static constexpr int BARS = 2 + 3 * STAGES;
+  static constexpr int KEY_BYTES = (NCK + NCV) * SWB;   // K and V, a key
+  // keys a tile: 128 where Q and two stages of 128-key K and V tiles fit
+  // the 227 KB a block has, else 64 (dh = 256: 321 KB at 128 keys)
+  static constexpr int BKV =
+      1024 + Q_BYTES + STAGES * 128 * KEY_BYTES + 8 * BARS <= SMEM_MAX ? 128
+                                                                      : 64;
+  static constexpr int NH = BKV / 64;          // 64-key halves of S a tile
+  static constexpr int K_BYTES = BKV * NCK * SWB;
+  static constexpr int V_BYTES = BKV * NCV * SWB;
   static constexpr size_t SMEM =
-      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARS;
+      1024 + Q_BYTES + (size_t)STAGES * BKV * KEY_BYTES + 8 * BARS;
+  static_assert(SMEM <= SMEM_MAX, "the tiles fit a block");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -344,12 +379,12 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 
 // wgmma shared-memory matrix descriptor: start address, leading and
 // stride byte offsets (16-byte units), swizzle mode
-template <int DH>
+template <class C>
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
                                               uint32_t sbo) {
   return (uint64_t)((addr >> 4) & 0x3FFF) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (Cfg<DH>::LAYOUT << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (C::LAYOUT << 62);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -432,11 +467,11 @@ struct Work {
 // the last (heaviest, under a causal mask) query tile first. Under a window
 // every tile past the first window's reads about as many key tiles, so the
 // order no longer follows the work; it is kept.
-template <int DH>
+template <class C>
 __device__ __forceinline__ Work work_item(int w, int q_tiles, int batch,
                                           int s, int skv, int h, int hk,
                                           int causal, int window) {
-  constexpr int BKV = Cfg<DH>::BKV;
+  constexpr int BKV = C::BKV;
   Work t;
   const int z = w / (h * batch), rem = w % (h * batch);
   t.head = rem % h;
@@ -450,7 +485,7 @@ __device__ __forceinline__ Work work_item(int w, int q_tiles, int batch,
   return t;
 }
 
-template <int DH>
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
@@ -458,14 +493,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 __nv_bfloat16* __restrict__ out, int s, int skv, int h,
                 int hk, float scale_log2, int causal, int window, int batch,
                 int q_tiles, int items) {
-  using C = Cfg<DH>;
+  using C = Cfg<DK, DV>;
   constexpr int BKV = C::BKV;
   extern __shared__ unsigned char smem_raw[];
   // tiles start on 1024 bytes, the period of the 128-byte swizzle
   const uint32_t qs = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t ks = qs + C::Q_BYTES;              // stage st: + st KV_BYTES
-  const uint32_t vs = ks + STAGES * C::KV_BYTES;
-  const uint32_t bars = vs + STAGES * C::KV_BYTES;
+  const uint32_t ks = qs + C::Q_BYTES;              // stage st: + st K_BYTES
+  const uint32_t vs = ks + STAGES * C::K_BYTES;     // stage st: + st V_BYTES
+  const uint32_t bars = vs + STAGES * C::V_BYTES;
   const uint32_t q_full = bars;
   const uint32_t q_empty = bars + 8;
   auto k_full = [&](int st) { return bars + 8 * (2 + st); };
@@ -494,28 +529,28 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       int it = 0;
       for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
         const Work t =
-            work_item<DH>(w, q_tiles, batch, s, skv, h, hk, causal,
-                          window);
+            work_item<C>(w, q_tiles, batch, s, skv, h, hk, causal,
+                         window);
         mbar_wait(q_empty, (n & 1) ^ 1);   // the last item's Q is read
         mbar_expect_tx(q_full, C::Q_BYTES);
 #pragma unroll
-        for (int c = 0; c < C::NCH; ++c)
+        for (int c = 0; c < C::NCK; ++c)
           tma_load(qs + c * BQ * C::SWB, &tm_q, q_full, c * C::SWE, t.head,
                    t.q0, t.b);
         for (int i = 0; i < t.tiles; ++i, ++it) {
           const int st = it % STAGES;
           mbar_wait(empty(st), ((it / STAGES) & 1) ^ 1);   // round 0 passes
           const int k0 = t.k_begin + i * BKV;
-          const uint32_t kt = ks + st * C::KV_BYTES;
-          const uint32_t vt = vs + st * C::KV_BYTES;
-          mbar_expect_tx(k_full(st), C::KV_BYTES);
+          const uint32_t kt = ks + st * C::K_BYTES;
+          const uint32_t vt = vs + st * C::V_BYTES;
+          mbar_expect_tx(k_full(st), C::K_BYTES);
 #pragma unroll
-          for (int c = 0; c < C::NCH; ++c)
+          for (int c = 0; c < C::NCK; ++c)
             tma_load(kt + c * BKV * C::SWB, &tm_k, k_full(st), c * C::SWE,
                      t.kh, k0, t.b);
-          mbar_expect_tx(v_full(st), C::KV_BYTES);
+          mbar_expect_tx(v_full(st), C::V_BYTES);
 #pragma unroll
-          for (int c = 0; c < C::NCH; ++c)
+          for (int c = 0; c < C::NCV; ++c)
             tma_load(vt + c * BKV * C::SWB, &tm_v, v_full(st), c * C::SWE,
                      t.kh, k0, t.b);
         }
@@ -532,14 +567,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     int it = 0;
     for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
       const Work t =
-          work_item<DH>(w, q_tiles, batch, s, skv, h, hk, causal, window);
+          work_item<C>(w, q_tiles, batch, s, skv, h, hk, causal, window);
       const int row_lo =
           t.q0 + wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
       const int first = t.q0 + wg * 64, last = first + 63;
 
-      float o[C::NCH][C::NO];
+      float o[C::NCV][C::NO];
 #pragma unroll
-      for (int c = 0; c < C::NCH; ++c)
+      for (int c = 0; c < C::NCV; ++c)
 #pragma unroll
         for (int i = 0; i < C::NO; ++i) o[c][i] = 0.f;
       float m[2] = {-INFINITY, -INFINITY};
@@ -550,8 +585,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int st = it % STAGES;
         const uint32_t par = (it / STAGES) & 1;
         const int k0 = t.k_begin + i * BKV;
-        const uint32_t kt = ks + st * C::KV_BYTES;
-        const uint32_t vt = vs + st * C::KV_BYTES;
+        const uint32_t kt = ks + st * C::K_BYTES;
+        const uint32_t vt = vs + st * C::V_BYTES;
 
         // S = Q K^T: keys 0..63 of the tile in sc[0], 64..127 in sc[1]
         float sc[C::NH][32];
@@ -564,17 +599,19 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int hh = 0; hh < C::NH; ++hh) pin(sc[hh]);
         wg_fence();
 #pragma unroll
-        for (int c = 0; c < C::NCH; ++c)
+        for (int c = 0; c < C::NCK; ++c)
 #pragma unroll
           for (int kq = 0; kq < C::SWE / 16; ++kq) {
+            // the zero-filled columns past DK add nothing: skipped
+            if (c * C::SWE + kq * 16 >= DK) continue;
             const uint64_t da =
-                gmma_desc<DH>(qa + c * BQ * C::SWB + kq * 32, 16, SBO);
+                gmma_desc<C>(qa + c * BQ * C::SWB + kq * 32, 16, SBO);
 #pragma unroll
             for (int hh = 0; hh < C::NH; ++hh)
               mma_ss_n64(sc[hh], da,
-                         gmma_desc<DH>(kt + c * BKV * C::SWB +
-                                           hh * 64 * C::SWB + kq * 32,
-                                       16, SBO),
+                         gmma_desc<C>(kt + c * BKV * C::SWB +
+                                          hh * 64 * C::SWB + kq * 32,
+                                      16, SBO),
                          (c | kq) != 0);
           }
         wg_commit();
@@ -622,7 +659,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
           l[r2] *= corr[r2];
         }
 #pragma unroll
-        for (int c = 0; c < C::NCH; ++c)
+        for (int c = 0; c < C::NCV; ++c)
 #pragma unroll
           for (int j = 0; j < C::NO; ++j) o[c][j] *= corr[(j / 2) % 2];
 
@@ -643,19 +680,19 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         // O += P V
         mbar_wait(v_full(st), par);
 #pragma unroll
-        for (int c = 0; c < C::NCH; ++c) pin(o[c]);
+        for (int c = 0; c < C::NCV; ++c) pin(o[c]);
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < BKV / 16; ++kk)
 #pragma unroll
-          for (int c = 0; c < C::NCH; ++c)
+          for (int c = 0; c < C::NCV; ++c)
             mma_rs(o[c], p[kk],
-                   gmma_desc<DH>(vt + c * BKV * C::SWB + kk * 16 * C::SWB,
-                                 SBO, SBO));
+                   gmma_desc<C>(vt + c * BKV * C::SWB + kk * 16 * C::SWB,
+                                SBO, SBO));
         wg_commit();
         wg_wait0();
 #pragma unroll
-        for (int c = 0; c < C::NCH; ++c) pin(o[c]);
+        for (int c = 0; c < C::NCV; ++c) pin(o[c]);
         mbar_arrive(empty(st));
       }
       // Q is no longer read: the producer may load the next item's
@@ -669,15 +706,16 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (row >= s) continue;
         const float inv = 1.f / fmaxf(l[r2], 1e-30f);
         __nv_bfloat16* dst =
-            out + (((size_t)t.b * s + row) * h + t.head) * DH;
+            out + (((size_t)t.b * s + row) * h + t.head) * DV;
 #pragma unroll
-        for (int c = 0; c < C::NCH; ++c)
+        for (int c = 0; c < C::NCV; ++c)
 #pragma unroll
           for (int j = 0; j < C::NO / 4; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(dst + c * C::SWE + 8 * j +
-                                               cq) =
-                __floats2bfloat162_rn(o[c][4 * j + 2 * r2] * inv,
-                                      o[c][4 * j + 2 * r2 + 1] * inv);
+            if (c * C::SWE + 8 * j < DV)    // none past the value width
+              *reinterpret_cast<__nv_bfloat162*>(dst + c * C::SWE + 8 * j +
+                                                 cq) =
+                  __floats2bfloat162_rn(o[c][4 * j + 2 * r2] * inv,
+                                        o[c][4 * j + 2 * r2 + 1] * inv);
       }
     }
   }
@@ -710,16 +748,16 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a (B, S, heads, dh) bf16 tensor, boxes of `rows` rows x one chunk
-template <int DH>
+// a (B, S, heads, width) bf16 tensor, boxes of `rows` rows x one chunk of
+// C's swizzle (past `width`, TMA fills the box with zeros)
+template <class C>
 bool make_map(CUtensorMap* map, const void* ptr, int b, int s, int heads,
-              int rows) {
-  using C = Cfg<DH>;
-  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)heads,
+              int width, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads,
                               (cuuint64_t)s, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)DH * 2,
-                                 (cuuint64_t)heads * DH * 2,
-                                 (cuuint64_t)s * heads * DH * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)width * 2,
+                                 (cuuint64_t)heads * width * 2,
+                                 (cuuint64_t)s * heads * width * 2};
   const cuuint32_t box[4] = {(cuuint32_t)C::SWE, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
@@ -731,78 +769,61 @@ bool make_map(CUtensorMap* map, const void* ptr, int b, int s, int heads,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DH>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int s, int skv, int h, int hk, float scale, int causal,
-           int window, cudaStream_t stream) {
-  using C = Cfg<DH>;
-  if (encoder() == nullptr) return (int)cudaErrorNotSupported;
-  CUtensorMap tq, tk, tv;
-  if (!make_map<DH>(&tq, q, b, s, h, BQ) ||
-      !make_map<DH>(&tk, k, b, skv, hk, C::BKV) ||
-      !make_map<DH>(&tv, v, b, skv, hk, C::BKV))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)C::SMEM);
-  if (err != cudaSuccess) return (int)err;
-  // persistent: one block per SM walks the work items
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int q_tiles = (s + BQ - 1) / BQ;
-  const int items = q_tiles * h * b;
-  flash_tc_kernel<DH><<<min(items, sms), THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), s, skv, h, hk,
-      scale * 1.4426950408889634f, causal, window, b, q_tiles, items);
-  return (int)cudaGetLastError();
-}
-
-int launch_dh(const void* q, const void* k, const void* v, void* out, int b,
-              int s, int skv, int h, int hk, int dh, float scale, int causal,
-              int window, cudaStream_t stream) {
-  switch (dh) {
-    case 32:
-      return launch<32>(q, k, v, out, b, s, skv, h, hk, scale, causal,
-                        window, stream);
-    case 64:
-      return launch<64>(q, k, v, out, b, s, skv, h, hk, scale, causal,
-                        window, stream);
-    case 128:
-      return launch<128>(q, k, v, out, b, s, skv, h, hk, scale, causal,
-                         window, stream);
-    case 256:
-      return launch<256>(q, k, v, out, b, s, skv, h, hk, scale, causal,
-                         window, stream);
-    default:
+template <int DK, int DV>
+struct Launch {
+  static int run(const void* q, const void* k, const void* v, void* out,
+                 int b, int s, int skv, int h, int hk, float scale,
+                 int causal, int window, cudaStream_t stream) {
+    using C = Cfg<DK, DV>;
+    if (encoder() == nullptr) return (int)cudaErrorNotSupported;
+    CUtensorMap tq, tk, tv;
+    if (!make_map<C>(&tq, q, b, s, h, DK, BQ) ||
+        !make_map<C>(&tk, k, b, skv, hk, DK, C::BKV) ||
+        !make_map<C>(&tv, v, b, skv, hk, DV, C::BKV))
       return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_tc_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)C::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    // persistent: one block per SM walks the work items
+    static int sms = 0;
+    if (sms == 0) {
+      int dev = 0;
+      err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const int q_tiles = (s + BQ - 1) / BQ;
+    const int items = q_tiles * h * b;
+    flash_tc_kernel<DK, DV><<<min(items, sms), THREADS, C::SMEM, stream>>>(
+        tq, tk, tv, static_cast<__nv_bfloat16*>(out), s, skv, h, hk,
+        scale * 1.4426950408889634f, causal, window, b, q_tiles, items);
+    return (int)cudaGetLastError();
   }
-}
+};
 
 }  // namespace tc
 
 }  // namespace
 
-// q: (B, S, H, dh), k/v: (B, S_kv, Hk, dh), out: (B, S, H, dh),
-// contiguous; S_kv != S only without the causal mask (cross-attention);
-// dtype 0 = fp32 (CUDA cores), 1 = bf16 (tensor cores); window <= 0
-// disables the window.
+// q: (B, S, H, dk), k: (B, S_kv, Hk, dk), v: (B, S_kv, Hk, dv), out: (B,
+// S, H, dv), contiguous; (dk, dv) one of (dh, dh) at dh in {32, 64, 112,
+// 128, 256} and (192, 128); S_kv != S only without the causal mask
+// (cross-attention); dtype 0 = fp32 (CUDA cores), 1 = bf16 (tensor
+// cores); window <= 0 disables the window.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int b, int s,
-                                      int s_kv, int h, int hk, int dh,
+                                      int s_kv, int h, int hk, int dk, int dv,
                                       int dtype, float scale, int causal,
                                       int window, cudaStream_t stream) {
   if (causal && s_kv != s) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_dh<float>(q, k, v, out, b, s, s_kv, h, hk, dh, scale,
-                            causal, window, stream);
+    return by_widths<LaunchF32>(dk, dv, q, k, v, out, b, s, s_kv, h, hk,
+                                scale, causal, window, stream);
   if (dtype == 1)
-    return tc::launch_dh(q, k, v, out, b, s, s_kv, h, hk, dh, scale, causal,
-                         window, stream);
+    return by_widths<tc::Launch>(dk, dv, q, k, v, out, b, s, s_kv, h, hk,
+                                 scale, causal, window, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,6 +8,9 @@ is never copied. It takes any T; `ops.decode_attention` keeps the JAX
 contract that T is a multiple of 256, and the model calls this wrapper
 directly over its cache of `max_len` rows.
 
+Head widths 32, 64, 112, 128 and 256; 112 (zamba2-7b) is staged 128
+wide in shared memory, the cache read at its own width.
+
 One launch a call: a block per (b, KV head, split) streams its split's
 rows through a ring of shared-memory stages, and the last split of each
 (b, KV head) to finish merges the splits' partials. `split_plan` chooses
@@ -26,7 +29,7 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.retrieve_topn import H100_SMS, _sm_count
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 256)
 MAX_REP = 8     # query heads per KV head that one block computes
 #: the kernel's stage: K and V rows of STAGE_BYTES in all
 #: (`csrc/decode_attention.cu`: STAGE_BYTES, Tile::ROWS)
@@ -46,9 +49,15 @@ WAVES, MIN_STAGES = 4, 4
 _ARRIVALS: Dict[int, List[torch.Tensor]] = {}
 
 
+def staged_width(dh: int) -> int:
+    """The width a cache row is staged at: the next power of two (112 ->
+    128; `csrc/decode_attention.cu:staged`)."""
+    return 1 << max(dh - 1, 1).bit_length()
+
+
 def stage_rows(dh: int, itemsize: int) -> int:
     """Cache rows a stage holds, of K and of V."""
-    return STAGE_BYTES // (2 * dh * itemsize)
+    return STAGE_BYTES // (2 * staged_width(dh) * itemsize)
 
 
 def split_plan(b: int, t: int, hk: int, dh: int, itemsize: int,

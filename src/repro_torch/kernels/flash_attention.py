@@ -3,8 +3,12 @@
 and its wrapper.
 
 The kernel takes any S (the ragged tail is masked) and head widths
-dh in {32, 64, 128, 256} (256: gemma3-12b; key tiles of 64 rows on the
-tensor cores); `ops.flash_attention` keeps the JAX contract that S
+dh in {32, 64, 112, 128, 256} (256: gemma3-12b; key tiles of 64 rows on
+the tensor cores; 112: zamba2-7b, staged 128 wide with TMA's zero fill),
+and one value width apart from the query/key width: (192, 128), the
+expanded form of deepseek-v3's MLA prefill (the TPU kernel takes one
+width; the JAX model computes MLA in jnp `attend`). `ops.flash_attention`
+keeps the JAX contract that S
 is a multiple of 128 (one S for q and k/v), and the model calls this
 wrapper directly, with its prompt's own length. Without the causal mask
 the keys may number S_kv != S: the cross-attention of an encoder-decoder
@@ -22,15 +26,19 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 256)
+#: (query/key width, value width) pairs: every (dh, dh), and MLA's
+WIDTHS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, S, H, dh); k/v: (B, S_kv, Hk, dh), H a multiple of Hk, S_kv
-    = S under the causal mask; fp32 or bf16, all one type. `window` > 0
-    keeps keys with kpos > qpos - window; `scale` defaults to dh ** -0.5. Returns (B, S, H, dh) in q's type.
+    """q: (B, S, H, dk); k: (B, S_kv, Hk, dk); v: (B, S_kv, Hk, dv), H a
+    multiple of Hk, S_kv = S under the causal mask, (dk, dv) one of
+    WIDTHS; fp32 or bf16, all one type. `window` > 0 keeps keys with kpos
+    > qpos - window; `scale` defaults to dk ** -0.5. Returns (B, S, H, dv)
+    in q's type.
 
     CUDA tensors launch the kernel; CPU tensors take the plain version
     (`ref.flash_attention_ref`)."""
@@ -41,35 +49,37 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_cuda: q on {q.device}, k on "
                          f"{k.device}, v on {v.device}; all must be on one "
                          "CUDA device")
-    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
+    if q.ndim != 4 or k.ndim != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"flash_attention_cuda: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)} are not "
-                         "(B,S,H,dh), (B,S_kv,Hk,dh), (B,S_kv,Hk,dh)")
-    b, s, h, dh = q.shape
-    s_kv, hk = k.shape[1], k.shape[2]
-    if k.shape[0] != b or k.shape[3] != dh or h % hk != 0:
+                         "(B,S,H,dk), (B,S_kv,Hk,dk), (B,S_kv,Hk,dv)")
+    b, s, h, dk = q.shape
+    s_kv, hk, dv = k.shape[1], k.shape[2], v.shape[3]
+    if k.shape[0] != b or k.shape[3] != dk or h % hk != 0:
         raise ValueError(f"flash_attention_cuda: q {tuple(q.shape)} and "
-                         f"k/v {tuple(k.shape)} do not match")
+                         f"k {tuple(k.shape)} do not match")
     if causal and s_kv != s:
         raise ValueError(f"flash_attention_cuda: {s} queries against "
                          f"{s_kv} keys under the causal mask; a separate "
                          "key length is taken without it only")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head width {dh}; the "
-                         f"kernel takes {HEAD_DIMS}")
+    if (dk, dv) not in WIDTHS:
+        raise ValueError(f"flash_attention_cuda: head widths {dk} "
+                         f"(query/key) and {dv} (value); the kernel takes "
+                         f"{WIDTHS}")
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"flash_attention_cuda: q, k, v of types "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     code = _build.dtype_code(q.dtype)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
+    out = q.new_empty((b, s, h, dv))
     if out.numel() == 0:
         return out
     lib = _build.library("flash_attention")
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-        s_kv, h, hk, dh, code, float(dh ** -0.5 if scale is None else scale),
-        int(causal), int(window), _build.stream_handle(q.device))
+        s_kv, h, hk, dk, dv, code,
+        float(dk ** -0.5 if scale is None else scale), int(causal),
+        int(window), _build.stream_handle(q.device))
     _build.check(err, "flash_attention_cuda")
     _build.count_launch("flash_attention")
     return out

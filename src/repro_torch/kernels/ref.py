@@ -378,10 +378,10 @@ def _repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
-    """q: (B,S,H,dh), k/v: (B,T,Hk,dh). fp32 softmax; causal masks are
-    bottom-right aligned; `window` > 0 keeps the last `window` keys of
-    each row. `scale` defaults to dh ** -0.5. Returns (B,S,H,dh) in q's
-    type. A row with no key left is NaN (softmax of all -inf)."""
+    """q: (B,S,H,dk), k: (B,T,Hk,dk), v: (B,T,Hk,dv). fp32 softmax; causal
+    masks are bottom-right aligned; `window` > 0 keeps the last `window`
+    keys of each row. `scale` defaults to dk ** -0.5. Returns (B,S,H,dv)
+    in q's type. A row with no key left is NaN (softmax of all -inf)."""
     b, s, h, dh = q.shape
     t, hk = k.shape[1], k.shape[2]
     rep = h // hk

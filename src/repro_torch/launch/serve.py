@@ -11,9 +11,9 @@ A port of the JAX package's `launch/serve.py`, with the same CLI and
 defaults. The default fleet is `ARCH_IDS[:4]`: whisper-large-v3 (encdec),
 olmo-1b, mamba2-780m (ssm) and qwen3-8b; `--fleet 5` adds phi3.5-moe
 (moe), `--fleet 6` internlm2-20b (dense), `--fleet 7` gemma3-12b (dense,
-local:global windows) and `--fleet 8` llava-next-mistral-7b (vlm); from
-9 on `check_supported` raises, naming the ROADMAP item that queues
-zamba2-7b (hybrid). `--db-shards N`
+local:global windows), `--fleet 8` llava-next-mistral-7b (vlm), `--fleet
+9` zamba2-7b (hybrid) and `--fleet 10` deepseek-v3-671b (moe with MLA):
+every model of ARCH_IDS. `--db-shards N`
 splits the routing DB's capacity over the first N cards (a
 `launch.mesh.DbMesh`), `--prebake` prepares the next capacity's
 replicas and route graphs before the DB grows. `--serve-obs PORT` enables spans and events and

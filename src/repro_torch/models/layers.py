@@ -10,6 +10,9 @@ a contiguous cache, bidirectional attention, and cross-attention
 layout (`transformer.py`): projections as 2-D matrices, already in the
 compute type.
 
+`apply_mla` is deepseek-v3's multi-head latent attention
+(`init_mla` / `apply_mla` of the JAX module), in both its forms (below).
+
 On CUDA tensors `apply_attention` runs its attention through the
 hand-written kernels:
   * causal prefill (cache_index 0: the S in-flight keys, with the
@@ -29,7 +32,12 @@ bidirectional attention among them: the JAX model sets none there). On
 CPU tensors, or with
 backend="reference", it runs the plain `attend` over the cache exactly as
 the JAX package does: that is what the CPU tests hold against JAX, and
-what the card's check holds the kernels against.
+what the card's check holds the kernels against. `apply_mla`'s expanded
+form (a prefill from index 0, or a call without a cache) runs through
+`flash_attention_cuda` with a query/key width of qk_nope + qk_rope (192)
+against a value width of v_head (128); its absorbed form (one token
+against the latent cache) is plain PyTorch on the card too, as it is jnp
+in the JAX package (no TPU kernel computes it; ROADMAP §3.4).
 """
 from __future__ import annotations
 
@@ -51,8 +59,10 @@ BACKENDS = ("cuda", "reference")
 def normal(gen: torch.Generator, shape, scale: float, dtype):
     """A parameter of N(0, scale^2) values in `dtype`, drawn on the
     generator's device (the JAX package's `jax.random.normal * scale`)."""
-    return (torch.randn(shape, generator=gen, device=gen.device)
-            * scale).to(dtype)
+    # scaled in place: a draw holds one fp32 copy (an expert stack of
+    # deepseek-v3 is 15 GB in fp32)
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(
+        scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -320,3 +330,137 @@ def apply_attention(cfg: ModelConfig, params, x, positions, *, theta,
         out = attend(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                      positions, kv_pos, window=window, causal=causal)
     return out.reshape(b, s, h * hd) @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (deepseek-v3)
+# ---------------------------------------------------------------------------
+# The cache holds the latent c_kv (kv_lora_rank) and the shared rope key
+# k_rope (qk_rope_dim) of each position. Prefill runs the expanded form:
+# K and V expanded from the latent per head, the attention of width
+# qk_nope + qk_rope against a value width of v_head. A one-token decode
+# runs the absorbed form: W_uk folded into the query and W_uv into the
+# output, the scores taken in the latent space, so the cache is never
+# expanded.
+
+def init_mla(cfg: ModelConfig, gen: torch.Generator, dtype):
+    """Random MLA parameters with the JAX package's shapes and scales:
+    w_dq (d, r_q), q_norm (r_q,), w_uq (r_q, H, dn + dr), w_dkv (d, r_kv),
+    kv_norm (r_kv,), w_kr (d, dr), w_uk (r_kv, H, dn), w_uv (r_kv, H,
+    dv), and wo flattened to (H * dv, d) as the other attention's."""
+    d, h = cfg.d_model, cfg.n_heads
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    ones = lambda n: torch.ones((n,), dtype=dtype, device=gen.device)
+    s = d ** -0.5
+    return {
+        "w_dq": normal(gen, (d, r_q), s, dtype),
+        "q_norm": ones(r_q),
+        "w_uq": normal(gen, (r_q, h, dn + dr), r_q ** -0.5, dtype),
+        "w_dkv": normal(gen, (d, r_kv), s, dtype),
+        "kv_norm": ones(r_kv),
+        "w_kr": normal(gen, (d, dr), s, dtype),
+        "w_uk": normal(gen, (r_kv, h, dn), r_kv ** -0.5, dtype),
+        "w_uv": normal(gen, (r_kv, h, dv), r_kv ** -0.5, dtype),
+        "wo": normal(gen, (h * dv, d), (h * dv) ** -0.5, dtype),
+    }
+
+
+def _mla_norm(x, scale, eps: float = 1e-6):
+    """RMS norm of the latents, in fp32, as the JAX `_mla_norm`."""
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def _dotf32(spec: str, a, b):
+    """An einsum over fp32 copies of its operands: fp32 products and sums
+    whatever their type (the JAX `_dotf32` on the CPU)."""
+    return torch.einsum(spec, a.float(), b.float())
+
+
+def apply_mla(cfg: ModelConfig, params, x, positions, *, theta,
+              cache=None, cache_index=0, backend: str = "cuda",
+              tables=None):
+    """MLA. x: (B,S,d); positions: (B,S); tables: rope_tables(positions,
+    qk_rope_dim, theta) when the caller has them. cache: None, or
+    dict(c_kv (B,T,r_kv), k_rope (B,T,dr)) of one layer, into which this
+    call writes its S new latents and rope keys at `cache_index` IN PLACE
+    (a Python int, or for one token a (1,) int64 device tensor). One token
+    with a cache takes the absorbed form, any other call the expanded one
+    (module notes above). Returns (B,S,d)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, "
+                         f"got {backend!r}")
+    p = params
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    scale = (dn + dr) ** -0.5
+    if tables is None:
+        tables = rope_tables(positions, dr, theta)
+
+    cq = _mla_norm(x @ p["w_dq"], p["q_norm"])
+    q = torch.einsum("bsr,rhk->bshk", cq, p["w_uq"])
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], positions, theta, tables)
+    c_kv = _mla_norm(x @ p["w_dkv"], p["kv_norm"])
+    k_r = apply_rope(x @ p["w_kr"], positions, theta, tables)
+
+    if cache is not None:
+        if isinstance(cache_index, torch.Tensor):
+            if s != 1:
+                raise ValueError(f"apply_mla: {s} new tokens at a device "
+                                 "index; it takes one")
+            cache["c_kv"].index_copy_(1, cache_index,
+                                      c_kv.to(cache["c_kv"].dtype))
+            cache["k_rope"].index_copy_(1, cache_index,
+                                        k_r.to(cache["k_rope"].dtype))
+        else:
+            cache["c_kv"][:, cache_index:cache_index + s] = c_kv
+            cache["k_rope"][:, cache_index:cache_index + s] = k_r
+        t = cache["c_kv"].shape[1]
+        kv_pos = torch.arange(t, device=x.device).expand(b, t)
+        c_use = cache["c_kv"].to(x.dtype)
+        r_use = cache["k_rope"].to(x.dtype)
+    else:
+        kv_pos = positions
+        c_use, r_use = c_kv, k_r
+
+    if s == 1 and cache is not None:
+        # absorbed: scores in the latent space, never the expanded cache
+        q_lat = _dotf32("bshk,rhk->bshr", q_nope, p["w_uk"]).to(x.dtype)
+        scores = (_dotf32("bshr,btr->bhst", q_lat, c_use)
+                  + _dotf32("bshk,btk->bhst", q_rope, r_use)) * scale
+        mask = (kv_pos[:, None, :] <= positions[:, :, None])[:, None]
+        scores = torch.where(mask, scores,
+                             torch.full_like(scores, _MASKED))
+        w = torch.softmax(scores, dim=-1)
+        o_lat = _dotf32("bhst,btr->bshr", w.to(x.dtype), c_use)
+        out = _dotf32("bshr,rhv->bshv", o_lat.to(x.dtype),
+                      p["w_uv"]).to(x.dtype)
+    else:
+        on_card = x.is_cuda and backend == "cuda"
+        if on_card and cache is not None:
+            if isinstance(cache_index, torch.Tensor) or cache_index != 0:
+                raise NotImplementedError(
+                    f"MLA on CUDA: {s} new tokens at cache index "
+                    f"{cache_index}; the kernels cover a prefill from "
+                    "index 0 and a one-token decode")
+            # the S in-flight rows are every key a causal prefill reads:
+            # the rest of the cache is masked
+            c_use, r_use = c_use[:, :s], r_use[:, :s]
+        t = c_use.shape[1]
+        k_nope = torch.einsum("btr,rhk->bthk", c_use, p["w_uk"])
+        vv = torch.einsum("btr,rhv->bthv", c_use, p["w_uv"])
+        k_full = torch.cat([k_nope, r_use[:, :, None, :].expand(
+            b, t, h, dr)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        if on_card:
+            # q scaled in its own type first, as attend does
+            out = flash_attention_cuda(_scale_q(q_full), k_full, vv,
+                                       causal=True, scale=1.0)
+        else:
+            # attend scales by (dn + dr) ** -0.5, the width of q_full
+            out = attend(q_full, k_full, vv, positions, kv_pos)
+    return out.reshape(b, s, -1) @ p["wo"]

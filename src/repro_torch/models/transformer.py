@@ -1,7 +1,7 @@
 """Model assembly for the serving path: parameters, the decode cache,
 forward, prefill and decode_step.
 
-A port of the JAX package's `models/transformer.py` for five families:
+A port of the JAX package's `models/transformer.py` for its six families:
 
   dense                   embed -> blocks(L) -> norm -> head; gemma3's
                           local:global stacks among them (local layers:
@@ -10,10 +10,14 @@ A port of the JAX package's `models/transformer.py` for five families:
   vlm (llava)             the dense stack over stub image embeddings
                           prepended to the embedded text, positions
                           0..N-1 for the image rows, N.. for the text
-  moe (phi3.5-moe)        embed -> blocks(L) -> norm -> head, each block's
-                          FFN dense below first_k_dense and a mixture of
-                          experts from there on (models/moe.py)
+  moe (phi3.5-moe,        embed -> blocks(L) -> norm -> head, each block's
+  deepseek-v3)            FFN dense below first_k_dense and a mixture of
+                          experts from there on (models/moe.py);
+                          deepseek's attention is MLA (layers.apply_mla)
   ssm (mamba2)            embed -> ssm blocks(L) -> norm -> head
+  hybrid (zamba2)         embed -> G groups of [(period - 1) ssm blocks +
+                          the one weight-SHARED attention block] -> an ssm
+                          tail -> norm -> head
   encdec (whisper)        enc blocks(Le, bidirectional) over stub frame
                           embeddings -> dec blocks(L) with
                           cross-attention; sinusoidal absolute positions
@@ -24,15 +28,22 @@ Where it differs:
   * each layer stack is a Python loop over a list of per-layer parameter
     dicts (the JAX package scans stacked (L, ...) leaves; its moe family
     keeps two stacks, dense_blocks and moe_blocks, which the port's one
-    list holds in that order);
+    list holds in that order; the hybrid family's groups are a list of
+    per-group lists, and its shared block one dict that every group
+    applies);
   * the cache is preallocated and written IN PLACE by prefill and
     decode_step, which return it; the JAX functions return a new cache.
     Dense and moe: one (L, B, max_len, Hk, hd) buffer for K and one for
-    V (the JAX moe cache splits it into kv_dense and kv_moe).
+    V (the JAX moe cache splits it into kv_dense and kv_moe); with MLA
+    c_kv (L, B, max_len, kv_lora_rank) and k_rope (L, B, max_len,
+    qk_rope_dim) in their place.
     encdec: the same, and "cross": {k, v} of (L, B, n_audio_frames, Hk,
     hd), filled at prefill from the encoder's output. ssm: the JAX
     package's fp32 decode state, conv_x / conv_B / conv_C (L, B, k-1, C)
-    and ssm (L, B, H, P, N);
+    and ssm (L, B, H, P, N). hybrid: "ssm", that state for every mamba2
+    block in order (the groups' then the tail's: the JAX package's
+    groups_ssm (G, per, ...) and tail_ssm stacked into one), and "attn":
+    {k, v} of (G, B, max_len, Hk, hd), one buffer a group;
   * `cast_params` casts the parameters to the compute type once, at load,
     where the JAX layers cast at each use (`_cast`): the values are the
     same, and a decode step then reads the weights once in bf16 instead
@@ -42,12 +53,13 @@ Where it differs:
     full-width model never exists in fp32 whole;
   * forward does not return the MoE auxiliary loss (serving ignores it;
     `moe.apply_moe` returns it);
+  * parameters hold no multi-token-prediction head (deepseek-v3's "mtp"):
+    only the JAX package's training loss reads it;
   * prefill computes the logits of the last position only: the JAX
     prefill keeps row -1 of the full (B, S, V) panel, the same row.
 
-The hybrid family, MLA (deepseek-v3, whose MoE runs here) and the
-dry-run's ring cache for local layers (`window_cache`) raise
-NotImplementedError naming the item of ROADMAP §2 that queues them.
+The dry-run's ring cache for local layers (`window_cache`) raises
+NotImplementedError naming the item of ROADMAP §2 that queues it.
 
 decode_step takes its position as a Python int or as a (1,) int64
 tensor on the device: the positions, the valid cache length and the
@@ -71,10 +83,11 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 
-#: the architecture families this port runs
-FAMILIES = ("dense", "moe", "ssm", "encdec", "vlm")
-#: the item of ROADMAP §2.6 each other family waits for
-QUEUED = {"hybrid": "item 5 (zamba2-7b)"}
+#: the architecture families this port runs: every family of the JAX
+#: package
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+#: the item of ROADMAP §2.6 each other family waits for: none is left
+QUEUED: Dict[str, str] = {}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -86,18 +99,28 @@ def check_supported(cfg: ModelConfig) -> None:
     run; it never falls back on another path."""
     if cfg.arch_type not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet "
+            f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported "
             f"(ROADMAP §2.6, {QUEUED.get(cfg.arch_type, 'not queued')})")
-    if cfg.attn_kind != "full":
-        raise NotImplementedError(
-            f"{cfg.name}: attention {cfg.attn_kind!r} is not ported yet "
-            "(ROADMAP §2.6, item 6: deepseek-v3-671b's MLA)")
     if cfg.window_cache and cfg.local_global_ratio and cfg.sliding_window:
         raise NotImplementedError(
             f"{cfg.name}: window_cache keeps ring caches of the window's "
             "size for the local layers, which only the dry-run sets; it "
             "is not ported (ROADMAP §2.8, with the dry-run); the full "
             "caches serve local layers here")
+
+
+def hybrid_shape(cfg: ModelConfig):
+    """(groups, mamba2 blocks a group, tail blocks) of a hybrid stack: G =
+    n_layers // period groups of period - 1 mamba2 blocks and the shared
+    attention block, then the n_layers - G * period mamba2 blocks left."""
+    n_groups = cfg.n_layers // cfg.hybrid_period
+    return (n_groups, cfg.hybrid_period - 1,
+            cfg.n_layers - n_groups * cfg.hybrid_period)
+
+
+def rope_dim(cfg: ModelConfig) -> int:
+    """The width RoPE rotates: MLA's rope key, else a head."""
+    return cfg.qk_rope_dim if cfg.attn_kind == "mla" else cfg.hd
 
 
 def layer_schedules(cfg: ModelConfig):
@@ -131,6 +154,8 @@ def _init_norm(cfg: ModelConfig, dtype, device) -> Params:
 
 def _init_attention(cfg: ModelConfig, gen: torch.Generator,
                     dtype) -> Params:
+    if cfg.attn_kind == "mla":
+        return L.init_mla(cfg, gen, dtype)
     d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     attn = {
         "wq": L.normal(gen, (d, h * hd), d ** -0.5, dtype),
@@ -182,10 +207,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     "blocks": [per layer {"attn_norm", "mlp_norm", "attn": {"wq": (d,
     H*hd), "wk"/"wv": (d, Hk*hd), "wo": (H*hd, d), ["q_norm", "k_norm"]},
     "ffn": {"w_gate"/"w_up": (d, ff), "w_down": (ff, d)}}]}; a moe
-    block's "ffn" from first_k_dense on is `moe.init_moe`'s dict; encdec
+    block's "ffn" from first_k_dense on is `moe.init_moe`'s dict, and
+    with MLA its "attn" is `layers.init_mla`'s; encdec
     adds "cross_norm" and "cross" (an "attn" dict) to each decoder block,
     and "enc_blocks" (Le blocks as dense ones) and "enc_norm"; an ssm
-    block is {"norm", "mamba": the JAX package's mamba2 dict}."""
+    block is {"norm", "mamba": the JAX package's mamba2 dict}; hybrid has
+    no "blocks" but "groups" (G lists of period - 1 ssm blocks),
+    "shared_attn" (one dense block) and "tail" (ssm blocks)."""
     check_supported(cfg)
     cfg.validate()
     dtype = torch_dtype(cfg.param_dtype)
@@ -203,6 +231,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     if cfg.arch_type == "ssm":
         p["blocks"] = [done(_init_ssm_block(cfg, gen, dtype))
                        for _ in range(cfg.n_layers)]
+    elif cfg.arch_type == "hybrid":
+        n_groups, per, tail = hybrid_shape(cfg)
+        p["groups"] = [[done(_init_ssm_block(cfg, gen, dtype))
+                        for _ in range(per)] for _ in range(n_groups)]
+        p["shared_attn"] = done(_init_block(cfg, gen, dtype))
+        p["tail"] = [done(_init_ssm_block(cfg, gen, dtype))
+                     for _ in range(tail)]
     elif cfg.arch_type == "encdec":
         p["enc_blocks"] = [done(_init_block(cfg, gen, dtype))
                            for _ in range(cfg.n_enc_layers)]
@@ -243,6 +278,17 @@ def _cast_heads(cfg: ModelConfig, params: Params) -> None:
             params[name] = params[name].to(dt)
 
 
+def all_blocks(params: Params):
+    """Every block dict of a parameter tree, each once (the hybrid
+    family's shared block too)."""
+    blocks = params.get("blocks", []) + params.get("enc_blocks", [])
+    for group in params.get("groups", []):
+        blocks = blocks + group
+    if "shared_attn" in params:
+        blocks = blocks + [params["shared_attn"]]
+    return blocks + params.get("tail", [])
+
+
 def cast_params(cfg: ModelConfig, params: Params) -> Params:
     """Cast, IN PLACE, every parameter the JAX layers cast to the compute
     type at use (embedding, head, the attention dicts with their qk-norm
@@ -252,7 +298,7 @@ def cast_params(cfg: ModelConfig, params: Params) -> Params:
     old tensor is released as its cast replaces it, so the peak is one
     leaf above the larger copy."""
     _cast_heads(cfg, params)
-    for blk in params["blocks"] + params.get("enc_blocks", []):
+    for blk in all_blocks(params):
         _cast_block(cfg, blk)
     return params
 
@@ -266,21 +312,34 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zeroed decode state (module docstring). The ssm state is fp32
     whatever `dtype` says, as in the JAX package."""
     check_supported(cfg)
-    zeros = lambda shape, dt=dtype: torch.zeros((cfg.n_layers,) + shape,
-                                                dtype=dt, device=device)
+    zeros = lambda n, shape, dt=dtype: torch.zeros((n,) + shape, dtype=dt,
+                                                   device=device)
+
+    def ssm_state(n):
+        gn, k, f32 = cfg.ssm_ngroups * cfg.ssm_state, cfg.ssm_conv, \
+            torch.float32
+        return {"conv_x": zeros(n, (batch, k - 1, cfg.d_inner), f32),
+                "conv_B": zeros(n, (batch, k - 1, gn), f32),
+                "conv_C": zeros(n, (batch, k - 1, gn), f32),
+                "ssm": zeros(n, (batch, cfg.ssm_nheads, cfg.ssm_head_dim,
+                                 cfg.ssm_state), f32)}
+
+    def kv(n, rows):
+        if cfg.attn_kind == "mla":      # the latent and the rope key
+            return {"c_kv": zeros(n, (batch, rows, cfg.kv_lora_rank)),
+                    "k_rope": zeros(n, (batch, rows, cfg.qk_rope_dim))}
+        shape = (batch, rows, cfg.n_kv_heads, cfg.hd)
+        return {"k": zeros(n, shape), "v": zeros(n, shape)}
+
     if cfg.arch_type == "ssm":
-        gn, k = cfg.ssm_ngroups * cfg.ssm_state, cfg.ssm_conv
-        f32 = torch.float32
-        return {"conv_x": zeros((batch, k - 1, cfg.d_inner), f32),
-                "conv_B": zeros((batch, k - 1, gn), f32),
-                "conv_C": zeros((batch, k - 1, gn), f32),
-                "ssm": zeros((batch, cfg.ssm_nheads, cfg.ssm_head_dim,
-                              cfg.ssm_state), f32)}
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
-    cache = {"k": zeros(shape), "v": zeros(shape)}
+        return ssm_state(cfg.n_layers)
+    if cfg.arch_type == "hybrid":
+        n_groups, per, tail = hybrid_shape(cfg)
+        return {"ssm": ssm_state(n_groups * per + tail),
+                "attn": kv(n_groups, max_len)}
+    cache = kv(cfg.n_layers, max_len)
     if cfg.arch_type == "encdec":
-        shape = (batch, cfg.n_audio_frames, cfg.n_kv_heads, cfg.hd)
-        cache["cross"] = {"k": zeros(shape), "v": zeros(shape)}
+        cache["cross"] = kv(cfg.n_layers, cfg.n_audio_frames)
     return cache
 
 
@@ -335,6 +394,60 @@ def _layer(cache, i: int):
         for k, v in cache.items()}
 
 
+def _self_attention(cfg: ModelConfig, blk: Params, x, positions, *, theta,
+                    window, cache, cache_index, backend, tables, kv_len,
+                    rope=True):
+    """x + the block's self-attention (MLA where the config says so)."""
+    h = L.apply_norm(cfg, blk["attn_norm"], x)
+    if cfg.attn_kind == "mla":
+        return x + L.apply_mla(cfg, blk["attn"], h, positions, theta=theta,
+                               cache=cache, cache_index=cache_index,
+                               backend=backend, tables=tables)
+    return x + L.apply_attention(
+        cfg, blk["attn"], h, positions, theta=theta, window=window,
+        cache=cache, cache_index=cache_index, backend=backend,
+        tables=tables, kv_len=kv_len, rope=rope)
+
+
+def _ffn(cfg: ModelConfig, blk: Params, x, moe: bool = False):
+    """x + the block's FFN: its gated MLP, or its mixture of experts."""
+    h = L.apply_norm(cfg, blk["mlp_norm"], x)
+    if moe:
+        return x + MOE.apply_moe(cfg, blk["ffn"], h)[0]
+    return x + L.apply_mlp(cfg, blk["ffn"], h)
+
+
+def _ssm_block(cfg: ModelConfig, blk: Params, x, cache):
+    h = L.apply_norm(cfg, blk["norm"], x)
+    return x + SSM.apply_mamba2(cfg, blk["mamba"], h, cache=cache)[0]
+
+
+def _run_hybrid(cfg: ModelConfig, params: Params, x, positions, cache,
+                cache_index, backend: str, kv_len):
+    """The JAX `_run_hybrid`: each group's mamba2 blocks, then the shared
+    block (its one set of weights, at rope_theta, no window) over that
+    group's KV buffer; then the tail's mamba2 blocks."""
+    ssm = None if cache is None else cache["ssm"]
+    tables = L.rope_tables(positions, cfg.hd, cfg.rope_theta)
+    shared = params["shared_attn"]
+    i = 0                   # the mamba2 block's row of the state stack
+    for g, group in enumerate(params["groups"]):
+        for blk in group:
+            x = _ssm_block(cfg, blk, x, _layer(ssm, i))
+            i += 1
+        x = _self_attention(
+            cfg, shared, x, positions, theta=cfg.rope_theta,
+            window=L.NO_WINDOW,
+            cache=None if cache is None else _layer(cache["attn"], g),
+            cache_index=cache_index, backend=backend, tables=tables,
+            kv_len=kv_len)
+        x = _ffn(cfg, shared, x)
+    for blk in params["tail"]:
+        x = _ssm_block(cfg, blk, x, _layer(ssm, i))
+        i += 1
+    return x
+
+
 def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
             cache: Optional[Dict[str, Any]] = None,
             cache_index=0, backend: str = "cuda",
@@ -367,11 +480,21 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
         positions = torch.cat([torch.arange(
             s - s_tok, dtype=positions.dtype,
             device=x.device).expand(b, s - s_tok), positions], dim=1)
+    # the valid cache rows after this call's write, once for every
+    # attention layer
+    if cache is None or at == "ssm":
+        kv_len = None
+    elif isinstance(cache_index, torch.Tensor):
+        kv_len = (cache_index + s).to(torch.int32).expand(b).contiguous()
+    else:
+        kv_len = torch.full((b,), cache_index + s, dtype=torch.int32,
+                            device=x.device)
     if at == "ssm":
         for i, blk in enumerate(params["blocks"]):
-            h = L.apply_norm(cfg, blk["norm"], x)
-            x = x + SSM.apply_mamba2(cfg, blk["mamba"], h,
-                                     cache=_layer(cache, i))[0]
+            x = _ssm_block(cfg, blk, x, _layer(cache, i))
+    elif at == "hybrid":
+        x = _run_hybrid(cfg, params, x, positions, cache, cache_index,
+                        backend, kv_len)
     else:
         enc_out = cross_len = None
         schedule = layer_schedules(cfg)
@@ -388,25 +511,14 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
                                        dtype=torch.int32, device=x.device)
         else:
             # one table per distinct theta, for every layer that takes it
-            tables = {th: L.rope_tables(positions, cfg.hd, th)
+            tables = {th: L.rope_tables(positions, rope_dim(cfg), th)
                       for th in sorted({th for th, _ in schedule})}
-        # the valid cache rows after this call's write, once for every
-        # layer
-        if cache is None:
-            kv_len = None
-        elif isinstance(cache_index, torch.Tensor):
-            kv_len = (cache_index + s).to(torch.int32).expand(b) \
-                .contiguous()
-        else:
-            kv_len = torch.full((b,), cache_index + s, dtype=torch.int32,
-                                device=x.device)
         moe = [kind == "moe" for kind in cfg.layer_kinds()]
         for i, blk in enumerate(params["blocks"]):
             c = _layer(cache, i)
             theta, window = schedule[i]
-            h = L.apply_norm(cfg, blk["attn_norm"], x)
-            x = x + L.apply_attention(
-                cfg, blk["attn"], h, positions, theta=theta, window=window,
+            x = _self_attention(
+                cfg, blk, x, positions, theta=theta, window=window,
                 cache=c, cache_index=cache_index, backend=backend,
                 tables=tables.get(theta), kv_len=kv_len,
                 rope=at != "encdec")
@@ -420,11 +532,7 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
                 x = x + L.apply_attention(
                     cfg, blk["cross"], h, positions, theta=cfg.rope_theta,
                     causal=False, backend=backend, rope=False, **kw)
-            h = L.apply_norm(cfg, blk["mlp_norm"], x)
-            if moe[i]:
-                x = x + MOE.apply_moe(cfg, blk["ffn"], h)[0]
-            else:
-                x = x + L.apply_mlp(cfg, blk["ffn"], h)
+            x = _ffn(cfg, blk, x, moe[i])
     if last_only:
         x = x[:, -1:]
     x = L.apply_norm(cfg, params["final_norm"], x)
@@ -443,11 +551,12 @@ def prefill(cfg: ModelConfig, params: Params, tokens, max_len: int, *,
     if cache is None:
         cache = init_cache(cfg, tokens.shape[0], max_len, cache_dtype,
                            device=tokens.device)
-    elif cfg.arch_type == "ssm":
+    elif cfg.arch_type in ("ssm", "hybrid"):
         # the prefill reads the recurrent state it starts from (the conv
         # windows and the SSM state): a reused cache starts from zeros,
         # as a fresh one does. Attention K/V past the prompt are masked.
-        for leaf in cache.values():
+        for leaf in (cache if cfg.arch_type == "ssm"
+                     else cache["ssm"]).values():
             leaf.zero_()
     logits, _ = forward(cfg, params, tokens, cache=cache, cache_index=0,
                         backend=backend, last_only=True,

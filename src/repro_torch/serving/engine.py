@@ -5,8 +5,8 @@ Workflow per Fig. 1 of the paper:
   ②/③ Eagle ranks the fleet per request and picks the best model within
      the budget (core/dispatch.py over a DoubleBuffer)
   ④ requests are grouped per chosen model, batch-prefilled and greedily
-     decoded (FleetModel: a dense, MoE, mamba2 or whisper model, its
-     attention in the flash and decode kernels on the card)
+     decoded (FleetModel: a model of any family, its attention in the
+     flash and decode kernels on the card)
   ⑤ with probability `compare_rate` a second model also answers and a
      simulated user preference is appended to the DB + ELO (the online,
      training-free update), then committed into the back buffer
@@ -68,8 +68,8 @@ class Response:
 
 
 class FleetModel:
-    """One servable model (dense, moe, ssm, encdec or vlm): prefill +
-    greedy decode.
+    """One servable model (dense, moe, ssm, hybrid, encdec or vlm):
+    prefill + greedy decode.
 
     The parameters are made from `seed` on the device, each block cast to
     the compute type as it is drawn (or taken from `params`, in
@@ -224,7 +224,7 @@ class ServingEngine:
         # the power-of-two ladder between gen_min_bucket and
         # gen_max_bucket (each row count is one decode graph) and
         # optionally floor the token panel length. Padded rows and
-        # positions leave a dense, ssm or encdec model's real rows
+        # positions leave a dense, ssm, hybrid or encdec model's real rows
         # untouched, but not a MoE's: they raise the token count T of
         # the call, and with it each expert's capacity, and take slots
         # (a padded position before the next row's tokens, a padded row

@@ -45,7 +45,10 @@ def _np(x):
 
 @pytest.mark.parametrize("b,s,h,hk,dh", [(1, 256, 4, 4, 64),
                                          (2, 256, 4, 2, 32),
-                                         (1, 512, 8, 1, 128)])
+                                         (1, 512, 8, 1, 128),
+                                         # zamba2-7b's head width
+                                         (1, 256, 4, 4, 112),
+                                         (2, 256, 4, 2, 112)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_plain_matches_tpu_kernel(b, s, h, hk, dh, dtype):
     rng = np.random.default_rng(4)
@@ -111,7 +114,10 @@ def test_flash_attention_plain_window_and_dh256_match_tpu_kernel(window, dh,
 @pytest.mark.parametrize("b,t,h,hk,dh", [(2, 512, 4, 4, 64),
                                          (1, 1024, 8, 2, 128),
                                          (3, 256, 2, 1, 32),
-                                         (2, 512, 16, 8, 256)])
+                                         (2, 512, 16, 8, 256),
+                                         # zamba2-7b's head width
+                                         (2, 512, 4, 4, 112),
+                                         (2, 256, 8, 2, 112)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_plain_matches_tpu_kernel(b, t, h, hk, dh, dtype):
     rng = np.random.default_rng(6)
@@ -282,3 +288,29 @@ def test_ops_keep_one_length_for_q_and_kv():
     with pytest.raises(ValueError, match="one length"):
         KOPS.flash_attention(q, kv, kv, causal=False)
     KOPS.flash_attention(q, kv, kv, causal=False, backend="reference")
+
+
+@pytest.mark.parametrize("dk,dv", [(192, 128), (112, 112)])
+@pytest.mark.parametrize("b,s,t,h,hk,causal", [(2, 40, 40, 4, 4, True),
+                                               (1, 33, 50, 4, 2, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_new_widths_match_jax_attend(dk, dv, b, s, t,
+                                                           h, hk, causal,
+                                                           dtype):
+    """A value width apart from the query/key width, (192, 128): the
+    expanded form of deepseek-v3's MLA prefill, and zamba2-7b's dh = 112.
+    The TPU kernel takes one width, so the plain version is held against
+    the JAX model's `attend` (which MLA calls; v's width may differ
+    there), at the JAX suite's attention bars."""
+    rng = np.random.default_rng(s + t + dk)
+    qj, qt = _pair(rng, (b, s, h, dk), dtype)
+    kj, kt = _pair(rng, (b, t, hk, dk), dtype)
+    vj, vt = _pair(rng, (b, t, hk, dv), dtype)
+    pos = np.broadcast_to(np.arange(s) + (t - s), (b, s)).astype(np.int32)
+    kv_pos = np.broadcast_to(np.arange(t), (b, t)).astype(np.int32)
+    want = JL.attend(qj, kj, vj, jnp.asarray(pos), jnp.asarray(kv_pos),
+                     causal=causal)
+    got = flash_attention_cuda(qt, kt, vt, causal=causal)   # CPU: plain
+    assert got.shape == (b, s, h, dv) and got.dtype == qt.dtype
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)

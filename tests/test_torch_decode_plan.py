@@ -25,8 +25,8 @@ GRID_B = (1, 2, 8, 13, 16)
 GRID_T = (1, 7, 33, 77, 128, 300, 1000, 1056, 1500, 2048, 8192)
 GRID_HK = (1, 2, 8, 16, 20)
 # (dh, bytes a cache value): the instances the kernel is built for
-WIDTHS = [(32, 4), (64, 4), (128, 4), (256, 4), (32, 2), (64, 2), (128, 2),
-          (256, 2)]
+WIDTHS = [(32, 4), (64, 4), (112, 4), (128, 4), (256, 4), (32, 2), (64, 2),
+          (112, 2), (128, 2), (256, 2)]
 # the main path's layouts (B, T, Hk, dh, cache bytes): qwen3-8b, olmo-1b,
 # whisper self and cross, phi3.5-moe, the bf16 8k row
 LAYOUTS = {"qwen3-8b": (16, 2048, 8, 128, 4),
@@ -37,7 +37,8 @@ LAYOUTS = {"qwen3-8b": (16, 2048, 8, 128, 4),
            "bf16 8k": (8, 8192, 8, 128, 2),
            "internlm2-20b": (16, 1056, 8, 128, 4),
            "gemma3-12b": (16, 1056, 8, 256, 4),
-           "llava-next-mistral-7b": (16, 3936, 8, 128, 4)}
+           "llava-next-mistral-7b": (16, 3936, 8, 128, 4),
+           "zamba2-7b": (16, 1056, 32, 112, 4)}
 EXACT = 1e-5
 
 
@@ -113,7 +114,8 @@ def _combine(q, k, v, kv_len, split_rows, window=0):
 
 @pytest.mark.parametrize("b,t,h,hk,dh", [(3, 300, 8, 2, 64),
                                          (2, 1056, 6, 1, 128),
-                                         (4, 77, 4, 4, 32)])
+                                         (4, 77, 4, 4, 32),
+                                         (2, 600, 4, 4, 112)])
 def test_combine_at_the_plans_splits_matches_jax(b, t, h, hk, dh):
     rng = np.random.default_rng(t + h)
     q = rng.normal(size=(b, h, dh)).astype(np.float32)
@@ -165,6 +167,18 @@ def test_windowed_combine_at_the_plans_splits_matches_jax(window):
                                      torch.tensor(v), torch.tensor(kv),
                                      window=window)
     np.testing.assert_allclose(plain.numpy(), want, rtol=EXACT, atol=EXACT)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_dh112_is_staged_as_dh128(itemsize):
+    """dh = 112 is staged 128 wide (`csrc/decode_attention.cu:staged`):
+    its stages hold the rows of dh = 128, so its plan is dh = 128's."""
+    assert [DA.staged_width(d) for d in DA.HEAD_DIMS] == [32, 64, 128, 128,
+                                                          256]
+    assert DA.stage_rows(112, itemsize) == DA.stage_rows(128, itemsize)
+    for b, t, hk in itertools.product(GRID_B, GRID_T, GRID_HK):
+        assert DA.split_plan(b, t, hk, 112, itemsize) == \
+            DA.split_plan(b, t, hk, 128, itemsize)
 
 
 def test_cpu_wrapper_takes_the_plain_version():

@@ -313,3 +313,42 @@ def test_launcher_fleet_of_eight_matches_jax():
     _assert_same_responses(jres, tres)
     assert {"internlm2-20b", "gemma3-12b", "llava-next-mistral-7b"} <= {
         r.model for r in tres}
+
+
+def test_launcher_fleet_of_ten_matches_jax():
+    """Both launchers' `build_engine(n_fleet=10)`: every model of ARCH_IDS
+    at its reduced config, zamba2-7b's hybrid stack and deepseek-v3's MLA
+    over its MoE last, the port's fleet given the JAX weights. The same
+    requests get the same models and greedy tokens, in bf16 as the
+    launcher runs them; the launcher's router sends the test prompts to
+    neither new model (gemma3-12b takes most), so each of the two also
+    generates on the same prompts through both packages' fleet models."""
+    from repro.launch import serve as JSERVE
+    from repro_torch.launch import serve as TSERVE
+    from repro_torch.models import transformer as TT
+    je, corpus = JSERVE.build_engine(n_fleet=10)
+    te, _ = TSERVE.build_engine(n_fleet=10, device="cpu")
+    assert list(te.fleet) == list(je.fleet)
+    assert list(te.fleet)[8:] == ["zamba2-7b", "deepseek-v3-671b"]
+    for name, m in te.fleet.items():
+        m.params = TT.cast_params(m.cfg, convert.model_params_from_numpy(
+            m.cfg, je.fleet[name].params, device="cpu"))
+    rng = np.random.default_rng(11)
+    test = corpus.test_idx
+    args = [(rng.integers(0, 100, rng.integers(4, 12)).astype(np.int32),
+             corpus.embeddings[i], b)
+            for i, b in zip(test[:16], [1.0, 2.5, 3.5, 5.5, 6.5, 8.0, 9.0,
+                                        10.0] * 2)]
+    jres = je.serve([JENG.Request(tokens=t, embedding=e, budget=b,
+                                  max_new_tokens=3, rid=k)
+                     for k, (t, e, b) in enumerate(args)])
+    tres = te.serve([TENG.Request(tokens=t, embedding=e, budget=b,
+                                  max_new_tokens=3, rid=k)
+                     for k, (t, e, b) in enumerate(args)])
+    _assert_same_responses(jres, tres)
+    toks = np.stack([rng.integers(0, 100, 11).astype(np.int32)
+                     for _ in range(4)])
+    for name in ("zamba2-7b", "deepseek-v3-671b"):
+        got = te.fleet[name].generate(toks, 4)
+        np.testing.assert_array_equal(got, je.fleet[name].generate(toks, 4),
+                                      err_msg=name)

@@ -620,6 +620,118 @@ def test_decode_attention_windowed_graph_replays_equal_eager(
     assert all(int(x.count_nonzero()) == 0 for x in DA._ARRIVALS[idx])
 
 
+# zamba2-7b's head width (dh = 112: staged 128 wide, TMA's zero fill on
+# the tensor cores) and deepseek-v3's MLA prefill (query/key 192, value
+# 128), on both flash routes, causal and not, S ragged against the tiles
+@pytest.mark.parametrize("dk,dv,h,hk", [(112, 112, 8, 8), (112, 112, 8, 2),
+                                        (192, 128, 4, 4)])
+@pytest.mark.parametrize("s,causal", [(333, True), (1000, True),
+                                      (77, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_dh112_and_value_width(dev, dk, dv, h, hk, s, causal,
+                                               dtype):
+    rng = np.random.default_rng(s + dk + dv + h // hk)
+    b = 2
+    t = s if causal else 150
+    q = _normal(rng, (b, s, h, dk), dtype, dev)
+    k = _normal(rng, (b, t, hk, dk), dtype, dev)
+    v = _normal(rng, (b, t, hk, dv), dtype, dev)
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == (b, s, h, dv) and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    tol = ATT_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+def test_decode_attention_dh112_edge_lengths(dev, rep, q_dtype, kv_dtype):
+    """dh = 112 at rep 1 (zamba2-7b: the CUDA-core route) and rep 4 (a
+    bf16 query takes the tensor-core route there), lengths at 1, at a
+    stage boundary +-1, at a split boundary +-1 of the wrapper's plan and
+    the full cache, each against the plain version at the JAX suite's
+    bar."""
+    from repro_torch.kernels import decode_attention as DA
+    rng = np.random.default_rng(112 + rep)
+    b, t, hk, dh = 4, 1056, 4, 112
+    h = rep * hk
+    q = _normal(rng, (b, h, dh), q_dtype, dev)
+    k = _normal(rng, (b, t, hk, dh), kv_dtype, dev)
+    v = _normal(rng, (b, t, hk, dh), kv_dtype, dev)
+    size = torch.finfo(kv_dtype).bits // 8
+    stage = DA.stage_rows(dh, size)
+    assert stage == DA.stage_rows(128, size)
+    _, split = DA.split_plan(b, t, hk, dh, size, DA._sm_count(dev))
+    lens = sorted({min(max(x, 1), t) for x in
+                   (1, stage - 1, stage, stage + 1, split - 1, split,
+                    split + 1, t)})
+    lens += [t] * (-len(lens) % b)
+    for i in range(0, len(lens), b):
+        kv_len = torch.tensor(lens[i:i + b], dtype=torch.int32, device=dev)
+        got = decode_attention_cuda(q, k, v, kv_len)
+        want = ref.decode_attention_ref(q, k.to(q_dtype), v.to(q_dtype),
+                                        kv_len)
+        torch.cuda.synchronize()
+        assert got.shape == (b, h, dh)
+        tol = ATT_TOL[q_dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("h,hk,kv_dtype", [(32, 32, torch.float32),
+                                           (16, 4, torch.bfloat16)])
+def test_decode_attention_dh112_graph_replays_equal_eager(dev, h, hk,
+                                                          kv_dtype):
+    """zamba2-7b's self decode (32 heads of 112 over an fp32 cache) and a
+    rep-4 layout over a bf16 cache, captured once: three replays equal
+    the eager call bit for bit, the arrival counters back at 0."""
+    from repro_torch.kernels import decode_attention as DA
+    rng = np.random.default_rng(h)
+    b, t, dh = 16, 1056, 112
+    q = _normal(rng, (b, h, dh), torch.bfloat16, dev)
+    k = _normal(rng, (b, t, hk, dh), kv_dtype, dev)
+    v = _normal(rng, (b, t, hk, dh), kv_dtype, dev)
+    kv_len = torch.tensor(rng.integers(1, t + 1, b), dtype=torch.int32,
+                          device=dev)
+    eager = decode_attention_cuda(q, k, v, kv_len)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention_cuda(q, k, v, kv_len)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention_cuda(q, k, v, kv_len)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert all(int(x.count_nonzero()) == 0 for x in DA._ARRIVALS[idx])
+
+
+def test_attention_kernels_refuse_widths_they_do_not_take(dev):
+    """The flash wrapper takes (dh, dh) and (192, 128) only, the decode
+    wrapper its HEAD_DIMS; nothing falls back."""
+    ones = lambda *shape: torch.ones(shape, device=dev,
+                                     dtype=torch.bfloat16)
+    for dk, dv in ((192, 192), (128, 64), (112, 128), (96, 96)):
+        with pytest.raises(ValueError, match="head width"):
+            flash_attention_cuda(ones(1, 64, 2, dk), ones(1, 64, 2, dk),
+                                 ones(1, 64, 2, dv))
+    lens = torch.ones((1,), dtype=torch.int32, device=dev)
+    for dh in (96, 192, 576):
+        with pytest.raises(ValueError, match="head width"):
+            decode_attention_cuda(ones(1, 2, dh), ones(1, 64, 2, dh),
+                                  ones(1, 64, 2, dh), lens)
+
+
 def test_decode_attention_empty_rows_are_zero(dev):
     rng = np.random.default_rng(9)
     b, t, h, hk, dh = 3, 260, 8, 2, 64
@@ -758,6 +870,58 @@ def test_model_kernel_path_matches_plain_attention(dev, arch):
     counts = _build.launch_counts()
     assert counts["flash_attention"] == m.cfg.n_layers
     assert counts["decode_attention"] == m.cfg.n_layers * 5
+
+
+def _attention_layers(cfg):
+    """(flash launches a prefill, decode launches a step) of a model:
+    zamba2's shared block once a group; MLA's absorbed decode is plain
+    PyTorch, no kernel."""
+    from repro_torch.models import transformer as T
+    if cfg.arch_type == "ssm":
+        return 0, 0
+    if cfg.arch_type == "hybrid":
+        return T.hybrid_shape(cfg)[0], T.hybrid_shape(cfg)[0]
+    n = cfg.n_layers * (2 if cfg.arch_type == "encdec" else 1)
+    return n, 0 if cfg.attn_kind == "mla" else n
+
+
+@pytest.mark.parametrize("arch,layers", [("zamba2-7b", 6),
+                                         ("zamba2-7b", 8),
+                                         ("deepseek-v3-671b", 2)])
+def test_hybrid_and_mla_kernel_path_matches_plain_attention(dev, arch,
+                                                            layers):
+    """The reduced fp32 zamba2 (with and without a tail) and deepseek
+    (MLA: its prefill through the flash kernel at its query/key and
+    value widths) through the kernels and through the plain attend:
+    prefill + 5 decode steps fed the same tokens within the fp32
+    attention bar; FleetModel.generate launches the flash kernel once an
+    attention layer (zamba2: once a group) and the decode kernel once an
+    attention layer and step (deepseek: none, its absorbed decode is
+    plain PyTorch)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import FleetModel
+    m = FleetModel(get_reduced_config(arch, dtype="float32",
+                                      n_layers=layers),
+                   seed=0, max_len=160, device=dev)
+    rng = np.random.default_rng(1)
+    toks = torch.tensor(rng.integers(0, 500, (3, 128)), device=dev)
+    runs = {b: T.prefill(m.cfg, m.params, toks, m.max_len, backend=b,
+                         cache_dtype=torch.float32)
+            for b in ("cuda", "reference")}
+    for i in range(6):
+        got, want = runs["cuda"][0], runs["reference"][0]
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+        tok = want.argmax(-1)[:, None]
+        runs = {b: T.decode_step(m.cfg, m.params, runs[b][1], tok, 128 + i,
+                                 backend=b) for b in runs}
+    m.warmup([3])
+    _build.reset_launches()
+    m.generate(toks.cpu().numpy(), 6)
+    counts = _build.launch_counts()
+    flash, decode = _attention_layers(m.cfg)
+    assert counts["flash_attention"] == flash
+    assert counts["decode_attention"] == decode * 5
 
 
 # ---------------------------------------------------------------------------
@@ -1052,22 +1216,28 @@ def _eager_tokens(m, toks, max_new):
 @pytest.mark.parametrize("arch", ["whisper-large-v3", "olmo-1b",
                                   "mamba2-780m", "qwen3-8b",
                                   "phi3.5-moe-42b-a6.6b", "internlm2-20b",
-                                  "gemma3-12b", "llava-next-mistral-7b"])
+                                  "gemma3-12b", "llava-next-mistral-7b",
+                                  "zamba2-7b", "deepseek-v3-671b"])
 def test_captured_decode_tokens_equal_eager(dev, arch):
-    """The launcher fleet's models (`--fleet 8`) at full width and two
-    layers (gemma3 six: five local, one global), bf16: generate through
-    the captured decode graphs gives the
+    """The launcher fleet's models (`--fleet 10`) at full width and two
+    layers (gemma3 six: five local, one global; zamba2 eight: a group of
+    five mamba2 blocks and the shared block, a tail of two; deepseek one
+    dense layer and one MoE layer of its 256 experts), bf16: generate
+    through the captured decode graphs gives the
     eager path's greedy tokens, at each warmed row count, with its
     launches credited per replay and nothing captured after warmup (the
-    MoE's routing, slots and combine run inside the graph)."""
+    MoE's routing, slots and combine, the mamba2 states and MLA's
+    absorbed decode run inside the graph)."""
+    import dataclasses
     from repro_torch.serving import FleetModel
-    cfg = _full_width(arch, 6 if arch == "gemma3-12b" else 2)
+    cfg = _full_width(arch, {"gemma3-12b": 6, "zamba2-7b": 8}.get(arch, 2))
+    if cfg.attn_kind == "mla":
+        cfg = dataclasses.replace(cfg, first_k_dense=1)
     m = FleetModel(cfg, seed=3, max_len=320, device=dev)
     assert m.warmup([1, 2, 4]) == 3 and m.rows == 4
     rng = np.random.default_rng(4)
     s = 256     # a multiple of mamba2's SSD chunk
-    per_step = 0 if cfg.arch_type == "ssm" else \
-        cfg.n_layers * (2 if cfg.arch_type == "encdec" else 1)
+    per_step = _attention_layers(cfg)[1]
     for b in (4, 1, 2):
         toks = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
         want = _eager_tokens(m, toks, 8)
