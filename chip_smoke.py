@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's routing and serving paths, and the
-paper's experiments, on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's routing, serving and training paths, and
+the paper's experiments, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -189,6 +189,22 @@ together), then:
      absorbed decode is plain PyTorch: its decode has no kernel call);
      then the launcher with `--fleet 10` (reduced: every model of
      ARCH_IDS) in process and as the CLI.
+ 10e. training (`drive_training`; `training/loop.py`, `launch/train.py`):
+     the attention kernels' wrappers refuse inputs that require grad;
+     every family's reduced config in fp32, 5 steps of make_train_step
+     on the card and on the CPU from the same weights and batches, the
+     step-1 gradients and the ce / aux / mtp histories within their
+     bars (TRAIN_GRAD_ATOL, TRAIN_METRIC_RTOL); olmo-1b at full width
+     through `launch/train.py`'s main (bf16 compute, fp32 masters and
+     AdamW state, remat on, batch 8 x seq 1024, 20 steps): a finite ce
+     that descends, ms a step, tokens/s, the model FLOPs over the bf16
+     peak, peak memory and a profile of one step; a checkpoint round
+     trip on the card (bf16 moments, fp32 masters, the int32 step)
+     bit-equal to the uninterrupted run; `examples_torch/train_small.py`
+     for its 300 steps. The kernel counts, zeroed before the path, read
+     0 after it: training's attention is the plain attend
+     (`transformer.TRAIN_ATTENTION`), as the JAX train step
+     differentiates the jnp `attend`.
  11. the paper's experiments (`benchmarks_torch`) at the frozen regime
      (300 prompts per dataset, D = 64, seed 0): holds KNN's retrieve
      call (a dataset's ~90 test rows against the 1,470 win-rate rows,
@@ -458,6 +474,42 @@ HYBRID_DECODE = {"zamba2": {"self decode": (16, SERVE_MAX_LEN, 32, 32,
 HYBRID_SITES = {"zamba2 flash prefill": "zamba2-7b flash causal",
                 "zamba2 self decode": "zamba2-7b decode self",
                 "deepseek flash prefill": "deepseek-v3-671b flash causal"}
+# phase 10e: training (training/loop.py, launch/train.py). (a) every
+# family's reduced config in fp32, TRAIN_CMP_STEPS steps on the card and
+# on the CPU from the same weights and batches: the ce / aux / mtp
+# histories within TRAIN_METRIC_RTOL of each other, the step-1 gradients
+# within TRAIN_GRAD_ATOL of each leaf's largest |value|. On the CPU the
+# port holds JAX's within 6.1e-7 (metrics over 5 steps) and 6.6e-6
+# (gradients, zamba2's SSD) (tests/_torch_training_common.py); cuBLAS
+# sums fp32 products in other orders than the CPU's (TF32 off), which
+# moves both by a few ulp of each sum; the bars leave ~15x over the CPU
+# readings. A MoE whose top-k flips on a near tie would fail them: that
+# is a fault to read, not a bar to widen.
+TRAIN_CMP_STEPS = 5
+TRAIN_CMP_SHAPE = (2, 32)          # batch, seq (the reduced SSD chunk)
+TRAIN_METRIC_RTOL = 1e-5
+TRAIN_GRAD_ATOL = 1e-4
+# (b) olmo-1b at full width through launch/train.py's main: bf16 compute,
+# fp32 masters and AdamW state, remat on, batch 8 x seq 1024, 20 steps
+TRAIN_ARGV = ("--arch", "olmo-1b", "--steps", "20", "--batch", "8",
+              "--seq", "1024")
+# the kinds a train step's device time is summed by (a kernel name's
+# first matching marks): fp32 GEMMs (the plain attend's einsums, TF32
+# off), the other GEMMs (the bf16 weight products), copies and casts,
+# reductions and softmax, the other elementwise passes
+TRAIN_KERNEL_KINDS = (("fp32 gemm", ("sgemm", "f32f32")),
+                      ("gemm", ("gemm", "nvjet", "xmma")),
+                      ("copy", ("direct_copy", "copy_kernel")),
+                      ("softmax / reduce", ("softmax", "reduce")),
+                      ("elementwise", ("elementwise",)))
+# the ops whose kernels are the step's matrix products (torch counts
+# their FLOPs under the profiler's with_flops)
+TRAIN_MATMUL_OPS = ("aten::mm", "aten::bmm", "aten::addmm",
+                    "aten::baddbmm")
+# (c) the checkpoint round trip: reduced olmo-1b, AdamW state in bf16,
+# CKPT_STEPS steps uninterrupted against a restore after CKPT_STEPS - 1
+CKPT_STEPS = 3
+# (d) examples_torch/train_small.py at its default of 300 steps
 # tolerances: the JAX suite's own bars between its backends
 SIM_TOL = 1e-5                     # similarity (tests/test_kernels.py)
 R_RTOL, R_ATOL = 1e-5, 1e-3        # ratings (tests/test_router_state.py)
@@ -4783,6 +4835,332 @@ def drive_hybrid_mla(dev, kernels, stats):
 
 
 # ---------------------------------------------------------------------------
+# phase 10e: training
+# ---------------------------------------------------------------------------
+
+def train_batches(cfg, n, dev, seed=0):
+    """n synthetic batches (`loop.synthetic_lm_batches`) of
+    TRAIN_CMP_SHAPE on the CPU, encdec's frame and vlm's image
+    embeddings drawn beside them from `seed`, and their copies on
+    `dev`."""
+    from repro_torch.training.loop import synthetic_lm_batches
+    b, s = TRAIN_CMP_SHAPE
+    it = synthetic_lm_batches(cfg, b, s, seed, device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    cpu = []
+    for _ in range(n):
+        batch = dict(next(it))
+        if cfg.arch_type == "encdec":
+            batch["enc_embeds"] = torch.randn(
+                b, cfg.n_audio_frames, cfg.d_model, generator=gen)
+        if cfg.arch_type == "vlm":
+            batch["img_embeds"] = torch.randn(
+                b, cfg.n_image_tokens, cfg.d_model, generator=gen)
+        cpu.append(batch)
+    return cpu, [{k: v.to(dev) for k, v in x.items()} for x in cpu]
+
+
+def train_grads(cfg, params, batch):
+    """The gradient tree of loss_fn at `params` (the train step's route)."""
+    from repro_torch.models import transformer as T
+    from repro_torch import tree as TR
+    leaves = TR.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    total, _ = T.loss_fn(cfg, params, batch)
+    grads = torch.autograd.grad(total, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    return grads
+
+
+def compare_training(dev, stats):
+    """(a): each family's reduced config in fp32, the same weights and
+    batches on the card and on the CPU: the step-1 gradients, then
+    TRAIN_CMP_STEPS steps of make_train_step; the metric histories and
+    the gradients held to their bars."""
+    from repro_torch.configs import ARCH_IDS, get_reduced_config
+    from repro_torch.models import transformer as T
+    from repro_torch.training import loop as TL
+    from repro_torch import tree as TR
+    from repro_torch.training.optim import AdamW
+    report = {}
+    for arch in ARCH_IDS:
+        t0 = time.perf_counter()
+        cfg = get_reduced_config(arch, dtype="float32")
+        cpu_p = T.init_params(cfg, torch.Generator().manual_seed(0),
+                              train=True)
+        card_p = TR.map_tree(lambda x: x.to(dev, copy=True), cpu_p)
+        cpu_b, card_b = train_batches(cfg, TRAIN_CMP_STEPS, dev)
+        g_cpu = train_grads(cfg, cpu_p, cpu_b[0])
+        g_card = train_grads(cfg, card_p, card_b[0])
+        grad_err = max(float((a.cpu() - b).abs().max())
+                       / max(float(b.abs().max()), 1e-30)
+                       for a, b in zip(g_card, g_cpu))
+        hist = {}
+        for where, p, batches in (("cpu", cpu_p, cpu_b),
+                                  ("card", card_p, card_b)):
+            opt = AdamW(lr=1e-3)
+            state, step = opt.init(p), TL.make_train_step(cfg, opt)
+            rows = []
+            for batch in batches:
+                p, state, m = step(p, state, batch)
+                rows.append({k: float(v) for k, v in m.items()})
+            hist[where] = rows
+        metric_err = max(
+            abs(c[k] - h[k]) / max(abs(h[k]), 1e-30)
+            for c, h in zip(hist["card"], hist["cpu"]) for k in h)
+        report[arch] = dict(
+            grad_err=grad_err, metric_err=metric_err,
+            ce=[r["ce"] for r in hist["card"]],
+            aux=[r["aux"] for r in hist["card"]],
+            mtp=[r["mtp"] for r in hist["card"]] if "mtp" in hist["card"][0]
+            else None, wall_s=time.perf_counter() - t0)
+        log(f"training {arch} (reduced, fp32), card against CPU: step-1 "
+            f"gradients {grad_err:.3e} of their leaves' scale (bar "
+            f"{TRAIN_GRAD_ATOL}), {TRAIN_CMP_STEPS}-step metric histories "
+            f"{metric_err:.3e} relative (bar {TRAIN_METRIC_RTOL}); ce "
+            f"{[round(x, 4) for x in report[arch]['ce']]}")
+        if not (grad_err <= TRAIN_GRAD_ATOL
+                and metric_err <= TRAIN_METRIC_RTOL):
+            fail(f"training {arch}: card against CPU over the bar: "
+                 f"gradients {grad_err:.3e}, metrics {metric_err:.3e}")
+    return report
+
+
+def train_full_width(stats):
+    """(b): launch/train.py's main with TRAIN_ARGV on the card: ms per
+    step over steps 1..19 (the ce reads at the logged steps wait for the
+    device), tokens/s, the model FLOPs a step (6 N tokens + the attention
+    products, 12 L d S a token, PaLM's count; remat's recompute not
+    counted) over the bf16 peak, and the peak device memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as LT
+    cfg = get_config("olmo-1b")
+    argv = dict(zip(TRAIN_ARGV[::2], TRAIN_ARGV[1::2]))
+    b, s = int(argv["--batch"]), int(argv["--seq"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = LT.main(list(TRAIN_ARGV))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    (i0, t0), (i1, t1) = out["wall"][0], out["wall"][-1]
+    step_ms = 1e3 * (t1 - t0) / (i1 - i0)
+    tokens = b * s
+    n = cfg.total_params()
+    flops = 6 * n * tokens + 12 * cfg.n_layers * cfg.d_model * s * tokens
+    mfu = flops / (step_ms / 1e3) / PEAK_BF16_FLOPS
+    ces = [ce for _, ce in out["history"]]
+    res = dict(steps=i1 + 1, params=n, step_ms=step_ms,
+               tokens_per_s=tokens / (step_ms / 1e3),
+               model_tflop_per_step=flops / 1e12, mfu=mfu, peak_gb=peak,
+               history=out["history"], wall=out["wall"],
+               remat=cfg.remat, dtype=cfg.dtype,
+               param_dtype=cfg.param_dtype)
+    log_time(stats, f"training olmo-1b at full width ({n / 1e9:.3f} B "
+             f"parameters, {cfg.dtype} compute, {cfg.param_dtype} masters "
+             f"and AdamW state, remat {cfg.remat}), batch {b} x seq {s}: "
+             f"{step_ms:.1f} ms a step over steps {i0 + 1}..{i1}, "
+             f"{res['tokens_per_s']:.0f} tokens/s, "
+             f"{flops / 1e12:.2f} model TFLOP a step = {100 * mfu:.2f}% of "
+             f"the bf16 peak, peak device memory {peak:.2f} GB; ce "
+             f"{ces}")
+    if not (all(np.isfinite(ces)) and ces[-1] < ces[0]):
+        fail(f"training olmo-1b: ce {ces} is not finite and descending")
+    res["profile"] = profile_train_step(cfg, out, b, s, stats)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def profile_train_step(cfg, out, b, s, stats):
+    """Device time by kernel of one more full-width train step from the
+    trained state (`out`: loop.train's result), and the device's busy
+    share of its wall time under the profiler. Each kernel is sorted into
+    a kind by its name (TRAIN_KERNEL_KINDS). A second step, profiled with
+    torch's FLOP counts (which cost host time, so the busy share is
+    read from the first), reads the matmuls from the ops that launched
+    them (TRAIN_MATMUL_OPS): their kernels' time and FLOPs, by the kind
+    of each op's longest kernel, so the rate each GEMM kind implies
+    shows a kernel sorted into the wrong kind or a count that is off.
+    The top kernels are logged by their full names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training import loop as TL
+    from repro_torch.training.optim import AdamW
+    step = TL.make_train_step(cfg, AdamW(lr=3e-4))
+    batch = next(TL.synthetic_lm_batches(
+        cfg, b, s, seed=1, device=out["params"]["embed"].device))
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        step(out["params"], out["opt_state"], batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=activities, with_flops=True) as counted:
+        step(out["params"], out["opt_state"], batch)
+        torch.cuda.synchronize()
+
+    def kind_of(name):
+        return next((k for k, marks in TRAIN_KERNEL_KINDS
+                     if any(m in name for m in marks)), "other")
+
+    rows = sorted(((e.key, e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    device_ms = sum(ms for _, ms in rows)
+    top = [(op, kind_of(op), ms) for op, ms in rows[:12]]
+    kinds = {}
+    for op, ms in rows:
+        kinds[kind_of(op)] = kinds.get(kind_of(op), 0.0) + ms
+    # the matmul ops: each op's own kernels (ms) and torch's FLOP count
+    matmul = {}
+    for e in counted.events():
+        if e.name not in TRAIN_MATMUL_OPS or not e.kernels:
+            continue
+        main = max(e.kernels, key=lambda k: k.duration).name
+        row = matmul.setdefault(kind_of(main), {"ms": 0.0, "tflop": 0.0,
+                                                "ops": 0, "kernels": {}})
+        row["ms"] += sum(k.duration for k in e.kernels) / 1e3
+        row["tflop"] += (e.flops or 0) / 1e12
+        row["ops"] += 1
+        for k in e.kernels:
+            row["kernels"][k.name] = (row["kernels"].get(k.name, 0.0)
+                                      + k.duration / 1e3)
+    for row in matmul.values():
+        row["tflop_per_s"] = row["tflop"] / (row["ms"] / 1e3)
+    log_time(stats, f"profile of one olmo-1b train step (batch {b} x seq "
+             f"{s}): wall {wall_ms} ms under the profiler, device "
+             f"{device_ms} ms, busy {device_ms / wall_ms}; device ms by "
+             f"kernel kind {kinds}; the matmul ops of a second step by "
+             f"their longest kernel's kind: " + "; ".join(
+                 f"{k}: {r['ops']} ops, {r['ms']} ms, {r['tflop']} TFLOP "
+                 f"(torch's count), {r['tflop_per_s']} TFLOP/s"
+                 for k, r in sorted(matmul.items())))
+    for k, r in sorted(matmul.items()):
+        names = sorted(r["kernels"].items(), key=lambda kv: -kv[1])
+        log(f"  matmul kind {k}: kernels (ms) {names}")
+    for op, kind, ms in top:
+        log(f"  top kernel {ms} ms, kind {kind}: {op}")
+    return dict(wall_ms=wall_ms, device_ms=device_ms, kinds=kinds, top=top,
+                matmul=matmul)
+
+
+def checkpoint_round_trip(dev):
+    """(c): reduced olmo-1b with its AdamW state in bf16: CKPT_STEPS
+    steps uninterrupted, against CKPT_STEPS - 1 steps, a save, a restore
+    into a fresh tree on the card and the last step; every leaf (fp32
+    masters, bf16 moments, the int32 step) equal bit for bit."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import transformer as T
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training import loop as TL
+    from repro_torch import tree as TR
+    from repro_torch.training.optim import AdamW
+    cfg = get_reduced_config("olmo-1b")
+    opt = AdamW(lr=1e-3, state_dtype=torch.bfloat16)
+    step = TL.make_train_step(cfg, opt)
+    _, batches = train_batches(cfg, CKPT_STEPS, dev, seed=5)
+
+    def fresh():
+        p = T.init_params(cfg, torch.Generator(device=dev).manual_seed(3),
+                          train=True)
+        return {"params": p, "opt": opt.init(p)}
+
+    def run(tree, batches):
+        for batch in batches:
+            tree["params"], tree["opt"], _ = step(tree["params"],
+                                                  tree["opt"], batch)
+        return tree
+
+    whole = run(fresh(), batches)
+    part = run(fresh(), batches[:-1])
+    with tempfile.TemporaryDirectory() as d:
+        CKPT.save(f"{d}/step_{CKPT_STEPS - 1}.npz", part,
+                  step=CKPT_STEPS - 1)
+        latest = CKPT.latest_step(d)
+        resumed = CKPT.restore(f"{d}/step_{latest}.npz", fresh())
+    resumed = run(resumed, batches[-1:])
+    leaves = list(zip(TR.leaves(resumed), TR.leaves(whole)))
+    dtypes = sorted({str(a.dtype) for a, _ in leaves})
+    equal = all(a.device == b.device and a.dtype == b.dtype
+                and torch.equal(a.detach(), b.detach()) for a, b in leaves)
+    log(f"checkpoint round trip on the card (reduced olmo-1b, leaves of "
+        f"{dtypes}, restored from step {latest}, then step {CKPT_STEPS}): "
+        f"{'equal' if equal else 'NOT equal'} bit for bit to the "
+        f"uninterrupted run over {len(leaves)} leaves")
+    if not equal or latest != CKPT_STEPS - 1 or "torch.bfloat16" not in dtypes:
+        fail("the checkpoint round trip on the card is not bit-equal")
+    return dict(equal=equal, leaves=len(leaves), dtypes=dtypes)
+
+
+def refuse_grad_kernels(dev):
+    """The attention kernels have no backward: their wrappers raise on
+    CUDA inputs that require grad (under grad mode), and launch under
+    no_grad."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q = torch.randn(1, 8, 2, 64, device=dev, requires_grad=True)
+    kv = torch.randn(1, 8, 2, 64, device=dev)
+    lens = torch.full((1,), 8, dtype=torch.int32, device=dev)
+    calls = {"flash": lambda: flash_attention_cuda(q, kv, kv),
+             "decode": lambda: decode_attention_cuda(q[:, 0], kv, kv, lens)}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            fail(f"the {name} kernel's wrapper took an input that "
+                 "requires grad")
+        with torch.no_grad():
+            call()
+
+
+def drive_training(dev, stats):
+    """Phase 10e: the training path (module docstring). Its attention is
+    the plain attend (`transformer.TRAIN_ATTENTION`): the kernel counts,
+    zeroed before the path runs, must read 0 after it. Returns them."""
+    from repro_torch.kernels import _build
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    log(f"device memory held before the training phase "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    refuse_grad_kernels(dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    report = {"families": compare_training(dev, stats)}
+    report["olmo_1b"] = train_full_width(stats)
+    report["checkpoint"] = checkpoint_round_trip(dev)
+    t0 = time.perf_counter()
+    small = _example("train_small").main(["--device", "cuda"])
+    report["train_small"] = dict(history=small["history"],
+                                 wall_s=time.perf_counter() - t0)
+    del small
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    log(f"launches on the training path: {launches} (its attention is the "
+        f"plain attend; the kernels have no backward)")
+    if any(launches.values()):
+        fail(f"the training path launched kernels: {launches}")
+    report["wall_s"] = time.perf_counter() - t_phase
+    stats["training"] = report
+    log_time(stats, f"training phase wall: {report['wall_s']:.1f} s "
+             f"(train_small: {report['train_small']['wall_s']:.1f} s, ce "
+             f"{report['train_small']['history'][0][1]:.3f} -> "
+             f"{report['train_small']['history'][-1][1]:.3f})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the paper's experiments (benchmarks_torch) at the frozen regime
 # ---------------------------------------------------------------------------
 
@@ -5283,6 +5661,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["hybrid_mla"], hybrid_sites = drive_hybrid_mla(dev, kernels,
                                                             stats)
+    torch.cuda.empty_cache()
+    launches["training"] = drive_training(dev, stats)
 
     torch.cuda.empty_cache()
     corpus, fb, targets = paper_regime(dev)

@@ -61,9 +61,11 @@ def model_params_from_numpy(cfg: ModelConfig, tree: Mapping,
     projections flattened to 2-D (MLA's wo too; its (r, H, k) up
     projections keep their shape); the hybrid's unstacked shared block
     is taken as one block; the (E, d, ff) expert leaves keep their
-    shape. deepseek-v3's multi-token-prediction head ("mtp") is not
-    carried: only the JAX package's training loss reads it. Values and
-    the type `cfg.param_dtype` are kept exactly."""
+    shape. deepseek-v3's multi-token-prediction head ("mtp"), where the
+    tree holds one, is carried as `init_params(..., train=True)` lays
+    it out (its block unstacked, as the shared block). Values and the
+    type `cfg.param_dtype` are kept exactly. Any tree of that layout
+    converts so, a gradient tree of `jax.grad` among them."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
@@ -118,6 +120,12 @@ def model_params_from_numpy(cfg: ModelConfig, tree: Mapping,
     if cfg.arch_type == "encdec":
         out["enc_blocks"] = per_layer(tree["enc_blocks"], cfg.n_enc_layers)
         out["enc_norm"] = norm(tree["enc_norm"])
+    if "mtp" in tree:
+        mtp = tree["mtp"]
+        out["mtp"] = {"proj": t(mtp["proj"]),
+                      "block": block(host(mtp["block"])),
+                      "norm_h": norm(mtp["norm_h"]),
+                      "norm_e": norm(mtp["norm_e"])}
     return out
 
 

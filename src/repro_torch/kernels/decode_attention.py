@@ -97,10 +97,16 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA tensors launch the kernel; CPU tensors take the plain version
     (`ref.decode_attention_ref`) over the cache rounded to q's type, as
-    the kernel reads it."""
+    the kernel reads it. The kernel has no backward: CUDA inputs that
+    require grad, under grad mode, raise."""
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k.to(q.dtype), v.to(q.dtype),
                                         kv_len, scale=scale, window=window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "decode_attention_cuda: the kernel has no backward, and an "
+            "input requires grad; use backend='reference', or call it "
+            "under torch.no_grad()")
     dev = q.device
     if not (q.is_cuda and k.device == dev and v.device == dev
             and kv_len.device == dev):

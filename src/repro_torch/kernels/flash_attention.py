@@ -41,10 +41,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in q's type.
 
     CUDA tensors launch the kernel; CPU tensors take the plain version
-    (`ref.flash_attention_ref`)."""
+    (`ref.flash_attention_ref`). The kernel has no backward: CUDA inputs
+    that require grad, under grad mode, raise (the output would carry no
+    gradient to q, k or v)."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_cuda: the kernel has no backward, and an "
+            "input requires grad; use backend='reference', or call it "
+            "under torch.no_grad()")
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"flash_attention_cuda: q on {q.device}, k on "
                          f"{k.device}, v on {v.device}; all must be on one "

@@ -31,8 +31,12 @@ and raises for any other case (a window on cross-attention or
 bidirectional attention among them: the JAX model sets none there). On
 CPU tensors, or with
 backend="reference", it runs the plain `attend` over the cache exactly as
-the JAX package does: that is what the CPU tests hold against JAX, and
-what the card's check holds the kernels against. `apply_mla`'s expanded
+the JAX package does: that is what the CPU tests hold against JAX, what
+the card's check holds the kernels against, and what training
+differentiates on the card (`transformer.TRAIN_ATTENTION`), as the JAX
+train step differentiates the jnp `attend`: the kernels have no
+backward, and their wrappers refuse inputs that require grad.
+`apply_mla`'s expanded
 form (a prefill from index 0, or a call without a cache) runs through
 `flash_attention_cuda` with a query/key width of qk_nope + qk_rope (192)
 against a value width of v_head (128); its absorbed form (one token

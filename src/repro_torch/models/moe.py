@@ -36,7 +36,7 @@ so there is no kernel to port here: on the card the expert products are
 PyTorch's batched matmuls, as mamba2's SSD is (models/ssm.py). Not
 ported: the expert-parallel `shard_map` over a "model" mesh axis that
 the JAX `apply_moe` takes above 8192 tokens on such a mesh (ROADMAP §3,
-with the fleet meshes of §2.7 / §2.8).
+with the fleet meshes of §2.10).
 """
 from __future__ import annotations
 

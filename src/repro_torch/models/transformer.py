@@ -51,12 +51,22 @@ Where it differs:
     is not cast: the JAX package reads it in fp32.
     `init_params(..., cast=True)` casts each block as it is drawn, so a
     full-width model never exists in fp32 whole;
-  * forward does not return the MoE auxiliary loss (serving ignores it;
-    `moe.apply_moe` returns it);
-  * parameters hold no multi-token-prediction head (deepseek-v3's "mtp"):
-    only the JAX package's training loss reads it;
-  * prefill computes the logits of the last position only: the JAX
-    prefill keeps row -1 of the full (B, S, V) panel, the same row.
+  * the serving calls never read what only training reads: forward
+    returns the summed MoE auxiliary loss only when it is called with
+    `train=True` (as `loss_fn` calls it); `init_params` draws
+    deepseek-v3's multi-token-prediction head ("mtp") only with
+    `train=True`, so a served model holds none; prefill computes the
+    logits of the last position only (the JAX prefill keeps row -1 of
+    the full (B, S, V) panel, the same row), while `loss_fn` takes the
+    full panel;
+  * training (`loss_fn`) casts the fp32 masters to the compute type at
+    every call, on a copy of the tree (`compute_tree`), with
+    `cast_params`' rules: the casts are differentiable, so the
+    gradients reach the masters, which keep `cfg.param_dtype` as in the
+    JAX package. With `cfg.remat` each block call of a training forward
+    (an attention or mamba2 block, a hybrid group, an encoder block) is
+    rematerialised by `torch.utils.checkpoint`, where the JAX stacks
+    wrap their scanned bodies in `jax.checkpoint`.
 
 The dry-run's ring cache for local layers (`window_cache`) raises
 NotImplementedError naming the item of ROADMAP §2 that queues it.
@@ -71,7 +81,9 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as TR
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -195,7 +207,7 @@ def _init_ssm_block(cfg: ModelConfig, gen: torch.Generator,
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
-                cast: bool = False) -> Params:
+                cast: bool = False, train: bool = False) -> Params:
     """Random parameters in `cfg.param_dtype` on the generator's device,
     with the JAX package's shapes and scales (its numbers differ: a
     torch.Generator is not a JAX key). With `cast`, each block and the
@@ -213,7 +225,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     and "enc_blocks" (Le blocks as dense ones) and "enc_norm"; an ssm
     block is {"norm", "mamba": the JAX package's mamba2 dict}; hybrid has
     no "blocks" but "groups" (G lists of period - 1 ssm blocks),
-    "shared_attn" (one dense block) and "tail" (ssm blocks)."""
+    "shared_attn" (one dense block) and "tail" (ssm blocks). With
+    `train` and `cfg.mtp_depth` it also draws the multi-token-prediction
+    head, last, in `cfg.param_dtype` whatever `cast` says (a trainer's
+    masters; `cast_params` casts it): "mtp" {"proj": (2d, d), "block": a
+    dense block, "norm_h", "norm_e"}; only the training loss reads it."""
     check_supported(cfg)
     cfg.validate()
     dtype = torch_dtype(cfg.param_dtype)
@@ -247,6 +263,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     else:
         p["blocks"] = [done(_init_block(cfg, gen, dtype, moe=kind == "moe"))
                        for kind in cfg.layer_kinds()]
+    if train and cfg.mtp_depth:
+        d = cfg.d_model
+        p["mtp"] = {"proj": L.normal(gen, (2 * d, d), (2 * d) ** -0.5, dtype),
+                    "block": _init_block(cfg, gen, dtype),
+                    "norm_h": _init_norm(cfg, dtype, gen.device),
+                    "norm_e": _init_norm(cfg, dtype, gen.device)}
     return p
 
 
@@ -278,9 +300,16 @@ def _cast_heads(cfg: ModelConfig, params: Params) -> None:
             params[name] = params[name].to(dt)
 
 
+def _cast_mtp(cfg: ModelConfig, mtp: Params) -> None:
+    """The mtp head as the JAX loss casts it at use: the projection and
+    the block; its two norms are read in fp32."""
+    mtp["proj"] = mtp["proj"].to(torch_dtype(cfg.dtype))
+    _cast_block(cfg, mtp["block"])
+
+
 def all_blocks(params: Params):
     """Every block dict of a parameter tree, each once (the hybrid
-    family's shared block too)."""
+    family's shared block too; not the mtp head's)."""
     blocks = params.get("blocks", []) + params.get("enc_blocks", [])
     for group in params.get("groups", []):
         blocks = blocks + group
@@ -289,18 +318,47 @@ def all_blocks(params: Params):
     return blocks + params.get("tail", [])
 
 
+def decay_flags(params: Params):
+    """The tree of `params` with True where the JAX package's AdamW
+    decays the leaf: where its leaf has two dimensions or more
+    (`training/optim.py`). Every leaf of a layer stack (a list here:
+    blocks, enc_blocks, groups, tail) has a layer axis in the JAX
+    layout, so it is decayed whatever its rank here (norm scales,
+    qk-norms, mamba2's A_log / D / dt_bias among them); the unstacked
+    leaves (embed, lm_head, final_norm, enc_norm, shared_attn, mtp) keep
+    the rank rule. The JAX attention projections are 3-D where the
+    port's are 2-D: both decayed."""
+    def walk(tree, stacked):
+        if isinstance(tree, dict):
+            return {k: walk(v, stacked) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, True) for v in tree]
+        return stacked or tree.ndim >= 2
+    return walk(params, False)
+
+
 def cast_params(cfg: ModelConfig, params: Params) -> Params:
     """Cast, IN PLACE, every parameter the JAX layers cast to the compute
     type at use (embedding, head, the attention dicts with their qk-norm
     scales, the MLP, the MoE's experts with its shared experts, the
-    mamba2 dict) to that type, once. Norm parameters and the MoE router
-    stay as they are: the norms and the router read them in fp32. Each
-    old tensor is released as its cast replaces it, so the peak is one
-    leaf above the larger copy."""
+    mamba2 dict, the mtp head's projection and block) to that type,
+    once. Norm parameters and the MoE router stay as they are: the norms
+    and the router read them in fp32. Each old tensor is released as its
+    cast replaces it, so the peak is one leaf above the larger copy."""
     _cast_heads(cfg, params)
     for blk in all_blocks(params):
         _cast_block(cfg, blk)
+    if "mtp" in params:
+        _cast_mtp(cfg, params["mtp"])
     return params
+
+
+def compute_tree(cfg: ModelConfig, params: Params) -> Params:
+    """`cast_params` on a copy of the tree's dicts and lists: the masters
+    are not touched, and each cast (`Tensor.to`) is differentiable, so a
+    loss over the copy sends its gradients to the masters. A leaf
+    already in its type is shared, not copied."""
+    return cast_params(cfg, TR.map_tree(lambda leaf: leaf, params))
 
 
 # ---------------------------------------------------------------------------
@@ -370,20 +428,33 @@ def _sinusoidal_pos(positions, d: int):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _encode(cfg: ModelConfig, params: Params, enc_embeds, backend: str):
+def _remat(cfg: ModelConfig, train: bool, fn, *args):
+    """fn(*args), rematerialised in the backward pass when `cfg.remat`
+    and `train` (the JAX package's `_maybe_ckpt`)."""
+    if cfg.remat and train:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _encode(cfg: ModelConfig, params: Params, enc_embeds, backend: str,
+            train: bool = False):
     """Whisper's encoder over stub frame embeddings (B, F, d): blocks of
     bidirectional self-attention without RoPE, then enc_norm."""
     x = enc_embeds.to(torch_dtype(cfg.dtype))
     b, f, _ = x.shape
     positions = torch.arange(f, device=x.device).expand(b, f)
     x = x + _sinusoidal_pos(positions, cfg.d_model).to(x.dtype)
-    for blk in params["enc_blocks"]:
+
+    def block(x, blk):
         h = L.apply_norm(cfg, blk["attn_norm"], x)
         x = x + L.apply_attention(cfg, blk["attn"], h, positions,
                                   theta=cfg.rope_theta, causal=False,
                                   rope=False, backend=backend)
         h = L.apply_norm(cfg, blk["mlp_norm"], x)
-        x = x + L.apply_mlp(cfg, blk["ffn"], h)
+        return x + L.apply_mlp(cfg, blk["ffn"], h)
+
+    for blk in params["enc_blocks"]:
+        x = _remat(cfg, train, block, x, blk)
     return L.apply_norm(cfg, params["enc_norm"], x)
 
 
@@ -410,11 +481,13 @@ def _self_attention(cfg: ModelConfig, blk: Params, x, positions, *, theta,
 
 
 def _ffn(cfg: ModelConfig, blk: Params, x, moe: bool = False):
-    """x + the block's FFN: its gated MLP, or its mixture of experts."""
+    """(x + the block's FFN, the MoE's fp32 aux loss or None): its gated
+    MLP, or its mixture of experts."""
     h = L.apply_norm(cfg, blk["mlp_norm"], x)
     if moe:
-        return x + MOE.apply_moe(cfg, blk["ffn"], h)[0]
-    return x + L.apply_mlp(cfg, blk["ffn"], h)
+        y, aux = MOE.apply_moe(cfg, blk["ffn"], h)
+        return x + y, aux
+    return x + L.apply_mlp(cfg, blk["ffn"], h), None
 
 
 def _ssm_block(cfg: ModelConfig, blk: Params, x, cache):
@@ -423,27 +496,33 @@ def _ssm_block(cfg: ModelConfig, blk: Params, x, cache):
 
 
 def _run_hybrid(cfg: ModelConfig, params: Params, x, positions, cache,
-                cache_index, backend: str, kv_len):
+                cache_index, backend: str, kv_len, train: bool = False):
     """The JAX `_run_hybrid`: each group's mamba2 blocks, then the shared
     block (its one set of weights, at rope_theta, no window) over that
-    group's KV buffer; then the tail's mamba2 blocks."""
+    group's KV buffer; then the tail's mamba2 blocks. Rematerialised as
+    the JAX stacks are: each group, and each mamba2 block within it."""
     ssm = None if cache is None else cache["ssm"]
     tables = L.rope_tables(positions, cfg.hd, cfg.rope_theta)
     shared = params["shared_attn"]
-    i = 0                   # the mamba2 block's row of the state stack
-    for g, group in enumerate(params["groups"]):
-        for blk in group:
-            x = _ssm_block(cfg, blk, x, _layer(ssm, i))
-            i += 1
+    ssm_block = lambda x, blk, i: _ssm_block(cfg, blk, x, _layer(ssm, i))
+
+    def group(x, g, blocks, first):
+        for i, blk in enumerate(blocks, first):
+            x = _remat(cfg, train, ssm_block, x, blk, i)
         x = _self_attention(
             cfg, shared, x, positions, theta=cfg.rope_theta,
             window=L.NO_WINDOW,
             cache=None if cache is None else _layer(cache["attn"], g),
             cache_index=cache_index, backend=backend, tables=tables,
             kv_len=kv_len)
-        x = _ffn(cfg, shared, x)
+        return _ffn(cfg, shared, x)[0]
+
+    i = 0                   # the mamba2 block's row of the state stack
+    for g, blocks in enumerate(params["groups"]):
+        x = _remat(cfg, train, group, x, g, blocks, i)
+        i += len(blocks)
     for blk in params["tail"]:
-        x = _ssm_block(cfg, blk, x, _layer(ssm, i))
+        x = _remat(cfg, train, ssm_block, x, blk, i)
         i += 1
     return x
 
@@ -451,8 +530,12 @@ def _run_hybrid(cfg: ModelConfig, params: Params, x, positions, cache,
 def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
             cache: Optional[Dict[str, Any]] = None,
             cache_index=0, backend: str = "cuda",
-            last_only: bool = False, enc_embeds=None, img_embeds=None):
-    """tokens: (B, S) -> (logits (B, S or 1, V), hidden (B, S or 1, d)).
+            last_only: bool = False, enc_embeds=None, img_embeds=None,
+            train: bool = False):
+    """tokens: (B, S) -> (logits (B, S or 1, V), hidden (B, S or 1, d)),
+    and with `train` -> (logits, hidden, aux): aux the fp32 sum of the
+    MoE layers' auxiliary losses (0.0 without MoE layers), and each
+    block rematerialised in the backward pass where `cfg.remat` says so.
 
     With a cache, the S new keys and values (ssm: the state after the S
     tokens) are written into it at `cache_index`, in place: a Python
@@ -489,12 +572,15 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
     else:
         kv_len = torch.full((b,), cache_index + s, dtype=torch.int32,
                             device=x.device)
+    aux = []
     if at == "ssm":
+        ssm_block = lambda x, blk, i: _ssm_block(cfg, blk, x,
+                                                 _layer(cache, i))
         for i, blk in enumerate(params["blocks"]):
-            x = _ssm_block(cfg, blk, x, _layer(cache, i))
+            x = _remat(cfg, train, ssm_block, x, blk, i)
     elif at == "hybrid":
         x = _run_hybrid(cfg, params, x, positions, cache, cache_index,
-                        backend, kv_len)
+                        backend, kv_len, train)
     else:
         enc_out = cross_len = None
         schedule = layer_schedules(cfg)
@@ -502,7 +588,7 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
         if at == "encdec":
             x = x + _sinusoidal_pos(positions, cfg.d_model).to(x.dtype)
             if enc_embeds is not None:
-                enc_out = _encode(cfg, params, enc_embeds, backend)
+                enc_out = _encode(cfg, params, enc_embeds, backend, train)
             elif cache is None:
                 raise ValueError(f"{cfg.name}: forward needs enc_embeds or "
                                  "a cache holding the cross K/V")
@@ -514,7 +600,8 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
             tables = {th: L.rope_tables(positions, rope_dim(cfg), th)
                       for th in sorted({th for th, _ in schedule})}
         moe = [kind == "moe" for kind in cfg.layer_kinds()]
-        for i, blk in enumerate(params["blocks"]):
+
+        def layer(x, blk, i):
             c = _layer(cache, i)
             theta, window = schedule[i]
             x = _self_attention(
@@ -532,11 +619,97 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
                 x = x + L.apply_attention(
                     cfg, blk["cross"], h, positions, theta=cfg.rope_theta,
                     causal=False, backend=backend, rope=False, **kw)
-            x = _ffn(cfg, blk, x, moe[i])
+            return _ffn(cfg, blk, x, moe[i])
+
+        for i, blk in enumerate(params["blocks"]):
+            x, a = _remat(cfg, train, layer, x, blk, i)
+            if a is not None:
+                aux.append(a)
     if last_only:
         x = x[:, -1:]
     x = L.apply_norm(cfg, params["final_norm"], x)
-    return _logits(cfg, params, x), x
+    if not train:
+        return _logits(cfg, params, x), x
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in aux:
+        total = total + a
+    return _logits(cfg, params, x), x, total
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+#: the weight of deepseek-v3's multi-token-prediction loss in the total
+MTP_WEIGHT = 0.3
+
+#: the attention route of the training forward: the plain `attend`, the
+#: counterpart of the jnp `attend` the JAX train step differentiates (the
+#: CUDA attention kernels have no backward; their wrappers refuse inputs
+#: that require grad)
+TRAIN_ATTENTION = "reference"
+
+
+def cross_entropy(logits, targets, mask):
+    """The mean over the rows `mask` keeps of -log softmax(logits)[target],
+    in fp32."""
+    lse = torch.log_softmax(logits.float(), dim=-1)
+    ll = lse.gather(-1, targets[..., None].long())[..., 0]
+    m = mask.float()
+    return -(ll * m).sum() / torch.clamp_min(m.sum(), 1.0)
+
+
+def _mtp_loss(cfg: ModelConfig, params: Params, hidden, tokens, targets,
+              mask):
+    """DeepSeek's multi-token prediction (the JAX `loss_fn`): predict t+2
+    from (hidden_t, embed(token_{t+1})) through one dense block at
+    rope_theta, no window."""
+    mp = params["mtp"]
+    h = L.apply_norm(cfg, mp["norm_h"], hidden[:, :-1])
+    e_next = L.apply_norm(cfg, mp["norm_e"], _embed(cfg, params,
+                                                    tokens[:, 1:]))
+    hm = torch.cat([h, e_next], dim=-1) @ mp["proj"]
+    b, s, _ = hm.shape
+    pos = torch.arange(s, device=hm.device).expand(b, s)
+    hm = _self_attention(
+        cfg, mp["block"], hm, pos, theta=cfg.rope_theta, window=L.NO_WINDOW,
+        cache=None, cache_index=0, backend=TRAIN_ATTENTION,
+        tables=L.rope_tables(pos, rope_dim(cfg), cfg.rope_theta),
+        kv_len=None)
+    hm = _ffn(cfg, mp["block"], hm)[0]
+    tgt = targets[:, 1:]
+    logits = _logits(cfg, params, hm)[:, -tgt.shape[1]:]
+    return cross_entropy(logits, torch.clamp_min(tgt, 0), mask[:, 1:])
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch):
+    """The JAX `loss_fn`: (total, metrics) for a batch {"tokens" (B, S),
+    "targets" (B, S_t), optional "positions", "enc_embeds" (encdec),
+    "img_embeds" (vlm)} from the master parameters, cast to the compute
+    type on a copy at this call (`compute_tree`). The cross entropy
+    covers the last S_t positions (vlm: the text's), targets < 0
+    masked; total = ce + aux_loss_coef * aux (+ MTP_WEIGHT * mtp where
+    the tree holds deepseek's "mtp" head). metrics: "ce", "aux" and
+    "total" (and "mtp"), fp32 scalars on the device. The forward runs in
+    training mode (`forward(train=True)`), its attention through
+    TRAIN_ATTENTION."""
+    params = compute_tree(cfg, params)
+    tokens, targets = batch["tokens"], batch["targets"]
+    logits, hidden, aux = forward(
+        cfg, params, tokens, positions=batch.get("positions"),
+        backend=TRAIN_ATTENTION, enc_embeds=batch.get("enc_embeds"),
+        img_embeds=batch.get("img_embeds"), train=True)
+    mask = targets >= 0
+    ce = cross_entropy(logits[:, -targets.shape[1]:],
+                       torch.clamp_min(targets, 0), mask)
+    metrics = {"ce": ce, "aux": aux}
+    total = ce + cfg.aux_loss_coef * aux
+    if cfg.mtp_depth and "mtp" in params:
+        mtp = _mtp_loss(cfg, params, hidden, tokens, targets, mask)
+        metrics["mtp"] = mtp
+        total = total + MTP_WEIGHT * mtp
+    metrics["total"] = total
+    return total, metrics
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens, max_len: int, *,

@@ -1,1 +1,3 @@
-"""Training substrate: the AdamW optimiser and its learning-rate schedule."""
+"""Training substrate: the AdamW optimiser and its learning-rate schedule
+(`optim.py`), checkpoints (`checkpoint.py`) and the training loop
+(`loop.py`)."""

@@ -96,3 +96,19 @@ def test_serve_routed(capsys, extra, expect):
     out = capsys.readouterr().out
     assert expect in out
     assert "route decisions logged: 8" in out
+
+
+def test_train_small_descends(capsys):
+    """examples_torch/train_small.py: the JAX example's olmo-100m (the
+    same config), a few steps on the CPU; the example itself raises if
+    the loss does not descend."""
+    import dataclasses
+    port = _load(ROOT / "examples_torch" / "train_small.py")
+    ref = _load(ROOT / "examples" / "train_small.py")
+    assert dataclasses.asdict(port.small_100m()) == \
+        dataclasses.asdict(ref.small_100m())
+    out = port.main(["--device", "cpu", "--steps", "4", "--batch", "2",
+                     "--seq", "32"])
+    text = capsys.readouterr().out
+    assert "olmo-100m:" in text and "% drop)" in text
+    assert out["history"][-1][1] < out["history"][0][1]

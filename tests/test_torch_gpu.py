@@ -1964,3 +1964,108 @@ def test_route_graph_reads_size_after_a_commit(dev):
     assert r.db.capacity == 256
     assert {replica(dbuf.front), replica(dbuf._back[0])} == keys
     assert disp.cache_stats()["misses"] == misses
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels refuse gradients; a CUDA train step against the
+# CPU's; a checkpoint round trip on the card
+# ---------------------------------------------------------------------------
+
+def test_attention_wrappers_refuse_inputs_that_require_grad(dev):
+    """Neither kernel has a backward: a CUDA input that requires grad,
+    under grad mode, raises (the output would carry no gradient to q, k
+    or v); under no_grad the same call launches."""
+    q = torch.randn(2, 16, 4, 64, device=dev, requires_grad=True)
+    kv = torch.randn(2, 16, 2, 64, device=dev)
+    lens = torch.full((2,), 16, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention_cuda(q, kv, kv)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention_cuda(q.detach(), kv.requires_grad_(True), kv)
+    kv.requires_grad_(False)
+    with pytest.raises(RuntimeError, match="no backward"):
+        decode_attention_cuda(q[:, 0], kv, kv, lens)
+    with torch.no_grad():
+        flash_attention_cuda(q, kv, kv)
+        decode_attention_cuda(q[:, 0], kv, kv, lens)
+    torch.cuda.synchronize()
+
+
+# the card against the CPU in fp32 (TF32 off): the metrics at
+# chip_smoke.py's bar (TRAIN_METRIC_RTOL, derived there); the parameters
+# after the steps at the CPU tests' bar against JAX (STEP_ATOL of
+# tests/_torch_training_common.py: Adam moves an entry whose gradient
+# rounds to the other sign by lr the other way)
+TRAIN_METRIC_RTOL, TRAIN_PARAM_ATOL = 1e-5, 5e-4
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-780m",
+                                  "phi3.5-moe-42b-a6.6b", "zamba2-7b",
+                                  "deepseek-v3-671b"])
+def test_cuda_train_steps_match_the_cpu(dev, arch):
+    """3 steps of make_train_step on the card and on the CPU from the
+    same weights and batches: the metrics within TRAIN_METRIC_RTOL, the
+    parameters within TRAIN_PARAM_ATOL of each leaf's scale, and no
+    kernel launched (the step's attention is the plain attend)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import transformer as T
+    from repro_torch.training import loop as TL
+    from repro_torch import tree as TR
+    from repro_torch.training.optim import AdamW
+    cfg = get_reduced_config(arch, dtype="float32")
+    cpu_p = T.init_params(cfg, torch.Generator().manual_seed(0), train=True)
+    card_p = TR.map_tree(lambda x: x.to(dev, copy=True), cpu_p)
+    data = TL.synthetic_lm_batches(cfg, 2, 32, seed=1, device="cpu")
+    batches = [next(data) for _ in range(3)]
+    _build.reset_launches()
+    out = {}
+    for where, p, d in (("cpu", cpu_p, "cpu"), ("card", card_p, dev)):
+        opt = AdamW(lr=1e-3)
+        st, step = opt.init(p), TL.make_train_step(cfg, opt)
+        rows = []
+        for b in batches:
+            p, st, m = step(p, st, {k: v.to(d) for k, v in b.items()})
+            rows.append({k: float(v) for k, v in m.items()})
+        out[where] = (rows, p)
+    torch.cuda.synchronize()
+    assert not any(_build.launch_counts().values())
+    for got, want in zip(out["card"][0], out["cpu"][0]):
+        for k in want:
+            assert got[k] == pytest.approx(want[k], rel=TRAIN_METRIC_RTOL)
+    for a, b in zip(TR.leaves(out["card"][1]), TR.leaves(out["cpu"][1])):
+        assert a.is_cuda and not a.requires_grad
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
+                                   atol=TRAIN_PARAM_ATOL * scale)
+
+
+def test_cuda_checkpoint_round_trip(dev, tmp_path):
+    """A training tree on the card (fp32 masters, bf16 AdamW moments, the
+    int32 step) saved and restored into a tree on the card: every leaf
+    equal bit for bit, on the card, in its type."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import transformer as T
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training import loop as TL
+    from repro_torch import tree as TR
+    from repro_torch.training.optim import AdamW
+    cfg = get_reduced_config("deepseek-v3-671b")
+    opt = AdamW(state_dtype=torch.bfloat16)
+    p = T.init_params(cfg, torch.Generator(device=dev).manual_seed(2),
+                      train=True)
+    st = opt.init(p)
+    step = TL.make_train_step(cfg, opt)
+    data = TL.synthetic_lm_batches(cfg, 2, 32, seed=1, device=dev)
+    for _ in range(2):
+        p, st, _ = step(p, st, next(data))
+    tree = {"params": p, "opt": st}
+    CKPT.save(tmp_path / "step_2.npz", tree, step=2)
+    like = TR.map_tree(torch.zeros_like, tree)
+    got = CKPT.restore(tmp_path / f"step_{CKPT.latest_step(tmp_path)}.npz",
+                       like)
+    dtypes = set()
+    for a, b in zip(TR.leaves(got), TR.leaves(tree)):
+        assert a.is_cuda and a.dtype == b.dtype
+        assert torch.equal(a, b.detach())
+        dtypes.add(a.dtype)
+    assert dtypes == {torch.float32, torch.bfloat16, torch.int32}

@@ -5,8 +5,9 @@ against a partly filled latent cache), then the reduced deepseek-v3
 (MLA, first_k_dense 1, a MoE layer with its shared expert, mtp_depth 1)
 through forward, prefill, decode_step and FleetModel, with the JAX
 weights carried across by `convert.model_params_from_numpy`; its
-multi-token-prediction head is not carried, and the serving forward is
-shown not to read it.
+multi-token-prediction head is carried (the training loss reads it:
+`test_torch_training_grads_fleet10.py`), the served model holds none,
+and the serving forward is shown not to read it.
 
 Bars (`tests/test_torch_model_parity.py`): fp32 within 1e-4, greedy
 tokens equal; bf16 logits within 0.1.
@@ -201,13 +202,28 @@ def _nan_tree(tree):
 
 def test_mtp_head_is_dropped_and_never_read():
     """The JAX pytree carries deepseek's multi-token-prediction head,
-    which only its training loss reads; the converter drops it, and a
-    head of NaNs put into the port's parameters leaves the forward's
-    logits as they were, as removing it leaves JAX's."""
+    which only its training loss reads. The converter carries it, equal
+    to JAX's leaf by leaf (its block unstacked, wq/wo flattened as every
+    block's); the served model drops it (`init_params` draws it only to
+    train, FleetModel holds none); and a head of NaNs put into the
+    port's parameters leaves the serving forward's logits as they were,
+    as removing it leaves JAX's."""
     cfg_j, pj, cfg_t, pt = _models()
-    assert "mtp" in pj and "mtp" not in pt
+    assert "mtp" in pj and "mtp" in pt
+    jm, tm = pj["mtp"], pt["mtp"]
+    _close(tm["proj"], jm["proj"], tol=0)
+    for name in ("norm_h", "norm_e"):
+        _close(tm[name]["scale"], jm[name]["scale"], tol=0)
+    for path, want in jax.tree_util.tree_leaves_with_path(jm["block"]):
+        got = tm["block"]
+        for key in path:
+            got = got[key.key]
+        _close(got, np.asarray(want, np.float32).reshape(got.shape), tol=0)
+    assert "mtp" not in TT.init_params(cfg_t, torch.Generator().manual_seed(0))
+    assert "mtp" not in TFleetModel(cfg_t, max_len=8, device="cpu").params
     toks = _tokens(cfg_j, 2, 9, seed=8)
-    lt, _ = TT.forward(cfg_t, pt, torch.tensor(toks, dtype=torch.int64))
+    served = {k: v for k, v in pt.items() if k != "mtp"}
+    lt, _ = TT.forward(cfg_t, served, torch.tensor(toks, dtype=torch.int64))
     d = cfg_t.d_model
     poisoned = dict(pt, mtp={"proj": torch.full((2 * d, d), float("nan")),
                              "block": _nan_tree(pt["blocks"][0]),
