@@ -177,6 +177,20 @@ together), then:
      tokens through the graphs equal to the eager path's; its kernel
      path against its plain path; TTFT, the decode step and a profile of
      a replayed step.
+ 10c'. the dry-run and gemma3's ring caches (`drive_dryrun_ring`):
+     gemma3-12b with ring caches (`window_cache`, 1,024 slots a local
+     layer) served as the dense phase serves it (its ring decode site
+     held with a control, no capture, every site launched), its logits
+     held to the full caches' on the same weights over a wrap; then
+     gemma3-12b x long_500k executed once at full size (bf16 weights
+     and caches, 8 global layers of 524,288 rows, 40 rings):
+     decode_step at 524,287 through the kernels against the plain
+     attend, every decode call held, both sites with a control, the
+     allocator and the peaks against the dry-run's record of the combo,
+     the step timed eagerly and through a captured graph; last, with the
+     host to itself, `repro_torch.launch.dryrun --all` on the meta
+     device (33 records ok, 7 skipped, none in error) and
+     `benchmarks_torch.roofline` over it against the card's memory.
  10d. the last two families (`drive_hybrid_mla`): the attention call
      sites of zamba2-7b (dh = 112, H = Hk = 32: flash prefill and its
      self decode over the fp32 cache) and deepseek-v3's MLA prefill
@@ -474,6 +488,41 @@ HYBRID_DECODE = {"zamba2": {"self decode": (16, SERVE_MAX_LEN, 32, 32,
 HYBRID_SITES = {"zamba2 flash prefill": "zamba2-7b flash causal",
                 "zamba2 self decode": "zamba2-7b decode self",
                 "deepseek flash prefill": "deepseek-v3-671b flash causal"}
+# phase 10c': the dry-run and gemma3's ring caches (`drive_dryrun_ring`),
+# after the dense phase. (a) `repro_torch.launch.dryrun --all` into a
+# temporary directory (the meta device: no card), run after (b) and (c)
+# so that their host-timed steps have the host's cores to themselves,
+# then `benchmarks_torch.roofline` over it: DRYRUN_OK records ok and
+# DRYRUN_SKIPPED skipped (long_500k outside `shapes._LONG_OK`), none in
+# error. (b) gemma3-12b with ring
+# caches (window_cache: W = 1,024 slots a local layer) served as the
+# dense phase serves it, the same seed (DENSE_SEED's requests, groups
+# padded to LAUNCH_PAD_LEN = W tokens, so the first decode writes slot
+# 0 with position 1,024), under the fleet key RING_KEY; its logits held
+# against the full caches' on the same weights; its ring decode site
+# (RING_DECODE: kv_len = W, no window) against its plain version. (c)
+# gemma3-12b x long_500k with --window-cache --bf16-params, executed
+# once: bf16 weights and caches drawn on the card, decode_step at
+# LONG_INDEX through the kernels and through the plain attend.
+DRYRUN_OK, DRYRUN_SKIPPED = 33, 7
+RING_KEY = "ring:gemma3-12b"
+COMPARE_LENS[RING_KEY] = COMPARE_LENS["gemma3-12b"]
+RING_DECODE = {"self decode local": (16, 1024, 16, 8, 256, 0, 1024)}
+RING_SITES = {"gemma3 ring self decode local": f"{RING_KEY} decode self ring"}
+LONG_INDEX, LONG_SEED = 524_287, 41
+# the long step's memory against the dry-run's record of it (the bars
+# PERF.md states for it): after the setup the allocator holds the
+# record's argument bytes up to its rounding (a block of ALLOC_ROUND
+# bytes; a block over 1 MiB is not split where 1 MiB or less would be
+# left, so under 1 MiB + ALLOC_ROUND more a tensor past 1 MiB); the
+# kernel path's peak above them stays under the record's temp (the plain
+# attend's fp32 copies, which the kernels never make); the plain path's
+# peak above them is the record's temp within LONG_TEMP_REL of it plus
+# LONG_TEMP_ABS bytes
+ALLOC_ROUND = 512
+LONG_TEMP_REL, LONG_TEMP_ABS = 0.10, 256 << 20
+LONG_SITES = {"gemma3 long_500k decode local": "gemma3-12b long local",
+              "gemma3 long_500k decode global": "gemma3-12b long global"}
 # phase 10e: training (training/loop.py, launch/train.py). (a) every
 # family's reduced config in fp32, TRAIN_CMP_STEPS steps on the card and
 # on the CPU from the same weights and batches: the ce / aux / mtp
@@ -4005,7 +4054,8 @@ def count_sites(engine):
     """Inside: each attention kernel launch carries the label of its call
     site, "<model> <site>" (`_build.site`; flash: causal, encoder (S =
     S_kv, no mask) or cross (S != S_kv); decode: cross over a model's
-    n_audio_frames rows, else self; " window" after a windowed call's:
+    n_audio_frames rows, else self; " ring" after a call over a local
+    layer's ring cache (window_cache), " window" after a windowed call's:
     gemma3's local layers). A graph captured inside keeps the
     labels in its recording, and each replay is credited under them, so
     `site_launches()` attributes replayed launches too."""
@@ -4024,9 +4074,12 @@ def count_sites(engine):
             return flash(q, k, v, **kw)
 
     def decode_site(q, k, v, kv_len, **kw):
-        cfg = engine.fleet[current["model"]].cfg
+        m = engine.fleet[current["model"]]
+        cfg = m.cfg
         site = "decode cross" if cfg.arch_type == "encdec" \
             and k.shape[1] == cfg.n_audio_frames else "decode self"
+        if cfg.window_cache and k.shape[1] < m.max_len:
+            site += " ring"          # a local layer's ring of W slots
         if kw.get("window"):
             site += " window"
         with _build.site(f"{current['model']} {site}"):
@@ -4771,6 +4824,411 @@ def drive_dense(dev, kernels, stats):
     log_time(stats, f"dense phase wall: {stats['dense_phase_s']:.1f} s "
              f"(engines: { {n: r['wall_s'] for n, r in report.items()} })")
     return launches, sites
+
+
+# ---------------------------------------------------------------------------
+# phase 10c': the dry-run sweep, gemma3's ring caches, gemma3 x long_500k
+# ---------------------------------------------------------------------------
+
+def drive_dryrun(stats):
+    """(a): the sweep (`repro_torch.launch.dryrun --all`, the meta
+    device) into a temporary directory, its records checked
+    (DRYRUN_OK ok, DRYRUN_SKIPPED skipped, no error), then the roofline
+    report over them against the card's memory; logs the table and the
+    sweep's seconds."""
+    import io
+    from benchmarks_torch import roofline as RF
+    from repro_torch.launch import dryrun as DR
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rc = DR.main(["--all", "--force", "--out", tmp])
+        sweep_s = time.perf_counter() - t0
+        recs = RF.load_records(tmp)
+        status = {}
+        for r in recs:
+            status[r["status"]] = status.get(r["status"], 0) + 1
+        errors = [f"{r['arch']} x {r['shape']}: {r.get('error')}"
+                  for r in recs if r["status"] == "error"]
+        if rc or errors or status.get("ok") != DRYRUN_OK or \
+                status.get("skipped") != DRYRUN_SKIPPED:
+            fail(f"dry-run sweep: exit {rc}, records {status} (want "
+                 f"{DRYRUN_OK} ok, {DRYRUN_SKIPPED} skipped), errors "
+                 f"{errors}")
+        total = torch.cuda.get_device_properties(0).total_memory
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rows = RF.run(dryrun=Path(tmp), out=Path(tmp) / "roofline.json",
+                          hbm_bytes=total)
+    trace_s = sum(r.get("elapsed_s", 0.0) for r in recs)
+    log(buf.getvalue().rstrip())
+    workers = min(DR.MAX_WORKERS, os.cpu_count() or 1, len(recs))
+    log_time(stats, f"dry-run sweep (repro_torch.launch.dryrun --all, the "
+             f"meta device, {workers} processes): {status}, "
+             f"{sweep_s:.1f} s wall ({trace_s:.1f} s of counting over the "
+             f"combos); roofline against the card's total_memory {total} "
+             f"bytes")
+    stats["dryrun"] = dict(status=status, sweep_s=sweep_s, trace_s=trace_s,
+                           total_memory=total, roofline=rows,
+                           records={f"{r['arch']} x {r['shape']}": {
+                               k: r.get(k) for k in (
+                                   "status", "flops_per_device",
+                                   "bytes_per_device", "memory",
+                                   "model_flops_global", "analytic",
+                                   "elapsed_s")} for r in recs})
+
+
+@torch.inference_mode()
+def compare_ring_full(m, stats):
+    """gemma3-12b's ring caches against its full caches on the same
+    weights: a padded group of COMPARE_LENS prompts (padded to
+    LAUNCH_PAD_LEN = W rows) through prefill and MAX_NEW - 1 decode
+    steps, both fed the full path's tokens: the logits within
+    LOGIT_REL_BAR of the full path's at every step, greedy tokens equal
+    but at near-ties."""
+    import dataclasses
+    from repro_torch.models import transformer as T
+    full = dataclasses.replace(m.cfg, window_cache=False)
+    lens = COMPARE_LENS[RING_KEY]
+    rng = np.random.default_rng(12)
+    toks = np.zeros((len(lens), LAUNCH_PAD_LEN), np.int32)
+    for row, n in enumerate(lens):
+        toks[row, :n] = rng.integers(0, m.cfg.vocab, n)
+    toks = torch.tensor(toks, dtype=torch.int64, device=m.device)
+    out = {c: T.prefill(c, m.params, toks, m.max_len,
+                        cache_dtype=torch.float32) for c in (m.cfg, full)}
+    w = out[m.cfg][1]["kv_local"]["k"].shape[2]
+    rel, flips, ties = [], 0, 0
+    for step in range(MAX_NEW):
+        lr, lf = out[m.cfg][0].float(), out[full][0].float()
+        diff = (lr - lf).abs()
+        rel.append(float(diff.max() / lf.abs().max()))
+        top2 = torch.topk(lf, 2, dim=-1).values
+        tied = (top2[:, 0] - top2[:, 1]) <= 2 * diff.max(dim=-1).values
+        differ = lr.argmax(-1) != lf.argmax(-1)
+        flips += int(differ.sum())
+        ties += int((differ & tied).sum())
+        if int((differ & ~tied).sum()):
+            fail(f"gemma3 ring vs full caches, step {step}: a greedy token "
+                 "differs without a near-tie")
+        if step == MAX_NEW - 1:
+            break
+        tok = lf.argmax(-1)[:, None]
+        out = {c: T.decode_step(c, m.params, out[c][1], tok,
+                                LAUNCH_PAD_LEN + step) for c in out}
+    del out
+    if max(rel) > LOGIT_REL_BAR:
+        fail(f"gemma3 ring vs full caches: logits differ by {max(rel)} of "
+             f"the largest (bar {LOGIT_REL_BAR})")
+    log(f"gemma3-12b, ring caches of {w} slots (local layers) vs full "
+        f"caches of {m.max_len} rows, a group of {len(lens)} prompts of "
+        f"{lens} tokens padded to {LAUNCH_PAD_LEN}, prefill + "
+        f"{MAX_NEW - 1} decode steps (positions {LAUNCH_PAD_LEN}.."
+        f"{LAUNCH_PAD_LEN + MAX_NEW - 2}: the ring wraps at the first): "
+        f"max |dlogit| / max |logit| per step {rel} (bar {LOGIT_REL_BAR}); "
+        f"greedy tokens differing {flips}, all at near-ties ({ties})")
+    stats["ring_vs_full"] = dict(rel_logit_diff=rel, token_flips=flips,
+                                 near_ties=ties)
+
+
+def drive_ring_engine(dev, kernels, stats):
+    """(b): gemma3-12b with ring caches beside olmo-1b, served as the
+    dense phase serves gemma3 (`serve_full_model`, its seed and
+    requests); its logits against the full caches'; its ring decode site
+    against its plain version. Returns (launches, launches by site)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import FleetModel
+    check_site_attention(dev, kernels, stats, "gemma3 ring", {},
+                         RING_DECODE, seed=25)
+    torch.cuda.empty_cache()
+    olmo = FleetModel(get_config("olmo-1b"), seed=0, max_len=SERVE_MAX_LEN,
+                      device=dev)
+    cfg = dataclasses.replace(get_config("gemma3-12b"), window_cache=True)
+    seed = 1 + DENSE_MODELS.index("gemma3-12b")     # the dense phase's
+    engine, corpus = build_dense_engine(dev, RING_KEY, olmo, seed, stats,
+                                        cfg=cfg)
+    m = engine.fleet[RING_KEY]
+    w = T.ring_shape(cfg, m.max_len)[2]
+    if w != cfg.sliding_window or LAUNCH_PAD_LEN % w:
+        fail(f"gemma3 ring: {w} slots against prompts padded to "
+             f"{LAUNCH_PAD_LEN}")
+    want = [f"{RING_KEY} {site}" for site in (
+        "flash causal window", "flash causal", "decode self ring",
+        "decode self")]
+    report, launches, run_sites = serve_full_model(engine, corpus, RING_KEY,
+                                                   want, stats)
+    compare_ring_full(m, stats)
+    step = stats["serve_times"][RING_KEY]["graph"]["device_ms"]
+    full = stats["serve_times"].get("gemma3-12b", {}).get("graph", {})
+    log_time(stats, f"gemma3-12b decode step at batch {TIME_BATCH} through "
+             f"its graph: ring caches {step:.3f} ms (device), full caches "
+             f"{full.get('device_ms')} ms in this run")
+    stats["ring_engine"] = report
+    del engine, corpus, m, olmo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {k: v for k, v in run_sites.items()
+                      if k.startswith(RING_KEY)}
+
+
+def _ref_by_head(q, k, v, kv_len, **kw):
+    """ref.decode_attention_ref (`kw`: its scale and window) one KV head
+    at a time: the same values, with one head's fp32 copy of the cache
+    alive at once (a 524,288-row layer is 4.3 GB of K in fp32 a head
+    group)."""
+    from repro_torch.kernels import ref
+    hk, rep = k.shape[2], q.shape[1] // k.shape[2]
+    return torch.cat([ref.decode_attention_ref(
+        q[:, j * rep:(j + 1) * rep], k[:, :, j:j + 1].to(q.dtype),
+        v[:, :, j:j + 1].to(q.dtype), kv_len, **kw) for j in range(hk)],
+        dim=1)
+
+
+@contextlib.contextmanager
+def long_sites(worst=None):
+    """Inside: each decode kernel call carries the label of its long_500k
+    site (LONG_SITES: a ring of W slots, or a global layer's full
+    cache); with `worst`, each call is also held against its plain
+    version (`_ref_by_head`), its largest error over the decode bar kept
+    there."""
+    from unittest import mock
+    from repro_torch.kernels import _build
+    from repro_torch.models import layers as L
+    decode = L.decode_attention_cuda
+
+    def labelled(q, k, v, kv_len, **kw):
+        where = "local" if k.shape[1] < LONG_INDEX else "global"
+        with _build.site(f"gemma3-12b long {where}"):
+            got = decode(q, k, v, kv_len, **kw)
+        if worst is not None:   # with the call's scale: q comes scaled
+            ratio = decode_check(got, _ref_by_head(q, k, v, kv_len,
+                                                   **kw))[1]
+            worst[where] = max(worst.get(where, 0.0), ratio)
+        return got
+
+    with mock.patch.object(L, "decode_attention_cuda", labelled):
+        yield
+
+
+def check_long_site(dev, kernels, stats, key, k, v, gen):
+    """One long_500k decode site on the layer's own cache (B = 1): a bf16
+    query that looks for the newest key (each head: that key's K plus
+    N(0, 0.25) noise, so the newest key's weight dominates the softmax
+    over every row), the kernel against `_ref_by_head`, and the control
+    (kv_len - 1: the newest key dropped) failing the bar by CONTROL_MIN;
+    timed beside its bound, the plain version and SDPA."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    b, t, hk, dh = k.shape
+    h = 16
+    kv_len = torch.full((b,), t, dtype=torch.int32, device=dev)
+    newest = k[:, t - 1].float().repeat_interleave(h // hk, dim=1)
+    q = (newest + 0.25 * torch.randn(newest.shape, generator=gen,
+                                     device=dev)).to(torch.bfloat16)
+    got = decode_attention_cuda(q, k, v, kv_len)
+    want = _ref_by_head(q, k, v, kv_len)
+    err, ratio = decode_check(got, want)
+    control = decode_check(decode_attention_cuda(q, k, v, kv_len - 1),
+                           want)[1]
+    if not (ratio <= 1.0 and control >= CONTROL_MIN):
+        fail(f"{key} T={t}: error over the bar {ratio} (at most 1), "
+             f"control {control} (at least {CONTROL_MIN})")
+    ms = cuda_ms(lambda: decode_attention_cuda(q, k, v, kv_len), 20)
+    plain = cuda_ms(lambda: _ref_by_head(q, k, v, kv_len), 2)
+    try:
+        lib = cuda_ms(lambda: _sdpa(q[:, None], k, v)[:, 0], 20)
+    except torch.OutOfMemoryError:        # beside 58 GB of arguments
+        lib = None
+        torch.cuda.empty_cache()
+    nbytes = 2.0 * t * hk * dh * k.element_size() + 2.0 * 2 * b * h * dh
+    bms, by = _site_entry(kernels, key, f"decode_attention ({key})", nbytes,
+                          4.0 * h * dh * t, ms, plain, lib, err)
+    log_time(stats, f"decode_attention q bf16, cache bf16, {key}: B={b} "
+             f"T={t} H={h} Hk={hk} dh={dh}, every row valid: max abs err "
+             f"{err}, over the bar {ratio}, control {control}; kernel_ms="
+             f"{ms} ({bms / ms} of the bound) plain_ms={plain} library_ms"
+             f"(SDPA, bf16, GQA; None: out of memory)={lib} bound_ms={bms} "
+             f"({by})")
+    return dict(max_abs_err=err, err_over_bar=ratio,
+                control_over_bar=control, ms=ms, plain_ms=plain,
+                library_ms=lib, bound_ms=bms, bound_by=by)
+
+
+@torch.inference_mode()
+def drive_long_context(dev, kernels, stats):
+    """(c): gemma3-12b x long_500k with ring caches, executed once at full
+    size: the dry-run's record of the combo (--window-cache
+    --bf16-params), then its argument trees on the card (bf16 weights
+    from LONG_SEED, bf16 caches drawn from it: 8 global layers of
+    524,288 rows and 40 rings of 1,024 slots holding the positions before
+    LONG_INDEX), decode_step at LONG_INDEX through the kernels and
+    through the plain attend (logits within LOGIT_REL_BAR), each decode
+    call held against its plain version, the two sites with controls,
+    the allocator against the record (ALLOC_ROUND, LONG_TEMP_*), the
+    step timed by CUDA events. Returns launches by site."""
+    import dataclasses
+    from repro_torch import graphs
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import input_specs
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models import transformer as T
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = DR.run_combo("gemma3-12b", "long_500k", "card", Path(tmp),
+                           force=True, bf16_params=True, window_cache=True)
+    if rec["status"] != "ok":
+        fail(f"dry-run of gemma3-12b x long_500k: {rec.get('error')}")
+    mem = rec["memory"]
+    cfg = dataclasses.replace(get_config("gemma3-12b"), window_cache=True,
+                              param_dtype="bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(LONG_SEED)
+    params = T.init_params(cfg, gen)
+    spec = input_specs(cfg, "long_500k", device=dev)
+    cache = spec["cache"]
+    for kv in (cache["kv_local"], cache["kv_global"]):
+        for name in ("k", "v"):
+            kv[name].normal_(generator=gen)
+    # slot j holds the last position before LONG_INDEX that is j mod W
+    w = cache["kv_local"]["k"].shape[2]
+    slot = torch.arange(w, device=dev)
+    last = LONG_INDEX - 1
+    cache["kv_local"]["pos"].copy_((slot + w * ((last - slot) // w)).to(
+        torch.int32).expand_as(cache["kv_local"]["pos"]))
+    del slot
+    tokens = spec["tokens"].random_(0, cfg.vocab, generator=gen)
+    index = spec["index"].fill_(LONG_INDEX)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - base
+    leaves = TR.leaves(params) + TR.leaves(cache) + [tokens, index]
+    args = mem["argument_size_in_bytes"]
+    slack = sum(ALLOC_ROUND if x.numel() * x.element_size() <= 1 << 20
+                else (1 << 20) + ALLOC_ROUND for x in leaves)
+    if not 0 <= held - args < slack:
+        fail(f"long_500k: the allocator holds {held} bytes after the setup, "
+             f"the dry-run counts {args} argument bytes ({len(leaves)} "
+             f"tensors: the rounding stays under {slack})")
+
+    def step(backend):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        logits, _ = T.decode_step(cfg, params, cache, tokens, index,
+                                  backend=backend)
+        torch.cuda.synchronize()
+        return logits.float(), torch.cuda.max_memory_allocated() - base
+
+    _build.reset_launches()
+    with long_sites():
+        got, peak_k = step("cuda")
+    torch.cuda.synchronize()
+    sites = site_launches()
+    launches = _build.launch_counts()
+    kinds = cfg.layer_kinds()
+    want_sites = {v: kinds.count(kind) for v, kind in zip(
+        LONG_SITES.values(), ("local", "global"))}
+    if any(sites.get(k) != n for k, n in want_sites.items()) or \
+            launches["decode_attention"] != len(kinds):
+        fail(f"long_500k step: decode launches by site {sites}, want "
+             f"{want_sites}")
+    reps = 10
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def timed(run):
+        run()
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+    eager_ms = timed(lambda: T.decode_step(cfg, params, cache, tokens,
+                                           index))
+    # the device's time: the step captured, as FleetModel runs it
+    graph = graphs.Step(lambda: T.decode_step(cfg, params, cache, tokens,
+                                              index), device=dev)
+    step_ms = timed(graph)
+    del graph
+    want, peak_r = step("reference")
+    rel = float((got - want).abs().max() / want.abs().max())
+    worst = {}
+    with long_sites(worst):
+        T.decode_step(cfg, params, cache, tokens, index)
+    report = {}
+    gen_q = torch.Generator(device=dev).manual_seed(LONG_SEED + 1)
+    for key, layer in (("gemma3 long_500k decode local", cache["kv_local"]),
+                       ("gemma3 long_500k decode global",
+                        cache["kv_global"])):
+        report[key] = check_long_site(dev, kernels, stats, key, layer["k"][0],
+                                      layer["v"][0], gen_q)
+    temp = mem["temp_size_in_bytes"]
+    over_k, over_r = peak_k - held, peak_r - held
+    param_bytes = sum(x.numel() * x.element_size() for x in TR.leaves(params))
+    cache_bytes = sum(x.numel() * x.element_size() for x in TR.leaves(cache))
+    bms, by = bound_ms(param_bytes + cache_bytes, rec["flops_per_device"],
+                       PEAK_BF16_FLOPS)
+    log_time(stats,
+             f"gemma3-12b x long_500k (ring caches, bf16): {param_bytes} "
+             f"bytes of weights, {cache_bytes} of caches, set up in "
+             f"{setup_s:.1f} s; the allocator holds {held} bytes, the "
+             f"dry-run counts {args} argument bytes; decode_step at "
+             f"{LONG_INDEX} through the kernels (CUDA events over {reps} "
+             f"steps): {step_ms:.3f} ms through a captured graph (bound "
+             f"{bms:.3f} ms, {by}: {bms / step_ms} of it), {eager_ms:.3f} ms "
+             f"eagerly; logits within {rel} of the plain path's (bar "
+             f"{LOGIT_REL_BAR}); every decode call over its bar (at most 1) "
+             f"{worst}; peak above the arguments: kernels {over_k}, plain "
+             f"{over_r}, the dry-run's temp {temp} (peak "
+             f"{mem['peak_size_in_bytes']})")
+    stats["long_500k"] = dict(
+        record_memory=mem, record_flops=rec["flops_per_device"],
+        held_bytes=held, param_bytes=param_bytes, cache_bytes=cache_bytes,
+        step_ms=step_ms, eager_ms=eager_ms, bound_ms=bms, bound_by=by,
+        rel_logit_diff=rel,
+        calls_err_over_bar=worst, peak_over_args_kernels=over_k,
+        peak_over_args_plain=over_r, setup_s=setup_s, sites=report,
+        launches=sites)
+    if rel > LOGIT_REL_BAR:
+        fail(f"long_500k: kernel path logits differ by {rel} of the "
+             f"largest from the plain path's (bar {LOGIT_REL_BAR})")
+    if set(worst) != {"local", "global"} or max(worst.values()) > 1.0:
+        fail(f"long_500k: a decode call misses its plain version: {worst}")
+    if not over_k <= temp:
+        fail(f"long_500k: the kernel path's peak is {over_k} bytes above the "
+             f"arguments, over the dry-run's temp {temp}")
+    if abs(over_r - temp) > LONG_TEMP_REL * temp + LONG_TEMP_ABS:
+        fail(f"long_500k: the plain path's peak is {over_r} bytes above the "
+             f"arguments, the dry-run's temp {temp} (bar {LONG_TEMP_REL} of "
+             f"it + {LONG_TEMP_ABS})")
+    del params, cache, spec, got, want, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return sites
+
+
+def drive_dryrun_ring(dev, kernels, stats):
+    """Phase 10c': gemma3's ring engine (b), gemma3 x long_500k (c), then
+    the dry-run sweep and its roofline (a). Returns (ring launches, ring
+    launches by site, long_500k launches by site)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    log(f"device memory held before the dry-run and ring phase "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    ring_launches, ring_sites = drive_ring_engine(dev, kernels, stats)
+    long = drive_long_context(dev, kernels, stats)
+    drive_dryrun(stats)
+    stats["dryrun_ring_phase_s"] = time.perf_counter() - t_phase
+    log_time(stats, f"dry-run and ring phase wall: "
+             f"{stats['dryrun_ring_phase_s']:.1f} s")
+    return ring_launches, ring_sites, long
 
 
 # ---------------------------------------------------------------------------
@@ -5659,6 +6117,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["dense"], dense_sites = drive_dense(dev, kernels, stats)
     torch.cuda.empty_cache()
+    launches["ring"], ring_sites, long_sites_run = drive_dryrun_ring(
+        dev, kernels, stats)
+    torch.cuda.empty_cache()
     launches["hybrid_mla"], hybrid_sites = drive_hybrid_mla(dev, kernels,
                                                             stats)
     torch.cuda.empty_cache()
@@ -5704,6 +6165,12 @@ def main() -> int:
         if name in HYBRID_SITES:
             entry["launches"] = hybrid_sites[HYBRID_SITES[name]]
             continue
+        if name in RING_SITES:
+            entry["launches"] = ring_sites[RING_SITES[name]]
+            continue
+        if name in LONG_SITES:
+            entry["launches"] = long_sites_run[LONG_SITES[name]]
+            continue
         if name == "elo_scan fit fold":
             entry["launches"] = stats["fit_fold_launches"]
             continue
@@ -5724,7 +6191,8 @@ def main() -> int:
                              "sharded_retrieve_replay_select",
                              "flash_attention",
                              "decode_attention") + tuple(WHISPER_SITES) \
-        + tuple(PHI_SITES) + tuple(DENSE_SITES) + tuple(HYBRID_SITES) + (
+        + tuple(PHI_SITES) + tuple(DENSE_SITES) + tuple(RING_SITES) \
+        + tuple(LONG_SITES) + tuple(HYBRID_SITES) + (
             "retrieve knn", "retrieve_topn n512", "topn_merge k512")
     line = {"kernels": [kernels[k] for k in order]}
     stats["kernels"] = line["kernels"]

@@ -4,8 +4,8 @@ One ModelConfig describes any architecture in the assigned pool: dense
 decoder-only, MoE, SSM (Mamba2), hybrid (Zamba2), encoder-decoder
 (Whisper) and VLM (LLaVA). A copy of the JAX package's module, so the
 port names the same configurations; ``repro_torch.models.transformer``
-runs every family (MLA among the attentions), and refuses only the
-dry-run's ring caches (`window_cache`), naming ROADMAP §2.8.
+runs every family (MLA among the attentions) and the dry-run's ring
+caches for local layers (`window_cache`).
 """
 from __future__ import annotations
 

@@ -27,6 +27,13 @@ hand-written kernels:
     r <= index of the full cache;
   * one token against the cached cross K/V -> `decode_attention_cuda`
     with kv_len = every row;
+  * a local layer's ring cache (`transformer.ring_cache`): a prefill of
+    S >= W rows -> `flash_attention_cuda` over the S in-flight keys with
+    the window, then the last W rows stored; a prefill of S < W rows ->
+    as a full cache's; one token -> `decode_attention_cuda` over the W
+    slots with kv_len = min(index + 1, W) and no window (the ring holds
+    exactly the window's keys, and once it wraps a slot is not a
+    position, so a window over slots would cut the wrong ones);
 and raises for any other case (a window on cross-attention or
 bidirectional attention among them: the JAX model sets none there). On
 CPU tensors, or with
@@ -55,14 +62,27 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.models.config import ModelConfig
 
 NO_WINDOW = 1 << 30  # "disabled" sliding window
+RING_EMPTY = -(1 << 30)  # the position of a ring slot never written
 _Q_BLOCK = 512       # query-chunk size: caps score memory at (B,H,blk,T)
 _MASKED = -1e30      # the plain path's masked score (finite, as in JAX)
 BACKENDS = ("cuda", "reference")
 
 
+class MetaGenerator:
+    """A stand-in for a generator on the meta device, which has none:
+    `init_params(cfg, MetaGenerator())` builds the parameter tree's
+    shapes and dtypes and draws nothing (the JAX dry-run's `eval_shape`
+    of `init_params`), so deepseek-v3's 671 B parameters cost no
+    memory."""
+    device = torch.device("meta")
+
+
 def normal(gen: torch.Generator, shape, scale: float, dtype):
     """A parameter of N(0, scale^2) values in `dtype`, drawn on the
-    generator's device (the JAX package's `jax.random.normal * scale`)."""
+    generator's device (the JAX package's `jax.random.normal * scale`);
+    on the meta device (`MetaGenerator`) its shape and dtype alone."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     # scaled in place: a draw holds one fp32 copy (an expert stack of
     # deepseek-v3 is 15 GB in fp32)
     return torch.randn(shape, generator=gen, device=gen.device).mul_(
@@ -241,16 +261,54 @@ def _attend_kernels(q, k, v, cache, cache_index, window, causal,
         return flash_attention_cuda(qs, k, v, causal=True, window=win,
                                     scale=1.0)
     if s == 1 and cache is not None:
+        ring = "pos" in cache
         if kv_len is None:
             kv_len = (cache_index + 1).to(torch.int32).expand(b) \
                 if on_device else torch.full((b,), cache_index + 1,
                                              dtype=torch.int32,
                                              device=q.device)
+        if ring:        # the slots written: min(index + 1, W)
+            kv_len = torch.clamp_max(kv_len, cache["k"].shape[1])
         return decode_attention_cuda(qs[:, 0], cache["k"], cache["v"],
-                                     kv_len, scale=1.0, window=win)[:, None]
+                                     kv_len, scale=1.0,
+                                     window=0 if ring else win)[:, None]
     raise NotImplementedError(
         f"attention on CUDA: {s} new tokens at cache index {cache_index}; "
         "the kernels cover a prefill from index 0 and a one-token decode")
+
+
+def _ring_write(cache, k, v, positions, cache_index) -> bool:
+    """Write S new keys, values and positions into a ring of W slots (one
+    layer's {k, v of (B, W, Hk, hd), pos (B, W)}), IN PLACE, as the JAX
+    ring branch does: S >= W (a prefill) stores the last W rows, slot p %
+    W holding position p, which needs S % W == 0 (the JAX assertion);
+    fewer rows go in from slot cache_index % W (on the device for a
+    tensor index; JAX's `dynamic_update_slice` clamps the start to W - S).
+    Returns whether the attention reads the S in-flight keys (S >= W)
+    rather than the ring."""
+    w, s = cache["k"].shape[1], k.shape[1]
+    if s >= w:
+        if s % w:
+            raise ValueError(f"ring cache: a prefill of {s} rows into {w} "
+                             "slots; it takes a whole number of rings")
+        cache["k"].copy_(k[:, -w:])
+        cache["v"].copy_(v[:, -w:])
+        cache["pos"].copy_(positions[:, -w:])
+        return True
+    if isinstance(cache_index, torch.Tensor):
+        if s != 1:
+            raise ValueError(f"apply_attention: {s} new tokens at a device "
+                             "index; it takes one")
+        slot = torch.remainder(cache_index, w)
+        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+        cache["pos"].index_copy_(1, slot, positions.to(cache["pos"].dtype))
+    else:
+        lo = min(cache_index % w, w - s)
+        cache["k"][:, lo:lo + s] = k
+        cache["v"][:, lo:lo + s] = v
+        cache["pos"][:, lo:lo + s] = positions
+    return False
 
 
 def apply_attention(cfg: ModelConfig, params, x, positions, *, theta,
@@ -269,7 +327,10 @@ def apply_attention(cfg: ModelConfig, params, x, positions, *, theta,
     values at `cache_index` IN PLACE (the JAX function returns a new
     cache). `cache_index` is a Python int, or for one new token a (1,)
     int64 tensor on x's device (written with `index_copy_`, so the host
-    never reads it).
+    never reads it). A cache that also holds "pos" (B, W) is a local
+    layer's ring of W slots (`_ring_write`; the kernel route clamps
+    kv_len to W): the plain path masks its keys by the positions `pos`
+    holds, with the layer's window, as the JAX function does.
     Cross-attention (non-causal, no RoPE, as in the JAX function):
     `kv_source` (B, T, d) gives the keys and values, written IN PLACE
     into `cache` (one layer's (B, T, Hk, hd) cross buffers) when it is
@@ -302,7 +363,13 @@ def apply_attention(cfg: ModelConfig, params, x, positions, *, theta,
             rope_tables(positions, hd, theta)
         q = apply_rope(q, positions, theta, tables)
         k = apply_rope(k, positions, theta, tables)
-    if cache is not None:
+    in_flight = False       # a ring prefill: attend over k, v as given
+    if cache is not None and "pos" in cache:
+        if cross:
+            raise ValueError("apply_attention: a ring cache is a local "
+                             "layer's self-attention")
+        in_flight = _ring_write(cache, k, v, positions, cache_index)
+    elif cache is not None:
         if cross == "decode":
             raise ValueError("apply_attention: precomputed_kv takes no "
                              "cache to write")
@@ -318,8 +385,12 @@ def apply_attention(cfg: ModelConfig, params, x, positions, *, theta,
             cache["v"][:, lo:lo + k.shape[1]] = v
 
     if x.is_cuda and backend == "cuda":
-        out = _attend_kernels(q, k, v, cache, cache_index, window, causal,
-                              kv_len, cross)
+        out = _attend_kernels(q, k, v, None if in_flight else cache,
+                              0 if in_flight else cache_index, window,
+                              causal, kv_len, cross)
+    elif in_flight:
+        out = attend(q, k, v, positions, positions, window=window,
+                     causal=causal)
     elif cross:
         t = k.shape[1]
         kv_pos = torch.arange(t, device=x.device).expand(b, t)
@@ -330,7 +401,8 @@ def apply_attention(cfg: ModelConfig, params, x, positions, *, theta,
                      causal=causal)
     else:
         t = cache["k"].shape[1]
-        kv_pos = torch.arange(t, device=x.device).expand(b, t)
+        kv_pos = cache["pos"] if "pos" in cache else \
+            torch.arange(t, device=x.device).expand(b, t)
         out = attend(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                      positions, kv_pos, window=window, causal=causal)
     return out.reshape(b, s, h * hd) @ params["wo"]

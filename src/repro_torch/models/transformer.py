@@ -68,8 +68,16 @@ Where it differs:
     rematerialised by `torch.utils.checkpoint`, where the JAX stacks
     wrap their scanned bodies in `jax.checkpoint`.
 
-The dry-run's ring cache for local layers (`window_cache`) raises
-NotImplementedError naming the item of ROADMAP §2 that queues it.
+With `window_cache` (the dry-run's option, `ring_cache`), a local:global
+stack keeps ring caches for its local layers, as the JAX package's
+`_run_windowed_dense` does: {"kv_local": {k, v of (G * R, B, W, Hk, hd),
+pos (G * R, B, W) int32}, "kv_global": {k, v of (G, B, max_len, Hk,
+hd)}}, the JAX (G, R) layer axes flattened into one and the batch on axis
+1 (as every cache leaf of the port, so FleetModel's row views slice
+them alike). W = min(sliding_window, max_len); slot p % W holds position
+p, and `pos` says which position each slot holds (RING_EMPTY where none
+has been written). The layers run in their stack's order, each on its
+own buffer (`_layer_cache`).
 
 decode_step takes its position as a Python int or as a (1,) int64
 tensor on the device: the positions, the valid cache length and the
@@ -113,12 +121,27 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported "
             f"(ROADMAP §2.6, {QUEUED.get(cfg.arch_type, 'not queued')})")
-    if cfg.window_cache and cfg.local_global_ratio and cfg.sliding_window:
-        raise NotImplementedError(
-            f"{cfg.name}: window_cache keeps ring caches of the window's "
-            "size for the local layers, which only the dry-run sets; it "
-            "is not ported (ROADMAP §2.8, with the dry-run); the full "
-            "caches serve local layers here")
+
+
+def ring_cache(cfg: ModelConfig) -> bool:
+    """Whether the decode cache keeps ring caches for the local layers:
+    `window_cache` on a dense or vlm local:global stack (where the JAX
+    forward takes `_run_windowed_dense`)."""
+    return bool(cfg.window_cache and cfg.local_global_ratio
+                and cfg.sliding_window
+                and cfg.arch_type in ("dense", "vlm"))
+
+
+def ring_shape(cfg: ModelConfig, max_len: int):
+    """(groups G, local layers a group R, ring slots W) of a ring cache:
+    G groups of R local layers and one global layer, W = min(window,
+    max_len)."""
+    period = cfg.local_global_ratio + 1
+    if cfg.n_layers % period:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole "
+                         f"groups of {period} (window_cache)")
+    return (cfg.n_layers // period, period - 1,
+            min(cfg.sliding_window, max_len))
 
 
 def hybrid_shape(cfg: ModelConfig):
@@ -391,6 +414,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
     if cfg.arch_type == "ssm":
         return ssm_state(cfg.n_layers)
+    if ring_cache(cfg):
+        n_groups, per, w = ring_shape(cfg, max_len)
+        local = kv(n_groups * per, w)
+        local["pos"] = torch.full((n_groups * per, batch, w), L.RING_EMPTY,
+                                  dtype=torch.int32, device=device)
+        return {"kv_local": local, "kv_global": kv(n_groups, max_len)}
     if cfg.arch_type == "hybrid":
         n_groups, per, tail = hybrid_shape(cfg)
         return {"ssm": ssm_state(n_groups * per + tail),
@@ -463,6 +492,18 @@ def _layer(cache, i: int):
     return None if cache is None else {
         k: _layer(v, i) if isinstance(v, dict) else v[i]
         for k, v in cache.items()}
+
+
+def _layer_cache(cfg: ModelConfig, cache, i: int):
+    """Layer i's views of a cache: of a ring cache, its ring (a local
+    layer) or its full buffer (a global one)."""
+    if cache is None or "kv_local" not in cache:
+        return _layer(cache, i)
+    period = cfg.local_global_ratio + 1
+    g, j = divmod(i, period)
+    if j == period - 1:
+        return _layer(cache["kv_global"], g)
+    return _layer(cache["kv_local"], g * (period - 1) + j)
 
 
 def _self_attention(cfg: ModelConfig, blk: Params, x, positions, *, theta,
@@ -602,13 +643,13 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
         moe = [kind == "moe" for kind in cfg.layer_kinds()]
 
         def layer(x, blk, i):
-            c = _layer(cache, i)
+            c = _layer_cache(cfg, cache, i)
             theta, window = schedule[i]
             x = _self_attention(
                 cfg, blk, x, positions, theta=theta, window=window,
                 cache=c, cache_index=cache_index, backend=backend,
-                tables=tables.get(theta), kv_len=kv_len,
-                rope=at != "encdec")
+                tables=tables.get(theta),
+                kv_len=kv_len, rope=at != "encdec")
             if at == "encdec":
                 h = L.apply_norm(cfg, blk["cross_norm"], x)
                 cc = None if c is None else c["cross"]
@@ -724,6 +765,9 @@ def prefill(cfg: ModelConfig, params: Params, tokens, max_len: int, *,
     if cache is None:
         cache = init_cache(cfg, tokens.shape[0], max_len, cache_dtype,
                            device=tokens.device)
+    elif "kv_local" in cache:
+        # a ring's attention masks by the positions its slots hold
+        cache["kv_local"]["pos"].fill_(L.RING_EMPTY)
     elif cfg.arch_type in ("ssm", "hybrid"):
         # the prefill reads the recurrent state it starts from (the conv
         # windows and the SSM state): a reused cache starts from zeros,

@@ -1249,6 +1249,75 @@ def test_captured_decode_tokens_equal_eager(dev, arch):
     assert st["misses"] == st["warmed"] == 3 and st["hits"] == 3
 
 
+@pytest.mark.parametrize("s,steps", [(100, 6), (30, 25)])
+def test_ring_kernel_path_matches_plain_attention(dev, s, steps):
+    """gemma3's ring caches (window_cache) on the card: the reduced fp32
+    gemma3 of 6 layers (5 local, 1 global) with a window of 50, a
+    prefill of two rings (100 rows: the flash kernel over the in-flight
+    keys, with the window) or of part of one (30 rows), then decode
+    steps past a wrap through the decode kernel over the 50 slots
+    (kv_len = min(index + 1, 50), no window): logits within the fp32
+    attention bar of the plain attend over the rings' positions, the
+    rings equal; FleetModel.generate launches one flash kernel a layer
+    and one decode kernel a layer and step."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import FleetModel
+    m = FleetModel(get_reduced_config("gemma3-12b", dtype="float32",
+                                      window_cache=True,
+                                      **REDUCED["gemma3-12b"]),
+                   seed=0, max_len=160, device=dev)
+    rng = np.random.default_rng(1)
+    toks = torch.tensor(rng.integers(0, 500, (3, s)), device=dev)
+    runs = {b: T.prefill(m.cfg, m.params, toks, m.max_len, backend=b,
+                         cache_dtype=torch.float32)
+            for b in ("cuda", "reference")}
+    assert tuple(runs["cuda"][1]["kv_local"]["k"].shape[:3]) == (5, 3, 50)
+    for i in range(steps + 1):
+        got, want = runs["cuda"][0], runs["reference"][0]
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+        tok = want.argmax(-1)[:, None]
+        runs = {b: T.decode_step(m.cfg, m.params, runs[b][1], tok, s + i,
+                                 backend=b) for b in runs}
+    rings = [runs[b][1]["kv_local"] for b in ("cuda", "reference")]
+    assert torch.equal(rings[0]["pos"], rings[1]["pos"])
+    torch.testing.assert_close(rings[0]["k"], rings[1]["k"], rtol=2e-3,
+                               atol=2e-3)
+    m.warmup([3])
+    _build.reset_launches()
+    m.generate(toks.cpu().numpy(), steps)
+    counts = _build.launch_counts()
+    assert counts["flash_attention"] == m.cfg.n_layers
+    assert counts["decode_attention"] == m.cfg.n_layers * (steps - 1)
+
+
+def test_ring_captured_decode_tokens_equal_eager(dev):
+    """gemma3 at full width, six layers (five local, one global), bf16,
+    with ring caches of 128 slots (its window cut from 1,024 so the ring
+    wraps inside a cache of 320 rows): generate through the captured
+    decode graphs gives the eager path's greedy tokens at each warmed
+    row count, past the wrap (prompts of 256 rows, two rings; slot 0
+    takes position 256), with the launches credited per replay and
+    nothing captured after warmup."""
+    import dataclasses
+    from repro_torch.serving import FleetModel
+    cfg = dataclasses.replace(_full_width("gemma3-12b", 6),
+                              sliding_window=128, window_cache=True)
+    m = FleetModel(cfg, seed=3, max_len=320, device=dev)
+    assert m.warmup([1, 2, 4]) == 3 and m.rows == 4
+    assert tuple(m._cache["kv_local"]["k"].shape[:3]) == (5, 4, 128)
+    rng = np.random.default_rng(4)
+    for b in (4, 1, 2):
+        toks = rng.integers(0, cfg.vocab, (b, 256)).astype(np.int32)
+        want = _eager_tokens(m, toks, 8)
+        _build.reset_launches()
+        got = m.generate(toks, 8)
+        assert _build.launch_counts()["decode_attention"] == 7 * 6
+        np.testing.assert_array_equal(got, want)
+    st = m.cache_stats()
+    assert st["misses"] == st["warmed"] == 3 and st["hits"] == 3
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,cf", [(3, 7, 1.25), (8, 1024, 1.25),
                                     (8, 1, 1.25), (2, 50, 0.5)])

@@ -66,15 +66,6 @@ def test_configs_are_the_jax_packages():
         assert vars(t_config(arch)) == vars(j_config(arch)), arch
 
 
-@pytest.mark.parametrize("arch,kw", [
-    # the dry-run's ring caches: the one refusal left (zamba2-7b and
-    # deepseek-v3 run: tests/test_torch_{hybrid,mla}_parity.py)
-    ("gemma3-12b", {"window_cache": True})])
-def test_unported_architectures_raise(arch, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TFleetModel(t_reduced(arch, **kw), device="cpu")
-
-
 @pytest.mark.parametrize("norm", ["rmsnorm", "layernorm", "nonparam_ln"])
 def test_norms_match_jax(norm):
     rng = np.random.default_rng(2)
