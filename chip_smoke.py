@@ -219,6 +219,25 @@ together), then:
      0 after it: training's attention is the plain attend
      (`transformer.TRAIN_ATTENTION`), as the JAX train step
      differentiates the jnp `attend`.
+ 10f. the fleet meshes (`drive_mesh`; `launch/mesh.py`, `sharding.py`,
+     the expert-parallel MoE, `training/loop.py` on a mesh): (a) olmo-1b
+     at full width (batch 8 x 1024, bf16 compute, remat) under an NCCL
+     world of one: 3 steps of make_train_step(mesh=) on a (1, 1) mesh
+     against the same 3 steps without a mesh from the same weights, bit
+     for bit (every collective is over a group of one), both timed; (b)
+     the expert-parallel MoE with two gloo ranks on the one card (NCCL
+     takes one rank a card): one phi3.5-moe layer at full width (E = 16,
+     d = 4096, expert_ff = 6400, top-2) in bf16 over 8 x 1040 = 8,320
+     tokens on a (data=1, model=2) mesh, y, aux and the gradients of x,
+     the router and each rank's experts against one process's
+     unsharded call (y within the MoE bar, MOE_SIGMAS; a control with
+     the combine dropped must fail it by MESH_CONTROL_MIN), the gloo
+     transfers counted and timed; (c) `repro_torch.launch.dryrun` on
+     the fake backend for MESH_DRYRUN (processes of their own, side by
+     side): each record's per-device argument bytes equal to the spec
+     arithmetic (`sharding.local_bytes` over `dryrun.mesh_arguments`),
+     its collective bytes and the roofline's dominant term logged. The
+     kernel counts read 0 after the phase (none lies on these paths).
  11. the paper's experiments (`benchmarks_torch`) at the frozen regime
      (300 prompts per dataset, D = 64, seed 0): holds KNN's retrieve
      call (a dataset's ~90 test rows against the 1,470 win-rate rows,
@@ -559,6 +578,35 @@ TRAIN_MATMUL_OPS = ("aten::mm", "aten::bmm", "aten::addmm",
 # CKPT_STEPS steps uninterrupted against a restore after CKPT_STEPS - 1
 CKPT_STEPS = 3
 # (d) examples_torch/train_small.py at its default of 300 steps
+# phase 10f: the fleet meshes (`drive_mesh`). (a) olmo-1b, MESH_TRAIN
+# (batch, seq), MESH_TRAIN_STEPS steps on a (1, 1) mesh against no mesh;
+# if not bit-equal, the training bars: ce MESH_CE_RTOL, the parameters
+# MESH_PARAM_ATOL of each leaf's largest |value|
+MESH_TRAIN, MESH_TRAIN_STEPS = (8, 1024), 3
+MESH_CE_RTOL, MESH_PARAM_ATOL = 2e-6, 5e-4
+# (b) one phi3.5-moe layer, MESH_MOE_TOKENS (batch, seq) = 8,320 tokens
+# (past moe.SMALL_T: the expert-parallel branch), two gloo ranks on
+# (data=1, model=2): with one batch shard each rank routes every token,
+# so the sharded call equals the unsharded one up to the order of its
+# sums. y: the MoE bar (MOE_SIGMAS sigma + 4u sum_k w_k |y_k|, against
+# the fp32 evaluation); the control (a rank's y without the other
+# rank's experts) must pass it by MESH_CONTROL_MIN. The gradients are
+# sums over the same pairs split between the ranks, rounded in bf16 once
+# more where the two halves meet: x's and the experts' (bf16) within
+# MESH_GRAD_BF16 of each leaf's largest |value| (two bf16 steps), the
+# router's (fp32) within MESH_GRAD_FP32; aux (fp32, the same gates)
+# within MESH_AUX_ATOL
+MESH_MOE_ARCH, MESH_MOE_TOKENS, MESH_MOE_SEED = \
+    "phi3.5-moe-42b-a6.6b", (8, 1040), 29
+MESH_CONTROL_MIN = 10.0
+MESH_GRAD_BF16, MESH_GRAD_FP32, MESH_AUX_ATOL = 2.0 ** -7, 1e-5, 1e-6
+# (c) the dry-run on the fake backend: (arch, shape, mesh, options)
+MESH_DRYRUN = (("qwen3-8b", "train_4k", "single", ()),
+               ("deepseek-v3-671b", "decode_32k", "single",
+                ("--experts-2d",)),
+               ("mamba2-780m", "prefill_32k", "multi", ()))
+MESH_SHAPES = {"single": {"data": 16, "model": 16},
+               "multi": {"pod": 2, "data": 16, "model": 16}}
 # tolerances: the JAX suite's own bars between its backends
 SIM_TOL = 1e-5                     # similarity (tests/test_kernels.py)
 R_RTOL, R_ATOL = 1e-5, 1e-3        # ratings (tests/test_router_state.py)
@@ -3309,8 +3357,8 @@ def pinned_experts(calls, record):
     if record:
         calls.clear()
 
-    def pinned(cfg, router, xt):
-        top_w, top_e, gates = route(cfg, router, xt)
+    def pinned(cfg, router, xt, sum_grad=None):
+        top_w, top_e, gates = route(cfg, router, xt, sum_grad)
         if record:
             calls.append(top_e)
             return top_w, top_e, gates
@@ -4286,16 +4334,32 @@ def moe_err_over_bar(cfg, ffn, x):
     against the same function in fp32 on the same values: (max abs
     error, the largest ratio of an element's error to its bar, pairs
     dropped by the device's slots, pairs the host drops from the same
-    top-k). The bar: MOE_SIGMAS."""
+    top-k). The bar: MOE_SIGMAS (`moe_bar`)."""
+    from repro_torch.models import moe as MOE
+    b, s, d = x.shape
+    got = MOE.apply_moe(cfg, ffn, x)[0].float().reshape(b * s, d)
+    want, bar, dp = moe_bar(cfg, ffn, x)
+    err = (got - want).abs()
+    ratio = float((err / bar).nan_to_num(nan=0.0).max())
+    # the slots on the host: each pair the next of its expert, in order
+    flat = dp.top_e.reshape(-1).cpu().numpy()
+    host_drops = int(sum(max(0, int((flat == ex).sum()) - dp.cap)
+                         for ex in range(cfg.n_experts)))
+    return float(err.max()), ratio, int((~dp.keep).sum()), host_drops
+
+
+def moe_bar(cfg, ffn, x):
+    """(the fp32 evaluation (T, d), the MoE bar (T, d), the fp32 dispatch)
+    of the bf16 FFN on `x` (B, S, d): the bar is MOE_SIGMAS sigma + 4u
+    sum_k w_k |y_k| (derivation at MOE_SIGMAS)."""
     import torch.nn.functional as F
     from repro_torch.models import moe as MOE
     u = MOE_ROUND
     b, s, d = x.shape
     t, e, k = b * s, cfg.n_experts, cfg.experts_per_tok
-    got = MOE.apply_moe(cfg, ffn, x)[0].float().reshape(t, d)
-    p32 = {n: ffn[n].float() for n in ("router", "w_gate", "w_up",
-                                       "w_down")}
-    xt = x.float().reshape(t, d)
+    p32 = {n: ffn[n].detach().float() for n in ("router", "w_gate", "w_up",
+                                                "w_down")}
+    xt = x.detach().float().reshape(t, d)
     want = MOE.apply_moe(cfg, p32, xt[None])[0][0]
     dp = MOE.dispatch(cfg, p32["router"], xt)
     buf = torch.cat([xt, xt.new_zeros((1, d))])[dp.src].view(e, dp.cap, d)
@@ -4309,14 +4373,8 @@ def moe_err_over_bar(cfg, ffn, x):
     idx = torch.where(dp.keep, dp.pair, 0)
     w = dp.top_w.reshape(-1, 1) * dp.keep[:, None]
     sigma = (var[idx] * w * w).view(t, k, d).sum(1).sqrt()
-    bar = MOE_SIGMAS * sigma + 4.0 * u * (y_k[idx] * w).view(t, k, d).sum(1)
-    err = (got - want).abs()
-    ratio = float((err / bar).nan_to_num(nan=0.0).max())
-    # the slots on the host: each pair the next of its expert, in order
-    flat = dp.top_e.reshape(-1).cpu().numpy()
-    host_drops = int(sum(max(0, int((flat == ex).sum()) - dp.cap)
-                         for ex in range(e)))
-    return float(err.max()), ratio, int((~dp.keep).sum()), host_drops
+    return want, MOE_SIGMAS * sigma + 4.0 * u * (y_k[idx] * w).view(
+        t, k, d).sum(1), dp
 
 
 @torch.inference_mode()
@@ -5619,6 +5677,308 @@ def drive_training(dev, stats):
 
 
 # ---------------------------------------------------------------------------
+# phase 10f: the fleet meshes
+# ---------------------------------------------------------------------------
+
+def sync(dev):
+    """Wait for the device's queue (a CPU rehearsal has none)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_train(dev, stats):
+    """(a): MESH_TRAIN_STEPS steps of olmo-1b at full width with and
+    without a (1, 1) mesh from the same weights and batches, under an
+    NCCL world of one rank (gloo on the CPU, for a rehearsal)."""
+    import torch.distributed as dist
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.training import loop as TL
+    from repro_torch.training.optim import AdamW
+    cfg = get_config("olmo-1b")
+    b, s = MESH_TRAIN
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)     # the rank's card, before the mesh
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh(1, 1, device=dev.type)
+        it = TL.synthetic_lm_batches(cfg, b, s, seed=0, device=dev)
+        batches = [next(it) for _ in range(MESH_TRAIN_STEPS)]
+        first = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                              train=True)
+        runs = {}
+        for name, m in (("no mesh", None), ("mesh (1, 1)", mesh)):
+            params = TR.map_tree(torch.clone, first)
+            opt = AdamW()
+            state, step = opt.init(params), TL.make_train_step(
+                cfg, opt, mesh=m)
+            ms, ces = [], []
+            for batch in batches:
+                sync(dev)
+                t0 = time.perf_counter()
+                params, state, metrics = step(params, state, batch)
+                ces.append(float(metrics["ce"]))    # waits for the step
+                ms.append(1e3 * (time.perf_counter() - t0))
+            runs[name] = dict(params=params, ces=ces, ms=ms)
+    finally:
+        dist.destroy_process_group()
+    a, m = runs["no mesh"], runs["mesh (1, 1)"]
+    pairs = list(zip(TR.leaves(m["params"]), TR.leaves(a["params"])))
+    equal = sum(bool(torch.equal(x, y)) for x, y in pairs)
+    param_err = max(float((x - y).abs().max()) / max(float(y.abs().max()),
+                                                     1e-30)
+                    for x, y in pairs)
+    ce_err = max(abs(x - y) / abs(y) for x, y in zip(m["ces"], a["ces"]))
+    res = dict(ces=m["ces"], ces_no_mesh=a["ces"], leaves=len(pairs),
+               leaves_bit_equal=equal, param_err=param_err, ce_err=ce_err,
+               step_ms=m["ms"], step_ms_no_mesh=a["ms"])
+    log_time(stats, f"mesh (a): olmo-1b at full width, batch {b} x {s}, "
+             f"{MESH_TRAIN_STEPS} steps on a (1, 1) mesh (NCCL, world 1) "
+             f"against no mesh: ce {m['ces']} / {a['ces']}, {equal} of "
+             f"{len(pairs)} parameter leaves bit-equal (largest difference "
+             f"{param_err:.3e} of a leaf's scale); ms a step {m['ms']} "
+             f"(no mesh {a['ms']})")
+    if equal != len(pairs) and not (ce_err <= MESH_CE_RTOL
+                                    and param_err <= MESH_PARAM_ATOL):
+        fail(f"mesh (a): the (1, 1) mesh's steps against no mesh: ce "
+             f"{ce_err:.3e}, parameters {param_err:.3e} of a leaf's scale")
+    del runs, first, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mesh_moe_rank(rank, port, out, cfg_name, device):
+    """(b)'s rank: joins the gloo world of two, runs the layer sharded
+    and unsharded (module notes at MESH_MOE_ARCH) and writes its numbers
+    to out/rank<rank>.json."""
+    sys.path.insert(0, str(SRC))
+    import torch.distributed as dist
+    from repro_torch import sharding as SH
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe as MOE
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    try:
+        mesh = make_test_mesh(model=2, data=1, device=dev.type)
+        cfg = get_config(cfg_name) if dev.type == "cuda" else \
+            get_reduced_config(cfg_name)
+        gen = torch.Generator(device=dev).manual_seed(MESH_MOE_SEED)
+        ffn = MOE.init_moe(cfg, gen, torch.float32)
+        for n in ("w_gate", "w_up", "w_down"):     # the router stays fp32
+            ffn[n] = ffn[n].to(torch.bfloat16)
+        b, s = MESH_MOE_TOKENS
+        x = torch.randn(b, s, cfg.d_model, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        cot = torch.randn(b, s, cfg.d_model, generator=gen, device=dev,
+                          dtype=torch.bfloat16)
+        names = ("router", "w_gate", "w_up", "w_down")
+
+        def run(m):
+            leaves = [x.detach().requires_grad_(True)] + [
+                ffn[n].detach().requires_grad_(True) for n in names]
+            p = dict(zip(names, leaves[1:]))
+            y, aux = MOE.apply_moe(cfg, p, leaves[0], m)
+            total = (y.float() * cot.float()).sum() + 0.5 * aux
+            return (y.detach(), float(aux.detach()),
+                    torch.autograd.grad(total, leaves))
+
+        counter = DR.StepCounter()
+        with counter:
+            y, aux, grads = run(mesh)
+        walls = []
+        for m in (mesh, None):
+            sync(dev)
+            t0 = time.perf_counter()
+            run(m)
+            sync(dev)
+            walls.append(1e3 * (time.perf_counter() - t0))
+        y0, aux0, grads0 = run(None)
+        want, bar, _ = moe_bar(cfg, ffn, x)
+        t = b * s
+        over = lambda got: float(((got.float().reshape(t, -1)
+                                   - y0.float().reshape(t, -1)).abs()
+                                  / bar).max())
+        # the control: this rank's experts only, the combine dropped
+        n = cfg.n_experts // 2
+        lo = rank * n
+        with torch.no_grad():
+            alone, _ = MOE._experts(cfg, ffn["router"],
+                                    x.reshape(t, cfg.d_model),
+                                    *MOE._expert_slices(ffn, lo, n),
+                                    e_lo=lo)
+        rel = lambda g, w: float((g.float() - w.float()).abs().max()) / \
+            max(float(w.float().abs().max()), 1e-30)
+        experts = {nm: rel(g[lo:lo + n], w[lo:lo + n]) for nm, g, w in zip(
+            names[1:], grads[2:], grads0[2:])}
+        others = {nm: float(g[:lo].abs().max().item() if lo else 0.0) +
+                  float(g[lo + n:].abs().max().item() if lo + n <
+                        cfg.n_experts else 0.0)
+                  for nm, g in zip(names[1:], grads[2:])}
+        res = dict(rank=rank, tokens=t, capacity=MOE.capacity(cfg, t),
+                   y_over_bar=over(y), control_over_bar=over(alone),
+                   y_vs_fp32_over_bar=float(((y0.float().reshape(t, -1)
+                                              - want).abs() / bar).max()),
+                   y_bit_equal=bool(torch.equal(y, y0)),
+                   aux=aux, aux_unsharded=aux0,
+                   grad_x=rel(grads[0], grads0[0]),
+                   grad_router=rel(grads[1], grads0[1]),
+                   grad_experts=experts, grad_others_max=others,
+                   collectives=counter.collectives, sharded_ms=walls[0],
+                   unsharded_ms=walls[1], device=str(dev))
+        (Path(out) / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_moe(dev, stats):
+    """(b): the two ranks in processes of their own (torch.multiprocessing,
+    spawn), their reports checked against the bars."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_mesh_moe_rank, args=(free_port(), tmp, MESH_MOE_ARCH,
+                                       dev.type), nprocs=2, join=True)
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(2)]
+    for r in ranks:
+        log_time(stats, f"mesh (b): {MESH_MOE_ARCH}'s MoE layer, "
+                 f"{r['tokens']} tokens (capacity {r['capacity']}), rank "
+                 f"{r['rank']} of (data=1, model=2) over gloo on "
+                 f"{r['device']}: y over the MoE bar {r['y_over_bar']:.3e} "
+                 f"(bit-equal {r['y_bit_equal']}; the unsharded bf16 call "
+                 f"against fp32 {r['y_vs_fp32_over_bar']:.3f}), control "
+                 f"{r['control_over_bar']:.1f}; aux {r['aux']} / "
+                 f"{r['aux_unsharded']}; gradients x {r['grad_x']:.3e}, "
+                 f"router {r['grad_router']:.3e}, its experts "
+                 f"{r['grad_experts']} of each leaf's scale (the other "
+                 f"rank's experts: {r['grad_others_max']}); gloo "
+                 f"transfers {r['collectives']}; fwd + bwd "
+                 f"{r['sharded_ms']:.1f} ms sharded, "
+                 f"{r['unsharded_ms']:.1f} ms unsharded (wall)")
+        bad = []
+        if not r["y_over_bar"] <= 1.0:
+            bad.append(f"y {r['y_over_bar']}")
+        if not r["control_over_bar"] >= MESH_CONTROL_MIN:
+            bad.append(f"control {r['control_over_bar']}")
+        if not abs(r["aux"] - r["aux_unsharded"]) <= MESH_AUX_ATOL:
+            bad.append(f"aux {r['aux']} / {r['aux_unsharded']}")
+        if not (r["grad_x"] <= MESH_GRAD_BF16
+                and r["grad_router"] <= MESH_GRAD_FP32
+                and max(r["grad_experts"].values()) <= MESH_GRAD_BF16
+                and not any(r["grad_others_max"].values())):
+            bad.append(f"gradients x {r['grad_x']}, router "
+                       f"{r['grad_router']}, experts {r['grad_experts']}, "
+                       f"others {r['grad_others_max']}")
+        if not r["collectives"].get("all-reduce_count"):
+            bad.append(f"no all-reduce: {r['collectives']}")
+        if bad:
+            fail(f"mesh (b), rank {r['rank']}: {bad}")
+    return ranks
+
+
+def mesh_dryrun(stats):
+    """(c): each MESH_DRYRUN combo through `repro_torch.launch.dryrun` in a
+    process of its own (the fake world holds the process's group), side
+    by side; the per-device argument bytes against the spec arithmetic,
+    the collectives and the roofline's terms logged."""
+    from benchmarks_torch import roofline as RF
+    from repro_torch import sharding as SH
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import input_specs
+    from repro_torch.launch import dryrun as DR
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+             "--shape", sh, "--mesh", m, "--force", "--out", tmp] +
+            list(opts), env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for a, sh, m, opts in MESH_DRYRUN]
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+        wall = time.perf_counter() - t0
+        bad = [f"{a} x {sh} x {m} {opts}: exit {p.returncode}: "
+               f"{text[-2000:]}" for (a, sh, m, opts), p, text in
+               zip(MESH_DRYRUN, procs, outs) if p.returncode]
+        if bad:
+            fail(f"mesh (c): {bad}")
+        for a, sh, m, opts in MESH_DRYRUN:
+            rec = json.loads((Path(tmp) / f"{a}__{sh}__{m}.json")
+                             .read_text())
+            kw = {o.lstrip("-").replace("-", "_"): True for o in opts}
+            cfg, trees, specs = DR.mesh_arguments(
+                get_config(a), MESH_SHAPES[m], input_specs(get_config(a),
+                                                           sh), **kw)
+            want = sum(SH.local_bytes(MESH_SHAPES[m], t, sp)
+                       for t, sp in zip(trees, specs))
+            got = rec["memory"]["argument_size_in_bytes"]
+            row = RF.analyze(rec)
+            report[f"{a} x {sh} x {m}{''.join(opts)}"] = dict(
+                argument_bytes=got, spec_bytes=want,
+                memory=rec["memory"], collectives=rec["collectives"],
+                flops_per_device=rec["flops_per_device"],
+                bytes_per_device=rec["bytes_per_device"],
+                trace_s=rec["trace_s"], roofline=row)
+            log(f"mesh (c): {a} x {sh} x {m} {' '.join(opts)} on the fake "
+                f"backend ({rec['n_devices']} ranks): per device arguments "
+                f"{got} B (spec arithmetic {want} B), temp "
+                f"{rec['memory']['temp_size_in_bytes']} B, "
+                f"{rec['flops_per_device']:.4e} FLOP, collectives "
+                f"{rec['collectives']}; roofline compute "
+                f"{row['compute_s']:.4e} s, memory {row['memory_s']:.4e} s, "
+                f"collective {row['collective_s']:.4e} s: {row['dominant']}"
+                f" ({rec['trace_s']} s of counting)")
+            if rec["status"] != "ok" or got != want or \
+                    not rec["collectives"]["total_bytes"]:
+                fail(f"mesh (c): {a} x {sh} x {m}: status {rec['status']}, "
+                     f"arguments {got} against {want}, collectives "
+                     f"{rec['collectives']}")
+    log_time(stats, f"mesh (c): {len(MESH_DRYRUN)} dry-run combos on the "
+             f"fake backend in {wall:.1f} s wall, side by side")
+    report["wall_s"] = wall
+    return report
+
+
+def drive_mesh(dev, stats):
+    """Phase 10f: the fleet meshes (module docstring). The kernel counts,
+    zeroed before the phase, must read 0 after it. Returns them."""
+    from repro_torch.kernels import _build
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    report = {"train": mesh_train(dev, stats),
+              "moe": mesh_moe(dev, stats),
+              "dryrun": mesh_dryrun(stats)}
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    if any(launches.values()):
+        fail(f"the mesh phase launched kernels: {launches}")
+    report["wall_s"] = time.perf_counter() - t_phase
+    stats["mesh"] = report
+    log_time(stats, f"mesh phase wall: {report['wall_s']:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the paper's experiments (benchmarks_torch) at the frozen regime
 # ---------------------------------------------------------------------------
 
@@ -6124,6 +6484,8 @@ def main() -> int:
                                                             stats)
     torch.cuda.empty_cache()
     launches["training"] = drive_training(dev, stats)
+    torch.cuda.empty_cache()
+    launches["mesh"] = drive_mesh(dev, stats)
 
     torch.cuda.empty_cache()
     corpus, fb, targets = paper_regime(dev)

@@ -26,6 +26,7 @@ eagerly on the card.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Any, Callable, Dict, Hashable, Optional
 
@@ -69,9 +70,18 @@ class Step:
             fn(*args)
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool), \
-                _build.recording() as launches:
-            self.out = fn(*args)
+        # no automatic collection while the stream captures: a collected
+        # graph's destructor (reset) is not permitted then, and
+        # invalidates the capture (`torch.cuda.graph` collects first)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool), \
+                    _build.recording() as launches:
+                self.out = fn(*args)
+        finally:
+            if collecting:
+                gc.enable()
         self.graph, self.launches = graph, launches
         self.fn = None          # the graph holds no reference to `args`
         _captures += 1

@@ -57,6 +57,7 @@ from functools import lru_cache
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as SH
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.models.config import ModelConfig
@@ -178,11 +179,21 @@ def _scale_q(q):
 def _attend_block(q, k, v, q_pos, kv_pos, window, softcap, causal):
     """One query block. q: (B,S,H,hd)  k,v: (B,T,Hk,hd). Products in fp32
     on the inputs' values; the softmax weights are rounded to v's type
-    before the second product, as in the JAX model."""
+    before the second product, as in the JAX model. On DTensors it runs
+    on each rank's batch rows and KV heads (`sharding.run_sharded`)."""
+    if SH.is_dtensor(q):
+        return _attend_sharded(q, k, v, q_pos, kv_pos, window, softcap,
+                               causal)
+    scores = _scores(q, k, q_pos, kv_pos, window, softcap, causal)
+    w = torch.softmax(scores, dim=-1)
+    return _weighted(w, v, q)
+
+
+def _scores(q, k, q_pos, kv_pos, window, softcap, causal):
+    """(B, Hk, rep, S, T) fp32 scores of the query block, masked."""
     b, s, h, hd = q.shape
     hk = k.shape[2]
-    rep = h // hk
-    qg = _scale_q(q).reshape(b, s, hk, rep, hd)
+    qg = _scale_q(q).reshape(b, s, hk, h // hk, hd)
     scores = torch.einsum("bskrd,btkd->bkrst", qg.float(), k.float())
     if softcap:
         scores = torch.tanh(scores / softcap) * softcap
@@ -191,27 +202,149 @@ def _attend_block(q, k, v, q_pos, kv_pos, window, softcap, causal):
             (kv_pos[:, None, :] > q_pos[:, :, None] - window)   # (B,S,T)
         scores = torch.where(m[:, None, None], scores,
                              torch.full_like(scores, _MASKED))
-    w = torch.softmax(scores, dim=-1)
+    return scores
+
+
+def _weighted(w, v, q, dtype=None):
+    """sum_t w v: the weights rounded to v's type, the product in fp32,
+    the (B, S, H, dv) result in `dtype` (q's type when None)."""
+    b, s, h = q.shape[:3]
     out = torch.einsum("bkrst,btkd->bskrd", w.to(v.dtype).float(), v.float())
-    return out.reshape(b, s, h, v.shape[-1]).to(q.dtype)
+    return out.reshape(b, s, h, v.shape[-1]).to(dtype or q.dtype)
+
+
+#: the attention's logical axes at the JAX constraint points
+HEADS = ("batch", "seq", "heads", "head_dim")
+
+
+def _no_constrain(x, axes):
+    return x
+
+
+def _split_kv(q, k, v, q_pos, kv_pos, partial):
+    """Attention over keys split along their rows (dim 1: a cache whose
+    sequence `make_cache_specs` puts on "model"), flash-decoding style:
+    each rank takes its batch rows with every query head, and its slice
+    of the keys; `partial(q, k, v, q_pos, kv_pos)` gives its unnormalised
+    fp32 output, row max and sum of exponentials (scores - max), which
+    the ranks combine by a max and two sums over the mesh dims that split
+    the keys. Returns the (B, S, H, dv) DTensor in q's type, batch rows
+    split, heads whole."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = k.device_mesh
+    on = lambda t, d: [i for i, p in enumerate(t.placements)
+                       if isinstance(p, Shard) and p.dim == d]
+    bmesh, smesh = on(k, 0), on(k, 1)
+    rows = [Shard(0) if i in bmesh else Replicate()
+            for i in range(mesh.ndim)]
+    keys = [Shard(1) if i in smesh else p for i, p in enumerate(rows)]
+    bi, nb = SH.mesh_coord(mesh, bmesh)
+    si, ns = SH.mesh_coord(mesh, smesh)
+
+    def local(t, split_keys):
+        if SH.is_dtensor(t):
+            return SH.local_shard(t, mesh, keys if split_keys else rows)
+        n = t.shape[0] // nb
+        t = t.narrow(0, bi * n, n)
+        if split_keys:
+            n = t.shape[1] // ns
+            t = t.narrow(1, si * n, n)
+        return t
+
+    out, mx, den = partial(local(q, False), local(k, True), local(v, True),
+                           local(q_pos, False), local(kv_pos, True))
+    groups = [mesh.get_group(i) for i in smesh]
+    top = mx.detach().clone()
+    for g in groups:
+        torch.distributed.all_reduce(top, torch.distributed.ReduceOp.MAX,
+                                     group=g)
+    scale = torch.exp(mx.detach() - top)
+    den = SH.sum_over(den * scale, groups)
+    out = SH.sum_over(out * scale[..., None], groups) / den[..., None]
+    return DTensor.from_local(out.to(q.dtype), mesh, rows)
+
+
+def _attend_partial(window, softcap, causal):
+    """`_split_kv`'s partial for `_attend_block`: out (B, S, H, dv), max
+    and sum (B, S, H), fp32."""
+    def partial(q, k, v, q_pos, kv_pos):
+        b, s, h = q.shape[:3]
+        scores = _scores(q, k, q_pos, kv_pos, window, softcap, causal)
+        mx = scores.amax(-1, keepdim=True).detach()
+        w = torch.exp(scores - mx)
+        flat = lambda t: t[..., 0].permute(0, 3, 1, 2).reshape(b, s, h)
+        return (_weighted(w, v, q, torch.float32), flat(mx),
+                flat(w.sum(-1, keepdim=True)))
+    return partial
+
+
+def _attend_sharded(q, k, v, q_pos, kv_pos, window, softcap, causal):
+    """`_attend_block` on DTensors. Keys split along their rows go through
+    `_split_kv`; otherwise each rank takes its batch rows and its share
+    of the query heads over "model" (`sharding.run_sharded`), the KV
+    heads split alike where they divide the axis, else taken whole, each
+    rank keeping the groups its query heads read."""
+    from torch.distributed.tensor import Shard
+    if SH.is_dtensor(k) and any(isinstance(p, Shard) and p.dim == 1
+                                for p in k.placements):
+        return _split_kv(q, k, v, q_pos, kv_pos,
+                         _attend_partial(window, softcap, causal))
+    h, hk = q.shape[2], k.shape[2]
+    sizes = SH.axis_sizes(q.device_mesh)
+    kv_split = "model" in sizes and hk % sizes["model"] == 0
+    m = q.device_mesh.get_local_rank("model") if "model" in sizes else 0
+
+    def local(q, k, v, q_pos, kv_pos):
+        hl = q.shape[2]
+        if k.shape[2] == hk and hl < h:       # the KV groups of my heads
+            lo, hi = m * hl * hk // h, ((m + 1) * hl - 1) * hk // h + 1
+            k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+        return _attend_block(q, k, v, q_pos, kv_pos, window, softcap,
+                             causal)
+
+    kv = (0, 2) if kv_split else (0, None)
+    return SH.run_sharded(local, (q, k, v, q_pos, kv_pos),
+                          ((0, 2), kv, kv, (0, None), (0, None)), (0, 2),
+                          heads=h)
+
+
+def _pad_rows(t, pad: int, value=0):
+    """t with `pad` rows of `value` after its dim 1; a DTensor padded on
+    its local shards, dim 1 whole (DTensor's own pad fails to plan its
+    redistribution in torch 2.11)."""
+    widths = (0, 0) * (t.ndim - 2) + (0, pad)
+    if not SH.is_dtensor(t):
+        return F.pad(t, widths, value=value)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = t.device_mesh
+    keep = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+            for p in t.placements]
+    return DTensor.from_local(F.pad(SH.local_shard(t, mesh, keep), widths,
+                                    value=value), mesh, keep)
 
 
 def attend(q, k, v, q_pos, kv_pos, *, window=NO_WINDOW, softcap=0.0,
-           causal=True, q_block: int = _Q_BLOCK):
+           causal=True, q_block: int = _Q_BLOCK, constrain=None):
     """Query-chunked attention: peak score memory (B,H,q_block,T) instead
-    of (B,H,S,T). Padded query rows (position -1) are cut off."""
-    s = q.shape[1]
+    of (B,H,S,T). Padded query rows (position -1) are cut off.
+    `constrain(x, axes)` pins the chunks' and the output's placement
+    where the JAX `attend` does (the identity on plain tensors)."""
+    c = constrain or _no_constrain
+    b, s, h, hd = q.shape
     if s <= q_block:
         return _attend_block(q, k, v, q_pos, kv_pos, window, softcap, causal)
     pad = (-s) % q_block
     if pad:
-        q = F.pad(q, (0, 0, 0, 0, 0, pad))
-        q_pos = F.pad(q_pos, (0, pad), value=-1)
-    outs = [_attend_block(q[:, i:i + q_block], k, v,
-                          q_pos[:, i:i + q_block], kv_pos, window, softcap,
-                          causal)
-            for i in range(0, q.shape[1], q_block)]
-    return torch.cat(outs, dim=1)[:, :s]
+        q = _pad_rows(q, pad)
+        q_pos = _pad_rows(q_pos, pad, value=-1)
+    nblk = q.shape[1] // q_block
+    q_r = c(q.reshape(b, nblk, q_block, h, hd),
+            ("batch", "seq", "seq", "heads", "head_dim"))
+    outs = [c(_attend_block(q_r[:, j], k, v,
+                            q_pos[:, j * q_block:(j + 1) * q_block], kv_pos,
+                            window, softcap, causal), HEADS)
+            for j in range(nblk)]
+    return c(torch.cat(outs, dim=1), HEADS)[:, :s]
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +410,57 @@ def _attend_kernels(q, k, v, cache, cache_index, window, causal,
         "the kernels cover a prefill from index 0 and a one-token decode")
 
 
+def write_rows(buf, new, index) -> None:
+    """buf[:, index:index + n] = new, IN PLACE, for a cache buffer whose
+    dim 1 holds its rows (positions or ring slots): `index` a Python int,
+    or for one row a (1,) int64 device tensor (`index_copy_`, read on
+    the device). A DTensor buffer (the dry-run's meshes, its rows maybe
+    split over "model", `sharding.make_cache_specs`) is written on each
+    rank's own shard (`_write_local`): DTensor has no in-place write of
+    a slice of a sharded dim."""
+    if SH.is_dtensor(buf):
+        _write_local(buf, new, index)
+    elif isinstance(index, torch.Tensor):
+        buf.index_copy_(1, index, new.to(buf.dtype))
+    else:
+        buf[:, index:index + new.shape[1]] = new
+
+
+def _write_local(buf, new, index) -> None:
+    """`write_rows` on a DTensor: `new` redistributed whole along dim 1
+    (as `buf` on the other dims), then each rank writes the rows that
+    fall in its own shard's range [off, off + rows) into its local
+    tensor -- for a device index, the one row where it owns it (a
+    masked write of the row it holds there otherwise)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    mesh = buf.device_mesh
+    whole = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+             for p in buf.placements]
+    if SH.is_dtensor(new):
+        new = new.redistribute(mesh, whole)
+    else:
+        new = distribute_tensor(new, mesh, whole)
+    new, local = new.to_local().to(buf.dtype), buf.to_local()
+    off, rows = 0, buf.shape[1]
+    for i, p in enumerate(buf.placements):
+        if isinstance(p, Shard) and p.dim == 1:
+            rows //= mesh.size(i)
+            off += mesh.get_local_rank(i) * rows
+    if isinstance(index, torch.Tensor):
+        if SH.is_dtensor(index):          # held whole on every rank
+            index = index.to_local()
+        li = index - off
+        owned = ((li >= 0) & (li < rows)).reshape(
+            (1, 1) + (1,) * (new.ndim - 2))
+        li = li.clamp(0, rows - 1)
+        local.index_copy_(1, li, torch.where(
+            owned, new, local.index_select(1, li)))
+    else:
+        lo, hi = max(index, off), min(index + new.shape[1], off + rows)
+        if lo < hi:
+            local[:, lo - off:hi - off] = new[:, lo - index:hi - index]
+
+
 def _ring_write(cache, k, v, positions, cache_index) -> bool:
     """Write S new keys, values and positions into a ring of W slots (one
     layer's {k, v of (B, W, Hk, hd), pos (B, W)}), IN PLACE, as the JAX
@@ -291,23 +475,18 @@ def _ring_write(cache, k, v, positions, cache_index) -> bool:
         if s % w:
             raise ValueError(f"ring cache: a prefill of {s} rows into {w} "
                              "slots; it takes a whole number of rings")
-        cache["k"].copy_(k[:, -w:])
-        cache["v"].copy_(v[:, -w:])
-        cache["pos"].copy_(positions[:, -w:])
+        for name, rows in (("k", k), ("v", v), ("pos", positions)):
+            write_rows(cache[name], rows[:, -w:], 0)
         return True
     if isinstance(cache_index, torch.Tensor):
         if s != 1:
             raise ValueError(f"apply_attention: {s} new tokens at a device "
                              "index; it takes one")
         slot = torch.remainder(cache_index, w)
-        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
-        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
-        cache["pos"].index_copy_(1, slot, positions.to(cache["pos"].dtype))
     else:
-        lo = min(cache_index % w, w - s)
-        cache["k"][:, lo:lo + s] = k
-        cache["v"][:, lo:lo + s] = v
-        cache["pos"][:, lo:lo + s] = positions
+        slot = min(cache_index % w, w - s)
+    for name, rows in (("k", k), ("v", v), ("pos", positions)):
+        write_rows(cache[name], rows, slot)
     return False
 
 
@@ -315,7 +494,7 @@ def apply_attention(cfg: ModelConfig, params, x, positions, *, theta,
                     window=NO_WINDOW, cache=None, cache_index=0,
                     causal: bool = True, backend: str = "cuda",
                     tables=None, kv_len=None, rope: bool = True,
-                    kv_source=None, precomputed_kv=None):
+                    kv_source=None, precomputed_kv=None, constrain=None):
     """Attention. x: (B,S,d); positions: (B,S); tables: the rope_tables
     of `positions`, and kv_len: the (B,) int32 count of valid cache rows
     after this call's write (for cross-attention decode: of cross rows),
@@ -337,14 +516,16 @@ def apply_attention(cfg: ModelConfig, params, x, positions, *, theta,
     given, as the JAX prefill caches what it returns; or
     `precomputed_kv` dict(k, v) holds them (decode), read in its stored
     type and rounded to the compute type, as the JAX function's
-    `astype(q.dtype)`.
+    `astype(q.dtype)`. `constrain`: the JAX constraint points' callback
+    (the queries' heads, and the plain attend's).
     Returns (B,S,d)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, "
                          f"got {backend!r}")
+    c = constrain or _no_constrain
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ params["wq"]).view(b, s, h, hd)
+    q = c((x @ params["wq"]).view(b, s, h, hd), HEADS)
     cross = "decode" if precomputed_kv is not None else \
         "prefill" if kv_source is not None else None
     if cross == "decode":
@@ -373,16 +554,12 @@ def apply_attention(cfg: ModelConfig, params, x, positions, *, theta,
         if cross == "decode":
             raise ValueError("apply_attention: precomputed_kv takes no "
                              "cache to write")
-        if isinstance(cache_index, torch.Tensor) and not cross:
-            if s != 1:
-                raise ValueError(f"apply_attention: {s} new tokens at a "
-                                 "device index; it takes one")
-            cache["k"].index_copy_(1, cache_index, k.to(cache["k"].dtype))
-            cache["v"].index_copy_(1, cache_index, v.to(cache["v"].dtype))
-        else:
-            lo = 0 if cross else cache_index
-            cache["k"][:, lo:lo + k.shape[1]] = k
-            cache["v"][:, lo:lo + k.shape[1]] = v
+        if isinstance(cache_index, torch.Tensor) and not cross and s != 1:
+            raise ValueError(f"apply_attention: {s} new tokens at a "
+                             "device index; it takes one")
+        lo = 0 if cross else cache_index
+        write_rows(cache["k"], k, lo)
+        write_rows(cache["v"], v, lo)
 
     if x.is_cuda and backend == "cuda":
         out = _attend_kernels(q, k, v, None if in_flight else cache,
@@ -390,21 +567,22 @@ def apply_attention(cfg: ModelConfig, params, x, positions, *, theta,
                               causal, kv_len, cross)
     elif in_flight:
         out = attend(q, k, v, positions, positions, window=window,
-                     causal=causal)
+                     causal=causal, constrain=constrain)
     elif cross:
         t = k.shape[1]
         kv_pos = torch.arange(t, device=x.device).expand(b, t)
         out = attend(q, k.to(q.dtype), v.to(q.dtype), positions, kv_pos,
-                     causal=False)
+                     causal=False, constrain=constrain)
     elif cache is None:
         out = attend(q, k, v, positions, positions, window=window,
-                     causal=causal)
+                     causal=causal, constrain=constrain)
     else:
         t = cache["k"].shape[1]
         kv_pos = cache["pos"] if "pos" in cache else \
             torch.arange(t, device=x.device).expand(b, t)
         out = attend(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
-                     positions, kv_pos, window=window, causal=causal)
+                     positions, kv_pos, window=window, causal=causal,
+                     constrain=constrain)
     return out.reshape(b, s, h * hd) @ params["wo"]
 
 
@@ -455,19 +633,75 @@ def _dotf32(spec: str, a, b):
     return torch.einsum(spec, a.float(), b.float())
 
 
+def _expand(c, w):
+    """The latents (B, T, r) expanded per head: einsum("btr,rhk->bthk").
+    On DTensors, on each rank's rows of the latents (a cache's may be
+    split over "model"), the weight whole: DTensor cannot flatten a split
+    row dim into the product's rows."""
+    if not SH.is_dtensor(c):
+        return torch.einsum("btr,rhk->bthk", c, w)
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = c.device_mesh
+    keep = list(c.placements)
+    local = torch.einsum("btr,rhk->bthk", SH.local_shard(c, mesh, keep),
+                         SH.local_shard(w, mesh, [Replicate()] * mesh.ndim))
+    return DTensor.from_local(local, mesh, keep)
+
+
+def _mla_absorbed(q_nope, q_rope, c_use, r_use, w_uk, w_uv, positions,
+                  kv_pos, scale):
+    """The absorbed form: scores in the latent space, never the expanded
+    cache. On DTensors the latents' rows are split (`_split_kv`)."""
+    dt = q_nope.dtype
+    if SH.is_dtensor(q_nope):
+        # the latents split along their rows: each rank's share of the
+        # latent output, combined (`_split_kv`), then W_uv on every rank
+        q_lat = _dotf32("bshk,rhk->bshr", q_nope, w_uk).to(dt)
+        r = c_use.shape[-1]
+
+        def partial(q, kv, _, q_pos, kv_pos):
+            scores = _mla_scores(q[..., :r], q[..., r:], kv[..., :r],
+                                 kv[..., r:], q_pos, kv_pos, scale)
+            mx = scores.amax(-1, keepdim=True).detach()
+            w = torch.exp(scores - mx)
+            flat = lambda t: t[..., 0].transpose(1, 2)
+            return (_dotf32("bhst,btr->bshr", w.to(dt), kv[..., :r]),
+                    flat(mx), flat(w.sum(-1, keepdim=True)))
+
+        kv = torch.cat([c_use, r_use], dim=-1)
+        o_lat = _split_kv(torch.cat([q_lat, q_rope], dim=-1), kv, kv,
+                          positions, kv_pos, partial)
+        return _dotf32("bshr,rhv->bshv", o_lat, w_uv).to(dt)
+    q_lat = _dotf32("bshk,rhk->bshr", q_nope, w_uk).to(dt)
+    w = torch.softmax(_mla_scores(q_lat, q_rope, c_use, r_use, positions,
+                                  kv_pos, scale), dim=-1)
+    o_lat = _dotf32("bhst,btr->bshr", w.to(dt), c_use)
+    return _dotf32("bshr,rhv->bshv", o_lat.to(dt), w_uv).to(dt)
+
+
+def _mla_scores(q_lat, q_rope, c_use, r_use, positions, kv_pos, scale):
+    """(B, H, S, T) fp32 scores in the latent space, causally masked."""
+    scores = (_dotf32("bshr,btr->bhst", q_lat, c_use)
+              + _dotf32("bshk,btk->bhst", q_rope, r_use)) * scale
+    mask = (kv_pos[:, None, :] <= positions[:, :, None])[:, None]
+    return torch.where(mask, scores, torch.full_like(scores, _MASKED))
+
+
 def apply_mla(cfg: ModelConfig, params, x, positions, *, theta,
               cache=None, cache_index=0, backend: str = "cuda",
-              tables=None):
+              tables=None, constrain=None):
     """MLA. x: (B,S,d); positions: (B,S); tables: rope_tables(positions,
     qk_rope_dim, theta) when the caller has them. cache: None, or
     dict(c_kv (B,T,r_kv), k_rope (B,T,dr)) of one layer, into which this
     call writes its S new latents and rope keys at `cache_index` IN PLACE
     (a Python int, or for one token a (1,) int64 device tensor). One token
     with a cache takes the absorbed form, any other call the expanded one
-    (module notes above). Returns (B,S,d)."""
+    (module notes above). `constrain` as `apply_attention` takes it.
+    Returns (B,S,d)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, "
                          f"got {backend!r}")
+    c = constrain or _no_constrain
     p = params
     b, s, _ = x.shape
     h = cfg.n_heads
@@ -477,24 +711,18 @@ def apply_mla(cfg: ModelConfig, params, x, positions, *, theta,
         tables = rope_tables(positions, dr, theta)
 
     cq = _mla_norm(x @ p["w_dq"], p["q_norm"])
-    q = torch.einsum("bsr,rhk->bshk", cq, p["w_uq"])
+    q = c(torch.einsum("bsr,rhk->bshk", cq, p["w_uq"]), HEADS)
     q_nope = q[..., :dn]
     q_rope = apply_rope(q[..., dn:], positions, theta, tables)
     c_kv = _mla_norm(x @ p["w_dkv"], p["kv_norm"])
     k_r = apply_rope(x @ p["w_kr"], positions, theta, tables)
 
     if cache is not None:
-        if isinstance(cache_index, torch.Tensor):
-            if s != 1:
-                raise ValueError(f"apply_mla: {s} new tokens at a device "
-                                 "index; it takes one")
-            cache["c_kv"].index_copy_(1, cache_index,
-                                      c_kv.to(cache["c_kv"].dtype))
-            cache["k_rope"].index_copy_(1, cache_index,
-                                        k_r.to(cache["k_rope"].dtype))
-        else:
-            cache["c_kv"][:, cache_index:cache_index + s] = c_kv
-            cache["k_rope"][:, cache_index:cache_index + s] = k_r
+        if isinstance(cache_index, torch.Tensor) and s != 1:
+            raise ValueError(f"apply_mla: {s} new tokens at a device "
+                             "index; it takes one")
+        write_rows(cache["c_kv"], c_kv, cache_index)
+        write_rows(cache["k_rope"], k_r, cache_index)
         t = cache["c_kv"].shape[1]
         kv_pos = torch.arange(t, device=x.device).expand(b, t)
         c_use = cache["c_kv"].to(x.dtype)
@@ -504,17 +732,8 @@ def apply_mla(cfg: ModelConfig, params, x, positions, *, theta,
         c_use, r_use = c_kv, k_r
 
     if s == 1 and cache is not None:
-        # absorbed: scores in the latent space, never the expanded cache
-        q_lat = _dotf32("bshk,rhk->bshr", q_nope, p["w_uk"]).to(x.dtype)
-        scores = (_dotf32("bshr,btr->bhst", q_lat, c_use)
-                  + _dotf32("bshk,btk->bhst", q_rope, r_use)) * scale
-        mask = (kv_pos[:, None, :] <= positions[:, :, None])[:, None]
-        scores = torch.where(mask, scores,
-                             torch.full_like(scores, _MASKED))
-        w = torch.softmax(scores, dim=-1)
-        o_lat = _dotf32("bhst,btr->bshr", w.to(x.dtype), c_use)
-        out = _dotf32("bshr,rhv->bshv", o_lat.to(x.dtype),
-                      p["w_uv"]).to(x.dtype)
+        out = _mla_absorbed(q_nope, q_rope, c_use, r_use, p["w_uk"],
+                            p["w_uv"], positions, kv_pos, scale)
     else:
         on_card = x.is_cuda and backend == "cuda"
         if on_card and cache is not None:
@@ -527,16 +746,17 @@ def apply_mla(cfg: ModelConfig, params, x, positions, *, theta,
             # the rest of the cache is masked
             c_use, r_use = c_use[:, :s], r_use[:, :s]
         t = c_use.shape[1]
-        k_nope = torch.einsum("btr,rhk->bthk", c_use, p["w_uk"])
-        vv = torch.einsum("btr,rhv->bthv", c_use, p["w_uv"])
-        k_full = torch.cat([k_nope, r_use[:, :, None, :].expand(
-            b, t, h, dr)], dim=-1)
-        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        k_nope = c(_expand(c_use, p["w_uk"]), HEADS)
+        vv = c(_expand(c_use, p["w_uv"]), HEADS)
+        k_full = c(torch.cat([k_nope, r_use[:, :, None, :].expand(
+            b, t, h, dr)], dim=-1), HEADS)
+        q_full = c(torch.cat([q_nope, q_rope], dim=-1), HEADS)
         if on_card:
             # q scaled in its own type first, as attend does
             out = flash_attention_cuda(_scale_q(q_full), k_full, vv,
                                        causal=True, scale=1.0)
         else:
             # attend scales by (dn + dr) ** -0.5, the width of q_full
-            out = attend(q_full, k_full, vv, positions, kv_pos)
+            out = attend(q_full, k_full, vv, positions, kv_pos,
+                         constrain=constrain)
     return out.reshape(b, s, -1) @ p["wo"]

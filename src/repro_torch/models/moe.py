@@ -33,23 +33,60 @@ is captured whole into a CUDA graph.
 
 The JAX package computes the MoE in jnp einsums with no Pallas kernel,
 so there is no kernel to port here: on the card the expert products are
-PyTorch's batched matmuls, as mamba2's SSD is (models/ssm.py). Not
-ported: the expert-parallel `shard_map` over a "model" mesh axis that
-the JAX `apply_moe` takes above 8192 tokens on such a mesh (ROADMAP §3,
-with the fleet meshes of §2.10).
+PyTorch's batched matmuls, as mamba2's SSD is (models/ssm.py).
+
+On a fleet mesh (`launch/mesh.py`; `apply_moe(..., mesh=)`) the JAX
+function takes its expert-parallel `shard_map` above 8192 tokens when
+the mesh's "model" axis has more than one rank: each rank takes its
+batch shard's tokens (contiguous token ranges, `P(batch_axes, None)`)
+and its E / |model| experts, runs `_local_moe` with the capacity of its
+LOCAL token count (so drops differ from the unsharded call: that is
+JAX's semantics, kept), psums the combine over "model" and pmeans the
+aux loss over the batch axes. The port takes the branch exactly there,
+and computes it in SPMD form, one rank a process (`_apply_moe_mesh`): a
+pair's slot depends only on the earlier pairs of its own expert, so the
+dispatch over all E experts serves a rank's slice unchanged. Where the
+JAX function runs its global paths on a mesh (8192 tokens or fewer, or
+one model rank), the port gathers the batch shards' tokens first, so
+the capacity is the global one, and still splits the experts over
+"model" (the same values: the slots do not depend on the split).
+
+The gradients JAX's transposes place, the port places itself:
+  * the tokens entering the expert buffers are replicated over "model"
+    and their gradient is summed over it (`sharding.sum_grad`); so is the
+    gradient of the gates through the top-k weights, while the aux loss,
+    computed identically on every model rank from the full gates, sends
+    its part once;
+  * the combine is all-reduced over "model" forward and passes its
+    cotangent straight back (`sharding.sum_over`);
+  * a gather of the batch shards' tokens sums its gradient over the
+    batch axes and keeps this rank's rows (`sharding.gather_rows`);
+  * the expert weights' gradients are this rank's experts' only: the
+    train step sums them over "model" (`training/loop.py`).
+On a plain tensor with a mesh, x is this rank's batch shard and the aux
+loss is its tokens' (the train step's mean over the data ranks is JAX's
+pmean); on a DTensor (the dry-run's meshes) x is the global value, the
+branch runs on the local shards (`to_local`), and the aux loss is
+pmean'd as JAX's. Below the branch a DTensor goes through the
+one-device code, with the `constrain` points of the JAX `_small_moe`.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as SH
 from repro_torch.kernels import ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_mlp, normal
 
 Params = Dict[str, Any]
+
+#: above this many tokens (the call's global count) a mesh with a "model"
+#: axis takes the expert-parallel branch (the JAX package's `_SMALL_T`)
+SMALL_T = 8192
 
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
@@ -78,12 +115,15 @@ def capacity(cfg: ModelConfig, t: int) -> int:
     return int(max(k, cfg.capacity_factor * k * t / cfg.n_experts))
 
 
-def route(cfg: ModelConfig, router, xt):
+def route(cfg: ModelConfig, router, xt, sum_grad=None):
     """xt: (T, d) -> (top_w (T, k) fp32, top_e (T, k) int64, gates (T, E)
     fp32): the softmax gates in fp32 and each token's top-k experts,
-    ties to the lowest, their weights renormalised."""
+    ties to the lowest, their weights renormalised. `sum_grad` wraps the
+    gates on their way to the top-k weights (the expert-parallel
+    branch's gradient sum over "model"; the aux loss reads `gates`)."""
     gates = torch.softmax(xt.float() @ router.float(), dim=-1)
-    top_w, top_e = ref.stable_topk(gates, cfg.experts_per_tok)
+    top_w, top_e = ref.stable_topk(
+        gates if sum_grad is None else sum_grad(gates), cfg.experts_per_tok)
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
     return top_w, top_e, gates
 
@@ -102,12 +142,12 @@ class Dispatch(NamedTuple):
     cap: int
 
 
-def dispatch(cfg: ModelConfig, router, xt) -> Dispatch:
+def dispatch(cfg: ModelConfig, router, xt, sum_grad=None) -> Dispatch:
     """Route the (T, d) tokens and give each pair the next slot of its
     expert, counted in flat order; the pair is kept if that slot is
     below the capacity."""
     t, e, k = xt.shape[0], cfg.n_experts, cfg.experts_per_tok
-    top_w, top_e, gates = route(cfg, router, xt)
+    top_w, top_e, gates = route(cfg, router, xt, sum_grad)
     cap = capacity(cfg, t)
     flat_e = top_e.reshape(-1)
     # the (E, A) one-hot, scanned along its inner dim: a scan of the (A,
@@ -133,27 +173,155 @@ def aux_loss(top_e, gates):
     return e * (chosen.mean(0) * gates.mean(0)).sum()
 
 
-def apply_moe(cfg: ModelConfig, params: Params, x) -> Tuple[Any, Any]:
-    """x: (B, S, d) in the compute type -> (y (B, S, d), aux fp32 scalar).
-    params: init_moe's dict, its expert weights in x's type (the router
-    in any type: it is read in fp32)."""
-    b, s, d = x.shape
-    t, e, k = b * s, cfg.n_experts, cfg.experts_per_tok
-    xt = x.reshape(t, d)
-    dp = dispatch(cfg, params["router"], xt)
+def _experts(cfg: ModelConfig, router, xt, w_gate, w_up, w_down, *,
+             e_lo: int = 0, sum_grad=None, constrain=SH.no_constrain):
+    """(y (T, d), aux) of the experts [e_lo, e_lo + E_local) whose weights
+    are given (E_local = w_gate's dim 0; all E: the one-device call) over
+    the (T, d) tokens, the capacity of T tokens. y sums only these
+    experts' pairs; `sum_grad` as in `route`, and on the tokens entering
+    the slot buffer."""
+    t, d = xt.shape
+    e, k = cfg.n_experts, cfg.experts_per_tok
+    e_local = w_gate.shape[0]
+    whole = None
+    if SH.is_dtensor(xt):
+        # GSPMD's small-T plan: the tokens and the routing whole on every
+        # rank, the expert buffers split by `constrain`
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = xt.device_mesh
+        whole = [Replicate()] * mesh.ndim
+        xt, router = (SH.local_shard(a, mesh, whole) for a in (xt, router))
+    dp = dispatch(cfg, router, xt, sum_grad)
+    xb = xt if sum_grad is None else sum_grad(xt)
+    lo = e_lo * dp.cap
     # the slot buffer by gather: empty slots read the zero row t
-    buf = torch.cat([xt, xt.new_zeros((1, d))])[dp.src].view(e, dp.cap, d)
-    h = F.silu(torch.bmm(buf, params["w_gate"])) \
-        * torch.bmm(buf, params["w_up"])
-    y_buf = torch.bmm(h, params["w_down"]).view(e * dp.cap, d)
-    # each pair's output, weighted in the compute type, zero if dropped
-    y_pair = y_buf[torch.where(dp.keep, dp.pair, 0)] \
-        * dp.top_w.reshape(-1, 1).to(x.dtype)
-    y_pair = torch.where(dp.keep[:, None], y_pair, 0).view(t, k, d)
+    buf = torch.cat([xb, xb.new_zeros((1, d))])[
+        dp.src[lo:lo + e_local * dp.cap]].view(e_local, dp.cap, d)
+    if whole is not None:
+        buf = DTensor.from_local(buf, mesh, whole)
+    axes = ("experts", None, None)
+    buf = constrain(buf, axes)
+    h = constrain(F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up),
+                  axes)
+    y_buf = constrain(torch.bmm(h, w_down), axes).view(e_local * dp.cap, d)
+    if whole is not None:           # the combine on every rank, whole
+        y_buf = y_buf.redistribute(mesh, whole).to_local()
+    # each pair's output, weighted in the compute type, zero if dropped or
+    # another rank's
+    if e_local == e:
+        mine, idx = dp.keep, torch.where(dp.keep, dp.pair, 0)
+    else:
+        flat_e = dp.top_e.reshape(-1)
+        mine = dp.keep & (flat_e >= e_lo) & (flat_e < e_lo + e_local)
+        idx = torch.where(mine, dp.pair - lo, 0)
+    y_pair = y_buf[idx] * dp.top_w.reshape(-1, 1).to(xt.dtype)
+    y_pair = torch.where(mine[:, None], y_pair, 0).view(t, k, d)
     y = y_pair[:, 0]
     for j in range(1, k):
         y = y + y_pair[:, j]
-    y = y.reshape(b, s, d)
+    if whole is not None:
+        y = DTensor.from_local(y, mesh, whole)
+    return y, aux_loss(dp.top_e, dp.gates)
+
+
+def apply_moe(cfg: ModelConfig, params: Params, x, mesh=None,
+              constrain=None) -> Tuple[Any, Any]:
+    """x: (B, S, d) in the compute type -> (y (B, S, d), aux fp32 scalar).
+    params: init_moe's dict, its expert weights in x's type (the router
+    in any type: it is read in fp32). `mesh`: a fleet mesh (module
+    docstring; None: one device); `constrain`: the JAX constraint
+    points' callback (`sharding.make_constrainer`)."""
+    constrain = constrain or SH.no_constrain
+    if mesh is None:
+        y = None
+    elif SH.is_dtensor(x):
+        y, aux = _apply_moe_dtensor(cfg, params, x, mesh)
+    else:
+        y, aux = _apply_moe_mesh(cfg, params, x, mesh)
+    if y is None:
+        b, s, d = x.shape
+        y, aux = _experts(cfg, params["router"], x.reshape(b * s, d),
+                          params["w_gate"], params["w_up"],
+                          params["w_down"], constrain=constrain)
+        y = y.reshape(b, s, d)
     if cfg.n_shared_experts:
         y = y + apply_mlp(cfg, params["shared"], x)
-    return y, aux_loss(dp.top_e, dp.gates)
+    return y, aux
+
+
+# ---------------------------------------------------------------------------
+# The expert-parallel branch and the global paths on a mesh
+# ---------------------------------------------------------------------------
+
+def _local_experts(cfg: ModelConfig, msz: int) -> int:
+    if cfg.n_experts % msz:
+        raise ValueError(f"{cfg.name}: {cfg.n_experts} experts do not "
+                         f"split over a model axis of {msz}")
+    return cfg.n_experts // msz
+
+
+def _expert_slices(params: Params, lo: int, n: int) -> Sequence:
+    return [params[w][lo:lo + n] for w in ("w_gate", "w_up", "w_down")]
+
+
+def _apply_moe_mesh(cfg: ModelConfig, params: Params, x, mesh):
+    """The SPMD form on plain tensors: x is this rank's batch shard, the
+    parameters whole. Returns (y, this rank's aux)."""
+    msz = SH.axis_sizes(mesh).get("model", 1)
+    index, nb, batch_groups = SH.batch_shard(mesh)
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    # JAX's expert-parallel branch: the local tokens; else its global
+    # paths: every batch shard's tokens
+    gather = not (t * nb > SMALL_T and msz > 1) and nb > 1
+    if gather:
+        xt = SH.gather_rows(xt, batch_groups, index)
+    if msz > 1:
+        groups = [mesh.get_group("model")]
+        n = _local_experts(cfg, msz)
+        lo = mesh.get_local_rank("model") * n
+        y, aux = _experts(cfg, params["router"], xt,
+                          *_expert_slices(params, lo, n), e_lo=lo,
+                          sum_grad=lambda z: SH.sum_grad(z, groups))
+        y = SH.sum_over(y, groups)
+    else:
+        y, aux = _experts(cfg, params["router"], xt, params["w_gate"],
+                          params["w_up"], params["w_down"])
+    if gather:
+        y = y[index * t:(index + 1) * t]
+    return y.reshape(b, s, d), aux
+
+
+def _apply_moe_dtensor(cfg: ModelConfig, params: Params, x, mesh):
+    """The expert-parallel branch on DTensors (GSPMD's global values), on
+    their local shards; None for the global paths, which the one-device
+    code runs on the DTensors."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    sizes = SH.axis_sizes(mesh)
+    msz = sizes.get("model", 1)
+    batch = tuple(a for a in sizes if a != "model")
+    _, nb, batch_groups = SH.batch_shard(mesh)
+    b, s, d = x.shape
+    if b * s <= SMALL_T or msz <= 1:
+        return None, None
+    tok = SH.placements(mesh, (batch, None))
+    xt = x.reshape(b * s, d)
+    whole = [Replicate()] * len(sizes)
+    # gradients: partial over the batch axes (each rank's tokens), whole
+    # over "model" (the branch sums them there), the experts sliced
+    part = [Replicate() if a == "model" else Partial() for a in sizes]
+    experts = SH.placements(mesh, ("model", None, None))
+    router = SH.local_shard(params["router"], mesh, whole, part)
+    ws = [SH.local_shard(params[w], mesh, experts,
+                         [Shard(0) if a == "model" else Partial()
+                          for a in sizes])
+          for w in ("w_gate", "w_up", "w_down")]
+    groups = [mesh.get_group("model")]
+    lo = mesh.get_local_rank("model") * _local_experts(cfg, msz)
+    y, aux = _experts(cfg, router, SH.local_shard(xt, mesh, tok), *ws,
+                      e_lo=lo, sum_grad=lambda z: SH.sum_grad(z, groups))
+    y = SH.sum_over(y, groups)
+    aux = SH.mean_over(aux, batch_groups, nb)
+    return (DTensor.from_local(y, mesh, tok).reshape(b, s, d),
+            DTensor.from_local(aux, mesh, whole))

@@ -28,6 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as SH
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import normal
 
@@ -88,7 +89,13 @@ def _ssd_chunked(xh, a_log, bh, ch, chunk: int, h0=None):
     xh: (B,S,H,P) inputs (already dt-scaled); a_log: (B,S,H) per-step log
     decay (negative); bh/ch: (B,S,H,N). Returns (y: (B,S,H,P) fp32,
     h_final: (B,H,P,N) fp32). S must be a multiple of `chunk`, as in the
-    JAX package: the caller pads, never this function."""
+    JAX package: the caller pads, never this function. On DTensors it
+    runs on each rank's batch rows and heads (`sharding.run_sharded`)."""
+    if SH.is_dtensor(xh):
+        return SH.run_sharded(
+            lambda *t: _ssd_chunked(*t[:4], chunk, h0=t[4]),
+            (xh, a_log, bh, ch, h0), ((0, 2),) * 4 + ((0, 1),),
+            ((0, 2), (0, 1)), heads=xh.shape[2])
     b, s, h, p = xh.shape
     n = bh.shape[-1]
     q = chunk
@@ -127,6 +134,20 @@ def _ssd_chunked(xh, a_log, bh, ch, chunk: int, h0=None):
     return (y_diag + y_off).reshape(b, s, h, p), carry
 
 
+def _ssd_step(h0, a_log, bh, x_dt, ch):
+    """One token's SSM update from the state h0 (B,H,P,N): a_log (B,H),
+    bh / ch (B,H,N), x_dt (B,H,P). Returns (y (B,1,H,P) fp32, the new
+    state). On DTensors it runs on each rank's batch rows and heads."""
+    if SH.is_dtensor(h0):
+        return SH.run_sharded(
+            _ssd_step, (h0, a_log, bh, x_dt, ch),
+            ((0, 1),) * 5, ((0, 2), (0, 1)), heads=h0.shape[1])
+    h_last = h0.float() * torch.exp(a_log)[:, :, None, None] \
+        + torch.einsum("bhn,bhp->bhpn", bh.float(), x_dt)
+    y = torch.einsum("bhn,bhpn->bhp", ch.float(), h_last)[:, None]
+    return y, h_last
+
+
 def apply_mamba2(cfg: ModelConfig, params, x, *, cache=None):
     """x: (B,S,d). params in x's type (`transformer.cast_params`). cache:
     None, or dict(conv_x, conv_B, conv_C rolling windows, ssm (B,H,P,N))
@@ -162,12 +183,8 @@ def apply_mamba2(cfg: ModelConfig, params, x, *, cache=None):
     x_dt = xs_h.float() * dt_sp[..., None]                    # dt-scaled
 
     if cache is not None and s == 1:
-        h0 = cache["ssm"].float()                             # (B,H,P,N)
-        dec = torch.exp(a_log[:, 0])                          # (B,H)
-        upd = torch.einsum("bhn,bhp->bhpn", bh[:, 0].float(), x_dt[:, 0])
-        h_last = h0 * dec[:, :, None, None] + upd
-        y = torch.einsum("bhn,bhpn->bhp", chh[:, 0].float(),
-                         h_last)[:, None]                     # (B,1,H,P)
+        y, h_last = _ssd_step(cache["ssm"], a_log[:, 0], bh[:, 0],
+                              x_dt[:, 0], chh[:, 0])
     else:
         y, h_last = _ssd_chunked(
             x_dt, a_log, bh, chh, min(cfg.ssm_chunk, s),

@@ -89,8 +89,10 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as SH
 from repro_torch import tree as TR
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -360,6 +362,20 @@ def decay_flags(params: Params):
     return walk(params, False)
 
 
+def expert_flags(cfg: ModelConfig, params: Params):
+    """The tree of `params` with True on the routed experts' weights (a
+    MoE block's ffn w_gate / w_up / w_down; not its router or shared
+    experts): on a mesh a rank computes its own experts' gradients only
+    (models/moe.py), which the train step sums over "model"."""
+    flags = TR.map_tree(lambda leaf: False, params)
+    if cfg.arch_type == "moe":
+        for i, kind in enumerate(cfg.layer_kinds()):
+            if kind == "moe":
+                for w in ("w_gate", "w_up", "w_down"):
+                    flags["blocks"][i]["ffn"][w] = True
+    return flags
+
+
 def cast_params(cfg: ModelConfig, params: Params) -> Params:
     """Cast, IN PLACE, every parameter the JAX layers cast to the compute
     type at use (embedding, head, the attention dicts with their qk-norm
@@ -434,19 +450,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # Forward
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: ModelConfig, params: Params, tokens):
+#: the residual stream's logical axes (the JAX constraint points')
+RESIDUAL = ("batch", "seq", "embed")
+
+
+def _embed(cfg: ModelConfig, params: Params, tokens,
+           constrain=SH.no_constrain):
     dt = torch_dtype(cfg.dtype)
-    return params["embed"][tokens].to(dt) * L.rounded(cfg.d_model ** 0.5, dt)
+    table = params["embed"]
+    # a DTensor table takes DTensor's vocab-parallel lookup (each rank its
+    # rows, a partial sum reduced by the constraint), as GSPMD masks it
+    rows = SH.reduced(F.embedding(tokens, table)) if SH.is_dtensor(table) \
+        else table[tokens]
+    return constrain(rows.to(dt) * L.rounded(cfg.d_model ** 0.5, dt),
+                     RESIDUAL)
 
 
-def _logits(cfg: ModelConfig, params: Params, x):
+def _logits(cfg: ModelConfig, params: Params, x, constrain=SH.no_constrain):
     if cfg.tie_embeddings:
         logits = x @ params["embed"].to(x.dtype).T
     else:
         logits = x @ params["lm_head"].to(x.dtype)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    return logits
+    return constrain(logits, ("batch", "seq", "vocab"))
 
 
 def _sinusoidal_pos(positions, d: int):
@@ -466,21 +493,23 @@ def _remat(cfg: ModelConfig, train: bool, fn, *args):
 
 
 def _encode(cfg: ModelConfig, params: Params, enc_embeds, backend: str,
-            train: bool = False):
+            train: bool = False, constrain=SH.no_constrain):
     """Whisper's encoder over stub frame embeddings (B, F, d): blocks of
     bidirectional self-attention without RoPE, then enc_norm."""
     x = enc_embeds.to(torch_dtype(cfg.dtype))
     b, f, _ = x.shape
     positions = torch.arange(f, device=x.device).expand(b, f)
-    x = x + _sinusoidal_pos(positions, cfg.d_model).to(x.dtype)
+    x = constrain(x + _sinusoidal_pos(positions, cfg.d_model).to(x.dtype),
+                  RESIDUAL)
 
     def block(x, blk):
         h = L.apply_norm(cfg, blk["attn_norm"], x)
-        x = x + L.apply_attention(cfg, blk["attn"], h, positions,
-                                  theta=cfg.rope_theta, causal=False,
-                                  rope=False, backend=backend)
+        x = x + SH.reduced(L.apply_attention(
+            cfg, blk["attn"], h, positions, theta=cfg.rope_theta,
+            causal=False, rope=False, backend=backend, constrain=constrain))
         h = L.apply_norm(cfg, blk["mlp_norm"], x)
-        return x + L.apply_mlp(cfg, blk["ffn"], h)
+        return constrain(x + SH.reduced(L.apply_mlp(cfg, blk["ffn"], h)),
+                         RESIDUAL)
 
     for blk in params["enc_blocks"]:
         x = _remat(cfg, train, block, x, blk)
@@ -508,36 +537,43 @@ def _layer_cache(cfg: ModelConfig, cache, i: int):
 
 def _self_attention(cfg: ModelConfig, blk: Params, x, positions, *, theta,
                     window, cache, cache_index, backend, tables, kv_len,
-                    rope=True):
+                    rope=True, constrain=SH.no_constrain):
     """x + the block's self-attention (MLA where the config says so)."""
     h = L.apply_norm(cfg, blk["attn_norm"], x)
     if cfg.attn_kind == "mla":
-        return x + L.apply_mla(cfg, blk["attn"], h, positions, theta=theta,
-                               cache=cache, cache_index=cache_index,
-                               backend=backend, tables=tables)
-    return x + L.apply_attention(
-        cfg, blk["attn"], h, positions, theta=theta, window=window,
-        cache=cache, cache_index=cache_index, backend=backend,
-        tables=tables, kv_len=kv_len, rope=rope)
+        a = L.apply_mla(cfg, blk["attn"], h, positions, theta=theta,
+                        cache=cache, cache_index=cache_index,
+                        backend=backend, tables=tables, constrain=constrain)
+    else:
+        a = L.apply_attention(
+            cfg, blk["attn"], h, positions, theta=theta, window=window,
+            cache=cache, cache_index=cache_index, backend=backend,
+            tables=tables, kv_len=kv_len, rope=rope, constrain=constrain)
+    return constrain(x + SH.reduced(a), RESIDUAL)
 
 
-def _ffn(cfg: ModelConfig, blk: Params, x, moe: bool = False):
+def _ffn(cfg: ModelConfig, blk: Params, x, moe: bool = False, mesh=None,
+         constrain=SH.no_constrain):
     """(x + the block's FFN, the MoE's fp32 aux loss or None): its gated
     MLP, or its mixture of experts."""
     h = L.apply_norm(cfg, blk["mlp_norm"], x)
     if moe:
-        y, aux = MOE.apply_moe(cfg, blk["ffn"], h)
-        return x + y, aux
-    return x + L.apply_mlp(cfg, blk["ffn"], h), None
+        y, aux = MOE.apply_moe(cfg, blk["ffn"], h, mesh, constrain)
+    else:
+        y, aux = L.apply_mlp(cfg, blk["ffn"], h), None
+    return constrain(x + SH.reduced(y), RESIDUAL), aux
 
 
-def _ssm_block(cfg: ModelConfig, blk: Params, x, cache):
+def _ssm_block(cfg: ModelConfig, blk: Params, x, cache,
+               constrain=SH.no_constrain):
     h = L.apply_norm(cfg, blk["norm"], x)
-    return x + SSM.apply_mamba2(cfg, blk["mamba"], h, cache=cache)[0]
+    return constrain(x + SH.reduced(SSM.apply_mamba2(
+        cfg, blk["mamba"], h, cache=cache)[0]), RESIDUAL)
 
 
 def _run_hybrid(cfg: ModelConfig, params: Params, x, positions, cache,
-                cache_index, backend: str, kv_len, train: bool = False):
+                cache_index, backend: str, kv_len, train: bool = False,
+                mesh=None, constrain=SH.no_constrain):
     """The JAX `_run_hybrid`: each group's mamba2 blocks, then the shared
     block (its one set of weights, at rope_theta, no window) over that
     group's KV buffer; then the tail's mamba2 blocks. Rematerialised as
@@ -545,7 +581,8 @@ def _run_hybrid(cfg: ModelConfig, params: Params, x, positions, cache,
     ssm = None if cache is None else cache["ssm"]
     tables = L.rope_tables(positions, cfg.hd, cfg.rope_theta)
     shared = params["shared_attn"]
-    ssm_block = lambda x, blk, i: _ssm_block(cfg, blk, x, _layer(ssm, i))
+    ssm_block = lambda x, blk, i: _ssm_block(cfg, blk, x, _layer(ssm, i),
+                                             constrain)
 
     def group(x, g, blocks, first):
         for i, blk in enumerate(blocks, first):
@@ -555,8 +592,8 @@ def _run_hybrid(cfg: ModelConfig, params: Params, x, positions, cache,
             window=L.NO_WINDOW,
             cache=None if cache is None else _layer(cache["attn"], g),
             cache_index=cache_index, backend=backend, tables=tables,
-            kv_len=kv_len)
-        return _ffn(cfg, shared, x)[0]
+            kv_len=kv_len, constrain=constrain)
+        return _ffn(cfg, shared, x, mesh=mesh, constrain=constrain)[0]
 
     i = 0                   # the mamba2 block's row of the state stack
     for g, blocks in enumerate(params["groups"]):
@@ -572,7 +609,7 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
             cache: Optional[Dict[str, Any]] = None,
             cache_index=0, backend: str = "cuda",
             last_only: bool = False, enc_embeds=None, img_embeds=None,
-            train: bool = False):
+            train: bool = False, mesh=None, constrain=None):
     """tokens: (B, S) -> (logits (B, S or 1, V), hidden (B, S or 1, d)),
     and with `train` -> (logits, hidden, aux): aux the fp32 sum of the
     MoE layers' auxiliary losses (0.0 without MoE layers), and each
@@ -590,13 +627,21 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
     concatenation), so the S new rows are N + S_text. `last_only` runs
     the final norm and the head on the last position alone. `backend`
     selects the attention route on CUDA tensors
-    (layers.apply_attention)."""
+    (layers.apply_attention).
+
+    `mesh` and `constrain` are the JAX forward's: the fleet mesh the MoE
+    layers' expert-parallel branch reads (models/moe.py), and the
+    callback placed at the JAX constraint points (the residual stream,
+    the attention's heads and query chunks, the logits, the small MoE's
+    expert buffers), the identity unless a DTensor comes through
+    (`sharding.make_constrainer`)."""
     check_supported(cfg)
+    cns = constrain or SH.no_constrain
     at = cfg.arch_type
     b, s_tok = tokens.shape
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, cns)
     if at == "vlm" and img_embeds is not None:
-        x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
+        x = cns(torch.cat([img_embeds.to(x.dtype), x], dim=1), RESIDUAL)
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
@@ -616,12 +661,12 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
     aux = []
     if at == "ssm":
         ssm_block = lambda x, blk, i: _ssm_block(cfg, blk, x,
-                                                 _layer(cache, i))
+                                                 _layer(cache, i), cns)
         for i, blk in enumerate(params["blocks"]):
             x = _remat(cfg, train, ssm_block, x, blk, i)
     elif at == "hybrid":
         x = _run_hybrid(cfg, params, x, positions, cache, cache_index,
-                        backend, kv_len, train)
+                        backend, kv_len, train, mesh, cns)
     else:
         enc_out = cross_len = None
         schedule = layer_schedules(cfg)
@@ -629,7 +674,8 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
         if at == "encdec":
             x = x + _sinusoidal_pos(positions, cfg.d_model).to(x.dtype)
             if enc_embeds is not None:
-                enc_out = _encode(cfg, params, enc_embeds, backend, train)
+                enc_out = _encode(cfg, params, enc_embeds, backend, train,
+                                  cns)
             elif cache is None:
                 raise ValueError(f"{cfg.name}: forward needs enc_embeds or "
                                  "a cache holding the cross K/V")
@@ -649,7 +695,7 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
                 cfg, blk, x, positions, theta=theta, window=window,
                 cache=c, cache_index=cache_index, backend=backend,
                 tables=tables.get(theta),
-                kv_len=kv_len, rope=at != "encdec")
+                kv_len=kv_len, rope=at != "encdec", constrain=cns)
             if at == "encdec":
                 h = L.apply_norm(cfg, blk["cross_norm"], x)
                 cc = None if c is None else c["cross"]
@@ -657,10 +703,11 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
                     kw = dict(kv_source=enc_out, cache=cc)
                 else:                     # decode: read the stored K/V
                     kw = dict(precomputed_kv=cc, kv_len=cross_len)
-                x = x + L.apply_attention(
+                x = x + SH.reduced(L.apply_attention(
                     cfg, blk["cross"], h, positions, theta=cfg.rope_theta,
-                    causal=False, backend=backend, rope=False, **kw)
-            return _ffn(cfg, blk, x, moe[i])
+                    causal=False, backend=backend, rope=False, constrain=cns,
+                    **kw))
+            return _ffn(cfg, blk, x, moe[i], mesh, cns)
 
         for i, blk in enumerate(params["blocks"]):
             x, a = _remat(cfg, train, layer, x, blk, i)
@@ -670,11 +717,11 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
         x = x[:, -1:]
     x = L.apply_norm(cfg, params["final_norm"], x)
     if not train:
-        return _logits(cfg, params, x), x
+        return _logits(cfg, params, x, cns), x
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for a in aux:
         total = total + a
-    return _logits(cfg, params, x), x, total
+    return _logits(cfg, params, x, cns), x, total
 
 
 # ---------------------------------------------------------------------------
@@ -693,22 +740,65 @@ TRAIN_ATTENTION = "reference"
 
 def cross_entropy(logits, targets, mask):
     """The mean over the rows `mask` keeps of -log softmax(logits)[target],
-    in fp32."""
+    in fp32. On DTensors it is computed on each rank's shards
+    (`_cross_entropy_sharded`)."""
+    if SH.is_dtensor(logits):
+        return _cross_entropy_sharded(logits, targets, mask)
     lse = torch.log_softmax(logits.float(), dim=-1)
     ll = lse.gather(-1, targets[..., None].long())[..., 0]
     m = mask.float()
     return -(ll * m).sum() / torch.clamp_min(m.sum(), 1.0)
 
 
+def _cross_entropy_sharded(logits, targets, mask):
+    """`cross_entropy` of (B, S, V) DTensor logits on each rank's rows and
+    vocab slice, as GSPMD splits it: the row max (a stabiliser, no
+    gradient) and the sum of exponentials all-reduced over the mesh dim
+    that splits the vocab, the target's logit taken where the rank holds
+    it and summed there; the masked sums are partial over the batch's
+    mesh dims, and DTensor reduces them. (DTensor's own gather over a
+    split vocab holds the whole logits on every device.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = logits.device_mesh
+    shard = lambda i, d: isinstance(logits.placements[i], Shard) \
+        and logits.placements[i].dim == d
+    bmesh = [i for i in range(mesh.ndim) if shard(i, 0)]
+    vm = next((i for i in range(mesh.ndim) if shard(i, 2)), None)
+    rows = [Shard(0) if i in bmesh else Replicate()
+            for i in range(mesh.ndim)]
+    x = SH.local_shard(logits, mesh, [Shard(2) if i == vm else p for i, p in
+                                      enumerate(rows)]).float()
+    t, m = (SH.local_shard(a, mesh, rows) if SH.is_dtensor(a) else a
+            for a in (targets, mask))
+    groups = [] if vm is None else [mesh.get_group(vm)]
+    v = x.shape[-1]
+    lo = 0 if vm is None else mesh.get_local_rank(vm) * v
+    mx = x.detach().amax(-1, keepdim=True)
+    for g in groups:
+        torch.distributed.all_reduce(mx, torch.distributed.ReduceOp.MAX,
+                                     group=g)
+    lse = mx[..., 0] + torch.log(SH.sum_over(torch.exp(x - mx).sum(-1),
+                                             groups))
+    own = (t >= lo) & (t < lo + v)
+    xt = x.gather(-1, (t - lo).clamp(0, v - 1)[..., None].long())[..., 0]
+    ll = SH.sum_over(torch.where(own, xt, 0.0), groups) - lse
+    part = [Partial() if i in bmesh else Replicate()
+            for i in range(mesh.ndim)]
+    mf = m.float()
+    num = DTensor.from_local((ll * mf).sum(), mesh, part)
+    return -num / torch.clamp_min(DTensor.from_local(mf.sum(), mesh, part),
+                                  1.0)
+
+
 def _mtp_loss(cfg: ModelConfig, params: Params, hidden, tokens, targets,
-              mask):
+              mask, constrain=SH.no_constrain):
     """DeepSeek's multi-token prediction (the JAX `loss_fn`): predict t+2
     from (hidden_t, embed(token_{t+1})) through one dense block at
     rope_theta, no window."""
     mp = params["mtp"]
     h = L.apply_norm(cfg, mp["norm_h"], hidden[:, :-1])
-    e_next = L.apply_norm(cfg, mp["norm_e"], _embed(cfg, params,
-                                                    tokens[:, 1:]))
+    e_next = L.apply_norm(cfg, mp["norm_e"], _embed(
+        cfg, params, tokens[:, 1:], constrain))
     hm = torch.cat([h, e_next], dim=-1) @ mp["proj"]
     b, s, _ = hm.shape
     pos = torch.arange(s, device=hm.device).expand(b, s)
@@ -716,14 +806,15 @@ def _mtp_loss(cfg: ModelConfig, params: Params, hidden, tokens, targets,
         cfg, mp["block"], hm, pos, theta=cfg.rope_theta, window=L.NO_WINDOW,
         cache=None, cache_index=0, backend=TRAIN_ATTENTION,
         tables=L.rope_tables(pos, rope_dim(cfg), cfg.rope_theta),
-        kv_len=None)
-    hm = _ffn(cfg, mp["block"], hm)[0]
+        kv_len=None, constrain=constrain)
+    hm = _ffn(cfg, mp["block"], hm, constrain=constrain)[0]
     tgt = targets[:, 1:]
-    logits = _logits(cfg, params, hm)[:, -tgt.shape[1]:]
+    logits = _logits(cfg, params, hm, constrain)[:, -tgt.shape[1]:]
     return cross_entropy(logits, torch.clamp_min(tgt, 0), mask[:, 1:])
 
 
-def loss_fn(cfg: ModelConfig, params: Params, batch):
+def loss_fn(cfg: ModelConfig, params: Params, batch, *, mesh=None,
+            constrain=None):
     """The JAX `loss_fn`: (total, metrics) for a batch {"tokens" (B, S),
     "targets" (B, S_t), optional "positions", "enc_embeds" (encdec),
     "img_embeds" (vlm)} from the master parameters, cast to the compute
@@ -733,20 +824,24 @@ def loss_fn(cfg: ModelConfig, params: Params, batch):
     the tree holds deepseek's "mtp" head). metrics: "ce", "aux" and
     "total" (and "mtp"), fp32 scalars on the device. The forward runs in
     training mode (`forward(train=True)`), its attention through
-    TRAIN_ATTENTION."""
+    TRAIN_ATTENTION. `mesh` / `constrain` as `forward` takes them: on a
+    mesh in SPMD form (a rank's batch shard, `training/loop.py`) the
+    metrics are this rank's."""
     params = compute_tree(cfg, params)
     tokens, targets = batch["tokens"], batch["targets"]
     logits, hidden, aux = forward(
         cfg, params, tokens, positions=batch.get("positions"),
         backend=TRAIN_ATTENTION, enc_embeds=batch.get("enc_embeds"),
-        img_embeds=batch.get("img_embeds"), train=True)
+        img_embeds=batch.get("img_embeds"), train=True, mesh=mesh,
+        constrain=constrain)
     mask = targets >= 0
     ce = cross_entropy(logits[:, -targets.shape[1]:],
                        torch.clamp_min(targets, 0), mask)
     metrics = {"ce": ce, "aux": aux}
     total = ce + cfg.aux_loss_coef * aux
     if cfg.mtp_depth and "mtp" in params:
-        mtp = _mtp_loss(cfg, params, hidden, tokens, targets, mask)
+        mtp = _mtp_loss(cfg, params, hidden, tokens, targets, mask,
+                        constrain or SH.no_constrain)
         metrics["mtp"] = mtp
         total = total + MTP_WEIGHT * mtp
     metrics["total"] = total
@@ -755,13 +850,15 @@ def loss_fn(cfg: ModelConfig, params: Params, batch):
 
 def prefill(cfg: ModelConfig, params: Params, tokens, max_len: int, *,
             cache_dtype=torch.bfloat16, backend: str = "cuda",
-            enc_embeds=None, img_embeds=None, cache=None):
+            enc_embeds=None, img_embeds=None, cache=None, mesh=None,
+            constrain=None):
     """Run the prompt through the model, filling a fresh cache of size
     max_len, or `cache` (init_cache's tree for B rows, or views of its
     leading B rows) in place, from the state a fresh cache holds.
     tokens: (B, S); enc_embeds: encdec's (B, F, d) frame embeddings;
     img_embeds: vlm's (B, N, d) image embeddings, whose N rows the cache
-    holds before the prompt's. Returns (last_logits (B, V), cache)."""
+    holds before the prompt's. `mesh` / `constrain` as `forward` takes
+    them. Returns (last_logits (B, V), cache)."""
     if cache is None:
         cache = init_cache(cfg, tokens.shape[0], max_len, cache_dtype,
                            device=tokens.device)
@@ -777,16 +874,18 @@ def prefill(cfg: ModelConfig, params: Params, tokens, max_len: int, *,
             leaf.zero_()
     logits, _ = forward(cfg, params, tokens, cache=cache, cache_index=0,
                         backend=backend, last_only=True,
-                        enc_embeds=enc_embeds, img_embeds=img_embeds)
+                        enc_embeds=enc_embeds, img_embeds=img_embeds,
+                        mesh=mesh, constrain=constrain)
     return logits[:, -1], cache
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache, tokens, index, *,
-                backend: str = "cuda"):
+                backend: str = "cuda", mesh=None, constrain=None):
     """One decode step. tokens: (B, 1); index: the position written, a
     Python int or a 0-d or (1,) int64 tensor on the tokens' device (read
     on the device only; an int gives the same results bit for bit).
-    Returns (logits (B, V), cache), the cache updated in place."""
+    `mesh` / `constrain` as `forward` takes them. Returns (logits (B, V),
+    cache), the cache updated in place."""
     b = tokens.shape[0]
     if not isinstance(index, torch.Tensor):
         # a fill, not a copy from the host (which would wait for the
@@ -795,5 +894,6 @@ def decode_step(cfg: ModelConfig, params: Params, cache, tokens, index, *,
                            device=tokens.device)
     index = index.reshape(1)
     logits, _ = forward(cfg, params, tokens, positions=index.expand(b, 1),
-                        cache=cache, cache_index=index, backend=backend)
+                        cache=cache, cache_index=index, backend=backend,
+                        mesh=mesh, constrain=constrain)
     return logits[:, -1], cache

@@ -8,9 +8,16 @@ The JAX dry-run itself needs 512 forced host devices
 (`model_flops`, `input_specs` under `jax.eval_shape`).
 
 Bar for the counted FLOPs: a decode step's FLOPs, counted on the meta
-device by `FlopCounterMode`, within 1% of `analytic_costs` (olmo-1b x
-decode_32k: the matmuls, the attention's two products over every cache
-row and the logits, which both count the same way).
+device by `torch.utils.flop_counter`'s formulas (`dryrun.StepCounter`),
+within 1% of `analytic_costs` (olmo-1b x decode_32k: the matmuls, the
+attention's two products over every cache row and the logits, which
+both count the same way).
+
+The JAX meshes (`--mesh single|multi`, `--fsdp`, `--experts-2d`,
+`--seq-shard`) run on the "fake" backend in this process; each record's
+per-device argument bytes are held, integer-equal, to the arithmetic of
+JAX's own specs (`repro.sharding` on a stub mesh of the same shape)
+over the port's arguments.
 """
 import json
 
@@ -332,19 +339,164 @@ def _port_tree_leaves(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
+def _jax_spec_bytes(arch, shape, mesh_shape, fsdp=False, experts_2d=False):
+    """A decode step's per-device argument bytes under JAX's specs: every
+    leaf of JAX's parameter tree and cache (the port's dtypes: its cast
+    parameters, its bf16 cache), the tokens P(batch_axes, None) and the
+    index P(), each divided as JAX's spec on a stub mesh divides it."""
+    import types
+
+    from repro import sharding as JSH
+    from repro.models import transformer as JT
+    from test_torch_sharding_rules import jax_cache_counterpart, \
+        jax_counterpart, port_leaves
+    mesh = types.SimpleNamespace(shape=dict(mesh_shape),
+                                 axis_names=tuple(mesh_shape))
+    jc, tc = j_config(arch), get_config(arch)
+    spec = TS.input_specs(tc, shape)
+    gb, max_len = spec["global_batch"], spec["seq_len"]
+
+    def local(shape, pspec):
+        n = 1
+        for d, ax in zip(shape, tuple(pspec)):
+            k = 1
+            for a in ((ax,) if isinstance(ax, str) else ax or ()):
+                k *= mesh_shape[a]
+            assert d % k == 0
+            n *= d // k
+        return n
+
+    jp = jax.eval_shape(lambda: JT.init_params(jc, jax.random.key(0)))
+    jps = JSH.param_specs(jc, mesh, jp, fsdp=fsdp, experts_2d=experts_2d)
+    params = T.cast_params(tc, T.init_params(tc, L.MetaGenerator()))
+    size = {}          # the JAX leaf's path -> the port's element size
+    for path, leaf in port_leaves(params):
+        size[jax_counterpart(tc, jps, path)[3]] = leaf.element_size()
+    total = 0
+    for kp, leaf in jax.tree_util.tree_flatten_with_path(jp)[0]:
+        key = tuple(k.key for k in kp)
+        if key in size:                 # deepseek's mtp: training only
+            node = jps
+            for k in key:
+                node = node[k]
+            total += local(leaf.shape, node) * size[key]
+    jcache = jax.eval_shape(lambda: JT.init_cache(jc, gb, max_len))
+    jcs = JSH.make_cache_specs(jc, mesh, jcache, gb)
+    cache_bytes = 0
+    for path, leaf in port_leaves(spec["cache"]):
+        for want, shp in zip(jax_cache_counterpart(tc, jcs, path),
+                             jax_cache_counterpart(tc, jcache, path)):
+            cache_bytes += local(shp.shape, want) * leaf.element_size()
+    b_ax = JSH.batch_axes(mesh, gb)
+    tokens = local((gb, 1), (b_ax, None)) * 4
+    return total + cache_bytes + tokens + 8
+
+
 @pytest.mark.parametrize("argv", [
     ["--mesh", "single"], ["--mesh", "multi"], ["--fsdp"], ["--experts-2d"],
     ["--seq-shard"]])
-def test_flags_that_need_a_mesh_raise(tmp_path, argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP §2.10"):
-        D.main(["--arch", "olmo-1b", "--shape", "decode_32k",
-                "--out", str(tmp_path)] + argv)
-    with pytest.raises(NotImplementedError, match="ROADMAP §2.10"):
-        D.run_combo("olmo-1b", "decode_32k", argv[1] if argv[0] == "--mesh"
-                    else "card", tmp_path, fsdp=argv == ["--fsdp"],
-                    experts_2d=argv == ["--experts-2d"],
-                    seq_shard=argv == ["--seq-shard"])
+def test_mesh_flags_run_on_the_fake_backend(tmp_path, argv):
+    """olmo-1b x decode_32k on JAX's meshes through the CLI (a sharding
+    option alone takes JAX's default mesh, single): a record per device
+    whose argument bytes equal JAX's spec arithmetic, with the port's
+    collectives counted (all-gather / all-reduce, result bytes, and
+    their counts) and the options recorded."""
+    assert D.main(["--arch", "olmo-1b", "--shape", "decode_32k",
+                   "--out", str(tmp_path), "--force"] + argv) == 0
+    mesh = "multi" if argv == ["--mesh", "multi"] else "single"
+    rec = json.loads((tmp_path / f"olmo-1b__decode_32k__{mesh}.json")
+                     .read_text())
+    assert rec["status"] == "ok" and rec["mesh"] == mesh
+    assert rec["n_devices"] == (512 if mesh == "multi" else 256)
+    shape = {"pod": 2, "data": 16, "model": 16} if mesh == "multi" else \
+        {"data": 16, "model": 16}
+    opts = {k: argv == [f"--{k.replace('_', '-')}"]
+            for k in ("fsdp", "experts_2d", "seq_shard")}
+    assert {k: rec["options"][k] for k in opts} == opts
+    assert rec["memory"]["argument_size_in_bytes"] == _jax_spec_bytes(
+        "olmo-1b", "decode_32k", shape, fsdp=opts["fsdp"],
+        experts_2d=opts["experts_2d"])
+    coll = rec["collectives"]
+    assert coll["total_bytes"] > 0 and coll["all-reduce_count"] > 0
+    assert coll["total_bytes"] == sum(v for k, v in coll.items()
+                                      if not k.endswith("_count")
+                                      and k != "total_bytes")
+    assert "not XLA's" in rec["collectives_note"]
+    # one card's step on a 256th of the batch and 16ths of the weights
+    card = D.run_combo("olmo-1b", "decode_32k", "card", tmp_path,
+                       force=True)
+    assert rec["flops_per_device"] < card["flops_per_device"] / 16
+
+
+def test_card_mesh_refuses_sharding_options(tmp_path):
+    with pytest.raises(ValueError, match="--mesh single or multi"):
+        D.run_combo("olmo-1b", "decode_32k", "card", tmp_path, fsdp=True)
     assert not list(tmp_path.glob("*.json"))
+
+
+def test_toy_collectives_are_hand_counted():
+    """Two layers of a toy dense model, a forward over 2 x 8 tokens on a
+    (data=2, model=2) fake mesh, by hand: the batch splits over "data"
+    (1 sequence a device); heads, d_ff and the vocab over "model". Per
+    layer the attention's and the MLP's row-split products each leave a
+    partial (1, 8, 64) fp32 sum, all-reduced over "model" before the
+    residual add; the lookup in the vocab-split embedding table, each
+    rank its rows, leaves one more: 5 all-reduces of 8 x 64 x 4 = 2,048
+    bytes. The logits stay split over the vocab, and nothing else
+    moves."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch import sharding as SH
+    cfg = dataclasses.replace(
+        get_reduced_config("olmo-1b", dtype="float32"), n_layers=2,
+        d_model=64, n_heads=4, n_kv_heads=4, d_ff=128, vocab=256)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=4)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        params = T.init_params(cfg, L.MetaGenerator())
+        params = SH.distribute_tree(mesh, params, SH.param_specs(
+            cfg, mesh, params))
+        tokens = SH.distribute_tree(
+            mesh, {"t": torch.empty((2, 8), dtype=torch.int64,
+                                    device="meta")},
+            {"t": ("data", None)})["t"]
+        constrain = SH.make_constrainer(mesh, 2, vocab=cfg.vocab)
+        counter = D.StepCounter()
+        with counter, implicit_replication():
+            logits, _ = T.forward(cfg, params, tokens, backend="reference",
+                                  mesh=mesh, constrain=constrain)
+    finally:
+        dist.destroy_process_group()
+    assert counter.collectives == {"all-reduce": 5 * 8 * 64 * 4,
+                                   "all-reduce_count": 5}
+    assert tuple(logits.to_local().shape) == (1, 8, 128)
+
+
+def test_split_kv_combine_equals_one_softmax():
+    """The dry-run's attention over keys split along their rows
+    (`layers._split_kv`'s partials and combine) on plain tensors: two
+    halves of the keys combined equal one softmax over all of them."""
+    torch.manual_seed(0)
+    q, k, v = (torch.randn(2, 3, 4, 8), torch.randn(2, 10, 2, 8),
+               torch.randn(2, 10, 2, 8))
+    qp = torch.tensor([[7, 8, 9]] * 2)
+    kp = torch.arange(10).expand(2, 10)
+    want = L._attend_block(q, k, v, qp, kp, L.NO_WINDOW, 0.0, True)
+    part = L._attend_partial(L.NO_WINDOW, 0.0, True)
+    outs = [part(q, k[:, i:i + 5], v[:, i:i + 5], qp, kp[:, i:i + 5])
+            for i in (0, 5)]
+    top = torch.maximum(outs[0][1], outs[1][1])
+    sc = [torch.exp(o[1] - top) for o in outs]
+    den = sum(o[2] * c for o, c in zip(outs, sc))
+    got = sum(o[0] * c[..., None] for o, c in zip(outs, sc)) / den[..., None]
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
 
 
 def test_all_sweeps_every_shape_and_resumes(tmp_path, monkeypatch, capfd):

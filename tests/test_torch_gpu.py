@@ -1383,6 +1383,43 @@ def test_failed_capture_raises(dev):
     assert out.stdout.split() == ["raised", "0"], out.stdout + out.stderr
 
 
+def test_capture_survives_a_collection_of_dead_graphs(dev):
+    """A graph kept alive only by a reference cycle becomes garbage in the
+    middle of a capture, which then makes enough surviving objects for a
+    full collection to come due (the thresholds at (100, 1, 1)): no
+    collection runs while the stream captures (one would destroy the
+    dead graph, which a capturing stream does not permit, and invalidate
+    the capture). In a process of its own, as a failed capture leaves
+    PyTorch's capture stream behind."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    script = (
+        "import gc, torch\n"
+        "from repro_torch import graphs\n"
+        "x = torch.ones((64,), device='cuda')\n"
+        "def dead():\n"
+        "    d = {'step': graphs.Step(lambda t: t * 2, x, device=x.device)}\n"
+        "    d['self'] = d\n"
+        "    return d\n"
+        "box, keep = [dead(), dead()], []\n"
+        "def fn(t):\n"
+        "    box.pop()       # the warm-up run's, then the capture's\n"
+        "    # survivors enough for a full collection to come due\n"
+        "    keep.extend([[] for _ in range(len(gc.get_objects()))])\n"
+        "    return t + 200\n"
+        "gc.set_threshold(100, 1, 1)\n"
+        "step = graphs.Step(fn, x, device=x.device)\n"
+        "print('captured', float(step(x)[0]))\n")
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(src)})
+    assert out.stdout.split() == ["captured", "201.0"], \
+        out.stdout + out.stderr[-3000:]
+
+
 # ---------------------------------------------------------------------------
 # the paper's baselines and experiments
 # ---------------------------------------------------------------------------

@@ -3,9 +3,10 @@ JAX package's (`benchmarks/roofline.py`), on the CPU, over synthetic
 dry-run records.
 
 The JAX report's constants are the v5e's; inside each test they are
-monkeypatched to the H100's (the port's), so both compute the same
-terms. The records carry no collective bytes, as the port's one card
-has none: the JAX report's link term is then 0 as well.
+monkeypatched to the H100's (the port's, NVLink's datasheet rate among
+them), so both compute the same terms. The one-card records carry no
+collective bytes; the mesh records (the dry-run's fake-backend meshes)
+do, and their link term is JAX's.
 """
 import json
 
@@ -16,11 +17,12 @@ from benchmarks_torch import roofline as TRF
 
 
 def _rec(arch, shape, kind, flops, hbm, model_flops, mem, mesh="card",
-         status="ok"):
+         status="ok", coll=0, n_dev=1):
     return {"arch": arch, "shape": shape, "mesh": mesh, "status": status,
-            "n_devices": 1, "kind": kind,
-            "flops_per_device": 0.8 * flops, "bytes_per_device": 3.0 * hbm,
-            "collectives": {"total_bytes": 0},
+            "n_devices": n_dev, "kind": kind,
+            "flops_per_device": 0.8 * flops / n_dev,
+            "bytes_per_device": 3.0 * hbm / n_dev,
+            "collectives": {"total_bytes": coll},
             "model_flops_global": model_flops,
             "analytic": {"flops_global": flops, "hbm_bytes_global": hbm},
             "memory": {"argument_size_in_bytes": mem[0],
@@ -42,6 +44,15 @@ RECORDS = [
                                                          900e9, 900e9)),
     _rec("b", "long_500k", "decode", 4e11, 5e10, 3e11, (58e9, 4e9, 58e9,
                                                         58e9)),
+    # the fake-backend meshes: per-device collective bytes; the second
+    # combo is bound by them, the first by compute
+    _rec("a", "train_4k", "train", 4e17, 2e12, 3e17, (1e9, 2e9, 1e9, 1e9),
+         mesh="single", coll=2e9, n_dev=256),
+    _rec("b", "train_4k", "train", 9e17, 5e12, 2e17, (1e9, 2e9, 1e9, 1e9),
+         mesh="single", coll=9e12, n_dev=256),
+    _rec("b", "decode_32k", "decode", 3e12, 9e11, 2e12, (4e9, 1e9, 4e9,
+                                                         4e9),
+         mesh="single", coll=3e8, n_dev=256),
     {"arch": "c", "shape": "long_500k", "mesh": "card", "status": "skipped",
      "reason": "full attention"},
     {"arch": "c", "shape": "train_4k", "mesh": "card", "status": "error",
@@ -55,11 +66,14 @@ def h100(monkeypatch):
     monkeypatch.setattr(JRF, "PEAK_FLOPS", TRF.PEAK_FLOPS)
     monkeypatch.setattr(JRF, "HBM_BW", TRF.HBM_BW)
     monkeypatch.setattr(JRF, "HBM_BYTES", TRF.HBM_BYTES)
+    monkeypatch.setattr(JRF, "LINK_BW", TRF.LINK_BW)
 
 
-def _jax_rows(records):
-    """JAX's analyze on the records with its mesh name ("single")."""
-    rows = [JRF.analyze(dict(r, mesh="single")) for r in records]
+def _jax_rows(records, mesh="card"):
+    """JAX's analyze on `mesh`'s records, under its mesh name
+    ("single")."""
+    rows = [JRF.analyze(dict(r, mesh="single")) for r in records
+            if r["mesh"] == mesh]
     return [r for r in rows if r]
 
 
@@ -75,7 +89,8 @@ def test_analyze_matches_jax(h100, i):
                 "fits_hbm", "suggestion", "arch", "shape", "kind"):
         assert got[key] == want[key], key
     assert got["counted_flops_coverage"] == want["hlo_flops_coverage"]
-    assert got["mesh"] == "card" and got["collective_s"] == 0.0
+    assert got["mesh"] == RECORDS[i]["mesh"]
+    assert (got["collective_s"] == 0.0) == (RECORDS[i]["mesh"] == "card")
 
 
 def test_analyze_counts_the_peak_against_the_cards_memory():
@@ -89,35 +104,44 @@ def test_analyze_counts_the_peak_against_the_cards_memory():
     assert TRF.analyze(RECORDS[5], hbm_bytes=60e9)["fits_hbm"] is False
 
 
-def test_pick_hillclimb_matches_jax(h100):
+@pytest.mark.parametrize("mesh", ["card", "single"])
+def test_pick_hillclimb_matches_jax(h100, mesh):
+    """JAX's three picks among one mesh's rows; one card leaves out the
+    most collective-bound, which on a mesh is the link-bound combo."""
     rows = [TRF.analyze(r) for r in RECORDS if TRF.analyze(r)]
-    got = TRF.pick_hillclimb(rows)
-    want = JRF.pick_hillclimb(_jax_rows(RECORDS))
-    # the most collective-bound pick needs several cards
-    assert got.keys() == want.keys() - {"most_collective"}
+    got = TRF.pick_hillclimb(rows, mesh)
+    want = JRF.pick_hillclimb(_jax_rows(RECORDS, mesh))
+    assert got.keys() == want.keys() - ({"most_collective"} if mesh ==
+                                        "card" else set())
     for k in got:
         assert (got[k]["arch"], got[k]["shape"]) == \
             (want[k]["arch"], want[k]["shape"]), k
     assert (got["worst_useful"]["arch"], got["serving_representative"][
         "shape"]) == ("b", "decode_32k")
+    if mesh == "single":
+        most = got["most_collective"]
+        assert (most["arch"], most["dominant"]) == ("b", "collective")
+        assert most["collective_s"] == 9e12 / TRF.LINK_BW
 
 
 def test_run_reads_a_sweep_and_writes_its_table(h100, tmp_path, capsys):
     sweep = tmp_path / "sweep"
     sweep.mkdir()
     for r in RECORDS:
-        (sweep / f"{r['arch']}__{r['shape']}__card.json").write_text(
+        (sweep / f"{r['arch']}__{r['shape']}__{r['mesh']}.json").write_text(
             json.dumps(r))
     (sweep / "a__decode_32k__card.trace.json").write_text("[]")
     assert len(TRF.load_records(sweep)) == len(RECORDS)
     out = tmp_path / "roofline.json"
     rows = TRF.run(dryrun=sweep, out=out)
-    assert len(rows) == 6 and json.loads(out.read_text()) == rows
+    assert len(rows) == 9 and json.loads(out.read_text()) == rows
+    assert [r["mesh"] for r in rows] == ["card"] * 6 + ["single"] * 3
     table = capsys.readouterr().out.splitlines()
     assert table[0].split()[:4] == ["arch", "shape", "mesh", "compute"]
     assert len(table) == 7
     # the JAX report's terms over the same records
-    assert {(r["arch"], r["shape"], r["bound_step_s"]) for r in rows} == {
+    assert {(r["arch"], r["shape"], r["bound_step_s"]) for r in rows
+            if r["mesh"] == "card"} == {
         (r["arch"], r["shape"], r["bound_step_s"])
         for r in _jax_rows(RECORDS)}
 
@@ -126,7 +150,7 @@ def test_main_prints_the_picks(tmp_path, capsys):
     sweep = tmp_path / "sweep"
     sweep.mkdir()
     for r in RECORDS:
-        (sweep / f"{r['arch']}__{r['shape']}__card.json").write_text(
+        (sweep / f"{r['arch']}__{r['shape']}__{r['mesh']}.json").write_text(
             json.dumps(r))
     TRF.main(["--dir", str(sweep)])
     out = capsys.readouterr().out

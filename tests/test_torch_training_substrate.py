@@ -230,7 +230,8 @@ def test_launcher_trains_reduced_on_the_cpu(capsys, tmp_path):
 
 
 def test_launcher_refuses_what_one_card_or_the_corpus_lacks():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the pod mesh needs a world of 256 ranks (torchrun): none here
+    with pytest.raises(RuntimeError, match="needs 256 ranks.*torchrun"):
         TLAUNCH.main(["--arch", "olmo-1b", "--reduced", "--device", "cpu",
                       "--production-mesh"])
     with pytest.raises(ValueError, match="enc_embeds"):
