@@ -12,7 +12,9 @@ together), then:
   1. prints the card (name, power limit) and the torch/CUDA versions,
      the build time, each kernel's registers, shared memory and spills
      (`-Xptxas -v`), the tensor-core instructions in the flash library
-     and the replay kernels' step loops (`cuobjdump -sass`);
+     and the replay kernels' step loops (`cuobjdump -sass`), and fails
+     where ptxas serialised a flash instance's `wgmma`s or a dh = 256
+     decode instance spills;
   2. holds every kernel against its plain PyTorch version on the card,
      at the shapes the routing path gives it, with the stated
      tolerances: the similarity kernel at every bucket of the 8..1024
@@ -861,14 +863,17 @@ def build_report(libs, stats):
     ptxas's notes on serialised `wgmma` or ignored `setmaxnreg`, the
     count of tensor-core instructions in the built flash library
     (HGMMA: wgmma; HMMA: mma.sync), and the replay kernels' step loops
-    (`step_loops`), from `cuobjdump -sass` where the toolkit has it."""
+    (`step_loops`), from `cuobjdump -sass` where the toolkit has it.
+    Fails the run where ptxas serialised a flash instance's `wgmma`s or a
+    dh = 256 decode instance spills (`build_guards`)."""
     import re
     from repro_torch.kernels import _build
-    report = {}
+    report, logs = {}, {}
     for name in ("similarity", "retrieve_topn", "flash_attention",
-                 "elo_scan"):
+                 "elo_scan", "decode_attention"):
+        logs[name] = _build.build_log(name)
         entry, lines = None, []
-        for line in _build.build_log(name).splitlines():
+        for line in logs[name].splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 entry = m.group(1)
@@ -878,6 +883,12 @@ def build_report(libs, stats):
         report[name] = lines
         for line in lines:
             log(f"ptxas {name}: {line}")
+    failures, regs = _build.build_guards(logs)
+    log("registers, spill stores and spill loads (bytes) of each flash and "
+        f"dh = 256 decode instance: {regs}")
+    report["guarded"] = {k: list(v) for k, v in regs.items()}
+    if failures:
+        fail("build report: " + "; ".join(failures))
     by_name = {p.name.split("-")[0][3:]: p for p in libs}
     listing = sass(by_name["flash_attention"])
     counts = {op: len(re.findall(rf"\b{op}\b", listing))

@@ -9,7 +9,8 @@ The wrappers load it with `ctypes` and launch on PyTorch's current
 stream; every C entry point returns `cudaGetLastError()` after its
 launch, which `check` turns into an exception. What `nvcc` printed
 (`-Xptxas=-v`: registers, shared memory and spills per kernel) is kept
-beside each library as `<library>.log`.
+beside each library as `<library>.log`; `build_guards` reads those logs
+for the failures `chip_smoke.py`'s build report stops on.
 
 Each wrapper counts its launches (`count_launch`), under the call-site
 label that `site()` has set, if any. A CUDA graph capture
@@ -24,6 +25,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -58,9 +60,9 @@ _SIGNATURES = {
                            + [ctypes.c_void_p],
     },
     "flash_attention": {
-        # q, k, v, out, B, S, S_kv, H, Hk, dk, dv, dtype, scale, causal,
-        # window, stream
-        "flash_attention_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        # q, k, v, out, sched, B, S, S_kv, H, Hk, dk, dv, dtype, scale,
+        # causal, window, stream
+        "flash_attention_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                                   + [ctypes.c_float] + [ctypes.c_int] * 2
                                   + [ctypes.c_void_p],
     },
@@ -244,6 +246,67 @@ def build_log(name: str) -> str:
     """What `nvcc` printed when it built `csrc/<name>.cu`."""
     (path,) = build([name])
     return path.with_suffix(".log").read_text()
+
+
+def ptxas_entries(log_text: str):
+    """Per entry function of a `-Xptxas -v` log: its registers, spill
+    stores and spill loads (bytes), and ptxas's notes on it (serialised
+    `wgmma`, an ignored `setmaxnreg`, performance)."""
+    entries, entry = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = entries.setdefault(m.group(1), dict(
+                registers=None, spill_stores=0, spill_loads=0, notes=[]))
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            entry["spill_stores"] = int(m.group(1))
+            entry["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+        if re.search(r"Performance|serialized|setmaxnreg", line):
+            entry["notes"].append(line.strip())
+    return entries
+
+
+#: ptxas's note that it issued a function's `wgmma`s one at a time
+WGMMA_SERIALISED = "wgmma.mma_async instructions are serialized"
+
+
+def decode256(name: str) -> bool:
+    """Whether a mangled entry name is a dh = 256 instance of the decode
+    kernel (`decode_kernel<QT, CT, 256, REP, MMA>`)."""
+    return "decode_kernel" in name and re.search(r"Li256E", name) is not None
+
+
+def build_guards(logs):
+    """The build report's failures, from the `-Xptxas -v` logs by source
+    name: a flash instance whose `wgmma`s ptxas serialised, and a dh = 256
+    decode instance that spills. Returns (failures, the registers and
+    spill bytes of every flash and dh = 256 decode instance)."""
+    failures, regs = [], {}
+    for name, entry in ptxas_entries(logs["flash_attention"]).items():
+        regs[name] = (entry["registers"], entry["spill_stores"],
+                      entry["spill_loads"])
+    # the note names its function; it is read wherever it stands
+    failures += [f"flash: {line.strip()}"
+                 for line in logs["flash_attention"].splitlines()
+                 if WGMMA_SERIALISED in line]
+    for name, entry in ptxas_entries(logs["decode_attention"]).items():
+        if not decode256(name):
+            continue
+        regs[name] = (entry["registers"], entry["spill_stores"],
+                      entry["spill_loads"])
+        if entry["spill_stores"] or entry["spill_loads"]:
+            failures.append(f"decode {name}: spills {entry['spill_stores']}"
+                            f" bytes of stores, {entry['spill_loads']} of "
+                            "loads")
+    return failures, regs
 
 
 def library(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:

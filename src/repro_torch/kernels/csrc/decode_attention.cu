@@ -42,13 +42,20 @@
 // its own ROWS / 4 rows of a stage, 8 at a step, and keeps its own online
 // softmax (running max and sum per head, a rescaled fp32 accumulator): no
 // block-wide pass waits on another. At dh = 256 over an fp32 cache a stage
-// holds 16 rows, two steps: the warps take the steps of successive stages
-// in turn (stage s's to warps 2s mod 4 and 2s + 1 mod 4), so each warp
-// works every other stage and the stage keeps its 32 KB and three blocks an
-// SM. Two ways to compute a step:
+// holds 16 rows, two steps: on the CUDA cores the warps take the steps of
+// successive stages in turn (stage s's to warps 2s mod 4 and 2s + 1 mod
+// 4), so the stage keeps its 32 KB and three blocks an SM. Two ways to
+// compute a step:
 //   tensor cores (a bf16 query over rep >= 2 heads: qwen3-8b, phi3.5-moe):
 //     the heads are the rows of `mma.sync` tiles (`stream_mma`), so the
-//     products and the softmax's shuffles cost the same at any rep;
+//     products and the softmax's shuffles cost the same at any rep. At
+//     dh = 256 (gemma3-12b) every warp takes the whole stage instead
+//     (`stream_mma256`): warp w computes P V for value columns 64 w .. 64
+//     w + 63, the stage's scores are four partial sums (one a warp's
+//     columns) added through shared memory, so the warps keep equal
+//     softmax states and their merge is a concatenation of columns; no
+//     warp idles on a stage, and a lane holds 8 registers of Q and 16 of
+//     O (the one-warp-a-step form held 32 and 64 and spilled);
 //   CUDA cores (an fp32 query, or one head a KV head):
 //     scores: lane (key, part) dots a quarter of the key's 16-byte chunks
 //       with every head's query (broadcast reads from shared memory), two
@@ -281,7 +288,7 @@ __device__ __forceinline__ void ldsm_x4(unsigned* r, unsigned addr) {
 // calls step(ks, vs, row0, stage_n) for each of this warp's 8-row steps
 // that starts below stage_n (the stage's valid rows; ks, vs: its K and V
 // rows). On return the copies are done and the ring is free.
-template <bool SWZ, typename CT, int DH, typename Step>
+template <bool SWZ, typename CT, int DH, bool WHOLE = false, typename Step>
 __device__ __forceinline__ void stream(unsigned char* smem, const CT* kb,
                                        const CT* vb, size_t row_stride,
                                        int n, int n_stages, Step&& step) {
@@ -297,7 +304,10 @@ __device__ __forceinline__ void stream(unsigned char* smem, const CT* kb,
     cp_async_commit();
     const unsigned char* ks = smem + (s % TL::STAGES) * TL::STAGE;
     const int stage_n = min(TL::ROWS, n - s * TL::ROWS);
-    if constexpr (TL::SPS >= NW) {
+    if constexpr (WHOLE) {
+      // every warp takes the whole stage
+      step(ks, ks + TL::STAGE / 2, 0, stage_n);
+    } else if constexpr (TL::SPS >= NW) {
 #pragma unroll 1
       for (int row0 = warp * TL::WROWS;
            row0 < (warp + 1) * TL::WROWS && row0 < stage_n; row0 += STEP)
@@ -347,8 +357,15 @@ __device__ __forceinline__ void stream_cores(unsigned char* smem,
     float sc[REP];
 #pragma unroll
     for (int r = 0; r < REP; ++r) sc[r] = 0.f;
+    // chunks at a time: at dh = 256 and 8 heads, every chunk's loads
+    // unrolled at once held more than the 168 registers that three blocks
+    // an SM leave a thread, and spilled; two at a time (and two keys at a
+    // time below) do not
+    constexpr int IU = DH == 256 && REP == 8 ? 2 : TL::CPR / 4;
+#pragma unroll 1
+    for (int i0 = 0; i0 < TL::CPR / 4; i0 += IU)
 #pragma unroll
-    for (int i = 0; i < TL::CPR / 4; ++i) {
+    for (int i = i0; i < i0 + IU; ++i) {
       // odd keys take the quads in another order: the two keys that
       // share a quarter-warp read different banks
       const int c = part + 4 * ((i + (key & 1)) % (TL::CPR / 4));
@@ -392,8 +409,12 @@ __device__ __forceinline__ void stream_cores(unsigned char* smem,
       }
     }
     __syncwarp();
+    constexpr int JU = DH == 256 && REP == 8 ? 2 : STEP;
+    static_assert(JU == STEP || TL::KG == 1, "keys a lane");
+#pragma unroll 1
+    for (int j0 = 0; j0 < STEP; j0 += JU)
 #pragma unroll
-    for (int j = kg; j < STEP; j += TL::KG) {
+    for (int j = j0 + kg; j < j0 + JU; j += TL::KG) {
       const int vr = row0 + j;
 #pragma unroll
       for (int c = 0; c < TL::NCG; ++c) {
@@ -582,6 +603,217 @@ __device__ __forceinline__ void stream_mma(unsigned char* smem,
   }
 }
 
+// c (+)= A B on `mma.sync` m16n8k16 for rows 0..7 of the tile (the heads):
+// rows 8..15 of A are zero, their sums are dropped and hold no registers
+__device__ __forceinline__ void mma_k16_top(float* c, unsigned a0,
+                                            unsigned a2, unsigned b0,
+                                            unsigned b1) {
+  float d2, d3;
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %10, %10};\n"
+      : "+f"(c[0]), "+f"(c[1]), "=f"(d2), "=f"(d3)
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// The tensor-core path at dh = 256 (bf16 queries, rep >= 2): every warp
+// takes every row of every stage, and warp w owns the value columns 64 w
+// .. 64 w + 63. Its scores over those columns (its 4 k-steps of Q, held
+// as A fragments: 8 registers) are one partial sum a key; the four warps'
+// partials meet in shared memory (xsh, over the queries' fp32 copy, which
+// no warp reads after its fragments), and every warp adds them in warp
+// order, so the four softmax states are equal. Then P V over its 64
+// columns, 16 keys a product (m16n8k16; P split into bf16 hi + lo, as at
+// dh <= 128). O is 16 registers a lane and no warp idles on a stage.
+// Leaves one state: racc [REP][DP] (the warps' columns side by side) and
+// rml [REP][2].
+template <typename CT, int REP>
+__device__ __forceinline__ void stream_mma256(unsigned char* smem,
+                                              float* qsh, const CT* kb,
+                                              const CT* vb,
+                                              size_t row_stride, int n,
+                                              int n_stages, int rep,
+                                              float scale2) {
+  using TL = Tile<CT, 256>;
+  constexpr bool BF16 = std::is_same<CT, __nv_bfloat16>::value;
+  constexpr int NT8 = TL::ROWS / 8;     // 8-key tiles a stage
+  constexpr int NK16 = TL::ROWS / 16;   // 16-key steps of P V a stage
+  static_assert(TL::ROWS % 16 == 0 && REP == 8 &&
+                    NW * NT8 * 32 * 8 <= REP * TL::DP * 4,
+                "stage shape; the partials fit over the queries");
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  float2* xsh = reinterpret_cast<float2*>(qsh);   // [NW][NT8][32]
+  // A fragments of Q, head g, columns 64 warp + 16 ks + 2t (+1) and + 8
+  unsigned qa[4][2];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const float* qr = qsh + g * TL::DP + 64 * warp + 16 * ks + 2 * t;
+    qa[ks][0] = g < rep ? pack_bf16(qr[0], qr[1]) : 0u;
+    qa[ks][1] = g < rep ? pack_bf16(qr[8], qr[9]) : 0u;
+  }
+  // O[g][64 warp + 8 i + 2t (+1)]
+  float o[8][2];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i][0] = o[i][1] = 0.f;
+  float m_run = -INFINITY, l_run = 0.f;
+
+  // this warp's partial scores of K rows 8 j .. 8 j + 7: its query
+  // columns 64 warp .. 64 warp + 63 (k-steps 4 warp .. 4 warp + 3), into c
+  auto scores = [&](const unsigned char* ks_, int j, float* c) {
+    if constexpr (BF16) {
+      // matrix m of a load: key rows 8 j .. 8 j + 7, chunk 2 k2 + m (k-step
+      // k2 + m / 2, half m % 2)
+      const int r = 8 * j + lane % 8;
+#pragma unroll
+      for (int kp = 0; kp < 2; ++kp) {
+        const int k2 = 4 * warp + 2 * kp;
+        unsigned b[4];
+        ldsm_x4<false>(b, smem_u32(ks_ + r * TL::ROW_BYTES +
+                                   swz<true, TL::CPR>(r, 2 * k2 + lane / 8) *
+                                       16));
+        mma_k16_top(c, qa[2 * kp][0], qa[2 * kp][1], b[0], b[1]);
+        mma_k16_top(c, qa[2 * kp + 1][0], qa[2 * kp + 1][1], b[2], b[3]);
+      }
+    } else {
+      // key 8 j + g's columns 16 ks + 2t (+1) and + 8, rounded to bf16
+      const int r = 8 * j + g;
+      const unsigned char* kr = ks_ + r * TL::ROW_BYTES + (t & 1) * 8;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int c0 = 4 * (4 * warp + kk) + t / 2;
+        const float2 x0 = *reinterpret_cast<const float2*>(
+            kr + swz<true, TL::CPR>(r, c0) * 16);
+        const float2 x1 = *reinterpret_cast<const float2*>(
+            kr + swz<true, TL::CPR>(r, c0 + 2) * 16);
+        mma_k16_top(c, qa[kk][0], qa[kk][1], pack_bf16(x0.x, x0.y),
+                    pack_bf16(x1.x, x1.y));
+      }
+    }
+  };
+
+  stream<true, CT, 256, true>(smem, kb, vb, row_stride, n, n_stages,
+                              [&](const unsigned char* ks_,
+                                  const unsigned char* vs, int,
+                                  int stage_n) {
+    // head g's scores of keys 8 j + 2t, 8 j + 2t + 1
+    float sc[NT8][2];
+#pragma unroll
+    for (int j = 0; j < NT8; ++j) {
+      float c[2] = {0.f, 0.f};
+      if (8 * j < stage_n) scores(ks_, j, c);
+      xsh[(warp * NT8 + j) * 32 + lane] = make_float2(c[0], c[1]);
+    }
+    __syncthreads();     // every warp's partials
+#pragma unroll
+    for (int j = 0; j < NT8; ++j) {
+      float2 a = xsh[j * 32 + lane];
+#pragma unroll
+      for (int w = 1; w < NW; ++w) {
+        const float2 x = xsh[(w * NT8 + j) * 32 + lane];
+        a.x += x.x;
+        a.y += x.y;
+      }
+      sc[j][0] = a.x;
+      sc[j][1] = a.y;
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NT8; ++j) {
+      const int key = 8 * j + 2 * t;
+      sc[j][0] = key < stage_n ? sc[j][0] * scale2 : -INFINITY;
+      sc[j][1] = key + 1 < stage_n ? sc[j][1] * scale2 : -INFINITY;
+      mx = fmaxf(mx, fmaxf(sc[j][0], sc[j][1]));
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // key 0 of the stage is valid, so mx is finite
+    const float m_new = fmaxf(m_run, mx);
+    const float corr = exp2f(m_run - m_new);
+    m_run = m_new;
+    float lsum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT8; ++j) {
+      sc[j][0] = exp2f(sc[j][0] - m_new);
+      sc[j][1] = exp2f(sc[j][1] - m_new);
+      lsum += sc[j][0] + sc[j][1];
+    }
+    l_run = l_run * corr + lsum;     // this lane's keys
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      o[i][0] *= corr;
+      o[i][1] *= corr;
+    }
+#pragma unroll
+    for (int kk = 0; kk < NK16; ++kk) {
+      if (16 * kk >= stage_n) break;
+      // A of the 16-key step: P[g][16 kk + 2t (+1)] and P[g][16 kk + 8 +
+      // 2t (+1)], each split into bf16 hi + lo
+      unsigned hi[2], lo[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p0 = sc[2 * kk + e][0], p1 = sc[2 * kk + e][1];
+        hi[e] = pack_bf16(p0, p1);
+        const __nv_bfloat162 hb =
+            *reinterpret_cast<const __nv_bfloat162*>(&hi[e]);
+        lo[e] = pack_bf16(p0 - __low2float(hb), p1 - __high2float(hb));
+      }
+      if constexpr (BF16) {
+        // B fragments of V by ldmatrix.trans: matrix m of a load is key
+        // rows 16 kk + 8 (m % 2) .. + 7, chunk 8 warp + 2 np + m / 2
+        const int r = 16 * kk + 8 * ((lane / 8) % 2) + lane % 8;
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          unsigned b[4];
+          ldsm_x4<true>(b, smem_u32(vs + r * TL::ROW_BYTES +
+                                    swz<true, TL::CPR>(
+                                        r, 8 * warp + 2 * np + lane / 16) *
+                                        16));
+          mma_k16_top(o[2 * np], hi[0], hi[1], b[0], b[1]);
+          mma_k16_top(o[2 * np], lo[0], lo[1], b[0], b[1]);
+          mma_k16_top(o[2 * np + 1], hi[0], hi[1], b[2], b[3]);
+          mma_k16_top(o[2 * np + 1], lo[0], lo[1], b[2], b[3]);
+        }
+      } else {
+        // V[16 kk + 2t (+1), + 8][64 warp + 8 i + g], rounded to bf16
+        const int r0 = 16 * kk + 2 * t;
+        const unsigned char* v0 = vs + r0 * TL::ROW_BYTES + (g & 3) * 4;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int cc = 16 * warp + 2 * i + g / 4;
+          float x[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int dr = (e % 2) + 8 * (e / 2);    // rows +0, +1, +8, +9
+            x[e] = *reinterpret_cast<const float*>(
+                v0 + dr * TL::ROW_BYTES + swz<true, TL::CPR>(r0 + dr, cc) * 16);
+          }
+          const unsigned b0 = pack_bf16(x[0], x[1]);
+          const unsigned b1 = pack_bf16(x[2], x[3]);
+          mma_k16_top(o[i], hi[0], hi[1], b0, b1);
+          mma_k16_top(o[i], lo[0], lo[1], b0, b1);
+        }
+      }
+    }
+  });
+
+  // head g's sum over its four lanes; every warp's state is the same
+  l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
+  l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
+  float* racc = reinterpret_cast<float*>(smem);
+  float* rml = racc + REP * TL::DP;
+  if (g < rep) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<float2*>(racc + g * TL::DP + 64 * warp + 8 * i +
+                                 2 * t) = make_float2(o[i][0], o[i][1]);
+    if (warp == 0 && t == 0) {
+      rml[g * 2] = m_run;
+      rml[g * 2 + 1] = l_run;
+    }
+  }
+}
+
 // REP: the query heads a block holds (rep <= REP of them used). MMA: the
 // tensor-core path (bf16 queries), else the CUDA-core path.
 template <typename QT, typename CT, int DH, int REP, bool MMA>
@@ -633,7 +865,11 @@ decode_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
     qsh[l] = c < DH ? to_f(q[(head0 + r) * DH + c]) * (MMA ? 1.f : scale2)
                     : 0.f;
   }
-  if constexpr (MMA) {
+  if constexpr (MMA && DH == 256) {
+    __syncthreads();    // the queries, before the A fragments
+    stream_mma256<CT, REP>(smem, qsh, kb, vb, row_stride, n, n_stages, rep,
+                           scale2);
+  } else if constexpr (MMA) {
     __syncthreads();    // the queries, before the A fragments
     stream_mma<CT, DH, REP>(smem, qsh, kb, vb, row_stride, n, n_stages, rep,
                             scale2);
@@ -642,8 +878,11 @@ decode_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
                                   n_stages, rep);
   }
   __syncthreads();
-  float* racc = reinterpret_cast<float*>(smem);   // [NW][REP][DP]
-  float* rml = racc + NW * REP * TL::DP;          // [NW][REP][2]
+  // the states to merge: one a warp, or one at dh = 256 on the tensor
+  // cores (the warps' columns side by side)
+  constexpr int NS = MMA && DH == 256 ? 1 : NW;
+  float* racc = reinterpret_cast<float*>(smem);   // [NS][REP][DP]
+  float* rml = racc + NS * REP * TL::DP;          // [NS][REP][2]
 
   const size_t pair = (size_t)b * hk + kh;
   // the split's state, head r and columns 4 c .. 4 c + 3 a thread (the
@@ -652,11 +891,11 @@ decode_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
     const int r = i / TL::C4G, c = i % TL::C4G;
     float mx = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, rml[(w * REP + r) * 2]);
+    for (int w = 0; w < NS; ++w) mx = fmaxf(mx, rml[(w * REP + r) * 2]);
     float l = 0.f, a[4] = {0.f, 0.f, 0.f, 0.f};
     if (mx != -INFINITY) {
 #pragma unroll
-      for (int w = 0; w < NW; ++w) {
+      for (int w = 0; w < NS; ++w) {
         const float mw = rml[(w * REP + r) * 2];
         if (mw == -INFINITY) continue;
         const float f = exp2f(mw - mx);

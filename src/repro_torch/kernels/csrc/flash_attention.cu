@@ -20,20 +20,39 @@
 //
 // bf16 (every prefill of the serving path: the model's q, k and v are bf16
 // even over an fp32 cache), `tc::flash_tc_kernel`: both products on the
-// tensor cores with `wgmma`, bf16 operands and fp32 accumulation. The
-// kernel is persistent: one block per SM, three warpgroups, walks the work
-// items (128 query rows of one (batch, head)), the heaviest first. One
-// thread of warpgroup 2, the producer, loads each item's Q tile once and
-// each 128-key K and V tile by TMA (descriptors made on the host, 128-byte
-// swizzle, or 64-byte at dh = 32) into a two-stage ring guarded by
-// mbarriers (full: bytes arrived; empty: both consumers done); the ring
-// runs on across items, so the next item's loads overlap this one's last
-// products and its epilogue. Warpgroups 0 and 1 each own 64 query rows:
-// S = Q K^T (A and B from shared memory, K-major) accumulates in
-// registers; the online softmax (running max and sum in fp32, exp2 of
-// pre-scaled scores) works on the S fragments with quad shuffles; P is
-// rounded to bf16 in registers and is the register A operand of O += P V,
-// whose B (V, keys x dh, MN-major) is read with the transposed-B form. P never goes through shared memory. `setmaxnreg`
+// tensor cores with `wgmma`, bf16 operands and fp32 accumulation, one
+// wgmma a k-step (N = the key tile for S, the staged value width for P
+// V). The kernel is persistent: one block per SM, three warpgroups. Its
+// work items (128 query rows of one (batch, head)) are ordered in runs of
+// (batch, KV head) pairs whose K and V fit half the L2 cache, the heaviest
+// first within a run, so that a pair's K and V come from memory about
+// once; the blocks draw them from a counter as they come free (one with
+// its heavy items behind does not hold up the rest), and the last block
+// to finish resets the counter. One thread of warpgroup 2, the producer,
+// loads each item's Q tile (two Q buffers where they fit) and each 128-key
+// K and V tile by TMA (descriptors made on the host, 128-byte swizzle, or
+// 64-byte at dh = 32) into two-stage K and V rings guarded by mbarriers
+// (full: bytes arrived; empty: the consumers' warps done with it), tile
+// i + 1's K before tile i's V; the rings run on across items.
+// Warpgroups 0 and 1 each own 64 query rows: S = Q K^T (A and B from
+// shared memory, K-major) accumulates in registers; the online softmax
+// (running max and sum in fp32, exp2 of pre-scaled scores) works on the S
+// fragments with quad shuffles; P is rounded to bf16 in registers and is
+// the register A operand of O += P V, whose B (V, keys x dh, MN-major) is
+// read with the transposed-B form. P never goes through shared memory.
+// The consumers take turns at the tensor cores (FA3's schedule): a pair of
+// named barriers passes the turn from one warpgroup to the other, and a
+// turn issues one tile's S and the tile before's P V back to back, so one
+// warpgroup's products run while the other computes its softmax; within
+// a warpgroup, the softmax of a tile starts under the P V of the tile
+// before (`wgmma.wait_group 1` retires S alone; ptxas places the wait for
+// P V after the row max, and forcing the exponentials ahead of it too
+// measured slower), then O is rescaled (skipped where no row's max moved)
+// and the next P packed. ptxas serialises no instance's wgmmas. One S
+// register set: two, for S of the next tile issued before the softmax of
+// this one, would hold 2 x 64 S floats beside O and P at dh = 128. The
+// finished rows go out as 16-byte stores (a quad's words transposed by
+// shuffles). `setmaxnreg`
 // moves registers from the producer (24) to the consumers (240). TMA
 // zero-fills rows past S, which gives the ragged tail; the scores there
 // are masked. Rounding P to bf16 before the second product is the one
@@ -300,7 +319,6 @@ struct LaunchF32 {
 namespace tc {
 
 constexpr int BQ = 128;        // query rows per block: two consumers of 64
-constexpr int STAGES = 2;      // K/V ring
 constexpr int THREADS = 384;   // warpgroups 0, 1 consume; 2 loads
 constexpr int CONSUMERS = 256;
 
@@ -319,21 +337,29 @@ struct Cfg {
   static constexpr int SWE = SWB / 2;               // elements in a chunk row
   static constexpr int NCK = (DK + SWE - 1) / SWE;  // chunks in a Q or K row
   static constexpr int NCV = (DV + SWE - 1) / SWE;  // chunks in a V or O row
-  static constexpr int NO = SWE / 2;           // O floats a thread, a chunk
   static constexpr uint64_t LAYOUT = SWB == 128 ? 1 : 2;   // wgmma swizzle
   static constexpr int Q_BYTES = BQ * NCK * SWB;
-  static constexpr int BARS = 2 + 3 * STAGES;
+  static constexpr int STAGES = 2;         // K and V stages
+  static constexpr int BARS = 4 + 4 * STAGES;   // two Q buffers, the stages
   static constexpr int KEY_BYTES = (NCK + NCV) * SWB;   // K and V, a key
   // keys a tile: 128 where Q and two stages of 128-key K and V tiles fit
   // the 227 KB a block has, else 64 (dh = 256: 321 KB at 128 keys)
   static constexpr int BKV =
       1024 + Q_BYTES + STAGES * 128 * KEY_BYTES + 8 * BARS <= SMEM_MAX ? 128
-                                                                      : 64;
-  static constexpr int NH = BKV / 64;          // 64-key halves of S a tile
+                                                                        : 64;
+  // Q buffers: two where they fit beside the stages, so that the next
+  // item's Q loads while this item's last tiles run
+  static constexpr int QBUF =
+      1024 + 2 * Q_BYTES + STAGES * BKV * KEY_BYTES + 8 * BARS <= SMEM_MAX
+          ? 2
+          : 1;
+  static constexpr int NS = BKV / 2;     // S floats a thread: one wgmma's
+  static constexpr int NPV = NCV * SWE;  // the N of P V: dv, staged
+  static constexpr int NOF = NPV / 2;    // O floats a thread: one wgmma's
   static constexpr int K_BYTES = BKV * NCK * SWB;
   static constexpr int V_BYTES = BKV * NCV * SWB;
   static constexpr size_t SMEM =
-      1024 + Q_BYTES + (size_t)STAGES * BKV * KEY_BYTES + 8 * BARS;
+      1024 + QBUF * Q_BYTES + (size_t)STAGES * BKV * KEY_BYTES + 8 * BARS;
   static_assert(SMEM <= SMEM_MAX, "the tiles fit a block");
 };
 
@@ -396,6 +422,9 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous products
 template <int N>
@@ -403,22 +432,61 @@ __device__ __forceinline__ void pin(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 #define D8(o)                                                        \
   "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),     \
       "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
 
+// One wgmma an S or P V k-step: N = the key tile (64 or 128) for S, the
+// staged value width (32, 64, 128 or 256) for P V, so each k-step reads
+// its A once (an S k-step of two N = 64 halves read Q's slice twice from
+// shared memory)
 // d(64 x 64) (+)= A(64 x 16, shared, K-major) B(16 x 64, shared, K-major)
-__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
-                                           uint64_t db, int accumulate) {
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da,
+                                       uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
       : D8(0), D8(8), D8(16), D8(24)
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d(64 x 128) (+)= A(64 x 16, shared, K-major) B(16 x 128, shared, K-major)
+__device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t da,
+                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d(64 x 32) += A(64 x 16, registers) B(16 x 32, shared, MN-major)
+__device__ __forceinline__ void mma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : D8(0), D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // d(64 x 64) += A(64 x 16, registers) B(16 x 64, shared, MN-major)
@@ -429,23 +497,57 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "%29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : D8(0), D8(8), D8(16), D8(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d(64 x 32) += A(64 x 16, registers) B(16 x 32, shared, MN-major)
-__device__ __forceinline__ void mma_rs(float (&d)[16], const uint32_t (&a)[4],
+// d(64 x 128) += A(64 x 16, registers) B(16 x 128, shared, MN-major)
+__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4],
                                        uint64_t db) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : D8(0), D8(8)
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d(64 x 256) += A(64 x 16, registers) B(16 x 256, shared, MN-major)
+__device__ __forceinline__ void mma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, "
+      "%71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, "
+      "%85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, "
+      "%99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, "
+      "%121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64),
+        D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 #undef D8
+
+// 2^x on the special-function unit (flushes a subnormal result to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -463,26 +565,161 @@ struct Work {
   int b, head, kh, q0, k_begin, tiles;
 };
 
-// Work items in the order the blocks take them: every (batch, head) of
-// the last (heaviest, under a causal mask) query tile first. Under a window
+// Work items in the order the blocks take them: in runs of `group`
+// (batch, KV head) pairs, whose K and V the wrapper sizes to stay in the
+// L2 cache while the run lasts (every query tile of a pair reads them
+// again; with one head a KV head, an order over all pairs at once read
+// them from memory each time), and within a run every pair's and head's
+// last (heaviest, under a causal mask) query tile first. Under a window
 // every tile past the first window's reads about as many key tiles, so the
 // order no longer follows the work; it is kept.
 template <class C>
 __device__ __forceinline__ Work work_item(int w, int q_tiles, int batch,
                                           int s, int skv, int h, int hk,
-                                          int causal, int window) {
+                                          int causal, int window,
+                                          int group) {
   constexpr int BKV = C::BKV;
   Work t;
-  const int z = w / (h * batch), rem = w % (h * batch);
-  t.head = rem % h;
-  t.b = rem / h;
-  t.kh = t.head / (h / hk);
+  const int rep = h / hk;
+  const int run = w / (group * q_tiles * rep);
+  const int pairs = min(group, batch * hk - run * group);   // in this run
+  const int wi = w - run * group * q_tiles * rep;
+  const int z = wi / (pairs * rep), rem = wi % (pairs * rep);
+  const int pair = run * group + rem / rep;
+  t.b = pair / hk;
+  t.kh = pair % hk;
+  t.head = t.kh * rep + rem % rep;
   t.q0 = (q_tiles - 1 - z) * BQ;
   const int k_end = causal ? min(s, t.q0 + BQ) : skv;
   t.k_begin = 0;
   if (causal && window > 0) t.k_begin = max(0, t.q0 - window + 1) / BKV * BKV;
   t.tiles = (k_end - t.k_begin + BKV - 1) / BKV;
   return t;
+}
+
+// named barriers 1 and 2 (0 is __syncthreads'): barrier 1 + wg is
+// warpgroup wg's turn at the tensor cores. A warpgroup waits for its turn
+// on its own barrier and passes it on the other's; bar.sync and
+// bar.arrive each count a warpgroup's 128 threads against 256.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+}
+
+// S = Q K^T over one key tile, one commit group, not waited for: one
+// wgmma of N = BKV a k-step. Each k-step's first product starts from zero
+// (scale-d 0), so sc needs no clearing.
+template <int DK, int DV>
+__device__ __forceinline__ void issue_qk(float (&sc)[Cfg<DK, DV>::NS],
+                                         uint32_t qa, uint32_t kt) {
+  using C = Cfg<DK, DV>;
+  constexpr uint32_t SBO = 8 * C::SWB;   // 8-row groups of a swizzled tile
+#pragma unroll
+  for (int c = 0; c < C::NCK; ++c)
+#pragma unroll
+    for (int kq = 0; kq < C::SWE / 16; ++kq) {
+      // the zero-filled columns past DK add nothing: skipped
+      if (c * C::SWE + kq * 16 >= DK) continue;
+      mma_ss(sc, gmma_desc<C>(qa + c * BQ * C::SWB + kq * 32, 16, SBO),
+             gmma_desc<C>(kt + c * C::BKV * C::SWB + kq * 32, 16, SBO),
+             (c | kq) != 0);
+    }
+  wg_commit();
+}
+
+// O += P V over one key tile (P: the bf16 A fragments in registers; V,
+// keys x dv, MN-major in shared memory, its SWE-column chunks BKV * SWB
+// bytes apart: the leading offset), one commit group, not waited for
+template <int DK, int DV>
+__device__ __forceinline__ void issue_pv(
+    float (&o)[Cfg<DK, DV>::NOF],
+    const uint32_t (&p)[Cfg<DK, DV>::BKV / 16][4], uint32_t vt) {
+  using C = Cfg<DK, DV>;
+  constexpr uint32_t SBO = 8 * C::SWB;
+#pragma unroll
+  for (int kk = 0; kk < C::BKV / 16; ++kk)
+    mma_rs(o, p[kk],
+           gmma_desc<C>(vt + kk * 16 * C::SWB, C::BKV * C::SWB, SBO));
+  wg_commit();
+}
+
+// The online softmax of one tile's scores, in place: sc becomes the
+// weights exp2(score * scale_log2 - m_sub) in fp32 (a masked score: 0
+// exactly), one FFMA and one ex2 a score; m (in scaled units) and l move
+// on to the tile, and corr is the factor that O, summed up to the last
+// tile, is to be rescaled by. The max is taken over the raw scores and
+// then scaled (scale_log2 > 0: the same value). m_sub: the running max,
+// or 0 while a row has no key, so that a masked score gives exp2(-inf) =
+// 0, never -inf - -inf.
+template <int NS>
+__device__ __forceinline__ void softmax_tile(float (&sc)[NS], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             bool need, int k0, int row_lo,
+                                             int cq, int skv, int causal,
+                                             int window, float scale_log2) {
+  float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int r2 = (i / 2) % 2;
+    if (need) {
+      const int row = row_lo + 8 * r2;
+      const int key = k0 + 8 * (i / 4) + cq + (i % 2);
+      bool ok = key < skv;
+      if (causal) {
+        ok = ok && key <= row;
+        if (window > 0) ok = ok && key > row - window;
+      }
+      if (!ok) sc[i] = -INFINITY;
+    }
+    tmax[r2] = fmaxf(tmax[r2], sc[i]);
+  }
+  float m_sub[2];
+#pragma unroll
+  for (int r2 = 0; r2 < 2; ++r2) {
+    tmax[r2] = fmaxf(tmax[r2], __shfl_xor_sync(0xffffffffu, tmax[r2], 1));
+    tmax[r2] = fmaxf(tmax[r2], __shfl_xor_sync(0xffffffffu, tmax[r2], 2));
+    const float m_new = fmaxf(m[r2], tmax[r2] * scale_log2);
+    m_sub[r2] = m_new == -INFINITY ? 0.f : m_new;
+    corr[r2] = ex2(m[r2] - m_sub[r2]);
+    m[r2] = m_new;
+    l[r2] *= corr[r2];
+  }
+#pragma unroll
+  for (int i = 0; i < NS; i += 2) {
+    const int r2 = (i / 2) % 2;
+    const float p0 = ex2(fmaf(sc[i], scale_log2, -m_sub[r2]));
+    const float p1 = ex2(fmaf(sc[i + 1], scale_log2, -m_sub[r2]));
+    l[r2] += p0 + p1;
+    sc[i] = p0;
+    sc[i + 1] = p1;
+  }
+}
+
+// the weights in bf16, as the A fragments of P V: floats 8 kk .. 8 kk + 7
+// of S are the 16-key step kk
+template <int NS>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[NS / 8][4],
+                                       const float (&sc)[NS]) {
+#pragma unroll
+  for (int kk = 0; kk < NS / 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      p[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N],
+                                        const float (&corr)[2]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) o[j] *= corr[(j / 2) % 2];
+}
+
+template <int N>
+__device__ __forceinline__ void pin_p(uint32_t (&p)[N][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N; ++kk) pin(p[kk]);
 }
 
 template <int DK, int DV>
@@ -492,29 +729,43 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_v,
                 __nv_bfloat16* __restrict__ out, int s, int skv, int h,
                 int hk, float scale_log2, int causal, int window, int batch,
-                int q_tiles, int items) {
+                int q_tiles, int items, int group,
+                int* __restrict__ sched) {
   using C = Cfg<DK, DV>;
   constexpr int BKV = C::BKV;
   extern __shared__ unsigned char smem_raw[];
   // tiles start on 1024 bytes, the period of the 128-byte swizzle
   const uint32_t qs = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t ks = qs + C::Q_BYTES;              // stage st: + st K_BYTES
+  const uint32_t ks = qs + C::QBUF * C::Q_BYTES;    // stage st: + st K_BYTES
+  constexpr int STAGES = C::STAGES;
   const uint32_t vs = ks + STAGES * C::K_BYTES;     // stage st: + st V_BYTES
   const uint32_t bars = vs + STAGES * C::V_BYTES;
-  const uint32_t q_full = bars;
-  const uint32_t q_empty = bars + 8;
-  auto k_full = [&](int st) { return bars + 8 * (2 + st); };
-  auto v_full = [&](int st) { return bars + 8 * (2 + STAGES + st); };
-  auto empty = [&](int st) { return bars + 8 * (2 + 2 * STAGES + st); };
+  auto q_full = [&](int qb) { return bars + 8 * qb; };
+  auto q_empty = [&](int qb) { return bars + 8 * (2 + qb); };
+  auto k_full = [&](int st) { return bars + 8 * (4 + st); };
+  auto v_full = [&](int st) { return bars + 8 * (4 + STAGES + st); };
+  auto k_empty = [&](int st) { return bars + 8 * (4 + 2 * STAGES + st); };
+  auto v_empty = [&](int st) { return bars + 8 * (4 + 3 * STAGES + st); };
   const int tid = threadIdx.x;
+  // the work items, in the order of work_item: each block's first is
+  // blockIdx.x, the rest are drawn from sched[0] as blocks come free, so
+  // a heavy item and a light one even out wherever they fall. The
+  // producer hands each item's index to the consumers here, with the Q
+  // tile's barrier (an index past the items ends the walk).
+  __shared__ int item_sh[2];
 
   if (tid == 0) {
-    mbar_init(q_full, 1);
-    mbar_init(q_empty, CONSUMERS);
+    // the empty barriers count the consumers' warps: lane 0 of each
+    // arrives once its warp's products have read the tile
+    for (int qb = 0; qb < C::QBUF; ++qb) {
+      mbar_init(q_full(qb), 1);
+      mbar_init(q_empty(qb), CONSUMERS / 32);
+    }
     for (int st = 0; st < STAGES; ++st) {
       mbar_init(k_full(st), 1);
       mbar_init(v_full(st), 1);
-      mbar_init(empty(st), CONSUMERS);
+      mbar_init(k_empty(st), CONSUMERS / 32);
+      mbar_init(v_empty(st), CONSUMERS / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -525,197 +776,213 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     // ---- producer: one thread issues every copy ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tid == CONSUMERS) {
-      // the ring runs on across work items: `it` counts every key tile
-      int it = 0;
-      for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
-        const Work t =
-            work_item<C>(w, q_tiles, batch, s, skv, h, hk, causal,
-                         window);
-        mbar_wait(q_empty, (n & 1) ^ 1);   // the last item's Q is read
-        mbar_expect_tx(q_full, C::Q_BYTES);
+      // the K and V rings run on across work items: kit and vit count
+      // every K and V tile. Tile i + 1's K is loaded before tile i's V,
+      // the order the consumers read them in.
+      int kit = 0, vit = 0;
+      auto load_k = [&](const Work& t, int i) {
+        const int st = kit % STAGES;
+        mbar_wait(k_empty(st), ((kit / STAGES) & 1) ^ 1);  // round 0 passes
+        const uint32_t kt = ks + st * C::K_BYTES;
+        mbar_expect_tx(k_full(st), C::K_BYTES);
 #pragma unroll
         for (int c = 0; c < C::NCK; ++c)
-          tma_load(qs + c * BQ * C::SWB, &tm_q, q_full, c * C::SWE, t.head,
-                   t.q0, t.b);
-        for (int i = 0; i < t.tiles; ++i, ++it) {
-          const int st = it % STAGES;
-          mbar_wait(empty(st), ((it / STAGES) & 1) ^ 1);   // round 0 passes
-          const int k0 = t.k_begin + i * BKV;
-          const uint32_t kt = ks + st * C::K_BYTES;
-          const uint32_t vt = vs + st * C::V_BYTES;
-          mbar_expect_tx(k_full(st), C::K_BYTES);
+          tma_load(kt + c * BKV * C::SWB, &tm_k, k_full(st), c * C::SWE,
+                   t.kh, t.k_begin + i * BKV, t.b);
+        ++kit;
+      };
+      auto load_v = [&](const Work& t, int i) {
+        const int st = vit % STAGES;
+        mbar_wait(v_empty(st), ((vit / STAGES) & 1) ^ 1);
+        const uint32_t vt = vs + st * C::V_BYTES;
+        mbar_expect_tx(v_full(st), C::V_BYTES);
 #pragma unroll
-          for (int c = 0; c < C::NCK; ++c)
-            tma_load(kt + c * BKV * C::SWB, &tm_k, k_full(st), c * C::SWE,
-                     t.kh, k0, t.b);
-          mbar_expect_tx(v_full(st), C::V_BYTES);
-#pragma unroll
-          for (int c = 0; c < C::NCV; ++c)
-            tma_load(vt + c * BKV * C::SWB, &tm_v, v_full(st), c * C::SWE,
-                     t.kh, k0, t.b);
+        for (int c = 0; c < C::NCV; ++c)
+          tma_load(vt + c * BKV * C::SWB, &tm_v, v_full(st), c * C::SWE,
+                   t.kh, t.k_begin + i * BKV, t.b);
+        ++vit;
+      };
+      for (int w = blockIdx.x, n = 0;; ++n) {
+        const int qb = n % C::QBUF;
+        const uint32_t q_free = ((n / C::QBUF) & 1) ^ 1;   // round 0 passes
+        if (w >= items) {
+          mbar_wait(q_empty(qb), q_free);
+          item_sh[n & 1] = w;              // the end of the walk
+          mbar_arrive(q_full(qb));
+          // the last block to finish drawing resets the counters for
+          // the next launch (or graph replay)
+          if (atomicAdd(sched + 1, 1) == (int)gridDim.x - 1) {
+            sched[0] = 0;
+            sched[1] = 0;
+          }
+          break;
         }
+        // the item after this one, drawn now: its number is back before
+        // its first load
+        const int next = gridDim.x + atomicAdd(sched, 1);
+        const Work t =
+            work_item<C>(w, q_tiles, batch, s, skv, h, hk, causal,
+                         window, group);
+        if (t.tiles > 0) load_k(t, 0);
+        mbar_wait(q_empty(qb), q_free);    // the buffer's last Q is read
+        item_sh[n & 1] = w;
+        mbar_expect_tx(q_full(qb), C::Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < C::NCK; ++c)
+          tma_load(qs + qb * C::Q_BYTES + c * BQ * C::SWB, &tm_q,
+                   q_full(qb), c * C::SWE, t.head, t.q0, t.b);
+        for (int i = 0; i < t.tiles; ++i) {
+          if (i + 1 < t.tiles) load_k(t, i + 1);
+          load_v(t, i);
+        }
+        w = next;
       }
     }
   } else {
     // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 ----
+    // Each turn at the tensor cores issues tile i's S = Q K^T and then
+    // tile i - 1's O += P V, and passes the turn to the other warpgroup,
+    // whose products then run under this one's softmax. The softmax of
+    // tile i starts under P V of tile i - 1 (wait_group 1 retires S
+    // alone); O is rescaled and P packed once that product is done.
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int wg = tid / 128;
     const int lane = tid % 32;
     const int cq = 2 * (lane % 4);
-    const uint32_t qa = qs + wg * 64 * C::SWB;
-    constexpr uint32_t SBO = 8 * C::SWB;   // 8-row groups of a swizzled tile
-    int it = 0;
-    for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+    int kit = 0, vit = 0;
+    // the turns alternate 0, 1, 0, 1, ...: warpgroup 0's first turn of
+    // the kernel waits for none, and after its last it takes warpgroup
+    // 1's last pass, so every arrival on a barrier meets its wait
+    bool opened = wg == 1;
+    for (int n = 0;; ++n) {
+      const int qb = n % C::QBUF;
+      mbar_wait(q_full(qb), (n / C::QBUF) & 1);
+      const int w = item_sh[n & 1];
+      if (w >= items) {
+        if (wg == 0 && opened) turn_wait(0);
+        break;
+      }
       const Work t =
-          work_item<C>(w, q_tiles, batch, s, skv, h, hk, causal, window);
+          work_item<C>(w, q_tiles, batch, s, skv, h, hk, causal, window,
+                       group);
+      const uint32_t qa = qs + qb * C::Q_BYTES + wg * 64 * C::SWB;
       const int row_lo =
           t.q0 + wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
       const int first = t.q0 + wg * 64, last = first + 63;
+      // whether tile k0 holds a masked score for these rows
+      auto need = [&](int k0) {
+        return k0 + BKV > skv ||
+               (causal && (k0 + BKV - 1 > first ||
+                           (window > 0 && k0 <= last - window)));
+      };
 
-      float o[C::NCV][C::NO];
+      float o[C::NOF];
 #pragma unroll
-      for (int c = 0; c < C::NCV; ++c)
-#pragma unroll
-        for (int i = 0; i < C::NO; ++i) o[c][i] = 0.f;
+      for (int i = 0; i < C::NOF; ++i) o[i] = 0.f;
       float m[2] = {-INFINITY, -INFINITY};
       float l[2] = {0.f, 0.f};
+      float corr[2];
+      float sc[C::NS];
+      uint32_t p[BKV / 16][4];
 
-      mbar_wait(q_full, n & 1);
-      for (int i = 0; i < t.tiles; ++i, ++it) {
-        const int st = it % STAGES;
-        const uint32_t par = (it / STAGES) & 1;
+      {
+        // tile 0: S alone (every item has a tile: S_kv > 0)
+        const int kst = kit % STAGES;
+        mbar_wait(k_full(kst), (kit / STAGES) & 1);
+        if (opened) turn_wait(wg);
+        opened = true;
+        pin(sc);
+        wg_fence();
+        issue_qk<DK, DV>(sc, qa, ks + kst * C::K_BYTES);
+        turn_pass(wg);
+        wg_wait0();
+        pin(sc);
+        if (lane == 0) mbar_arrive(k_empty(kst));       // K of tile 0 is read
+        ++kit;
+        softmax_tile(sc, m, l, corr, need(t.k_begin), t.k_begin, row_lo, cq,
+                     skv, causal, window, scale_log2);
+        pack_p(p, sc);                   // O is 0: nothing to rescale
+      }
+      for (int i = 1; i < t.tiles; ++i) {
+        const int kst = kit % STAGES, vst = vit % STAGES;
         const int k0 = t.k_begin + i * BKV;
-        const uint32_t kt = ks + st * C::K_BYTES;
-        const uint32_t vt = vs + st * C::V_BYTES;
-
-        // S = Q K^T: keys 0..63 of the tile in sc[0], 64..127 in sc[1]
-        float sc[C::NH][32];
-#pragma unroll
-        for (int hh = 0; hh < C::NH; ++hh)
-#pragma unroll
-          for (int j = 0; j < 32; ++j) sc[hh][j] = 0.f;
-        mbar_wait(k_full(st), par);
-#pragma unroll
-        for (int hh = 0; hh < C::NH; ++hh) pin(sc[hh]);
+        mbar_wait(k_full(kst), (kit / STAGES) & 1);
+        mbar_wait(v_full(vst), (vit / STAGES) & 1);
+        turn_wait(wg);
+        pin(sc);
+        pin(o);
+        pin_p(p);
         wg_fence();
-#pragma unroll
-        for (int c = 0; c < C::NCK; ++c)
-#pragma unroll
-          for (int kq = 0; kq < C::SWE / 16; ++kq) {
-            // the zero-filled columns past DK add nothing: skipped
-            if (c * C::SWE + kq * 16 >= DK) continue;
-            const uint64_t da =
-                gmma_desc<C>(qa + c * BQ * C::SWB + kq * 32, 16, SBO);
-#pragma unroll
-            for (int hh = 0; hh < C::NH; ++hh)
-              mma_ss_n64(sc[hh], da,
-                         gmma_desc<C>(kt + c * BKV * C::SWB +
-                                          hh * 64 * C::SWB + kq * 32,
-                                      16, SBO),
-                         (c | kq) != 0);
-          }
-        wg_commit();
-        wg_wait0();
-#pragma unroll
-        for (int hh = 0; hh < C::NH; ++hh) pin(sc[hh]);
-
-        // mask, running max, rescale
-        const bool need = k0 + BKV > skv ||
-                          (causal && (k0 + BKV - 1 > first ||
-                                      (window > 0 && k0 <= last - window)));
-        float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-        for (int hh = 0; hh < C::NH; ++hh)
-#pragma unroll
-          for (int j = 0; j < 32; ++j) {
-            const int r2 = (j / 2) % 2;
-            float x = sc[hh][j] * scale_log2;
-            if (need) {
-              const int row = row_lo + 8 * r2;
-              const int key = k0 + hh * 64 + 8 * (j / 4) + cq + (j % 2);
-              bool ok = key < skv;
-              if (causal) {
-                ok = ok && key <= row;
-                if (window > 0) ok = ok && key > row - window;
-              }
-              if (!ok) x = -INFINITY;
-            }
-            sc[hh][j] = x;
-            tmax[r2] = fmaxf(tmax[r2], x);
-          }
-        // m_sub: the running max, or 0 while a row has no key, so that a
-        // masked score gives exp2(-inf) = 0 exactly, never -inf - -inf
-        float corr[2], m_sub[2];
-#pragma unroll
-        for (int r2 = 0; r2 < 2; ++r2) {
-          tmax[r2] =
-              fmaxf(tmax[r2], __shfl_xor_sync(0xffffffffu, tmax[r2], 1));
-          tmax[r2] =
-              fmaxf(tmax[r2], __shfl_xor_sync(0xffffffffu, tmax[r2], 2));
-          const float m_new = fmaxf(m[r2], tmax[r2]);
-          m_sub[r2] = m_new == -INFINITY ? 0.f : m_new;
-          corr[r2] = exp2f(m[r2] - m_sub[r2]);
-          m[r2] = m_new;
-          l[r2] *= corr[r2];
-        }
-#pragma unroll
-        for (int c = 0; c < C::NCV; ++c)
-#pragma unroll
-          for (int j = 0; j < C::NO; ++j) o[c][j] *= corr[(j / 2) % 2];
-
-        // P in bf16, as the A fragments of P V
-        uint32_t p[BKV / 16][4];
-#pragma unroll
-        for (int kk = 0; kk < BKV / 16; ++kk)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int hh = kk / 4, j = (kk % 4) * 8 + 2 * e, r2 = e % 2;
-            const float x0 = sc[hh][j], x1 = sc[hh][j + 1];
-            const float p0 = exp2f(x0 - m_sub[r2]);
-            const float p1 = exp2f(x1 - m_sub[r2]);
-            l[r2] += p0 + p1;
-            p[kk][e] = pack_bf16(p0, p1);
-          }
-
-        // O += P V
-        mbar_wait(v_full(st), par);
-#pragma unroll
-        for (int c = 0; c < C::NCV; ++c) pin(o[c]);
-        wg_fence();
-#pragma unroll
-        for (int kk = 0; kk < BKV / 16; ++kk)
-#pragma unroll
-          for (int c = 0; c < C::NCV; ++c)
-            mma_rs(o[c], p[kk],
-                   gmma_desc<C>(vt + c * BKV * C::SWB + kk * 16 * C::SWB,
-                                SBO, SBO));
-        wg_commit();
-        wg_wait0();
-#pragma unroll
-        for (int c = 0; c < C::NCV; ++c) pin(o[c]);
-        mbar_arrive(empty(st));
+        issue_qk<DK, DV>(sc, qa, ks + kst * C::K_BYTES);
+        issue_pv<DK, DV>(o, p, vs + vst * C::V_BYTES);
+        turn_pass(wg);
+        wg_wait1();                      // S of tile i; P V still runs
+        pin(sc);
+        if (lane == 0) mbar_arrive(k_empty(kst));
+        ++kit;
+        softmax_tile(sc, m, l, corr, need(k0), k0, row_lo, cq, skv, causal,
+                     window, scale_log2);
+        wg_wait0();                      // P V of tile i - 1
+        pin(o);
+        pin_p(p);
+        if (lane == 0) mbar_arrive(v_empty(vst));
+        ++vit;
+        // once the running max stops moving corr is 1 on every row, and
+        // the warp skips the pass (a product by 1 changes nothing)
+        if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f))
+          rescale(o, corr);
+        pack_p(p, sc);
       }
       // Q is no longer read: the producer may load the next item's
-      mbar_arrive(q_empty);
+      if (lane == 0) mbar_arrive(q_empty(qb));
+      {
+        // the last tile's P V, outside the turns
+        const int vst = vit % STAGES;
+        mbar_wait(v_full(vst), (vit / STAGES) & 1);
+        pin(o);
+        pin_p(p);
+        wg_fence();
+        issue_pv<DK, DV>(o, p, vs + vst * C::V_BYTES);
+        wg_wait0();
+        pin(o);
+        if (lane == 0) mbar_arrive(v_empty(vst));
+        ++vit;
+      }
 
 #pragma unroll
       for (int r2 = 0; r2 < 2; ++r2) {
         l[r2] += __shfl_xor_sync(0xffffffffu, l[r2], 1);
         l[r2] += __shfl_xor_sync(0xffffffffu, l[r2], 2);
         const int row = row_lo + 8 * r2;
-        if (row >= s) continue;
         const float inv = 1.f / fmaxf(l[r2], 1e-30f);
         __nv_bfloat16* dst =
             out + (((size_t)t.b * s + row) * h + t.head) * DV;
+        // a quad's words transposed by shuffles: each lane stores 16
+        // bytes, columns 8 (4 a + lane % 4) .. + 7 (4-byte stores, one a
+        // float pair, measured slower)
+        const int t4 = lane & 3;
 #pragma unroll
-        for (int c = 0; c < C::NCV; ++c)
+        for (int a = 0; a < C::NOF / 16; ++a) {
+          uint32_t wd[4];
 #pragma unroll
-          for (int j = 0; j < C::NO / 4; ++j)
-            if (c * C::SWE + 8 * j < DV)    // none past the value width
-              *reinterpret_cast<__nv_bfloat162*>(dst + c * C::SWE + 8 * j +
-                                                 cq) =
-                  __floats2bfloat162_rn(o[c][4 * j + 2 * r2] * inv,
-                                        o[c][4 * j + 2 * r2 + 1] * inv);
+          for (int j = 0; j < 4; ++j)
+            wd[j] = pack_bf16(o[4 * (4 * a + j) + 2 * r2] * inv,
+                              o[4 * (4 * a + j) + 2 * r2 + 1] * inv);
+#pragma unroll
+          for (int mk = 1; mk <= 2; mk <<= 1) {
+            uint32_t got[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              got[j] = __shfl_xor_sync(0xffffffffu, wd[j ^ mk], mk);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if ((j ^ t4) & mk) wd[j] = got[j];
+          }
+          const int col = 8 * (4 * a + t4);
+          if (row < s && col < DV)    // none past S or the value width
+            *reinterpret_cast<uint4*>(dst + col) =
+                make_uint4(wd[0], wd[1], wd[2], wd[3]);
+        }
       }
     }
   }
@@ -772,8 +1039,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int b, int s, int heads,
 template <int DK, int DV>
 struct Launch {
   static int run(const void* q, const void* k, const void* v, void* out,
-                 int b, int s, int skv, int h, int hk, float scale,
-                 int causal, int window, cudaStream_t stream) {
+                 int* sched, int b, int s, int skv, int h, int hk,
+                 float scale, int causal, int window, cudaStream_t stream) {
     using C = Cfg<DK, DV>;
     if (encoder() == nullptr) return (int)cudaErrorNotSupported;
     CUtensorMap tq, tk, tv;
@@ -786,20 +1053,31 @@ struct Launch {
         (int)C::SMEM);
     if (err != cudaSuccess) return (int)err;
     // persistent: one block per SM walks the work items
-    static int sms = 0;
+    static int sms = 0, l2 = 0;
     if (sms == 0) {
       int dev = 0;
       err = cudaGetDevice(&dev);
       if (err == cudaSuccess)
         err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                      dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
       if (err != cudaSuccess) return (int)err;
     }
     const int q_tiles = (s + BQ - 1) / BQ;
     const int items = q_tiles * h * b;
+    // a run's pairs: their K and V in half the L2 cache, the runs of
+    // one size (a short last run's heavy items would come last)
+    const long long pair_bytes = 2LL * skv * (DK + DV);
+    const int pairs = b * hk;
+    const int most = (int)max(1LL, min((long long)pairs,
+                                       l2 / 2 / max(pair_bytes, 1LL)));
+    const int runs = (pairs + most - 1) / most;
+    const int group = (pairs + runs - 1) / runs;
     flash_tc_kernel<DK, DV><<<min(items, sms), THREADS, C::SMEM, stream>>>(
         tq, tk, tv, static_cast<__nv_bfloat16*>(out), s, skv, h, hk,
-        scale * 1.4426950408889634f, causal, window, b, q_tiles, items);
+        scale * 1.4426950408889634f, causal, window, b, q_tiles, items,
+        group, sched);
     return (int)cudaGetLastError();
   }
 };
@@ -812,18 +1090,21 @@ struct Launch {
 // S, H, dv), contiguous; (dk, dv) one of (dh, dh) at dh in {32, 64, 112,
 // 128, 256} and (192, 128); S_kv != S only without the causal mask
 // (cross-attention); dtype 0 = fp32 (CUDA cores), 1 = bf16 (tensor
-// cores); window <= 0 disables the window.
+// cores); window <= 0 disables the window. sched: two int32 counters of
+// the bf16 route's work items, zero before the call and after it (the
+// kernel resets them), unused by the fp32 route.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int b, int s,
-                                      int s_kv, int h, int hk, int dk, int dv,
-                                      int dtype, float scale, int causal,
-                                      int window, cudaStream_t stream) {
+                                      const void* v, void* out, int* sched,
+                                      int b, int s, int s_kv, int h, int hk,
+                                      int dk, int dv, int dtype, float scale,
+                                      int causal, int window,
+                                      cudaStream_t stream) {
   if (causal && s_kv != s) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return by_widths<LaunchF32>(dk, dv, q, k, v, out, b, s, s_kv, h, hk,
                                 scale, causal, window, stream);
   if (dtype == 1)
-    return by_widths<tc::Launch>(dk, dv, q, k, v, out, b, s, s_kv, h, hk,
-                                 scale, causal, window, stream);
+    return by_widths<tc::Launch>(dk, dv, q, k, v, out, sched, b, s, s_kv, h,
+                                 hk, scale, causal, window, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -20,7 +20,7 @@ run an exact CUDA-core kernel.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -29,6 +29,19 @@ from repro_torch.kernels import _build, ref
 HEAD_DIMS = (32, 64, 112, 128, 256)
 #: (query/key width, value width) pairs: every (dh, dh), and MLA's
 WIDTHS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
+
+#: per device index: the bf16 route's two work-item counters (int32, zero
+#: between calls: its blocks draw items from the first, and the last
+#: block to finish resets both, so calls on one device follow one
+#: stream's order; a captured graph keeps reading the same buffer)
+_SCHED: Dict[int, torch.Tensor] = {}
+
+
+def _sched(dev: torch.device) -> torch.Tensor:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SCHED:
+        _SCHED[idx] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return _SCHED[idx]
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -83,8 +96,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     lib = _build.library("flash_attention")
     err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-        s_kv, h, hk, dk, dv, code,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _sched(q.device).data_ptr(), b, s, s_kv, h, hk, dk, dv, code,
         float(dk ** -0.5 if scale is None else scale), int(causal),
         int(window), _build.stream_handle(q.device))
     _build.check(err, "flash_attention_cuda")

@@ -38,7 +38,10 @@ LAYOUTS = {"qwen3-8b": (16, 2048, 8, 128, 4),
            "internlm2-20b": (16, 1056, 8, 128, 4),
            "gemma3-12b": (16, 1056, 8, 256, 4),
            "llava-next-mistral-7b": (16, 3936, 8, 128, 4),
-           "zamba2-7b": (16, 1056, 32, 112, 4)}
+           "zamba2-7b": (16, 1056, 32, 112, 4),
+           "gemma3-12b ring": (16, 1024, 8, 256, 4),
+           "gemma3-12b long_500k local": (1, 1024, 8, 256, 2),
+           "gemma3-12b long_500k global": (1, 524288, 8, 256, 2)}
 EXACT = 1e-5
 
 
@@ -115,7 +118,9 @@ def _combine(q, k, v, kv_len, split_rows, window=0):
 @pytest.mark.parametrize("b,t,h,hk,dh", [(3, 300, 8, 2, 64),
                                          (2, 1056, 6, 1, 128),
                                          (4, 77, 4, 4, 32),
-                                         (2, 600, 4, 4, 112)])
+                                         (2, 600, 4, 4, 112),
+                                         (2, 1056, 4, 2, 256),
+                                         (3, 300, 16, 2, 256)])
 def test_combine_at_the_plans_splits_matches_jax(b, t, h, hk, dh):
     rng = np.random.default_rng(t + h)
     q = rng.normal(size=(b, h, dh)).astype(np.float32)
@@ -140,15 +145,16 @@ def test_combine_at_the_plans_splits_matches_jax(b, t, h, hk, dh):
 
 
 @pytest.mark.parametrize("window", [1, 100, 128, 129, 500])
-def test_windowed_combine_at_the_plans_splits_matches_jax(window):
+@pytest.mark.parametrize("dh", [128, 256])
+def test_windowed_combine_at_the_plans_splits_matches_jax(window, dh):
     """The kernel's windowed arithmetic: splits wholly before the
     window's first row take no part (they exit, and the arrival count
     and the merge start at the first split holding a row), the first
     active split starts mid-split; against JAX `layers.attend` over the
     full cache at the query position kv_len - 1."""
     from repro.models import layers as JL
-    b, t, h, hk, dh = 4, 1056, 8, 2, 128
-    rng = np.random.default_rng(window)
+    b, t, h, hk = 4, 1056, 8, 2
+    rng = np.random.default_rng(window + dh)
     q = rng.normal(size=(b, h, dh)).astype(np.float32)
     k = rng.normal(size=(b, t, hk, dh)).astype(np.float32)
     v = rng.normal(size=(b, t, hk, dh)).astype(np.float32)
@@ -194,3 +200,102 @@ def test_cpu_wrapper_takes_the_plain_version():
         jnp.asarray(k.numpy()), jnp.asarray(kv.numpy())))
     np.testing.assert_allclose(got.numpy(), want, rtol=EXACT, atol=EXACT)
     assert DA._ARRIVALS == {}
+
+
+# decode's bar on the card (chip_smoke.py: DECODE_ATOL, DECODE_RTOL)
+DECODE_ATOL, DECODE_RTOL = 1e-4, 2.0 ** -6
+
+
+def _bf16(x):
+    return torch.tensor(x).to(torch.bfloat16).float().numpy()
+
+
+def _mma256(q, k, v, kv_len, split_rows, stage, window=0):
+    """The dh = 256 tensor-core path's arithmetic (`stream_mma256`), in
+    float32: q and the cache rounded to bf16; per stage of `stage` rows,
+    four partial scores over 64 columns each (one a warp), added in warp
+    order; the stage's online softmax (exp2 of scores scaled by
+    log2(e)); P split into bf16 hi + lo, both multiplied by V; the
+    splits merged as `_combine` merges them."""
+    b, h, dh = q.shape
+    hk = k.shape[2]
+    rep = h // hk
+    scale2 = np.float32(dh ** -0.5 * np.log2(np.e))
+    qb, kb, vb = _bf16(q), _bf16(k), _bf16(v)
+    out = np.zeros((b, h, dh), np.float32)
+    for bb, kh in itertools.product(range(b), range(hk)):
+        length = int(kv_len[bb])
+        lo = max(0, length - window) if window else 0
+        s_lo = lo // split_rows
+        n_active = -(-length // split_rows) - s_lo if length > 0 else 0
+        heads = slice(kh * rep, (kh + 1) * rep)
+        parts = []
+        for sp in range(s_lo, s_lo + n_active):
+            r0 = max(sp * split_rows, lo)
+            r1 = min((sp + 1) * split_rows, length)
+            m = np.full(rep, -np.inf, np.float32)
+            l_run = np.zeros(rep, np.float32)
+            o = np.zeros((rep, dh), np.float32)
+            for a in range(r0, r1, stage):
+                rows = slice(a, min(a + stage, r1))
+                kk, vv = kb[bb, rows, kh], vb[bb, rows, kh]
+                sc = np.zeros((rep, kk.shape[0]), np.float32)
+                for w in range(4):
+                    cols = slice(64 * w, 64 * w + 64)
+                    sc += (qb[bb, heads, cols].astype(np.float64)
+                           @ kk[:, cols].T.astype(np.float64)
+                           ).astype(np.float32)
+                sc = sc * scale2
+                m_new = np.maximum(m, sc.max(axis=1))
+                corr = np.exp2(m - m_new)
+                p = np.exp2(sc - m_new[:, None]).astype(np.float32)
+                hi = _bf16(p)
+                lo_p = _bf16(p - hi)
+                l_run = l_run * corr + p.sum(axis=1)
+                o = o * corr[:, None] + (hi @ vv) + (lo_p @ vv)
+                m = m_new
+            parts.append((m, l_run, o))
+        if not parts:
+            continue
+        mx = np.max([pm for pm, _, _ in parts], axis=0)
+        f = [np.exp2(pm - mx) for pm, _, _ in parts]
+        l_tot = sum(fi * pl for fi, (_, pl, _) in zip(f, parts))
+        a_tot = sum(fi[:, None] * po for fi, (_, _, po) in zip(f, parts))
+        out[bb, heads] = a_tot / np.maximum(l_tot, 1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("lens,window", [((1, 15, 16, 17), 0),
+                                         ((31, 33, 300, 1056), 0),
+                                         ((1056, 700, 129, 64), 100)])
+def test_dh256_partial_scores_match_jax(itemsize, lens, window):
+    """A check of the dh = 256 design's arithmetic, not of the kernel:
+    `_mma256`, a numpy mirror of `stream_mma256`'s order of operations
+    (every warp takes every row of a stage, 16 rows over an fp32 cache
+    and 32 over a bf16 one; the stage's scores as four 64-column partial
+    sums added in warp order, one softmax state a stage, P V in bf16 hi
+    + lo), run at the port's own `split_plan` and `stage_rows`, against
+    JAX's decode oracle over the bf16-rounded query and cache (the
+    model's plain path rounds the cache to the query's type), within
+    decode's bar. The CUDA kernel itself is held to its plain version by
+    the `gpu` tests and chip_smoke.py."""
+    from repro.models import layers as JL
+    b, t, h, hk, dh = 4, 1056, 4, 2, 256
+    rng = np.random.default_rng(sum(lens) + itemsize)
+    q = rng.normal(size=(b, h, dh)).astype(np.float32)
+    k = rng.normal(size=(b, t, hk, dh)).astype(np.float32)
+    v = rng.normal(size=(b, t, hk, dh)).astype(np.float32)
+    kv = np.array(lens, np.int32)
+    _, split_rows = DA.split_plan(b, t, hk, dh, itemsize, sms=4)
+    stage = DA.stage_rows(dh, itemsize)
+    assert stage == {4: 16, 2: 32}[itemsize]
+    got = _mma256(q, k, v, kv, split_rows, stage, window)
+    kv_pos = np.broadcast_to(np.arange(t), (b, t)).astype(np.int32)
+    want = np.asarray(JL.attend(
+        jnp.asarray(_bf16(q)[:, None]), jnp.asarray(_bf16(k)),
+        jnp.asarray(_bf16(v)), jnp.asarray((kv - 1)[:, None]),
+        jnp.asarray(kv_pos), window=window or JL.NO_WINDOW))[:, 0]
+    err = np.abs(got - want)
+    assert (err <= DECODE_ATOL + DECODE_RTOL * np.abs(want)).all(), \
+        float((err / (DECODE_ATOL + DECODE_RTOL * np.abs(want))).max())

@@ -364,7 +364,10 @@ def test_flash_attention_kernel_matches_plain(dev, b, s, h, hk, dh, dtype):
 
 
 @pytest.mark.parametrize("window,causal", [(1, True), (100, True),
-                                           (128, True), (0, False)])
+                                           (128, True), (0, False),
+                                           # a key tile that holds no key
+                                           # of one consumer's 64 rows
+                                           (64, True), (65, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_window_and_noncausal(dev, window, causal, dtype):
     """window = 1 leaves each row its own key: most key tiles are wholly
@@ -397,11 +400,37 @@ def test_flash_attention_window_and_noncausal(dev, window, causal, dtype):
                                          (3, 1, 8, 1, 64),
                                          (1, 129, 16, 2, 128),
                                          (2, 383, 8, 1, 32),
-                                         (1, 1000, 16, 2, 128)])
+                                         (1, 1000, 16, 2, 128),
+                                         # the consumers' turns: one work
+                                         # item, fewer items than SMs
+                                         (1, 100, 1, 1, 128),
+                                         (2, 256, 4, 2, 64),
+                                         # items of one and of two key
+                                         # tiles (128 keys; 64 at 256)
+                                         (1, 128, 4, 1, 128),
+                                         (1, 256, 4, 1, 128),
+                                         (1, 64, 2, 1, 256),
+                                         (1, 128, 2, 1, 256),
+                                         # S = 1, 127, 129 at each width
+                                         (2, 1, 4, 2, 32),
+                                         (2, 127, 4, 2, 32),
+                                         (2, 129, 4, 2, 64),
+                                         (2, 1, 4, 2, 112),
+                                         (2, 127, 4, 4, 112),
+                                         (2, 129, 4, 2, 112),
+                                         (2, 127, 4, 2, 128),
+                                         (2, 1, 4, 2, 256),
+                                         (2, 127, 4, 2, 256),
+                                         (2, 129, 4, 2, 256)])
 def test_flash_attention_bf16_tile_edges(dev, b, s, h, hk, dh):
     """The tensor-core kernel's 128-row tiles: S below one tile, S one
     past a tile and S not a multiple of it (TMA zero-fills the rows past
-    S, and their scores are masked), with 8 query heads to a KV head."""
+    S, and their scores are masked), with 8 query heads to a KV head; the
+    two consumers' turns at the tensor cores with one work item, fewer
+    items than SMs, and items of one key tile (no tile-ahead product) and
+    of two. The blocks draw their items from two counters, which the
+    last block resets: they are 0 again after the call."""
+    from repro_torch.kernels import flash_attention as FA
     rng = np.random.default_rng(s * h)
     q = _normal(rng, (b, s, h, dh), torch.bfloat16, dev)
     k = _normal(rng, (b, s, hk, dh), torch.bfloat16, dev)
@@ -412,6 +441,8 @@ def test_flash_attention_bf16_tile_edges(dev, b, s, h, hk, dh):
     tol = ATT_TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=tol)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    assert int(FA._SCHED[idx].count_nonzero()) == 0
 
 
 @pytest.mark.parametrize("b,t,h,hk,dh", [(2, 512, 4, 4, 64),
@@ -517,7 +548,7 @@ def test_decode_attention_graph_replays_equal_eager(dev, b, t, h, hk, dh,
 
 # gemma3-12b's head width (dh = 256) on both flash routes, with and
 # without its sliding window (window 1: a row's own key alone)
-@pytest.mark.parametrize("window", [0, 1, 100, 1024])
+@pytest.mark.parametrize("window", [0, 1, 64, 100, 1024])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_dh256_matches_plain(dev, window, dtype):
     """dh = 256: the tensor-core route's 64-key tiles and the CUDA-core
@@ -541,47 +572,59 @@ def test_flash_attention_dh256_matches_plain(dev, window, dtype):
 
 
 @pytest.mark.parametrize("window", [0, 1, 100, 1024])
-@pytest.mark.parametrize("rep", [2, 6])
+@pytest.mark.parametrize("rep", [2, 6, 8])
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("lens", ["window", "stage edges"])
 def test_decode_attention_dh256_and_windows(dev, window, rep, q_dtype,
-                                            kv_dtype):
+                                            kv_dtype, lens):
     """dh = 256 over both cache types at rep 2 (gemma3: the tensor-core
-    route for a bf16 query) and rep 6, with a window below kv_len, equal
+    route for a bf16 query), 6 and 8, with a window below kv_len, equal
     to it and far above it, and a row whose window starts past the end of
-    its first splits (those splits exit; the merge takes the rest)."""
+    its first splits (those splits exit; the merge takes the rest); and
+    lengths across a stage's edges (16 rows over an fp32 cache, 32 over
+    a bf16 one: every warp takes the whole stage there), 0 giving zeros."""
     from repro_torch.kernels import decode_attention as DA
     rng = np.random.default_rng(window + rep)
     b, t, hk, dh = 4, 1056, 2, 256
-    h = rep * hk
-    q = _normal(rng, (b, h, dh), q_dtype, dev)
-    k = _normal(rng, (b, t, hk, dh), kv_dtype, dev)
-    v = _normal(rng, (b, t, hk, dh), kv_dtype, dev)
     size = torch.finfo(kv_dtype).bits // 8
     n_split, split = DA.split_plan(b, t, hk, dh, size, DA._sm_count(dev))
     assert n_split >= 4
     w = window or 100
-    lens = [max(w // 2, 1), min(w, t), t, 3 * split + 5]
-    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kv = ([max(w // 2, 1), min(w, t), t, 3 * split + 5] if lens == "window"
+          else [0, 1, 7, 8, 9, 15, 16, 17, 31, 32, 33])
+    b = len(kv)
+    h = rep * hk
+    q = _normal(rng, (b, h, dh), q_dtype, dev)
+    k = _normal(rng, (b, t, hk, dh), kv_dtype, dev)
+    v = _normal(rng, (b, t, hk, dh), kv_dtype, dev)
+    kv_len = torch.tensor(kv, dtype=torch.int32, device=dev)
     got = decode_attention_cuda(q, k, v, kv_len, window=window)
     want = ref.decode_attention_ref(q, k.to(q_dtype), v.to(q_dtype), kv_len,
                                     window=window)
     torch.cuda.synchronize()
+    empty = kv_len == 0
+    assert torch.equal(got[empty], torch.zeros_like(got[empty]))
     tol = ATT_TOL[q_dtype]
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                               atol=tol)
+    torch.testing.assert_close(got[~empty].float(), want[~empty].float(),
+                               rtol=tol, atol=tol)
     if window == 1:     # the newest row alone: its v, exactly
-        rows = (kv_len.long() - 1)
+        rows = (kv_len.long() - 1).clamp(min=0)
         newest = v.to(q_dtype)[torch.arange(b, device=dev), rows]
         torch.testing.assert_close(
-            got, newest.repeat_interleave(rep, dim=1), rtol=1e-6, atol=1e-6)
+            got[~empty], newest.repeat_interleave(rep, dim=1)[~empty],
+            rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("b,t,h,hk,dh,kv_dtype,window", [
     (16, 1056, 16, 8, 256, torch.float32, 1024),
     (8, 4096, 8, 8, 128, torch.bfloat16, 1024),
-    (4, 1056, 12, 2, 256, torch.bfloat16, 37)])
+    (4, 1056, 12, 2, 256, torch.bfloat16, 37),
+    # dh = 256 at rep 8 over both caches, and gemma3's ring (every slot)
+    (4, 1056, 16, 2, 256, torch.bfloat16, 0),
+    (4, 1056, 16, 2, 256, torch.float32, 100),
+    (16, 1024, 16, 8, 256, torch.float32, 0)])
 def test_decode_attention_windowed_graph_replays_equal_eager(
         dev, b, t, h, hk, dh, kv_dtype, window):
     """A windowed call captured once: three replays into a zeroed output
@@ -626,7 +669,8 @@ def test_decode_attention_windowed_graph_replays_equal_eager(
 @pytest.mark.parametrize("dk,dv,h,hk", [(112, 112, 8, 8), (112, 112, 8, 2),
                                         (192, 128, 4, 4)])
 @pytest.mark.parametrize("s,causal", [(333, True), (1000, True),
-                                      (77, False)])
+                                      (77, False), (1, True), (127, True),
+                                      (129, True), (1500, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_dh112_and_value_width(dev, dk, dv, h, hk, s, causal,
                                                dtype):
@@ -933,7 +977,10 @@ def test_hybrid_and_mla_kernel_path_matches_plain_attention(dev, arch,
                                            (2, 1024, 1500, 20, 20, 64),
                                            (1, 1500, 1500, 20, 20, 64),
                                            (1, 130, 77, 8, 2, 128),
-                                           (3, 1, 300, 4, 4, 32)])
+                                           (3, 1, 300, 4, 4, 32),
+                                           (2, 127, 1500, 4, 2, 128),
+                                           (2, 129, 1500, 4, 4, 256),
+                                           (1, 1500, 1, 4, 2, 112)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_separate_key_length(dev, b, s, t, h, hk, dh,
                                              dtype):
