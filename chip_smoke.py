@@ -20,19 +20,21 @@ together), then:
      tolerances: the similarity kernel at every bucket of the 8..1024
      ladder, each timed beside its bound and the library call (and, up
      to 128, with every tile that could take it); the fused retrieve's
-     two kernels (retrieve_topn: similarity + live-row mask + a top-n a
-     column split, no panel; topn_merge: the top-n of its pool) at
-     buckets 1024, 64 and 8, bit for bit against the per-split stable
-     top-n of the similarity kernel's panel and against their plain
-     versions, timed (queued) beside their bounds, plain versions and
-     library chains and beside the panel + stable sort they replace; the
-     same past 128 neighbours (n = 129, 256, 512, the kernels' bound being
-     512), unsharded and over 4 shards on the card, bit for bit against
-     the similarity kernel's panel at kernel 1's tile + stable sort, with
-     three controls that must change the top-n rows (the merge without
-     the last split; without the last shard; a kernel 1 built to give
-     ties to the higher row), timed beside their bounds; an
-     EagleRouter(n_neighbors=512) routed through its graphs (no capture
+     two kernels on the list route (retrieve_topn: similarity + live-row
+     mask + a top-n a column split, no panel; topn_merge: the top-n of
+     its pool) at buckets 1024, 64 and 8, bit for bit against the
+     per-split stable top-n of the similarity kernel's panel and against
+     their plain versions, timed (queued) beside their bounds, plain
+     versions and library chains and beside the panel + stable sort they
+     replace; the panel route past 128 neighbours (n = 129, 256, 512, the
+     kernels' bound being 512: kernel 1 writes the masked panel, kernel 2
+     selects), unsharded and over 4 shards on the card, bit for bit
+     against the similarity kernel's panel at the plan's tile + stable
+     sort, with three controls that must change the top-n rows (kernel 2
+     without the panel's last 1,024 columns; without the last shard; a
+     kernel 2 built to give ties to the higher row), timed beside their
+     bounds; an EagleRouter(n_neighbors=512) routed through its graphs
+     (its graph pools logged before and after the warm-up; no capture
      by traffic, choices equal to the eager and the panel route's), and
      513 refused; the route over them (retrieve + gather replay) at those
      buckets bit for bit against the panel route and against the plain
@@ -665,20 +667,26 @@ ROUTE_KERNELS = ("retrieve_topn", "topn_merge", "elo_scan_select",
 # first is the kernels line's), with DEAD_ROWS rows past the live count
 RETRIEVE_BUCKETS = (1024, 64, 8)
 DEAD_ROWS = 768
-# the fused retrieve past 128 neighbours (ROADMAP §4.14): checked at
+# the fused retrieve past 128 neighbours (the panel route): checked at
 # LARGE_N and RETRIEVE_BUCKETS, unsharded and over SHARDS_LARGE_N shards
 # on the card, with controls built with TIE_CONTROL; a router of MAX_N
 # neighbours routes LARGE_N_BATCHES (buckets 8, 64, 1024) through graphs
 LARGE_N, SHARDS_LARGE_N = (129, 256, 512), 4
 LARGE_N_BATCHES = (5, 50, 1000)
 TIE_CONTROL = ("TOPN_CONTROL_TIE_HIGH",)
+# the panel route's control: kernel 2 over the panel without its last
+# DROP_COLS columns (the list route's last split at bucket 1024)
+DROP_COLS = 1024
 # the similarity kernel: off the serving route since the fused retrieve;
 # the legacy retrieval (`VectorDB.query`) of the route benchmark runs it
 OFF_PATH = ("similarity",)
-# device-side names a route's profile may hold: the retrieve's two kernels,
-# the replay, and copies; anything else (a GEMM panel, a sort) fails
+# device-side names a route's profile may hold: the retrieve's kernels
+# (either route's two), the replay, and copies; anything else (a library
+# GEMM, a sort) fails
 ROUTE_PROFILE_KERNELS = ("topn_gemm_kernel", "topn_gemv_kernel",
-                         "topn_merge_kernel", "elo_scan_kernel")
+                         "topn_merge_kernel", "panel_gemm_kernel",
+                         "panel_gemv_kernel", "topn_select_kernel",
+                         "elo_scan_kernel")
 # fp32 operations of one replay step of one query: difference, divide,
 # pow, add, reciprocal, difference, two products, two updates
 REPLAY_STEP_OPS = 10
@@ -992,15 +1000,31 @@ def check_similarity(dev, kernels, stats):
     stats["similarity_buckets"] = buckets
 
 
-def retrieve_bound(nq, c, d, pool, n=N):
+def retrieve_bound(nq, c, d, pool, n=N, passes=None):
     """The fused retrieve's bounds: kernel 1 reads q and the DB once and
     writes its pool (the product's fp32 operations bound it at large Q),
     kernel 2 reads the pool and writes the top-n (scores, int64 rows,
-    hit) with one comparison a candidate. Returns ((ms, by), (ms, by))."""
-    k1 = bound_ms(4.0 * (nq * d + c * d) + 8.0 * nq * pool,
+    hit) with one comparison a candidate. On the panel route (`passes`:
+    the radix passes this run's rows took, summed, from the plain
+    version's select) the pool is the (Q, C) panel of scores alone, and
+    kernel 2 compares each entry once a pass and once to gather. Returns
+    ((ms, by), (ms, by))."""
+    entry = 8.0 if passes is None else 4.0
+    k1 = bound_ms(4.0 * (nq * d + c * d) + entry * nq * pool,
                   2.0 * nq * c * d + 2.0 * (nq + c) * d)
-    k2 = bound_ms(8.0 * nq * pool + 13.0 * nq * n, float(nq * pool))
+    ops = nq * pool if passes is None else pool * (passes + nq)
+    k2 = bound_ms(entry * nq * pool + 13.0 * nq * n, float(ops))
     return k1, k2
+
+
+def pair_bound(nq, c, d, n=N):
+    """The fused retrieve's bound as one function (both kernels, timed
+    together): q and the DB read once, the top-n (scores, int64 rows, hit)
+    written once, the product's fp32 operations and the norms. The pool or
+    panel between the kernels is the design's own and is not counted.
+    Returns (ms, by)."""
+    return bound_ms(4.0 * (nq * d + c * d) + 13.0 * nq * n,
+                    2.0 * nq * c * d + 2.0 * (nq + c) * d)
 
 
 def check_retrieve(dev, kernels, stats):
@@ -1027,7 +1051,8 @@ def check_retrieve(dev, kernels, stats):
     norm = torch.nn.functional.normalize
     buckets = {}
     for nq in RETRIEVE_BUCKETS:
-        tile, rows, splits = RT.plan(nq, C_EXPECTED, DIM, RT._sm_count(dev))
+        tile, rows, splits, _ = RT.plan(nq, C_EXPECTED, DIM,
+                                        RT._sm_count(dev))
         ties = [rows * i for i in range(1, min(splits, 5))]
         db = db0.clone()
         for b in ties:
@@ -1132,23 +1157,24 @@ def _shards(x, s):
 
 
 def check_retrieve_large_n(dev, kernels, stats):
-    """The fused retrieve past 128 neighbours (ROADMAP §4.14: the kernels
-    take n up to MAX_N = 512, the replay kernel's bound): at LARGE_N and
-    RETRIEVE_BUCKETS over C_EXPECTED rows of D = DIM (DEAD_ROWS dead,
-    duplicates on split boundaries and the queries that tie on them),
-    kernel 1's pool equal to the per-split stable top-n of the similarity
-    kernel's masked panel (at kernel 1's tile: across tiles the scores may
-    differ in the last place), the pair's top-n to the panel's stable sort and
-    kernel 2 to its plain version, bit for bit; the capacity-sharded
-    retrieve at S = SHARDS_LARGE_N on the card equal to
-    `ref.sharded_panel_topn_ref` bit for bit (rows, scores, hits, the
-    pre-gathered records). Controls at bucket 1024, each of which must
-    change the top-n rows: the merge without the last split; the sharded
-    retrieve without the last shard; kernel 1 built with
-    TOPN_CONTROL_TIE_HIGH over a row copied n + 5 times inside one split.
-    Each kernel timed (queued) beside its bound, its plain version and the
-    library chain; the pair and the S = 4 composite beside the panel +
-    stable sort."""
+    """The fused retrieve past 128 neighbours, the panel route (kernel 1
+    writes the masked panel at the similarity kernel's tile, kernel 2
+    selects; the kernels take n up to MAX_N = 512, the replay kernel's
+    bound): at LARGE_N and RETRIEVE_BUCKETS over C_EXPECTED rows of D =
+    DIM (DEAD_ROWS dead, duplicates on tile boundaries and the queries
+    that tie on them), kernel 1's panel equal to the similarity kernel's
+    masked panel at the plan's tile, kernel 2 to its plain version (the
+    select, `ref.topn_select_ref`) and the pair's top-n to the panel's
+    stable sort, bit for bit; the capacity-sharded retrieve at S =
+    SHARDS_LARGE_N on the card equal to `ref.sharded_panel_topn_ref` bit
+    for bit (rows, scores, hits, the pre-gathered records). Controls at
+    bucket 1024, each of which must change the top-n rows: kernel 2 over
+    the panel without its last DROP_COLS columns; the sharded retrieve
+    without the last shard; kernel 2 built with TOPN_CONTROL_TIE_HIGH
+    over a row copied n + 5 times. Each kernel timed (queued) beside its
+    bound, its plain version and the library call (normalize + matmul +
+    topk; torch.topk over the panel); the pair and the S = 4 composite
+    beside the panel + stable sort."""
     from functools import partial
     from unittest import mock
     from repro_torch.kernels import _build, ref
@@ -1175,9 +1201,12 @@ def check_retrieve_large_n(dev, kernels, stats):
     out = {}
     for n in LARGE_N:
         for nq in RETRIEVE_BUCKETS:
-            tile, rows, splits = RT.plan(nq, C_EXPECTED, DIM,
-                                         RT._sm_count(dev), n)
-            ties = [rows * i for i in range(1, min(splits, 5))]
+            tile, _, _, route = RT.plan(nq, C_EXPECTED, DIM,
+                                        RT._sm_count(dev), n)
+            where = f"retrieve n={n} Q={nq}"
+            if route != RT.PANEL:
+                fail(f"{where}: the plan takes the {route} route")
+            ties = [1024 * i for i in range(1, 5)]
             db = db0.clone()
             for b in ties:
                 db[b] = db[b - 1]
@@ -1186,25 +1215,26 @@ def check_retrieve_large_n(dev, kernels, stats):
             q[:k] = db[[b - 1 for b in ties[:k]]]
             emb = _shards(db, SHARDS_LARGE_N)
             # the similarity kernel at kernel 1's tile: across tiles scores
-            # may differ in the last place (n > 161 takes a smaller tile)
+            # may differ in the last place
             sim = partial(similarity_cuda, tile=tile)
-            pool_s, pool_i = RT.retrieve_topn_cuda(q, db, size, n)
-            top = RT.topn_merge_cuda(pool_s, pool_i, n, run=n)
+            panel, _ = RT.retrieve_topn_cuda(q, db, size, n)
+            top = RT.topn_merge_cuda(panel, None, n)
             sharded = RT.sharded_topn_cuda(q, emb, panels, sizes, n)
-            panel = ref.mask_dead(sim(q, db), 0, size)
-            want_pool = ref.panel_pool_ref(panel, n, rows)
-            panel_top = ref.stable_topk(panel, n)
-            del panel
-            want_top = ref.topn_merge_ref(pool_s, pool_i, n)[:3]
-            want_sh = ref.sharded_panel_topn_ref(
-                q, emb, panels, sizes, n, similarity_fn=partial(
-                    similarity_cuda, tile=RT.tile_for(nq, DIM, n)))
+            want_panel = ref.mask_dead(sim(q, db), 0, size)
+            panel_top = ref.stable_topk(want_panel, n)
+            want_top = ref.topn_select_ref(panel, None, n)[:3]
+            passes = int(ref.key_select_ref(panel, None, n)[1].sum())
+            want_sh = ref.sharded_panel_topn_ref(q, emb, panels, sizes, n,
+                                                 similarity_fn=sim)
+            plain_panel = ref.panel_ref(q, db, size)
+            alive = torch.isfinite(plain_panel)
+            err = float((panel - plain_panel)[alive].abs().max())
             torch.cuda.synchronize()
-            where = f"retrieve n={n} Q={nq}"
-            if not (torch.equal(pool_s, want_pool[0])
-                    and torch.equal(pool_i, want_pool[1])):
-                fail(f"{where}: the pool differs from the per-split stable "
-                     "top-n of the similarity kernel's panel")
+            if not torch.equal(panel, want_panel):
+                fail(f"{where}: the panel differs from the similarity "
+                     "kernel's masked panel")
+            if not err <= SIM_TOL:
+                fail(f"{where}: the panel is {err} from the plain one")
             if not all(torch.equal(x, y) for x, y in zip(top, want_top)):
                 fail(f"{where}: topn_merge differs from its plain version")
             if not (torch.equal(top[0], panel_top[0])
@@ -1216,11 +1246,11 @@ def check_retrieve_large_n(dev, kernels, stats):
                            + want_sh[3])):
                 fail(f"{where}: the S={SHARDS_LARGE_N} retrieve differs "
                      "from the sharded panel + stable sort")
-            del want_pool, want_top, want_sh, sharded
+            del want_panel, want_top, want_sh, sharded, plain_panel, alive
             ctl = {}
             if nq == RETRIEVE_BUCKETS[0]:
-                dropped = RT.topn_merge_cuda(pool_s[:, :-n], pool_i[:, :-n],
-                                             n, run=n)[1]
+                dropped = RT.topn_merge_cuda(panel[:, :-DROP_COLS], None,
+                                             n)[1]
                 ctl["split_dropped"] = float(
                     (dropped != panel_top[1]).any(dim=1).float().mean())
                 fewer = RT.sharded_topn_cuda(
@@ -1229,7 +1259,7 @@ def check_retrieve_large_n(dev, kernels, stats):
                 ctl["shard_dropped"] = float(
                     (fewer != panel_top[1]).any(dim=1).float().mean())
                 dup = db.clone()
-                dup[100:100 + n + 5] = dup[99]   # rows 99..n+104: a split
+                dup[100:100 + n + 5] = dup[99]   # rows 99..n+104 tie
                 qd = dup[99].expand(nq, DIM).contiguous()
                 with mock.patch.object(_build, "library", tie_high):
                     high = RT.topn_cuda(qd, dup, size, n)[1]
@@ -1244,39 +1274,40 @@ def check_retrieve_large_n(dev, kernels, stats):
             iters = 10 if nq >= 256 else 30
             k1_ms = queued_ms(lambda: RT.retrieve_topn_cuda(q, db, size, n),
                               iters)
-            k2_ms = queued_ms(lambda: RT.topn_merge_cuda(pool_s, pool_i, n,
-                                                         run=n), iters)
+            k2_ms = queued_ms(lambda: RT.topn_merge_cuda(panel, None, n),
+                              iters)
             pair_ms = queued_ms(lambda: RT.topn_cuda(q, db, size, n), iters)
             s4_ms = queued_ms(lambda: RT.sharded_topn_cuda(
                 q, emb, panels, sizes, n), iters)
             panel_ms = queued_ms(lambda: ref.panel_topn_ref(
                 q, db, size, n, similarity_fn=similarity_cuda), 10)
-            plain1 = cuda_ms(lambda: ref.split_topn_ref(q, db, size, n,
-                                                        rows), 2, warmup=1)
-            plain2 = cuda_ms(lambda: ref.topn_merge_ref(pool_s, pool_i, n),
-                             2, warmup=1)
+            plain1 = cuda_ms(lambda: ref.panel_ref(q, db, size), 2,
+                             warmup=1)
+            plain2 = cuda_ms(lambda: ref.topn_select_ref(panel, None, n), 2,
+                             warmup=1)
             lib1 = queued_ms(lambda: torch.topk(
                 torch.matmul(norm(q, dim=-1), norm(db, dim=-1).T), n,
                 dim=-1), 10)
-            lib2 = queued_ms(lambda: torch.topk(pool_s, n, dim=-1), iters)
-            pool = splits * n
-            (b1, by1), (b2, by2) = retrieve_bound(nq, C_EXPECTED, DIM, pool,
-                                                  n)
+            lib2 = queued_ms(lambda: torch.topk(panel, n, dim=-1), iters)
+            (b1, by1), (b2, by2) = retrieve_bound(nq, C_EXPECTED, DIM,
+                                                  C_EXPECTED, n, passes)
             log_time(stats,
-                     f"{where} C={C_EXPECTED} D={DIM} (tile {tile}, {splits}"
-                     f" splits of {rows} rows, pool {pool} a query, {live} "
-                     f"live rows): pool, top-n and S={SHARDS_LARGE_N} equal "
-                     f"to the panel + stable sort; controls (share of rows "
-                     f"changed) {ctl}; retrieve_topn ms {k1_ms} (queued) "
+                     f"{where} C={C_EXPECTED} D={DIM} (the panel route, tile "
+                     f"{tile}, {passes / nq} radix passes a row, {live} live"
+                     f" rows): panel, top-n and S={SHARDS_LARGE_N} equal to "
+                     f"the panel + stable sort; panel max abs err {err} from"
+                     f" the plain one; controls (share of rows changed) "
+                     f"{ctl}; retrieve_topn (the panel) ms {k1_ms} (queued) "
                      f"bound {b1} ({by1}, {b1 / k1_ms} of it) plain {plain1}"
                      f" library (normalize + matmul + topk) {lib1}; "
-                     f"topn_merge (k={n}) ms {k2_ms} bound {b2} ({by2}) plain"
-                     f" {plain2} library (topk over the pool) {lib2}; the "
-                     f"pair {pair_ms}, S={SHARDS_LARGE_N} {s4_ms}, the panel "
-                     f"+ stable sort {panel_ms}")
+                     f"topn_merge (the select, k={n}) ms {k2_ms} bound {b2} "
+                     f"({by2}, {b2 / k2_ms} of it) plain {plain2} library "
+                     f"(topk over the panel) {lib2}; the pair {pair_ms}, "
+                     f"S={SHARDS_LARGE_N} {s4_ms}, the panel + stable sort "
+                     f"{panel_ms}")
             out[f"n{n} q{nq}"] = dict(
-                n=n, q=nq, tile=tile, splits=splits, split_rows=rows,
-                pool=pool, controls=ctl, retrieve_topn_ms=k1_ms,
+                n=n, q=nq, tile=tile, route=route, passes=passes,
+                max_abs_err=err, controls=ctl, retrieve_topn_ms=k1_ms,
                 retrieve_topn_bound_ms=b1, retrieve_topn_plain_ms=plain1,
                 retrieve_topn_library_ms=lib1, topn_merge_ms=k2_ms,
                 topn_merge_bound_ms=b2, topn_merge_plain_ms=plain2,
@@ -1287,14 +1318,14 @@ def check_retrieve_large_n(dev, kernels, stats):
                 kernels["retrieve_topn n512"] = dict(
                     name="retrieve_topn n512", route="cuda", source=src,
                     replaces="src/repro/kernels/similarity_topk.py:42",
-                    max_abs_err=0.0, ms=k1_ms, plain_ms=plain1, bound_ms=b1,
+                    max_abs_err=err, ms=k1_ms, plain_ms=plain1, bound_ms=b1,
                     bound_by=by1, library_ms=lib1)
                 kernels["topn_merge k512"] = dict(
                     name="topn_merge k512", route="cuda", source=src,
                     replaces="src/repro/kernels/similarity_topk.py:91",
                     max_abs_err=0.0, ms=k2_ms, plain_ms=plain2, bound_ms=b2,
                     bound_by=by2, library_ms=lib2)
-            del q, db, emb, pool_s, pool_i, top, panel_top
+            del q, db, emb, panel, top, panel_top
     stats["retrieve_large_n"] = out
 
 
@@ -1323,7 +1354,11 @@ def route_large_n(dev, corpus, fb, stats):
                query_id=fb["query_idx"])
     disp = RouteDispatcher.for_router(router)
     st = router.state
+    torch.cuda.synchronize()
+    pool_gb = [graph_pool_gb()]
     warmed = disp.warmup(st, LARGE_N_BATCHES)
+    torch.cuda.synchronize()
+    pool_gb.append(graph_pool_gb())
     rng = np.random.default_rng(9)
     embs = np.asarray(corpus.embeddings[corpus.test_idx], np.float32)
     batches = []
@@ -1343,7 +1378,7 @@ def route_large_n(dev, corpus, fb, stats):
     differ = sum(int((g != eager_route(disp, st, q, b)).sum())
                  + int((g != panel_eager_route(disp, st, q, b, partial(
                      similarity_cuda, tile=RT.tile_for(
-                         disp.bucket(len(q)), DIM, MAX_N)))).sum())
+                         disp.bucket(len(q)), DIM)))).sum())
                  for g, (q, b) in zip(got, batches))
     refused = []
     for make in (lambda: EagleRouter(
@@ -1355,12 +1390,14 @@ def route_large_n(dev, corpus, fb, stats):
         except ValueError as e:
             refused.append(str(e))
     log(f"EagleRouter(n_neighbors={MAX_N}) at D={DIM}, C="
-        f"{router.db.capacity}: {warmed} route graphs warmed, batches "
+        f"{router.db.capacity}: {warmed} route graphs warmed (graph pools "
+        f"{pool_gb[0]:.3f} -> {pool_gb[1]:.3f} GB), batches "
         f"{LARGE_N_BATCHES} routed through them with {captured} captures "
         f"({traffic} by traffic), launches {launches}; choices differing "
         f"from the eager route and the panel route {differ}; "
         f"n_neighbors={MAX_N + 1} refused: {refused}")
-    stats["route_large_n"] = dict(warmed=warmed, captured=captured,
+    stats["route_large_n"] = dict(warmed=warmed, pool_gb=pool_gb,
+                                  captured=captured,
                                   traffic_captures=traffic,
                                   launches=launches, differ=differ,
                                   refused=refused)
@@ -2604,10 +2641,10 @@ def drive_sharded(dev, corpus, fb, kernels, stats):
     # the control: the merge kernel over the first shard's candidates only
     merge = RT.merge_shards_cuda
 
-    def drop_last(pool_s, pool_i, records, n, shards):
+    def drop_last(pool_s, pool_i, records, n):
         kl = pool_s.shape[1] // 2
         return merge(pool_s[:, :kl], pool_i[:, :kl],
-                     tuple(x[:, :kl] for x in records), n, 1)
+                     tuple(x[:, :kl] for x in records), n)
     st2 = bufs[2].front
     bud = np.resize(grid, 1024).astype(np.float32)
     want_top = base_route_fn(base, base_buf.front)(q, bud)[1]
@@ -6077,21 +6114,34 @@ def check_knn(dev, kernels, stats, corpus, targets):
         norm(q, dim=-1), norm(db, dim=-1).T), n, dim=-1), 25)
     d = q.shape[1]
     from repro_torch.kernels import retrieve_topn as RT
-    pool = RT.plan(nq, c, d, RT._sm_count(dev))[2] * n
-    (b1, by1), (b2, _) = retrieve_bound(nq, c, d, pool)
-    log_time(stats, f"knn retrieve Q={nq} C={c} D={d} top-{n} (pool {pool}"
-             f"): equal to the similarity kernel's panel + stable sort; "
+    pl = RT.plan(nq, c, d, RT._sm_count(dev), n)
+    if pl.route != RT.PANEL:
+        fail(f"knn Q={nq} C={c}: the plan takes the {pl.route} route")
+    panel, _ = RT.retrieve_topn_cuda(q, db, None, n)
+    k1_ms = queued_ms(lambda: RT.retrieve_topn_cuda(q, db, None, n), 50)
+    k2_ms = queued_ms(lambda: RT.topn_merge_cuda(panel, None, n), 50)
+    passes = int(ref.key_select_ref(panel, None, n)[1].sum())
+    (b1, _), (b2, _) = retrieve_bound(nq, c, d, c, n, passes)
+    bound, by = pair_bound(nq, c, d, n)
+    log_time(stats, f"knn retrieve Q={nq} C={c} D={d} top-{n} (the panel "
+             f"route, tile {pl.tile}; kernel 1 {k1_ms} ms (bound {b1}), "
+             f"kernel 2 {k2_ms} ms (bound {b2})): equal to the similarity "
+             f"kernel's panel + stable sort; "
              f"scores max abs err {err}, top-n rows differing at near-ties "
              f"{differ}, prediction err {p_err}; the pair ms {ms} (device, "
              f"queued) against the panel + stable sort {panel_ms}; "
-             f"plain_ms={plain} library_ms={lib} bound_ms={b1 + b2} ({by1})")
+             f"plain_ms={plain} library_ms={lib} bound_ms={bound} ({by}; the "
+             f"pair's inputs and top-n, not the panel between)")
     kernels["retrieve knn"] = dict(
         name="retrieve knn", route="cuda",
         source="src/repro_torch/kernels/csrc/retrieve_topn.cu",
         replaces="src/repro/kernels/similarity_topk.py:42",
         max_abs_err=err, ms=ms, queued_ms=ms, plain_ms=plain,
-        bound_ms=b1 + b2, bound_by=by1, library_ms=lib)
-    stats["knn_retrieve"] = dict(q=nq, c=c, pool=pool,
+        bound_ms=bound, bound_by=by, library_ms=lib)
+    stats["knn_retrieve"] = dict(q=nq, c=c, route=pl.route, passes=passes,
+                                 retrieve_topn_ms=k1_ms, topn_merge_ms=k2_ms,
+                                 retrieve_topn_bound_ms=b1,
+                                 topn_merge_bound_ms=b2,
                                  topk_rows_near_tie=differ,
                                  prediction_err=p_err, panel_sort_ms=panel_ms)
 

@@ -80,9 +80,13 @@ _SIGNATURES = {
         "retrieve_topn_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                                 + [ctypes.c_void_p] + [ctypes.c_int] * 4
                                 + [ctypes.c_void_p] * 3,
-        # pool_s, pool_i, Q, P, ld_in, k, run, top_s, top_i, idx64, ld_out,
-        # hit, a, b, s, v, R, by_row, offset, ld_src, out a, b, s, v,
-        # farthest, ld_dst, stream
+        # q, emb, Q, C, D, offset, size, tile, panel, stream
+        "retrieve_panel_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                                 + [ctypes.c_void_p] + [ctypes.c_int]
+                                 + [ctypes.c_void_p] * 2,
+        # pool_s, pool_i, Q, P, ld_in, row0, k, top_s, top_i, idx64,
+        # ld_out, hit, a, b, s, v, R, by_row, offset, ld_src, out a, b, s,
+        # v, farthest, ld_dst, stream
         "topn_merge_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
                              + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                              + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
@@ -284,11 +288,17 @@ def decode256(name: str) -> bool:
     return "decode_kernel" in name and re.search(r"Li256E", name) is not None
 
 
+#: the fused retrieve's kernels the build guard holds to no spills: the
+#: panel route's (`retrieve_topn.cu`)
+RETRIEVE_GUARDED = ("panel_gemm_kernel", "panel_gemv_kernel",
+                    "topn_select_kernel")
+
+
 def build_guards(logs):
     """The build report's failures, from the `-Xptxas -v` logs by source
     name: a flash instance whose `wgmma`s ptxas serialised, and a dh = 256
-    decode instance that spills. Returns (failures, the registers and
-    spill bytes of every flash and dh = 256 decode instance)."""
+    decode instance or a panel-route retrieve kernel that spills. Returns
+    (failures, the registers and spill bytes of every instance held)."""
     failures, regs = [], {}
     for name, entry in ptxas_entries(logs["flash_attention"]).items():
         regs[name] = (entry["registers"], entry["spill_stores"],
@@ -297,13 +307,18 @@ def build_guards(logs):
     failures += [f"flash: {line.strip()}"
                  for line in logs["flash_attention"].splitlines()
                  if WGMMA_SERIALISED in line]
-    for name, entry in ptxas_entries(logs["decode_attention"]).items():
-        if not decode256(name):
-            continue
+    held = [(name, entry, "decode")
+            for name, entry in ptxas_entries(logs["decode_attention"]).items()
+            if decode256(name)]
+    held += [(name, entry, "retrieve")
+             for name, entry in ptxas_entries(
+                 logs.get("retrieve_topn", "")).items()
+             if any(k in name for k in RETRIEVE_GUARDED)]
+    for name, entry, what in held:
         regs[name] = (entry["registers"], entry["spill_stores"],
                       entry["spill_loads"])
         if entry["spill_stores"] or entry["spill_loads"]:
-            failures.append(f"decode {name}: spills {entry['spill_stores']}"
+            failures.append(f"{what} {name}: spills {entry['spill_stores']}"
                             f" bytes of stores, {entry['spill_loads']} of "
                             "loads")
     return failures, regs

@@ -1,11 +1,18 @@
 // The routing path's retrieve stage for Hopper (sm_90a): the top-n DB rows
-// of each query by cosine similarity among the live rows, with no (Q, C)
-// score panel and no sort. Two kernels:
+// of each query by cosine similarity among the live rows. Two kernels a
+// retrieve, on one of two routes that `retrieve_topn.py:plan` picks from
+// the shape (Q, C, D, n) alone:
 //
-// `retrieve_topn` (kernel 1): similarity + live-row mask + a running
-// top-n per (query row, column split), written as a small candidate pool.
-// `topn_merge` (kernel 2): the top-k of each query's pool, optionally with
-// the winners' records, in the replay's layout.
+// the list route (n <= 128 where its grid fills the card):
+//   `retrieve_topn` (kernel 1): similarity + live-row mask + a running
+//   top-n per (query row, column split), written as a small candidate
+//   pool, no (Q, C) panel;
+//   `topn_merge` (kernel 2): the top-k of each query's pool by rounds.
+// the panel route (n > 128, or a list grid smaller than the card):
+//   kernel 1 writes the masked (Q, C) score panel;
+//   kernel 2 selects each row's top-k exactly (`topn_select_kernel`), as
+//   it does for a pool past k = 128 (the cross-shard merge at n > 128).
+// Kernel 2 also writes the winners' records, in the replay's layout.
 //
 // Replaces, with the replay kernel (elo_scan.cu), the TPU kernel
 // `similarity_pallas` (src/repro/kernels/similarity_topk.py:42) on the
@@ -13,7 +20,8 @@
 // `retrieve_replay_pipeline` (src/repro/kernels/retrieve_replay.py:29,
 // :50), and the per-shard reduce and cross-shard merge of
 // `sharded_retrieve_replay_select_pallas` (retrieve_replay.py:75, through
-// similarity_topk.py:shard_local_topk / shard_merge_topk).
+// similarity_topk.py:shard_local_topk / shard_merge_topk). The panel
+// route is the TPU kernel's own shape: the panel, then `lax.top_k`.
 //
 // The order. Every candidate carries its global DB row, and candidates are
 // ranked by (score descending, global row ascending), scores compared as
@@ -27,70 +35,78 @@
 //
 // Kernel 1 scores each pair with the main loops and the epilogue
 // arithmetic of similarity.cu (similarity_tile.cuh), tile for tile, so
-// its scores are bit-equal to the panel's. Bound: as similarity's, less
-// the panel's store: at Q = 1024, C = 32768, D = 1536 the product's
-// 1.03e11 fp32 operations (1.54 ms at 67 TFLOP/s); at Q = 8 reading the
-// 201 MB DB (0.060 ms at 3.35 TB/s). Its pool is 0.3% of the panel.
+// its scores are bit-equal to the panel's at the same tile. Bound: as
+// similarity's: at Q = 1024, C = 32768, D = 1536 the product's 1.03e11
+// fp32 operations (1.54 ms at 67 TFLOP/s); at Q = 8 reading the 201 MB
+// DB (0.060 ms at 3.35 TB/s). The list route's pool is 0.3% of the
+// panel; the panel route stores the panel (134 MB at bucket 1024, 0.04
+// ms of the 1.54).
 //
-// Q > 8, `topn_gemm_kernel<BM>` (BM = 32, 64, 128 by the bucket, as
-// similarity_launch_tile picks): a block owns BM query rows and one split
-// of `tiles` consecutive 128-column tiles, walked in ascending order; the
-// caller sizes the splits so that about two blocks an SM run (bucket
-// 1024: 8 row blocks x 32 splits of 8 tiles). After each tile's main loop
-// the BM x 128 scores go to shared memory over the freed staging buffers
-// (64 KB at BM = 128); then each warp takes rows and offers their 128
-// scores to the row's list: one ballot against the list's n-th entry
-// filters the whole batch, and each candidate that passes is inserted
-// into the list held in the warp's registers (entry k in lane k % 32):
-// its rank by a ballot, the shift by one shuffle. The lists (BM x n
-// entries of 8 B) live in shared memory between tiles: 85 KB a block at
-// BM = 128, n = 20; two blocks an SM up to n ~ 45, one above. Past n =
-// 128 a row's passing scores are merged into its list 32 at a time
-// (`list_merge_batch`: a warp sort, then each entry's shift in shared
-// memory), and past n = 161 the lists of 128 rows no longer fit beside
-// the tile (BM x n x 8 B: 512 KB at n = 512, of 227 KB), so the caller
-// takes the largest row tile whose lists fit (`retrieve_topn.py:
-// tile_for`): BM = 64 up to n = 256 (162 KB), BM = 32 up to MAX_N = 512
-// (172 KB). The cost: one block an SM, and a smaller tile reads the DB
-// once per 32 or 64 query rows in place of 128. The merge is a call at
-// BM = 128 and inlined below (see `merge`). Pool: splits x n candidates a
-// query (640 at bucket 1024, n = 20).
+// The list route, Q > 8, `topn_gemm_kernel<BM>` (BM = 32, 64, 128 by the
+// bucket, as similarity_launch_tile picks): a block owns BM query rows and
+// one split of `tiles` consecutive 128-column tiles, walked in ascending
+// order; the caller sizes the splits so that about two blocks an SM run
+// (bucket 1024: 8 row blocks x 32 splits of 8 tiles). After each tile's
+// main loop the BM x 128 scores go to shared memory over the freed
+// staging buffers (64 KB at BM = 128); then each warp takes rows and
+// offers their 128 scores to the row's list: one ballot against the
+// list's n-th entry filters the whole batch, and each candidate that
+// passes is inserted into the list held in the warp's registers (entry k
+// in lane k % 32): its rank by a ballot, the shift by one shuffle. The
+// lists (BM x n entries of 8 B) live in shared memory between tiles: 85
+// KB a block at BM = 128, n = 20; two blocks an SM up to n ~ 45, one
+// above. The merge is a call at BM = 128 and inlined below (see
+// `merge`). Pool: splits x n candidates a query (640 at bucket 1024, n =
+// 20).
 //
-// Q <= 8, `topn_gemv_kernel`: the streaming kernel, a block walking
-// `chunks` consecutive 32-row chunks (8 warps x 4 rows); warp w keeps
-// query w's list in its registers (past n = 128 in shared memory, merged
-// 32 at a time) across the chunks and takes the chunk's 32 scores of its
-// query at a barrier. Splits: about two blocks
-// an SM (C = 32768: 256 splits of 4 chunks). Pool: splits x n a query
-// (5,120 at n = 20).
+// The list route, Q <= 8, `topn_gemv_kernel`: the streaming kernel, a
+// block walking `chunks` consecutive 32-row chunks (8 warps x 4 rows);
+// warp w keeps query w's list in its registers across the chunks and
+// takes the chunk's 32 scores of its query at a barrier. Splits: about
+// two blocks an SM (C = 32768: 256 splits of 4 chunks). Pool: splits x n
+// a query (5,120 at n = 20).
 //
-// Kernel 2, `topn_merge_kernel`: one block per query, the pool row staged
-// in shared memory (read in place where it does not fit: P > ~29,000,
-// e.g. Q <= 8 at C = 32768 with n near 128; past n = 128 the caller caps
-// the splits so that splits x n stays staged), then k rounds of a
-// block-wide arg-max over the candidates after the last winner in the
-// order. Chosen over a bitonic sort: the rounds touch P / threads
-// entries each and yield the winners already in rank order, which the
-// payload write needs; a sort would order all P entries (up to ~34,000)
-// to keep k <= 128. Bound: reading
-// the pool (bucket 1024: 5 MB, 1.6 us); a round costs one barrier. The
-// payload (a candidate's R records of model_a, model_b, outcome, valid)
-// is gathered by row from one shard's (C_l, R) panels or carried by pool
-// position, and written in rank order or in the replay's pre-gathered
-// layout (farthest first, valid &= the hit mask).
+// Why a second route. Past n = 128 the lists set the tile: BM x n x 8 B
+// of lists forced a 32-row tile at n = 512 (the DB read once per 32
+// query rows, one block an SM), splits of ~600 rows each keeping 512 of
+// them (so nearly every score went through a list merge), and a merge of
+// the pool's sorted runs by one warp (k dependent rounds): 11.0 ms for
+// the pair at bucket 1024, n = 512, against 2.9 for normalize + matmul +
+// torch.topk. And a grid smaller than the card (KNN's Q = 84, C = 1,470:
+// 12 blocks) filled each list from empty, one insertion a score. The
+// panel route keeps nothing of n in kernel 1 (`panel_gemm_kernel<BM>`,
+// `panel_gemv_kernel`: similarity.cu's kernels with the live-row mask in
+// the epilogue, at similarity's tile) and selects in kernel 2.
 //
-// Kernel 2 past k = 128, `topn_merge_runs_kernel`: k rounds over P entries
-// each cost k x P / threads comparisons and a barrier (3.2 ms at bucket
-// 1024, k = 512, on the H100). But a pool is made of sorted runs: kernel
-// 1's per-split lists (run = n), a shard's reduce in rank order (run =
-// its k). So one warp merges the runs: lane l owns runs l, l + 32, ...
-// and holds the best head among them; a round is one warp arg-max (five
-// shuffle steps) and the winning lane's advance of its run (its cursor in
-// shared memory), then a rescan of its runs' heads. The pool is staged in
-// shared memory by the whole block first, as above. (Taking the runs 32
-// entries at a time into a list of k, as kernel 1 does past n = 128,
-// measured slower at buckets 8 and 64.) At k <= 128 the rounds kernel
-// stays, so n <= 128 does not move.
+// Kernel 2 by rounds, `topn_merge_kernel`: one block per query, the pool
+// row staged in shared memory (read in place where it does not fit), then
+// k <= 128 rounds of a block-wide arg-max over the candidates after the
+// last winner in the order. The rounds touch P / threads entries each and
+// yield the winners already in rank order, which the payload write needs.
+// Bound: reading the pool (bucket 1024: 5 MB, 1.6 us); a round costs one
+// barrier.
+//
+// Kernel 2 by selection, `topn_select_kernel`: one block per query row.
+// Each entry has a 96-bit key that orders like the ranking: the score's
+// bits made order-preserving (-0.0 as 0.0 first), the row complemented
+// (the lower row ranks first), the position complemented (equal (score,
+// row) pairs, a pool's repeated empty slots, go in position order, as a
+// stable sort puts them). A radix select over 11-bit digits, most
+// significant first, finds the prefix of the k-th largest key: a pass
+// counts the digit of the entries that match the digits fixed so far (a
+// shared-memory histogram of 2,048 bins), and a block-wide suffix scan
+// finds the bin that holds the k-th; the select ends once that bin holds
+// exactly the entries still needed (random scores: after two passes;
+// exact ties move on to the row's and then the position's digits). Then
+// the entries at or above the prefix, exactly k, are gathered, sorted by
+// a block-wide bitonic network in shared memory, and written as the
+// rounds kernel writes them. The row is staged in shared memory on the
+// first pass where it fits (C = 32768: 128 KB of scores; rows are the
+// column, `row0` + position, for the panel), eight loads a thread in
+// flight (one at a time left the staging latency-bound: 0.25-0.28 ms at
+// bucket 1024, k = 129-512, against 0.18-0.21), else each pass reads it
+// from L2. Bound: reading the input once (bucket 1024: the 134 MB panel,
+// 0.040 ms at 3.35 TB/s).
 #include <math.h>
 
 #include "similarity_tile.cuh"
@@ -101,7 +117,8 @@ namespace {
 
 constexpr int EMPTY_ROW = 0x7fffffff;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_N = 512;           // sixteen list entries a lane
+constexpr int MAX_N = 512;           // the replay kernel's bound
+constexpr int LIST_N = 128;          // four list entries a lane
 constexpr int ROUNDS_K = 128;        // kernel 2 by rounds up to this k
 constexpr int CHUNK = (THREADS / 32) * R;   // DB rows a streaming step
 
@@ -123,9 +140,8 @@ __device__ __forceinline__ bool before_k1(float as, int ai, float bs,
 }
 
 // ---------------------------------------------------------------------------
-// a warp's sorted list of n <= 32 NE entries (NE = 1, 2 or 4): entry k
-// in lane k % 32, slot k / 32 (NE = 8 and 16 keep theirs in shared
-// memory, below)
+// a warp's sorted list of n <= 128 NE entries (NE = 1, 2 or 4): entry k
+// in lane k % 32, slot k / 32
 // ---------------------------------------------------------------------------
 
 template <int NE>
@@ -215,96 +231,8 @@ __device__ __forceinline__ void list_offer(float (&s)[NE], int (&ix)[NE],
 }
 
 // ---------------------------------------------------------------------------
-// past n = 128: a warp's sorted list of n entries in shared memory (ls, li),
-// a batch of one candidate a lane merged in at once
+// the list route's kernel 1, Q > 8
 // ---------------------------------------------------------------------------
-
-// Offer the batch (one candidate a lane; `pass`: valid and ranking before
-// the list's n-th entry): the list becomes the top n of both. The m
-// passing candidates are sorted by a bitonic network across the warp
-// (the others sort last as (-inf, EMPTY_ROW)); candidate j's rank r_j in
-// the list by a binary search; then the list's entries from r_0 on move
-// up by the number of candidates ranking before them, a chunk of 32 at a
-// time from the top, and candidate j lands at j + r_j. Entries pushed
-// past n drop out. One insertion a candidate, as below n = 128, would
-// shift all sixteen slots of every lane for each of them. `rk` is the
-// warp's 32 ints of scratch. Ends with the warp synchronised.
-__device__ void list_merge_batch(float* ls, int* li, int* rk, int n,
-                                 float cs, int cg, bool pass, int lane) {
-  const unsigned passing = __ballot_sync(FULL, pass);
-  if (!passing) return;
-  const int m = __popc(passing);
-  float s = pass ? cs : -INFINITY;
-  int g = pass ? cg : EMPTY_ROW;
-#pragma unroll
-  for (int k = 2; k <= 32; k <<= 1) {
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      const float os = __shfl_xor_sync(FULL, s, j);
-      const int og = __shfl_xor_sync(FULL, g, j);
-      const bool first = (lane & j) == 0;           // the pair's lower lane
-      const bool best_first = (lane & k) == 0;      // this run's direction
-      // the lower lane of a best-first run keeps the better of the two
-      if (first == best_first ? before_k1(os, og, s, g)
-                              : before_k1(s, g, os, og)) {
-        s = os;
-        g = og;
-      }
-    }
-  }
-  int r = n;
-  if (lane < m) {
-    int lo = 0, hi = n;
-    while (lo < hi) {
-      const int mid = (lo + hi) / 2;
-      if (before_k1(ls[mid], li[mid], s, g))
-        lo = mid + 1;
-      else
-        hi = mid;
-    }
-    r = lo;
-  }
-  rk[lane] = r;
-  const int r0 = __shfl_sync(FULL, r, 0);
-  __syncwarp();
-  for (int base = (n - 1) & ~31; base >= (r0 & ~31); base -= 32) {
-    const int k = base + lane;
-    const bool moves = k < n && k >= r0;
-    float es = 0.f;
-    int ei = 0, to = n;
-    if (moves) {
-      es = ls[k];
-      ei = li[k];
-      int lo = 0, hi = m;       // candidates ranking before entry k
-      while (lo < hi) {
-        const int mid = (lo + hi) / 2;
-        if (rk[mid] <= k)
-          lo = mid + 1;
-        else
-          hi = mid;
-      }
-      to = k + lo;
-    }
-    __syncwarp();
-    if (to < n) {
-      ls[to] = es;
-      li[to] = ei;
-    }
-    __syncwarp();
-  }
-  if (lane < m && lane + r < n) {
-    ls[lane + r] = s;
-    li[lane + r] = g;
-  }
-  __syncwarp();
-}
-
-// ---------------------------------------------------------------------------
-// kernel 1, Q > 8
-// ---------------------------------------------------------------------------
-
-// past n = 128 a warp's 32 ints of scratch for list_merge_batch
-constexpr size_t BATCH_SCRATCH = 32 * sizeof(int);
 
 template <int BM, int BK>
 struct TopnSmem {
@@ -313,8 +241,7 @@ struct TopnSmem {
   static constexpr size_t UNION = TILE > STAGE ? TILE : STAGE;
   static constexpr size_t bytes(int n) {
     return UNION + (BM + BN) * sizeof(float) +
-           (size_t)BM * n * (sizeof(float) + sizeof(int)) +
-           (n > 128 ? (THREADS / 32) * BATCH_SCRATCH : 0);
+           (size_t)BM * n * (sizeof(float) + sizeof(int));
   }
 };
 
@@ -323,7 +250,7 @@ struct TopnSmem {
 // shared memory. The warp loads the list into registers only if one
 // score passes the n-th entry.
 template <int NE>
-__device__ __forceinline__ void merge_row(float* ls, int* li, int* rk, int n,
+__device__ __forceinline__ void merge_row(float* ls, int* li, int n,
                                           const float* trow, int cols,
                                           int g0, int live_end, int lane) {
   float ts = ls[n - 1];
@@ -339,20 +266,6 @@ __device__ __forceinline__ void merge_row(float* ls, int* li, int* rk, int n,
     any |= __any_sync(FULL, c < cols && before_k1(cs[k], cg[k], ts, ti));
   }
   if (!any) return;
-  if constexpr (NE >= 8) {
-    // past n = 128: each batch of 32 merged at once, the threshold (the
-    // list's n-th entry) read again after each
-#pragma unroll
-    for (int k = 0; k < BN / 32; ++k) {
-      list_merge_batch(ls, li, rk, n, cs[k], cg[k],
-                       lane + 32 * k < cols &&
-                           before_k1(cs[k], cg[k], ts, ti),
-                       lane);
-      ts = ls[n - 1];
-      ti = li[n - 1];
-    }
-    return;
-  }
   float s[NE];
   int ix[NE];
 #pragma unroll
@@ -376,25 +289,23 @@ __device__ __forceinline__ void merge_row(float* ls, int* li, int* rk, int n,
 }
 
 // The tile's `rows` rows of scores (BN apart in `tile`) offered to their
-// lists, a warp a row at a time (past n = 128 with 32 ints of scratch a
-// warp at rk).
+// lists, a warp a row at a time.
 template <int NE>
-__device__ __forceinline__ void merge_tile(float* ls, int* li, int* rk,
-                                           int n, const float* tile,
-                                           int rows, int cols, int g0,
-                                           int live_end) {
+__device__ __forceinline__ void merge_tile(float* ls, int* li, int n,
+                                           const float* tile, int rows,
+                                           int cols, int g0, int live_end) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < rows; r += THREADS / 32)
-    merge_row<NE>(ls + r * n, li + r * n, rk + warp * 32, n, tile + r * BN,
-                  cols, g0, live_end, lane);
+    merge_row<NE>(ls + r * n, li + r * n, n, tile + r * BN, cols, g0,
+                  live_end, lane);
 }
 
 template <int NE>
-__device__ __noinline__ void merge_tile_call(float* ls, int* li, int* rk,
-                                             int n, const float* tile,
-                                             int rows, int cols, int g0,
+__device__ __noinline__ void merge_tile_call(float* ls, int* li, int n,
+                                             const float* tile, int rows,
+                                             int cols, int g0,
                                              int live_end) {
-  merge_tile<NE>(ls, li, rk, n, tile, rows, cols, g0, live_end);
+  merge_tile<NE>(ls, li, n, tile, rows, cols, g0, live_end);
 }
 
 // The merge after a tile's main loop: a call at BM = 128 (8 tiles a block
@@ -403,19 +314,17 @@ __device__ __noinline__ void merge_tile_call(float* ls, int* li, int* rk,
 // tile a block; the call costs 7% there). scripts/retrieve_topn_variants.py
 // times both.
 template <int BM, int NE>
-__device__ __forceinline__ void merge(float* ls, int* li, int* rk, int n,
+__device__ __forceinline__ void merge(float* ls, int* li, int n,
                                       const float* tile, int rows, int cols,
                                       int g0, int live_end) {
   if constexpr (BM == 128)
-    merge_tile_call<NE>(ls, li, rk, n, tile, rows, cols, g0, live_end);
+    merge_tile_call<NE>(ls, li, n, tile, rows, cols, g0, live_end);
   else
-    merge_tile<NE>(ls, li, rk, n, tile, rows, cols, g0, live_end);
+    merge_tile<NE>(ls, li, n, tile, rows, cols, g0, live_end);
 }
 
-// two blocks an SM while the lists are short (NE <= 4); past n = 128 the
-// lists' shared memory leaves room for one, which may take 255 registers
 template <int BM, int BK, int NE, bool VEC>
-__global__ void __launch_bounds__(THREADS, NE <= 4 ? 2 : 1)
+__global__ void __launch_bounds__(THREADS, 2)
 topn_gemm_kernel(const float* __restrict__ q, const float* __restrict__ db,
                  int nq, int c, int d, int offset,
                  const int* __restrict__ size, int n, int tiles,
@@ -429,7 +338,6 @@ topn_gemm_kernel(const float* __restrict__ q, const float* __restrict__ db,
   float* inv_b = inv_a + BM;
   float* ls = inv_b + BN;                         // BM x n
   int* li = reinterpret_cast<int*>(ls + BM * n);
-  int* rk = li + BM * n;                          // past n = 128: 8 x 32
 
   const int tid = threadIdx.x;
   const int ty = gemm_ty(tid), tx = gemm_tx(tid);
@@ -470,7 +378,7 @@ topn_gemm_kernel(const float* __restrict__ q, const float* __restrict__ db,
       }
     }
     __syncthreads();
-    merge<BM, NE>(ls, li, rk, n, tile, min(BM, nq - row0), c - col0,
+    merge<BM, NE>(ls, li, n, tile, min(BM, nq - row0), c - col0,
                   offset + col0, live_end);
     __syncthreads();   // the tile buffer is the next staging's
   }
@@ -484,20 +392,6 @@ topn_gemm_kernel(const float* __restrict__ q, const float* __restrict__ db,
       pool_i[o] = li[k];
     }
   }
-}
-
-// the smallest n that takes NE list entries a lane
-template <int NE>
-constexpr int min_n() {
-  return NE == 1 ? 1 : 16 * NE + 1;
-}
-
-// whether BM rows' lists of at least min_n<NE>() entries fit beside the
-// tile: only those (BM, NE) are instantiated
-template <int BM, int NE>
-constexpr bool gemm_fits() {
-  constexpr int BK = BM == 32 ? 32 : 16;
-  return TopnSmem<BM, BK>::bytes(min_n<NE>()) <= MAX_SMEM;
 }
 
 template <int BM, int NE>
@@ -520,16 +414,12 @@ int launch_topn_gemm(const float* q, const float* db, int nq, int c, int d,
 }
 
 // ---------------------------------------------------------------------------
-// kernel 1, Q <= 8
+// the list route's kernel 1, Q <= 8
 // ---------------------------------------------------------------------------
 
-// the queries, their norms and a step's scores; past n = 128 also each
-// warp's list (n entries) and its 32 ints of scratch
-inline size_t topn_gemv_smem(int d, int n) {
-  return gemv_smem(d) + (size_t)QT * CHUNK * sizeof(float) +
-         (n > 128 ? (size_t)QT * (n * (sizeof(float) + sizeof(int)) +
-                                  BATCH_SCRATCH)
-                  : 0);
+// the queries, their norms and a step's scores
+inline size_t topn_gemv_smem(int d) {
+  return gemv_smem(d) + (size_t)QT * CHUNK * sizeof(float);
 }
 
 template <bool VEC, int NE>
@@ -549,44 +439,6 @@ topn_gemv_kernel(const float* __restrict__ q, const float* __restrict__ db,
   const int k0 = split * chunks;
   const int k1 = min((c + CHUNK - 1) / CHUNK, k0 + chunks);
   const int live_end = size ? *size : EMPTY_ROW;
-  if constexpr (NE >= 8) {
-    // past n = 128 warp w's list lives in shared memory, each chunk's 32
-    // scores merged in at once
-    float* ls = sc + QT * CHUNK + warp * n;
-    int* li = reinterpret_cast<int*>(sc + QT * CHUNK + QT * n) + warp * n;
-    int* rk = reinterpret_cast<int*>(sc + QT * CHUNK + QT * n) + QT * n +
-              warp * 32;
-    for (int k = lane; k < n; k += 32) {
-      ls[k] = -INFINITY;
-      li[k] = EMPTY_ROW;
-    }
-    __syncwarp();
-    for (int k = k0; k < k1; ++k) {
-      const int n0 = k * CHUNK + warp * R;
-      float dot, inv_row;
-      gemv_rows<VEC>(qs, db, c, d, n0, dot, inv_row);
-      const int i = lane / R, r = lane % R;
-      sc[i * CHUNK + warp * R + r] = cosine(dot, inv_q[i], inv_row);
-      __syncthreads();
-      if (warp < nq) {
-        const int row = k * CHUNK + lane;
-        const int g = offset + row;
-        const float v = g < live_end ? sc[warp * CHUNK + lane] : -INFINITY;
-        list_merge_batch(ls, li, rk, n, v, g,
-                         row < c && before_k1(v, g, ls[n - 1], li[n - 1]),
-                         lane);
-      }
-      __syncthreads();
-    }
-    if (warp < nq) {
-      const size_t o = (size_t)warp * gridDim.x * n + split * n;
-      for (int k = lane; k < n; k += 32) {
-        pool_s[o + k] = ls[k];
-        pool_i[o + k] = li[k];
-      }
-    }
-    return;
-  }
   float s[NE];
   int ix[NE];
   list_clear<NE>(s, ix);
@@ -626,13 +478,150 @@ int launch_topn_gemv(const float* q, const float* db, int nq, int c, int d,
                      int offset, const int* size, int n, int chunks,
                      int splits, float* pool_s, int* pool_i, bool vec,
                      cudaStream_t stream) {
-  const size_t bytes = topn_gemv_smem(d, n);
+  const size_t bytes = topn_gemv_smem(d);
   auto kernel = vec ? topn_gemv_kernel<true, NE> : topn_gemv_kernel<false, NE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<splits, THREADS, bytes, stream>>>(q, db, nq, c, d, offset, size, n,
                                              chunks, pool_s, pool_i);
+  return (int)cudaGetLastError();
+}
+
+// kernel 1 of the list route with NE list entries a lane, by the tile
+template <int NE>
+int launch_topn(const float* q, const float* emb, int nq, int c, int d,
+                int offset, const int* size, int n, int tile, int split_rows,
+                int splits, float* pool_s, int* pool_i, bool vec,
+                cudaStream_t stream) {
+  switch (tile) {
+    case 8:
+      if (nq > QT || topn_gemv_smem(d) > MAX_SMEM || split_rows % CHUNK)
+        return (int)cudaErrorInvalidValue;
+      return launch_topn_gemv<NE>(q, emb, nq, c, d, offset, size, n,
+                                  split_rows / CHUNK, splits, pool_s, pool_i,
+                                  vec, stream);
+#define TOPN_GEMM(BM)                                                  \
+  case BM:                                                             \
+    if (split_rows % BN) return (int)cudaErrorInvalidValue;            \
+    return launch_topn_gemm<BM, NE>(q, emb, nq, c, d, offset, size, n, \
+                                    split_rows / BN, splits, pool_s,   \
+                                    pool_i, vec, stream);
+    TOPN_GEMM(32)
+    TOPN_GEMM(64)
+    TOPN_GEMM(128)
+#undef TOPN_GEMM
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the panel route's kernel 1: similarity.cu's kernels with the live-row
+// mask in the epilogue
+// ---------------------------------------------------------------------------
+
+// the score of global row g: -inf at or past the live-row count
+__device__ __forceinline__ float live(float s, int g, int live_end) {
+  return g < live_end ? s : -INFINITY;
+}
+
+template <int BM, int BK, bool VEC, bool VEC_OUT>
+__global__ void __launch_bounds__(THREADS, 2)
+panel_gemm_kernel(const float* __restrict__ q, const float* __restrict__ db,
+                  int nq, int c, int d, int offset,
+                  const int* __restrict__ size, float* __restrict__ out) {
+  using G = Gemm<BM, BK>;
+  constexpr int TM = G::TM, TN = 8;
+  __shared__ __align__(16) GemmSmem<BM, BK> sm;
+  __shared__ float inv_a[BM];
+  __shared__ float inv_b[BN];
+
+  const int ty = gemm_ty(threadIdx.x);
+  const int tx = gemm_tx(threadIdx.x);
+  const int row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.x * BN;
+  const int live_end = size ? *size : EMPTY_ROW;
+  float acc[TM][TN];
+  gemm_tile<BM, BK, VEC>(q, db, nq, c, d, row0, col0, sm, inv_a, inv_b, acc);
+
+  float ib[TN];
+#pragma unroll
+  for (int j = 0; j < TN; ++j) ib[j] = inv_b[G::col(tx, j)];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = G::row(ty, i);
+    const int gr = row0 + r;
+    if (gr >= nq) continue;
+    const float ia = inv_a[r];
+    float* o = out + (size_t)gr * c + col0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int cc = G::col(tx, 4 * h);
+      const int g = offset + col0 + cc;
+      const float4 v = make_float4(
+          live(cosine(acc[i][4 * h], ia, ib[4 * h]), g, live_end),
+          live(cosine(acc[i][4 * h + 1], ia, ib[4 * h + 1]), g + 1, live_end),
+          live(cosine(acc[i][4 * h + 2], ia, ib[4 * h + 2]), g + 2, live_end),
+          live(cosine(acc[i][4 * h + 3], ia, ib[4 * h + 3]), g + 3,
+               live_end));
+      if constexpr (VEC_OUT) {
+        if (col0 + cc < c) *reinterpret_cast<float4*>(o + cc) = v;
+      } else {
+        if (col0 + cc < c) o[cc] = v.x;
+        if (col0 + cc + 1 < c) o[cc + 1] = v.y;
+        if (col0 + cc + 2 < c) o[cc + 2] = v.z;
+        if (col0 + cc + 3 < c) o[cc + 3] = v.w;
+      }
+    }
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+panel_gemv_kernel(const float* __restrict__ q, const float* __restrict__ db,
+                  int nq, int c, int d, int offset,
+                  const int* __restrict__ size, float* __restrict__ out) {
+  extern __shared__ __align__(16) float qs[];   // QT x d, then QT norms
+  float* inv_q = qs + QT * d;
+  gemv_queries(q, nq, d, qs, inv_q);
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int n0 = (blockIdx.x * (THREADS / 32) + warp) * R;
+  const int live_end = size ? *size : EMPTY_ROW;
+  float dot, inv_row;
+  gemv_rows<VEC>(qs, db, c, d, n0, dot, inv_row);
+  // lane i * R + r writes (query i, row r)
+  const int i = lane / R, r = lane % R;
+  if (i < nq && n0 + r < c)
+    out[(size_t)i * c + n0 + r] =
+        live(cosine(dot, inv_q[i], inv_row), offset + n0 + r, live_end);
+}
+
+template <int BM>
+int launch_panel_gemm(const float* q, const float* db, int nq, int c, int d,
+                      int offset, const int* size, float* out, bool vec,
+                      bool vec_out, cudaStream_t stream) {
+  constexpr int BK = BM == 32 ? 32 : 16;   // as similarity.cu's tiles
+  const dim3 grid((c + BN - 1) / BN, (nq + BM - 1) / BM);
+  auto kernel = vec ? (vec_out ? panel_gemm_kernel<BM, BK, true, true>
+                               : panel_gemm_kernel<BM, BK, true, false>)
+                    : panel_gemm_kernel<BM, BK, false, false>;
+  kernel<<<grid, THREADS, 0, stream>>>(q, db, nq, c, d, offset, size, out);
+  return (int)cudaGetLastError();
+}
+
+int launch_panel_gemv(const float* q, const float* db, int nq, int c, int d,
+                      int offset, const int* size, float* out, bool vec,
+                      cudaStream_t stream) {
+  const size_t bytes = gemv_smem(d);
+  auto kernel = vec ? panel_gemv_kernel<true> : panel_gemv_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(c + CHUNK - 1) / CHUNK, THREADS, bytes, stream>>>(
+      q, db, nq, c, d, offset, size, out);
   return (int)cudaGetLastError();
 }
 
@@ -754,218 +743,365 @@ __global__ void topn_merge_kernel(const float* __restrict__ pool_s,
   }
 }
 
-// the head of run `run_idx` (its entry at cur; (-inf, EMPTY_ROW) once the
-// run is spent)
-__device__ __forceinline__ void run_head(const float* sp, const int* gp,
-                                         const int* cur, int run, int p,
-                                         int run_idx, float& hs, int& hi,
-                                         int& hp) {
-  const int x = cur[run_idx];
-  const int pos = run_idx * run + x;
-  if (x < run && pos < p) {
-    hs = sp[pos];
-    hi = gp[pos];
-    hp = pos;
-  } else {
-    hs = -INFINITY;
-    hi = EMPTY_ROW;
-    hp = -1;
+// ---------------------------------------------------------------------------
+// kernel 2 by selection
+// ---------------------------------------------------------------------------
+
+// Winner j of query qr (pool position x, global row `row`, score s), by
+// one thread: its score, row and hit, and its records.
+__device__ __forceinline__ void write_winner(int qr, int j, int k, int x,
+                                             float s, int row, float* top_s,
+                                             void* top_i, int idx64,
+                                             int ld_out, unsigned char* hit,
+                                             const Payload& pay) {
+  const bool finite = fabsf(s) < INFINITY;   // false for NaN
+  top_s[(size_t)qr * ld_out + j] = s;
+  if (idx64)
+    reinterpret_cast<long long*>(top_i)[(size_t)qr * ld_out + j] = row;
+  else
+    reinterpret_cast<int*>(top_i)[(size_t)qr * ld_out + j] = row;
+  if (hit) hit[(size_t)qr * k + j] = finite;
+  if (!pay.a) return;
+  const size_t src = pay.by_row ? (size_t)(row - pay.offset) * pay.r
+                                : (size_t)qr * pay.ld_src + (size_t)x * pay.r;
+  const size_t dst = (size_t)qr * pay.ld_dst +
+                     (size_t)(pay.farthest ? k - 1 - j : j) * pay.r;
+  for (int y = 0; y < pay.r; ++y) {
+    pay.oa[dst + y] = pay.a[src + y];
+    pay.ob[dst + y] = pay.b[src + y];
+    pay.os[dst + y] = pay.s[src + y];
+    pay.ov[dst + y] = pay.v[src + y] && (!pay.farthest || finite);
   }
 }
 
-// the best head among lane's runs (lane, lane + 32, ...)
-__device__ __forceinline__ void lane_best(const float* sp, const int* gp,
-                                          const int* cur, int run, int p,
-                                          int runs, int lane, float& bs,
-                                          int& bi, int& bp) {
-  bs = -INFINITY;
-  bi = EMPTY_ROW;
-  bp = -1;
-  for (int r = lane; r < runs; r += 32) {
-    float hs;
-    int hi, hp;
-    run_head(sp, gp, cur, run, p, r, hs, hi, hp);
-    if (hp >= 0 && (bp < 0 || before(hs, hi, bs, bi))) {
-      bs = hs;
-      bi = hi;
-      bp = hp;
-    }
-  }
+constexpr int SEL_BINS = 2048;            // an 11-bit digit
+constexpr int SEL_THREADS = 1024;         // the most a block takes
+constexpr int SEL_BATCH = 8;              // loads a thread issues at once
+
+// a score's order-preserving bits: -0.0 taken as 0.0, then the negative
+// floats reversed, so that the unsigned order is the float order
+__device__ __forceinline__ unsigned score_word(float s) {
+  unsigned b = __float_as_uint(s);
+  if (b == 0x80000000u) b = 0u;
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
-__global__ void topn_merge_runs_kernel(const float* __restrict__ pool_s,
-                                       const int* __restrict__ pool_i, int p,
-                                       int ld_in, int staged, int run, int k,
-                                       float* top_s, void* top_i, int idx64,
-                                       int ld_out, unsigned char* hit,
-                                       Payload pay) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int qr = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid % 32;
-  const int runs = (p + run - 1) / run;
-  int* cur = reinterpret_cast<int*>(smem);         // a cursor a run
-  const float* sp = pool_s + (size_t)qr * ld_in;
-  const int* gp = pool_i + (size_t)qr * ld_in;
-  for (int r = tid; r < runs; r += blockDim.x) cur[r] = 0;
-  if (staged) {
-    float* ss = reinterpret_cast<float*>(smem) + ((runs + 3) & ~3);
-    int* gs = reinterpret_cast<int*>(ss + p);
-    for (int j = tid; j < p; j += blockDim.x) {
-      ss[j] = sp[j];
-      gs[j] = gp[j];
+// a row's word: the lower row ranks first (with TOPN_CONTROL_TIE_HIGH, a
+// control built only by the checks, the higher)
+__device__ __forceinline__ unsigned row_word(int row) {
+#ifdef TOPN_CONTROL_TIE_HIGH
+  return (unsigned)row;
+#else
+  return ~(unsigned)row;
+#endif
+}
+
+// digit d of a word, most significant first: bits 21-31, 10-20, 0-9
+__device__ __forceinline__ int digit_shift(int d) {
+  return d == 0 ? 21 : d == 1 ? 10 : 0;
+}
+__device__ __forceinline__ unsigned digit_mask(int d) {
+  return d == 2 ? 0x3ffu : 0x7ffu;
+}
+
+// A query's row of entries: scores (staged or in place) and global rows
+// (the same, or NULL: row0 + position, the panel's columns). An entry's
+// key is three words: score_word, row_word, then ~position.
+struct Entries {
+  const float* s;
+  const int* i;
+  int row0;
+  __device__ __forceinline__ int row(int x) const {
+    return i ? i[x] : row0 + x;
+  }
+};
+
+// the select's state: the digits fixed so far (prefix under mask, a word
+// each), the entries still needed at that prefix, a pass's decision
+struct Select {
+  unsigned prefix[3], mask[3];
+  int need, digit, above, bucket, done, count;
+  int warp_sum[SEL_THREADS / 32];
+};
+
+// After a pass's histogram of digit d of word w: the bin that holds the
+// need-th largest entry (a suffix scan of the bins, each thread taking
+// SEL_BINS / blockDim.x of them from the top), fixed in the prefix; done
+// once that bin holds exactly the entries still needed. Ends with a
+// barrier.
+__device__ void fix_digit(const int* hist, Select& st, int w, int d) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int per = SEL_BINS / blockDim.x;
+  const int top = SEL_BINS - 1 - tid * per;
+  int local = 0;
+  for (int j = 0; j < per; ++j) local += hist[top - j];
+  int incl = local;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) st.warp_sum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int v = lane < (int)blockDim.x / 32 ? st.warp_sum[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(FULL, v, off);
+      if (lane >= off) v += u;
     }
-    sp = ss;
-    gp = gs;
+    if (lane < (int)blockDim.x / 32) st.warp_sum[lane] = v;
   }
   __syncthreads();
-  if (tid >= 32) return;
-
-  float bs;
-  int bi, bp;
-  lane_best(sp, gp, cur, run, p, runs, lane, bs, bi, bp);
-  for (int j = 0; j < k; ++j) {
-    float ws = bs;
-    int wi = bi, wp = bp;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float os = __shfl_xor_sync(FULL, ws, off);
-      const int oi = __shfl_xor_sync(FULL, wi, off);
-      const int op = __shfl_xor_sync(FULL, wp, off);
-      // equal entries (spent runs' sentinels) go to the lower position,
-      // so every lane ends with the same winner
-      if (op >= 0 && (wp < 0 || before(os, oi, ws, wi) ||
-                      (!before(ws, wi, os, oi) && op < wp))) {
-        ws = os;
-        wi = oi;
-        wp = op;
+  const int need = st.need;
+  int acc = (warp ? st.warp_sum[warp - 1] : 0) + incl - local;
+  if (acc < need && acc + local >= need) {
+    for (int j = 0; j < per; ++j) {
+      const int c = hist[top - j];
+      if (acc + c >= need) {
+        st.digit = top - j;
+        st.above = acc;
+        st.bucket = c;
+        break;
       }
+      acc += c;
     }
-    const bool finite = fabsf(ws) < INFINITY;   // false for NaN
-    if (lane == 0) {
-      top_s[(size_t)qr * ld_out + j] = ws;
-      if (idx64)
-        reinterpret_cast<long long*>(top_i)[(size_t)qr * ld_out + j] = wi;
-      else
-        reinterpret_cast<int*>(top_i)[(size_t)qr * ld_out + j] = wi;
-      if (hit) hit[(size_t)qr * k + j] = finite;
-    }
-    if (pay.a && wp >= 0) {
-      const size_t src = pay.by_row
-                             ? (size_t)(wi - pay.offset) * pay.r
-                             : (size_t)qr * pay.ld_src + (size_t)wp * pay.r;
-      const size_t dst = (size_t)qr * pay.ld_dst +
-                         (size_t)(pay.farthest ? k - 1 - j : j) * pay.r;
-      for (int x = lane; x < pay.r; x += 32) {
-        pay.oa[dst + x] = pay.a[src + x];
-        pay.ob[dst + x] = pay.b[src + x];
-        pay.os[dst + x] = pay.s[src + x];
-        pay.ov[dst + x] = pay.v[src + x] && (!pay.farthest || finite);
-      }
-    }
-    // the winning run's owner advances it and rescans its runs' heads
-    if (wp >= 0 && lane == (wp / run) % 32) {
-      ++cur[wp / run];
-      lane_best(sp, gp, cur, run, p, runs, lane, bs, bi, bp);
-    }
-    __syncwarp();
   }
+  __syncthreads();
+  if (tid == 0) {
+    st.prefix[w] |= (unsigned)st.digit << digit_shift(d);
+    st.mask[w] |= digit_mask(d) << digit_shift(d);
+    st.need -= st.above;
+    st.done = st.bucket == st.need;
+  }
+  __syncthreads();
 }
 
-// kernel 1 with NE list entries a lane, by the tile
-template <int NE>
-int launch_topn(const float* q, const float* emb, int nq, int c, int d,
-                int offset, const int* size, int n, int tile, int split_rows,
-                int splits, float* pool_s, int* pool_i, bool vec,
-                cudaStream_t stream) {
-  switch (tile) {
-    case 8:
-      if (nq > QT || topn_gemv_smem(d, n) > MAX_SMEM || split_rows % CHUNK)
-        return (int)cudaErrorInvalidValue;
-      return launch_topn_gemv<NE>(q, emb, nq, c, d, offset, size, n,
-                                  split_rows / CHUNK, splits, pool_s, pool_i,
-                                  vec, stream);
-#define TOPN_GEMM(BM)                                                    \
-  case BM:                                                               \
-    if constexpr (gemm_fits<BM, NE>()) {                                 \
-      if (split_rows % BN) return (int)cudaErrorInvalidValue;            \
-      return launch_topn_gemm<BM, NE>(q, emb, nq, c, d, offset, size, n, \
-                                      split_rows / BN, splits, pool_s,   \
-                                      pool_i, vec, stream);              \
-    }                                                                    \
-    return (int)cudaErrorInvalidValue;
-    TOPN_GEMM(32)
-    TOPN_GEMM(64)
-    TOPN_GEMM(128)
-#undef TOPN_GEMM
-    default:
-      return (int)cudaErrorInvalidValue;
+// Shared memory: the survivors' keys and positions (kpad each, kpad a
+// power of two >= k), the histogram, then the staged scores and rows.
+__global__ void __launch_bounds__(SEL_THREADS)
+topn_select_kernel(const float* __restrict__ pool_s,
+                   const int* __restrict__ pool_i, int p, int ld_in,
+                   int row0, int staged, int k, int kpad, float* top_s,
+                   void* top_i, int idx64, int ld_out, unsigned char* hit,
+                   Payload pay) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Select st;
+  auto* sk = reinterpret_cast<unsigned long long*>(smem);
+  int* sx = reinterpret_cast<int*>(sk + kpad);
+  int* hist = sx + kpad;
+  float* ss = reinterpret_cast<float*>(hist + SEL_BINS);
+  int* si = reinterpret_cast<int*>(ss + p);
+  const int qr = blockIdx.x, tid = threadIdx.x, threads = blockDim.x;
+
+  Entries e{pool_s + (size_t)qr * ld_in,
+            pool_i ? pool_i + (size_t)qr * ld_in : nullptr, row0};
+  for (int b = tid; b < SEL_BINS; b += threads) hist[b] = 0;
+  if (tid == 0) {
+    for (int w = 0; w < 3; ++w) st.prefix[w] = st.mask[w] = 0u;
+    st.need = k;
+    st.count = 0;
+  }
+  __syncthreads();
+  // the first pass (the score's top digit) stages the row on its way, a
+  // batch of SEL_BATCH loads a thread in flight before their atomics
+  for (int x0 = tid; x0 < p; x0 += SEL_BATCH * threads) {
+    float s[SEL_BATCH];
+#pragma unroll
+    for (int u = 0; u < SEL_BATCH; ++u) {
+      const int x = x0 + u * threads;
+      s[u] = x < p ? e.s[x] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < SEL_BATCH; ++u) {
+      const int x = x0 + u * threads;
+      if (x >= p) break;
+      if (staged) {
+        ss[x] = s[u];
+        if (e.i) si[x] = e.i[x];
+      }
+      atomicAdd(&hist[score_word(s[u]) >> 21], 1);
+    }
+  }
+  if (staged) {
+    e.s = ss;
+    if (e.i) e.i = si;
+  }
+  __syncthreads();
+  fix_digit(hist, st, 0, 0);
+  for (int pass = 1; pass < 9 && !st.done; ++pass) {
+    const int w = pass / 3, d = pass % 3;
+    const unsigned p0 = st.prefix[0], p1 = st.prefix[1], p2 = st.prefix[2];
+    const unsigned m0 = st.mask[0], m1 = st.mask[1], m2 = st.mask[2];
+    const int shift = digit_shift(d);
+    const unsigned dmask = digit_mask(d);
+    for (int b = tid; b < SEL_BINS; b += threads) hist[b] = 0;
+    __syncthreads();
+    for (int x = tid; x < p; x += threads) {
+      const unsigned w0 = score_word(e.s[x]);
+      if ((w0 & m0) != p0) continue;
+      unsigned word = w0;
+      if (w >= 1) {
+        word = row_word(e.row(x));
+        if ((word & m1) != p1) continue;
+        if (w == 2) {
+          word = ~(unsigned)x;
+          if ((word & m2) != p2) continue;
+        }
+      }
+      atomicAdd(&hist[(word >> shift) & dmask], 1);
+    }
+    __syncthreads();
+    fix_digit(hist, st, w, d);
+  }
+
+  // the k entries at or above the prefix, in any order, then the padding
+  {
+    const unsigned p0 = st.prefix[0], p1 = st.prefix[1], p2 = st.prefix[2];
+    const unsigned m0 = st.mask[0], m1 = st.mask[1], m2 = st.mask[2];
+    for (int x = tid; x < p; x += threads) {
+      const unsigned w0 = score_word(e.s[x]);
+      const unsigned a0 = w0 & m0;
+      bool take = a0 > p0;
+      if (!take && a0 == p0) {
+        const unsigned a1 = row_word(e.row(x)) & m1;
+        take = a1 > p1 || (a1 == p1 && (~(unsigned)x & m2) >= p2);
+      }
+      if (take) {
+        const int slot = atomicAdd(&st.count, 1);
+        if (slot < k) {
+          sk[slot] = (unsigned long long)w0 << 32 | row_word(e.row(x));
+          sx[slot] = x;
+        }
+      }
+    }
+    for (int j = k + tid; j < kpad; j += threads) {
+      sk[j] = 0ull;
+      sx[j] = EMPTY_ROW;
+    }
+  }
+  // bitonic sort: key descending, then position ascending
+  for (int size = 2; size <= kpad; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      __syncthreads();
+      for (int i = tid; i < kpad / 2; i += threads) {
+        const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
+        const unsigned long long kl = sk[lo], kh = sk[hi];
+        const int xl = sx[lo], xh = sx[hi];
+        const bool hi_first = kh > kl || (kh == kl && xh < xl);
+        if (((lo & size) == 0) == hi_first) {   // a best-first run
+          sk[lo] = kh;
+          sk[hi] = kl;
+          sx[lo] = xh;
+          sx[hi] = xl;
+        }
+      }
+    }
+  __syncthreads();
+  for (int j = tid; j < k; j += threads) {
+    const int x = sx[j];
+    write_winner(qr, j, k, x, e.s[x], e.row(x), top_s, top_i, idx64, ld_out,
+                 hit, pay);
   }
 }
 
 }  // namespace
 
-// Kernel 1. q (nq, d), emb (c, d) fp32; its rows are global rows offset..;
-// size: device pointer to the live-row count (global; NULL: every row
-// live). tile: 8 (streaming) or 32, 64, 128 (GEMM; BM x n list entries
-// must fit in shared memory beside the tile); a split takes split_rows
-// consecutive rows (a multiple of 32, or of 128 for the GEMM). Writes
-// pool_s / pool_i (nq, splits n).
+// Kernel 1 of the list route. q (nq, d), emb (c, d) fp32; its rows are
+// global rows offset..; size: device pointer to the live-row count
+// (global; NULL: every row live). tile: 8 (streaming) or 32, 64, 128
+// (GEMM); a split takes split_rows consecutive rows (a multiple of 32, or
+// of 128 for the GEMM). Writes pool_s / pool_i (nq, splits n), n <= 128.
 extern "C" int retrieve_topn_launch(const float* q, const float* emb, int nq,
                                     int c, int d, int offset, const int* size,
                                     int n, int tile, int split_rows,
                                     int splits, float* pool_s, int* pool_i,
                                     cudaStream_t stream) {
-  if (n < 1 || n > MAX_N) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > LIST_N) return (int)cudaErrorInvalidValue;
   const bool vec = d % 4 == 0 && aligned16(q) && aligned16(emb);
-  auto launch = n <= 32    ? launch_topn<1>
-                : n <= 64  ? launch_topn<2>
-                : n <= 128 ? launch_topn<4>
-                : n <= 256 ? launch_topn<8>
-                           : launch_topn<16>;
+  auto launch = n <= 32 ? launch_topn<1>
+                : n <= 64 ? launch_topn<2>
+                          : launch_topn<4>;
   return launch(q, emb, nq, c, d, offset, size, n, tile, split_rows, splits,
                 pool_s, pool_i, vec, stream);
 }
 
+// Kernel 1 of the panel route: the (nq, c) score panel `out`, rows past
+// the live-row count at -inf (arguments as above), scored at `tile` (8
+// streaming, 32, 64, 128 GEMM), as similarity_launch_tile scores it.
+extern "C" int retrieve_panel_launch(const float* q, const float* emb, int nq,
+                                     int c, int d, int offset,
+                                     const int* size, int tile, float* out,
+                                     cudaStream_t stream) {
+  const bool vec = d % 4 == 0 && aligned16(q) && aligned16(emb);
+  const bool vec_out = c % 4 == 0 && aligned16(out);
+  switch (tile) {
+    case 8:
+      if (nq > QT || gemv_smem(d) > MAX_SMEM)
+        return (int)cudaErrorInvalidValue;
+      return launch_panel_gemv(q, emb, nq, c, d, offset, size, out, vec,
+                               stream);
+    case 32:
+      return launch_panel_gemm<32>(q, emb, nq, c, d, offset, size, out, vec,
+                                   vec_out, stream);
+    case 64:
+      return launch_panel_gemm<64>(q, emb, nq, c, d, offset, size, out, vec,
+                                   vec_out, stream);
+    case 128:
+      return launch_panel_gemm<128>(q, emb, nq, c, d, offset, size, out, vec,
+                                    vec_out, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 // Kernel 2. The top k of each row of the (nq, p) pool (rows ld_in apart)
-// into top_s and top_i (int64 if idx64, else int32; rows ld_out apart);
-// past k = 128 the pool must be sorted runs of `run` entries each (p a
-// multiple of run), which one warp merges
-// and, if hit is not NULL, hit (nq, k). Records: if ra is not NULL, each
-// winner's r records of (ra, rb, rs, rv) -- by_row: the (C_l, r) panels
-// at row - offset; else (nq, p, r) by pool position, rows ld_src apart --
-// into (oa, ob, os, ov): rank order, or with `farthest` the replay's
-// layout (farthest first, valid &= hit); rows ld_dst apart.
+// into top_s and top_i (int64 if idx64, else int32; rows ld_out apart)
+// and, if hit is not NULL, hit (nq, k). pool_i NULL: the pool is a panel,
+// entry x of global row row0 + x. By rounds at k <= 128 over explicit
+// rows, else by selection. Records: if ra is not NULL, each winner's r
+// records of (ra, rb, rs, rv) -- by_row: the (C_l, r) panels at row -
+// offset; else (nq, p, r) by pool position, rows ld_src apart -- into
+// (oa, ob, os, ov): rank order, or with `farthest` the replay's layout
+// (farthest first, valid &= hit); rows ld_dst apart.
 extern "C" int topn_merge_launch(
-    const float* pool_s, const int* pool_i, int nq, int p, int ld_in, int k,
-    int run, float* top_s, void* top_i, int idx64, int ld_out,
+    const float* pool_s, const int* pool_i, int nq, int p, int ld_in,
+    int row0, int k, float* top_s, void* top_i, int idx64, int ld_out,
     unsigned char* hit, const int* ra, const int* rb, const float* rs,
     const unsigned char* rv, int r, int by_row, int offset, int ld_src,
     int* oa, int* ob, float* os, unsigned char* ov, int farthest, int ld_dst,
     cudaStream_t stream) {
   if (k < 1 || k > p || k > MAX_N) return (int)cudaErrorInvalidValue;
-  const size_t pool = (size_t)p * (sizeof(float) + sizeof(int));
   Payload pay{ra, rb, rs, rv, r, by_row, offset, ld_src,
               oa, ob, os, ov, farthest, ld_dst};
-  if (k > ROUNDS_K) {
-    if (run < 1 || p % run) return (int)cudaErrorInvalidValue;
-    const size_t cursors = (size_t)((p / run + 3) & ~3) * sizeof(int);
-    const int staged = cursors + pool <= MAX_SMEM;
-    const size_t bytes = cursors + (staged ? pool : 0);
-    if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        topn_merge_runs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+  cudaError_t err;
+  if (!pool_i || k > ROUNDS_K) {
+    int kpad = 32;
+    while (kpad < k) kpad <<= 1;
+    const size_t fixed = (size_t)kpad * (sizeof(long long) + sizeof(int)) +
+                         SEL_BINS * sizeof(int);
+    const size_t row = (size_t)p * (pool_i ? 2 : 1) * sizeof(float);
+    const int staged = fixed + row + sizeof(Select) <= MAX_SMEM;
+    const size_t bytes = fixed + (staged ? row : 0);
+    err = cudaFuncSetAttribute(topn_select_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    topn_merge_runs_kernel<<<nq, 256, bytes, stream>>>(
-        pool_s, pool_i, p, ld_in, staged, run, k, top_s, top_i, idx64,
+    // 1,024 threads where the row is staged whole (one block an SM); 512
+    // down to 2,048 entries (two blocks an SM: S = 4, n = 512 took 3.62
+    // ms against 3.79 with 1,024 at a shard's 8,192)
+    const int threads = p >= 16384 ? 1024 : p >= 2048 ? 512 : 256;
+    topn_select_kernel<<<nq, threads, bytes, stream>>>(
+        pool_s, pool_i, p, ld_in, row0, staged, k, kpad, top_s, top_i, idx64,
         ld_out, hit, pay);
     return (int)cudaGetLastError();
   }
+  const size_t pool = (size_t)p * (sizeof(float) + sizeof(int));
   const int staged = pool <= MAX_SMEM;
   const size_t bytes = staged ? pool : 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      topn_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+  err = cudaFuncSetAttribute(topn_merge_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int threads = p <= 1024 ? 128 : p <= 4096 ? 256 : 512;
   topn_merge_kernel<<<nq, threads, bytes, stream>>>(

@@ -1,5 +1,6 @@
 // The cosine-similarity main loops shared by `similarity.cu` (the score
-// panel) and `retrieve_topn.cu` (the fused top-n, which writes no panel).
+// panel) and `retrieve_topn.cu` (the fused top-n: the list route writes no
+// panel, the panel route writes it masked).
 // Both score a (query, DB row) pair with these loops and `cosine`, so
 // their scores are equal bit for bit; only what they do with a tile of
 // scores differs. The design notes are in similarity.cu's header.

@@ -158,29 +158,43 @@ def panel_pool_ref(scores, n, split_rows, *, offset=0):
 
 
 def split_topn_ref(q, emb, size, n, split_rows, *, offset=0):
-    """Plain version of kernel 1 (`retrieve_topn`): the masked panel's
-    pool of per-split top-n lists (`panel_pool_ref`)."""
-    return panel_pool_ref(mask_dead(similarity_ref(q, emb), offset, size),
-                          n, split_rows, offset=offset)
+    """Plain version of the list route's kernel 1 (`retrieve_topn`): the
+    masked panel's pool of per-split top-n lists (`panel_pool_ref`)."""
+    return panel_pool_ref(panel_ref(q, emb, size, offset=offset), n,
+                          split_rows, offset=offset)
 
 
-def topn_merge_ref(pool_s, pool_i, k, *, panels=None, offset=0,
+def topn_merge_ref(pool_s, pool_i, k, *, row0=0, panels=None, offset=0,
                    carried=None, farthest_first=False):
-    """Plain version of kernel 2 (`topn_merge`): the top k of each pool row
-    in the order (score descending, global row ascending): a stable sort
-    by row, then a stable sort by score. Returns (top_s (Q, k), top_i
-    (Q, k) int64, hit (Q, k), records): records None, or the winners'
-    (model_a, model_b, outcome, valid) records gathered by row - offset
-    from the (C_l, R) `panels` or by pool position from the (Q, P, R)
-    `carried`, in rank order (Q, k, R) or, with farthest_first, the
-    replay's pre-gathered layout (Q, k * R), farthest first, valid &=
+    """Plain version of kernel 2 (`topn_merge`) by stable sorts: the top k
+    of each pool row in the order (score descending, global row
+    ascending): a stable sort by row, then a stable sort by score (pool_i
+    None: a panel, column x global row row0 + x, so one stable sort by
+    score). Equal to the select (`topn_select_ref`) exactly. Returns
+    (top_s (Q, k), top_i (Q, k) int64, hit (Q, k), records): records None,
+    or the winners' (model_a, model_b, outcome, valid) records gathered by
+    row - offset from the (C_l, R) `panels` or by pool position from the
+    (Q, P, R) `carried`, in rank order (Q, k, R) or, with farthest_first,
+    the replay's pre-gathered layout (Q, k * R), farthest first, valid &=
     hit."""
-    by_row = torch.argsort(pool_i.long(), dim=-1, stable=True)
-    s, o = torch.sort(torch.gather(pool_s, 1, by_row), dim=-1,
-                      descending=True, stable=True)
-    pos = torch.gather(by_row, 1, o[:, :k])
-    top_s = s[:, :k]
-    top_i = torch.gather(pool_i, 1, pos).long()
+    if pool_i is None:
+        pos = stable_topk(pool_s, k)[1]
+    else:
+        by_row = torch.argsort(pool_i.long(), dim=-1, stable=True)
+        _, o = torch.sort(torch.gather(pool_s, 1, by_row), dim=-1,
+                          descending=True, stable=True)
+        pos = torch.gather(by_row, 1, o[:, :k])
+    return _winners(pool_s, pool_i, pos, row0, panels, offset, carried,
+                    farthest_first)
+
+
+def _winners(pool_s, pool_i, pos, row0, panels, offset, carried,
+             farthest_first):
+    """Kernel 2's outputs for the winners at pool positions `pos` (Q, k),
+    in rank order (pool_i None: position x is global row row0 + x)."""
+    top_s = torch.gather(pool_s, 1, pos)
+    top_i = pos + row0 if pool_i is None \
+        else torch.gather(pool_i, 1, pos).long()
     hit = torch.isfinite(top_s)
     if panels is not None:
         recs = tuple(x[top_i - offset] for x in panels)
@@ -197,8 +211,105 @@ def topn_merge_ref(pool_s, pool_i, k, *, panels=None, offset=0,
     return top_s, top_i, hit, recs
 
 
+#: kernel 2's select: 11-bit digits of each 32-bit word, most significant
+#: first (shift, bins)
+SELECT_DIGITS = ((21, 2048), (10, 2048), (0, 1024))
+_WORD = 0xFFFFFFFF
+
+
+def select_words(pool_s, pool_i, row0=0):
+    """The three 32-bit words (as int64) of each entry's key, which orders
+    like the ranking: the score's bits made order-preserving (-0.0 as
+    0.0), the global row complemented (the lower row ranks first; pool_i
+    None: row0 + position), the position complemented (equal (score, row)
+    pairs in position order)."""
+    bits = pool_s.contiguous().view(torch.int32).long() & _WORD
+    bits = torch.where(bits == 0x80000000, torch.zeros_like(bits), bits)
+    w0 = torch.where(bits >= 0x80000000, ~bits & _WORD, bits | 0x80000000)
+    pos = torch.arange(pool_s.shape[1], device=pool_s.device).expand_as(w0)
+    rows = pos + row0 if pool_i is None else pool_i.long()
+    return w0, ~rows & _WORD, ~pos & _WORD
+
+
+def key_select_ref(pool_s, pool_i, k, *, row0=0):
+    """Kernel 2's select (`topn_select_kernel`), plain: per query row a
+    radix select over the key's words (`select_words`) by SELECT_DIGITS,
+    each pass histogramming the digit of the entries that match the
+    digits fixed so far and fixing the digit of the bin that holds the
+    k-th largest, until that bin holds exactly the entries still needed;
+    then the entries at or above that prefix (exactly k), sorted by key
+    descending. Returns (positions (Q, k) in rank order, passes (Q,) the
+    radix passes each row took)."""
+    words = select_words(pool_s, pool_i, row0)
+    nq, dev = pool_s.shape[0], pool_s.device
+    prefix = torch.zeros((nq, 3), dtype=torch.long, device=dev)
+    mask = torch.zeros((nq, 3), dtype=torch.long, device=dev)
+    need = torch.full((nq,), k, dtype=torch.long, device=dev)
+    done = torch.zeros(nq, dtype=torch.bool, device=dev)
+    passes = torch.zeros(nq, dtype=torch.long, device=dev)
+    for w in range(3):
+        for shift, bins in SELECT_DIGITS:
+            match = torch.ones_like(words[0], dtype=torch.bool)
+            for v in range(w + 1):
+                match &= (words[v] & mask[:, v:v + 1]) == prefix[:, v:v + 1]
+            digit = (words[w] >> shift) & (bins - 1)
+            hist = torch.zeros((nq, bins), dtype=torch.long, device=dev)
+            hist.scatter_add_(1, digit, match.long())
+            suffix = hist.flip(1).cumsum(1).flip(1)
+            at = ((suffix >= need[:, None]).sum(1) - 1).clamp(min=0)
+            above = torch.where(at + 1 < bins, suffix.gather(
+                1, (at + 1).clamp(max=bins - 1)[:, None])[:, 0], 0)
+            bucket = hist.gather(1, at[:, None])[:, 0]
+            live = ~done
+            prefix[:, w] += torch.where(live, at << shift, 0)
+            mask[:, w] |= torch.where(live, torch.full_like(at, (
+                bins - 1) << shift), 0)
+            need -= torch.where(live, above, 0)
+            passes += live.long()
+            done |= bucket == need
+    a = [words[v] & mask[:, v:v + 1] for v in range(3)]
+    p = [prefix[:, v:v + 1] for v in range(3)]
+    take = (a[0] > p[0]) | ((a[0] == p[0]) & (
+        (a[1] > p[1]) | ((a[1] == p[1]) & (a[2] >= p[2]))))
+    if not bool((take.sum(1) == k).all()):
+        raise AssertionError("key_select_ref: the prefix does not hold k "
+                             "entries")
+    pos = take.nonzero()[:, 1].reshape(nq, k)
+    for word in (words[1], words[0]):       # stable: key descending
+        order = torch.sort(torch.gather(word, 1, pos), dim=1,
+                           descending=True, stable=True)[1]
+        pos = torch.gather(pos, 1, order)
+    return pos, passes
+
+
+def topn_select_ref(pool_s, pool_i, k, *, row0=0, panels=None, offset=0,
+                    carried=None, farthest_first=False):
+    """Plain version of kernel 2 by selection (`topn_select_kernel`): the
+    top k of each pool row (pool_i None: a panel, column x global row row0
+    + x) by `key_select_ref`, and kernel 2's outputs, as `topn_merge_ref`
+    returns them."""
+    pos = key_select_ref(pool_s, pool_i, k, row0=row0)[0]
+    return _winners(pool_s, pool_i, pos, row0, panels, offset, carried,
+                    farthest_first)
+
+
+def panel_ref(q, emb, size, *, offset=0):
+    """Plain version of the panel route's kernel 1: the (Q, C) score panel
+    of global rows offset.., rows at or past `size` at -inf."""
+    return mask_dead(similarity_ref(q, emb), offset, size)
+
+
+def panel_select_topn_ref(q, emb, size, n, *, offset=0):
+    """The panel route in plain PyTorch: panel_ref, then topn_select_ref
+    over it. Returns (top_s (Q, k), top_i (Q, k) int64 global rows, hit),
+    k = min(n, C): panel_topn_ref's result, exactly."""
+    k = min(n, emb.shape[0])
+    panel = panel_ref(q, emb, size, offset=offset)
+    return topn_select_ref(panel, None, k, row0=offset)[:3]
+
+
 def two_stage_topn_ref(q, emb, size, n, split_rows, *, offset=0):
-    """The kernels' algorithm in plain PyTorch: split_topn_ref, then
+    """The list route in plain PyTorch: split_topn_ref, then
     topn_merge_ref over its pool. Equal to panel_topn_ref exactly: the
     order is a strict total order (every candidate its own row), so the
     top-n of the union is the top-n of the splits' top-n."""

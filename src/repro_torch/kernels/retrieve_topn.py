@@ -4,13 +4,14 @@ kernel `similarity_pallas` and the top-k after it on the routing path,
 and of the sharded composite's reduce and merge), their wrappers, and the
 compositions the routes call.
 
-  retrieve_topn_cuda  kernel 1: similarity + live-row mask + a top-n per
-                      (query, column split): a (Q, splits * n) candidate
-                      pool, never a (Q, C) panel
+  retrieve_topn_cuda  kernel 1: similarity + live-row mask and, on the
+                      list route, a top-n per (query, column split): a
+                      (Q, splits * n) candidate pool; on the panel route
+                      the masked (Q, C) panel itself
   topn_merge_cuda     kernel 2: the top-k of each query's pool (the
                       unsharded reduce; with records carried by pool
-                      position, the cross-shard merge); past k = 128 a
-                      merge of the pool's sorted runs by one warp
+                      position, the cross-shard merge): by rounds at k <=
+                      128 over a pool of lists, else by a radix select
   shard_reduce_cuda   kernel 2: a shard's top min(n, C_l) with the
                       candidates' records gathered from its panels
   topn_cuda           the unsharded retrieve: kernel 1, kernel 2
@@ -18,44 +19,48 @@ compositions the routes call.
                       and shard_reduce_cuda into the leader's pool, then
                       merge_shards_cuda (kernel 2) on the leader
 
-Candidates are ranked by (score descending, global row ascending), scores
-compared as floats. Every candidate has its own row, so the order is a
-strict total order and the top-n of a union is the top-n of the parts'
-top-n: the result equals one stable sort of the whole masked panel
-(`ref.panel_topn_ref`), ties and dead rows included, at any split.
+`plan` picks the route from (Q, C, D, n) alone: the lists where n <= 128
+and their grid fills the card, else the panel (n > 128, or a small grid
+such as KNN's). Candidates are ranked by (score descending, global row
+ascending), scores compared as floats. Every candidate has its own row,
+so the order is a strict total order and the top-n of a union is the
+top-n of the parts' top-n: either route equals one stable sort of the
+whole masked panel (`ref.panel_topn_ref`), ties and dead rows included.
 
 CUDA tensors launch the kernels, and n is at most MAX_N (512, the replay
 kernel's `elo_scan.MAX_NEIGHBOURS`) there; CPU tensors take the plain
-versions (`ref.split_topn_ref`,
-`ref.topn_merge_ref`) through the same glue. Nothing here reads `size` on the host or branches
-on data, so the routes capture into CUDA graphs: a commit changes the
-live-row count in place, and the next replay reads it on the device.
+versions through the same glue: kernel 1's (`ref.split_topn_ref` on the
+list route, `ref.panel_ref` on the panel route), then kernel 2's stable
+sorts (`ref.topn_merge_ref`; `ref.topn_select_ref`, the select's mirror,
+returns the same, and the tests hold the two equal). Nothing here reads
+`size` on the host or branches on data, so the routes capture into CUDA
+graphs: a commit changes the live-row count in place, and the next
+replay reads it on the device. The panel comes from the caching
+allocator, so a graph keeps it in its pool.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
-#: the largest n the kernels take (sixteen list entries a warp lane): the
-#: replay kernel's bound (the paper's ablation, Fig. 4, routes with up to
-#: 80 neighbours; the JAX package has no bound)
+#: the largest n the kernels take: the replay kernel's bound (the paper's
+#: ablation, Fig. 4, routes with up to 80 neighbours; the JAX package has
+#: no bound)
 MAX_N = 512
-#: past this n the split plan changes (a smaller GEMM tile where the lists
-#: do not fit, and at most STAGED // n splits), and kernel 2 merges the
-#: pool's sorted runs in place of its rounds over the whole pool
-PLAN_N = ROUNDS_K = 128
+#: the longest list kernel 1 keeps (four entries a warp lane), and the
+#: largest k kernel 2 takes by rounds over a pool of lists
+LIST_N = ROUNDS_K = 128
 #: the streaming kernel's query rows and DB rows a step; a GEMM tile's
 #: DB rows; a block's shared memory
 QT, CHUNK, BN = 8, 32, 128
 MAX_SMEM = 227 * 1024
-#: the pool entries (8 B each) that the merge kernel stages in shared
-#: memory; a larger pool is read in place each of its k rounds
-STAGED = MAX_SMEM // 8
-#: the H100 SXM's SMs: the split plan of the plain version on the CPU
+#: the H100 SXM's SMs: the plan of the plain version on the CPU
 H100_SMS = 132
+#: the routes
+LISTS, PANEL = "lists", "panel"
 #: the records' element types (core/state.py's DB panels)
 RECORD_DTYPES = (torch.int32, torch.int32, torch.float32, torch.bool)
 
@@ -72,62 +77,58 @@ def _sm_count(device: torch.device) -> int:
     return _SMS[idx]
 
 
-def _batch_scratch(n: int) -> int:
-    """Past n = PLAN_N each warp merges a batch of 32 into its list with 32
-    ints of scratch (`list_merge_batch`)."""
-    return QT * 32 * 4 if n > PLAN_N else 0
-
-
 def gemm_smem(bm: int, n: int) -> int:
-    """Shared memory of a GEMM block of `bm` query rows keeping n-entry
-    lists (`TopnSmem::bytes`): the tile's scores over the staging
-    buffers, the inverse norms, bm x n (score, row) entries and the
-    warps' scratch."""
+    """Shared memory of a list kernel's GEMM block of `bm` query rows
+    keeping n-entry lists (`TopnSmem::bytes`): the tile's scores over the
+    staging buffers, the inverse norms and bm x n (score, row) entries."""
     bk = 32 if bm == 32 else 16
     stage = (2 * bk * (bm + 4) + 2 * bk * (BN + 4)) * 4
-    return (max(bm * BN * 4, stage) + (bm + BN) * 4 + bm * n * 8
-            + _batch_scratch(n))
+    return max(bm * BN * 4, stage) + (bm + BN) * 4 + bm * n * 8
 
 
-def gemv_smem(d: int, n: int) -> int:
-    """Shared memory of the streaming kernel (`topn_gemv_smem`): QT query
-    rows, their norms, a step's scores and, past n = PLAN_N, each warp's
-    list in shared memory."""
-    lists = QT * n * 8 + _batch_scratch(n) if n > PLAN_N else 0
-    return (QT * d + QT + QT * CHUNK) * 4 + lists
+def gemv_smem(d: int) -> int:
+    """Shared memory of the streaming kernel (`gemv_smem`): QT query rows,
+    their norms and, in the list kernel, a step's scores."""
+    return (QT * d + QT + QT * CHUNK) * 4
 
 
-def tile_for(nq: int, d: int, n: int = 1) -> int:
+def tile_for(nq: int, d: int) -> int:
     """Kernel 1's tile, as the similarity kernel picks it: the streaming
     kernel (8) for Q <= 8 while its queries (and a step's scores) fit in
-    shared memory, else the GEMM with 32, 64 or 128 query rows; for large
-    n the largest of those whose lists fit in shared memory (n = 256: 64
-    rows, n = 512: 32)."""
-    if nq <= QT and gemv_smem(d, n) <= MAX_SMEM:
+    shared memory, else the GEMM with 32, 64 or 128 query rows."""
+    if nq <= QT and gemv_smem(d) <= MAX_SMEM:
         return QT
-    tile = 32 if nq <= 32 else 64 if nq <= 64 else 128
-    while tile > 32 and gemm_smem(tile, n) > MAX_SMEM:
-        tile //= 2
-    return tile
+    return 32 if nq <= 32 else 64 if nq <= 64 else 128
+
+
+class Plan(NamedTuple):
+    """Kernel 1's tile and route; on the list route its splits (split_rows
+    consecutive DB rows each), on the panel route one split of all C."""
+    tile: int
+    split_rows: int
+    splits: int
+    route: str
 
 
 def plan(nq: int, c: int, d: int, sms: int = H100_SMS,
-         n: int = 1) -> Tuple[int, int, int]:
-    """(tile, DB rows a split, splits) of kernel 1 over C >= 1 rows: splits
-    of whole tiles (128 rows; 32 for the streaming kernel), as many as
-    make about two blocks an SM with the tile's row blocks (bucket 1024,
-    C = 32768: 8 row blocks x 32 splits of 1024 rows). Past n = PLAN_N
-    the splits are also at most STAGED // n, so that the merge stages
-    the pool (n = 512: 56 splits)."""
-    tile = tile_for(nq, d, n)
+         n: int = 1) -> Plan:
+    """Kernel 1 over C >= 1 rows. The list route: splits of whole tiles
+    (128 rows; 32 for the streaming kernel), as many as make about two
+    blocks an SM with the tile's row blocks (bucket 1024, C = 32768: 8 row
+    blocks x 32 splits of 1024 rows). The panel route where n > LIST_N, or
+    where those row blocks x splits are fewer than the SMs (KNN's Q = 84,
+    C = 1,470: 12): the lists would set the tile past n = 128, and leave
+    the card empty on a small grid."""
+    tile = tile_for(nq, d)
     unit = CHUNK if tile == QT else BN
     units = -(-c // unit)
     row_blocks = 1 if tile == QT else -(-nq // tile)
     want = max(1, 2 * sms // row_blocks)
-    if n > PLAN_N:
-        want = max(1, min(want, STAGED // n))
     per = -(-units // min(units, want))
-    return tile, per * unit, -(-units // per)
+    splits = -(-units // per)
+    if n > LIST_N or row_blocks * splits < sms:
+        return Plan(tile, c, 1, PANEL)
+    return Plan(tile, per * unit, splits, LISTS)
 
 
 def check_neighbours(n: int, device) -> None:
@@ -164,16 +165,23 @@ def retrieve_topn_cuda(q: torch.Tensor, emb: torch.Tensor, size, n: int, *,
     """Kernel 1. q: (Q, D); emb: (C, D), global rows offset..offset+C-1;
     size: the live-row count (global rows at or past it score -inf; a
     device int32 scalar the kernel reads, or None: every row live); n:
-    the list length a split keeps.
+    the neighbours a query keeps.
 
-    Returns the pool (pool_s (Q, splits * n) fp32, pool_i (Q, splits * n)
-    int32 global rows; an unfilled slot (-inf, ref.EMPTY_ROW)). CUDA
-    tensors launch the kernel; CPU tensors take `ref.split_topn_ref` with
-    the plan's split width."""
+    Returns a pool (pool_s, pool_i): on the list route pool_s (Q, splits
+    * n) fp32 and pool_i (Q, splits * n) int32 global rows, an unfilled
+    slot (-inf, ref.EMPTY_ROW); on the panel route the masked (Q, C)
+    panel and None (column x is global row offset + x). CUDA tensors
+    launch the kernel; CPU tensors take `ref.split_topn_ref` with the
+    plan's split width, or `ref.panel_ref`."""
     nq, c = q.shape[0], emb.shape[0]
     if q.device.type == "cpu" and emb.device.type == "cpu":
-        rows = plan(nq, c, q.shape[1], n=n)[1] if c else 1
-        return ref.split_topn_ref(q, emb, size, n, rows, offset=offset)
+        if not c:
+            return ref.split_topn_ref(q, emb, size, n, 1, offset=offset)
+        pl = plan(nq, c, q.shape[1], n=n)
+        if pl.route == PANEL:
+            return ref.panel_ref(q, emb, size, offset=offset), None
+        return ref.split_topn_ref(q, emb, size, n, pl.split_rows,
+                                  offset=offset)
     name = "retrieve_topn_cuda"
     _check_on(name, q.device, q, emb)
     if q.ndim != 2 or emb.ndim != 2 or q.shape[1] != emb.shape[1]:
@@ -186,39 +194,49 @@ def retrieve_topn_cuda(q: torch.Tensor, emb: torch.Tensor, size, n: int, *,
     q = q.float().contiguous()
     emb = emb.float().contiguous()
     d = q.shape[1]
-    tile, rows, splits = plan(nq, c, d, _sm_count(dev), n) if c \
-        else (0, 0, 0)
-    pool_s = torch.empty((nq, splits * n), dtype=torch.float32, device=dev)
-    pool_i = torch.empty((nq, splits * n), dtype=torch.int32, device=dev)
-    if pool_s.numel() == 0:
-        return pool_s, pool_i
+    if not c or not nq:
+        return (torch.empty((nq, 0), dtype=torch.float32, device=dev),
+                torch.empty((nq, 0), dtype=torch.int32, device=dev))
+    pl = plan(nq, c, d, _sm_count(dev), n)
     live = _size_arg(size, dev)
+    size_ptr = None if live is None else live.data_ptr()
     lib = _build.library("retrieve_topn")
-    err = lib.retrieve_topn_launch(
-        q.data_ptr(), emb.data_ptr(), nq, c, d, offset,
-        None if live is None else live.data_ptr(), n, tile, rows, splits,
-        pool_s.data_ptr(), pool_i.data_ptr(), _build.stream_handle(dev))
+    if pl.route == PANEL:
+        panel = torch.empty((nq, c), dtype=torch.float32, device=dev)
+        err = lib.retrieve_panel_launch(
+            q.data_ptr(), emb.data_ptr(), nq, c, d, offset, size_ptr,
+            pl.tile, panel.data_ptr(), _build.stream_handle(dev))
+        out = panel, None
+    else:
+        pool_s = torch.empty((nq, pl.splits * n), dtype=torch.float32,
+                             device=dev)
+        pool_i = torch.empty((nq, pl.splits * n), dtype=torch.int32,
+                             device=dev)
+        err = lib.retrieve_topn_launch(
+            q.data_ptr(), emb.data_ptr(), nq, c, d, offset, size_ptr, n,
+            pl.tile, pl.split_rows, pl.splits, pool_s.data_ptr(),
+            pool_i.data_ptr(), _build.stream_handle(dev))
+        out = pool_s, pool_i
     _build.check(err, name)
     _build.count_launch("retrieve_topn")
-    return pool_s, pool_i
+    return out
 
 
-def _check_pool(name, pool_s, pool_i, k, run):
-    if pool_s.ndim != 2 or pool_i.shape != pool_s.shape:
+def _check_pool(name, pool_s, pool_i, k):
+    if pool_s.ndim != 2 or (pool_i is not None
+                            and pool_i.shape != pool_s.shape):
         raise ValueError(f"{name}: pools {tuple(pool_s.shape)} and "
-                         f"{tuple(pool_i.shape)} are not one (Q, P)")
-    if pool_s.dtype != torch.float32 or pool_i.dtype != torch.int32 or \
-            pool_s.stride(1) != 1 or pool_i.stride(1) != 1 or \
-            pool_s.stride(0) != pool_i.stride(0):
+                         f"{None if pool_i is None else tuple(pool_i.shape)}"
+                         " are not one (Q, P)")
+    if pool_s.dtype != torch.float32 or pool_s.stride(1) != 1 or (
+            pool_i is not None and (pool_i.dtype != torch.int32
+                                    or pool_i.stride(1) != 1
+                                    or pool_s.stride(0) != pool_i.stride(0))):
         raise ValueError(f"{name}: the pool must be fp32 scores and int32 "
                          "rows, unit column stride, one row stride")
     if not 1 <= k <= min(MAX_N, pool_s.shape[1]):
         raise ValueError(f"{name}: k = {k} of a pool of "
                          f"{pool_s.shape[1]} (at most {MAX_N})")
-    if k > ROUNDS_K and not (run and pool_s.shape[1] % run == 0):
-        raise ValueError(f"{name}: k = {k} merges the pool's sorted runs; "
-                         f"run = {run} does not divide its "
-                         f"{pool_s.shape[1]} columns")
 
 
 def _check_records(name, recs):
@@ -229,7 +247,7 @@ def _check_records(name, recs):
                              "int32, float32, bool")
 
 
-def _merge_launch(pool_s, pool_i, k, run, top_s, top_i, hit, src=None,
+def _merge_launch(pool_s, pool_i, k, row0, top_s, top_i, hit, src=None,
                   by_row=0, offset=0, ld_src=0, dst=None, farthest=0,
                   ld_dst=0):
     nq, p = pool_s.shape
@@ -239,34 +257,36 @@ def _merge_launch(pool_s, pool_i, k, run, top_s, top_i, hit, src=None,
     dev = pool_s.device
     lib = _build.library("retrieve_topn")
     err = lib.topn_merge_launch(
-        pool_s.data_ptr(), pool_i.data_ptr(), nq, p, pool_s.stride(0), k,
-        run or 0, top_s.data_ptr(), top_i.data_ptr(), int(top_i.dtype == torch.int64),
-        top_s.stride(0), None if hit is None else hit.data_ptr(), *ptr(src),
-        r, by_row, offset, ld_src, *ptr(dst), farthest, ld_dst,
+        pool_s.data_ptr(), None if pool_i is None else pool_i.data_ptr(), nq,
+        p, pool_s.stride(0), row0, k, top_s.data_ptr(), top_i.data_ptr(),
+        int(top_i.dtype == torch.int64), top_s.stride(0),
+        None if hit is None else hit.data_ptr(), *ptr(src), r, by_row,
+        offset, ld_src, *ptr(dst), farthest, ld_dst,
         _build.stream_handle(dev))
     _build.check(err, "topn_merge_cuda")
     _build.count_launch("topn_merge")
 
 
-def topn_merge_cuda(pool_s: torch.Tensor, pool_i: torch.Tensor, k: int, *,
-                    carried=None, run: Optional[int] = None):
+def topn_merge_cuda(pool_s: torch.Tensor, pool_i: Optional[torch.Tensor],
+                    k: int, *, carried=None, offset: int = 0):
     """Kernel 2: the top k of each row of a (Q, P) candidate pool (pool_s
-    fp32, pool_i int32 global rows, any row stride) in the order (score
-    descending, row ascending). Past k = ROUNDS_K the pool must be sorted
-    runs of `run` entries in that order (kernel 1's lists: run = n; a
-    shard's reduce: its k), which the kernel merges.
+    fp32, pool_i int32 global rows, any row stride; pool_i None: a panel,
+    column x global row offset + x) in the order (score descending, row
+    ascending): by rounds over a pool of lists at k <= ROUNDS_K, else by
+    a radix select.
 
     Returns (top_s (Q, k), top_i (Q, k) int64, hit (Q, k) bool) and, with
     `carried` = the pool's (model_a, model_b, outcome, valid) records, each
     (Q, P, R), the winners' records in the replay's pre-gathered layout:
     (Q, k * R) each, farthest first, valid &= hit. CPU tensors take
-    `ref.topn_merge_ref`."""
+    `ref.topn_merge_ref` (stable sorts, equal to either kernel's route)."""
     if pool_s.device.type == "cpu":
-        out = ref.topn_merge_ref(pool_s, pool_i, k, carried=carried,
-                                 farthest_first=True)
+        out = ref.topn_merge_ref(pool_s, pool_i, k, row0=offset,
+                                 carried=carried, farthest_first=True)
         return out[:3] if carried is None else out
     name = "topn_merge_cuda"
-    _check_on(name, pool_s.device, pool_s, pool_i, *(carried or ()))
+    _check_on(name, pool_s.device, pool_s,
+              *(() if pool_i is None else (pool_i,)), *(carried or ()))
     dev, nq = pool_s.device, pool_s.shape[0]
     top_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
     top_i = torch.empty((nq, k), dtype=torch.int64, device=dev)
@@ -278,12 +298,12 @@ def topn_merge_cuda(pool_s: torch.Tensor, pool_i: torch.Tensor, k: int, *,
         recs = tuple(torch.empty((nq, k * r), dtype=x.dtype, device=dev)
                      for x in carried)
     if nq and k:
-        _check_pool(name, pool_s, pool_i, k, run)
+        _check_pool(name, pool_s, pool_i, k)
         if carried is None:
-            _merge_launch(pool_s, pool_i, k, run, top_s, top_i, hit.view(
-                torch.uint8))
+            _merge_launch(pool_s, pool_i, k, offset, top_s, top_i,
+                          hit.view(torch.uint8))
         else:
-            _merge_launch(pool_s, pool_i, k, run, top_s, top_i,
+            _merge_launch(pool_s, pool_i, k, offset, top_s, top_i,
                           hit.view(torch.uint8), src=_bytes(carried),
                           ld_src=carried[0].stride(0), dst=_bytes(recs),
                           farthest=1, ld_dst=recs[0].stride(0))
@@ -296,15 +316,15 @@ def _bytes(recs):
 
 
 def shard_reduce_cuda(pool_s, pool_i, k: int, panels, offset: int, *,
-                      out=None, run: Optional[int] = None):
-    """Kernel 2 on a shard: the top k of its pool (sorted runs of `run`,
-    kernel 1's n, past k = ROUNDS_K) with each winner's records gathered
-    from the shard's (C_l, R) `panels` (model_a, model_b, outcome, valid)
-    at row - offset, in rank order. Writes
+                      out=None):
+    """Kernel 2 on a shard: the top k of its pool (kernel 1's; pool_i None:
+    the shard's panel, column x global row offset + x) with each winner's
+    records gathered from the shard's (C_l, R) `panels` (model_a,
+    model_b, outcome, valid) at row - offset, in rank order. Writes
     (cand_s (Q, k) fp32, cand_i (Q, k) int32 global rows, records (Q, k,
     R) each) into `out` (views, e.g. the shard's columns of the leader's
-    pool) or new tensors, and returns them. CPU tensors take
-    `ref.topn_merge_ref`."""
+    pool) or new tensors, and returns them. CPU tensors take kernel 2's
+    plain version."""
     nq, r = pool_s.shape[0], panels[0].shape[-1]
     dev = pool_s.device
     if out is None:
@@ -314,16 +334,16 @@ def shard_reduce_cuda(pool_s, pool_i, k: int, panels, offset: int, *,
                      for x in panels))
     cand_s, cand_i, recs = out
     if dev.type == "cpu":
-        top_s, top_i, _, got = ref.topn_merge_ref(pool_s, pool_i, k,
-                                                  panels=panels,
-                                                  offset=offset)
+        top_s, top_i, _, got = ref.topn_merge_ref(
+            pool_s, pool_i, k, row0=offset, panels=panels, offset=offset)
         cand_s.copy_(top_s)
         cand_i.copy_(top_i)
         for x, y in zip(recs, got):
             x.copy_(y)
         return out
     name = "shard_reduce_cuda"
-    _check_on(name, dev, pool_s, pool_i, *panels, cand_s, cand_i, *recs)
+    _check_on(name, dev, pool_s, *(() if pool_i is None else (pool_i,)),
+              *panels, cand_s, cand_i, *recs)
     _check_records(name, panels)
     _check_records(name, recs)
     if any(x.stride(1) != r for x in recs) or cand_s.stride(1) != 1 or \
@@ -332,8 +352,8 @@ def shard_reduce_cuda(pool_s, pool_i, k: int, panels, offset: int, *,
         raise ValueError(f"{name}: outputs not laid out as (Q, k) and "
                          "(Q, k, R) rows")
     if nq and k:
-        _check_pool(name, pool_s, pool_i, k, run)
-        _merge_launch(pool_s, pool_i, k, run, cand_s, cand_i, None,
+        _check_pool(name, pool_s, pool_i, k)
+        _merge_launch(pool_s, pool_i, k, offset, cand_s, cand_i, None,
                       src=_bytes(panels), by_row=1, offset=offset,
                       dst=_bytes(recs), ld_dst=recs[0].stride(0))
     return out
@@ -344,17 +364,16 @@ def topn_cuda(q, emb, size, n: int):
     Returns (top_s (Q, k), top_i (Q, k) int64, hit (Q, k)), k = min(n,
     C): what `ref.panel_topn_ref` returns, exactly."""
     pool_s, pool_i = retrieve_topn_cuda(q, emb, size, n)
-    return topn_merge_cuda(pool_s, pool_i, min(n, emb.shape[0]), run=n)
+    return topn_merge_cuda(pool_s, pool_i, min(n, emb.shape[0]))
 
 
-def merge_shards_cuda(pool_s, pool_i, records, n: int, shards: int):
+def merge_shards_cuda(pool_s, pool_i, records, n: int):
     """The cross-shard merge on the leader: kernel 2 over the shards'
-    pooled candidates (`sharded_topn_cuda`'s pool: `shards` runs, each in
-    rank order), their records carried by pool position. Returns
-    topn_merge_cuda's (top_s, top_i, hit, records in the replay's
-    layout)."""
+    pooled candidates (`sharded_topn_cuda`'s pool), their records carried
+    by pool position. Returns topn_merge_cuda's (top_s, top_i, hit,
+    records in the replay's layout)."""
     return topn_merge_cuda(pool_s, pool_i, min(n, pool_s.shape[1]),
-                           carried=records, run=pool_s.shape[1] // shards)
+                           carried=records)
 
 
 def sharded_topn_cuda(q, emb, panels, size, n: int):
@@ -384,9 +403,8 @@ def sharded_topn_cuda(q, emb, panels, size, n: int):
         cand = retrieve_topn_cuda(q if here else q.to(e.device), e, size[s],
                                   n, offset=s * c_local)
         got = shard_reduce_cuda(*cand, kl, tuple(x[s] for x in panels),
-                                s * c_local, out=dst if here else None,
-                                run=n)
+                                s * c_local, out=dst if here else None)
         if not here:
             for x, y in zip(dst[:2] + dst[2], got[:2] + got[2]):
                 x.copy_(y)
-    return merge_shards_cuda(pool_s, pool_i, recs, n, len(emb))
+    return merge_shards_cuda(pool_s, pool_i, recs, n)

@@ -3,7 +3,8 @@
 
 No route runs it: the routing path and KNN retrieve through the fused
 kernels of `retrieve_topn.py`, which score each pair as this kernel does
-(`csrc/similarity_tile.cuh`) and write no panel. The panel and a stable
+(`csrc/similarity_tile.cuh`), keeping a top-n per column split or writing
+the masked panel themselves. The panel and a stable
 sort (`ref.stable_topk`, which keeps the lowest-index-first tie order)
 are the panel route those are held against, with the capacity-sharded
 route's per-shard top-k and cross-shard merge (`shard_local_topk`,
@@ -22,11 +23,11 @@ def similarity_cuda(q: torch.Tensor, db: torch.Tensor, *,
 
     CUDA tensors launch the kernel; CPU tensors take the plain version
     (`ref.similarity_ref`). `tile` 0 lets the kernel pick its tile by Q
-    (`retrieve_topn.tile_for` at n <= 161); 8 forces the streaming kernel
-    and 32, 64, 128 the GEMM of that many query rows. Scores are equal bit
-    for bit between this kernel and `retrieve_topn` at the same tile;
-    across tiles they may differ in the last place, so a check of the
-    retrieve at n > 161 (a smaller GEMM tile) passes its tile here."""
+    (`retrieve_topn.tile_for`); 8 forces the streaming kernel and 32, 64,
+    128 the GEMM of that many query rows. Scores are equal bit for bit
+    between this kernel and `retrieve_topn` at the same tile; across tiles
+    they may differ in the last place, so a check of the retrieve passes
+    the plan's tile here."""
     if q.device.type == "cpu" and db.device.type == "cpu":
         return ref.similarity_ref(q, db)
     if not (q.is_cuda and db.is_cuda and q.device == db.device):

@@ -2,8 +2,9 @@
 `chip_smoke.py` fails the run on), on `-Xptxas -v` logs written here in
 ptxas's own format: a note that ptxas serialised a flash instance's
 `wgmma`s is a failure, and so is a dh = 256 instance of the decode kernel
-that spills; other instances' spills are not, and every flash and dh =
-256 decode instance's registers are reported."""
+or a panel-route kernel of the fused retrieve that spills; other
+instances' spills are not, and every flash, dh = 256 decode and
+panel-route instance's registers are reported."""
 import pytest
 
 from repro_torch.kernels import _build
@@ -22,6 +23,12 @@ DECODE_256_CORES = ("_ZN52_GLOBAL__N__408c5d7c_19_decode_attention_cu_3848999"
 DECODE_128 = ("_ZN52_GLOBAL__N__408c5d7c_19_decode_attention_cu_3848999b13"
               "decode_kernelI13__nv_bfloat16fLi128ELi8ELb1EEEvPKT_PKT0_S7_"
               "PKiPS2_PfSB_Pjiiiiiif")
+SELECT = ("_ZN49_GLOBAL__N__7c0f1e2a_16_retrieve_topn_cu_5d2a8b1c18topn_"
+          "select_kernelEPKfPKiiiiiiiPfPviiPhNS_7PayloadE")
+PANEL_GEMM = ("_ZN49_GLOBAL__N__7c0f1e2a_16_retrieve_topn_cu_5d2a8b1c17panel"
+              "_gemm_kernelILi128ELi16ELb1ELb1EEEvPKfS2_iiiiPKiPf")
+LIST_GEMM = ("_ZN49_GLOBAL__N__7c0f1e2a_16_retrieve_topn_cu_5d2a8b1c16topn_"
+             "gemm_kernelILi128ELi16ELi4ELb1EEEvPKfS2_iiiiPKiiiPfPi")
 SERIALISED = ("ptxas info    : (C7515) Potential Performance Loss: "
               "wgmma.mma_async instructions are serialized due to non wgmma "
               "instructions defining accumulator registers of a wgmma "
@@ -40,12 +47,14 @@ def entry(name, regs, stores=0, loads=0):
             f"bytes cmem[0]\n")
 
 
-def logs(flash="", decode=""):
+def logs(flash="", decode="", retrieve=""):
     return {"flash_attention": entry(FLASH_128, 168, 16, 16) + flash
             + entry(FLASH_F32, 128),
             "decode_attention": entry(DECODE_256_MMA, 127)
             + entry(DECODE_256_CORES, 168) + entry(DECODE_128, 96)
-            + decode}
+            + decode,
+            "retrieve_topn": entry(SELECT, 40) + entry(PANEL_GEMM, 122)
+            + entry(LIST_GEMM, 128) + retrieve}
 
 
 def test_ptxas_entries_reads_each_entry():
@@ -70,9 +79,10 @@ def test_clean_logs_pass_and_report_every_guarded_instance():
     failures, regs = _build.build_guards(logs())
     assert failures == []
     # the flash instances (the producer's 16 spilled bytes are not
-    # guarded) and the dh = 256 decode ones, not dh = 128
+    # guarded), the dh = 256 decode ones, not dh = 128, and the retrieve's
+    # panel-route kernels, not the list kernels
     assert set(regs) == {FLASH_128, FLASH_F32, DECODE_256_MMA,
-                         DECODE_256_CORES}
+                         DECODE_256_CORES, SELECT, PANEL_GEMM}
     assert regs[FLASH_128] == (168, 16, 16)
     assert regs[DECODE_256_MMA] == (127, 0, 0)
 
@@ -95,4 +105,19 @@ def test_a_dh256_decode_spill_fails_the_build(stores, loads):
 def test_a_dh128_decode_spill_is_not_guarded():
     log = logs(decode=entry(DECODE_128.replace("Li8E", "Li4E"), 168, 40,
                             40))
+    assert _build.build_guards(log)[0] == []
+
+
+@pytest.mark.parametrize("name", [SELECT, PANEL_GEMM])
+def test_a_panel_route_spill_fails_the_build(name):
+    log = logs()
+    log["retrieve_topn"] = entry(name, 64, 24, 24) + entry(LIST_GEMM, 128)
+    failures, regs = _build.build_guards(log)
+    assert len(failures) == 1 and "retrieve" in failures[0]
+    assert regs[name] == (64, 24, 24)
+
+
+def test_a_list_kernel_spill_is_not_guarded():
+    log = logs(retrieve=entry(LIST_GEMM.replace("Li4E", "Li2E"), 128, 8,
+                              8))
     assert _build.build_guards(log)[0] == []

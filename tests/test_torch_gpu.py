@@ -1757,14 +1757,16 @@ def _tie_inputs(dev, nq, c, d, boundaries, seed=0):
 @pytest.mark.parametrize("nq", [1, 8, 9, 32, 33, 64, 65, 1024])
 @pytest.mark.parametrize("n", [20, 64, 80])
 def test_retrieve_topn_kernel_matches_plain(dev, nq, n):
-    """Kernel 1 at every tile (streaming at Q <= 8, GEMM of 32, 64, 128
-    rows): its pool equals, bit for bit, the per-split stable top-n of the
+    """Kernel 1 of the list route at every tile (streaming at Q <= 8, GEMM
+    of 32, 64, 128 rows; C large enough that each grid fills the card):
+    its pool equals, bit for bit, the per-split stable top-n of the
     similarity kernel's masked panel (the same scores, the same lists),
     and its scores lie within SIM_TOL of the plain version's at the rows
     it returns; ties straddle split boundaries, C is ragged, and rows past
     `size` score -inf."""
-    c, d = 3001, 1536
-    tile, rows, splits = RT.plan(nq, c, d, RT._sm_count(dev))
+    c, d = 17001, 1536
+    tile, rows, splits, route = RT.plan(nq, c, d, RT._sm_count(dev), n)
+    assert route == RT.LISTS
     q, db, _, _ = _tie_inputs(dev, nq, c, d, [rows * i for i in
                                               range(1, 4)] + [700])
     size = torch.tensor(c - 100, dtype=torch.int32, device=dev)
@@ -1779,6 +1781,30 @@ def test_retrieve_topn_kernel_matches_plain(dev, nq, n):
                          pool_i.clamp(0, c - 1).long())
     torch.testing.assert_close(pool_s[live], plain[live], rtol=SIM_TOL,
                                atol=SIM_TOL)
+
+
+@pytest.mark.parametrize("nq", [1, 8, 9, 32, 33, 64, 65, 1024])
+@pytest.mark.parametrize("c,n", [(1470, 20), (17001, 129)])
+def test_retrieve_panel_kernel_matches_plain(dev, nq, c, n):
+    """Kernel 1 of the panel route (a grid smaller than the card at C =
+    1470, or n past 128) at every tile: the masked panel equals the
+    similarity kernel's at the plan's tile bit for bit, rows past `size`
+    at -inf, and the plain panel within SIM_TOL; with vector and scalar
+    loads and stores (D = 1536, C ragged; D = 50)."""
+    for d in (1536, 50):
+        pl = RT.plan(nq, c, d, RT._sm_count(dev), n)
+        assert pl.route == RT.PANEL and pl.tile == RT.tile_for(nq, d)
+        q, db, _, _ = _tie_inputs(dev, nq, c, d, [128, 256, 700])
+        size = torch.tensor(c - 100, dtype=torch.int32, device=dev)
+        panel, rows = RT.retrieve_topn_cuda(q, db, size, n, offset=5)
+        want = ref.mask_dead(similarity_cuda(q, db, tile=pl.tile), 5, size)
+        plain = ref.panel_ref(q, db, size, offset=5)
+        torch.cuda.synchronize()
+        assert rows is None and panel.shape == (nq, c)
+        assert torch.equal(panel, want)
+        assert bool(torch.isinf(panel[:, c - 105:]).all())
+        torch.testing.assert_close(panel[:, :c - 105], plain[:, :c - 105],
+                                   rtol=SIM_TOL, atol=SIM_TOL)
 
 
 @pytest.mark.parametrize("p,k,r", [(640, 20, 8), (5120, 20, 8), (60, 57, 3),
@@ -1827,26 +1853,23 @@ def test_topn_merge_kernel_matches_plain(dev, p, k, r):
                                            (205, 129, 129, 8),
                                            (40, 300, 300, 16)])
 def test_topn_merge_runs_kernel_matches_plain(dev, runs, run, k, r):
-    """Kernel 2 past k = 128 merges the pool's sorted runs (kernel 1's
-    lists; a shard's reduce): over runs of few distinct scores (ties,
-    -inf dead rows, unfilled slots at each run's end), in the order
-    (score descending, row ascending), the top k, the hit mask and both
-    payload routes equal the plain version's exactly; an unsorted pool
-    needs no run below k = 129, and past it raises without one."""
+    """Kernel 2 past k = 128 selects (a radix select over the entries'
+    keys, then a bitonic sort of the k survivors), over pools of runs x
+    run entries of few distinct scores in no order (ties, -inf dead rows,
+    unfilled slots repeated): the top k, the hit mask and both payload
+    routes (by row from a shard's panels in rank order; carried by
+    position into the replay's layout) equal the plain versions' (the
+    rounds' stable sorts, and the select's own) exactly; and the same
+    pool's scores read as a panel (rows row0 + column)."""
     rng = np.random.default_rng(runs + k)
     nq, p = 9, runs * run
     c = 2 * p
-    vals = np.asarray([-np.inf, -1.0, 0.0, 0.5, 1.0], np.float32)
+    vals = np.asarray([-np.inf, -1.0, -0.0, 0.0, 0.5, 1.0], np.float32)
     pool_s = rng.choice(vals, (nq, p)).astype(np.float32)
     pool_i = np.stack([rng.permutation(c)[:p] for _ in range(nq)]
                       ).astype(np.int32)
-    pool_s[:, run - 3:run] = -np.inf             # run 0 not filled
+    pool_s[:, run - 3:run] = -np.inf             # unfilled slots
     pool_i[:, run - 3:run] = ref.EMPTY_ROW
-    for j in range(runs):                        # each run sorted
-        cols = slice(j * run, (j + 1) * run)
-        order = np.lexsort((pool_i[:, cols], -pool_s[:, cols]), axis=1)
-        pool_s[:, cols] = np.take_along_axis(pool_s[:, cols], order, 1)
-        pool_i[:, cols] = np.take_along_axis(pool_i[:, cols], order, 1)
     pool_s = torch.tensor(pool_s, device=dev)
     pool_i = torch.tensor(pool_i, device=dev)
     panels = (torch.tensor(rng.integers(0, 10, (c, r)), dtype=torch.int32,
@@ -1856,24 +1879,29 @@ def test_topn_merge_runs_kernel_matches_plain(dev, runs, run, k, r):
               torch.tensor(rng.random((c, r)), dtype=torch.float32,
                            device=dev),
               torch.tensor(rng.random((c, r)) < 0.5, device=dev))
-    got = RT.topn_merge_cuda(pool_s, pool_i, k, run=run)
+    got = RT.topn_merge_cuda(pool_s, pool_i, k)
     want = ref.topn_merge_ref(pool_s, pool_i, k)
     for x, y in zip(got, want[:3]):
         assert torch.equal(x, y)
-    out = RT.shard_reduce_cuda(pool_s, pool_i, k, panels, 0, run=run)
-    want = ref.topn_merge_ref(pool_s, pool_i, k, panels=panels)
+    out = RT.shard_reduce_cuda(pool_s, pool_i, k, panels, 0)
+    want = ref.topn_select_ref(pool_s, pool_i, k, panels=panels)
     assert torch.equal(out[0], want[0])
     assert torch.equal(out[1].long(), want[1])
     for x, y in zip(out[2], want[3]):
         assert torch.equal(x, y)
     carried = tuple(x[pool_i.clamp(0, c - 1).long()] for x in panels)
-    got = RT.topn_merge_cuda(pool_s, pool_i, k, carried=carried, run=run)
+    got = RT.topn_merge_cuda(pool_s, pool_i, k, carried=carried)
     want = ref.topn_merge_ref(pool_s, pool_i, k, carried=carried,
                               farthest_first=True)
     for x, y in zip(got[:3] + got[3], want[:3] + want[3]):
         assert torch.equal(x, y)
-    with pytest.raises(ValueError, match="sorted runs"):
-        RT.topn_merge_cuda(pool_s, pool_i, k)
+    # the panel form: rows 7 + column, records by row at row - 7
+    got = RT.topn_merge_cuda(pool_s, None, k, offset=7)
+    want = ref.stable_topk(pool_s, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1] + 7)
+    out = RT.shard_reduce_cuda(pool_s, None, k, panels, 7)
+    for x, y in zip(out[2], panels):
+        assert torch.equal(x, y[want[1]])
 
 
 def test_retrieve_kernels_refuse_what_they_do_not_take(dev):
@@ -1891,23 +1919,24 @@ def test_retrieve_kernels_refuse_what_they_do_not_take(dev):
 @pytest.mark.parametrize("nq", [1, 8, 9, 64, 65, 1024])
 @pytest.mark.parametrize("n", [129, 256, 512])
 def test_retrieve_large_n_equals_panel_and_stable_sort(dev, nq, n):
-    """n past 128 (NE = 8 and 16 list entries a lane; the GEMM tile cut to
-    the rows whose lists fit, the splits capped so the merge stages its
-    pool): kernel 1's pool equals the per-split stable top-n of the
-    similarity kernel's masked panel at the same tile, and the merge one
-    stable sort of it (`ref.panel_topn_ref`), bit for bit, ties on the
-    split boundaries, rows past `size` dead; and a DB smaller than n."""
+    """n past 128 takes the panel route at the similarity kernel's tile:
+    kernel 1's panel equals the similarity kernel's masked panel at that
+    tile, kernel 2 its plain version (the select) over it, and the pair
+    one stable sort of it (`ref.panel_topn_ref`), bit for bit, ties on the
+    tiles' boundaries, rows past `size` dead; and a DB smaller than n."""
     c, d = 3001, 1536
-    tile, rows, splits = RT.plan(nq, c, d, RT._sm_count(dev), n)
-    assert tile == RT.tile_for(nq, d, n) and splits * n <= RT.STAGED
-    q, db, _, _ = _tie_inputs(dev, nq, c, d, [rows * i for i in
+    tile, rows, splits, route = RT.plan(nq, c, d, RT._sm_count(dev), n)
+    assert route == RT.PANEL and tile == RT.tile_for(nq, d)
+    q, db, _, _ = _tie_inputs(dev, nq, c, d, [128 * i for i in
                                               range(1, 4)] + [700], n)
     sim = partial(similarity_cuda, tile=tile)     # scores of the same tile
     size = torch.tensor(c - 100, dtype=torch.int32, device=dev)
-    pool_s, pool_i = RT.retrieve_topn_cuda(q, db, size, n)
-    want_s, want_i = ref.panel_pool_ref(
-        ref.mask_dead(sim(q, db), 0, size), n, rows)
-    assert torch.equal(pool_i, want_i) and torch.equal(pool_s, want_s)
+    panel, _ = RT.retrieve_topn_cuda(q, db, size, n)
+    assert torch.equal(panel, ref.mask_dead(sim(q, db), 0, size))
+    top = RT.topn_merge_cuda(panel, None, n)
+    want = ref.topn_select_ref(panel, None, n)
+    for x, y in zip(top, want[:3]):
+        assert torch.equal(x, y)
     got = RT.topn_cuda(q, db, size, n)
     want = ref.panel_topn_ref(q, db, size, n, similarity_fn=sim)
     for x, y in zip(got, want):
@@ -1921,11 +1950,35 @@ def test_retrieve_large_n_equals_panel_and_stable_sort(dev, nq, n):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("nq", [84, 8, 1])
+def test_knn_shape_and_small_grids_take_the_panel(dev, nq):
+    """KNN's call (Q = 84, C = 1,470, D = 64, top-40) and other grids
+    smaller than the card take the panel route: two launches, the pair
+    equal to the similarity kernel's panel and its stable sort bit for
+    bit, also with rows past `size` and ties on the tiles' boundaries."""
+    c, d, n = 1470, 64, 40
+    assert RT.plan(nq, c, d, RT._sm_count(dev), n).route == RT.PANEL
+    q, db, _, _ = _tie_inputs(dev, nq, c, d, [128, 256, 1280], nq)
+    for size in (None, torch.tensor(1000, dtype=torch.int32, device=dev)):
+        _build.reset_launches()
+        got = RT.topn_cuda(q, db, size, n)
+        counts = _build.launch_counts()
+        want = ref.panel_topn_ref(q, db, size, n,
+                                  similarity_fn=similarity_cuda)
+        torch.cuda.synchronize()
+        assert counts["retrieve_topn"] == counts["topn_merge"] == 1
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    gs, gi = KOPS.similarity_topk(q, db, n)
+    assert torch.equal(gi, ref.stable_topk(similarity_cuda(q, db), n)[1])
+
+
 @pytest.mark.parametrize("n", [129, 256, 512])
 def test_retrieve_large_n_tied_panels(dev, n):
     """A DB of few distinct rows (every score tied many times over, the
-    ties deciding which rows each split keeps): the pair equals one
-    stable sort of the panel bit for bit at buckets 8, 64 and 1024."""
+    ties deciding which rows the select keeps: its row digits): the pair
+    equals one stable sort of the panel bit for bit at buckets 8, 64 and
+    1024."""
     rng = np.random.default_rng(n)
     c, d = 4096, 64
     base = rng.normal(size=(5, d)).astype(np.float32)
@@ -1935,7 +1988,7 @@ def test_retrieve_large_n_tied_panels(dev, n):
         size = torch.tensor(c - 77, dtype=torch.int32, device=dev)
         got = RT.topn_cuda(q, db, size, n)
         want = ref.panel_topn_ref(q, db, size, n, similarity_fn=partial(
-            similarity_cuda, tile=RT.tile_for(nq, d, n)))
+            similarity_cuda, tile=RT.tile_for(nq, d)))
         torch.cuda.synchronize()
         for x, y in zip(got, want):
             assert torch.equal(x, y)
@@ -1958,7 +2011,7 @@ def test_sharded_retrieve_large_n_equals_panel(dev, shards, n):
     want = ref.sharded_panel_topn_ref(q, emb, panels, [size] * shards, n,
                                       similarity_fn=partial(
                                           similarity_cuda,
-                                          tile=RT.tile_for(64, 1536, n)))
+                                          tile=RT.tile_for(64, 1536)))
     torch.cuda.synchronize()
     for x, y in zip(got[:3] + got[3], want[:3] + want[3]):
         assert torch.equal(x, y)

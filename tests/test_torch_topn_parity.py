@@ -1,14 +1,18 @@
-"""The retrieve stage's two-stage algorithm (the kernels' `retrieve_topn`
-split top-n, then `topn_merge`; the plain versions `ref.split_topn_ref` /
-`ref.topn_merge_ref`, which the wrappers run on CPU tensors) against
-`jax.lax.top_k` over the JAX package's similarity and against one stable
-sort of the whole panel (`ref.stable_topk`), on seeded numpy inputs.
+"""The retrieve stage's two routes against `jax.lax.top_k` over the JAX
+package's similarity and against one stable sort of the whole panel
+(`ref.stable_topk`), on seeded numpy inputs: the list route (the kernels'
+`retrieve_topn` split top-n, then `topn_merge` by rounds; the plain
+versions `ref.split_topn_ref` / `ref.topn_merge_ref`) and the panel route
+(the masked panel, then kernel 2's radix select; `ref.panel_ref` /
+`ref.topn_select_ref`), which the wrappers run on CPU tensors, and the
+plan that picks between them.
 
 The JAX similarity runs as the JAX suite runs it on the CPU: its jnp
 oracle ("reference") and its Pallas kernel in interpret mode. Top-n rows
 must be equal exactly: the order (score descending, row ascending) is a
 strict total order, so the top-n of the splits' (or shards') top-n is the
-top-n of the whole, at any split width.
+top-n of the whole, at any split width, and a select by a key that orders
+as the ranking takes exactly the top-n.
 """
 import jax
 import jax.numpy as jnp
@@ -220,15 +224,29 @@ def test_tied_panels_two_stage_equals_stable_sort(nq, c, n, width, seed):
                                  torch.cat([p[1].int() for p in parts], 1),
                                  k)
     assert torch.equal(merged[1], want_i) and torch.equal(merged[0], want_s)
+    # the panel route: kernel 2's select over the panel itself, and the
+    # stable sort the wrappers' CPU glue runs in its place
+    sel = TREF.topn_select_ref(panel, None, k)
+    assert torch.equal(sel[1], want_i) and torch.equal(sel[0], want_s)
+    glue = TREF.topn_merge_ref(panel, None, k)
+    assert torch.equal(glue[1], want_i) and torch.equal(glue[0], want_s)
 
 
-def test_negative_zero_ties_positive_zero():
+@pytest.mark.parametrize("route", ["lists", "select"])
+@pytest.mark.parametrize("k", [6, 3, 2])
+def test_negative_zero_ties_positive_zero(route, k):
     """-0.0 == 0.0 in the order: they tie, lowest row first (a stable
-    sort's order, not a sign-aware total order)."""
+    sort's order, not a sign-aware total order), also where k cuts among
+    them; each keeps its own sign."""
     panel = torch.tensor([[0.0, -0.0, 0.0, -0.0, 1.0, -0.0]])
-    top_s, top_i, _, _ = TREF.topn_merge_ref(
-        *TREF.panel_pool_ref(panel, 6, 2), 6)
-    assert top_i.tolist() == [[4, 0, 1, 2, 3, 5]]
+    if route == "lists":
+        top_s, top_i, _, _ = TREF.topn_merge_ref(
+            *TREF.panel_pool_ref(panel, 6, 2), k)
+    else:
+        top_s, top_i, _, _ = TREF.topn_select_ref(panel, None, k)
+    assert top_i.tolist() == [[4, 0, 1, 2, 3, 5][:k]]
+    want_s = TREF.stable_topk(panel, k)[0]
+    assert torch.equal(torch.signbit(top_s), torch.signbit(want_s))
 
 
 # ---------------------------------------------------------------------------
@@ -268,60 +286,227 @@ def test_merge_payload_layouts():
                                      (33, 64), (64, 64), (65, 128),
                                      (1024, 128)])
 def test_plan_takes_similarity_tiles_and_covers_the_db(nq, tile):
-    """The tile per bucket is the similarity kernel's; the splits cover C
-    in whole tiles, about two blocks an SM."""
+    """The tile per bucket is the similarity kernel's on both routes; the
+    list route's splits cover C in whole tiles, about two blocks an SM and
+    at least one block an SM; the panel route takes C whole, where the
+    list grid would be smaller than the card."""
     for c in (1, 100, 8192, 32768):
-        t, rows, splits = RT.plan(nq, c, 1536)
+        t, rows, splits, route = RT.plan(nq, c, 1536)
         assert t == tile
         unit = 32 if tile == 8 else 128
+        if route == RT.PANEL:
+            assert (rows, splits) == (c, 1)
+            continue
         assert rows % unit == 0 and (splits - 1) * rows < c <= splits * rows
         blocks = splits * (1 if tile == 8 else -(-nq // tile))
-        assert blocks <= 2 * RT.H100_SMS or rows == unit
-    assert RT.plan(1024, 32768, 1536) == (128, 1024, 32)
-    assert RT.plan(8, 32768, 1536) == (8, 128, 256)
+        assert RT.H100_SMS <= blocks <= 2 * RT.H100_SMS or rows == unit
+    assert RT.plan(1024, 32768, 1536)[:3] == (128, 1024, 32)
+    assert RT.plan(8, 32768, 1536)[:3] == (8, 128, 256)
 
 
 @pytest.mark.parametrize("nq", [8, 64, 1024])
-@pytest.mark.parametrize("n", [256, 512])
+@pytest.mark.parametrize("n", [129, 256, 512])
 @pytest.mark.parametrize("size", [1900, 300])
 def test_large_n_two_stage_at_the_plan_equals_jax_top_k(nq, n, size):
-    """n past 128 with the split plan the kernels take there (the GEMM
-    tile whose lists fit, the splits capped at STAGED // n): the plain
-    two-stage retrieve equals `jax.lax.top_k` and one stable sort over the
-    same masked panel, ties on the split boundaries, size below C and
-    below n. (`lax.top_k` runs over the port's panel: 512 ranks of 2,000
-    scores hold gaps near fp32's rounding, which the two packages'
-    similarities may order either way, ROADMAP §4.5.)"""
+    """n past 128 takes the panel route at the similarity kernel's tile:
+    its plain version (the masked panel, then kernel 2's radix select)
+    equals `jax.lax.top_k` and one stable sort over the same masked panel,
+    ties on the GEMM tiles' boundaries, size below C and below n. (`lax.
+    top_k` runs over the port's panel: 512 ranks of 2,000 scores hold gaps
+    near fp32's rounding, which the two packages' similarities may order
+    either way, ROADMAP §4.5.)"""
     rng = np.random.default_rng(nq + n + size)
     c, d = 2000, 16
-    tile, rows, splits = RT.plan(nq, c, 1536, n=n)
-    assert splits * n <= RT.STAGED and (splits - 1) * rows < c
-    q, db = _tied_db(rng, c, d, [rows * i for i in range(1, 6)] + [999])
+    pl = RT.plan(nq, c, 1536, n=n)
+    assert pl.route == RT.PANEL and pl.tile == RT.tile_for(nq, 1536)
+    q, db = _tied_db(rng, c, d, [128 * i for i in range(1, 6)] + [999])
     q = np.concatenate([q, rng.normal(size=(nq - len(q), d))
                         .astype(np.float32)]) if nq > len(q) else q[:nq]
-    scores = TREF.mask_dead(TREF.similarity_ref(torch.tensor(q),
-                                                torch.tensor(db)), 0, size)
+    scores = TREF.panel_ref(torch.tensor(q), torch.tensor(db), size)
     want = np.asarray(jax.lax.top_k(jnp.asarray(scores.numpy()), n)[1])
-    top_s, top_i, hit = _two_stage(q, db, size, n, rows)
+    top_s, top_i, hit = TREF.panel_select_topn_ref(
+        torch.tensor(q), torch.tensor(db), size, n)
     np.testing.assert_array_equal(top_i.numpy(), want)
     panel = TREF.panel_topn_ref(torch.tensor(q), torch.tensor(db), size, n)
     for got, ref_ in zip((top_s, top_i, hit), panel):
         assert torch.equal(got, ref_)
     assert int((~hit).sum()) == len(q) * max(0, n - size)
+    # and through the wrappers' glue on CPU tensors
+    got = RT.topn_cuda(torch.tensor(q), torch.tensor(db),
+                       torch.tensor(size, dtype=torch.int32), n)
+    for x, y in zip(got, panel):
+        assert torch.equal(x, y)
 
 
 def test_plan_past_128_neighbours():
-    """Past n = 128 the plan keeps the lists in shared memory (n = 256: 64
-    query rows a GEMM block, n = 512: 32) and caps the splits so that the
-    merge stages the pool; at n <= 128 it is as before."""
-    assert RT.plan(1024, 32768, 1536, n=128) == (128, 1024, 32)
-    assert RT.plan(8, 32768, 1536, n=128) == (8, 128, 256)
-    assert RT.tile_for(1024, 1536, 129) == 128
-    assert RT.tile_for(1024, 1536, 256) == 64
-    assert RT.tile_for(1024, 1536, 512) == RT.tile_for(64, 1536, 512) == 32
+    """Past n = 128 the plan takes the panel route with the similarity
+    kernel's tile (no list sets it any more), at every bucket; at n <= 128
+    on a full grid it keeps the list route's plans."""
+    assert RT.plan(1024, 32768, 1536, n=128) == (128, 1024, 32, RT.LISTS)
+    assert RT.plan(8, 32768, 1536, n=128) == (8, 128, 256, RT.LISTS)
+    assert RT.plan(64, 32768, 1536, n=128)[3] == RT.LISTS
     for n in (129, 256, 512):
-        for nq in (8, 64, 1024):
-            tile, rows, splits = RT.plan(nq, 32768, 1536, n=n)
-            assert splits * n <= RT.STAGED
-            assert tile == 8 or RT.gemm_smem(tile, n) <= RT.MAX_SMEM
-    assert RT.gemm_smem(128, 162) > RT.MAX_SMEM >= RT.gemm_smem(128, 161)
+        for nq, tile in ((8, 8), (64, 64), (1024, 128)):
+            assert RT.plan(nq, 32768, 1536, n=n) == (tile, 32768, 1,
+                                                     RT.PANEL)
+    assert RT.tile_for(1024, 1536) == 128 and RT.tile_for(64, 1536) == 64
+    assert RT.plan(84, 1470, 64, n=40) == (128, 1470, 1, RT.PANEL)
+    assert RT.gemm_smem(128, RT.LIST_N) <= RT.MAX_SMEM
+
+
+@pytest.mark.parametrize("nq,c,d,n,route", [
+    (1024, 32768, 1536, 20, RT.LISTS),     # the route's buckets, C = 32768
+    (64, 32768, 1536, 20, RT.LISTS),
+    (8, 32768, 1536, 20, RT.LISTS),
+    (1024, 65536, 1536, 20, RT.LISTS),     # the graph phase's grow
+    (8, 65536, 1536, 20, RT.LISTS),
+    (1024, 8192, 1536, 20, RT.LISTS),      # a shard at S = 4
+    (8, 8192, 1536, 20, RT.LISTS),
+    (84, 1470, 64, 40, RT.PANEL),          # KNN's call: 12 blocks
+    (64, 8192, 1536, 20, RT.PANEL),        # 64 blocks
+    (8, 4096, 1536, 20, RT.PANEL),         # 128 splits of 32 rows
+    (1024, 32768, 1536, 129, RT.PANEL),    # past n = 128
+])
+def test_plan_route_switch(nq, c, d, n, route):
+    """The route from (Q, C, D, n) alone: the lists at n <= 128 where row
+    blocks x splits fill the card's 132 SMs, else the panel."""
+    pl = RT.plan(nq, c, d, n=n)
+    assert pl.route == route
+    blocks = pl.splits * (1 if pl.tile == 8 else -(-nq // pl.tile))
+    if route == RT.LISTS:
+        assert blocks >= RT.H100_SMS
+    else:
+        assert (pl.split_rows, pl.splits) == (c, 1)
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+def test_knn_shape_takes_the_panel_and_equals_jax_top_k(backend):
+    """KNN's call at its Fig. 2 shape (Q = 84 test rows, C = 1,470
+    win-rate rows, D = 64, top-40): the panel route, its top-40 rows equal
+    to `jax.lax.top_k` over the port's panel and, with the scores, to one
+    stable sort of it, ties on the tiles' boundaries; against `lax.top_k`
+    over the JAX similarity (its oracle and its Pallas kernel in
+    interpret mode) a row may differ only at a near-tie (two of its 41
+    best scores within 1e-5: the two similarities round apart)."""
+    rng = np.random.default_rng(84)
+    c, d, n = 1470, 64, 40
+    assert RT.plan(84, c, d, n=n).route == RT.PANEL
+    q, db = _tied_db(rng, c, d, [128, 256, 640, 1024, 1280])
+    q = np.concatenate([q, rng.normal(size=(84 - len(q), d))
+                        .astype(np.float32)])
+    qt, dbt = torch.tensor(q), torch.tensor(db)
+    got_s, got_i = TOPS.similarity_topk(qt, dbt, n)
+    panel = TREF.panel_ref(qt, dbt, None)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(
+        jax.lax.top_k(jnp.asarray(panel.numpy()), n)[1]))
+    want = TREF.stable_topk(panel, n)
+    assert torch.equal(got_s, want[0]) and torch.equal(got_i, want[1])
+    differ = (got_i.numpy() != _jax_topk(q, db, c, n, backend)).any(axis=1)
+    best = TREF.stable_topk(panel, n + 1)[0].numpy()
+    near = (np.abs(np.diff(best, axis=1)) < 1e-5).any(axis=1)
+    assert not (differ & ~near).any()
+    assert differ.sum() <= 2
+
+
+@pytest.mark.parametrize("n", [129, 256, 512, 600])
+@pytest.mark.parametrize("size", [None, 450, 100])
+def test_panel_route_ties_dead_rows_and_small_db(n, size):
+    """The panel route's plain version at n past 128 against one stable
+    sort of the masked panel and `jax.lax.top_k`: rows tied across the
+    128-column tiles, size below C and below n (dead rows in ascending
+    row order), and a DB smaller than n (k = C)."""
+    rng = np.random.default_rng(n + (size or 0))
+    for c in (520, 300):
+        q, db = _tied_db(rng, c, 8, [128, 256, 384, 511])
+        qt, dbt = torch.tensor(q), torch.tensor(db)
+        k = min(n, c)
+        got = TREF.panel_select_topn_ref(qt, dbt, size, n)
+        want = TREF.panel_topn_ref(qt, dbt, size, n)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+        assert got[1].shape == (len(q), k)
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(
+            jax.lax.top_k(jnp.asarray(TREF.panel_ref(qt, dbt, size)
+                                      .numpy()), k)[1]))
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.integers(1, 4), st.integers(1, 300), st.integers(1, 300),
+       st.integers(0, 2 ** 31 - 1))
+def test_select_over_tied_pools_equals_stable_sort(nq, p, k, seed):
+    """Kernel 2's select over pools of few distinct scores (-inf, -0.0 and
+    0.0 among them), explicit rows with repeated empty slots (-inf,
+    EMPTY_ROW) and rows that tie: equal to the rounds' plain version (a
+    stable sort by row, then by score), scores, rows and positions; the
+    radix passes stop once the k-th's bin is exactly what is needed."""
+    rng = np.random.default_rng(seed)
+    k = min(k, p)
+    pool_s = torch.tensor(rng.choice(_VALUES, (nq, p)), dtype=torch.float32)
+    rows = rng.integers(0, 3 * p, (nq, p)).astype(np.int32)
+    empty = rng.random((nq, p)) < 0.2
+    rows[empty] = TREF.EMPTY_ROW
+    pool_s[torch.tensor(empty)] = float("-inf")
+    pool_i = torch.tensor(rows)
+    want = TREF.topn_merge_ref(pool_s, pool_i, k)
+    got = TREF.topn_select_ref(pool_s, pool_i, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    carried = tuple(torch.tensor(rng.integers(0, 9, (nq, p, 2)),
+                                 dtype=torch.int32) for _ in range(2)) + (
+        torch.tensor(rng.random((nq, p, 2)), dtype=torch.float32),
+        torch.tensor(rng.random((nq, p, 2)) < 0.5))
+    want = TREF.topn_merge_ref(pool_s, pool_i, k, carried=carried)
+    got = TREF.topn_select_ref(pool_s, pool_i, k, carried=carried)
+    for x, y in zip(got[3], want[3]):
+        assert torch.equal(x, y)
+    passes = TREF.key_select_ref(pool_s, pool_i, k)[1]
+    assert bool(((passes >= 1) & (passes <= 9)).all())
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("n", [129, 300])
+def test_cross_shard_select_past_128(shards, n):
+    """The sharded retrieve past k = 128 through the kernels' glue on CPU
+    tensors (per shard the panel and the select with records gathered by
+    row in rank order, then the cross-shard select with records carried
+    by position into the replay's layout): rows equal to `jax.lax.top_k`
+    over the whole panel, every output equal to the sharded panel + stable
+    sort; each layout of kernel 2's select against the rounds' plain
+    version on the same pool."""
+    rng = np.random.default_rng(shards + n)
+    c, d = 640, 16
+    c_l = c // shards
+    q, db = _tied_db(rng, c, d, [c_l * s for s in range(1, shards)] + [77])
+    size = c - 41
+    a = rng.integers(0, M, (c, R)).astype(np.int32)
+    b = ((a + 1) % M).astype(np.int32)
+    s = rng.choice([0.0, 0.5, 1.0], (c, R)).astype(np.float32)
+    v = rng.random((c, R)) < 0.7
+
+    def split(x):
+        return [torch.tensor(x[i * c_l:(i + 1) * c_l]) for i in range(shards)]
+    emb = split(db)
+    panels = tuple(split(x) for x in (a, b, s, v))
+    sizes = [torch.tensor(size, dtype=torch.int32)] * shards
+    qt = torch.tensor(q)
+    got = RT.sharded_topn_cuda(qt, emb, panels, sizes, n)
+    want = TREF.sharded_panel_topn_ref(qt, emb, panels, sizes, n)
+    np.testing.assert_array_equal(got[1].numpy(),
+                                  _jax_topk(q, db, size, n, "reference"))
+    for x, y in zip(got[:3] + got[3], want[:3] + want[3]):
+        assert torch.equal(x, y)
+    # one shard's panel: the select by row, rank order
+    kl = min(n, c_l)
+    panel = TREF.panel_ref(qt, emb[1], sizes[1], offset=c_l)
+    sel = TREF.topn_select_ref(panel, None, kl, row0=c_l,
+                               panels=tuple(x[1] for x in panels),
+                               offset=c_l)
+    order = TREF.stable_topk(panel, kl)[1]
+    assert torch.equal(sel[1], order + c_l)
+    for x, y in zip(sel[3], panels):
+        assert torch.equal(x, y[1][order])
+    # the CPU glue's stable sort over the same panel: every output equal
+    glue = TREF.topn_merge_ref(panel, None, kl, row0=c_l,
+                               panels=tuple(x[1] for x in panels),
+                               offset=c_l)
+    for x, y in zip(glue[:3] + glue[3], sel[:3] + sel[3]):
+        assert torch.equal(x, y)
