@@ -20,20 +20,17 @@ together), then:
      tolerances: the similarity kernel at every bucket of the 8..1024
      ladder, each timed beside its bound and the library call (and, up
      to 128, with every tile that could take it); the fused retrieve's
-     two kernels on the list route (retrieve_topn: similarity + live-row
-     mask + a top-n a column split, no panel; topn_merge: the top-n of
-     its pool) at buckets 1024, 64 and 8, bit for bit against the
-     per-split stable top-n of the similarity kernel's panel and against
-     their plain versions, timed (queued) beside their bounds, plain
-     versions and library chains and beside the panel + stable sort they
-     replace; the panel route past 128 neighbours (n = 129, 256, 512, the
-     kernels' bound being 512: kernel 1 writes the masked panel, kernel 2
-     selects), unsharded and over 4 shards on the card, bit for bit
-     against the similarity kernel's panel at the plan's tile + stable
-     sort, with three controls that must change the top-n rows (kernel 2
-     without the panel's last 1,024 columns; without the last shard; a
-     kernel 2 built to give ties to the higher row), timed beside their
-     bounds; an EagleRouter(n_neighbors=512) routed through its graphs
+     two kernels (retrieve_topn: the similarity panel with the live-row
+     mask; topn_merge: a radix select of each row's top-n) at n = 20 and
+     past 128 neighbours (n = 129, 256, 512, the kernels' bound being
+     512) at buckets 1024, 64 and 8, unsharded and over 4 shards on the
+     card, bit for bit against the similarity kernel's panel at the
+     plan's tile + stable sort and against their plain versions, timed
+     (queued) beside their bounds, plain versions and library chains and
+     beside the panel + stable sort, with three controls that must change
+     the top-n rows (kernel 2 without the panel's last 4,096 columns;
+     without the last shard; a kernel 2 built to give ties to the higher
+     row); an EagleRouter(n_neighbors=512) routed through its graphs
      (its graph pools logged before and after the warm-up; no capture
      by traffic, choices equal to the eager and the panel route's), and
      513 refused; the route over them (retrieve + gather replay) at those
@@ -667,26 +664,25 @@ ROUTE_KERNELS = ("retrieve_topn", "topn_merge", "elo_scan_select",
 # first is the kernels line's), with DEAD_ROWS rows past the live count
 RETRIEVE_BUCKETS = (1024, 64, 8)
 DEAD_ROWS = 768
-# the fused retrieve past 128 neighbours (the panel route): checked at
-# LARGE_N and RETRIEVE_BUCKETS, unsharded and over SHARDS_LARGE_N shards
-# on the card, with controls built with TIE_CONTROL; a router of MAX_N
-# neighbours routes LARGE_N_BATCHES (buckets 8, 64, 1024) through graphs
+# the fused retrieve checked at N and at LARGE_N past 128 neighbours, at
+# RETRIEVE_BUCKETS, unsharded and over SHARDS_LARGE_N shards on the card,
+# with controls built with TIE_CONTROL; a router of MAX_N neighbours
+# routes LARGE_N_BATCHES (buckets 8, 64, 1024) through graphs
 LARGE_N, SHARDS_LARGE_N = (129, 256, 512), 4
 LARGE_N_BATCHES = (5, 50, 1000)
 TIE_CONTROL = ("TOPN_CONTROL_TIE_HIGH",)
-# the panel route's control: kernel 2 over the panel without its last
-# DROP_COLS columns (the list route's last split at bucket 1024)
-DROP_COLS = 1024
-# the similarity kernel: off the serving route since the fused retrieve;
-# the legacy retrieval (`VectorDB.query`) of the route benchmark runs it
+# a control: kernel 2 over the panel without its last DROP_COLS columns
+# (at n = 20, C = 32768: 3,328 live rows, in the top-20 of ~89% of random
+# queries)
+DROP_COLS = 4096
+# the similarity panel (`similarity_cuda`): off the serving route; the
+# legacy retrieval (`VectorDB.query`) of the route benchmark runs it
 OFF_PATH = ("similarity",)
-# device-side names a route's profile may hold: the retrieve's kernels
-# (either route's two), the replay, and copies; anything else (a library
-# GEMM, a sort) fails
-ROUTE_PROFILE_KERNELS = ("topn_gemm_kernel", "topn_gemv_kernel",
-                         "topn_merge_kernel", "panel_gemm_kernel",
-                         "panel_gemv_kernel", "topn_select_kernel",
-                         "elo_scan_kernel")
+# device-side names a route's profile may hold: the retrieve's two
+# kernels, the replay, and copies; anything else (a library GEMM, a sort)
+# fails
+ROUTE_PROFILE_KERNELS = ("panel_gemm_kernel", "panel_gemv_kernel",
+                         "topn_select_kernel", "elo_scan_kernel")
 # fp32 operations of one replay step of one query: difference, divide,
 # pow, add, reciprocal, difference, two products, two updates
 REPLAY_STEP_OPS = 10
@@ -877,8 +873,8 @@ def build_report(libs, stats):
     import re
     from repro_torch.kernels import _build
     report, logs = {}, {}
-    for name in ("similarity", "retrieve_topn", "flash_attention",
-                 "elo_scan", "decode_attention"):
+    for name in ("retrieve_topn", "flash_attention", "elo_scan",
+                 "decode_attention"):
         logs[name] = _build.build_log(name)
         entry, lines = None, []
         for line in logs[name].splitlines():
@@ -923,27 +919,22 @@ def fail(msg):
 # ---------------------------------------------------------------------------
 
 def similarity_tile_ms(q, db, tile, iters):
-    """Device time of the similarity kernel with its tile forced (8: the
-    streaming kernel; 32, 64, 128: the GEMM with that many query rows), to
-    show where the path's choice should switch. Timing only: these
-    launches go around the wrapper and are not counted."""
-    from repro_torch.kernels import _build
-    lib = _build.library("similarity")
-    out = torch.empty((q.shape[0], db.shape[0]), device=q.device)
-    stream = _build.stream_handle(q.device)
-
-    def run():
-        _build.check(lib.similarity_launch_tile(
-            q.data_ptr(), db.data_ptr(), out.data_ptr(), q.shape[0],
-            db.shape[0], q.shape[1], tile, stream), "similarity tile")
-    return cuda_ms(run, iters)
+    """Device time of the similarity kernel (the retrieve's kernel 1 with
+    no live-row count) with its tile forced (8: the streaming kernel; 32,
+    64, 128: the GEMM with that many query rows), to show where the path's
+    choice should switch. Timing only: these launches go around the
+    wrappers and are not counted."""
+    from repro_torch.kernels import retrieve_topn as RT
+    return cuda_ms(lambda: RT.panel_launch(q, db, None, 0, tile), iters)
 
 
 def check_similarity(dev, kernels, stats):
-    """Every bucket of the dispatch ladder against the plain version
-    (SIM_TOL, and the top-N near-tie check), timed beside the plain
-    version, the library call and the bound; the buckets up to 128 also
-    with each tile that could take them."""
+    """The similarity panel (`similarity_cuda`: the retrieve's kernel 1
+    with no live-row count, the legacy `VectorDB.query`'s) at every bucket
+    of the dispatch ladder against the plain version (SIM_TOL, and the
+    top-N near-tie check), timed beside the plain version, the library
+    call and the bound; the buckets up to 128 also with each tile that
+    could take them."""
     from repro_torch.core.dispatch import bucket_ladder
     from repro_torch.kernels import ref
     from repro_torch.kernels.similarity_topk import similarity_cuda
@@ -993,162 +984,34 @@ def check_similarity(dev, kernels, stats):
         if nq == 1024:
             kernels["similarity"] = dict(
                 name="similarity", route="cuda",
-                source="src/repro_torch/kernels/csrc/similarity.cu",
+                source="src/repro_torch/kernels/csrc/retrieve_topn.cu",
                 replaces="src/repro/kernels/similarity_topk.py:42",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=lib)
     stats["similarity_buckets"] = buckets
 
 
-def retrieve_bound(nq, c, d, pool, n=N, passes=None):
-    """The fused retrieve's bounds: kernel 1 reads q and the DB once and
-    writes its pool (the product's fp32 operations bound it at large Q),
-    kernel 2 reads the pool and writes the top-n (scores, int64 rows,
-    hit) with one comparison a candidate. On the panel route (`passes`:
-    the radix passes this run's rows took, summed, from the plain
-    version's select) the pool is the (Q, C) panel of scores alone, and
-    kernel 2 compares each entry once a pass and once to gather. Returns
-    ((ms, by), (ms, by))."""
-    entry = 8.0 if passes is None else 4.0
-    k1 = bound_ms(4.0 * (nq * d + c * d) + entry * nq * pool,
+def retrieve_bound(nq, c, d, n, passes):
+    """The retrieve's bounds: kernel 1 reads q and the DB once and writes
+    the (Q, C) panel of scores (the product's fp32 operations bound it at
+    large Q); kernel 2 reads the panel and writes the top-n (scores, int64
+    rows, hit), comparing each entry once a radix pass (`passes`: the
+    passes this run's rows took, summed, from the plain version's select)
+    and once to gather. Returns ((ms, by), (ms, by))."""
+    k1 = bound_ms(4.0 * (nq * d + c * d) + 4.0 * nq * c,
                   2.0 * nq * c * d + 2.0 * (nq + c) * d)
-    ops = nq * pool if passes is None else pool * (passes + nq)
-    k2 = bound_ms(entry * nq * pool + 13.0 * nq * n, float(ops))
+    k2 = bound_ms(4.0 * nq * c + 13.0 * nq * n, float(c * (passes + nq)))
     return k1, k2
 
 
 def pair_bound(nq, c, d, n=N):
     """The fused retrieve's bound as one function (both kernels, timed
     together): q and the DB read once, the top-n (scores, int64 rows, hit)
-    written once, the product's fp32 operations and the norms. The pool or
-    panel between the kernels is the design's own and is not counted.
-    Returns (ms, by)."""
+    written once, the product's fp32 operations and the norms. The panel
+    between the kernels is the design's own and is not counted. Returns
+    (ms, by)."""
     return bound_ms(4.0 * (nq * d + c * d) + 13.0 * nq * n,
                     2.0 * nq * c * d + 2.0 * (nq + c) * d)
-
-
-def check_retrieve(dev, kernels, stats):
-    """The fused retrieve's two kernels at the routing path's shapes
-    (RETRIEVE_BUCKETS against C_EXPECTED rows of D = DIM, n = N, the
-    last DEAD_ROWS rows past the live count, duplicate rows on split
-    boundaries and the queries that tie on them): kernel 1's pool equal,
-    bit for bit, to the per-split stable top-n of the similarity kernel's
-    masked panel (`ref.panel_pool_ref`), its scores within SIM_TOL of the
-    plain similarity; kernel 2 over that pool equal to its plain version
-    bit for bit; the pair's top-n equal to the panel's stable sort bit for
-    bit and to the plain version's but at near-ties. Each kernel timed on
-    the device (`queued_ms`) beside its bound, its plain version and the
-    library chain (normalize + matmul + torch.topk for kernel 1;
-    torch.topk over the pool for kernel 2), and the pair beside the
-    panel + stable sort it replaces."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import retrieve_topn as RT
-    from repro_torch.kernels.similarity_topk import similarity_cuda
-    rng = torch.Generator(device=dev).manual_seed(2)
-    db0 = torch.randn((C_EXPECTED, DIM), generator=rng, device=dev)
-    live = C_EXPECTED - DEAD_ROWS
-    size = torch.tensor(live, dtype=torch.int32, device=dev)
-    norm = torch.nn.functional.normalize
-    buckets = {}
-    for nq in RETRIEVE_BUCKETS:
-        tile, rows, splits, _ = RT.plan(nq, C_EXPECTED, DIM,
-                                        RT._sm_count(dev))
-        ties = [rows * i for i in range(1, min(splits, 5))]
-        db = db0.clone()
-        for b in ties:
-            db[b] = db[b - 1]
-        q = torch.randn((nq, DIM), generator=rng, device=dev)
-        k = min(nq, len(ties))
-        q[:k] = db[[b - 1 for b in ties[:k]]]
-        pool_s, pool_i = RT.retrieve_topn_cuda(q, db, size, N)
-        top = RT.topn_merge_cuda(pool_s, pool_i, N)
-        panel = ref.mask_dead(similarity_cuda(q, db), 0, size)
-        want_pool = ref.panel_pool_ref(panel, N, rows)
-        want_top = ref.topn_merge_ref(pool_s, pool_i, N)[:3]
-        panel_top = ref.stable_topk(panel, N)
-        del panel
-        plain_panel = ref.mask_dead(ref.similarity_ref(q, db), 0, size)
-        plain_top = ref.stable_topk(plain_panel, N)
-        torch.cuda.synchronize()
-        if not (torch.equal(pool_s, want_pool[0])
-                and torch.equal(pool_i, want_pool[1])):
-            fail(f"retrieve_topn Q={nq}: the pool differs from the "
-                 "per-split stable top-n of the similarity kernel's panel")
-        if not all(torch.equal(x, y) for x, y in zip(top, want_top)):
-            fail(f"topn_merge Q={nq}: differs from its plain version")
-        if not (torch.equal(top[0], panel_top[0])
-                and torch.equal(top[1], panel_top[1])):
-            fail(f"retrieve Q={nq}: the top-{N} differs from the panel's "
-                 "stable sort")
-        hit = top[2]
-        err = float((top[0] - torch.gather(plain_panel, 1, top[1]))[hit]
-                    .abs().max())
-        if not err <= SIM_TOL:
-            fail(f"retrieve_topn Q={nq}: scores {err} from the plain "
-                 "similarity")
-        differ, untied = topk_rows_agree(top[1], plain_top[1], plain_panel,
-                                         N, SIM_TOL)
-        if untied:
-            fail(f"retrieve Q={nq}: top-{N} differs from the plain version "
-                 f"on {untied} rows without a near-tie")
-        del plain_panel, plain_top
-        # runs queued: a stream holds ~1000 launches ahead of the device,
-        # and the panel route and the library chain launch ~20 a run
-        iters = 20 if nq >= 256 else 50
-        k1_ms = queued_ms(lambda: RT.retrieve_topn_cuda(q, db, size, N),
-                          iters)
-        k2_ms = queued_ms(lambda: RT.topn_merge_cuda(pool_s, pool_i, N), 50)
-        pair_ms = queued_ms(lambda: RT.topn_cuda(q, db, size, N), iters)
-        sim_ms = queued_ms(lambda: similarity_cuda(q, db), iters)
-        panel_ms = queued_ms(lambda: ref.panel_topn_ref(
-            q, db, size, N, similarity_fn=similarity_cuda), 20)
-        plain1 = cuda_ms(lambda: ref.split_topn_ref(q, db, size, N, rows),
-                         3, warmup=1)
-        plain2 = cuda_ms(lambda: ref.topn_merge_ref(pool_s, pool_i, N), 3,
-                         warmup=1)
-        lib1 = queued_ms(lambda: torch.topk(
-            torch.matmul(norm(q, dim=-1), norm(db, dim=-1).T), N, dim=-1),
-            20)
-        lib2 = queued_ms(lambda: torch.topk(pool_s, N, dim=-1), 50)
-        pool = splits * N
-        (b1, by1), (b2, by2) = retrieve_bound(nq, C_EXPECTED, DIM, pool)
-        log_time(stats,
-                 f"retrieve Q={nq} C={C_EXPECTED} D={DIM} n={N} (tile "
-                 f"{tile}, {splits} splits of {rows} rows, pool {pool} a "
-                 f"query, {live} live rows): pool and top-n equal to the "
-                 f"similarity kernel's panel + stable sort; scores max abs "
-                 f"err {err} from the plain version, top-n rows differing "
-                 f"at near-ties {differ}; retrieve_topn ms {k1_ms} (queued) "
-                 f"bound {b1} ({by1}, {b1 / k1_ms} of it) plain {plain1} "
-                 f"library (normalize + matmul + topk) {lib1}; topn_merge "
-                 f"ms {k2_ms} bound {b2} ({by2}) plain {plain2} library "
-                 f"(topk over the pool) {lib2}; the pair {pair_ms} against "
-                 f"the similarity kernel alone {sim_ms} and its panel + "
-                 f"stable sort {panel_ms}")
-        buckets[nq] = dict(tile=tile, splits=splits, split_rows=rows,
-                           pool=pool, max_abs_err=err,
-                           topk_rows_near_tie=differ, retrieve_topn_ms=k1_ms,
-                           retrieve_topn_bound_ms=b1, retrieve_topn_plain_ms=
-                           plain1, retrieve_topn_library_ms=lib1,
-                           topn_merge_ms=k2_ms, topn_merge_bound_ms=b2,
-                           topn_merge_plain_ms=plain2,
-                           topn_merge_library_ms=lib2, pair_ms=pair_ms,
-                           similarity_ms=sim_ms, panel_sort_ms=panel_ms)
-        if nq == RETRIEVE_BUCKETS[0]:
-            src = "src/repro_torch/kernels/csrc/retrieve_topn.cu"
-            kernels["retrieve_topn"] = dict(
-                name="retrieve_topn", route="cuda", source=src,
-                replaces="src/repro/kernels/similarity_topk.py:42",
-                max_abs_err=err, ms=k1_ms, queued_ms=k1_ms, plain_ms=plain1,
-                bound_ms=b1, bound_by=by1, library_ms=lib1)
-            kernels["topn_merge"] = dict(
-                name="topn_merge", route="cuda", source=src,
-                replaces="src/repro/kernels/similarity_topk.py:91",
-                max_abs_err=0.0, ms=k2_ms, queued_ms=k2_ms, plain_ms=plain2,
-                bound_ms=b2, bound_by=by2, library_ms=lib2)
-        del q, db, pool_s, pool_i, top
-    stats["retrieve_buckets"] = buckets
-
 
 
 def _shards(x, s):
@@ -1156,16 +1019,17 @@ def _shards(x, s):
     return [x[i * cl:(i + 1) * cl] for i in range(s)]
 
 
-def check_retrieve_large_n(dev, kernels, stats):
-    """The fused retrieve past 128 neighbours, the panel route (kernel 1
-    writes the masked panel at the similarity kernel's tile, kernel 2
-    selects; the kernels take n up to MAX_N = 512, the replay kernel's
-    bound): at LARGE_N and RETRIEVE_BUCKETS over C_EXPECTED rows of D =
-    DIM (DEAD_ROWS dead, duplicates on tile boundaries and the queries
-    that tie on them), kernel 1's panel equal to the similarity kernel's
-    masked panel at the plan's tile, kernel 2 to its plain version (the
-    select, `ref.topn_select_ref`) and the pair's top-n to the panel's
-    stable sort, bit for bit; the capacity-sharded retrieve at S =
+def check_retrieve(dev, kernels, stats):
+    """The fused retrieve (kernel 1 writes the masked panel at the
+    similarity kernel's tile, kernel 2 selects; the kernels take n up to
+    MAX_N = 512, the replay kernel's bound) at the routing path's n = N
+    and at LARGE_N, at RETRIEVE_BUCKETS over C_EXPECTED rows of D = DIM
+    (DEAD_ROWS dead, duplicates on tile boundaries and the queries that
+    tie on them): kernel 1's panel equal to the similarity kernel's masked
+    panel at the plan's tile and within SIM_TOL of the plain one; kernel 2
+    equal to its plain version (the select, `ref.topn_select_ref`) and to
+    one stable sort of kernel 1's own panel, bit for bit, and to the plain
+    version's top-n but at near-ties; the capacity-sharded retrieve at S =
     SHARDS_LARGE_N on the card equal to `ref.sharded_panel_topn_ref` bit
     for bit (rows, scores, hits, the pre-gathered records). Controls at
     bucket 1024, each of which must change the top-n rows: kernel 2 over
@@ -1174,7 +1038,7 @@ def check_retrieve_large_n(dev, kernels, stats):
     over a row copied n + 5 times. Each kernel timed (queued) beside its
     bound, its plain version and the library call (normalize + matmul +
     topk; torch.topk over the panel); the pair and the S = 4 composite
-    beside the panel + stable sort."""
+    beside the similarity kernel alone and the panel + stable sort."""
     from functools import partial
     from unittest import mock
     from repro_torch.kernels import _build, ref
@@ -1199,10 +1063,9 @@ def check_retrieve_large_n(dev, kernels, stats):
         return library(name, TIE_CONTROL if name == "retrieve_topn"
                        else defines)
     out = {}
-    for n in LARGE_N:
+    for n in (N,) + LARGE_N:
         for nq in RETRIEVE_BUCKETS:
-            tile, _, _, route = RT.plan(nq, C_EXPECTED, DIM,
-                                        RT._sm_count(dev), n)
+            tile, route = RT.plan(nq, C_EXPECTED, DIM, n=n)
             where = f"retrieve n={n} Q={nq}"
             if route != RT.PANEL:
                 fail(f"{where}: the plan takes the {route} route")
@@ -1217,16 +1080,17 @@ def check_retrieve_large_n(dev, kernels, stats):
             # the similarity kernel at kernel 1's tile: across tiles scores
             # may differ in the last place
             sim = partial(similarity_cuda, tile=tile)
-            panel, _ = RT.retrieve_topn_cuda(q, db, size, n)
+            panel = RT.retrieve_topn_cuda(q, db, size)
             top = RT.topn_merge_cuda(panel, None, n)
             sharded = RT.sharded_topn_cuda(q, emb, panels, sizes, n)
             want_panel = ref.mask_dead(sim(q, db), 0, size)
-            panel_top = ref.stable_topk(want_panel, n)
+            panel_top = ref.stable_topk(panel, n)
             want_top = ref.topn_select_ref(panel, None, n)[:3]
             passes = int(ref.key_select_ref(panel, None, n)[1].sum())
             want_sh = ref.sharded_panel_topn_ref(q, emb, panels, sizes, n,
                                                  similarity_fn=sim)
             plain_panel = ref.panel_ref(q, db, size)
+            plain_top = ref.stable_topk(plain_panel, n)
             alive = torch.isfinite(plain_panel)
             err = float((panel - plain_panel)[alive].abs().max())
             torch.cuda.synchronize()
@@ -1239,19 +1103,25 @@ def check_retrieve_large_n(dev, kernels, stats):
                 fail(f"{where}: topn_merge differs from its plain version")
             if not (torch.equal(top[0], panel_top[0])
                     and torch.equal(top[1], panel_top[1])):
-                fail(f"{where}: the top-n differs from the panel's stable "
-                     "sort")
+                fail(f"{where}: the top-n differs from the stable sort of "
+                     "kernel 1's panel")
+            differ, untied = topk_rows_agree(top[1], plain_top[1],
+                                             plain_panel, n, SIM_TOL)
+            if untied:
+                fail(f"{where}: the top-n differs from the plain version "
+                     f"on {untied} rows without a near-tie")
             if not all(torch.equal(x, y) for x, y in
                        zip(sharded[:3] + sharded[3], want_sh[:3]
                            + want_sh[3])):
                 fail(f"{where}: the S={SHARDS_LARGE_N} retrieve differs "
                      "from the sharded panel + stable sort")
             del want_panel, want_top, want_sh, sharded, plain_panel, alive
+            del plain_top
             ctl = {}
             if nq == RETRIEVE_BUCKETS[0]:
                 dropped = RT.topn_merge_cuda(panel[:, :-DROP_COLS], None,
                                              n)[1]
-                ctl["split_dropped"] = float(
+                ctl["cols_dropped"] = float(
                     (dropped != panel_top[1]).any(dim=1).float().mean())
                 fewer = RT.sharded_topn_cuda(
                     q, emb[:-1], tuple(x[:-1] for x in panels), sizes[:-1],
@@ -1267,20 +1137,21 @@ def check_retrieve_large_n(dev, kernels, stats):
                     (high != torch.arange(99, 99 + n, device=dev))
                     .any(dim=1).float().mean())
                 torch.cuda.synchronize()
-                if ctl["split_dropped"] < 0.2 or ctl["shard_dropped"] < 0.2 \
+                if ctl["cols_dropped"] < 0.2 or ctl["shard_dropped"] < 0.2 \
                         or ctl["tie_high"] < 1.0:
                     fail(f"{where}: a control did not change the top-n "
                          f"rows: shares {ctl}")
             iters = 10 if nq >= 256 else 30
-            k1_ms = queued_ms(lambda: RT.retrieve_topn_cuda(q, db, size, n),
+            k1_ms = queued_ms(lambda: RT.retrieve_topn_cuda(q, db, size),
                               iters)
             k2_ms = queued_ms(lambda: RT.topn_merge_cuda(panel, None, n),
                               iters)
             pair_ms = queued_ms(lambda: RT.topn_cuda(q, db, size, n), iters)
             s4_ms = queued_ms(lambda: RT.sharded_topn_cuda(
                 q, emb, panels, sizes, n), iters)
+            sim_ms = queued_ms(lambda: sim(q, db), iters)
             panel_ms = queued_ms(lambda: ref.panel_topn_ref(
-                q, db, size, n, similarity_fn=similarity_cuda), 10)
+                q, db, size, n, similarity_fn=sim), 10)
             plain1 = cuda_ms(lambda: ref.panel_ref(q, db, size), 2,
                              warmup=1)
             plain2 = cuda_ms(lambda: ref.topn_select_ref(panel, None, n), 2,
@@ -1289,44 +1160,52 @@ def check_retrieve_large_n(dev, kernels, stats):
                 torch.matmul(norm(q, dim=-1), norm(db, dim=-1).T), n,
                 dim=-1), 10)
             lib2 = queued_ms(lambda: torch.topk(panel, n, dim=-1), iters)
-            (b1, by1), (b2, by2) = retrieve_bound(nq, C_EXPECTED, DIM,
-                                                  C_EXPECTED, n, passes)
+            (b1, by1), (b2, by2) = retrieve_bound(nq, C_EXPECTED, DIM, n,
+                                                  passes)
             log_time(stats,
-                     f"{where} C={C_EXPECTED} D={DIM} (the panel route, tile "
-                     f"{tile}, {passes / nq} radix passes a row, {live} live"
-                     f" rows): panel, top-n and S={SHARDS_LARGE_N} equal to "
-                     f"the panel + stable sort; panel max abs err {err} from"
-                     f" the plain one; controls (share of rows changed) "
-                     f"{ctl}; retrieve_topn (the panel) ms {k1_ms} (queued) "
-                     f"bound {b1} ({by1}, {b1 / k1_ms} of it) plain {plain1}"
-                     f" library (normalize + matmul + topk) {lib1}; "
-                     f"topn_merge (the select, k={n}) ms {k2_ms} bound {b2} "
-                     f"({by2}, {b2 / k2_ms} of it) plain {plain2} library "
-                     f"(topk over the panel) {lib2}; the pair {pair_ms}, "
-                     f"S={SHARDS_LARGE_N} {s4_ms}, the panel + stable sort "
-                     f"{panel_ms}")
+                     f"{where} C={C_EXPECTED} D={DIM} (tile {tile}, "
+                     f"{passes / nq} radix passes a row, {live} live rows): "
+                     f"panel, top-n and S={SHARDS_LARGE_N} equal to the "
+                     f"panel + stable sort; panel max abs err {err} from the"
+                     f" plain one, top-n rows differing from the plain "
+                     f"version's at near-ties {differ}; controls (share of "
+                     f"rows changed) {ctl}; retrieve_topn (the panel) ms "
+                     f"{k1_ms} (queued) bound {b1} ({by1}, {b1 / k1_ms} of "
+                     f"it) plain {plain1} library (normalize + matmul + "
+                     f"topk) {lib1}; topn_merge (the select, k={n}) ms "
+                     f"{k2_ms} bound {b2} ({by2}, {b2 / k2_ms} of it) plain "
+                     f"{plain2} library (topk over the panel) {lib2}; the "
+                     f"pair {pair_ms}, S={SHARDS_LARGE_N} {s4_ms}, the "
+                     f"similarity kernel alone {sim_ms}, the panel + stable"
+                     f" sort {panel_ms}")
             out[f"n{n} q{nq}"] = dict(
                 n=n, q=nq, tile=tile, route=route, passes=passes,
-                max_abs_err=err, controls=ctl, retrieve_topn_ms=k1_ms,
-                retrieve_topn_bound_ms=b1, retrieve_topn_plain_ms=plain1,
+                max_abs_err=err, topk_rows_near_tie=differ, controls=ctl,
+                retrieve_topn_ms=k1_ms, retrieve_topn_bound_ms=b1,
+                retrieve_topn_plain_ms=plain1,
                 retrieve_topn_library_ms=lib1, topn_merge_ms=k2_ms,
                 topn_merge_bound_ms=b2, topn_merge_plain_ms=plain2,
                 topn_merge_library_ms=lib2, pair_ms=pair_ms,
-                sharded_ms=s4_ms, panel_sort_ms=panel_ms)
-            if n == LARGE_N[-1] and nq == RETRIEVE_BUCKETS[0]:
+                sharded_ms=s4_ms, similarity_ms=sim_ms,
+                panel_sort_ms=panel_ms)
+            if nq == RETRIEVE_BUCKETS[0] and n in (N, LARGE_N[-1]):
                 src = "src/repro_torch/kernels/csrc/retrieve_topn.cu"
-                kernels["retrieve_topn n512"] = dict(
-                    name="retrieve_topn n512", route="cuda", source=src,
+                k1, k2 = ("retrieve_topn", "topn_merge") if n == N else (
+                    "retrieve_topn n512", "topn_merge k512")
+                kernels[k1] = dict(
+                    name=k1, route="cuda", source=src,
                     replaces="src/repro/kernels/similarity_topk.py:42",
-                    max_abs_err=err, ms=k1_ms, plain_ms=plain1, bound_ms=b1,
-                    bound_by=by1, library_ms=lib1)
-                kernels["topn_merge k512"] = dict(
-                    name="topn_merge k512", route="cuda", source=src,
+                    max_abs_err=err, ms=k1_ms, queued_ms=k1_ms,
+                    plain_ms=plain1, bound_ms=b1, bound_by=by1,
+                    library_ms=lib1)
+                kernels[k2] = dict(
+                    name=k2, route="cuda", source=src,
                     replaces="src/repro/kernels/similarity_topk.py:91",
-                    max_abs_err=0.0, ms=k2_ms, plain_ms=plain2, bound_ms=b2,
-                    bound_by=by2, library_ms=lib2)
+                    max_abs_err=0.0, ms=k2_ms, queued_ms=k2_ms,
+                    plain_ms=plain2, bound_ms=b2, bound_by=by2,
+                    library_ms=lib2)
             del q, db, emb, panel, top, panel_top
-    stats["retrieve_large_n"] = out
+    stats["retrieve"] = out
 
 
 def route_large_n(dev, corpus, fb, stats):
@@ -6114,14 +5993,14 @@ def check_knn(dev, kernels, stats, corpus, targets):
         norm(q, dim=-1), norm(db, dim=-1).T), n, dim=-1), 25)
     d = q.shape[1]
     from repro_torch.kernels import retrieve_topn as RT
-    pl = RT.plan(nq, c, d, RT._sm_count(dev), n)
+    pl = RT.plan(nq, c, d, n=n)
     if pl.route != RT.PANEL:
         fail(f"knn Q={nq} C={c}: the plan takes the {pl.route} route")
-    panel, _ = RT.retrieve_topn_cuda(q, db, None, n)
-    k1_ms = queued_ms(lambda: RT.retrieve_topn_cuda(q, db, None, n), 50)
+    panel = RT.retrieve_topn_cuda(q, db, None)
+    k1_ms = queued_ms(lambda: RT.retrieve_topn_cuda(q, db, None), 50)
     k2_ms = queued_ms(lambda: RT.topn_merge_cuda(panel, None, n), 50)
     passes = int(ref.key_select_ref(panel, None, n)[1].sum())
-    (b1, _), (b2, _) = retrieve_bound(nq, c, d, c, n, passes)
+    (b1, _), (b2, _) = retrieve_bound(nq, c, d, n, passes)
     bound, by = pair_bound(nq, c, d, n)
     log_time(stats, f"knn retrieve Q={nq} C={c} D={d} top-{n} (the panel "
              f"route, tile {pl.tile}; kernel 1 {k1_ms} ms (bound {b1}), "
@@ -6395,7 +6274,6 @@ def main() -> int:
     kernels = {}
     check_similarity(dev, kernels, stats)
     check_retrieve(dev, kernels, stats)
-    check_retrieve_large_n(dev, kernels, stats)
     check_replay(dev, kernels, stats, fold_records)
     launches = {"large_n": route_large_n(dev, corpus, fb, stats)}
     torch.cuda.empty_cache()

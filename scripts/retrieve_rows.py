@@ -11,28 +11,41 @@ git archive <commit> src/repro_torch/kernels | tar -x -C build/parent`.
 Its `src/repro_torch/kernels/csrc/retrieve_topn.cu` is built as the port
 builds its sources, into the git-ignored `build/retrieve_rows/`, and
 called through its own wrapper (`kernels/retrieve_topn.py`, with its
-`_build.py`'s C signatures), beside this checkout's library.
+`_build.py`'s C signatures), beside this checkout's library. Either
+tree's kernel 1 may return the masked panel or a pool of candidates with
+their rows; kernel 2 takes what its kernel 1 gave.
 
 It prints both trees' ptxas reports (registers and spills of each
 retrieve kernel), then at each row runs the same inputs through each
 build and holds the result bit for bit against the similarity kernel's
 masked panel at that build's tile and one stable sort of it (the sharded
-rows: against `ref.sharded_panel_topn_ref`). The rows: the unsharded pair
-at n = 20, 129, 256, 512 and buckets 1024, 64, 8 (C = 32768, D = 1536,
-the last 768 rows past the live count, rows tied on tile boundaries);
-KNN's call (Q = 84, C = 1,470, D = 64, top-40, every row live; random
-rows of its shape); the capacity-sharded retrieve at S = 1, 2, 4 on the
-card (bucket 1024, n = 20) and at S = 4, n = 512. Each build's pair is
-timed by CUDA events over launches queued ahead of the device, in the
-order parent, change, change, parent, and each tree's kernel 1 and
-kernel 2 alone, beside the library chain (normalize + matmul +
-torch.topk) and, where kernel 2 selects over a panel, torch.topk over the
-same panel; at the list route's rows also this checkout's panel-route
-kernels over the same inputs (checked the same way). Each unsharded row
-also gets its bounds: each kernel's (`chip_smoke.retrieve_bound`) and the
-pair's (`chip_smoke.pair_bound`). With --check-only it checks and does
-not time. Writes `chiprun_out/retrieve_rows.json`;
-exits non-zero if a build's result differs.
+rows: against `ref.sharded_panel_topn_ref`; the merge rows: against the
+plain merge). The rows:
+  - the unsharded pair at n = 20 at every bucket of the routing ladder (8
+    .. 1024) over C = 32768, and at buckets 8, 64, 1024 over C = 65536
+    (the graph phase's grow); at n = 129, 256, 512 at buckets 1024, 64, 8
+    (C = 32768); D = 1536, the last 768 rows past the live count, rows
+    tied on tile boundaries;
+  - KNN's call (Q = 84, C = 1,470, D = 64, top-40, every row live; random
+    rows of its shape);
+  - the capacity-sharded retrieve of C = 32768 at S = 1, 2, 4 on the card
+    (n = 20) at buckets 1024, 64, 8, and at S = 4, n = 512, bucket 1024;
+  - the cross-shard merge alone (kernel 2 over a pool of S x 20 explicit
+    rows with their records carried, `merge_shards_cuda`) at S = 1, 2, 4
+    and buckets 1024, 64, 8;
+  - the graph pools: each tree's unsharded pair at n = 20 captured at
+    every bucket of the ladder into one CUDA graph memory pool a replica,
+    two replicas, over C = 32768 and 65536; the pools' bytes (the caching
+    allocator's private-pool segments) after the captures, each tree in a
+    fresh set of pools.
+Each build's pair is timed by CUDA events over launches queued ahead of
+the device, in the order parent, change, change, parent, and each tree's
+kernel 1 and kernel 2 alone, beside the library chain (normalize + matmul
++ torch.topk). Each unsharded row also gets its bounds: each kernel's
+(`chip_smoke.retrieve_bound`) and the pair's (`chip_smoke.pair_bound`).
+With --check-only it checks and does not time. Writes
+`chiprun_out/retrieve_rows.json`; exits non-zero if a build's result
+differs.
 """
 from __future__ import annotations
 
@@ -55,9 +68,15 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402  (timing, bounds, the card line)
 
 C, D, DEAD = 32768, 1536, 768
-# (n, bucket) of the unsharded rows; (S, n) of the sharded rows
-UNSHARDED = [(n, q) for n in (20, 129, 256, 512) for q in (1024, 64, 8)]
-SHARDED = ((1, 20), (2, 20), (4, 20), (4, 512))
+LADDER = (1024, 512, 256, 128, 64, 32, 16, 8)
+# (n, bucket, C) of the unsharded rows; (S, n, bucket) of the sharded
+# rows; (S, bucket) of the merge rows
+UNSHARDED = ([(20, q, C) for q in LADDER]
+             + [(20, q, 2 * C) for q in (1024, 64, 8)]
+             + [(n, q, C) for n in (129, 256, 512) for q in (1024, 64, 8)])
+SHARDED = ([(s, 20, q) for s in (1, 2, 4) for q in (1024, 64, 8)]
+           + [(4, 512, 1024)])
+MERGE = [(s, q) for s in (1, 2, 4) for q in (1024, 64, 8)]
 KNN = (84, 1470, 64, 40)     # Q, C, D, top-n
 
 
@@ -112,15 +131,22 @@ def through(tree, fn):
         return fn(mod)
 
 
-def tile_of(mod, nq, c, d, n):
-    """The tile each tree's kernel 1 scores (q, db) at."""
-    return mod.plan(nq, c, d, mod._sm_count(torch.device("cuda")), n=n)[0]
+def plan_of(mod, nq, c, d, n):
+    """Each tree's plan: its tile and route."""
+    pl = mod.plan(nq, c, d, n=n)
+    return pl.tile, pl.route
 
 
-def kernel2(mod, pool, k, n):
+def kernel1(mod, q, db, size, n):
+    """Each tree's kernel 1 as a (pool_s, pool_i) pair: a pool of
+    candidates with their rows, or the masked panel and None."""
+    if "n" in inspect.signature(mod.retrieve_topn_cuda).parameters:
+        return mod.retrieve_topn_cuda(q, db, size, n)
+    return mod.retrieve_topn_cuda(q, db, size), None
+
+
+def kernel2(mod, pool, k):
     """Each tree's kernel 2 over its kernel 1's pool."""
-    if "run" in inspect.signature(mod.topn_merge_cuda).parameters:
-        return mod.topn_merge_cuda(*pool, k, run=n)
     return mod.topn_merge_cuda(*pool, k)
 
 
@@ -133,6 +159,15 @@ def inputs(gen, nq, c, d, dev):
     k = min(nq, len(ties))
     q[:k] = db[[b - 1 for b in ties[:k]]]
     return q, db
+
+
+def records(gen, c, dev):
+    return (torch.randint(0, cs.M, (c, cs.R), generator=gen, device=dev,
+                          dtype=torch.int32),
+            torch.randint(0, cs.M, (c, cs.R), generator=gen, device=dev,
+                          dtype=torch.int32),
+            torch.rand((c, cs.R), generator=gen, device=dev),
+            torch.rand((c, cs.R), generator=gen, device=dev) < 0.8)
 
 
 def timed(row, libs, key, fn, iters):
@@ -150,88 +185,60 @@ def unsharded_row(libs, nq, c, d, n, dead, gen, dev, timing):
     size = torch.tensor(c - dead, dtype=torch.int32, device=dev) if dead \
         else None
     row = dict(q=nq, c=c, d=d, n=n, equal={}, pair_ms={}, k1_ms={},
-               k2_ms={})
+               k2_ms={}, tile={}, route={})
     k = min(n, c)
     for tree in ("parent", "change"):
-        tile = through(libs[tree], lambda mod: tile_of(mod, nq, c, d, n))
+        tile, route = through(libs[tree], lambda mod: plan_of(
+            mod, nq, c, d, n))
         got = through(libs[tree], lambda mod: mod.topn_cuda(q, db, size, n))
         want = ref.panel_topn_ref(q, db, size, n, similarity_fn=partial(
             similarity_cuda, tile=tile))
         row["equal"][tree] = all(torch.equal(x, y) for x, y in
                                  zip(got, want))
-        row.setdefault("tile", {})[tree] = tile
-    row["route"] = through(libs["change"], lambda mod: mod.plan(
-        nq, c, d, mod._sm_count(dev), n).route)
-    live = c - dead
-    pool = c if row["route"] == "panel" else None
-    passes = None
-    if pool:
-        panel = through(libs["change"], lambda mod: mod.retrieve_topn_cuda(
-            q, db, size, n))[0]
-        passes = int(ref.key_select_ref(panel, None, k)[1].sum())
-    else:
-        pool = through(libs["change"], lambda mod: mod.retrieve_topn_cuda(
-            q, db, size, n))[0].shape[1]
-    (b1, by1), (b2, by2) = cs.retrieve_bound(nq, c, d, pool, n, passes)
+        row["tile"][tree], row["route"][tree] = tile, route
+    panel = through(libs["change"], lambda mod: kernel1(
+        mod, q, db, size, n))[0]
+    passes = int(ref.key_select_ref(panel, None, k)[1].sum())
+    del panel
+    (b1, by1), (b2, by2) = cs.retrieve_bound(nq, c, d, k, passes)
     bp, byp = cs.pair_bound(nq, c, d, k)
     row.update(bound1_ms=b1, bound1_by=by1, bound2_ms=b2, bound2_by=by2,
-               bound_pair_ms=bp, bound_pair_by=byp, passes=passes, live=live)
+               bound_pair_ms=bp, bound_pair_by=byp, passes=passes,
+               live=c - dead)
     if not timing:
         return row
     iters = 10 if nq >= 256 else 30
     timed(row, libs, "pair_ms", lambda mod: mod.topn_cuda(q, db, size, n),
           iters)
     for tree in ("parent", "change"):
-        pools = through(libs[tree], lambda mod: mod.retrieve_topn_cuda(
-            q, db, size, n))
+        pool = through(libs[tree], lambda mod: kernel1(mod, q, db, size, n))
         row["k1_ms"][tree] = through(libs[tree], lambda mod: cs.queued_ms(
-            lambda: mod.retrieve_topn_cuda(q, db, size, n), iters))
+            lambda: kernel1(mod, q, db, size, n), iters))
         row["k2_ms"][tree] = through(libs[tree], lambda mod: cs.queued_ms(
-            lambda: kernel2(mod, pools, k, n), iters))
-        if tree == "change" and pools[1] is None:
+            lambda: kernel2(mod, pool, k), iters))
+        if tree == "change":
             row["topk_over_panel_ms"] = cs.queued_ms(
-                lambda: torch.topk(pools[0], k, dim=-1), iters)
-        del pools
-    if row["route"] == "lists":
-        # the panel route's kernels over the same inputs (kernel 1 as it
-        # runs past n = LIST_N; the select at this k)
-        mod = libs["change"][1]
-
-        def panel_pair():
-            return mod.topn_merge_cuda(mod.retrieve_topn_cuda(
-                q, db, size, mod.LIST_N + 1)[0], None, k)
-        got = through(libs["change"], lambda _: panel_pair())
-        want = ref.panel_topn_ref(q, db, size, n, similarity_fn=partial(
-            similarity_cuda, tile=row["tile"]["change"]))
-        row["equal"]["panel route"] = all(torch.equal(x, y) for x, y in
-                                          zip(got, want))
-        row["panel_route_ms"] = through(libs["change"], lambda _: (
-            cs.queued_ms(panel_pair, iters)))
+                lambda: torch.topk(pool[0], k, dim=-1), iters)
+        del pool
     norm = torch.nn.functional.normalize
     row["library_ms"] = cs.queued_ms(lambda: torch.topk(torch.matmul(
         norm(q, dim=-1), norm(db, dim=-1).T), k, dim=-1), 10)
     return row
 
 
-def sharded_row(libs, shards, n, gen, dev, timing):
+def sharded_row(libs, shards, n, nq, gen, dev, timing):
     from repro_torch.kernels import ref
     from repro_torch.kernels.similarity_topk import similarity_cuda
-    nq = 1024
     q, db = inputs(gen, nq, C, D, dev)
-    recs = (torch.randint(0, cs.M, (C, cs.R), generator=gen, device=dev,
-                          dtype=torch.int32),
-            torch.randint(0, cs.M, (C, cs.R), generator=gen, device=dev,
-                          dtype=torch.int32),
-            torch.rand((C, cs.R), generator=gen, device=dev),
-            torch.rand((C, cs.R), generator=gen, device=dev) < 0.8)
+    recs = records(gen, C, dev)
     size = torch.tensor(C - DEAD, dtype=torch.int32, device=dev)
     emb = cs._shards(db, shards)
     panels = tuple(cs._shards(x, shards) for x in recs)
     sizes = [size] * shards
     row = dict(q=nq, c=C, shards=shards, n=n, equal={}, pair_ms={})
     for tree in ("parent", "change"):
-        tile = through(libs[tree], lambda mod: tile_of(mod, nq, C // shards,
-                                                       D, n))
+        tile = through(libs[tree], lambda mod: plan_of(
+            mod, nq, C // shards, D, n))[0]
         got = through(libs[tree], lambda mod: mod.sharded_topn_cuda(
             q, emb, panels, sizes, n))
         want = ref.sharded_panel_topn_ref(q, emb, panels, sizes, n,
@@ -241,7 +248,71 @@ def sharded_row(libs, shards, n, gen, dev, timing):
                                  zip(got[:3] + got[3], want[:3] + want[3]))
     if timing:
         timed(row, libs, "pair_ms", lambda mod: mod.sharded_topn_cuda(
-            q, emb, panels, sizes, n), 10)
+            q, emb, panels, sizes, n), 10 if nq >= 256 else 30)
+    return row
+
+
+def merge_row(libs, shards, nq, gen, dev, timing):
+    """The cross-shard merge alone over a pool of `shards` x 20 candidates
+    (random scores in descending runs, distinct global rows, a shard's
+    tied scores on its first two slots) with their records carried."""
+    from repro_torch.kernels import ref
+    n, width = 20, shards * 20
+    pool_s = torch.rand((nq, shards, n), generator=gen, device=dev)
+    pool_s = pool_s.sort(dim=-1, descending=True)[0]
+    pool_s[:, :, 1] = pool_s[:, :, 0]
+    pool_s = pool_s.reshape(nq, width).contiguous()
+    rows = torch.stack([torch.randperm(8192, generator=gen, device=dev)[:n]
+                        + 8192 * s for s in range(shards)], 0)
+    pool_i = rows.reshape(1, width).expand(nq, width).to(
+        torch.int32).contiguous()
+    recs = tuple(x.reshape(nq, width, cs.R)
+                 for x in records(gen, nq * width, dev))
+    row = dict(q=nq, shards=shards, pool=width, equal={}, merge_ms={})
+    want = ref.topn_merge_ref(pool_s, pool_i, n, carried=recs,
+                              farthest_first=True)
+    for tree in ("parent", "change"):
+        got = through(libs[tree], lambda mod: mod.merge_shards_cuda(
+            pool_s, pool_i, recs, n))
+        row["equal"][tree] = all(torch.equal(x, y) for x, y in
+                                 zip(got[:3] + got[3], want[:3] + want[3]))
+    if timing:
+        timed(row, libs, "merge_ms", lambda mod: mod.merge_shards_cuda(
+            pool_s, pool_i, recs, n), 50)
+    return row
+
+
+def pools_row(libs, gen, dev, timing):
+    """Each tree's graph pools after capturing the pair at n = 20 at every
+    bucket of the ladder, two replicas (a pool each, as the dispatcher
+    groups a replica's graphs), over C and 2 C rows. The captures' outputs
+    are kept, as a route graph keeps them; each graph's replay is held
+    equal to the eager pair."""
+    from repro_torch import graphs
+    row = dict(equal={}, pool_gb={})
+    for tree in ("parent", "change"):
+        for c in (C, 2 * C):
+            steps = []
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = cs.graph_pool_gb()
+            for _ in range(2):
+                q_all, db = inputs(gen, LADDER[0], c, D, dev)
+                size = torch.tensor(c - DEAD, dtype=torch.int32, device=dev)
+                pool = graphs.pool_handle(dev)
+                for nq in LADDER:
+                    args = (q_all[:nq].contiguous(), db, size)
+                    steps.append((args, through(
+                        libs[tree], lambda mod: graphs.Step(
+                            partial(mod.topn_cuda, n=20), *args,
+                            device=dev, pool=pool))))
+            torch.cuda.synchronize()
+            row["pool_gb"][f"{tree} C={c}"] = cs.graph_pool_gb() - before
+            row["equal"][f"{tree} C={c}"] = all(
+                all(torch.equal(x, y) for x, y in zip(step(*args), through(
+                    libs[tree], lambda mod: mod.topn_cuda(*args, 20))))
+                for args, step in steps)
+            del steps
     return row
 
 
@@ -270,12 +341,16 @@ def main() -> int:
     pick = set(filter(None, args.rows.split(",")))
     gen = torch.Generator(device=dev).manual_seed(30)
     timing = not args.check_only
-    rows = {f"n={n} Q={nq}": partial(unsharded_row, libs, nq, C, D, n, DEAD)
-            for n, nq in UNSHARDED}
+    rows = {f"n={n} Q={nq} C={c}": partial(unsharded_row, libs, nq, c, D,
+                                           n, DEAD)
+            for n, nq, c in UNSHARDED}
     rows["knn"] = partial(unsharded_row, libs, KNN[0], KNN[1], KNN[2],
                           KNN[3], 0)
-    rows.update({f"S={s} n={n}": partial(sharded_row, libs, s, n)
-                 for s, n in SHARDED})
+    rows.update({f"S={s} n={n} Q={nq}": partial(sharded_row, libs, s, n, nq)
+                 for s, n, nq in SHARDED})
+    rows.update({f"merge S={s} Q={nq}": partial(merge_row, libs, s, nq)
+                 for s, nq in MERGE})
+    rows["pools"] = partial(pools_row, libs)
     ok = True
     for name, fn in rows.items():
         if pick and name not in pick:
@@ -284,23 +359,23 @@ def main() -> int:
         torch.cuda.empty_cache()
         ok &= all(row["equal"].values())
         out[name] = row
-        line = f"{name}: equal to the panel + stable sort {row['equal']}"
-        if row["pair_ms"]:
-            best = {k: min(v) for k, v in row["pair_ms"].items()}
-            line += (f"; pair ms {row['pair_ms']}; change / parent "
-                     f"{best['change'] / best['parent']}")
+        line = f"{name}: equal {row['equal']}"
+        for key in ("pair_ms", "merge_ms"):
+            if row.get(key):
+                best = {k: min(v) for k, v in row[key].items()}
+                line += (f"; {key} {row[key]}; change / parent "
+                         f"{best['change'] / best['parent']}")
         for key in ("route", "tile", "passes", "k1_ms", "k2_ms",
                     "bound1_ms", "bound2_ms", "bound_pair_ms",
-                    "topk_over_panel_ms",
-                    "panel_route_ms", "library_ms"):
+                    "topk_over_panel_ms", "library_ms", "pool_gb"):
             if key in row:
                 line += f"; {key} {row[key]}"
         print(line + f" [{card}]", flush=True)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "retrieve_rows.json").write_text(
         json.dumps(out, indent=1, default=str))
-    print("every build equal to the panel + stable sort" if ok else
-          "a build differs from the panel + stable sort")
+    print("every build equal to its reference" if ok else
+          "a build differs from its reference")
     return 0 if ok else 1
 
 

@@ -40,14 +40,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: C signatures of every entry point, per source file
 _SIGNATURES = {
-    "similarity": {
-        # q, db, out, Q, N, D, stream
-        "similarity_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                             + [ctypes.c_void_p],
-        # ..., tile (0: the path's choice; 8 streaming, 32/64/128 GEMM)
-        "similarity_launch_tile": [ctypes.c_void_p] * 3
-                                  + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    },
     "elo_scan": {
         # ratings, ratings row stride, a, b, s, v, top_i, hit, n, R, g,
         # costs, budgets, budget stride, out, choices, Q, T, M, k, p,
@@ -75,11 +67,6 @@ _SIGNATURES = {
         "decode_attention_occupancy": [ctypes.c_int] * 4,
     },
     "retrieve_topn": {
-        # q, emb, Q, C, D, offset, size, n, tile, split rows, splits,
-        # pool_s, pool_i, stream
-        "retrieve_topn_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                                + [ctypes.c_void_p] + [ctypes.c_int] * 4
-                                + [ctypes.c_void_p] * 3,
         # q, emb, Q, C, D, offset, size, tile, panel, stream
         "retrieve_panel_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                                  + [ctypes.c_void_p] + [ctypes.c_int]
@@ -98,6 +85,8 @@ _SIGNATURES = {
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 #: kernel launches per wrapper since the last reset_launches()
+#: ("similarity": `similarity_topk.similarity_cuda`, the retrieve's kernel
+#: 1 with no live-row count)
 _LAUNCHES: Dict[str, int] = {"similarity": 0, "elo_scan": 0,
                              "elo_scan_select": 0, "flash_attention": 0,
                              "decode_attention": 0, "retrieve_topn": 0,
@@ -288,8 +277,8 @@ def decode256(name: str) -> bool:
     return "decode_kernel" in name and re.search(r"Li256E", name) is not None
 
 
-#: the fused retrieve's kernels the build guard holds to no spills: the
-#: panel route's (`retrieve_topn.cu`)
+#: the retrieve's kernels the build guard holds to no spills
+#: (`retrieve_topn.cu`)
 RETRIEVE_GUARDED = ("panel_gemm_kernel", "panel_gemv_kernel",
                     "topn_select_kernel")
 
@@ -297,7 +286,7 @@ RETRIEVE_GUARDED = ("panel_gemm_kernel", "panel_gemv_kernel",
 def build_guards(logs):
     """The build report's failures, from the `-Xptxas -v` logs by source
     name: a flash instance whose `wgmma`s ptxas serialised, and a dh = 256
-    decode instance or a panel-route retrieve kernel that spills. Returns
+    decode instance or a retrieve kernel that spills. Returns
     (failures, the registers and spill bytes of every instance held)."""
     failures, regs = [], {}
     for name, entry in ptxas_entries(logs["flash_attention"]).items():

@@ -1,9 +1,42 @@
-// The cosine-similarity main loops shared by `similarity.cu` (the score
-// panel) and `retrieve_topn.cu` (the fused top-n: the list route writes no
-// panel, the panel route writes it masked).
-// Both score a (query, DB row) pair with these loops and `cosine`, so
-// their scores are equal bit for bit; only what they do with a tile of
-// scores differs. The design notes are in similarity.cu's header.
+// The cosine-similarity main loops of `retrieve_topn.cu`'s kernel 1 (the
+// score panel, masked past the live-row count or not):
+// out[i, j] = <q_i, d_j> * rsqrt(sum q_i^2 + 1e-18) * rsqrt(sum d_j^2 +
+// 1e-18), fp32 throughout, on the CUDA cores, the TPU kernel
+// `similarity_pallas` (`_sim_kernel`, src/repro/kernels/similarity_topk.py)
+// formula for formula. TF32 is ruled out: a top-k over tied and near-tied
+// scores must agree with the fp32 reference within 1e-5. A pair is scored
+// by these loops and `cosine` alone, so a score depends on the tile only.
+//
+// Two designs, chosen by the bucket (`retrieve_topn.tile_for`; the switch
+// points come from timing every tile at every bucket in chip_smoke.py):
+//
+// Q > 8: a register-tiled SGEMM (`gemm_tile<BM, BK>`). A block computes a
+// BM x 128 tile (BM = 32, 64 or 128, the smallest that holds the bucket,
+// so no bucket computes more than twice its rows) with 256 threads. D is
+// walked in chunks of BK columns (32 at BM = 32, else 16). Each chunk is
+// read from device memory with 16-byte loads into registers while the
+// previous chunk computes out of shared memory (two shared buffers, one
+// barrier a chunk), then stored transposed so that the inner loop reads
+// rows of the chunk as float4: at BM = 128 a thread holds 8 x 8 sums and
+// issues 4 shared loads for 64 FMAs. The warps form a 4 x 2 grid of 4 x 8
+// threads, so each of those loads is one shared-memory wavefront (4
+// distinct float4 of the query chunk, 8 of the DB chunk). A thread owns
+// rows {ty * 4 + i, 64 + ty * 4 + i} and columns {tx * 4 + j, 64 + tx * 4
+// + j}, so the output is written as float4 rows. The row norms are off
+// the inner loop: each thread squares the elements it stages, once, when
+// it stores them, a chunk's compute after the load (squared at the load,
+// every chunk waited there for device memory), and the BK / 4
+// neighbouring threads that stage a row reduce their partial sums with
+// shuffles at the end.
+//
+// Q <= 8: a streaming kernel (`gemv_queries`, `gemv_rows`). The 8 query
+// rows (zero-padded) stay in shared memory whole (48 KB at D = 1536);
+// each warp streams 4 DB rows with coalesced 16-byte loads, two steps
+// ahead, and accumulates 8 x 4 dot products and 4 squared norms per lane,
+// reduced across the warp once at the end. The DB is read once.
+//
+// A D that is not a multiple of 4 (or an unaligned pointer) takes the
+// same loops with scalar loads; ragged Q and N are masked.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -27,7 +27,20 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.retrieve_topn import H100_SMS, _sm_count
+
+#: the H100 SXM's SMs: the plan of the plain version on the CPU
+H100_SMS = 132
+_SMS: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    if device.type != "cuda":
+        return H100_SMS
+    idx = torch.cuda.current_device() if device.index is None \
+        else device.index
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 HEAD_DIMS = (32, 64, 112, 128, 256)
 MAX_REP = 8     # query heads per KV head that one block computes

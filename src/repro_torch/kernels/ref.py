@@ -109,8 +109,8 @@ def elo_scan_gather_select_ref(init, panels, top_i, hit, global_ratings,
                                budgets, p=p, k=k)
 
 
-#: the global row of a pool slot that holds no candidate: it ranks after
-#: every real one (csrc/retrieve_topn.cu:EMPTY_ROW)
+#: a global row past every real one: a pool slot that holds no candidate
+#: ranks after every real one (csrc/retrieve_topn.cu:EMPTY_ROW)
 EMPTY_ROW = 2 ** 31 - 1
 
 
@@ -131,37 +131,10 @@ def panel_topn_ref(q, emb, size, n, *, offset=0,
     returns (top_s (Q, k), top_i (Q, k) int64 global rows, hit (Q, k)),
     k = min(n, C); ties go to the lowest row, dead rows score -inf.
     `similarity_fn` scores the panel (the plain version, or the similarity
-    kernel for the panel route on the card)."""
+    kernel at the retrieve's tile on the card)."""
     scores = mask_dead(similarity_fn(q, emb), offset, size)
     top_s, top_i = stable_topk(scores, n)
     return top_s, top_i + offset, torch.isfinite(top_s)
-
-
-def panel_pool_ref(scores, n, split_rows, *, offset=0):
-    """A (Q, C) panel of global rows offset.. cut into splits of
-    `split_rows` columns, each split's stable top-n, a split of fewer than
-    n columns padded with (-inf, EMPTY_ROW): the pool (pool_s (Q, splits
-    * n) fp32, pool_i (Q, splits * n) int32 global rows)."""
-    parts_s, parts_i = [], []
-    for c0 in range(0, scores.shape[1], split_rows):
-        top_s, top_i = stable_topk(scores[:, c0:c0 + split_rows], n)
-        pad = (0, n - top_s.shape[1])
-        parts_s.append(torch.nn.functional.pad(top_s, pad,
-                                               value=float("-inf")))
-        parts_i.append(torch.nn.functional.pad(
-            (top_i + c0 + offset).int(), pad, value=EMPTY_ROW))
-    if not parts_s:
-        return (scores.new_empty((scores.shape[0], 0)),
-                torch.empty((scores.shape[0], 0), dtype=torch.int32,
-                            device=scores.device))
-    return torch.cat(parts_s, dim=1), torch.cat(parts_i, dim=1)
-
-
-def split_topn_ref(q, emb, size, n, split_rows, *, offset=0):
-    """Plain version of the list route's kernel 1 (`retrieve_topn`): the
-    masked panel's pool of per-split top-n lists (`panel_pool_ref`)."""
-    return panel_pool_ref(panel_ref(q, emb, size, offset=offset), n,
-                          split_rows, offset=offset)
 
 
 def topn_merge_ref(pool_s, pool_i, k, *, row0=0, panels=None, offset=0,
@@ -294,28 +267,18 @@ def topn_select_ref(pool_s, pool_i, k, *, row0=0, panels=None, offset=0,
 
 
 def panel_ref(q, emb, size, *, offset=0):
-    """Plain version of the panel route's kernel 1: the (Q, C) score panel
+    """Plain version of kernel 1 (`retrieve_topn`): the (Q, C) score panel
     of global rows offset.., rows at or past `size` at -inf."""
     return mask_dead(similarity_ref(q, emb), offset, size)
 
 
 def panel_select_topn_ref(q, emb, size, n, *, offset=0):
-    """The panel route in plain PyTorch: panel_ref, then topn_select_ref
+    """The retrieve in plain PyTorch: panel_ref, then topn_select_ref
     over it. Returns (top_s (Q, k), top_i (Q, k) int64 global rows, hit),
     k = min(n, C): panel_topn_ref's result, exactly."""
     k = min(n, emb.shape[0])
     panel = panel_ref(q, emb, size, offset=offset)
     return topn_select_ref(panel, None, k, row0=offset)[:3]
-
-
-def two_stage_topn_ref(q, emb, size, n, split_rows, *, offset=0):
-    """The list route in plain PyTorch: split_topn_ref, then
-    topn_merge_ref over its pool. Equal to panel_topn_ref exactly: the
-    order is a strict total order (every candidate its own row), so the
-    top-n of the union is the top-n of the splits' top-n."""
-    pool_s, pool_i = split_topn_ref(q, emb, size, n, split_rows,
-                                    offset=offset)
-    return topn_merge_ref(pool_s, pool_i, min(n, emb.shape[0]))[:3]
 
 
 def retrieve_replay_pipeline(retrieve_fn, replay_fn, q, emb, model_a,

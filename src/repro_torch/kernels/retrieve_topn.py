@@ -4,43 +4,41 @@ kernel `similarity_pallas` and the top-k after it on the routing path,
 and of the sharded composite's reduce and merge), their wrappers, and the
 compositions the routes call.
 
-  retrieve_topn_cuda  kernel 1: similarity + live-row mask and, on the
-                      list route, a top-n per (query, column split): a
-                      (Q, splits * n) candidate pool; on the panel route
-                      the masked (Q, C) panel itself
-  topn_merge_cuda     kernel 2: the top-k of each query's pool (the
-                      unsharded reduce; with records carried by pool
-                      position, the cross-shard merge): by rounds at k <=
-                      128 over a pool of lists, else by a radix select
-  shard_reduce_cuda   kernel 2: a shard's top min(n, C_l) with the
+  retrieve_topn_cuda  kernel 1: the (Q, C) similarity panel, rows past
+                      the live-row count at -inf
+  topn_merge_cuda     kernel 2: the top-k of each row of a panel (the
+                      unsharded reduce) or of a pool of explicit rows
+                      with records carried by pool position (the
+                      cross-shard merge), by a radix select
+  shard_reduce_cuda   kernel 2 on a shard: its top min(n, C_l) with the
                       candidates' records gathered from its panels
   topn_cuda           the unsharded retrieve: kernel 1, kernel 2
   sharded_topn_cuda   the capacity-sharded retrieve: per shard kernel 1
                       and shard_reduce_cuda into the leader's pool, then
                       merge_shards_cuda (kernel 2) on the leader
 
-`plan` picks the route from (Q, C, D, n) alone: the lists where n <= 128
-and their grid fills the card, else the panel (n > 128, or a small grid
-such as KNN's). Candidates are ranked by (score descending, global row
-ascending), scores compared as floats. Every candidate has its own row,
-so the order is a strict total order and the top-n of a union is the
-top-n of the parts' top-n: either route equals one stable sort of the
-whole masked panel (`ref.panel_topn_ref`), ties and dead rows included.
+This is the TPU kernel's own shape: the panel, then `lax.top_k`.
+Candidates are ranked by (score descending, global row ascending),
+scores compared as floats. Every candidate has its own row, so the order
+is a strict total order and the top-n of a union is the top-n of the
+parts' top-n: the unsharded and the sharded retrieve equal one stable
+sort of the whole masked panel (`ref.panel_topn_ref`), ties and dead
+rows included.
 
 CUDA tensors launch the kernels, and n is at most MAX_N (512, the replay
 kernel's `elo_scan.MAX_NEIGHBOURS`) there; CPU tensors take the plain
-versions through the same glue: kernel 1's (`ref.split_topn_ref` on the
-list route, `ref.panel_ref` on the panel route), then kernel 2's stable
-sorts (`ref.topn_merge_ref`; `ref.topn_select_ref`, the select's mirror,
-returns the same, and the tests hold the two equal). Nothing here reads
-`size` on the host or branches on data, so the routes capture into CUDA
-graphs: a commit changes the live-row count in place, and the next
-replay reads it on the device. The panel comes from the caching
-allocator, so a graph keeps it in its pool.
+versions through the same glue: kernel 1's (`ref.panel_ref`), then kernel
+2's stable sorts (`ref.topn_merge_ref`; `ref.topn_select_ref`, the
+select's mirror, returns the same, and the tests hold the two equal).
+Nothing here reads `size` on the host or branches on data, so the
+retrieve captures into CUDA graphs: a commit changes the live-row count
+in place, and the next replay reads it on the device. The panel comes
+from the caching allocator and is freed once kernel 2 has read it, so
+the graphs of one memory pool hold about one largest panel.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -50,85 +48,46 @@ from repro_torch.kernels import _build, ref
 #: ablation, Fig. 4, routes with up to 80 neighbours; the JAX package has
 #: no bound)
 MAX_N = 512
-#: the longest list kernel 1 keeps (four entries a warp lane), and the
-#: largest k kernel 2 takes by rounds over a pool of lists
-LIST_N = ROUNDS_K = 128
-#: the streaming kernel's query rows and DB rows a step; a GEMM tile's
-#: DB rows; a block's shared memory
-QT, CHUNK, BN = 8, 32, 128
+#: the streaming kernel's query rows; a block's shared memory
+QT = 8
 MAX_SMEM = 227 * 1024
-#: the H100 SXM's SMs: the plan of the plain version on the CPU
-H100_SMS = 132
-#: the routes
-LISTS, PANEL = "lists", "panel"
+#: the route: the panel, then the select
+PANEL = "panel"
 #: the records' element types (core/state.py's DB panels)
 RECORD_DTYPES = (torch.int32, torch.int32, torch.float32, torch.bool)
 
-_SMS: Dict[int, int] = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    if device.type != "cuda":
-        return H100_SMS
-    idx = torch.cuda.current_device() if device.index is None \
-        else device.index
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
-
-
-def gemm_smem(bm: int, n: int) -> int:
-    """Shared memory of a list kernel's GEMM block of `bm` query rows
-    keeping n-entry lists (`TopnSmem::bytes`): the tile's scores over the
-    staging buffers, the inverse norms and bm x n (score, row) entries."""
-    bk = 32 if bm == 32 else 16
-    stage = (2 * bk * (bm + 4) + 2 * bk * (BN + 4)) * 4
-    return max(bm * BN * 4, stage) + (bm + BN) * 4 + bm * n * 8
-
 
 def gemv_smem(d: int) -> int:
-    """Shared memory of the streaming kernel (`gemv_smem`): QT query rows,
-    their norms and, in the list kernel, a step's scores."""
-    return (QT * d + QT + QT * CHUNK) * 4
+    """Shared memory of the streaming kernel (`similarity_tile.cuh:
+    gemv_smem`): QT query rows and their norms."""
+    return (QT * d + QT) * 4
 
 
 def tile_for(nq: int, d: int) -> int:
-    """Kernel 1's tile, as the similarity kernel picks it: the streaming
-    kernel (8) for Q <= 8 while its queries (and a step's scores) fit in
-    shared memory, else the GEMM with 32, 64 or 128 query rows."""
+    """Kernel 1's tile: the streaming kernel (8) for Q <= 8 while its
+    queries fit in shared memory, else the GEMM with 32, 64 or 128 query
+    rows."""
     if nq <= QT and gemv_smem(d) <= MAX_SMEM:
         return QT
     return 32 if nq <= 32 else 64 if nq <= 64 else 128
 
 
 class Plan(NamedTuple):
-    """Kernel 1's tile and route; on the list route its splits (split_rows
-    consecutive DB rows each), on the panel route one split of all C."""
+    """Kernel 1's tile, and the route."""
     tile: int
-    split_rows: int
-    splits: int
     route: str
 
 
-def plan(nq: int, c: int, d: int, sms: int = H100_SMS,
-         n: int = 1) -> Plan:
-    """Kernel 1 over C >= 1 rows. The list route: splits of whole tiles
-    (128 rows; 32 for the streaming kernel), as many as make about two
-    blocks an SM with the tile's row blocks (bucket 1024, C = 32768: 8 row
-    blocks x 32 splits of 1024 rows). The panel route where n > LIST_N, or
-    where those row blocks x splits are fewer than the SMs (KNN's Q = 84,
-    C = 1,470: 12): the lists would set the tile past n = 128, and leave
-    the card empty on a small grid."""
-    tile = tile_for(nq, d)
-    unit = CHUNK if tile == QT else BN
-    units = -(-c // unit)
-    row_blocks = 1 if tile == QT else -(-nq // tile)
-    want = max(1, 2 * sms // row_blocks)
-    per = -(-units // min(units, want))
-    splits = -(-units // per)
-    if n > LIST_N or row_blocks * splits < sms:
-        return Plan(tile, c, 1, PANEL)
-    return Plan(tile, per * unit, splits, LISTS)
+def plan(nq: int, c: int, d: int, n: int = 1) -> Plan:
+    """The retrieve of n neighbours over C >= 1 rows: the panel route, at
+    `tile_for`'s tile, at every shape. Timed beside a route that kept a
+    top-n per column split in kernel 1 and merged the splits' lists
+    (`scripts/retrieve_rows.py`; PERF.md's kernel table), the panel route
+    was at or under it at n = 20 at every bucket of the ladder over C =
+    32768, at buckets 8, 64 and 1024 over C = 65536, and on 1, 2 and 4
+    shards, bit-equal. The plan depends on nothing but the shape, never
+    on `size` or on data, so a captured graph holds it."""
+    return Plan(tile_for(nq, d), PANEL)
 
 
 def check_neighbours(n: int, device) -> None:
@@ -160,66 +119,45 @@ def _size_arg(size, dev) -> Optional[torch.Tensor]:
     return size if size.dtype == torch.int32 else size.to(torch.int32)
 
 
-def retrieve_topn_cuda(q: torch.Tensor, emb: torch.Tensor, size, n: int, *,
-                       offset: int = 0):
+def retrieve_topn_cuda(q: torch.Tensor, emb: torch.Tensor, size, *,
+                       offset: int = 0) -> torch.Tensor:
     """Kernel 1. q: (Q, D); emb: (C, D), global rows offset..offset+C-1;
     size: the live-row count (global rows at or past it score -inf; a
-    device int32 scalar the kernel reads, or None: every row live); n:
-    the neighbours a query keeps.
+    device int32 scalar the kernel reads, or None: every row live).
 
-    Returns a pool (pool_s, pool_i): on the list route pool_s (Q, splits
-    * n) fp32 and pool_i (Q, splits * n) int32 global rows, an unfilled
-    slot (-inf, ref.EMPTY_ROW); on the panel route the masked (Q, C)
-    panel and None (column x is global row offset + x). CUDA tensors
-    launch the kernel; CPU tensors take `ref.split_topn_ref` with the
-    plan's split width, or `ref.panel_ref`."""
+    Returns the masked (Q, C) fp32 panel (column x is global row offset +
+    x), scored at `tile_for`'s tile. CUDA tensors launch the kernel; CPU
+    tensors take `ref.panel_ref`."""
     nq, c = q.shape[0], emb.shape[0]
     if q.device.type == "cpu" and emb.device.type == "cpu":
-        if not c:
-            return ref.split_topn_ref(q, emb, size, n, 1, offset=offset)
-        pl = plan(nq, c, q.shape[1], n=n)
-        if pl.route == PANEL:
-            return ref.panel_ref(q, emb, size, offset=offset), None
-        return ref.split_topn_ref(q, emb, size, n, pl.split_rows,
-                                  offset=offset)
+        return ref.panel_ref(q, emb, size, offset=offset)
     name = "retrieve_topn_cuda"
     _check_on(name, q.device, q, emb)
     if q.ndim != 2 or emb.ndim != 2 or q.shape[1] != emb.shape[1]:
         raise ValueError(f"{name}: shapes {tuple(q.shape)} and "
                          f"{tuple(emb.shape)} are not (Q, D) and (C, D)")
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"{name}: n = {n}; the kernel keeps 1..{MAX_N} "
-                         "neighbours")
-    dev = q.device
+    live = _size_arg(size, q.device)
+    panel = panel_launch(q, emb, None if live is None else live.data_ptr(),
+                         offset, tile_for(nq, q.shape[1]))
+    if panel.numel():
+        _build.count_launch("retrieve_topn")
+    return panel
+
+
+def panel_launch(q, emb, size_ptr, offset: int, tile: int) -> torch.Tensor:
+    """Kernel 1's launch on CUDA tensors, uncounted: the (Q, C) panel of
+    q against emb at `tile`, rows at or past *size_ptr at -inf (None:
+    none). The wrappers count their launches."""
     q = q.float().contiguous()
     emb = emb.float().contiguous()
-    d = q.shape[1]
-    if not c or not nq:
-        return (torch.empty((nq, 0), dtype=torch.float32, device=dev),
-                torch.empty((nq, 0), dtype=torch.int32, device=dev))
-    pl = plan(nq, c, d, _sm_count(dev), n)
-    live = _size_arg(size, dev)
-    size_ptr = None if live is None else live.data_ptr()
-    lib = _build.library("retrieve_topn")
-    if pl.route == PANEL:
-        panel = torch.empty((nq, c), dtype=torch.float32, device=dev)
-        err = lib.retrieve_panel_launch(
-            q.data_ptr(), emb.data_ptr(), nq, c, d, offset, size_ptr,
-            pl.tile, panel.data_ptr(), _build.stream_handle(dev))
-        out = panel, None
-    else:
-        pool_s = torch.empty((nq, pl.splits * n), dtype=torch.float32,
-                             device=dev)
-        pool_i = torch.empty((nq, pl.splits * n), dtype=torch.int32,
-                             device=dev)
-        err = lib.retrieve_topn_launch(
-            q.data_ptr(), emb.data_ptr(), nq, c, d, offset, size_ptr, n,
-            pl.tile, pl.split_rows, pl.splits, pool_s.data_ptr(),
-            pool_i.data_ptr(), _build.stream_handle(dev))
-        out = pool_s, pool_i
-    _build.check(err, name)
-    _build.count_launch("retrieve_topn")
-    return out
+    (nq, d), c = q.shape, emb.shape[0]
+    panel = torch.empty((nq, c), dtype=torch.float32, device=q.device)
+    if panel.numel():
+        err = _build.library("retrieve_topn").retrieve_panel_launch(
+            q.data_ptr(), emb.data_ptr(), nq, c, d, offset, size_ptr, tile,
+            panel.data_ptr(), _build.stream_handle(q.device))
+        _build.check(err, "retrieve_panel_launch")
+    return panel
 
 
 def _check_pool(name, pool_s, pool_i, k):
@@ -272,14 +210,13 @@ def topn_merge_cuda(pool_s: torch.Tensor, pool_i: Optional[torch.Tensor],
     """Kernel 2: the top k of each row of a (Q, P) candidate pool (pool_s
     fp32, pool_i int32 global rows, any row stride; pool_i None: a panel,
     column x global row offset + x) in the order (score descending, row
-    ascending): by rounds over a pool of lists at k <= ROUNDS_K, else by
-    a radix select.
+    ascending), by a radix select.
 
     Returns (top_s (Q, k), top_i (Q, k) int64, hit (Q, k) bool) and, with
     `carried` = the pool's (model_a, model_b, outcome, valid) records, each
     (Q, P, R), the winners' records in the replay's pre-gathered layout:
     (Q, k * R) each, farthest first, valid &= hit. CPU tensors take
-    `ref.topn_merge_ref` (stable sorts, equal to either kernel's route)."""
+    `ref.topn_merge_ref` (stable sorts, equal to the select)."""
     if pool_s.device.type == "cpu":
         out = ref.topn_merge_ref(pool_s, pool_i, k, row0=offset,
                                  carried=carried, farthest_first=True)
@@ -315,18 +252,17 @@ def _bytes(recs):
     return tuple(recs[:3]) + (recs[3].view(torch.uint8),)
 
 
-def shard_reduce_cuda(pool_s, pool_i, k: int, panels, offset: int, *,
-                      out=None):
-    """Kernel 2 on a shard: the top k of its pool (kernel 1's; pool_i None:
-    the shard's panel, column x global row offset + x) with each winner's
-    records gathered from the shard's (C_l, R) `panels` (model_a,
-    model_b, outcome, valid) at row - offset, in rank order. Writes
+def shard_reduce_cuda(panel, k: int, panels, offset: int, *, out=None):
+    """Kernel 2 on a shard: the top k of its masked panel (kernel 1's,
+    column x global row offset + x) with each winner's records gathered
+    from the shard's (C_l, R) `panels` (model_a, model_b, outcome, valid)
+    at row - offset, in rank order. Writes
     (cand_s (Q, k) fp32, cand_i (Q, k) int32 global rows, records (Q, k,
     R) each) into `out` (views, e.g. the shard's columns of the leader's
     pool) or new tensors, and returns them. CPU tensors take kernel 2's
     plain version."""
-    nq, r = pool_s.shape[0], panels[0].shape[-1]
-    dev = pool_s.device
+    nq, r = panel.shape[0], panels[0].shape[-1]
+    dev = panel.device
     if out is None:
         out = (torch.empty((nq, k), dtype=torch.float32, device=dev),
                torch.empty((nq, k), dtype=torch.int32, device=dev),
@@ -335,15 +271,14 @@ def shard_reduce_cuda(pool_s, pool_i, k: int, panels, offset: int, *,
     cand_s, cand_i, recs = out
     if dev.type == "cpu":
         top_s, top_i, _, got = ref.topn_merge_ref(
-            pool_s, pool_i, k, row0=offset, panels=panels, offset=offset)
+            panel, None, k, row0=offset, panels=panels, offset=offset)
         cand_s.copy_(top_s)
         cand_i.copy_(top_i)
         for x, y in zip(recs, got):
             x.copy_(y)
         return out
     name = "shard_reduce_cuda"
-    _check_on(name, dev, pool_s, *(() if pool_i is None else (pool_i,)),
-              *panels, cand_s, cand_i, *recs)
+    _check_on(name, dev, panel, *panels, cand_s, cand_i, *recs)
     _check_records(name, panels)
     _check_records(name, recs)
     if any(x.stride(1) != r for x in recs) or cand_s.stride(1) != 1 or \
@@ -352,19 +287,19 @@ def shard_reduce_cuda(pool_s, pool_i, k: int, panels, offset: int, *,
         raise ValueError(f"{name}: outputs not laid out as (Q, k) and "
                          "(Q, k, R) rows")
     if nq and k:
-        _check_pool(name, pool_s, pool_i, k)
-        _merge_launch(pool_s, pool_i, k, offset, cand_s, cand_i, None,
+        _check_pool(name, panel, None, k)
+        _merge_launch(panel, None, k, offset, cand_s, cand_i, None,
                       src=_bytes(panels), by_row=1, offset=offset,
                       dst=_bytes(recs), ld_dst=recs[0].stride(0))
     return out
 
 
 def topn_cuda(q, emb, size, n: int):
-    """The unsharded retrieve: kernel 1, then kernel 2 over its pool.
+    """The unsharded retrieve: kernel 1, then kernel 2 over its panel.
     Returns (top_s (Q, k), top_i (Q, k) int64, hit (Q, k)), k = min(n,
     C): what `ref.panel_topn_ref` returns, exactly."""
-    pool_s, pool_i = retrieve_topn_cuda(q, emb, size, n)
-    return topn_merge_cuda(pool_s, pool_i, min(n, emb.shape[0]))
+    return topn_merge_cuda(retrieve_topn_cuda(q, emb, size), None,
+                           min(n, emb.shape[0]))
 
 
 def merge_shards_cuda(pool_s, pool_i, records, n: int):
@@ -400,10 +335,11 @@ def sharded_topn_cuda(q, emb, panels, size, n: int):
         dst = (pool_s[:, cols], pool_i[:, cols],
                tuple(x[:, cols] for x in recs))
         here = e.device == leader
-        cand = retrieve_topn_cuda(q if here else q.to(e.device), e, size[s],
-                                  n, offset=s * c_local)
-        got = shard_reduce_cuda(*cand, kl, tuple(x[s] for x in panels),
+        panel = retrieve_topn_cuda(q if here else q.to(e.device), e,
+                                   size[s], offset=s * c_local)
+        got = shard_reduce_cuda(panel, kl, tuple(x[s] for x in panels),
                                 s * c_local, out=dst if here else None)
+        del panel          # freed before the next shard's is made
         if not here:
             for x, y in zip(dst[:2] + dst[2], got[:2] + got[2]):
                 x.copy_(y)

@@ -1,33 +1,36 @@
-"""Cosine-similarity score panel: the CUDA kernel `csrc/similarity.cu`
-(port of the TPU kernel `similarity_pallas`) and its wrapper.
+"""Cosine-similarity score panel (the TPU kernel `similarity_pallas`):
+its wrapper over kernel 1 of `csrc/retrieve_topn.cu` with no live-row
+count, and the capacity-sharded route's plain per-shard top-k and
+cross-shard merge.
 
-No route runs it: the routing path and KNN retrieve through the fused
-kernels of `retrieve_topn.py`, which score each pair as this kernel does
-(`csrc/similarity_tile.cuh`), keeping a top-n per column split or writing
-the masked panel themselves. The panel and a stable
-sort (`ref.stable_topk`, which keeps the lowest-index-first tie order)
-are the panel route those are held against, with the capacity-sharded
-route's per-shard top-k and cross-shard merge (`shard_local_topk`,
-`shard_merge_topk`) that `ref.sharded_panel_topn_ref` runs.
+No route runs `similarity_cuda`: the routing path and KNN retrieve
+through `retrieve_topn.py`, whose kernel 1 is this panel with the
+live-row mask. The legacy retrieval (`VectorDB.query`) and the checks
+call it. The panel and a stable sort (`ref.stable_topk`, which keeps the
+lowest-index-first tie order) are what the retrieve is held against,
+with the capacity-sharded route's per-shard top-k and cross-shard merge
+(`shard_local_topk`, `shard_merge_topk`) that `ref.sharded_panel_topn_ref`
+runs.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import retrieve_topn as RT
 
 
 def similarity_cuda(q: torch.Tensor, db: torch.Tensor, *,
                     tile: int = 0) -> torch.Tensor:
     """q: (Q, D), db: (N, D) -> (Q, N) fp32 cosine scores.
 
-    CUDA tensors launch the kernel; CPU tensors take the plain version
-    (`ref.similarity_ref`). `tile` 0 lets the kernel pick its tile by Q
+    CUDA tensors launch kernel 1 of `retrieve_topn.cu` with no live-row
+    count (counted as "similarity"); CPU tensors take the plain version
+    (`ref.similarity_ref`). `tile` 0 takes the retrieve's tile for Q
     (`retrieve_topn.tile_for`); 8 forces the streaming kernel and 32, 64,
-    128 the GEMM of that many query rows. Scores are equal bit for bit
-    between this kernel and `retrieve_topn` at the same tile; across tiles
-    they may differ in the last place, so a check of the retrieve passes
-    the plan's tile here."""
+    128 the GEMM of that many query rows. Scores across tiles may differ
+    in the last place, so a check of the retrieve at another Q passes the
+    plan's tile here."""
     if q.device.type == "cpu" and db.device.type == "cpu":
         return ref.similarity_ref(q, db)
     if not (q.is_cuda and db.is_cuda and q.device == db.device):
@@ -36,19 +39,10 @@ def similarity_cuda(q: torch.Tensor, db: torch.Tensor, *,
     if q.ndim != 2 or db.ndim != 2 or q.shape[1] != db.shape[1]:
         raise ValueError(f"similarity_cuda: shapes {tuple(q.shape)} and "
                          f"{tuple(db.shape)} are not (Q, D) and (N, D)")
-    q = q.float().contiguous()
-    db = db.float().contiguous()
-    nq, d = q.shape
-    n = db.shape[0]
-    out = torch.empty((nq, n), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
-        return out
-    lib = _build.library("similarity")
-    err = lib.similarity_launch_tile(q.data_ptr(), db.data_ptr(),
-                                     out.data_ptr(), nq, n, d, tile,
-                                     _build.stream_handle(q.device))
-    _build.check(err, "similarity_cuda")
-    _build.count_launch("similarity")
+    out = RT.panel_launch(q, db, None, 0,
+                          tile or RT.tile_for(q.shape[0], q.shape[1]))
+    if out.numel():
+        _build.count_launch("similarity")
     return out
 
 

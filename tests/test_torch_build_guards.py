@@ -27,8 +27,8 @@ SELECT = ("_ZN49_GLOBAL__N__7c0f1e2a_16_retrieve_topn_cu_5d2a8b1c18topn_"
           "select_kernelEPKfPKiiiiiiiPfPviiPhNS_7PayloadE")
 PANEL_GEMM = ("_ZN49_GLOBAL__N__7c0f1e2a_16_retrieve_topn_cu_5d2a8b1c17panel"
               "_gemm_kernelILi128ELi16ELb1ELb1EEEvPKfS2_iiiiPKiPf")
-LIST_GEMM = ("_ZN49_GLOBAL__N__7c0f1e2a_16_retrieve_topn_cu_5d2a8b1c16topn_"
-             "gemm_kernelILi128ELi16ELi4ELb1EEEvPKfS2_iiiiPKiiiPfPi")
+PANEL_GEMV = ("_ZN49_GLOBAL__N__7c0f1e2a_16_retrieve_topn_cu_5d2a8b1c17panel"
+              "_gemv_kernelILb1EEEvPKfS2_iiiiPKiPf")
 SERIALISED = ("ptxas info    : (C7515) Potential Performance Loss: "
               "wgmma.mma_async instructions are serialized due to non wgmma "
               "instructions defining accumulator registers of a wgmma "
@@ -54,7 +54,7 @@ def logs(flash="", decode="", retrieve=""):
             + entry(DECODE_256_CORES, 168) + entry(DECODE_128, 96)
             + decode,
             "retrieve_topn": entry(SELECT, 40) + entry(PANEL_GEMM, 122)
-            + entry(LIST_GEMM, 128) + retrieve}
+            + entry(PANEL_GEMV, 40) + retrieve}
 
 
 def test_ptxas_entries_reads_each_entry():
@@ -79,10 +79,10 @@ def test_clean_logs_pass_and_report_every_guarded_instance():
     failures, regs = _build.build_guards(logs())
     assert failures == []
     # the flash instances (the producer's 16 spilled bytes are not
-    # guarded), the dh = 256 decode ones, not dh = 128, and the retrieve's
-    # panel-route kernels, not the list kernels
+    # guarded), the dh = 256 decode ones, not dh = 128, and every kernel
+    # of the retrieve
     assert set(regs) == {FLASH_128, FLASH_F32, DECODE_256_MMA,
-                         DECODE_256_CORES, SELECT, PANEL_GEMM}
+                         DECODE_256_CORES, SELECT, PANEL_GEMM, PANEL_GEMV}
     assert regs[FLASH_128] == (168, 16, 16)
     assert regs[DECODE_256_MMA] == (127, 0, 0)
 
@@ -108,16 +108,14 @@ def test_a_dh128_decode_spill_is_not_guarded():
     assert _build.build_guards(log)[0] == []
 
 
-@pytest.mark.parametrize("name", [SELECT, PANEL_GEMM])
+@pytest.mark.parametrize("name", [SELECT, PANEL_GEMM, PANEL_GEMV])
 def test_a_panel_route_spill_fails_the_build(name):
+    """A spill in any retrieve kernel fails the build, and only that
+    kernel is named."""
     log = logs()
-    log["retrieve_topn"] = entry(name, 64, 24, 24) + entry(LIST_GEMM, 128)
+    log["retrieve_topn"] = entry(name, 64, 24, 24) + "".join(
+        entry(x, 64) for x in (SELECT, PANEL_GEMM, PANEL_GEMV) if x != name)
     failures, regs = _build.build_guards(log)
     assert len(failures) == 1 and "retrieve" in failures[0]
+    assert name in failures[0]
     assert regs[name] == (64, 24, 24)
-
-
-def test_a_list_kernel_spill_is_not_guarded():
-    log = logs(retrieve=entry(LIST_GEMM.replace("Li4E", "Li2E"), 128, 8,
-                              8))
-    assert _build.build_guards(log)[0] == []

@@ -83,11 +83,7 @@ def test_similarity_every_tile_matches_plain(dev, tile, nq, n, d):
                      device=dev)
     db = torch.tensor(rng.normal(size=(n, d)), dtype=torch.float32,
                       device=dev)
-    out = torch.empty((nq, n), device=dev)
-    lib = _build.library("similarity")
-    _build.check(lib.similarity_launch_tile(
-        q.data_ptr(), db.data_ptr(), out.data_ptr(), nq, n, d, tile,
-        _build.stream_handle(dev)), "similarity_launch_tile")
+    out = similarity_cuda(q, db, tile=tile)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref.similarity_ref(q, db), rtol=SIM_TOL,
                                atol=SIM_TOL)
@@ -1757,50 +1753,49 @@ def _tie_inputs(dev, nq, c, d, boundaries, seed=0):
 @pytest.mark.parametrize("nq", [1, 8, 9, 32, 33, 64, 65, 1024])
 @pytest.mark.parametrize("n", [20, 64, 80])
 def test_retrieve_topn_kernel_matches_plain(dev, nq, n):
-    """Kernel 1 of the list route at every tile (streaming at Q <= 8, GEMM
-    of 32, 64, 128 rows; C large enough that each grid fills the card):
-    its pool equals, bit for bit, the per-split stable top-n of the
-    similarity kernel's masked panel (the same scores, the same lists),
+    """The retrieve at n <= 128 at every tile (streaming at Q <= 8, GEMM
+    of 32, 64, 128 rows) over a C large enough that each grid fills the
+    card: kernel 1's panel equals the similarity kernel's masked panel at
+    the plan's tile bit for bit, the pair's top-n one stable sort of it,
     and its scores lie within SIM_TOL of the plain version's at the rows
-    it returns; ties straddle split boundaries, C is ragged, and rows past
-    `size` score -inf."""
+    it returns; ties straddle the tiles' boundaries, C is ragged, and rows
+    past `size` score -inf."""
     c, d = 17001, 1536
-    tile, rows, splits, route = RT.plan(nq, c, d, RT._sm_count(dev), n)
-    assert route == RT.LISTS
-    q, db, _, _ = _tie_inputs(dev, nq, c, d, [rows * i for i in
+    pl = RT.plan(nq, c, d, n=n)
+    assert pl == (RT.tile_for(nq, d), RT.PANEL)
+    q, db, _, _ = _tie_inputs(dev, nq, c, d, [1024 * i for i in
                                               range(1, 4)] + [700])
     size = torch.tensor(c - 100, dtype=torch.int32, device=dev)
-    pool_s, pool_i = RT.retrieve_topn_cuda(q, db, size, n)
-    want_s, want_i = ref.panel_pool_ref(
-        ref.mask_dead(similarity_cuda(q, db), 0, size), n, rows)
+    panel = RT.retrieve_topn_cuda(q, db, size)
+    want = ref.mask_dead(similarity_cuda(q, db, tile=pl.tile), 0, size)
+    top_s, top_i, hit = RT.topn_cuda(q, db, size, n)
+    want_s, want_i = ref.stable_topk(want, n)
     torch.cuda.synchronize()
-    assert pool_s.shape == (nq, splits * n)
-    assert torch.equal(pool_i, want_i) and torch.equal(pool_s, want_s)
-    live = pool_i < c - 100
-    plain = torch.gather(ref.similarity_ref(q, db), 1,
-                         pool_i.clamp(0, c - 1).long())
-    torch.testing.assert_close(pool_s[live], plain[live], rtol=SIM_TOL,
-                               atol=SIM_TOL)
+    assert torch.equal(panel, want)
+    assert torch.equal(top_s, want_s) and torch.equal(top_i, want_i)
+    assert bool(hit.all())
+    plain = torch.gather(ref.similarity_ref(q, db), 1, top_i)
+    torch.testing.assert_close(top_s, plain, rtol=SIM_TOL, atol=SIM_TOL)
 
 
 @pytest.mark.parametrize("nq", [1, 8, 9, 32, 33, 64, 65, 1024])
 @pytest.mark.parametrize("c,n", [(1470, 20), (17001, 129)])
 def test_retrieve_panel_kernel_matches_plain(dev, nq, c, n):
-    """Kernel 1 of the panel route (a grid smaller than the card at C =
-    1470, or n past 128) at every tile: the masked panel equals the
-    similarity kernel's at the plan's tile bit for bit, rows past `size`
-    at -inf, and the plain panel within SIM_TOL; with vector and scalar
-    loads and stores (D = 1536, C ragged; D = 50)."""
+    """Kernel 1 (a grid smaller than the card at C = 1470, or n past 128)
+    at every tile: the masked panel equals the similarity kernel's at the
+    plan's tile bit for bit, rows past `size` at -inf, and the plain panel
+    within SIM_TOL; with vector and scalar loads and stores (D = 1536, C
+    ragged; D = 50)."""
     for d in (1536, 50):
-        pl = RT.plan(nq, c, d, RT._sm_count(dev), n)
+        pl = RT.plan(nq, c, d, n=n)
         assert pl.route == RT.PANEL and pl.tile == RT.tile_for(nq, d)
         q, db, _, _ = _tie_inputs(dev, nq, c, d, [128, 256, 700])
         size = torch.tensor(c - 100, dtype=torch.int32, device=dev)
-        panel, rows = RT.retrieve_topn_cuda(q, db, size, n, offset=5)
+        panel = RT.retrieve_topn_cuda(q, db, size, offset=5)
         want = ref.mask_dead(similarity_cuda(q, db, tile=pl.tile), 5, size)
         plain = ref.panel_ref(q, db, size, offset=5)
         torch.cuda.synchronize()
-        assert rows is None and panel.shape == (nq, c)
+        assert panel.shape == (nq, c)
         assert torch.equal(panel, want)
         assert bool(torch.isinf(panel[:, c - 105:]).all())
         torch.testing.assert_close(panel[:, :c - 105], plain[:, :c - 105],
@@ -1810,10 +1805,12 @@ def test_retrieve_panel_kernel_matches_plain(dev, nq, c, n):
 @pytest.mark.parametrize("p,k,r", [(640, 20, 8), (5120, 20, 8), (60, 57, 3),
                                    (128, 64, 16), (1280, 128, 8)])
 def test_topn_merge_kernel_matches_plain(dev, p, k, r):
-    """Kernel 2 over pools of few distinct scores (ties, -inf, empty
-    slots): the top k, the hit mask and both payload routes (by row from a
-    shard's panels in rank order; carried by position into the replay's
-    layout) equal the plain version's exactly."""
+    """Kernel 2's select at k <= 128 over pools of explicit rows (the
+    cross-shard merge's form) of few distinct scores (ties, -inf, empty
+    slots): the top k, the hit mask and both payload routes (carried by
+    position into the replay's layout; by row from a shard's panels in
+    rank order, the same scores read as a panel) equal the plain
+    version's exactly."""
     rng = np.random.default_rng(p + k)
     nq, c = 37, 4 * p
     vals = np.asarray([-np.inf, -1.0, 0.0, 0.5, 1.0], np.float32)
@@ -1833,8 +1830,8 @@ def test_topn_merge_kernel_matches_plain(dev, p, k, r):
     want = ref.topn_merge_ref(pool_s, pool_i, k)
     for x, y in zip(got, want[:3]):
         assert torch.equal(x, y)
-    out = RT.shard_reduce_cuda(pool_s, pool_i, k, panels, 0)
-    want = ref.topn_merge_ref(pool_s, pool_i, k, panels=panels)
+    out = RT.shard_reduce_cuda(pool_s, k, panels, 0)
+    want = ref.topn_merge_ref(pool_s, None, k, panels=panels)
     assert torch.equal(out[0], want[0])
     assert torch.equal(out[1].long(), want[1])
     for x, y in zip(out[2], want[3]):
@@ -1883,8 +1880,8 @@ def test_topn_merge_runs_kernel_matches_plain(dev, runs, run, k, r):
     want = ref.topn_merge_ref(pool_s, pool_i, k)
     for x, y in zip(got, want[:3]):
         assert torch.equal(x, y)
-    out = RT.shard_reduce_cuda(pool_s, pool_i, k, panels, 0)
-    want = ref.topn_select_ref(pool_s, pool_i, k, panels=panels)
+    out = RT.shard_reduce_cuda(pool_s, k, panels, 0)
+    want = ref.topn_select_ref(pool_s, None, k, panels=panels)
     assert torch.equal(out[0], want[0])
     assert torch.equal(out[1].long(), want[1])
     for x, y in zip(out[2], want[3]):
@@ -1899,21 +1896,22 @@ def test_topn_merge_runs_kernel_matches_plain(dev, runs, run, k, r):
     got = RT.topn_merge_cuda(pool_s, None, k, offset=7)
     want = ref.stable_topk(pool_s, k)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1] + 7)
-    out = RT.shard_reduce_cuda(pool_s, None, k, panels, 7)
+    out = RT.shard_reduce_cuda(pool_s, k, panels, 7)
     for x, y in zip(out[2], panels):
         assert torch.equal(x, y[want[1]])
 
 
 def test_retrieve_kernels_refuse_what_they_do_not_take(dev):
     x = torch.ones((4, 8), device=dev)
-    with pytest.raises(ValueError, match="n = 513.*512"):
-        RT.retrieve_topn_cuda(x, x, None, 513)
+    with pytest.raises(ValueError, match="k = 513.*512"):
+        RT.topn_cuda(torch.ones((4, 8), device=dev),
+                     torch.ones((600, 8), device=dev), None, 513)
     with pytest.raises(ValueError, match="k = 513.*512"):
         RT.topn_merge_cuda(torch.zeros((2, 600), device=dev),
                            torch.zeros((2, 600), dtype=torch.int32,
                                        device=dev), 513)
     with pytest.raises(ValueError, match="one CUDA device"):
-        RT.retrieve_topn_cuda(x, x.cpu(), None, 4)
+        RT.retrieve_topn_cuda(x, x.cpu(), None)
 
 
 @pytest.mark.parametrize("nq", [1, 8, 9, 64, 65, 1024])
@@ -1925,13 +1923,13 @@ def test_retrieve_large_n_equals_panel_and_stable_sort(dev, nq, n):
     one stable sort of it (`ref.panel_topn_ref`), bit for bit, ties on the
     tiles' boundaries, rows past `size` dead; and a DB smaller than n."""
     c, d = 3001, 1536
-    tile, rows, splits, route = RT.plan(nq, c, d, RT._sm_count(dev), n)
+    tile, route = RT.plan(nq, c, d, n=n)
     assert route == RT.PANEL and tile == RT.tile_for(nq, d)
     q, db, _, _ = _tie_inputs(dev, nq, c, d, [128 * i for i in
                                               range(1, 4)] + [700], n)
     sim = partial(similarity_cuda, tile=tile)     # scores of the same tile
     size = torch.tensor(c - 100, dtype=torch.int32, device=dev)
-    panel, _ = RT.retrieve_topn_cuda(q, db, size, n)
+    panel = RT.retrieve_topn_cuda(q, db, size)
     assert torch.equal(panel, ref.mask_dead(sim(q, db), 0, size))
     top = RT.topn_merge_cuda(panel, None, n)
     want = ref.topn_select_ref(panel, None, n)
@@ -1957,7 +1955,7 @@ def test_knn_shape_and_small_grids_take_the_panel(dev, nq):
     equal to the similarity kernel's panel and its stable sort bit for
     bit, also with rows past `size` and ties on the tiles' boundaries."""
     c, d, n = 1470, 64, 40
-    assert RT.plan(nq, c, d, RT._sm_count(dev), n).route == RT.PANEL
+    assert RT.plan(nq, c, d, n=n).route == RT.PANEL
     q, db, _, _ = _tie_inputs(dev, nq, c, d, [128, 256, 1280], nq)
     for size in (None, torch.tensor(1000, dtype=torch.int32, device=dev)):
         _build.reset_launches()
@@ -2106,22 +2104,21 @@ def test_route_equals_panel_and_stable_sort(dev, bucket, shards):
 
 
 def test_route_controls_fail(dev):
-    """The checks above catch a merge that drops the last split (kernel 2
-    over all but the last n pool columns) and a kernel 1 that gives a tie
-    to the higher row (a build with TOPN_CONTROL_TIE_HIGH). The latter
-    shows only where the tie decides which rows a split keeps (kernel 2
-    orders what its pool holds): queries equal to a row copied n + 5
-    times inside one split."""
+    """The checks above catch a kernel 2 that drops the panel's last
+    columns (over all but the last 1,024) and a select that gives a tie to
+    the higher row (a build with TOPN_CONTROL_TIE_HIGH): queries equal to
+    a row copied n + 5 times, so that the tie decides which rows are
+    kept."""
     from unittest import mock
     c, n, nq = 4096, 20, 1024
     q, db, recs, g, costs, bud, _ = _route_inputs(dev, nq, c, 5)
-    db[100:100 + n + 5] = db[99]             # rows 99..124: one split
+    db[100:100 + n + 5] = db[99]             # rows 99..124 tie
     k = 8
     q[:k] = db[99]
     size = torch.tensor(c, dtype=torch.int32, device=dev)
     want = _panel_route(q, db, recs, size, g, costs, bud, n, 0)[1]
-    pool_s, pool_i = RT.retrieve_topn_cuda(q, db, size, n)
-    dropped = RT.topn_merge_cuda(pool_s[:, :-n], pool_i[:, :-n], n)[1]
+    panel = RT.retrieve_topn_cuda(q, db, size)
+    dropped = RT.topn_merge_cuda(panel[:, :-1024], None, n)[1]
     share = float((dropped != want).any(dim=1).float().mean())
     assert share > 0.2
     library = _build.library

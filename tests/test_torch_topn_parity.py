@@ -1,18 +1,17 @@
-"""The retrieve stage's two routes against `jax.lax.top_k` over the JAX
-package's similarity and against one stable sort of the whole panel
-(`ref.stable_topk`), on seeded numpy inputs: the list route (the kernels'
-`retrieve_topn` split top-n, then `topn_merge` by rounds; the plain
-versions `ref.split_topn_ref` / `ref.topn_merge_ref`) and the panel route
-(the masked panel, then kernel 2's radix select; `ref.panel_ref` /
-`ref.topn_select_ref`), which the wrappers run on CPU tensors, and the
-plan that picks between them.
+"""The retrieve stage against `jax.lax.top_k` over the JAX package's
+similarity and against one stable sort of the whole panel
+(`ref.stable_topk`), on seeded numpy inputs: its two kernels' plain
+versions (the masked panel, `ref.panel_ref`; kernel 2's radix select,
+`ref.topn_select_ref`, and the stable sorts the wrappers run in its place
+on CPU tensors, `ref.topn_merge_ref`), the sharded route's per-shard
+reduce and cross-shard merge, and the plan.
 
 The JAX similarity runs as the JAX suite runs it on the CPU: its jnp
 oracle ("reference") and its Pallas kernel in interpret mode. Top-n rows
 must be equal exactly: the order (score descending, row ascending) is a
-strict total order, so the top-n of the splits' (or shards') top-n is the
-top-n of the whole, at any split width, and a select by a key that orders
-as the ranking takes exactly the top-n.
+strict total order, so the top-n of the shards' top-n is the top-n of
+the whole, and a select by a key that orders as the ranking takes
+exactly the top-n.
 """
 import jax
 import jax.numpy as jnp
@@ -53,9 +52,17 @@ def _tied_db(rng, c, d, boundaries):
     return q, db
 
 
-def _two_stage(q, db, size, n, width):
-    return TREF.two_stage_topn_ref(torch.tensor(q), torch.tensor(db), size,
-                                   n, width)
+def _two_stage(q, db, size, n):
+    """The retrieve's two stages on CPU tensors: through the wrappers' glue
+    (the masked panel, then the stable sorts) and through the select's
+    plain version, which must agree exactly; returns the first."""
+    qt, dbt = torch.tensor(q), torch.tensor(db)
+    live = None if size is None else torch.tensor(size, dtype=torch.int32)
+    got = RT.topn_cuda(qt, dbt, live, n)
+    sel = TREF.panel_select_topn_ref(qt, dbt, size, n)
+    for x, y in zip(got, sel):
+        assert torch.equal(x, y)
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -63,24 +70,26 @@ def _two_stage(q, db, size, n, width):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("backend", JAX_BACKENDS)
-@pytest.mark.parametrize("width", [1, 7, 32, 100, 128, 301])
+@pytest.mark.parametrize("c", [5, 12, 20, 128, 129, 300])
 @pytest.mark.parametrize("n,size", [(12, 300), (20, 157), (12, 5)])
-def test_two_stage_equals_jax_top_k(backend, width, n, size):
-    """Split widths that do and do not divide C = 300, duplicate rows on
-    both sides of every split boundary (and of the 2- and 4-shard
-    boundaries), the queries that tie on them, size < C and size < n."""
-    rng = np.random.default_rng(width + n)
-    c, d = 300, 16
-    q, db = _tied_db(rng, c, d, list(range(width, c, width))[:8]
-                     + [75, 150, 225])
+def test_two_stage_equals_jax_top_k(backend, c, n, size):
+    """The masked panel, then kernel 2 (the select's plain version and the
+    wrappers' stable sorts), over DBs smaller than n, of n rows, and on
+    both sides of a 128-column tile; duplicate rows on the tiles' and the
+    2- and 4-shard boundaries, the queries that tie on them, size < C and
+    size < n."""
+    rng = np.random.default_rng(c + n)
+    d = 16
+    q, db = _tied_db(rng, c, d, [1, 4, 11, 19, 64, 75, 128, 150, 225])
     k = min(n, c)
+    live = min(size, c)
     want = _jax_topk(q, db, size, k, backend)
-    top_s, top_i, hit = _two_stage(q, db, size, n, width)
+    top_s, top_i, hit = _two_stage(q, db, size, n)
     np.testing.assert_array_equal(top_i.numpy(), want)
     panel = TREF.panel_topn_ref(torch.tensor(q), torch.tensor(db), size, n)
     for got, ref_ in zip((top_s, top_i, hit), panel):
         assert torch.equal(got, ref_)
-    assert bool((~hit).sum(dim=1).eq(max(0, k - size)).all())
+    assert bool((~hit).sum(dim=1).eq(max(0, k - live)).all())
 
 
 @pytest.mark.parametrize("backend", JAX_BACKENDS)
@@ -98,8 +107,8 @@ def test_zero_rows_and_orthogonal_rows(backend):
     db[[10, 40, 70], 0] = 1.0                 # orthogonal to every query
     q[4] = -np.abs(q[4])                      # every score of q[4] <= 0
     q[4, 0] = 0.0
-    for n, width in ((20, 32), (c, 7), (12, 96)):
-        top_s, top_i, _ = _two_stage(q, db, c, n, width)
+    for n in (20, c, 12):
+        top_s, top_i, _ = _two_stage(q, db, c, n)
         assert bool(torch.isfinite(top_s).all())
         np.testing.assert_array_equal(top_i.numpy(),
                                       _jax_topk(q, db, c, n, backend))
@@ -111,14 +120,15 @@ def test_empty_db():
     rng = np.random.default_rng(6)
     q, db = (rng.normal(size=s).astype(np.float32) for s in ((3, 8),
                                                             (50, 8)))
-    for width in (1, 8, 64):
-        top_s, top_i, hit = _two_stage(q, db, 0, 20, width)
+    for c in (20, 32, 50):
+        top_s, top_i, hit = _two_stage(q, db[:c], 0, 20)
         assert torch.equal(top_i, torch.arange(20).expand(3, 20))
         assert not bool(hit.any()) and bool(torch.isinf(top_s).all())
     np.testing.assert_array_equal(
-        _two_stage(q, db, 0, 20, 7)[1].numpy(),
+        _two_stage(q, db, 0, 20)[1].numpy(),
         _jax_topk(q, db, 0, 20, "reference"))
-    top_s, top_i, hit = _two_stage(q, db[:0], 0, 20, 8)
+    top_s, top_i, hit = RT.topn_cuda(torch.tensor(q), torch.tensor(db[:0]),
+                                     torch.tensor(0, dtype=torch.int32), 20)
     assert top_s.shape == top_i.shape == hit.shape == (3, 0)
 
 
@@ -204,26 +214,25 @@ _VALUES = (float("-inf"), -1.0, -0.0, 0.0, 0.25, 1.0)
        st.integers(1, 90), st.integers(0, 2 ** 31 - 1))
 def test_tied_panels_two_stage_equals_stable_sort(nq, c, n, width, seed):
     """Panels of a few values (-inf, -0.0 and 0.0 among them, compared as
-    floats): the splits' pool, then its merge, equal one stable sort of
-    the panel, scores and rows; and so does a shard split (each shard's
-    top min(n, C_l), their pool merged)."""
+    floats): a shard split of `width` rows (each shard's select to
+    min(n, C_l) over its panel, their pool of explicit rows merged by the
+    select and by the wrappers' stable sorts) equals one stable sort of
+    the panel, scores, rows and hits; and so do the select and the stable
+    sort over the whole panel."""
     rng = np.random.default_rng(seed)
     panel = torch.tensor(rng.choice(_VALUES, (nq, c)), dtype=torch.float32)
     k = min(n, c)
     want_s, want_i = TREF.stable_topk(panel, n)
-    pool = TREF.panel_pool_ref(panel, n, width)
-    top_s, top_i, hit, _ = TREF.topn_merge_ref(*pool, k)
-    assert torch.equal(top_i, want_i) and torch.equal(top_s, want_s)
-    assert torch.equal(hit, torch.isfinite(want_s))
-    # shards of `width` rows: each reduced to min(n, C_l), then merged
-    parts = [TREF.topn_merge_ref(*TREF.panel_pool_ref(
-        panel[:, c0:c0 + width], n, 1 + seed % 13, offset=c0),
-        min(n, panel[:, c0:c0 + width].shape[1]))
-        for c0 in range(0, c, width)]
-    merged = TREF.topn_merge_ref(torch.cat([p[0] for p in parts], 1),
-                                 torch.cat([p[1].int() for p in parts], 1),
-                                 k)
-    assert torch.equal(merged[1], want_i) and torch.equal(merged[0], want_s)
+    parts = [TREF.topn_select_ref(panel[:, c0:c0 + width], None,
+                                  min(n, panel[:, c0:c0 + width].shape[1]),
+                                  row0=c0)
+             for c0 in range(0, c, width)]
+    pool = (torch.cat([p[0] for p in parts], 1),
+            torch.cat([p[1].int() for p in parts], 1))
+    for merge in (TREF.topn_select_ref, TREF.topn_merge_ref):
+        top_s, top_i, hit, _ = merge(*pool, k)
+        assert torch.equal(top_i, want_i) and torch.equal(top_s, want_s)
+        assert torch.equal(hit, torch.isfinite(want_s))
     # the panel route: kernel 2's select over the panel itself, and the
     # stable sort the wrappers' CPU glue runs in its place
     sel = TREF.topn_select_ref(panel, None, k)
@@ -232,16 +241,20 @@ def test_tied_panels_two_stage_equals_stable_sort(nq, c, n, width, seed):
     assert torch.equal(glue[1], want_i) and torch.equal(glue[0], want_s)
 
 
-@pytest.mark.parametrize("route", ["lists", "select"])
+@pytest.mark.parametrize("route", ["shards", "select"])
 @pytest.mark.parametrize("k", [6, 3, 2])
 def test_negative_zero_ties_positive_zero(route, k):
     """-0.0 == 0.0 in the order: they tie, lowest row first (a stable
     sort's order, not a sign-aware total order), also where k cuts among
-    them; each keeps its own sign."""
+    them; each keeps its own sign: kernel 2's select over the panel, and
+    over three shards' selects merged by the select over their rows."""
     panel = torch.tensor([[0.0, -0.0, 0.0, -0.0, 1.0, -0.0]])
-    if route == "lists":
-        top_s, top_i, _, _ = TREF.topn_merge_ref(
-            *TREF.panel_pool_ref(panel, 6, 2), k)
+    if route == "shards":
+        parts = [TREF.topn_select_ref(panel[:, c0:c0 + 2], None, 2, row0=c0)
+                 for c0 in (0, 2, 4)]
+        top_s, top_i, _, _ = TREF.topn_select_ref(
+            torch.cat([p[0] for p in parts], 1),
+            torch.cat([p[1].int() for p in parts], 1), k)
     else:
         top_s, top_i, _, _ = TREF.topn_select_ref(panel, None, k)
     assert top_i.tolist() == [[4, 0, 1, 2, 3, 5][:k]]
@@ -255,9 +268,9 @@ def test_negative_zero_ties_positive_zero(route, k):
 
 def test_merge_payload_layouts():
     """Kernel 2's plain version: records gathered by row from a shard's
-    panels in rank order, and carried by pool position into the replay's
-    layout (farthest first, valid &= hit), as gather_records lays them
-    out."""
+    panels in rank order, and carried by pool position (a pool of shards'
+    candidates: each 9-column shard's select) into the replay's layout
+    (farthest first, valid &= hit), as gather_records lays them out."""
     rng = np.random.default_rng(13)
     c, nq, n, off = 40, 4, 6, 100
     panels = (torch.tensor(rng.integers(0, M, (c, R)), dtype=torch.int32),
@@ -266,7 +279,11 @@ def test_merge_payload_layouts():
               torch.tensor(rng.random((c, R)) < 0.5))
     panel = torch.tensor(rng.normal(size=(nq, c)), dtype=torch.float32)
     panel[:, 30:] = float("-inf")
-    pool = TREF.panel_pool_ref(panel, n, 9, offset=off)
+    parts = [TREF.topn_select_ref(panel[:, c0:c0 + 9], None,
+                                  min(n, panel[:, c0:c0 + 9].shape[1]),
+                                  row0=c0 + off) for c0 in range(0, c, 9)]
+    pool = (torch.cat([p[0] for p in parts], 1),
+            torch.cat([p[1].int() for p in parts], 1))
     top_s, top_i, hit, recs = TREF.topn_merge_ref(*pool, n, panels=panels,
                                                   offset=off)
     want_i = TREF.stable_topk(panel, n)[1]
@@ -286,22 +303,16 @@ def test_merge_payload_layouts():
                                      (33, 64), (64, 64), (65, 128),
                                      (1024, 128)])
 def test_plan_takes_similarity_tiles_and_covers_the_db(nq, tile):
-    """The tile per bucket is the similarity kernel's on both routes; the
-    list route's splits cover C in whole tiles, about two blocks an SM and
-    at least one block an SM; the panel route takes C whole, where the
-    list grid would be smaller than the card."""
+    """The tile per bucket is the similarity kernel's, at every C and n:
+    the panel takes C whole, so no split of the DB depends on the card."""
     for c in (1, 100, 8192, 32768):
-        t, rows, splits, route = RT.plan(nq, c, 1536)
-        assert t == tile
-        unit = 32 if tile == 8 else 128
-        if route == RT.PANEL:
-            assert (rows, splits) == (c, 1)
-            continue
-        assert rows % unit == 0 and (splits - 1) * rows < c <= splits * rows
-        blocks = splits * (1 if tile == 8 else -(-nq // tile))
-        assert RT.H100_SMS <= blocks <= 2 * RT.H100_SMS or rows == unit
-    assert RT.plan(1024, 32768, 1536)[:3] == (128, 1024, 32)
-    assert RT.plan(8, 32768, 1536)[:3] == (8, 128, 256)
+        for n in (1, 20, 128, 512):
+            assert RT.plan(nq, c, 1536, n=n) == (tile, RT.PANEL)
+    assert RT.tile_for(nq, 1536) == tile
+    # the streaming kernel holds its 8 queries in shared memory, up to D =
+    # 7,263; past that the GEMM takes even one query
+    assert RT.plan(nq, 100, 7263).tile == tile
+    assert RT.plan(nq, 100, 7264).tile == max(tile, 32)
 
 
 @pytest.mark.parametrize("nq", [8, 64, 1024])
@@ -339,44 +350,37 @@ def test_large_n_two_stage_at_the_plan_equals_jax_top_k(nq, n, size):
 
 
 def test_plan_past_128_neighbours():
-    """Past n = 128 the plan takes the panel route with the similarity
-    kernel's tile (no list sets it any more), at every bucket; at n <= 128
-    on a full grid it keeps the list route's plans."""
-    assert RT.plan(1024, 32768, 1536, n=128) == (128, 1024, 32, RT.LISTS)
-    assert RT.plan(8, 32768, 1536, n=128) == (8, 128, 256, RT.LISTS)
-    assert RT.plan(64, 32768, 1536, n=128)[3] == RT.LISTS
-    for n in (129, 256, 512):
+    """Past n = 128 the plan is what it is below: the panel route with the
+    similarity kernel's tile (no list sets it), at every bucket, and at
+    KNN's call (Q = 84, C = 1,470, D = 64, top-40)."""
+    for n in (20, 128, 129, 256, 512):
         for nq, tile in ((8, 8), (64, 64), (1024, 128)):
-            assert RT.plan(nq, 32768, 1536, n=n) == (tile, 32768, 1,
-                                                     RT.PANEL)
+            assert RT.plan(nq, 32768, 1536, n=n) == (tile, RT.PANEL)
     assert RT.tile_for(1024, 1536) == 128 and RT.tile_for(64, 1536) == 64
-    assert RT.plan(84, 1470, 64, n=40) == (128, 1470, 1, RT.PANEL)
-    assert RT.gemm_smem(128, RT.LIST_N) <= RT.MAX_SMEM
+    assert RT.plan(84, 1470, 64, n=40) == (128, RT.PANEL)
 
 
-@pytest.mark.parametrize("nq,c,d,n,route", [
-    (1024, 32768, 1536, 20, RT.LISTS),     # the route's buckets, C = 32768
-    (64, 32768, 1536, 20, RT.LISTS),
-    (8, 32768, 1536, 20, RT.LISTS),
-    (1024, 65536, 1536, 20, RT.LISTS),     # the graph phase's grow
-    (8, 65536, 1536, 20, RT.LISTS),
-    (1024, 8192, 1536, 20, RT.LISTS),      # a shard at S = 4
-    (8, 8192, 1536, 20, RT.LISTS),
-    (84, 1470, 64, 40, RT.PANEL),          # KNN's call: 12 blocks
-    (64, 8192, 1536, 20, RT.PANEL),        # 64 blocks
-    (8, 4096, 1536, 20, RT.PANEL),         # 128 splits of 32 rows
-    (1024, 32768, 1536, 129, RT.PANEL),    # past n = 128
+@pytest.mark.parametrize("nq,c,d,n,tile", [
+    (1024, 32768, 1536, 20, 128),     # the route's buckets, C = 32768
+    (64, 32768, 1536, 20, 64),
+    (8, 32768, 1536, 20, 8),
+    (1024, 65536, 1536, 20, 128),     # the graph phase's grow
+    (8, 65536, 1536, 20, 8),
+    (1024, 8192, 1536, 20, 128),      # a shard at S = 4
+    (8, 8192, 1536, 20, 8),
+    (84, 1470, 64, 40, 128),          # KNN's call
+    (64, 8192, 1536, 20, 64),         # a shard at S = 4, bucket 64
+    (8, 4096, 1536, 20, 8),
+    (1024, 32768, 1536, 129, 128),    # past n = 128
 ])
-def test_plan_route_switch(nq, c, d, n, route):
-    """The route from (Q, C, D, n) alone: the lists at n <= 128 where row
-    blocks x splits fill the card's 132 SMs, else the panel."""
+def test_plan_route_switch(nq, c, d, n, tile):
+    """The route from (Q, C, D, n) alone, at each shape the list route
+    used to take (n <= 128 on a grid that filled the card) and at those
+    it did not: the panel, at the tile the lists scored at, which is
+    `tile_for`'s (so every score stays bit-equal to the parent's)."""
     pl = RT.plan(nq, c, d, n=n)
-    assert pl.route == route
-    blocks = pl.splits * (1 if pl.tile == 8 else -(-nq // pl.tile))
-    if route == RT.LISTS:
-        assert blocks >= RT.H100_SMS
-    else:
-        assert (pl.split_rows, pl.splits) == (c, 1)
+    assert pl == (tile, RT.PANEL)
+    assert pl.tile == RT.tile_for(nq, d)
 
 
 @pytest.mark.parametrize("backend", JAX_BACKENDS)
