@@ -20,9 +20,11 @@ JAX package's cache of compiled executables (its `core/dispatch.py`).
     memory pool. Once a replica's tensors are freed (the old replicas
     after a grow), its graphs can never be hit again: the next capture
     evicts them, and the old shape's pool goes with its last graph.
-  * Queries and budgets are staged through pinned host memory and copied
-    in without blocking; the host reads the choices (and the top-n rows
-    for route_result) once per dispatch.
+  * Queries and budgets are staged through pinned host memory (one
+    staging a bucket) and copied in without blocking; the host reads the
+    choices (and the top-n rows for route_result) once per dispatch.
+    With obs enabled a dispatch records the spans of these steps and its
+    device time on the card's clock (`_route_one`).
   * A capture happens only on a miss, so `cache_stats()` is an exact
     capture ledger; `warmup()` fills the cache before traffic and
     returns how many entries it made (0 when warm). Its `entries` are
@@ -110,28 +112,21 @@ def _one_device(state: AnyState) -> bool:
 
 class _Entry:
     """One cached dispatch at bucket `qb`: static query and budget
-    buffers (pinned host staging on the card) and the route step over
-    them, captured from `state` on the card (routed eagerly when the
-    state spans several cards)."""
+    buffers on the state's device and the route step over them, captured
+    from `state` on the card (routed eagerly when the state spans several
+    cards)."""
 
     def __init__(self, state: AnyState, qb: int, costs, kw: Dict, pool):
         dev = state.device
-        pinned = dev.type == "cuda"
         self.q = torch.zeros((qb, state.dim), dtype=torch.float32,
                              device=dev)
         self.b = torch.zeros((qb,), dtype=torch.float32, device=dev)
-        q_host = torch.zeros((qb, state.dim), dtype=torch.float32,
-                             pin_memory=True) if pinned else self.q
-        b_host = torch.zeros((qb,), dtype=torch.float32,
-                             pin_memory=True) if pinned else self.b
-        self.q_np, self.b_np = q_host.numpy(), b_host.numpy()
-        self._host = (q_host, b_host) if pinned else None
         self.costs = torch.as_tensor(costs, dtype=torch.float32, device=dev)
         self.kw = kw
         # the replica's tensors, to tell when they are gone (not kept
         # alive by the entry: the graph reads them by address)
         self._replica = [weakref.ref(t) for t in _tensors(state)] \
-            if pinned else []
+            if dev.type == "cuda" else []
         self.step = graphs.Step(self._route, state, device=dev, pool=pool) \
             if _one_device(state) else self._route
 
@@ -143,19 +138,22 @@ class _Entry:
         return tuple(route_batch_choices(state, self.q, self.b, self.costs,
                                          **self.kw))
 
-    def __call__(self, state: AnyState, q: np.ndarray, b: np.ndarray,
-                 with_topk: bool):
-        nq = q.shape[0]
-        self.q_np[:nq], self.q_np[nq:] = q, 0.0
-        self.b_np[:nq], self.b_np[nq:] = b, 0.0
-        if self._host is not None:
-            # the previous dispatch's readout waited for its copy, so the
-            # staging buffers are free to rewrite
-            self.q.copy_(self._host[0], non_blocking=True)
-            self.b.copy_(self._host[1], non_blocking=True)
-        choices, topk = self.step(state)
-        return (choices[:nq].cpu().numpy(),
-                topk[:nq].cpu().numpy() if with_topk else None)
+    def launch(self, state: AnyState, q_host: torch.Tensor,
+               b_host: torch.Tensor):
+        """Copy the staged batch in (without blocking, from pinned
+        memory on the card) and enqueue the step: (choices, topk) on the
+        device."""
+        self.q.copy_(q_host, non_blocking=True)
+        self.b.copy_(b_host, non_blocking=True)
+        return self.step(state)
+
+
+def _readout(out, nq: int, with_topk: bool):
+    """The host's copy of a dispatch's first nq choices (and top-n rows):
+    it waits for the card."""
+    choices, topk = out
+    return (choices[:nq].cpu().numpy(),
+            topk[:nq].cpu().numpy() if with_topk else None)
 
 
 class RouteDispatcher:
@@ -215,6 +213,10 @@ class RouteDispatcher:
         self._g_occupancy = r.gauge(
             "dispatch_occupancy_last", "rows/bucket fill, last dispatch")
         self._bucket_counters: Dict[int, OBS.Counter] = {}
+        #: (bucket, dim, on the card) -> the host staging of a batch:
+        #: (queries, budgets) as tensors (pinned on the card) and as
+        #: their numpy views, shared by every entry of the bucket
+        self._staging: Dict[Tuple, Tuple] = {}
         r.gauge("graph_captures_total",
                 "process-wide CUDA graph captures",
                 fn=graphs.capture_count)
@@ -348,14 +350,45 @@ class RouteDispatcher:
         return [(lo, min(lo + self.max_bucket, nq))
                 for lo in range(0, nq, self.max_bucket)]
 
+    def _stage(self, state: AnyState, qb: int, q: np.ndarray,
+               b: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Write the batch into the bucket's host staging, zeros past it.
+        The previous dispatch's readout waited for its copy in, so the
+        staging is free to rewrite."""
+        key = (qb, state.dim, state.device.type == "cuda")
+        st = self._staging.get(key)
+        if st is None:
+            q_host = torch.zeros((qb, state.dim), dtype=torch.float32,
+                                 pin_memory=key[2])
+            b_host = torch.zeros((qb,), dtype=torch.float32,
+                                 pin_memory=key[2])
+            st = self._staging[key] = (q_host, b_host, q_host.numpy(),
+                                       b_host.numpy())
+        q_host, b_host, q_np, b_np = st
+        nq = q.shape[0]
+        q_np[:nq], q_np[nq:] = q, 0.0
+        b_np[:nq], b_np[nq:] = b, 0.0
+        return q_host, b_host
+
     def _route_one(self, state: AnyState, q: np.ndarray, b: np.ndarray,
                    with_topk: bool):
+        """One dispatch, in the spans of its steps: the staging of the
+        batch, the launch (the cache lookup, the copies in, the step's
+        enqueue; its device time a device span) and the readout."""
         nq = q.shape[0]
         qb = self.bucket(nq)
         self._record_dispatch(nq, qb)
-        name = "dispatch.route_result" if with_topk else "dispatch.route"
-        with self.obs.span(name):
-            return self._entry(state, qb)(state, q, b, with_topk)
+        obs = self.obs
+        with obs.span("dispatch.route_result" if with_topk
+                      else "dispatch.route"):
+            with obs.span("dispatch.stage"):
+                q_host, b_host = self._stage(state, qb, q, b)
+            with obs.span("dispatch.launch"):
+                entry = self._entry(state, qb)
+                with obs.device_span("dispatch.device", state.device):
+                    out = entry.launch(state, q_host, b_host)
+            with obs.span("dispatch.readout"):
+                return _readout(out, nq, with_topk)
 
     def _route(self, state, query_embs, budgets, with_topk: bool):
         q = np.atleast_2d(np.asarray(query_embs, np.float32))

@@ -130,13 +130,21 @@ class EagleRouter:
 
     def update(self, embeddings, model_a, model_b, outcome,
                query_id=None) -> float:
-        """Incremental online update: O(new records), no retraining."""
+        """Incremental online update: O(new records), no retraining.
+        With obs enabled, a `router.update` span holds one of each step:
+        the DB's append (`.add`), the global fold's enqueue (`.fold`)
+        and the synchronise (`.sync`)."""
         t0 = time.perf_counter()
-        self.db.add(embeddings, model_a, model_b, outcome, query_id)
-        self.global_ratings = elo.update_global(
-            self.global_ratings, model_a, model_b, outcome,
-            k=self.cfg.k_factor)
-        self._sync()
+        o = OBS.get_obs(self.obs)
+        with o.span("router.update"):
+            with o.span("router.update.add"):
+                self.db.add(embeddings, model_a, model_b, outcome, query_id)
+            with o.span("router.update.fold"):
+                self.global_ratings = elo.update_global(
+                    self.global_ratings, model_a, model_b, outcome,
+                    k=self.cfg.k_factor)
+            with o.span("router.update.sync"):
+                self._sync()
         self._stale = True
         return time.perf_counter() - t0
 

@@ -165,7 +165,8 @@ def _db_shape(db) -> Tuple[int, int, int]:
 
 
 def commit(db, global_ratings, prev=None, consumer: str = "default",
-           device: DeviceLike = None, mesh=None):
+           device: DeviceLike = None, mesh=None,
+           obs: Optional[OBS.Observability] = None):
     """Sync the host append buffer into a device RouterState.
 
     With a previous state of matching shape, only the rows touched since
@@ -184,23 +185,32 @@ def commit(db, global_ratings, prev=None, consumer: str = "default",
     `prev`.
 
     With a DB `mesh` the state is a ShardedRouterState, and each dirty
-    row is copied only into the shard that owns it (DESIGN.md §12)."""
+    row is copied only into the shard that owns it (DESIGN.md §12).
+
+    In `obs` (the process default when None), with spans enabled, the
+    ledger's drain and the gather of the host rows are a
+    `state.commit.rows` span, the copies a `state.commit.copy` span."""
+    o = OBS.get_obs(obs)
     if mesh is not None:
-        return _commit_sharded(db, global_ratings, prev, consumer, mesh)
-    rows = db.drain_dirty(consumer)
+        return _commit_sharded(db, global_ratings, prev, consumer, mesh, o)
     dev = prev.device if prev is not None else resolve_device(device)
-    if prev is None or _shape(prev) != _db_shape(db):
-        return state_from_buffer(db, global_ratings, dev)
-    # rollback/clear guard: a drained row at/past the live count is
-    # stale (its content is masked by `size` anyway) — drop it
-    rows = rows[rows < db.size]
-    if rows.size:
-        idx = torch.as_tensor(rows.astype(np.int64), device=dev)
-        for field in SHARD.DB_SHARDED:
-            host = getattr(db, field)[rows]
-            getattr(prev, field).index_copy_(
-                0, idx, torch.as_tensor(host, device=dev))
-    _write_held(prev, global_ratings, db.size)
+    full = prev is None or _shape(prev) != _db_shape(db)
+    with o.span("state.commit.rows"):
+        rows = db.drain_dirty(consumer)
+        # rollback/clear guard: a drained row at/past the live count is
+        # stale (its content is masked by `size` anyway) — drop it
+        rows = rows[rows < db.size]
+        host = {} if full or not rows.size else \
+            {f: getattr(db, f)[rows] for f in SHARD.DB_SHARDED}
+    with o.span("state.commit.copy"):
+        if full:
+            return state_from_buffer(db, global_ratings, dev)
+        if host:
+            idx = torch.as_tensor(rows.astype(np.int64), device=dev)
+            for field, h in host.items():
+                getattr(prev, field).index_copy_(
+                    0, idx, torch.as_tensor(h, device=dev))
+        _write_held(prev, global_ratings, db.size)
     return prev
 
 
@@ -338,29 +348,33 @@ def _empty_state(n_models: int, dim: int, capacity: int, records: int,
 
 
 def _commit_sharded(db, global_ratings, prev: Optional[ShardedRouterState],
-                    consumer: str, mesh) -> ShardedRouterState:
+                    consumer: str, mesh, obs) -> ShardedRouterState:
     """commit() over a DB mesh: drain the ledger grouped by OWNING shard
     and copy each group into its shard in place (`index_copy_` at the
     local rows); a shape change takes a full sharded re-upload. The
     ratings and the live-row count are rewritten on every device in
-    place, as the unsharded commit does."""
+    place, as the unsharded commit does. The spans are commit()'s."""
     shards = SHARD.check_db_mesh(mesh, db.capacity)
-    per_shard = db.drain_dirty_sharded(consumer, shards)
-    if prev is None or _shape(prev) != _db_shape(db) or prev.mesh != mesh:
-        return _place({f: getattr(db, f) for f in SHARD.DB_SHARDED},
-                      global_ratings, db.size, mesh)
-    c_local = db.capacity // shards
-    for s, rows in enumerate(per_shard):
-        if not rows.size:
-            continue
-        dev = mesh.devices[s]
-        idx = torch.as_tensor((rows - s * c_local).astype(np.int64),
-                              device=dev)
-        for field in SHARD.DB_SHARDED:
-            getattr(prev, field)[s].index_copy_(
-                0, idx, torch.as_tensor(getattr(db, field)[rows],
-                                        device=dev))
-    _write_held(prev, global_ratings, db.size)
+    full = prev is None or _shape(prev) != _db_shape(db) or \
+        prev.mesh != mesh
+    with obs.span("state.commit.rows"):
+        per_shard = db.drain_dirty_sharded(consumer, shards)
+        host = [] if full else \
+            [(s, rows, {f: getattr(db, f)[rows] for f in SHARD.DB_SHARDED})
+             for s, rows in enumerate(per_shard) if rows.size]
+    with obs.span("state.commit.copy"):
+        if full:
+            return _place({f: getattr(db, f) for f in SHARD.DB_SHARDED},
+                          global_ratings, db.size, mesh)
+        c_local = db.capacity // shards
+        for s, rows, panels in host:
+            dev = mesh.devices[s]
+            idx = torch.as_tensor((rows - s * c_local).astype(np.int64),
+                                  device=dev)
+            for field, h in panels.items():
+                getattr(prev, field)[s].index_copy_(
+                    0, idx, torch.as_tensor(h, device=dev))
+        _write_held(prev, global_ratings, db.size)
     return prev
 
 
@@ -383,7 +397,8 @@ class DoubleBuffer:
     `dbuf_swaps_total`, `dbuf_dirty_backlog` (the back replica's ledger
     length as the commit starts), `dbuf_commit_us` (the host's time to
     enqueue the commit: the copies run on the stream) and a
-    `state.commit` span."""
+    `state.commit` span, with commit()'s `state.commit.rows` and
+    `state.commit.copy` inside it."""
 
     TAGS = ("dbuf_a", "dbuf_b")   # the replicas' dirty-row ledgers
 
@@ -442,11 +457,14 @@ class DoubleBuffer:
             shape = _db_shape(self.db)
             spares = self._spares.get(shape)
             if spares and _shape(st) != shape:
-                self.db.drain_dirty(tag)
-                new = _load_state(self.db, global_ratings, spares.pop())
+                with self.obs.span("state.commit.rows"):
+                    self.db.drain_dirty(tag)
+                with self.obs.span("state.commit.copy"):
+                    new = _load_state(self.db, global_ratings,
+                                      spares.pop())
             else:
                 new = commit(self.db, global_ratings, st, consumer=tag,
-                             mesh=self.mesh)
+                             mesh=self.mesh, obs=self.obs)
             if spares == []:
                 del self._spares[shape]
         self._back, self._front = self._front, (new, tag)

@@ -8,7 +8,8 @@ Three instruments behind one bundle:
 
   * `SpanTracer`   — host-side span timing, ring-buffered, Chrome-trace
                      export, optional `torch.profiler.record_function`
-                     pass-through (obs/trace.py);
+                     pass-through, and device spans on the card's clock
+                     (obs/trace.py);
   * `MetricsRegistry` — counters / gauges / fixed-bucket histograms with
                      Prometheus-text and JSON exposition (obs/metrics.py);
   * `EventLog`     — structured JSONL event stream (per-request route
@@ -33,12 +34,12 @@ from repro_torch.obs.events import EventLog
 from repro_torch.obs.metrics import (DEFAULT_LATENCY_BOUNDS_US, Counter, Gauge,
                                Histogram, MetricsRegistry,
                                geometric_bounds)
-from repro_torch.obs.trace import NULL_SPAN, SpanTracer, named_scope
+from repro_torch.obs.trace import NULL_SPAN, SpanTracer
 
 __all__ = ["Observability", "DEFAULT", "get_obs", "enable", "disable",
            "reset_default", "SpanTracer", "MetricsRegistry", "EventLog",
            "Counter", "Gauge", "Histogram", "geometric_bounds",
-           "DEFAULT_LATENCY_BOUNDS_US", "named_scope", "NULL_SPAN"]
+           "DEFAULT_LATENCY_BOUNDS_US", "NULL_SPAN"]
 
 
 class Observability:
@@ -74,6 +75,13 @@ class Observability:
         if not self.enabled:
             return NULL_SPAN
         return self.tracer.span(name)
+
+    def device_span(self, name: str, device):
+        """Span on the card's clock (SpanTracer.device_span); collapses
+        to the shared no-op when disabled."""
+        if not self.enabled:
+            return NULL_SPAN
+        return self.tracer.device_span(name, device)
 
     def emit(self, record) -> bool:
         """Gated event emission; returns whether the record was taken."""

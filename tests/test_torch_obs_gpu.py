@@ -6,6 +6,8 @@ device every test here skips.
 The plane is host code: its monitor holds host copies of the router's
 ratings and costs, and the exporter's thread touches no CUDA state, so a
 scrape beside a graph capture neither fails the capture nor adds one.
+The tracer's device spans time each route on the card's clock, record
+nothing while a stream captures, and add no capture.
 """
 import json
 import threading
@@ -17,12 +19,13 @@ import torch
 
 from repro_torch import graphs
 from repro_torch import obs as OBS
-from repro_torch.core.dispatch import RouteDispatcher
+from repro_torch.core.dispatch import CapacityPrebaker, RouteDispatcher
 from repro_torch.core.router import EagleConfig, EagleRouter
 from repro_torch.core.state import DoubleBuffer
 from repro_torch.obs.exporter import ROUTES, ObsExporter
 from repro_torch.obs.quality import RouterQualityMonitor
 from repro_torch.obs.slo import SLOEngine, default_serving_rules
+from repro_torch.obs.trace import NULL_SPAN
 
 pytestmark = pytest.mark.gpu
 
@@ -152,3 +155,70 @@ def test_feedback_with_obs_enabled_matches_disabled_and_captures_nothing(dev):
     assert mon.snapshot()["feedback_folds"] == 3
     np.testing.assert_array_equal(mon.ratings,
                                   on.global_ratings.cpu().numpy())
+
+
+def test_device_spans_time_each_traced_route_and_capture_nothing(dev):
+    """Over a warmed dispatcher with obs on, each route records one
+    `dispatch.device` span, above 0 and no longer than its route span, on
+    its device's track; the routes capture nothing. Warmup and the
+    prebaker's poll() still capture with obs on, and a device span opened
+    while a stream captures records nothing."""
+    r = _router(dev)
+    ob = OBS.Observability(enabled=True)
+    r.obs = ob
+    disp = RouteDispatcher.for_router(r, obs=ob, max_bucket=256)
+    dbuf = DoubleBuffer(r.db, r.global_ratings, device=dev, obs=ob)
+    sizes = [5, 40, 200]
+    c0 = graphs.capture_count()
+    assert disp.warmup(dbuf.front, sizes) == 3
+    assert graphs.capture_count() - c0 == 3
+    ob.reset()
+    rng = np.random.default_rng(2)
+    c1 = graphs.capture_count()
+    for n in sizes * 3:
+        q = rng.normal(size=(n, DIM)).astype(np.float32)
+        b = rng.uniform(0.5, 9.0, n).astype(np.float32)
+        disp.route(dbuf.front, q, b)
+    disp.route_result(dbuf.front, q, b)
+    assert graphs.capture_count() == c1
+    # each readout waited for the card: its route's device span was
+    # resolved as the readout's span closed, with no synchronise
+    assert not ob.tracer._pending
+    spans = ob.tracer.spans()
+    route = sorted((s for s in spans if s[1] in (
+        "dispatch.route", "dispatch.route_result")), key=lambda s: s[2])
+    device = sorted((s for s in spans if s[1] == "dispatch.device"),
+                    key=lambda s: s[2])
+    assert len(route) == len(device) == 10
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    for rt, dv in zip(route, device):
+        assert rt[2] <= dv[2] <= rt[2] + rt[3]
+        assert 0 < dv[3] <= rt[3]
+        assert dv[4] == -1 - index and dv[5] == 2
+    # feedback and its commit, then a prebake at once (watermark 0)
+    r.update(*_feedback(rng))
+    dbuf.commit(r.global_ratings)
+    pre = CapacityPrebaker(disp, r.db, dbuf=dbuf, watermark=0.0,
+                           batch_sizes=[40], obs=ob)
+    c2 = graphs.capture_count()
+    assert pre.poll()
+    assert graphs.capture_count() - c2 == 2
+    names = {s[1] for s in ob.tracer.spans()}
+    assert {"router.update.fold", "state.commit.copy",
+            "dispatch.prebake"} <= names
+    # inside a capture the device span is the no-op
+    x = torch.zeros(8, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        x.add_(1.0)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        span = ob.device_span("captured", dev)
+        with span:
+            x.add_(1.0)
+    assert span is NULL_SPAN
+    g.replay()
+    assert "captured" not in {s[1] for s in ob.tracer.spans()}

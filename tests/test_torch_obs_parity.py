@@ -1072,6 +1072,14 @@ def test_feedback_with_obs_disabled_takes_no_readout():
 #: counterpart counts CUDA graph captures (graphs.capture_count)
 _PORT_NAMES = {"graph_captures_total": "xla_compiles_total"}
 
+#: the port's spans that the JAX package has not: the steps of a dispatch
+#: (its device span is recorded on the card only), of EagleRouter.update
+#: and of a commit
+_PORT_SPANS = {"dispatch.stage", "dispatch.launch", "dispatch.readout",
+               "router.update", "router.update.add", "router.update.fold",
+               "router.update.sync", "state.commit.rows",
+               "state.commit.copy"}
+
 
 def _metric_names(text):
     return sorted({_PORT_NAMES.get(n, n) for n in (
@@ -1113,7 +1121,8 @@ def test_build_obs_plane_over_build_engine_matches_jax():
     same corpus): equal choices over two serve() calls, an equal
     `/quality` snapshot but for its float ratings (within the ratings
     tolerance), the same content types, JSON keys and metric names on
-    every route, and equal core counters."""
+    every route, and equal core counters. The port's span names are the
+    JAX package's together with `_PORT_SPANS`, each of them recorded."""
     from repro.launch import serve as JSERVE
     from repro_torch.launch import serve as TSERVE
     engines = {"jax": JSERVE.build_engine(n_fleet=2,
@@ -1171,6 +1180,11 @@ def test_build_obs_plane_over_build_engine_matches_jax():
         np.testing.assert_allclose(_floats(g), _floats(w), rtol=R_RTOL,
                                    atol=R_ATOL, err_msg=key)
     assert got["quality"] == want["quality"]
+    (g_ct, (g_doc, g_keys, g_names)) = got["shapes"].pop("/trace")
+    (w_ct, (w_doc, w_keys, w_names)) = want["shapes"].pop("/trace")
+    assert (g_ct, g_doc, g_keys) == (w_ct, w_doc, w_keys)
+    assert not set(w_names) & _PORT_SPANS
+    assert g_names == sorted(set(w_names) | _PORT_SPANS)
     assert got["shapes"] == want["shapes"]
     assert got["counters"] == want["counters"]
 
