@@ -23,6 +23,11 @@ JAX package's cache of compiled executables (its `core/dispatch.py`).
   * Queries and budgets are staged through pinned host memory (one
     staging a bucket) and copied in without blocking; the host reads the
     choices (and the top-n rows for route_result) once per dispatch.
+    Only a batch's live rows are written and copied in: the rows past
+    them, in the staging and in the entry's buffers, keep what an
+    earlier dispatch of the bucket left there (or the zeros they were
+    allocated with). That is exact, as every row is routed on its own
+    and the readout keeps the live rows alone.
     With obs enabled a dispatch records the spans of these steps and its
     device time on the card's clock (`_route_one`).
   * A capture happens only on a miss, so `cache_stats()` is an exact
@@ -138,13 +143,16 @@ class _Entry:
         return tuple(route_batch_choices(state, self.q, self.b, self.costs,
                                          **self.kw))
 
-    def launch(self, state: AnyState, q_host: torch.Tensor,
-               b_host: torch.Tensor):
-        """Copy the staged batch in (without blocking, from pinned
-        memory on the card) and enqueue the step: (choices, topk) on the
-        device."""
-        self.q.copy_(q_host, non_blocking=True)
-        self.b.copy_(b_host, non_blocking=True)
+    def launch(self, state: AnyState, q_live: torch.Tensor,
+               b_live: torch.Tensor):
+        """Copy the staged batch's live rows in (without blocking, from
+        pinned memory on the card) and enqueue the step: (choices, topk)
+        on the device. The buffers' rows past them keep an earlier
+        batch's rows; the step routes them too, and the readout drops
+        them."""
+        nq = q_live.shape[0]
+        self.q[:nq].copy_(q_live, non_blocking=True)
+        self.b[:nq].copy_(b_live, non_blocking=True)
         return self.step(state)
 
 
@@ -198,6 +206,9 @@ class RouteDispatcher:
         self._m_padded = r.counter(
             "dispatch_padded_rows_total",
             "bucket-padded rows dispatched (>= rows; waste = padded-rows)")
+        self._m_staged = r.counter(
+            "dispatch_staged_bytes_total",
+            "query and budget bytes staged and copied in (live rows only)")
         self._m_hits = r.counter(
             "dispatch_cache_hits_total", "graph-cache hits")
         self._m_misses = r.counter(
@@ -323,6 +334,7 @@ class RouteDispatcher:
             "calls": self._m_calls.value,
             "rows": rows,
             "padded_rows": padded,
+            "staged_bytes": self._m_staged.value,
             "pad_waste_ratio": (padded - rows) / padded if padded else 0.0,
             "cache_hit_rate": hits / (hits + traffic_misses)
                               if (hits + traffic_misses) else 1.0,
@@ -352,9 +364,16 @@ class RouteDispatcher:
 
     def _stage(self, state: AnyState, qb: int, q: np.ndarray,
                b: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Write the batch into the bucket's host staging, zeros past it.
-        The previous dispatch's readout waited for its copy in, so the
-        staging is free to rewrite."""
+        """Write the batch's nq live rows into the bucket's host staging
+        and return them: the staging's first nq rows. The rows past them
+        are not written. They hold an earlier batch's rows, which the
+        route reads but, every row being routed on its own, cannot
+        change a live row's result, and which the readout drops. The
+        write stays on the calling thread: torch's intra-op threads are
+        idle between routes and slow to wake, and a write spread over
+        them gave the route a worse tail (PERF.md §6). The previous
+        dispatch's readout waited for its copy in, so the staging is free
+        to rewrite."""
         key = (qb, state.dim, state.device.type == "cuda")
         st = self._staging.get(key)
         if st is None:
@@ -366,9 +385,10 @@ class RouteDispatcher:
                                        b_host.numpy())
         q_host, b_host, q_np, b_np = st
         nq = q.shape[0]
-        q_np[:nq], q_np[nq:] = q, 0.0
-        b_np[:nq], b_np[nq:] = b, 0.0
-        return q_host, b_host
+        q_np[:nq] = q
+        b_np[:nq] = b
+        self._m_staged.inc(nq * (state.dim + 1) * 4)
+        return q_host[:nq], b_host[:nq]
 
     def _route_one(self, state: AnyState, q: np.ndarray, b: np.ndarray,
                    with_topk: bool):
@@ -382,11 +402,11 @@ class RouteDispatcher:
         with obs.span("dispatch.route_result" if with_topk
                       else "dispatch.route"):
             with obs.span("dispatch.stage"):
-                q_host, b_host = self._stage(state, qb, q, b)
+                q_live, b_live = self._stage(state, qb, q, b)
             with obs.span("dispatch.launch"):
                 entry = self._entry(state, qb)
                 with obs.device_span("dispatch.device", state.device):
-                    out = entry.launch(state, q_host, b_host)
+                    out = entry.launch(state, q_live, b_live)
             with obs.span("dispatch.readout"):
                 return _readout(out, nq, with_topk)
 

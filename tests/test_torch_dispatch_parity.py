@@ -197,6 +197,48 @@ def test_commit_after_route_is_seen_by_next_route():
     assert d.cache_stats()["hits"] == 1 and d.cache_stats()["misses"] == 1
 
 
+@pytest.mark.parametrize("threads", [1, 4])
+@pytest.mark.parametrize("mode", ["combined", "local", "global"])
+def test_stale_padding_routes_as_a_fresh_dispatcher(mode, threads):
+    """A full bucket, then qb//2 + 1 other rows with budgets at the
+    grid's other end through the same bucket: the rows past the live
+    ones, in the staging and in the entry's buffers, still hold the first
+    batch's (nothing is zero-filled), the choices and top-n rows equal a
+    fresh dispatcher's (zeros past the live rows) bit for bit, and the
+    staged bytes count the live rows alone."""
+    dim, qb = 512, 128
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        _, tr, rng = _routers(seed=12, dim=dim)
+        tr.mode = mode               # the ablations' class attribute
+        d = TDISP.RouteDispatcher.for_router(tr, obs=TOBS.Observability())
+        q1 = rng.normal(size=(qb, dim)).astype(np.float32)
+        b1 = rng.uniform(4.5, 5.0, qb).astype(np.float32)
+        d.route_result(tr.state, q1, b1)
+        nq = qb // 2 + 1
+        q2 = rng.normal(size=(nq, dim)).astype(np.float32)
+        b2 = rng.uniform(0.5, 1.5, nq).astype(np.float32)
+        got = d.route_result(tr.state, q2, b2)
+        fresh = TDISP.RouteDispatcher.for_router(tr,
+                                                 obs=TOBS.Observability())
+        want = fresh.route_result(tr.state, q2, b2)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        key = (qb, dim, False)
+        assert not fresh._staging[key][0][nq:].any()
+        q_host, b_host = d._staging[key][:2]
+        np.testing.assert_array_equal(q_host[nq:].numpy(), q1[nq:])
+        np.testing.assert_array_equal(b_host[nq:].numpy(), b1[nq:])
+        entry, = d._cache.entries.values()
+        np.testing.assert_array_equal(entry.q[nq:].numpy(), q1[nq:])
+        assert d.telemetry()["staged_bytes"] == (qb + nq) * (dim + 1) * 4
+        assert d.obs.registry.value("dispatch_staged_bytes_total") == \
+            d.telemetry()["staged_bytes"]
+    finally:
+        torch.set_num_threads(before)
+
+
 def _models(arch, seed=0):
     cfg_j = j_reduced(arch, dtype="float32")
     cfg_t = t_reduced(arch, dtype="float32")

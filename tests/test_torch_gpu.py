@@ -1141,6 +1141,52 @@ def test_route_graphs_equal_eager_routes(dev):
     assert disp.telemetry()["cache_evicted"] == 2 * ladder
 
 
+def test_stale_padding_graph_routes_equal_eager_routes(dev):
+    """A full bucket through the captured graph of each replica of a
+    DoubleBuffer, then qb//2 + 1 other rows with budgets at the grid's
+    other end through each: the choices and top-n rows equal the
+    zero-padded eager route's bit for bit. Past the live rows the pinned
+    staging still holds the last full batch (nothing is zero-filled) and
+    each graph's query buffer its own replica's full batch (only the live
+    rows are copied in). The staged bytes count the live rows alone."""
+    from repro_torch import obs as OBS
+    from repro_torch.core.dispatch import RouteDispatcher, replica
+    from repro_torch.core.state import DoubleBuffer
+    r, rng = _graph_router(dev, seed=2)
+    dbuf = DoubleBuffer(r.db, r.global_ratings, device=dev)
+    disp = RouteDispatcher.for_router(r, obs=OBS.Observability())
+    for _ in range(2):            # each replica
+        disp.warmup(dbuf.front, batch_sizes=(64, 1024))
+        dbuf.commit(r.global_ratings)
+    for qb in (64, 1024):
+        full = {}
+        for _ in range(2):
+            q1 = rng.normal(size=(qb, 64)).astype(np.float32)
+            full[replica(dbuf.front)] = q1
+            disp.route_result(dbuf.front, q1,
+                              rng.uniform(8.0, 9.0, qb).astype(np.float32))
+            dbuf.commit(r.global_ratings)
+        nq = qb // 2 + 1
+        for _ in range(2):
+            st = dbuf.front
+            q2 = rng.normal(size=(nq, 64)).astype(np.float32)
+            b2 = rng.uniform(0.5, 1.5, nq).astype(np.float32)
+            ch, top = disp.route_result(st, q2, b2)
+            want_ch, want_top = _eager_route(disp, st, q2, b2)
+            np.testing.assert_array_equal(ch, want_ch)
+            np.testing.assert_array_equal(top, want_top)
+            q_host = disp._staging[(qb, 64, True)][0]
+            np.testing.assert_array_equal(q_host[nq:].numpy(), q1[nq:])
+            entry = disp._cache.entries[disp._key(st, qb)]
+            np.testing.assert_array_equal(entry.q[nq:].cpu().numpy(),
+                                          full[replica(st)][nq:])
+            dbuf.commit(r.global_ratings)
+        assert len(full) == 2
+    assert disp.stats.misses == disp.stats.warmed == 4
+    rows = 2 * sum(qb + qb // 2 + 1 for qb in (64, 1024))
+    assert disp.telemetry()["staged_bytes"] == rows * (64 + 1) * 4
+
+
 def test_ragged_run_after_warmup_captures_nothing(dev):
     """Batches of 1..300 with feedback committed between them, across
     both replicas and a grow, each replica warmed when it becomes the

@@ -1080,6 +1080,10 @@ _PORT_SPANS = {"dispatch.stage", "dispatch.launch", "dispatch.readout",
                "router.update.sync", "state.commit.rows",
                "state.commit.copy"}
 
+#: the port's metrics that the JAX package has not: the dispatcher's
+#: bytes staged and copied in (only a batch's live rows)
+_PORT_METRICS = {"dispatch_staged_bytes_total"}
+
 
 def _metric_names(text):
     return sorted({_PORT_NAMES.get(n, n) for n in (
@@ -1122,7 +1126,9 @@ def test_build_obs_plane_over_build_engine_matches_jax():
     `/quality` snapshot but for its float ratings (within the ratings
     tolerance), the same content types, JSON keys and metric names on
     every route, and equal core counters. The port's span names are the
-    JAX package's together with `_PORT_SPANS`, each of them recorded."""
+    JAX package's together with `_PORT_SPANS`, each of them recorded,
+    and its metric names the JAX package's together with
+    `_PORT_METRICS`."""
     from repro.launch import serve as JSERVE
     from repro_torch.launch import serve as TSERVE
     engines = {"jax": JSERVE.build_engine(n_fleet=2,
@@ -1185,6 +1191,11 @@ def test_build_obs_plane_over_build_engine_matches_jax():
     assert (g_ct, g_doc, g_keys) == (w_ct, w_doc, w_keys)
     assert not set(w_names) & _PORT_SPANS
     assert g_names == sorted(set(w_names) | _PORT_SPANS)
+    (g_ct, g_metrics) = got["shapes"].pop("/metrics")
+    (w_ct, w_metrics) = want["shapes"].pop("/metrics")
+    assert g_ct == w_ct
+    assert not set(w_metrics) & _PORT_METRICS
+    assert g_metrics == sorted(set(w_metrics) | _PORT_METRICS)
     assert got["shapes"] == want["shapes"]
     assert got["counters"] == want["counters"]
 
